@@ -1,0 +1,3 @@
+from .core import dot_product_attention  # noqa: F401
+from .paged import (paged_decode_attention,  # noqa: F401
+                    paged_spec_decode_attention)

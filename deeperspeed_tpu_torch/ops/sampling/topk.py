@@ -1,0 +1,67 @@
+"""Sorted top-k over logit rows: kernel K4 and its plain version
+(counterpart of ``deeperspeed_tpu/ops/sampling/topk.py``).
+
+Decode-time sampling needs only the k largest logits of each row, sorted
+descending (the top-k filter threshold is the k-th value).  For a CUDA
+tensor :func:`sorted_topk` launches the hand-written kernel of
+``csrc/topk.cu``; for a CPU tensor it runs :func:`_topk_reference`, the same
+k rounds of arg-max in PyTorch.
+
+Both follow ``lax.top_k``: ties go to the lowest index, and a taken slot is
+marked by a flag, so it is never chosen again even in a row whose values
+are <= -1e30 (the TPU kernel's -1e30 overwrite would choose it again).
+"""
+
+import torch
+
+from ...accelerator import get_accelerator
+from ..cuda_utils import check, library, ptr, require_cuda, stream_of
+
+
+def _topk_reference(x, k):
+    """Plain version of K4: k arg-max rounds over the untaken slots."""
+    rows, V = x.shape
+    x = x.to(torch.float32)
+    cols = torch.arange(V, device=x.device).expand(rows, V)
+    taken = torch.zeros(rows, V, dtype=torch.bool, device=x.device)
+    neg = torch.tensor(float("-inf"), device=x.device)
+    vals, idxs = [], []
+    for _ in range(k):
+        m = torch.where(taken, neg, x).amax(dim=1, keepdim=True)   # [rows, 1]
+        hit = ~taken & (x == m)
+        first = torch.where(hit, cols, V).amin(dim=1, keepdim=True)
+        vals.append(m)
+        idxs.append(first)
+        taken = taken | (cols == first)
+    return (torch.cat(vals, dim=1),
+            torch.cat(idxs, dim=1).to(torch.int32))
+
+
+def _topk_cuda(x, k):
+    """K4 on the card."""
+    require_cuda("sorted_topk", x, dtype=torch.float32)
+    rows, V = x.shape
+    # a row too long for shared memory makes the launch fail, and raise
+    lib = library("topk")
+    vals = torch.empty(rows, k, dtype=torch.float32, device=x.device)
+    idx = torch.empty(rows, k, dtype=torch.int32, device=x.device)
+    if rows == 0:
+        return vals, idx
+    err = lib.dst_sorted_topk(ptr(x), ptr(vals), ptr(idx), rows, V, k,
+                              stream_of(x))
+    check(err, "sorted_topk")
+    return vals, idx
+
+
+def sorted_topk(x, k):
+    """Top-k values (descending) and their indices per row.
+
+    x [rows, V] float32 -> (vals [rows, k] float32, idx [rows, k] int32)
+    """
+    rows, V = x.shape
+    k = int(k)
+    if k < 1 or k > V:
+        raise ValueError(f"k={k} out of range for vocab {V}")
+    if get_accelerator(x.device).use_cuda_kernels():
+        return _topk_cuda(x, k)
+    return _topk_reference(x, k)

@@ -1,0 +1,85 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX
+package, its kernel wrappers launch their own kernels on CUDA tensors, and
+chip_smoke.py refuses to run without a card."""
+
+import inspect
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from deeperspeed_tpu_torch.ops.attention import paged
+from deeperspeed_tpu_torch.ops.sampling import topk
+from deeperspeed_tpu_torch.ops.transformer import normalize
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "deeperspeed_tpu_torch"
+
+
+def _run(code_or_args, cwd=ROOT):
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    args = code_or_args if isinstance(code_or_args, list) \
+        else [sys.executable, "-c", code_or_args]
+    return subprocess.run(args, cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=120)
+
+
+def test_port_imports_no_jax():
+    out = _run(
+        "import sys\n"
+        "import deeperspeed_tpu_torch, deeperspeed_tpu_torch.inference.v2\n"
+        "import deeperspeed_tpu_torch.models\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'deeperspeed_tpu' or m.startswith('deeperspeed_tpu.')]\n"
+        "print('LOADED', bad)")
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout
+
+
+BANNED = [
+    (re.compile(r"^\s*(import|from)\s+(jax|flax)\b", re.M), "imports JAX"),
+    (re.compile(r"^\s*(import|from)\s+deeperspeed_tpu(\.|\s)", re.M),
+     "imports the JAX package"),
+    (re.compile(r"scaled_dot_product_attention"), "names a library attention"),
+    (re.compile(r"torch\.compile"), "uses torch.compile"),
+]
+
+
+def test_port_sources_are_clean():
+    files = [p for p in PACKAGE.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
+    assert len(files) > 20
+    for path in files:
+        text = path.read_text()
+        for pattern, why in BANNED:
+            assert not pattern.search(text), f"{path.relative_to(ROOT)} {why}"
+
+
+@pytest.mark.parametrize("fn,kernel", [
+    (normalize._ln_cuda, "layer_norm"),
+    (paged._decode_cuda, "paged_decode"),
+    (paged._spec_decode_cuda, "paged_spec_decode"),
+    (topk._topk_cuda, "sorted_topk"),
+])
+def test_cuda_branch_launches_its_own_kernel(fn, kernel):
+    """Each wrapper's CUDA branch calls its ctypes launch, counts it, and
+    reaches for no library operator or plain version."""
+    src = inspect.getsource(fn)
+    assert "library(" in src and f'check(err, "{kernel}")' in src
+    for banned in ("torch.nn.functional", "F.", "torch.topk", "torch.sort",
+                   "softmax", "einsum", "_reference", "_ln_ref", "matmul"):
+        assert banned not in src, f"{fn.__name__} uses {banned}"
+
+
+def test_chip_smoke_needs_the_card_and_the_checkout(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = _run([sys.executable, str(ROOT / "chip_smoke.py")])
+    assert out.returncode != 0 and '"ok"' not in out.stdout
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    out = _run([sys.executable, str(alone)], cwd=tmp_path)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
