@@ -7,28 +7,44 @@ Run from the root of a checkout.  It imports nothing of JAX or of the JAX
 package, and goes through these phases, each printing its lines:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
-2. the build of every kernel from ``deeperspeed_tpu_torch/csrc`` with nvcc;
-3. each kernel (K1 LayerNorm forward, K2 paged decode, K3 paged speculative
-   decode, K4 sorted top-k) at the serving path's shapes, held against its
-   plain PyTorch version on the card, with its time, the plain version's,
-   one library call's, and the least time the card could take (bound);
+2. the build of every kernel from ``deeperspeed_tpu_torch/csrc`` with nvcc
+   (one process per source, all started together);
+3. each kernel at the shapes its path gives it, held against its plain
+   PyTorch version on the card, with its time, the plain version's, one
+   library call's (where one PyTorch call computes the same function), and
+   the least time the card could take (bound): serving's K1 LayerNorm
+   forward, K2 paged decode, K3 paged speculative decode, K4 sorted top-k,
+   and training's K5 flash-attention forward, K7 its dq pass, K6 its dk/dv
+   pass and K8 the LayerNorm backward;
 4. Pythia-160M (12 layers, full width) in fp32 served through
    ``InferenceEngineV2`` on the card and on the CPU from the same seeded
    weights: logits must agree to 2e-3 every round, and tokens wherever the
    top-2 margin exceeds that;
 5. Pythia-160M in bf16 with a 4096 x 16 block KV pool serving 32 prompts of
    128-512 tokens, 64 decode rounds and a 4-token extend round (greedy),
-   then a sampled run (temperature 0.8, top-k 50); every kernel's launch
-   counter must rise during these runs.
+   then a sampled run (temperature 0.8, top-k 50); every serving kernel's
+   launch counter must rise during these runs;
+6. Pythia-160M at full width with 2 layers in fp32 trained 3 Adam steps
+   (clip 1.0) by the engine on the card and on the CPU from the same seeded
+   weights and batches: losses and the first step's grad norm must agree
+   to 1e-4 relative;
+7. ``bench.py``'s training step: Pythia-160M at full depth in bf16, batch
+   16 of 1024 tokens, Adam lr 1e-4, clip 1.0, ZeRO-0; 2 warm-up steps and
+   10 timed ones; the loss must be finite and the counters of K1, K5, K6,
+   K7 and K8 must rise.
 
-The second-to-last line is the JSON summary of the kernels, the last
-``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
-without a CUDA device, or outside a checkout, it exits 2 and prints no
-result.
+The second-to-last line is the JSON summary of the kernels (a kernel's
+``launches`` sums its counts on the two main paths, serving in phase 5 and
+training in phase 7, each read right after its own run and listed in
+``launches_by_path``), the last ``{"ok": true, "device": {...}}``.  Any
+failure raises and exits non-zero; without a CUDA device, or outside a
+checkout, it exits 2 and prints no result.
 """
 
 import copy
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -39,6 +55,17 @@ HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 SEED = 1234
 ATTN_ATOL, ATTN_RTOL = 2e-3, 1e-2     # K2/K3 vs plain: rtol is one bf16 rounding
+# K5-K7 vs plain in bf16 ((rtol, row, floor, head) of flash_close), each
+# output held on its own scale.  rtol 2^-7 is one bf16 ulp of the element:
+# both sides round once, from fp32 sums taken in other orders.  row 2^-6 is
+# two ulps of the row's RMS over D: the kernel rounds P to bf16 at its
+# running max per 64-key tile, the plain version at the row's final max, so
+# each P may differ by one ulp, and the row sums those differences over its
+# keys (queries for dk/dv) with random signs.  floor 2^-10, absolute on
+# inputs of unit scale, covers rows whose exact value is 0 (dq of causal row
+# 0, where both sides keep only fp32 noise).  head 1e-2 bounds
+# ||got - ref|| / ||ref|| over each (b, n) head.
+FLASH_TOL = (2 ** -7, 2 ** -6, 2 ** -10, 1e-2)
 
 # The served configuration (phase 5), shared with tools/torch_serving_profile.py.
 SERVED_BATCH = 32
@@ -46,6 +73,29 @@ SERVED_ECFG = {"dtype": "bfloat16", "kv_cache": {"num_blocks": 4096, "block_size
                "state_manager": {"max_context": 1024, "max_ragged_batch_size": 4096,
                                  "max_ragged_sequence_count": 64,
                                  "max_decode_batch": SERVED_BATCH}}
+
+
+# The trained configuration (phase 7), bench.py's training step
+# (bench.py:296-335), shared with tools/torch_train_profile.py.
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 1024, 16, 10
+TRAIN_CONFIG = {"train_batch_size": TRAIN_BATCH,
+                "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+                "bf16": {"enabled": True}, "gradient_clipping": 1.0,
+                "steps_per_print": 1000000}
+
+
+def trained_model(device=None):
+    """Pythia-160M at full width and depth in bf16, random weights from ``SEED``."""
+    import torch
+
+    from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
+    return GPTNeoX(GPTNeoXConfig.pythia_160m(dtype=torch.bfloat16, max_seq_len=TRAIN_SEQ),
+                   device=device, seed=SEED)
+
+
+def trained_batch(model):
+    """bench.py's batch: one fixed batch of random tokens, reused each step."""
+    return model.example_batch(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=SEED)
 
 
 def served_model(device=None):
@@ -92,8 +142,48 @@ def _close(torch, got, want, atol, rtol, what):
     return err.max().item()
 
 
+def flash_shares(torch, got, want, tol=FLASH_TOL):
+    """A flash output [B, S, N, D] against its plain version: per element
+    |got - ref| <= rtol |ref| + row rms_D(ref) + floor, and per (b, n) head
+    ||got - ref|| <= head ||ref|| + floor sqrt(S D).  Returns (max abs
+    error, the share of its limit the worst element used, the share the
+    worst head used)."""
+    rtol, row, floor, head = tol
+    g, w = got.float(), want.float()
+    diff = g - w
+    limit = rtol * w.abs() + row * w.pow(2).mean(-1, keepdim=True).sqrt() + floor
+    elem = (diff.abs() / limit).max().item()
+    head_limit = head * torch.linalg.vector_norm(w, dim=(1, 3)) \
+        + floor * (w.shape[1] * w.shape[3]) ** 0.5
+    heads = (torch.linalg.vector_norm(diff, dim=(1, 3)) / head_limit).max().item()
+    return diff.abs().max().item(), elem, heads
+
+
+def flash_close(torch, got, want, what, tol=FLASH_TOL):
+    """Raise unless :func:`flash_shares` holds; returns (max abs error, the
+    larger share used)."""
+    err, elem, heads = flash_shares(torch, got, want, tol)
+    if not (elem <= 1.0 and heads <= 1.0):
+        raise AssertionError(f"{what}: kernel disagrees with its plain version "
+                             f"(element {elem:.3g}, head {heads:.3g} of their limits "
+                             f"(rtol, row, floor, head) = {tol})")
+    return err, max(elem, heads)
+
+
+def _reporter(rows_out):
+    def report(key, line, entry):
+        lib = entry["library_ms"]
+        print(f"[kernels] {line}: max_abs_err={entry['max_abs_err']:.3e} "
+              f"ms={entry['ms']:.4f} plain_ms={entry['plain_ms']:.4f} "
+              f"library_ms={'none' if lib is None else f'{lib:.4f}'} "
+              f"bound_ms={entry['bound_ms']:.4f} ({entry['bound_by']})",
+              flush=True)
+        rows_out.setdefault(key, entry)     # the first shape is the path's
+    return report
+
+
 def phase_kernels(torch):
-    """Phase 3: every kernel against its plain version at the path's shapes."""
+    """Phase 3, serving: K1-K4 against their plain versions."""
     import torch.nn.functional as F
 
     from deeperspeed_tpu_torch.ops.attention import paged
@@ -104,14 +194,7 @@ def phase_kernels(torch):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     bf16 = torch.bfloat16
     rows_out = {}
-
-    def report(key, line, entry):
-        print(f"[kernels] {line}: max_abs_err={entry['max_abs_err']:.3e} "
-              f"ms={entry['ms']:.4f} plain_ms={entry['plain_ms']:.4f} "
-              f"library_ms={entry['library_ms']:.4f} "
-              f"bound_ms={entry['bound_ms']:.4f} ({entry['bound_by']})",
-              flush=True)
-        rows_out.setdefault(key, entry)     # the first shape is the path's
+    report = _reporter(rows_out)
 
     # ---- K1: LayerNorm forward, decode-round rows and prefill rows, bf16
     H = 768
@@ -216,6 +299,108 @@ def phase_kernels(torch):
         ms=_time_ms(torch, lambda: topk.sorted_topk(x, k)),
         plain_ms=_time_ms(torch, lambda: topk._topk_reference(x, k), iters=3),
         library_ms=_time_ms(torch, lambda: torch.topk(x, k)),
+        bound_ms=t, bound_by=by))
+    return rows_out
+
+
+def phase_training_kernels(torch, rows_out):
+    """Phase 3, training: K5-K8 against their plain versions."""
+    import torch.nn.functional as F
+
+    from deeperspeed_tpu_torch.ops.attention import flash
+    from deeperspeed_tpu_torch.ops.transformer import normalize
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    bf16 = torch.bfloat16
+    report = _reporter(rows_out)
+
+    # the training shape first (B 16, S 1024, N 12, D 64, causal), then a
+    # ragged S, D 128 and full (non-causal) attention
+    for B, S, N, D, causal in ((16, 1024, 12, 64, True), (4, 1000, 12, 64, True),
+                               (4, 1024, 16, 128, True), (4, 1024, 12, 64, False)):
+        q, k, v, do = (torch.randn(B, S, N, D, generator=gen, device=dev).to(bf16)
+                       for _ in range(4))
+        what = f"B={B} S={S} N={N} D={D} {'causal' if causal else 'full'} bf16"
+        o, lse = flash._fwd_cuda(q, k, v, causal)
+        ro, rlse = flash._fwd_reference(q, k, v, causal)
+        err_fwd, use_o = flash_close(torch, o, ro, f"flash_fwd {what}")
+        _close(torch, lse, rlse, 1e-4, 1e-5, f"flash_fwd LSE {what}")
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(B * N, S).contiguous()
+        rdq, rdk, rdv = flash._bwd_reference(q, k, v, do, lse, delta, causal)
+        err_dq, use_dq = flash_close(torch, flash._dq_cuda(q, k, v, do, lse, delta, causal),
+                                     rdq, f"flash_bwd_dq {what}")
+        dk, dv = flash._dkv_cuda(q, k, v, do, lse, delta, causal)
+        (err_dk, use_dk), (err_dv, use_dv) = (
+            flash_close(torch, dk, rdk, f"flash_bwd_dkv dk {what}"),
+            flash_close(torch, dv, rdv, f"flash_bwd_dkv dv {what}"))
+        err_dkv = max(err_dk, err_dv)
+        print(f"[kernels] flash {what}: share of the limit used (largest of per "
+              f"element and per head) O {use_o:.3f}, dq {use_dq:.3f}, dk {use_dk:.3f}, "
+              f"dv {use_dv:.3f}", flush=True)
+        del rdq, rdk, rdv, dk, dv
+        # live (query, key) pairs: the products' work on these inputs
+        live = S * (S + 1) // 2 if causal else S * S
+        mac, io, vec = B * N * D * live, B * S * N * D * 2, B * N * S * 4
+        q4, k4, v4, do4 = (t.transpose(1, 2) for t in (q, k, v, do))
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+            torch.autograd.grad(out, (qg, kg, vg), do4)
+
+        lib_fwd_bwd = _time_ms(torch, sdpa_fwd_bwd, iters=10)
+        t, by = _bound(4 * io + vec, 2 * 2 * mac, bf16)
+        report("flash_fwd", f"K5 flash_fwd {what}", dict(
+            max_abs_err=err_fwd,
+            ms=_time_ms(torch, lambda: flash._fwd_cuda(q, k, v, causal)),
+            plain_ms=_time_ms(torch, lambda: flash._fwd_reference(q, k, v, causal), iters=3),
+            library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal)),
+            bound_ms=t, bound_by=by))
+        t, by = _bound(5 * io + 2 * vec, 3 * 2 * mac, bf16)
+        bwd_plain = _time_ms(torch, lambda: flash._bwd_reference(
+            q, k, v, do, lse, delta, causal), iters=3)
+        report("flash_bwd_dq", f"K7 flash_bwd_dq {what}", dict(
+            max_abs_err=err_dq,
+            ms=_time_ms(torch, lambda: flash._dq_cuda(q, k, v, do, lse, delta, causal)),
+            plain_ms=bwd_plain, library_ms=None, bound_ms=t, bound_by=by))
+        t, by = _bound(6 * io + 2 * vec, 4 * 2 * mac, bf16)
+        report("flash_bwd_dkv", f"K6 flash_bwd_dkv {what}", dict(
+            max_abs_err=err_dkv,
+            ms=_time_ms(torch, lambda: flash._dkv_cuda(q, k, v, do, lse, delta, causal)),
+            plain_ms=bwd_plain, library_ms=None, bound_ms=t, bound_by=by))
+        print(f"[kernels] library yardstick {what}: SDPA forward + backward "
+              f"{lib_fwd_bwd:.4f} ms (no one library call computes dq alone or "
+              f"dk/dv alone; plain_ms of K6 and K7 is the whole plain backward)",
+              flush=True)
+        del q, k, v, do, o, lse, ro, rlse, qg, kg, vg
+        torch.cuda.empty_cache()
+
+    # ---- K8: LayerNorm backward at the training rows (B 16 x S 1024)
+    rows, H = TRAIN_BATCH * TRAIN_SEQ, 768
+    x = (2 * torch.randn(rows, H, generator=gen, device=dev) + 0.5).to(bf16)
+    dy = torch.randn(rows, H, generator=gen, device=dev).to(bf16)
+    g = 1 + 0.1 * torch.randn(H, generator=gen, device=dev)
+    dx, dg, db = normalize._ln_bwd_cuda(x, g, dy, 1e-5, False)
+    rdx, rdg, rdb = normalize._ln_bwd_ref(x, g, dy, 1e-5, False)
+    # dx: one bf16 rounding; dgamma/dbeta: fp32 sums of 16384 rows in
+    # another order, held on the scale of their largest entry
+    err = _close(torch, dx, rdx, 1e-2, 1e-2, "layer_norm_bwd dx")
+    for got, want, name in ((dg, rdg, "dgamma"), (db, rdb, "dbeta")):
+        err = max(err, _close(torch, got, want, 1e-5 * want.abs().max().item(), 1e-4,
+                              f"layer_norm_bwd {name}"))
+    xl = x.clone().requires_grad_()
+    gl = g.to(bf16).requires_grad_()
+    bl = torch.zeros(H, device=dev, dtype=bf16, requires_grad=True)
+    yl = F.layer_norm(xl, (H,), gl, bl, 1e-5)
+    t, by = _bound(3 * rows * H * 2 + 3 * H * 4, 20 * rows * H, torch.float32)
+    report("layer_norm_bwd", f"K8 layer_norm_bwd rows={rows} H={H} bf16", dict(
+        max_abs_err=err,
+        ms=_time_ms(torch, lambda: normalize._ln_bwd_cuda(x, g, dy, 1e-5, False)),
+        plain_ms=_time_ms(torch, lambda: normalize._ln_bwd_ref(x, g, dy, 1e-5, False)),
+        library_ms=_time_ms(torch, lambda: torch.autograd.grad(
+            yl, (xl, gl, bl), dy, retain_graph=True)),
         bound_ms=t, bound_by=by))
     return rows_out
 
@@ -334,6 +519,83 @@ def phase_served(torch, np, launches):
     return counts
 
 
+def phase_trained_checked(torch, np):
+    """Phase 6: fp32 training, 2 full-width layers, on the card vs the CPU."""
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
+
+    # TF32 stays off (phase 4): fp32 products in full fp32
+    tol = 1e-4     # summation order over 768-4096-wide products and the CE
+    cfg = {"train_batch_size": 2, "gradient_clipping": 1.0,
+           "optimizer": {"type": "Adam", "params": {"lr": 1e-4}}}
+    two_layers = dataclasses.replace(GPTNeoXConfig.pythia_160m(), num_layers=2)
+    engines = [dst.initialize(model=GPTNeoX(two_layers, device=d, seed=SEED),
+                              config=cfg, device=d)[0] for d in ("cuda", "cpu")]
+    rng = np.random.default_rng(SEED + 3)
+    V = engines[1].module.config.vocab_size
+    worst = 0.0
+    for step in range(3):
+        toks = rng.integers(0, V, (2, 129))
+        batch = {"input_ids": toks[:, :-1], "labels": toks[:, 1:]}
+        lg, lc = (float(e.train_batch(batch=batch)) for e in engines)
+        rel = abs(lg - lc) / abs(lc)
+        worst = max(worst, rel)
+        if rel > tol:
+            raise AssertionError(f"step {step}: card loss {lg} vs CPU {lc}")
+        if step == 0:
+            ng, nc = (e.get_global_grad_norm() for e in engines)
+            if abs(ng - nc) > tol * nc:
+                raise AssertionError(f"step 0 grad norm: card {ng} vs CPU {nc}")
+    print(f"[trained-checked] Pythia-160M width, 2 layers, fp32, B 2 x S 128, 3 Adam "
+          f"steps: losses card vs CPU within {worst:.2e} relative (tol {tol}); "
+          f"step-0 grad norm {ng:.6f} vs {nc:.6f}; last loss {lg:.6f}", flush=True)
+    del engines
+    torch.cuda.empty_cache()
+
+
+def phase_trained(torch, launches):
+    """Phase 7: bench.py's training step, timed; counts kernel launches."""
+    import deeperspeed_tpu_torch as dst
+
+    model = trained_model()
+    engine = dst.initialize(model=model, config=TRAIN_CONFIG)[0]
+    batch = {k: v.cuda() for k, v in trained_batch(model).items()}
+    for _ in range(2):                                # warm-up
+        loss = engine.train_batch(batch=batch)
+    first = float(loss)
+    torch.cuda.reset_peak_memory_stats()
+    launches.clear()                                  # main path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        loss = engine.train_batch(batch=batch)
+    loss = float(loss)                                # waits for the last step
+    dt = time.perf_counter() - t0
+    counts = dict(launches)
+    if not (math.isfinite(first) and math.isfinite(loss)):
+        raise AssertionError(f"non-finite training loss: {first}, {loss}")
+    for name in ("layer_norm", "layer_norm_bwd", "flash_fwd", "flash_bwd_dq",
+                 "flash_bwd_dkv"):
+        if counts.get(name, 0) < 1:
+            raise AssertionError(f"training never launched {name}: {counts}")
+    cfg = model.config
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / dt
+    # bench.py:341-351: 6 N (input embedding excluded) + the attention term
+    n_params = sum(p.numel() for p in engine.master_params.values()) \
+        - cfg.vocab_size * cfg.hidden_size
+    flops_per_token = 6 * n_params + 12 * cfg.num_layers * cfg.hidden_size * TRAIN_SEQ
+    mfu = flops_per_token * tokens_per_s / PEAK_OPS_PER_S["bfloat16"]
+    print(f"[trained] Pythia-160M bf16, B {TRAIN_BATCH} x S {TRAIN_SEQ}, Adam, clip 1.0, "
+          f"ZeRO-0: {dt / TRAIN_STEPS * 1e3:.2f} ms/step over {TRAIN_STEPS} steps, "
+          f"{tokens_per_s:.1f} tokens/s, model-FLOPs share {mfu:.4f} of 989 TFLOP/s; "
+          f"loss {first:.4f} -> {loss:.4f}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    print(f"[trained] launches in the timed steps {counts}", flush=True)
+    del engine, model
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     try:
         import torch
@@ -368,9 +630,12 @@ def main():
     print(f"[build] all kernels in {time.perf_counter() - t0:.1f} s "
           f"(one nvcc per source, in parallel)", flush=True)
 
-    rows = phase_kernels(torch)
+    rows = phase_training_kernels(torch, phase_kernels(torch))
     phase_checked(torch, np)
-    counts = phase_served(torch, np, cuda_utils.LAUNCHES)
+    # each main path's counts, read right after its own run
+    paths = {"serving": phase_served(torch, np, cuda_utils.LAUNCHES)}
+    phase_trained_checked(torch, np)
+    paths["training"] = phase_trained(torch, cuda_utils.LAUNCHES)
 
     sources = {
         "layer_norm": ("deeperspeed_tpu_torch/csrc/layer_norm.cu",
@@ -381,12 +646,22 @@ def main():
                               "deeperspeed_tpu/ops/attention/paged.py:89"),
         "sorted_topk": ("deeperspeed_tpu_torch/csrc/topk.cu",
                         "deeperspeed_tpu/ops/sampling/topk.py:25"),
+        "flash_fwd": ("deeperspeed_tpu_torch/csrc/flash_attention.cu",
+                      "deeperspeed_tpu/ops/attention/pallas_flash.py:72"),
+        "flash_bwd_dkv": ("deeperspeed_tpu_torch/csrc/flash_attention.cu",
+                          "deeperspeed_tpu/ops/attention/pallas_flash.py:154"),
+        "flash_bwd_dq": ("deeperspeed_tpu_torch/csrc/flash_attention.cu",
+                         "deeperspeed_tpu/ops/attention/pallas_flash.py:117"),
+        "layer_norm_bwd": ("deeperspeed_tpu_torch/csrc/layer_norm.cu",
+                           "deeperspeed_tpu/ops/transformer/normalize.py:44"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
         e = rows[name]
+        by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": counts.get(name, 0),
+                        "replaces": replaces, "launches": sum(by_path.values()),
+                        "launches_by_path": by_path,
                         "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                         "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
                         "bound_by": e["bound_by"], "library_ms": e["library_ms"]})

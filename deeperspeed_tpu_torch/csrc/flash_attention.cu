@@ -1,0 +1,851 @@
+// K5 / K6 / K7: flash attention forward and its two-pass backward.
+//
+// Replaces the TPU kernels of deeperspeed_tpu/ops/attention/pallas_flash.py:
+//   K5 `_fwd_kernel` (launched by `_fwd_call`),
+//   K6 `_dkv_kernel` (`_bwd_call`, second pass),
+//   K7 `_dq_kernel`  (`_bwd_call`, first pass),
+// and, together, `_dkv_fused_kernel` (`_bwd_call_fused`): its contract is
+// (q, k, v, dO, LSE, delta) -> (dq, dk, dv) with dq summed in fp32 before one
+// rounding, which is what K7 + K6 compute.  The TPU fused the dq partials
+// into the dk/dv pass because at its 1024-wide tile S 1024 has one k tile;
+// at this card's 64-row tiles S 1024 has 16, and per-tile fp32 dq partials
+// would cost 16 x |dq| of device memory, so the port runs FlashAttention-2's
+// deterministic two-pass backward (no atomics: results do not vary between
+// runs).
+//
+// Bound on the H100: operations.  At S 1024, D 64 a (b, n) head does
+// ~2 S^2 D causal multiply-adds per product against S D of input bytes.
+//
+// Layout: q, k, v, o, dO, dq, dk, dv are contiguous [B, S, N, D] (the
+// wrapper makes them so); each kernel reads a head's rows with stride N*D,
+// so no [B*N, S, D] fold copies are made.  LSE and delta are fp32 [B*N, S].
+// q arrives pre-scaled by the softmax scale (in q's type), as in the TPU
+// kernels; the wrapper post-scales dq.
+//
+// Two implementations of each kernel, one per type:
+//
+// * bf16 runs the tensor-core kernels of namespace `tc` (`mma.sync` bf16
+//   tiles, fp32 accumulators in registers; described there).  They take D
+//   a multiple of 16 (every preset: D 64, 96, 128) and 16-byte aligned
+//   operands; the wrapper zero-pads D = 8 mod 16 and copies a misaligned
+//   view, and the launcher refuses anything else.  `wgmma`/TMA pipelines
+//   are later work.
+// * fp32 runs the CUDA-core kernels below:
+//   256 threads per CTA as a 16 x 16 grid; thread (ty, tx) owns the four
+//   tile rows 4ty..4ty+3 and the columns tx + 16j.  Every operand tile
+//   ([64, D]) is staged in shared memory as fp32 with a pitch of D + 1
+//   (odd, so the column reads of a warp hit distinct banks).  A 64 x 64
+//   score tile is a register-blocked outer product (4 x 4 per thread); row
+//   reductions run over the 16 lanes of a half warp with shuffles.
+//
+// Both follow the TPU kernels' rounding: P is rounded to v's type before
+// P.V and P^T.dO, dS to q's type before dS.K and dS^T.Q (a no-op in fp32);
+// every product accumulates in fp32.  Causal tiles wholly above the diagonal are skipped;
+// the ragged edge (S not a multiple of 64) is masked by bounds, with no
+// padding copies.
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int TILE = 64;      // rows of a q tile and of a k tile
+constexpr int THREADS = 256;  // 16 x 16
+constexpr int PPITCH = TILE + 1;
+
+__device__ __forceinline__ size_t row_off(int b, int s, int n, int S, int N, int D) {
+  return (((size_t)b * S + s) * N + n) * D;
+}
+
+// Rows row0 .. row0+63 of head (b, n) into shared memory; rows >= S are 0.
+__device__ void load_tile(float* dst, const float* __restrict__ src, int b, int n, int row0,
+                          int S, int N, int D) {
+  const int pitch = D + 1;
+  for (int idx = threadIdx.x; idx < TILE * D; idx += THREADS) {
+    const int r = idx / D;
+    const int d = idx - r * D;
+    const int s = row0 + r;
+    dst[r * pitch + d] = s < S ? src[row_off(b, s, n, S, N, D) + d] : 0.f;
+  }
+}
+
+// acc[i][j] = A[4ty+i, :] . Bm[tx+16j, :] over the D columns of two tiles.
+__device__ __forceinline__ void tile_dot(float acc[4][4], const float* A, const float* Bm,
+                                         int D, int ty, int tx) {
+  const int pitch = D + 1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  const float* a0 = A + (4 * ty) * pitch;
+  const float* b0 = Bm + tx * pitch;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float a[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = a0[i * pitch + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = b0[16 * j * pitch + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+  }
+}
+
+// acc[i][jj] += sum_r W[4ty+i, r] * M[r, tx+16jj] for r < 64 (W pitch 65).
+template <int NJ>
+__device__ __forceinline__ void tile_accum(float acc[4][NJ], const float* W, const float* M,
+                                           int D, int ty, int tx) {
+  const int pitch = D + 1;
+  for (int r = 0; r < TILE; ++r) {
+    float w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = W[(4 * ty + i) * PPITCH + r];
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int c = tx + 16 * jj;
+      if (c < D) {
+        const float m = M[r * pitch + c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][jj] = fmaf(w[i], m, acc[i][jj]);
+      }
+    }
+  }
+}
+
+// Reductions over the 16 lanes that share ty (one half of a warp).
+__device__ __forceinline__ float half_warp_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ bool live(int row, int col, int S, int causal) {
+  return row < S && col < S && (!causal || col <= row);
+}
+
+// ---------------------------------------------------------------- K5: forward
+template <int NJ>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                 int S, int N, int D, int causal) {
+  extern __shared__ float smem[];
+  const int pitch = D + 1;
+  float* Qs = smem;
+  float* Ks = Qs + TILE * pitch;
+  float* Vs = Ks + TILE * pitch;
+  float* Ps = Vs + TILE * pitch;
+  const int bh = blockIdx.x, b = bh / N, n = bh % N;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
+  const int q0 = qt * TILE;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+
+  load_tile(Qs, q, b, n, q0, S, N, D);
+  float m[4], l[4], acc[4][NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = DST_NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = 0.f;
+  }
+  const int nk = (S + TILE - 1) / TILE;
+  const int kt_end = causal ? qt + 1 : nk;
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int k0 = kt * TILE;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile(Ks, k, b, n, k0, S, N, D);
+    load_tile(Vs, v, b, n, k0, S, N, D);
+    __syncthreads();
+    float s[4][4];
+    tile_dot(s, Qs, Ks, D, ty, tx);
+    const bool edge = (causal && kt == qt) || k0 + TILE > S;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = DST_NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // rows >= S are computed on zeros and never stored
+        if (edge && !live(q0 + 4 * ty + i, k0 + tx + 16 * j, S, causal)) s[i][j] = DST_NEG_INF;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], half_warp_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        psum += p;
+        Ps[(4 * ty + i) * PPITCH + tx + 16 * j] = p;
+      }
+      l[i] = l[i] * alpha + half_warp_sum(psum);
+      m[i] = m_new;
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) acc[i][jj] *= alpha;
+    }
+    __syncthreads();
+    tile_accum<NJ>(acc, Ps, Vs, D, ty, tx);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    if (row >= S) continue;
+    const size_t base = row_off(b, row, n, S, N, D);
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int c = tx + 16 * jj;
+      if (c < D) o[base + c] = acc[i][jj] / l[i];
+    }
+    if (tx == 0) lse[(size_t)bh * S + row] = m[i] + logf(l[i]);
+  }
+}
+
+// ------------------------------------------------------------ K7: dq pass
+template <int NJ>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, int S, int N, int D, int causal) {
+  extern __shared__ float smem[];
+  const int pitch = D + 1;
+  float* Qs = smem;
+  float* dOs = Qs + TILE * pitch;
+  float* Ks = dOs + TILE * pitch;
+  float* Vs = Ks + TILE * pitch;
+  float* dSs = Vs + TILE * pitch;
+  const int bh = blockIdx.x, b = bh / N, n = bh % N;
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int q0 = qt * TILE;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+
+  load_tile(Qs, q, b, n, q0, S, N, D);
+  load_tile(dOs, dout, b, n, q0, S, N, D);
+  float row_lse[4], row_delta[4], acc[4][NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    row_lse[i] = row < S ? lse[(size_t)bh * S + row] : 0.f;
+    row_delta[i] = row < S ? delta[(size_t)bh * S + row] : 0.f;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = 0.f;
+  }
+  const int nk = (S + TILE - 1) / TILE;
+  const int kt_end = causal ? qt + 1 : nk;
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int k0 = kt * TILE;
+    __syncthreads();
+    load_tile(Ks, k, b, n, k0, S, N, D);
+    load_tile(Vs, v, b, n, k0, S, N, D);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    tile_dot(s, Qs, Ks, D, ty, tx);
+    tile_dot(dp, dOs, Vs, D, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool ok = live(q0 + 4 * ty + i, k0 + tx + 16 * j, S, causal);
+        const float p = ok ? expf(s[i][j] - row_lse[i]) : 0.f;
+        dSs[(4 * ty + i) * PPITCH + tx + 16 * j] = p * (dp[i][j] - row_delta[i]);
+      }
+    __syncthreads();
+    tile_accum<NJ>(acc, dSs, Ks, D, ty, tx);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    if (row >= S) continue;
+    const size_t base = row_off(b, row, n, S, N, D);
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int c = tx + 16 * jj;
+      if (c < D) dq[base + c] = acc[i][jj];
+    }
+  }
+}
+
+// --------------------------------------------------------- K6: dk/dv pass
+template <int NJ>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dk, float* __restrict__ dv, int S, int N, int D,
+                     int causal) {
+  extern __shared__ float smem[];
+  const int pitch = D + 1;
+  float* Ks = smem;
+  float* Vs = Ks + TILE * pitch;
+  float* Qs = Vs + TILE * pitch;
+  float* dOs = Qs + TILE * pitch;
+  float* PTs = dOs + TILE * pitch;   // P^T tile, [k row][q row]
+  float* dSTs = PTs + TILE * PPITCH;  // dS^T tile
+  float* Ls = dSTs + TILE * PPITCH;   // LSE of the q tile's rows
+  float* Ds = Ls + TILE;              // delta of the q tile's rows
+  const int bh = blockIdx.x, b = bh / N, n = bh % N;
+  const int kt = blockIdx.y;          // causal: the lightest tiles are the last ones
+  const int k0 = kt * TILE;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+
+  load_tile(Ks, k, b, n, k0, S, N, D);
+  load_tile(Vs, v, b, n, k0, S, N, D);
+  float dk_acc[4][NJ], dv_acc[4][NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) dk_acc[i][jj] = dv_acc[i][jj] = 0.f;
+  const int nq = (S + TILE - 1) / TILE;
+  for (int qt = causal ? kt : 0; qt < nq; ++qt) {
+    const int q0 = qt * TILE;
+    __syncthreads();
+    load_tile(Qs, q, b, n, q0, S, N, D);
+    load_tile(dOs, dout, b, n, q0, S, N, D);
+    for (int r = threadIdx.x; r < TILE; r += THREADS) {
+      const bool in = q0 + r < S;
+      Ls[r] = in ? lse[(size_t)bh * S + q0 + r] : 0.f;
+      Ds[r] = in ? delta[(size_t)bh * S + q0 + r] : 0.f;
+    }
+    __syncthreads();
+    float st[4][4], dpt[4][4];
+    tile_dot(st, Ks, Qs, D, ty, tx);   // st[i][j] = k row 4ty+i . q row tx+16j
+    tile_dot(dpt, Vs, dOs, D, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qr = tx + 16 * j;
+        const bool ok = live(q0 + qr, k0 + 4 * ty + i, S, causal);
+        const float p = ok ? expf(st[i][j] - Ls[qr]) : 0.f;
+        PTs[(4 * ty + i) * PPITCH + qr] = p;
+        dSTs[(4 * ty + i) * PPITCH + qr] = p * (dpt[i][j] - Ds[qr]);
+      }
+    __syncthreads();
+    tile_accum<NJ>(dv_acc, PTs, dOs, D, ty, tx);
+    tile_accum<NJ>(dk_acc, dSTs, Qs, D, ty, tx);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = k0 + 4 * ty + i;
+    if (row >= S) continue;
+    const size_t base = row_off(b, row, n, S, N, D);
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int c = tx + 16 * jj;
+      if (c < D) {
+        dk[base + c] = dk_acc[i][jj];
+        dv[base + c] = dv_acc[i][jj];
+      }
+    }
+  }
+}
+
+
+// ------------------------------------------------------------------------
+// Tensor-core path (bf16, D a multiple of 16): FlashAttention-2's register-
+// resident design on `mma.sync.m16n8k16` (bf16 in, fp32 accumulate).  128
+// threads (4 warps) per CTA; warp w owns rows 16w..16w+15 of the CTA's
+// 64-row tile (q rows for K5/K7, k rows for K6).  Operand tiles are staged
+// in shared memory as bf16 with a row pitch of D + 8 (so a fragment load
+// hits 32 distinct banks); scores, P, dS and the output accumulators stay
+// in registers.  A lane holds the scores of two rows (g = lane / 4 and
+// g + 8) at eight column pairs; a row's max and sum reduce over the four
+// lanes that share g.  The score accumulator's layout is the A operand's
+// layout of the next product, so P (and dS) go from registers to the
+// tensor cores after one rounding to bf16, with no trip through memory.
+// Rounding is the CUDA-core kernels': P and dS rounded to bf16 before
+// their products, every sum in fp32.
+namespace tc {
+
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+
+typedef __nv_bfloat16 bf16;
+
+// Rows row0 .. row0+63 of head (b, n) into shared memory (pitch D + 8) with
+// 16-byte copies; rows >= S are zero.
+__device__ void load_tile(bf16* dst, const bf16* __restrict__ src, int b, int n, int row0,
+                          int S, int N, int D) {
+  const int vecs = D / 8;
+  const int ld = D + 8;
+  for (int idx = threadIdx.x; idx < TILE * vecs; idx += THREADS) {
+    const int r = idx / vecs;
+    const int c = (idx - r * vecs) * 8;
+    const int s = row0 + r;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (s < S) v = *reinterpret_cast<const uint4*>(src + row_off(b, s, n, S, N, D) + c);
+    *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
+  }
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// c += a . b for one 16 x 8 x 16 tile.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A fragment of rows 16w.. of a tile (pitch ld) at columns 16ks..
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int ld, int row,
+                                       int col) {
+  a[0] = ld32(tile + row * ld + col);
+  a[1] = ld32(tile + (row + 8) * ld + col);
+  a[2] = ld32(tile + row * ld + col + 8);
+  a[3] = ld32(tile + (row + 8) * ld + col + 8);
+}
+
+// s[nt] = A[16 rows of this warp] . Bm[8nt + (0..7)]^T over the D columns:
+// a 16 x 64 score block from two [64, D] tiles.
+template <int DT>
+__device__ __forceinline__ void scores(float (&s)[8][4], const bf16* A, const bf16* Bm,
+                                       int warp, int g, int t) {
+  constexpr int LD = DT * 16 + 8;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < DT; ++ks) {
+    uint32_t a[4];
+    load_a(a, A, LD, 16 * warp + g, 16 * ks + 2 * t);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const bf16* bp = Bm + (8 * nt + g) * LD + 16 * ks + 2 * t;
+      mma(s[nt], a, ld32(bp), ld32(bp + 8));
+    }
+  }
+}
+
+// acc[dt] += W . M over the tile's 64 rows, with W a 16 x 64 block held in
+// score layout (rounded to bf16 here) and M a [64, D] tile in shared memory.
+template <int DT>
+__device__ __forceinline__ void accumulate(float (&acc)[2 * DT][4], const float (&w)[8][4],
+                                           const bf16* M, int g, int t) {
+  constexpr int LD = DT * 16 + 8;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t a[4] = {pack(w[2 * j][0], w[2 * j][1]), pack(w[2 * j][2], w[2 * j][3]),
+                           pack(w[2 * j + 1][0], w[2 * j + 1][1]),
+                           pack(w[2 * j + 1][2], w[2 * j + 1][3])};
+    const bf16* m0 = M + (16 * j + 2 * t) * LD + g;
+#pragma unroll
+    for (int dt = 0; dt < 2 * DT; ++dt) {
+      const bf16* mp = m0 + 8 * dt;
+      mma(acc[dt], a, pack(mp[0], mp[LD]), pack(mp[8 * LD], mp[9 * LD]));
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Write rows (g, g + 8) of a 16 x D accumulator block as bf16, scaled.
+template <int DT>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ out, const float (&acc)[2 * DT][4],
+                                           int b, int n, int row, int S, int N, int t,
+                                           float scale0, float scale1) {
+  constexpr int D = DT * 16;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    if (r >= S) continue;
+    const float sc = h ? scale1 : scale0;
+    bf16* base = out + row_off(b, r, n, S, N, D) + 2 * t;
+#pragma unroll
+    for (int dt = 0; dt < 2 * DT; ++dt)
+      *reinterpret_cast<uint32_t*>(base + 8 * dt) =
+          pack(acc[dt][2 * h] * sc, acc[dt][2 * h + 1] * sc);
+  }
+}
+
+template <int DT>
+__global__ void __launch_bounds__(THREADS)
+fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+           bf16* __restrict__ o, float* __restrict__ lse, int S, int N, int causal) {
+  constexpr int D = DT * 16, LD = D + 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + TILE * LD;
+  bf16* Vs = Ks + TILE * LD;
+  const int bh = blockIdx.x, b = bh / N, n = bh % N;
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int q0 = qt * TILE;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row = q0 + 16 * warp + g;   // and row + 8
+
+  load_tile(Qs, q, b, n, q0, S, N, D);
+  float m[2] = {DST_NEG_INF, DST_NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[2 * DT][4];
+#pragma unroll
+  for (int dt = 0; dt < 2 * DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  const int nk = (S + TILE - 1) / TILE;
+  const int kt_end = causal ? qt + 1 : nk;
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int k0 = kt * TILE;
+    __syncthreads();
+    load_tile(Ks, k, b, n, k0, S, N, D);
+    load_tile(Vs, v, b, n, k0, S, N, D);
+    __syncthreads();
+    float s[8][4];
+    scores<DT>(s, Qs, Ks, warp, g, t);
+    const bool edge = (causal && kt == qt) || k0 + TILE > S;
+    float mx[2] = {DST_NEG_INF, DST_NEG_INF};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // rows >= S are computed on zeros and never stored
+        if (edge && !live(row + 8 * (i >> 1), k0 + 8 * nt + 2 * t + (i & 1), S, causal))
+          s[nt][i] = DST_NEG_INF;
+        mx[i >> 1] = fmaxf(mx[i >> 1], s[nt][i]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m[h], quad_max(mx[h]));
+      alpha[h] = expf(m[h] - m_new);
+      m[h] = m_new;
+    }
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[nt][i] = expf(s[nt][i] - m[i >> 1]);
+        psum[i >> 1] += s[nt][i];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + quad_sum(psum[h]);
+#pragma unroll
+    for (int dt = 0; dt < 2 * DT; ++dt) {
+      acc[dt][0] *= alpha[0];
+      acc[dt][1] *= alpha[0];
+      acc[dt][2] *= alpha[1];
+      acc[dt][3] *= alpha[1];
+    }
+    accumulate<DT>(acc, s, Vs, g, t);
+  }
+  store_rows<DT>(o, acc, b, n, row, S, N, t, 1.f / l[0], 1.f / l[1]);
+  if (t == 0) {
+    if (row < S) lse[(size_t)bh * S + row] = m[0] + logf(l[0]);
+    if (row + 8 < S) lse[(size_t)bh * S + row + 8] = m[1] + logf(l[1]);
+  }
+}
+
+template <int DT>
+__global__ void __launch_bounds__(THREADS)
+dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+          const bf16* __restrict__ dout, const float* __restrict__ lse,
+          const float* __restrict__ delta, bf16* __restrict__ dq, int S, int N, int causal) {
+  constexpr int D = DT * 16, LD = D + 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dOs = Qs + TILE * LD;
+  bf16* Ks = dOs + TILE * LD;
+  bf16* Vs = Ks + TILE * LD;
+  const int bh = blockIdx.x, b = bh / N, n = bh % N;
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int q0 = qt * TILE;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row = q0 + 16 * warp + g;
+
+  load_tile(Qs, q, b, n, q0, S, N, D);
+  load_tile(dOs, dout, b, n, q0, S, N, D);
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    row_lse[h] = r < S ? lse[(size_t)bh * S + r] : 0.f;
+    row_delta[h] = r < S ? delta[(size_t)bh * S + r] : 0.f;
+  }
+  float acc[2 * DT][4];
+#pragma unroll
+  for (int dt = 0; dt < 2 * DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  const int nk = (S + TILE - 1) / TILE;
+  const int kt_end = causal ? qt + 1 : nk;
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int k0 = kt * TILE;
+    __syncthreads();
+    load_tile(Ks, k, b, n, k0, S, N, D);
+    load_tile(Vs, v, b, n, k0, S, N, D);
+    __syncthreads();
+    float s[8][4], dp[8][4];
+    scores<DT>(s, Qs, Ks, warp, g, t);
+    scores<DT>(dp, dOs, Vs, warp, g, t);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = i >> 1;
+        const bool ok = live(row + 8 * h, k0 + 8 * nt + 2 * t + (i & 1), S, causal);
+        const float p = ok ? expf(s[nt][i] - row_lse[h]) : 0.f;
+        s[nt][i] = p * (dp[nt][i] - row_delta[h]);   // dS
+      }
+    accumulate<DT>(acc, s, Ks, g, t);
+  }
+  store_rows<DT>(dq, acc, b, n, row, S, N, t, 1.f, 1.f);
+}
+
+template <int DT>
+__global__ void __launch_bounds__(THREADS)
+dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+           const bf16* __restrict__ dout, const float* __restrict__ lse,
+           const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+           int S, int N, int causal) {
+  constexpr int D = DT * 16, LD = D + 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + TILE * LD;
+  bf16* Qs = Vs + TILE * LD;
+  bf16* dOs = Qs + TILE * LD;
+  float* Ls = reinterpret_cast<float*>(dOs + TILE * LD);  // LSE of the q tile's rows
+  float* Ds = Ls + TILE;                                   // delta of the q tile's rows
+  const int bh = blockIdx.x, b = bh / N, n = bh % N;
+  const int kt = blockIdx.y;
+  const int k0 = kt * TILE;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int krow = k0 + 16 * warp + g;   // and krow + 8
+
+  load_tile(Ks, k, b, n, k0, S, N, D);
+  load_tile(Vs, v, b, n, k0, S, N, D);
+  float dk_acc[2 * DT][4], dv_acc[2 * DT][4];
+#pragma unroll
+  for (int dt = 0; dt < 2 * DT; ++dt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk_acc[dt][i] = dv_acc[dt][i] = 0.f;
+  const int nq = (S + TILE - 1) / TILE;
+  for (int qt = causal ? kt : 0; qt < nq; ++qt) {
+    const int q0 = qt * TILE;
+    __syncthreads();
+    load_tile(Qs, q, b, n, q0, S, N, D);
+    load_tile(dOs, dout, b, n, q0, S, N, D);
+    for (int i = threadIdx.x; i < TILE; i += THREADS) {
+      const bool in = q0 + i < S;
+      Ls[i] = in ? lse[(size_t)bh * S + q0 + i] : 0.f;
+      Ds[i] = in ? delta[(size_t)bh * S + q0 + i] : 0.f;
+    }
+    __syncthreads();
+    float st[8][4], dpt[8][4];
+    scores<DT>(st, Ks, Qs, warp, g, t);    // S^T: k rows . q rows
+    scores<DT>(dpt, Vs, dOs, warp, g, t);  // dP^T: v rows . dO rows
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qc = 8 * nt + 2 * t + (i & 1);
+        const bool ok = live(q0 + qc, krow + 8 * (i >> 1), S, causal);
+        const float p = ok ? expf(st[nt][i] - Ls[qc]) : 0.f;
+        st[nt][i] = p;                          // P^T
+        dpt[nt][i] = p * (dpt[nt][i] - Ds[qc]);  // dS^T
+      }
+    accumulate<DT>(dv_acc, st, dOs, g, t);
+    accumulate<DT>(dk_acc, dpt, Qs, g, t);
+  }
+  store_rows<DT>(dk, dk_acc, b, n, krow, S, N, t, 1.f, 1.f);
+  store_rows<DT>(dv, dv_acc, b, n, krow, S, N, t, 1.f, 1.f);
+}
+
+inline size_t tile_bytes(int D) { return (size_t)TILE * (D + 8) * sizeof(bf16); }
+
+}  // namespace tc
+
+// ------------------------------------------------------------------ launchers
+template <typename K>
+cudaError_t prepare(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  void *o, *dq, *dk, *dv;
+  float* lse_out;
+  int B, S, N, D, causal;
+};
+
+template <int NJ>
+cudaError_t launch_fwd(const Args& a, cudaStream_t stream) {
+  const size_t smem = (3 * (size_t)TILE * (a.D + 1) + TILE * PPITCH) * sizeof(float);
+  cudaError_t e = prepare(flash_fwd_kernel<NJ>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(a.B * a.N, (a.S + TILE - 1) / TILE);
+  flash_fwd_kernel<NJ><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v),
+      static_cast<float*>(a.o), a.lse_out, a.S, a.N, a.D, a.causal);
+  return cudaGetLastError();
+}
+
+template <int NJ>
+cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
+  const size_t smem = (4 * (size_t)TILE * (a.D + 1) + TILE * PPITCH) * sizeof(float);
+  cudaError_t e = prepare(flash_bwd_dq_kernel<NJ>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(a.B * a.N, (a.S + TILE - 1) / TILE);
+  flash_bwd_dq_kernel<NJ><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v),
+      static_cast<const float*>(a.dout), a.lse, a.delta, static_cast<float*>(a.dq), a.S, a.N, a.D,
+      a.causal);
+  return cudaGetLastError();
+}
+
+template <int NJ>
+cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
+  const size_t smem =
+      (4 * (size_t)TILE * (a.D + 1) + 2 * TILE * PPITCH + 2 * TILE) * sizeof(float);
+  cudaError_t e = prepare(flash_bwd_dkv_kernel<NJ>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(a.B * a.N, (a.S + TILE - 1) / TILE);
+  flash_bwd_dkv_kernel<NJ><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v),
+      static_cast<const float*>(a.dout), a.lse, a.delta, static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), a.S, a.N, a.D, a.causal);
+  return cudaGetLastError();
+}
+
+// which: 0 forward, 1 dq, 2 dk/dv.  NJ = columns per thread / 16, by D.
+template <int NJ>
+cudaError_t launch(int which, const Args& a, cudaStream_t stream) {
+  switch (which) {
+    case 0: return launch_fwd<NJ>(a, stream);
+    case 1: return launch_dq<NJ>(a, stream);
+    default: return launch_dkv<NJ>(a, stream);
+  }
+}
+
+cudaError_t by_head_dim(int which, const Args& a, cudaStream_t stream) {
+  if (a.D <= 16) return launch<1>(which, a, stream);
+  if (a.D <= 32) return launch<2>(which, a, stream);
+  if (a.D <= 64) return launch<4>(which, a, stream);
+  if (a.D <= 96) return launch<6>(which, a, stream);
+  if (a.D <= 128) return launch<8>(which, a, stream);
+  return cudaErrorInvalidValue;
+}
+
+
+template <int DT>
+cudaError_t launch_tc(int which, const Args& a, cudaStream_t stream) {
+  typedef __nv_bfloat16 bf16;
+  const int D = DT * 16;
+  const dim3 grid(a.B * a.N, (a.S + TILE - 1) / TILE);
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+  cudaError_t e;
+  if (which == 0) {
+    const size_t smem = 3 * tc::tile_bytes(D);
+    if ((e = prepare(tc::fwd_kernel<DT>, smem)) != cudaSuccess) return e;
+    tc::fwd_kernel<DT><<<grid, tc::THREADS, smem, stream>>>(
+        q, k, v, static_cast<bf16*>(a.o), a.lse_out, a.S, a.N, a.causal);
+  } else if (which == 1) {
+    const size_t smem = 4 * tc::tile_bytes(D);
+    if ((e = prepare(tc::dq_kernel<DT>, smem)) != cudaSuccess) return e;
+    tc::dq_kernel<DT><<<grid, tc::THREADS, smem, stream>>>(
+        q, k, v, static_cast<const bf16*>(a.dout), a.lse, a.delta, static_cast<bf16*>(a.dq),
+        a.S, a.N, a.causal);
+  } else {
+    const size_t smem = 4 * tc::tile_bytes(D) + 2 * TILE * sizeof(float);
+    if ((e = prepare(tc::dkv_kernel<DT>, smem)) != cudaSuccess) return e;
+    tc::dkv_kernel<DT><<<grid, tc::THREADS, smem, stream>>>(
+        q, k, v, static_cast<const bf16*>(a.dout), a.lse, a.delta, static_cast<bf16*>(a.dk),
+        static_cast<bf16*>(a.dv), a.S, a.N, a.causal);
+  }
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// The tensor-core kernels take bf16 with D a multiple of 16 and 16-byte
+// aligned operands.
+cudaError_t by_head_dim_tc(int which, const Args& a, cudaStream_t stream) {
+  switch (a.D / 16) {
+    case 1: return launch_tc<1>(which, a, stream);
+    case 2: return launch_tc<2>(which, a, stream);
+    case 3: return launch_tc<3>(which, a, stream);
+    case 4: return launch_tc<4>(which, a, stream);
+    case 5: return launch_tc<5>(which, a, stream);
+    case 6: return launch_tc<6>(which, a, stream);
+    case 7: return launch_tc<7>(which, a, stream);
+    default: return launch_tc<8>(which, a, stream);
+  }
+}
+
+int run(int which, const Args& a, int dtype, cudaStream_t stream) {
+  if (a.B * a.N == 0 || a.S == 0) return 0;
+  if (a.D % 8 != 0 || a.D > 128) return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case DST_DTYPE_F32: return (int)by_head_dim(which, a, stream);
+    case DST_DTYPE_BF16:
+      if (a.D % 16 != 0 || !aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) ||
+          !aligned16(a.dout) || !aligned16(a.o) || !aligned16(a.dq) || !aligned16(a.dk) ||
+          !aligned16(a.dv))
+        return (int)cudaErrorInvalidValue;
+      return (int)by_head_dim_tc(which, a, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" int dst_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                             int B, int S, int N, int D, int causal, int dtype,
+                             cudaStream_t stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.o = o; a.lse_out = lse;
+  a.B = B; a.S = S; a.N = N; a.D = D; a.causal = causal;
+  return run(0, a, dtype, stream);
+}
+
+extern "C" int dst_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                                const float* lse, const float* delta, void* dq, int B, int S,
+                                int N, int D, int causal, int dtype, cudaStream_t stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta; a.dq = dq;
+  a.B = B; a.S = S; a.N = N; a.D = D; a.causal = causal;
+  return run(1, a, dtype, stream);
+}
+
+extern "C" int dst_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                                 const float* lse, const float* delta, void* dk, void* dv, int B,
+                                 int S, int N, int D, int causal, int dtype,
+                                 cudaStream_t stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta;
+  a.dk = dk; a.dv = dv;
+  a.B = B; a.S = S; a.N = N; a.D = D; a.causal = causal;
+  return run(2, a, dtype, stream);
+}

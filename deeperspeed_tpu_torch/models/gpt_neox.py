@@ -8,15 +8,24 @@ package's tree (``layers.{i}.attention.query_key_value`` for
 ``layers_{i}/attention/query_key_value``), and :func:`params_from_jax`
 carries a flax parameter tree across.
 
-Two attention modes: the unpaged causal path (a plain forward over whole
-sequences) and the paged serving path, where each layer reads and writes a
-[P, bs, N, D] KV pool pair that the inference engine owns.  Serving
-attention is routed by the row bucket S, as in the JAX package: S == 1 to
-the paged decode kernel, 2 <= S <= 8 to the speculative-decode kernel, and
-longer rows to plain masked attention over the gathered blocks.
+As in flax, weights are created and kept in fp32 and each product runs in
+``config.dtype``: a weight in another type is cast at its use (a no-op once
+the serving engine or the training engine has cast it).  The input
+embedding is looked up in its own type and the rows cast to
+``config.dtype``, so under mixed-precision training its table and its
+gradient stay fp32.
 
-Not ported yet: MoE layers, sequence parallelism, the training extras
-(remat, random-LTD, progressive layer drop) and the loss.
+Two attention modes: the unpaged causal path (training, and a plain
+forward over whole sequences), which goes through ``ops.attention.core``
+(the flash kernels K5-K7 on the card), and the paged serving path, where
+each layer reads and writes a [P, bs, N, D] KV pool pair that the inference
+engine owns.  Serving attention is routed by the row bucket S, as in the
+JAX package: S == 1 to the paged decode kernel, 2 <= S <= 8 to the
+speculative-decode kernel, and longer rows to plain masked attention over
+the gathered blocks.
+
+Not ported yet (construction raises, naming the ROADMAP item): MoE layers,
+dropout, remat, chunked cross entropy, sequence parallelism.
 """
 
 import dataclasses
@@ -50,7 +59,15 @@ class GPTNeoXConfig:
     rotary_emb_base: int = 10000
     use_parallel_residual: bool = True
     layernorm_eps: float = 1e-5
+    hidden_dropout: float = 0.0
+    attention_dropout: float = 0.0
     dtype: torch.dtype = torch.float32
+    remat: bool = False
+    # chunked fused-linear cross entropy (0 = the monolithic loss)
+    ce_chunk_tokens: int = 0
+    # μP width multiplier relative to a base width (for the mu-optimizers)
+    mup_base_width: Optional[int] = None
+    moe_num_experts: int = 0
 
     def __post_init__(self):
         if self.hidden_size % self.num_heads:
@@ -108,18 +125,26 @@ class PagedState:
     src_rows: torch.Tensor         # [T] int64
 
 
-class ModelLayerNorm(nn.Module):
-    """LayerNorm with fp32 ``weight`` and ``bias`` that runs kernel K1 on a
-    CUDA tensor (``ops/transformer/normalize.py``)."""
+def _dense(lin, x, dtype):
+    """``lin`` applied in ``dtype`` (flax ``Dense(dtype=...)`` promotion)."""
+    b = None if lin.bias is None else lin.bias.to(dtype)
+    return F.linear(x.to(dtype), lin.weight.to(dtype), b)
 
-    def __init__(self, hidden, eps=1e-5):
+
+class ModelLayerNorm(nn.Module):
+    """LayerNorm over ``config.dtype`` activations with fp32 ``weight`` and
+    ``bias`` (bf16 under mixed-precision training); kernels K1/K8 on a CUDA
+    tensor (``ops/transformer/normalize.py``)."""
+
+    def __init__(self, hidden, eps=1e-5, dtype=torch.float32):
         super().__init__()
         self.eps = eps
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(hidden, dtype=torch.float32))
         self.bias = nn.Parameter(torch.zeros(hidden, dtype=torch.float32))
 
     def forward(self, x):
-        return layer_norm(x.contiguous(), self.weight, self.bias, eps=self.eps)
+        return layer_norm(x.to(self.dtype), self.weight, self.bias, eps=self.eps)
 
 
 class GPTNeoXAttention(nn.Module):
@@ -134,7 +159,8 @@ class GPTNeoXAttention(nn.Module):
         cfg = self.config
         B, S, H = x.shape
         # per-head [q | k | v] layout, as the flax Dense output is reshaped
-        qkv = self.query_key_value(x).view(B, S, cfg.num_heads, 3 * cfg.head_dim)
+        qkv = _dense(self.query_key_value, x, cfg.dtype).view(
+            B, S, cfg.num_heads, 3 * cfg.head_dim)
         q, k, v = qkv.split(cfg.head_dim, dim=-1)
         rot_dim = int(cfg.head_dim * cfg.rotary_pct)
         if rot_dim > 0:
@@ -146,7 +172,7 @@ class GPTNeoXAttention(nn.Module):
                                         paged)
         else:
             out = dot_product_attention(q, k, v, causal=True)
-        return self.dense(out.reshape(B, S, H))
+        return _dense(self.dense, out.reshape(B, S, H), cfg.dtype)
 
     def _paged_attention(self, q, k, v, positions, kv, paged):
         """Blocked KV-pool attention.  Writes happen before reads, so a token
@@ -180,14 +206,16 @@ class GPTNeoXAttention(nn.Module):
 class GPTNeoXMLP(nn.Module):
     def __init__(self, config: GPTNeoXConfig):
         super().__init__()
+        self.config = config
         self.dense_h_to_4h = nn.Linear(config.hidden_size,
                                        config.intermediate_size)
         self.dense_4h_to_h = nn.Linear(config.intermediate_size,
                                        config.hidden_size)
 
     def forward(self, x):
-        h = F.gelu(self.dense_h_to_4h(x), approximate="tanh")
-        return self.dense_4h_to_h(h)
+        dt = self.config.dtype
+        h = F.gelu(_dense(self.dense_h_to_4h, x, dt), approximate="tanh")
+        return _dense(self.dense_4h_to_h, h, dt)
 
 
 class GPTNeoXBlock(nn.Module):
@@ -195,8 +223,10 @@ class GPTNeoXBlock(nn.Module):
         super().__init__()
         self.config = config
         eps = config.layernorm_eps
-        self.input_layernorm = ModelLayerNorm(config.hidden_size, eps)
-        self.post_attention_layernorm = ModelLayerNorm(config.hidden_size, eps)
+        self.input_layernorm = ModelLayerNorm(config.hidden_size, eps,
+                                              config.dtype)
+        self.post_attention_layernorm = ModelLayerNorm(config.hidden_size, eps,
+                                                       config.dtype)
         self.attention = GPTNeoXAttention(config)
         self.mlp = GPTNeoXMLP(config)
 
@@ -209,29 +239,45 @@ class GPTNeoXBlock(nn.Module):
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
+def _not_ported(config):
+    """The first configuration feature the port does not run yet, or None."""
+    if config.moe_num_experts > 1:
+        return "MoE layers (ROADMAP Queue A, 'Llama/Mistral, v1 inference and MoE')"
+    for name in ("hidden_dropout", "attention_dropout"):
+        if getattr(config, name) > 0.0:
+            return f"{name} > 0 (ROADMAP Queue A, 'Training leftovers')"
+    if config.remat:
+        return "remat (ROADMAP Queue A, 'Training leftovers')"
+    return None
+
+
 class GPTNeoX(nn.Module):
     """Causal LM: tokens [B, S] -> logits [B, S, V] (or [B, R, V] at
     ``logits_positions``).
 
     Weights are drawn from ``seed`` with an explicit ``torch.Generator`` on
     the CPU, in fp32, and then moved to ``device`` (CUDA unless the caller
-    passes ``device="cpu"``) in ``config.dtype``, so one seed gives the same
-    model on every device.  LayerNorm parameters stay fp32."""
+    passes ``device="cpu"``), so one seed gives the same model on every
+    device.  They stay fp32 until an engine casts them; the products run in
+    ``config.dtype`` either way."""
 
     def __init__(self, config: GPTNeoXConfig, device=None, seed=0):
         super().__init__()
+        missing = _not_ported(config)
+        if missing is not None:
+            raise NotImplementedError(f"GPTNeoX: {missing} is not ported yet")
         device = resolve_device(device)
         self.config = config
         self.embed_in = nn.Embedding(config.vocab_size, config.hidden_size)
         self.layers = nn.ModuleList(GPTNeoXBlock(config)
                                     for _ in range(config.num_layers))
         self.final_layer_norm = ModelLayerNorm(config.hidden_size,
-                                               config.layernorm_eps)
+                                               config.layernorm_eps,
+                                               config.dtype)
         self.embed_out = nn.Linear(config.hidden_size, config.vocab_size,
                                    bias=False)
         self._init_weights(torch.Generator().manual_seed(seed))
         self.to(device)
-        self.set_dtype(config.dtype)
 
     @torch.no_grad()
     def _init_weights(self, gen):
@@ -248,8 +294,8 @@ class GPTNeoX(nn.Module):
                         1.0 / math.sqrt(self.config.hidden_size), generator=gen)
 
     def set_dtype(self, dtype):
-        """Cast every weight but the LayerNorms' to ``dtype``, the compute
-        type of the products and of the KV pools."""
+        """Cast every weight but the LayerNorms' to ``dtype`` and make it
+        the compute type of the products and of the KV pools (serving)."""
         for mod in self.modules():
             if isinstance(mod, (nn.Linear, nn.Embedding)):
                 mod.to(dtype)
@@ -257,6 +303,8 @@ class GPTNeoX(nn.Module):
         for mod in self.modules():
             if hasattr(mod, "config"):
                 mod.config = self.config
+            if isinstance(mod, ModelLayerNorm):
+                mod.dtype = dtype
         return self
 
     def _paged_writes(self, paged_state, positions, block_size):
@@ -276,7 +324,8 @@ class GPTNeoX(nn.Module):
         B, S = input_ids.shape
         if positions is None:
             positions = torch.arange(S, device=input_ids.device).expand(B, S)
-        x = self.embed_in(input_ids)
+        # lookup in the table's type (fp32 in training), then the compute type
+        x = self.embed_in(input_ids).to(self.config.dtype)
         paged, kv_cache = None, [None] * len(self.layers)
         if paged_state is not None:
             kv_cache = paged_state["kv_cache"]
@@ -290,7 +339,71 @@ class GPTNeoX(nn.Module):
             if lp.dim() == 1:
                 lp = lp[:, None]
             x = torch.gather(x, 1, lp[..., None].expand(-1, -1, x.shape[-1]))
-        return self.embed_out(x)
+        return _dense(self.embed_out, x, self.config.dtype)
+
+    # ------------------------------------------------------------ engine API
+    def example_batch(self, batch_size=2, seq_len=None, seed=0):
+        """Random tokens from a numpy generator: ``input_ids`` and the
+        next-token ``labels``, int64 [batch_size, seq_len] on the CPU."""
+        seq = seq_len or min(self.config.max_seq_len, 128)
+        toks = np.random.default_rng(seed).integers(
+            0, self.config.vocab_size, (batch_size, seq + 1))
+        toks = torch.from_numpy(toks)
+        return {"input_ids": toks[:, :-1].contiguous(),
+                "labels": toks[:, 1:].contiguous()}
+
+    def loss_fn(self):
+        """``loss(model, batch) -> fp32 scalar``: mean next-token cross
+        entropy over the tokens where ``batch["loss_mask"]`` (default all)
+        is set, as logsumexp minus the gold logit over fp32 logits."""
+        if self.config.ce_chunk_tokens > 0:
+            raise NotImplementedError(
+                "GPTNeoX: ce_chunk_tokens > 0 (the chunked cross entropy) is "
+                "not ported yet (ROADMAP Queue A, 'Training leftovers')")
+
+        def loss(model, batch):
+            logits = model(batch["input_ids"]).to(torch.float32)
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, batch["labels"][..., None])[..., 0]
+            token_ll = gold - lse
+            mask = batch.get("loss_mask")
+            mask = torch.ones_like(token_ll) if mask is None else mask.to(token_ll.dtype)
+            return -(token_ll * mask).sum() / mask.sum().clamp(min=1.0)
+
+        return loss
+
+    def no_cast_paths(self):
+        """Parameter names (regexes) that stay fp32 under mixed precision:
+        the embedding table, whose gradient accumulates by scatter-add."""
+        return [r"embed_in\.weight"]
+
+    def mup_multipliers(self):
+        """1/width_mult on hidden-to-hidden matrices (μP), 1.0 elsewhere;
+        None without ``mup_base_width``."""
+        cfg = self.config
+        if cfg.mup_base_width is None:
+            return None
+        width_mult = cfg.hidden_size / cfg.mup_base_width
+        return {name: 1.0 if ("embed_in" in name or "embed_out" in name
+                              or p.dim() < 2) else 1.0 / width_mult
+                for name, p in self.named_parameters()}
+
+    def flops_per_token(self):
+        """Analytic fwd+bwd FLOPs per token (6N_active + attention term);
+        the input embedding, a gather, is left out of N_active."""
+        cfg = self.config
+        n_params = self.num_params() - cfg.vocab_size * cfg.hidden_size
+        attn = 12 * cfg.num_layers * cfg.hidden_size * cfg.max_seq_len
+        return 6 * n_params + attn
+
+    def num_params(self):
+        cfg = self.config
+        h, L, v = cfg.hidden_size, cfg.num_layers, cfg.vocab_size
+        f = cfg.intermediate_size
+        mlp = 2 * h * f + f + h
+        attn = 3 * h * h + 3 * h + h * h + h  # qkv + out proj
+        lns = 4 * h
+        return v * h + L * (attn + mlp + lns) + 2 * h + v * h
 
 
 def params_from_jax(tree) -> dict:

@@ -1,14 +1,21 @@
-"""Plain masked attention (counterpart of ``deeperspeed_tpu/ops/attention/core.py``).
+"""Attention dispatch (counterpart of ``deeperspeed_tpu/ops/attention/core.py``).
 
-Serving prefill passes a mask, so in the JAX package it never reaches the
-flash kernel either: it is this dense path, two products and a softmax,
-left to ``torch.matmul``-class operators as the JAX package left it to XLA.
-The flash kernel comes with the training slice.
+On the card, an unmasked call without dropout whose shape and dtype the
+flash kernels take (fp32/bf16, D % 8 == 0) and whose q and k shapes agree
+goes to :func:`flash.flash_attention` (kernels K5-K7), the rule of the JAX
+package's ``dot_product_attention`` on the TPU.  Everything else, and every
+call on the CPU (where the JAX package takes its reference path too), is
+the dense path: two products and a softmax, left to ``torch.matmul``-class
+operators as the JAX package left it to XLA.  Serving prefill passes a
+mask, so it takes the dense path, as it does in the JAX package.
 """
 
 import math
 
 import torch
+
+from ...accelerator import get_accelerator
+from .flash import flash_attention, flash_attention_supported
 
 
 def _scale_for(q):
@@ -17,11 +24,9 @@ def _scale_for(q):
     return float(1.0 / root)
 
 
-def dot_product_attention(q, k, v, mask=None, causal=True, scale=None):
-    """Multi-head attention over [batch, seq, heads, head_dim] tensors.
-
-    Scores and softmax in fp32; probabilities cast back to q's type before
-    the product with v.  ``mask`` broadcasts to [B, N, Sq, Sk]."""
+def _reference_attention(q, k, v, mask=None, causal=True, scale=None):
+    """Scores and softmax in fp32; probabilities cast back to q's type
+    before the product with v.  ``mask`` broadcasts to [B, N, Sq, Sk]."""
     seq_q, seq_k = q.shape[-3], k.shape[-3]
     if scale is None:
         scale = _scale_for(q)
@@ -35,3 +40,11 @@ def dot_product_attention(q, k, v, mask=None, causal=True, scale=None):
         logits = logits.masked_fill(~mask, fill)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bnqk,bknd->bqnd", probs, v)
+
+
+def dot_product_attention(q, k, v, mask=None, causal=True, scale=None):
+    """Multi-head attention over [batch, seq, heads, head_dim] tensors."""
+    if get_accelerator(q.device).use_cuda_kernels() and mask is None:
+        if flash_attention_supported(q.shape, q.dtype) and q.shape == k.shape:
+            return flash_attention(q, k, v, causal=causal, scale=scale)
+    return _reference_attention(q, k, v, mask=mask, causal=causal, scale=scale)

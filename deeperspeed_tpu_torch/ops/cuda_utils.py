@@ -44,6 +44,12 @@ _SIGNATURES = {
     "layer_norm": {
         "dst_layer_norm_fwd": ([_vp, _vp, _vp, _vp, _i, _i, _f, _i, _i, _vp],
                                _i),
+        "dst_layer_norm_bwd": ([_vp] * 8 + [_i, _i, _f, _i, _i, _i, _vp], _i),
+    },
+    "flash_attention": {
+        "dst_flash_fwd": ([_vp] * 5 + [_i] * 6 + [_vp], _i),
+        "dst_flash_bwd_dq": ([_vp] * 7 + [_i] * 6 + [_vp], _i),
+        "dst_flash_bwd_dkv": ([_vp] * 8 + [_i] * 6 + [_vp], _i),
     },
     "paged_attention": {
         "dst_paged_decode": ([_vp] * 6 + [_i] * 5 + [_f, _i, _vp], _i),

@@ -1,11 +1,18 @@
-"""LayerNorm / RMSNorm forward: kernel K1 and its plain version
-(counterpart of ``deeperspeed_tpu/ops/transformer/normalize.py``).
+"""LayerNorm / RMSNorm: kernels K1 (forward) and K8 (backward) and their
+plain versions (counterpart of ``deeperspeed_tpu/ops/transformer/normalize.py``).
 
-For a CUDA tensor, :func:`layer_norm` and :func:`rms_norm` launch the
-hand-written kernel of ``csrc/layer_norm.cu`` (any hidden size); for a CPU
-tensor they run :func:`_ln_ref`, the same arithmetic in PyTorch: fp32
-statistics, the centred variance, output in the input's type.  The
-backward kernel belongs to the training slice.
+:func:`layer_norm` and :func:`rms_norm` are differentiable: an
+``autograd.Function`` whose forward is K1 and whose backward is K8 (the
+TPU package's ``custom_vjp``).  For a CUDA tensor they launch the
+hand-written kernels of ``csrc/layer_norm.cu`` (any hidden size); for a CPU
+tensor they run :func:`_ln_ref` and :func:`_ln_bwd_ref`, the same
+arithmetic in PyTorch: fp32 statistics, the centred variance, output in the
+input's type, the backward recomputing the statistics from x.
+
+gamma and beta may come in any float type (bf16 under mixed-precision
+training, where the engine casts every weight but the input embedding):
+the kernels take them upcast to fp32, which is exact, and dgamma/dbeta come
+back in gamma's type, as in the JAX package.
 """
 
 import torch
@@ -13,6 +20,9 @@ import torch
 from ...accelerator import get_accelerator
 from ..cuda_utils import check, dtype_code, library, ptr, require_cuda, \
     stream_of
+
+# rows per CTA of K8; each CTA writes one fp32 partial row of dgamma/dbeta
+BWD_ROWS_PER_CTA = 64
 
 
 def _ln_ref(x, gamma, beta, eps, rms):
@@ -26,14 +36,35 @@ def _ln_ref(x, gamma, beta, eps, rms):
     return y.to(x.dtype)
 
 
+def _ln_bwd_ref(x, gamma, dy, eps, rms):
+    """Plain version of K8 over [rows, H]: (dx, dgamma, dbeta) with the
+    parameter grads in fp32 (``_norm_bwd``'s jnp branch)."""
+    x32, dy32 = x.to(torch.float32), dy.to(torch.float32)
+    mu = 0.0 if rms else x32.mean(dim=-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = (x32 - mu) * rstd
+    dyg = dy32 * gamma.to(torch.float32)
+    m2 = (dyg * xhat).mean(dim=-1, keepdim=True)
+    if rms:
+        dx = (dyg - xhat * m2) * rstd
+    else:
+        dx = (dyg - dyg.mean(dim=-1, keepdim=True) - xhat * m2) * rstd
+    return dx.to(x.dtype), (dy32 * xhat).sum(dim=0), dy32.sum(dim=0)
+
+
+def _check_vecs(kernel, x, vecs):
+    h = x.shape[-1]
+    require_cuda(kernel, x, *vecs)
+    for v in vecs:
+        if v.dtype != torch.float32 or v.shape != (h,):
+            raise ValueError(f"{kernel}: gamma/beta must be float32 [{h}]")
+
+
 def _ln_cuda(x, gamma, beta, eps, rms):
     """K1 on the card: one launch over all rows of ``x``."""
     h = x.shape[-1]
-    vecs = (gamma,) if beta is None else (gamma, beta)
-    require_cuda("layer_norm", x, *vecs)
-    for v in vecs:
-        if v.dtype != torch.float32 or v.shape != (h,):
-            raise ValueError(f"layer_norm: gamma/beta must be float32 [{h}]")
+    _check_vecs("layer_norm", x, (gamma,) if beta is None else (gamma, beta))
     y = torch.empty_like(x)
     rows = x.numel() // h
     if rows == 0:
@@ -45,10 +76,69 @@ def _ln_cuda(x, gamma, beta, eps, rms):
     return y
 
 
-def _norm(x, gamma, beta, eps, rms):
+def _ln_bwd_cuda(x, gamma, dy, eps, rms):
+    """K8 on the card over [rows, H]: the row kernel and the fixed-order
+    sum of its per-CTA partials, counted as one launch."""
+    rows, h = x.shape
+    _check_vecs("layer_norm_bwd", x, (gamma,))
+    require_cuda("layer_norm_bwd", x, dy, dtype=x.dtype)
+    if 8 * h > 232448:
+        raise ValueError(f"layer_norm_bwd: H {h} exceeds the kernel's shared "
+                         f"memory (H <= 29056)")
+    dx = torch.empty_like(x)
+    dg = torch.zeros(h, dtype=torch.float32, device=x.device)
+    db = torch.zeros(h, dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return dx, dg, db
+    nblk = -(-rows // BWD_ROWS_PER_CTA)
+    parts = torch.empty(2, nblk, h, dtype=torch.float32, device=x.device)
+    err = library("layer_norm").dst_layer_norm_bwd(
+        ptr(x), ptr(gamma), ptr(dy), ptr(dx), ptr(parts[0]), ptr(parts[1]),
+        ptr(dg), ptr(db), rows, h, float(eps), int(rms), BWD_ROWS_PER_CTA,
+        dtype_code(x.dtype), stream_of(x))
+    check(err, "layer_norm_bwd")
+    return dx, dg, db
+
+
+def _fwd(x, gamma, beta, eps, rms):
     if get_accelerator(x.device).use_cuda_kernels():
         return _ln_cuda(x, gamma, beta, eps, rms)
     return _ln_ref(x, gamma, beta, eps, rms)
+
+
+def _bwd(x, gamma, dy, eps, rms):
+    if get_accelerator(x.device).use_cuda_kernels():
+        return _ln_bwd_cuda(x, gamma, dy, eps, rms)
+    return _ln_bwd_ref(x, gamma, dy, eps, rms)
+
+
+class _Norm(torch.autograd.Function):
+    """K1 forward, K8 backward; saves x and gamma, as the JAX VJP does."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, rms):
+        x = x.contiguous()
+        g32 = gamma.to(torch.float32)
+        b32 = None if beta is None else beta.to(torch.float32)
+        ctx.save_for_backward(x, g32)
+        ctx.eps, ctx.rms = eps, rms
+        ctx.gamma_dtype = gamma.dtype
+        ctx.has_beta = beta is not None
+        return _fwd(x, g32, b32, eps, rms)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, g32 = ctx.saved_tensors
+        h = x.shape[-1]
+        dx, dg, db = _bwd(x.reshape(-1, h), g32,
+                          dy.contiguous().reshape(-1, h), ctx.eps, ctx.rms)
+        dg = dg.to(ctx.gamma_dtype)
+        db = db.to(ctx.gamma_dtype) if ctx.has_beta else None
+        return dx.reshape(x.shape), dg, db, None, None
+
+
+def _norm(x, gamma, beta, eps, rms):
+    return _Norm.apply(x, gamma, beta, eps, rms)
 
 
 def layer_norm(x, gamma, beta, eps=1e-5):

@@ -6,16 +6,18 @@ machine does not have, hence ``--noconftest``):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-chip_smoke.py holds the same kernels at the serving path's shapes; these
-tests sweep the edges: odd and large hidden sizes, every dtype, head dims
-and block sizes, every query count, rows with ties, -inf and no live token.
+chip_smoke.py holds the same kernels at the serving and training paths'
+shapes; these tests sweep the edges: odd and large hidden sizes, every
+dtype, head dims and block sizes, every query count, rows with ties, -inf
+and no live token, ragged sequence lengths, causal and full attention.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from deeperspeed_tpu_torch.ops.attention import paged
+from chip_smoke import flash_shares
+from deeperspeed_tpu_torch.ops.attention import flash, paged
 from deeperspeed_tpu_torch.ops.sampling import topk
 from deeperspeed_tpu_torch.ops.transformer import normalize
 
@@ -147,3 +149,160 @@ def test_engine_on_the_card_matches_the_cpu():
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
     assert LAUNCHES["layer_norm"] > 0 and LAUNCHES["paged_decode"] > 0
+
+
+# Flash attention (K5-K7) against the plain versions on the same tensors,
+# each output held on its own scale by chip_smoke.py's rule: per element
+# |got - ref| <= rtol |ref| + row rms_D(ref) + floor, and per (b, n) head
+# ||got - ref|| <= head ||ref|| + floor sqrt(S D); floor is absolute, on inputs of unit scale, for rows
+# whose exact value is 0 (dq and dk at S 1, where both sides keep the fp32
+# noise of dP - delta, ~1e-6 times |k| up to 4).  (rtol, row, floor, head):
+# fp32 sums in another order only, the grads over up to S products; bf16
+# as chip_smoke.py's FLASH_TOL: one bf16 ulp of the element (2^-7), two of
+# the row's RMS (the kernel rounds P and dS at its running max per 64-key
+# tile, the plain version at the row's final max, one ulp apart), 1e-2 of
+# each head's norm.
+FLASH_TOL = {torch.float32: ((1e-5, 0.0, 1e-5, 1e-5), (1e-4, 1e-4, 1e-4, 1e-4)),
+             torch.bfloat16: ((2 ** -7, 2 ** -6, 2 ** -10, 1e-2),) * 2}
+
+
+def _flash_close(got, want, dtype, grad=False):
+    _, elem, head = flash_shares(torch, got, want, FLASH_TOL[dtype][int(grad)])
+    assert elem <= 1.0 and head <= 1.0, f"shares of the limit: element {elem}, head {head}"
+
+
+def _qkv(gen, S, D, dtype, B=2, N=3):
+    return [torch.randn(B, S, N, D, generator=gen, device="cuda").to(dtype)
+            for _ in range(4)]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("S", [1, 7, 64, 1000, 1024])
+@pytest.mark.parametrize("D", [16, 40, 64, 96, 128])  # bf16 D 40: padded to 48
+def test_flash_forward(gen, D, S, dtype, causal):
+    q, k, v, _ = _qkv(gen, S, D, dtype)
+    o, lse = flash._fwd_cuda(q, k, v, causal)
+    ro, rlse = flash._fwd_reference(q, k, v, causal)
+    assert o.dtype == dtype and lse.shape == (q.shape[0] * q.shape[2], S)
+    _flash_close(o, ro, dtype)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("S", [1, 7, 64, 1000])
+@pytest.mark.parametrize("D", [16, 40, 64, 96, 128])
+def test_flash_backward(gen, D, S, dtype, causal):
+    q, k, v, do = _qkv(gen, S, D, dtype, B=1)
+    o, lse = flash._fwd_reference(q, k, v, causal)
+    B, _, N, _ = q.shape
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(B * N, S).contiguous()
+    dq = flash._dq_cuda(q, k, v, do, lse, delta, causal)
+    dk, dv = flash._dkv_cuda(q, k, v, do, lse, delta, causal)
+    for got, want in zip((dq, dk, dv), flash._bwd_reference(q, k, v, do, lse, delta, causal)):
+        assert got.dtype == dtype
+        _flash_close(got, want, dtype, grad=True)
+
+
+def test_flash_takes_unaligned_bf16_operands(gen):
+    """A contiguous view at an odd element offset is not 16-byte aligned:
+    the wrapper copies it for the tensor-core kernels, with the same
+    results."""
+    B, S, N, D = 1, 100, 2, 64
+    n = B * S * N * D
+    flat = torch.randn(4 * n + 3, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v, do = (flat[3 + i * n:3 + (i + 1) * n].view(B, S, N, D) for i in range(4))
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    o, lse = flash._fwd_cuda(q, k, v, True)
+    ro, rlse = flash._fwd_reference(q, k, v, True)
+    _flash_close(o, ro, torch.bfloat16)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(B * N, S).contiguous()
+    dq = flash._dq_cuda(q, k, v, do, lse, delta, True)
+    _flash_close(dq, flash._bwd_reference(q, k, v, do, lse, delta, True)[0],
+                 torch.bfloat16, grad=True)
+
+
+def test_flash_autograd_launches_the_kernels(gen):
+    from deeperspeed_tpu_torch.ops.attention import dot_product_attention
+    from deeperspeed_tpu_torch.ops.cuda_utils import LAUNCHES
+
+    q, k, v, w = _qkv(gen, 300, 64, torch.bfloat16)
+    q.requires_grad_()
+    LAUNCHES.clear()
+    dot_product_attention(q, k, v, causal=True).backward(w)
+    assert {n: LAUNCHES[n] for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")} == \
+        {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    with pytest.raises(ValueError):
+        flash._fwd_cuda(q.detach().half(), k.half(), v.half(), True)
+    with pytest.raises(ValueError):
+        big = torch.zeros(1, 8, 1, 136, device="cuda")
+        flash._fwd_cuda(big, big, big, True)
+
+
+@pytest.mark.parametrize("gamma_dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("rows,H", [(1, 64), (7, 100), (300, 768), (130, 4095),
+                                    (33, 16384)])
+def test_layer_norm_backward(gen, rows, H, dtype, gamma_dtype):
+    """dx within the dtype's TOL; dgamma/dbeta sum the rows in another
+    order (per-CTA partials), so they are held relative to their largest
+    entry, plus one rounding to gamma's type."""
+    x = (2 * torch.randn(rows, H, generator=gen, device="cuda") + 0.5).to(dtype)
+    dy = torch.randn(rows, H, generator=gen, device="cuda").to(dtype)
+    g = (1 + 0.1 * torch.randn(H, generator=gen, device="cuda")).to(gamma_dtype)
+    dx, dg, db = normalize._ln_bwd_cuda(x, g.float(), dy, 1e-5, False)
+    rdx, rdg, rdb = normalize._ln_bwd_ref(x, g.float(), dy, 1e-5, False)
+    _close(dx, rdx, dtype)
+    for got, want in ((dg, rdg), (db, rdb)):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-5 * want.abs().max().item())
+    # through autograd: grads in gamma's type
+    xr = x.clone().requires_grad_()
+    gr, br = g.clone().requires_grad_(), torch.zeros_like(g).requires_grad_()
+    normalize.layer_norm(xr, gr, br).backward(dy)
+    assert gr.grad.dtype == br.grad.dtype == gamma_dtype
+    torch.testing.assert_close(gr.grad.float(), dg.to(gamma_dtype).float())
+    rms_dx, _, _ = normalize._ln_bwd_cuda(x, g.float(), dy, 1e-5, True)
+    _close(rms_dx, normalize._ln_bwd_ref(x, g.float(), dy, 1e-5, True)[0], dtype)
+
+
+# card vs CPU losses over 3 steps: fp32 differs by summation order only
+# (TF32 off); bf16 and fp16 products round their inputs (2^-8 and 2^-11
+# relative) in another order on each side, and the card's bf16 attention
+# is the flash kernels where the CPU's is the dense path.
+TRAIN_TOL = {"fp32": 1e-5, "bf16": 2e-2, "fp16": 5e-3}
+
+
+@pytest.mark.parametrize("mode", list(TRAIN_TOL))
+def test_training_on_the_card_matches_the_cpu(mode):
+    """Tiny GPT-NeoX, 3 Adam steps: card and CPU losses within TRAIN_TOL,
+    the kernels of the path launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
+    from deeperspeed_tpu_torch.ops.cuda_utils import LAUNCHES
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dtype = {"fp32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}[mode]
+    cfg = {"train_batch_size": 4, "gradient_clipping": 1.0,
+           "optimizer": {"type": "Adam", "params": {"lr": 1e-3}}}
+    if mode != "fp32":
+        cfg[mode] = {"enabled": True}
+    engines = [dst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(dtype=dtype), device=d,
+                                            seed=3), config=cfg, device=d)[0]
+               for d in ("cuda", "cpu")]
+    rng = np.random.default_rng(0)
+    LAUNCHES.clear()
+    for _ in range(3):
+        toks = rng.integers(0, 256, (4, 65))
+        batch = {"input_ids": toks[:, :-1], "labels": toks[:, 1:]}
+        lg, lc = (float(e.train_batch(batch=batch)) for e in engines)
+        assert abs(lg - lc) <= TRAIN_TOL[mode] * abs(lc), (lg, lc)
+    kernels = ["layer_norm", "layer_norm_bwd"]
+    if mode != "fp16":          # fp16 attention takes the dense path, as in JAX
+        kernels += ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"]
+    for name in kernels:
+        assert LAUNCHES[name] > 0, name

@@ -12,7 +12,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from deeperspeed_tpu_torch.ops.attention import paged
+from deeperspeed_tpu_torch.ops.attention import flash, paged
 from deeperspeed_tpu_torch.ops.sampling import topk
 from deeperspeed_tpu_torch.ops.transformer import normalize
 
@@ -32,7 +32,9 @@ def test_port_imports_no_jax():
     out = _run(
         "import sys\n"
         "import deeperspeed_tpu_torch, deeperspeed_tpu_torch.inference.v2\n"
-        "import deeperspeed_tpu_torch.models\n"
+        "import deeperspeed_tpu_torch.models, deeperspeed_tpu_torch.runtime.engine\n"
+        "import deeperspeed_tpu_torch.ops.attention.flash\n"
+        "import deeperspeed_tpu_torch.utils.tree\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'deeperspeed_tpu' or m.startswith('deeperspeed_tpu.')]\n"
         "print('LOADED', bad)")
@@ -58,8 +60,23 @@ def test_port_sources_are_clean():
             assert not pattern.search(text), f"{path.relative_to(ROOT)} {why}"
 
 
+def test_chip_smoke_and_tools_import_no_jax():
+    """chip_smoke.py and the port's tools may name the library yardsticks
+    they time, but import nothing of JAX or of the JAX package."""
+    files = [ROOT / "chip_smoke.py", *sorted((ROOT / "tools").glob("torch_*.py"))]
+    assert len(files) >= 3
+    for path in files:
+        text = path.read_text()
+        for pattern, why in BANNED[:2]:
+            assert not pattern.search(text), f"{path.relative_to(ROOT)} {why}"
+
+
 @pytest.mark.parametrize("fn,kernel", [
     (normalize._ln_cuda, "layer_norm"),
+    (normalize._ln_bwd_cuda, "layer_norm_bwd"),
+    (flash._fwd_cuda, "flash_fwd"),
+    (flash._dq_cuda, "flash_bwd_dq"),
+    (flash._dkv_cuda, "flash_bwd_dkv"),
     (paged._decode_cuda, "paged_decode"),
     (paged._spec_decode_cuda, "paged_spec_decode"),
     (topk._topk_cuda, "sorted_topk"),
@@ -70,7 +87,8 @@ def test_cuda_branch_launches_its_own_kernel(fn, kernel):
     src = inspect.getsource(fn)
     assert "library(" in src and f'check(err, "{kernel}")' in src
     for banned in ("torch.nn.functional", "F.", "torch.topk", "torch.sort",
-                   "softmax", "einsum", "_reference", "_ln_ref", "matmul"):
+                   "softmax", "einsum", "_reference", "_ref(", "matmul",
+                   "scaled_dot_product"):
         assert banned not in src, f"{fn.__name__} uses {banned}"
 
 
