@@ -24,19 +24,30 @@ package, and goes through these phases, each printing its lines:
    128-512 tokens, 64 decode rounds and a 4-token extend round (greedy),
    then a sampled run (temperature 0.8, top-k 50); every serving kernel's
    launch counter must rise during these runs;
-6. Pythia-160M at full width with 2 layers in fp32 trained 3 Adam steps
+6. scheduled serving, checked: Pythia-160M at full width with 2 layers in
+   fp32 through ``DSScheduler.generate`` over an fp8 KV pool with n-gram
+   speculation (k 4), on the card and on the CPU from the same seeded
+   weights: greedy tokens must be equal, and on the card speculative
+   decoding must equal plain decoding;
+7. scheduled serving at full size: Pythia-160M in bf16, ``kv_cache.dtype``
+   "fp8" with the pool sized to phase 5's bytes, ``speculative`` n-gram k 4:
+   ``DSScheduler.generate`` on 64 prompts of 128-512 tokens with repeated
+   spans, 64 new tokens each (the counters of K1 and K3q must rise); the
+   same without speculation (K1 and K2q); then the same prompts over the
+   bf16 pool without speculation, for comparison;
+8. Pythia-160M at full width with 2 layers in fp32 trained 3 Adam steps
    (clip 1.0) by the engine on the card and on the CPU from the same seeded
    weights and batches: losses and the first step's grad norm must agree
    to 1e-4 relative;
-7. ``bench.py``'s training step: Pythia-160M at full depth in bf16, batch
+9. ``bench.py``'s training step: Pythia-160M at full depth in bf16, batch
    16 of 1024 tokens, Adam lr 1e-4, clip 1.0, ZeRO-0; 2 warm-up steps and
    10 timed ones; the loss must be finite and the counters of K1, K5, K6,
    K7 and K8 must rise.
 
 The second-to-last line is the JSON summary of the kernels (a kernel's
-``launches`` sums its counts on the two main paths, serving in phase 5 and
-training in phase 7, each read right after its own run and listed in
-``launches_by_path``), the last ``{"ok": true, "device": {...}}``.  Any
+``launches`` sums its counts on the three main paths, serving in phase 5,
+scheduled serving in phase 7 and training in phase 9, each read right after
+its own run and listed in ``launches_by_path``), the last ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero; without a CUDA device, or outside a
 checkout, it exits 2 and prints no result.
 """
@@ -74,8 +85,44 @@ SERVED_ECFG = {"dtype": "bfloat16", "kv_cache": {"num_blocks": 4096, "block_size
                                  "max_ragged_sequence_count": 64,
                                  "max_decode_batch": SERVED_BATCH}}
 
+# The scheduled configuration (phase 7), shared with
+# tools/torch_serving_profile.py: the served model behind DSScheduler.
+SCHEDULED_BATCH, SCHEDULED_NEW_TOKENS, SCHEDULED_SPEC_K = 64, 64, 4
 
-# The trained configuration (phase 7), bench.py's training step
+
+def scheduled_ecfg(head_dim, kv_dtype="fp8", speculative=True):
+    """``SERVED_ECFG`` with 64 sequences a round; a quantized pool gets the
+    blocks that fit the bf16 pool's bytes (D + 4 bytes per (slot, head)
+    against 2 D), and ``speculative`` turns the n-gram drafter on."""
+    blocks, bs = (SERVED_ECFG["kv_cache"][k] for k in ("num_blocks", "block_size"))
+    if kv_dtype:
+        blocks = blocks * 2 * head_dim // (head_dim + 4)
+    cfg = {"dtype": "bfloat16",
+           "kv_cache": {"num_blocks": blocks, "block_size": bs, "dtype": kv_dtype},
+           "state_manager": {**SERVED_ECFG["state_manager"],
+                             "max_decode_batch": SCHEDULED_BATCH}}
+    if speculative:
+        cfg["speculative"] = {"method": "ngram", "k": SCHEDULED_SPEC_K}
+    return cfg
+
+
+def scheduled_prompts(np, vocab, n, lo=128, hi=512):
+    """``n`` prompts of lo-hi tokens with repeated spans (a span of 8-32
+    random tokens tiled to the length, one token in ten redrawn), so the
+    n-gram drafter finds its tail earlier in the history."""
+    rng = np.random.default_rng(SEED + 4)
+    out = []
+    for _ in range(n):
+        length = int(rng.integers(lo, hi + 1))
+        span = rng.integers(0, vocab, int(rng.integers(8, 33)))
+        toks = np.resize(span, length)
+        noise = rng.random(length) < 0.1
+        toks[noise] = rng.integers(0, vocab, int(noise.sum()))
+        out.append(toks.astype(np.int32))
+    return out
+
+
+# The trained configuration (phase 9), bench.py's training step
 # (bench.py:296-335), shared with tools/torch_train_profile.py.
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 1024, 16, 10
 TRAIN_CONFIG = {"train_batch_size": TRAIN_BATCH,
@@ -183,10 +230,11 @@ def _reporter(rows_out):
 
 
 def phase_kernels(torch):
-    """Phase 3, serving: K1-K4 against their plain versions."""
+    """Phase 3, serving: K1-K4, K2q and K3q against their plain versions."""
     import torch.nn.functional as F
 
     from deeperspeed_tpu_torch.ops.attention import paged
+    from deeperspeed_tpu_torch.ops.quantizer import byte_view, dequantize_kv, quantize_kv
     from deeperspeed_tpu_torch.ops.sampling import topk
     from deeperspeed_tpu_torch.ops.transformer import normalize
 
@@ -214,7 +262,8 @@ def phase_kernels(torch):
             library_ms=_time_ms(torch, lambda: F.layer_norm(x, (H,), gb, bb, 1e-5)),
             bound_ms=t, bound_by=by))
 
-    # ---- K2 / K3: paged attention over a scattered bf16 pool
+    # ---- K2 / K3 over a scattered bf16 pool, and K2q / K3q over the same
+    # values quantized into 1-byte pools with per-(slot, head) fp32 scales
     def pools(B, N, D, ctx, bs=16):
         P = B * ctx // bs
         pk = torch.randn(P, bs, N, D, generator=gen, device=dev).to(bf16)
@@ -223,65 +272,103 @@ def phase_kernels(torch):
         tables = perm.view(B, ctx // bs).to(torch.int32).contiguous()
         return pk, pv, tables
 
-    def gathered(pool, tables, B, ctx, N, D):
-        return pool[tables.long()].reshape(B, ctx, N, D).transpose(1, 2).contiguous()
+    def gathered(pool, tables, B, ctx):
+        """The table's blocks of a payload or scale pool, heads first."""
+        raw = byte_view(pool)
+        return raw[tables.long()].reshape(B, ctx, *pool.shape[2:]).transpose(1, 2) \
+            .contiguous().view(pool.dtype)
 
-    for B, N, D, ctx in ((64, 12, 64, 1024), (64, 16, 128, 1024)):
-        pk, pv, tables = pools(B, N, D, ctx)
+    def paged_case(B, N, D, ctx, pk, pv, tables, kv_dtype):
+        """Decode and speculative decode over one pair of pools: K2 and K3
+        (``kv_dtype`` None) or K2q and K3q (the pools quantized first)."""
+        scale = D ** -0.5
+        sk = sv = None
+        if kv_dtype is not None:
+            (pk, sk), (pv, sv) = quantize_kv(pk, kv_dtype), quantize_kv(pv, kv_dtype)
+        scales = {} if sk is None else {"k_scale": sk, "v_scale": sv}
+        q_tag = "" if sk is None else "q"
+        pool_tag = "" if sk is None else f"{kv_dtype} pool "
+        K, V = gathered(pk, tables, B, ctx), gathered(pv, tables, B, ctx)
+        if sk is not None:
+            Ks, Vs = gathered(sk, tables, B, ctx), gathered(sv, tables, B, ctx)
+
+        def library(q4, mask=None):
+            """One SDPA call on the gathered K/V; a quantized pool's are
+            dequantized with tensor ops first, inside the timed call."""
+            if sk is None:
+                return F.scaled_dot_product_attention(q4, K, V, attn_mask=mask)
+            return F.scaled_dot_product_attention(
+                q4, dequantize_kv(K, Ks, bf16), dequantize_kv(V, Vs, bf16), attn_mask=mask)
+
         q = torch.randn(B, N, D, generator=gen, device=dev).to(bf16)
         full = torch.full((B,), ctx, dtype=torch.int32, device=dev)
         ragged = torch.randint(1, ctx + 1, (B,), generator=gen, device=dev,
                                dtype=torch.int32)
-        scale = D ** -0.5
-        err = max(_close(torch, paged.paged_decode_attention(q, pk, pv, tables, lens),
-                         paged._decode_reference(q, pk, pv, tables, lens, scale),
-                         ATTN_ATOL, ATTN_RTOL, f"paged_decode B={B} N={N} D={D}")
-                  for lens in (ragged, full))
-        K, V = gathered(pk, tables, B, ctx, N, D), gathered(pv, tables, B, ctx, N, D)
-        q4 = q[:, :, None, :]
-        nbytes = 2 * B * ctx * N * D * 2 + 2 * B * N * D * 2 + tables.numel() * 4 + B * 4
-        t, by = _bound(nbytes, 4 * B * N * ctx * D, bf16)
-        report("paged_decode", f"K2 paged_decode B={B} N={N} D={D} bs=16 ctx={ctx} bf16", dict(
-            max_abs_err=err,
-            ms=_time_ms(torch, lambda: paged.paged_decode_attention(q, pk, pv, tables, full)),
-            plain_ms=_time_ms(torch, lambda: paged._decode_reference(
-                q, pk, pv, tables, full, scale), iters=5),
-            library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(q4, K, V)),
-            bound_ms=t, bound_by=by))
 
+        def decode(lens):
+            return paged.paged_decode_attention(q, pk, pv, tables, lens, **scales)
+
+        def decode_plain(lens):
+            return paged._decode_reference(q, pk, pv, tables, lens, scale, sk, sv)
+
+        err = max(_close(torch, decode(lens), decode_plain(lens), ATTN_ATOL, ATTN_RTOL,
+                         f"paged_decode{q_tag} {pool_tag}B={B} N={N} D={D}")
+                  for lens in (ragged, full))
+        # each live token's K and V once (a quantized one: 1-byte payload and
+        # its 4-byte scale), q, the output, the tables and the lengths
+        per_head = 2 * D if sk is None else D + 4
+        nbytes = 2 * B * ctx * N * per_head + 2 * B * N * D * 2 + tables.numel() * 4 + B * 4
+        dequant_ops = 0 if sk is None else 2 * B * N * ctx * D
+        t, by = _bound(nbytes, 4 * B * N * ctx * D + dequant_ops, bf16)
+        report(f"paged_decode{'_q' if q_tag else ''}",
+               f"K2{q_tag} paged_decode {pool_tag}B={B} N={N} D={D} bs=16 ctx={ctx} bf16",
+               dict(max_abs_err=err,
+                    ms=_time_ms(torch, lambda: decode(full)),
+                    plain_ms=_time_ms(torch, lambda: decode_plain(full), iters=5),
+                    library_ms=_time_ms(torch, lambda: library(q[:, :, None, :])),
+                    bound_ms=t, bound_by=by))
         if D != 64:
-            continue
-        s1 = paged.paged_spec_decode_attention(q[:, None].contiguous(), pk, pv, tables,
-                                               (ragged - 1)[:, None].contiguous())
-        _close(torch, s1[:, 0], paged.paged_decode_attention(q, pk, pv, tables, ragged),
-               0.0, 0.0, "paged_spec_decode S=1 vs paged_decode")
-        # S 4 and 8 are the buckets the served path gives K3 (its 4-token
-        # extend round is S 4, reported first); S 5 is an extra odd case.
-        for S in (4, 8, 5):
+            return
+
+        def spec(qs, pos):
+            return paged.paged_spec_decode_attention(qs, pk, pv, tables, pos, **scales)
+
+        def spec_plain(qs, pos):
+            return paged._spec_decode_reference(qs, pk, pv, tables, pos, scale, sk, sv)
+
+        # one kernel body serves both: S 1 must equal the decode bit for bit
+        _close(torch, spec(q[:, None].contiguous(), (ragged - 1)[:, None].contiguous())[:, 0],
+               decode(ragged), 0.0, 0.0,
+               f"paged_spec_decode{q_tag} {pool_tag}S=1 vs paged_decode{q_tag}")
+        # S 4 and 8 are the buckets the served paths give K3 and K3q (S 4, the
+        # served extend round, is reported first); S 5 is an extra odd case.
+        for S in (4, 8, 5) if sk is None else (4, 8):
             qs = torch.randn(B, S, N, D, generator=gen, device=dev).to(bf16)
             pos = (ctx - S + torch.arange(S, device=dev, dtype=torch.int32))[None] \
                 .repeat(B, 1)
             # one query of a ragged row sees fewer tokens than the last
             pos_ragged = (ragged[:, None] - S + torch.arange(S, device=dev)) \
                 .clamp(min=0).to(torch.int32).contiguous()
-            err = max(_close(torch, paged.paged_spec_decode_attention(qs, pk, pv, tables, p),
-                             paged._spec_decode_reference(qs, pk, pv, tables, p, scale),
-                             ATTN_ATOL, ATTN_RTOL, f"paged_spec_decode S={S}")
+            err = max(_close(torch, spec(qs, p), spec_plain(qs, p), ATTN_ATOL, ATTN_RTOL,
+                             f"paged_spec_decode{q_tag} {pool_tag}S={S}")
                       for p in (pos_ragged, pos))
             mask = (torch.arange(ctx, device=dev)[None, None, :] <= pos[:, :, None])[:, None]
-            qs4 = qs.transpose(1, 2)
             t, by = _bound(nbytes + (S - 1) * 2 * B * N * D * 2 + B * S * 4,
-                           4 * B * N * S * ctx * D, bf16)
-            report("paged_spec_decode",
-                   f"K3 paged_spec_decode B={B} S={S} N={N} D={D} bs=16 ctx={ctx} bf16",
+                           4 * B * N * S * ctx * D + dequant_ops, bf16)
+            report(f"paged_spec_decode{'_q' if q_tag else ''}",
+                   f"K3{q_tag} paged_spec_decode {pool_tag}B={B} S={S} N={N} D={D} bs=16 "
+                   f"ctx={ctx} bf16",
                    dict(max_abs_err=err,
-                        ms=_time_ms(torch, lambda: paged.paged_spec_decode_attention(
-                            qs, pk, pv, tables, pos)),
-                        plain_ms=_time_ms(torch, lambda: paged._spec_decode_reference(
-                            qs, pk, pv, tables, pos, scale), iters=5),
-                        library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
-                            qs4, K, V, attn_mask=mask)),
+                        ms=_time_ms(torch, lambda: spec(qs, pos)),
+                        plain_ms=_time_ms(torch, lambda: spec_plain(qs, pos), iters=5),
+                        library_ms=_time_ms(torch, lambda: library(qs.transpose(1, 2), mask)),
                         bound_ms=t, bound_by=by))
+
+    for B, N, D, ctx in ((64, 12, 64, 1024), (64, 16, 128, 1024)):
+        pk, pv, tables = pools(B, N, D, ctx)
+        # fp8 before int8: it is the pool the scheduled path (phase 7) serves from
+        for kv_dtype in (None, "fp8", "int8"):
+            paged_case(B, N, D, ctx, pk, pv, tables, kv_dtype)
 
     # ---- K4: sorted top-k over the GPT-NeoX vocab
     rows, V, k = 64, 50304, 50
@@ -519,8 +606,162 @@ def phase_served(torch, np, launches):
     return counts
 
 
+def _pool_clean(eng):
+    """Raise unless every KV block is free again (cached prefix blocks
+    evicted first) and the allocator's audit holds."""
+    sm = eng.state_manager
+    total = sm.allocator.total_blocks
+    if sm.prefix_cache is not None:
+        sm.prefix_cache.evict(total)
+    sm.allocator.audit()
+    if sm.allocator.free_blocks != total:
+        raise AssertionError(f"KV blocks leaked: {sm.allocator.free_blocks} of "
+                             f"{total} free after the run")
+
+
+def phase_scheduled_checked(torch, np):
+    """Phase 6: fp32 scheduler + fp8 pool + speculation, card vs CPU."""
+    from deeperspeed_tpu_torch.inference.v2 import DSScheduler, InferenceEngineV2
+    from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
+
+    # TF32 stays off (phase 4): fp32 products in full fp32
+    two_layers = dataclasses.replace(GPTNeoXConfig.pythia_160m(), num_layers=2)
+    new_tokens = 24
+
+    def ecfg(speculative):
+        cfg = {"dtype": "float32",
+               "kv_cache": {"num_blocks": 128, "block_size": 16, "dtype": "fp8"},
+               "state_manager": {"max_context": 256, "max_ragged_batch_size": 128,
+                                 "max_decode_batch": 4}}
+        if speculative:
+            cfg["speculative"] = {"method": "ngram", "k": SCHEDULED_SPEC_K}
+        return cfg
+
+    prompts = scheduled_prompts(np, two_layers.vocab_size, 4, lo=24, hi=72)
+    runs = {}
+    for name, device, speculative in (("card, speculative", None, True),
+                                      ("card, plain", None, False),
+                                      ("CPU, speculative", "cpu", True)):
+        eng = InferenceEngineV2(GPTNeoX(two_layers, device="cpu", seed=SEED),
+                                ecfg(speculative), device=device)
+        sched = DSScheduler(eng, prefill_chunk=48)      # the longer prompts run in chunks
+        runs[name] = sched.generate([p.copy() for p in prompts], new_tokens)
+        _pool_clean(eng)
+        print(f"[scheduled-checked] {name}: {eng.dispatch_count} rounds", flush=True)
+    want = runs["card, speculative"]
+    for name in ("card, plain", "CPU, speculative"):
+        for i, (a, b) in enumerate(zip(want, runs[name])):
+            if not np.array_equal(a, b):
+                raise AssertionError(
+                    f"prompt {i}: card speculative tokens {a[-new_tokens:].tolist()} "
+                    f"differ from {name} {b[-new_tokens:].tolist()}")
+    print(f"[scheduled-checked] Pythia-160M width, 2 layers, fp32, fp8 KV pool, 4 prompts "
+          f"of {min(map(len, prompts))}-{max(map(len, prompts))} tokens in 48-token chunks, "
+          f"{new_tokens} new tokens each: greedy tokens equal card vs CPU, and "
+          f"speculative (n-gram, k {SCHEDULED_SPEC_K}) vs plain on the card", flush=True)
+    torch.cuda.empty_cache()
+
+
+def phase_scheduled(torch, np, launches):
+    """Phase 7: DSScheduler.generate over the fp8 pool at full size, with
+    speculation (K3q) and without (K2q); then the bf16 pool without
+    speculation for comparison.  Returns the fp8 runs' launch counts."""
+    from deeperspeed_tpu_torch.inference.v2 import DSScheduler, InferenceEngineV2
+    from deeperspeed_tpu_torch.telemetry import (TelemetryRegistry, get_registry,
+                                                 serving, set_registry)
+
+    model = served_model()
+    cfg = model.config
+    prompts = scheduled_prompts(np, cfg.vocab_size, SCHEDULED_BATCH)
+    new_total = SCHEDULED_BATCH * SCHEDULED_NEW_TOKENS
+    old_reg, results = get_registry(), {}
+    for name, kv_dtype, speculative in (("fp8 pool, n-gram k 4", "fp8", True),
+                                        ("fp8 pool, plain", "fp8", False),
+                                        ("bf16 pool, plain", "", False)):
+        # the registry is on in both runs: it holds the speculation counters
+        reg = set_registry(TelemetryRegistry(enabled=True, jsonl=False))
+        eng = InferenceEngineV2(model, scheduled_ecfg(cfg.head_dim, kv_dtype, speculative))
+        sched = DSScheduler(eng)
+        step, decode_ms = sched.step, []
+
+        def timed_step():
+            # a round with nothing waiting is pure decode (put_round waits
+            # for the round's tokens, so the host clock covers the device)
+            pure_decode = not sched.waiting
+            t = time.perf_counter()
+            out = step()
+            if pure_decode:
+                decode_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        sched.step = timed_step
+        launches.clear()                              # main path starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = sched.generate([p.copy() for p in prompts], SCHEDULED_NEW_TOKENS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(launches)
+        for p, o in zip(prompts, outs):
+            new = o[len(p):]
+            if len(new) != SCHEDULED_NEW_TOKENS or new.min() < 0 or new.max() >= cfg.vocab_size:
+                raise AssertionError(f"scheduled run ({name}) gave bad tokens")
+        if sched.step_failure_count:
+            raise AssertionError(f"scheduled run ({name}): {sched.step_failure_count} "
+                                 f"failed rounds")
+        _pool_clean(eng)
+        rounds = eng.dispatch_count
+        drafted = reg.counter(serving.SPEC_DRAFTED).total
+        accepted = reg.counter(serving.SPEC_ACCEPTED).total
+        prompt_tokens = sum(map(len, prompts))
+        print(f"[scheduled] {name}: KV pools {eng.kv_pool_bytes / 1e9:.3f} GB in "
+              f"{eng.config.kv_cache.num_blocks} blocks of "
+              f"{eng.config.kv_cache.block_size}; {SCHEDULED_BATCH} prompts "
+              f"({prompt_tokens} tokens) + {new_total} new tokens in {dt:.3f} s: "
+              f"{new_total / dt:.1f} new tokens/s, {rounds} rounds, "
+              f"{dt / rounds * 1e3:.2f} ms/round wall, "
+              f"{new_total / rounds:.1f} new tokens/round; {len(decode_ms)} pure-decode "
+              f"rounds, median {np.median(decode_ms):.2f} ms wall; "
+              f"drafted {int(drafted)} accepted {int(accepted)} "
+              f"(accept rate {accepted / drafted if drafted else 0.0:.3f}), "
+              f"speculation breaches {sched.governor.breaches}, "
+              f"preemptions {sched.preemption_count}; launches "
+              f"{sum(counts.values())} ({sum(counts.values()) / rounds:.1f} a round) {counts}",
+              flush=True)
+        results[name] = (outs, counts)
+        del eng, sched
+        torch.cuda.empty_cache()
+    set_registry(old_reg)
+    (spec_outs, spec_counts), (fp8_outs, fp8_counts), (bf16_outs, _) = results.values()
+    if spec_counts.get("layer_norm", 0) < 1 or spec_counts.get("paged_spec_decode_q", 0) < 1:
+        raise AssertionError(f"speculative fp8 run never launched K1 and K3q: {spec_counts}")
+    if fp8_counts.get("layer_norm", 0) < 1 or fp8_counts.get("paged_decode_q", 0) < 1:
+        raise AssertionError(f"plain fp8 run never launched K1 and K2q: {fp8_counts}")
+    counts = {k: spec_counts.get(k, 0) + fp8_counts.get(k, 0)
+              for k in {*spec_counts, *fp8_counts}}
+    if counts.get("paged_decode", 0) or counts.get("paged_spec_decode", 0):
+        raise AssertionError(f"fp8 pool went through the fp kernels: {counts}")
+
+    def equal_share(a_outs, b_outs):
+        equal = sum(int((a[len(p):] == b[len(p):]).sum())
+                    for p, a, b in zip(prompts, a_outs, b_outs))
+        first = [next((i for i in range(SCHEDULED_NEW_TOKENS)
+                       if a[len(p) + i] != b[len(p) + i]), SCHEDULED_NEW_TOKENS)
+                 for p, a, b in zip(prompts, a_outs, b_outs)]
+        return f"{equal / new_total:.4f} equal, median equal prefix " \
+               f"{int(np.median(first))} of {SCHEDULED_NEW_TOKENS}"
+
+    print(f"[scheduled] greedy tokens of {new_total} (reported, not asserted: bf16 "
+          f"products at other batch shapes, random weights, and a first differing token "
+          f"changes the rest of its sequence): fp8 speculative vs fp8 plain "
+          f"{equal_share(spec_outs, fp8_outs)}; fp8 plain vs bf16 plain "
+          f"{equal_share(fp8_outs, bf16_outs)}; fp8 speculative vs bf16 plain "
+          f"{equal_share(spec_outs, bf16_outs)}", flush=True)
+    return counts
+
+
 def phase_trained_checked(torch, np):
-    """Phase 6: fp32 training, 2 full-width layers, on the card vs the CPU."""
+    """Phase 8: fp32 training, 2 full-width layers, on the card vs the CPU."""
     import deeperspeed_tpu_torch as dst
     from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
 
@@ -554,7 +795,7 @@ def phase_trained_checked(torch, np):
 
 
 def phase_trained(torch, launches):
-    """Phase 7: bench.py's training step, timed; counts kernel launches."""
+    """Phase 9: bench.py's training step, timed; counts kernel launches."""
     import deeperspeed_tpu_torch as dst
 
     model = trained_model()
@@ -634,6 +875,8 @@ def main():
     phase_checked(torch, np)
     # each main path's counts, read right after its own run
     paths = {"serving": phase_served(torch, np, cuda_utils.LAUNCHES)}
+    phase_scheduled_checked(torch, np)
+    paths["scheduled"] = phase_scheduled(torch, np, cuda_utils.LAUNCHES)
     phase_trained_checked(torch, np)
     paths["training"] = phase_trained(torch, cuda_utils.LAUNCHES)
 
@@ -644,6 +887,11 @@ def main():
                          "deeperspeed_tpu/ops/attention/paged.py:36"),
         "paged_spec_decode": ("deeperspeed_tpu_torch/csrc/paged_attention.cu",
                               "deeperspeed_tpu/ops/attention/paged.py:89"),
+        # the quantized=True forms of the two bodies (fused dequant at :61 and :116)
+        "paged_decode_q": ("deeperspeed_tpu_torch/csrc/paged_attention.cu",
+                           "deeperspeed_tpu/ops/attention/paged.py:61"),
+        "paged_spec_decode_q": ("deeperspeed_tpu_torch/csrc/paged_attention.cu",
+                                "deeperspeed_tpu/ops/attention/paged.py:116"),
         "sorted_topk": ("deeperspeed_tpu_torch/csrc/topk.cu",
                         "deeperspeed_tpu/ops/sampling/topk.py:25"),
         "flash_fwd": ("deeperspeed_tpu_torch/csrc/flash_attention.cu",

@@ -2,27 +2,52 @@
 //
 // Replaces the TPU kernels deeperspeed_tpu/ops/attention/paged.py
 // `_decode_kernel` (launched by `paged_decode_attention`) and
-// `_spec_decode_kernel` (launched by `paged_spec_decode_attention`), for
-// floating-point pools.  The int8/fp8 scale operands are not ported yet.
+// `_spec_decode_kernel` (launched by `paged_spec_decode_attention`), with
+// floating-point pools (K2, K3) and with `quantized=True` (K2q, K3q): pools
+// of int8 or fp8 e4m3 payload [P, bs, N, D] beside fp32 scales [P, bs, N],
+// one per (slot, head).
 //
 // Bound on the H100: bytes.  Each live KV token is read once per head
-// (2 * D elements) for 4 * D flops per query, about 1 flop/byte in bf16.
+// (2 * D elements, plus 2 scales when quantized) for 4 * D flops per query,
+// about 1 flop/byte in bf16 and 2 with a 1-byte payload.
 //
 // Design: one CTA of 128 threads per (sequence, head).  There is no scalar
 // prefetch on CUDA, so the CTA reads its own block_tables[b, :] entries.  It
 // walks only the live tokens t < limit (the loop bound skips dead blocks),
 // TILE tokens at a time: the tile's K and V rows of this head are staged in
 // shared memory as fp32 (each row is D contiguous elements, strided by N * D
-// in the pool), each warp scores whole tokens (lanes split D, shuffle
+// in the pool; a quantized element is decoded exactly to fp32 and multiplied
+// by its token's scale at this load, k = float(q) * scale, before the score
+// reduce and the p * V sum, so no dequantized copy of the cache ever exists
+// in device memory), each warp scores whole tokens (lanes split D, shuffle
 // reduce), one thread per query updates that query's running max m and sum
 // l in fp32, and every thread rescales and accumulates its share of the
 // [S, D] output in registers.  Masked scores are NEG_INF (-1e30) as in the
 // TPU kernel, and masked tokens contribute p = 0.  A query that sees no
 // token (a padding row with seq_len 0) writes zeros, never NaN.
 //
-// One kernel serves both: decode (S = 1) masks by t < seq_lens[b];
-// speculative decode masks query sq by t <= positions[b, sq].
+// The softmax scale multiplies the score after the reduce; it is not folded
+// into the KV scale.  Loads are one element per thread, so no head_dim is
+// refused for alignment.
+//
+// One kernel serves all four: decode (S = 1) masks by t < seq_lens[b];
+// speculative decode masks query sq by t <= positions[b, sq]; each query's
+// sums run in the same order whatever S is, so speculative and plain
+// decoding agree bit for bit on the same pool.
+#include <cuda_fp8.h>
+
+#include <cstdint>
+#include <type_traits>
+
 #include "common.cuh"
+
+// pool element types the wrappers name (0: the query's own type)
+#define DST_POOL_FP 0
+#define DST_POOL_INT8 1
+#define DST_POOL_FP8_E4M3 2
+
+__device__ __forceinline__ float dst_to_float(int8_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ float dst_to_float(__nv_fp8_e4m3 v) { return static_cast<float>(v); }
 
 namespace {
 
@@ -33,12 +58,16 @@ constexpr int kMaxS = 8;
 constexpr int kMaxD = 128;
 constexpr int kAccPerThread = kMaxS * kMaxD / kThreads;
 
-template <typename T>
+// T: type of q and out.  KV: type of the pools; when it differs from T the
+// pools are quantized and k_scale / v_scale [P, bs, N] are read.
+template <typename T, typename KV>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
-                       const T* __restrict__ pool_v, const int* __restrict__ block_tables,
+paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ pool_k,
+                       const KV* __restrict__ pool_v, const float* __restrict__ k_scale,
+                       const float* __restrict__ v_scale, const int* __restrict__ block_tables,
                        const int* __restrict__ seq_lens, const int* __restrict__ positions,
                        T* __restrict__ out, int S, int N, int D, int bs, int M, float scale) {
+  constexpr bool kQuantized = !std::is_same<T, KV>::value;
   __shared__ float qs[kMaxS][kMaxD];
   __shared__ float ks[kTile][kMaxD];
   __shared__ float vs[kTile][kMaxD];
@@ -83,6 +112,10 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
         const size_t row = ((size_t)table[t / bs] * bs + t % bs) * N + n;
         kv = dst_to_float(pool_k[row * D + d]);
         vv = dst_to_float(pool_v[row * D + d]);
+        if (kQuantized) {
+          kv *= k_scale[row];
+          vv *= v_scale[row];
+        }
       }
       ks[tt][d] = kv;
       vs[tt][d] = vv;
@@ -142,31 +175,51 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* pk, const void* pv, const int* bt,
-                   const int* seq_lens, const int* positions, void* out, int B, int S, int N,
-                   int D, int bs, int M, float scale, cudaStream_t stream) {
-  paged_attention_kernel<T><<<B * N, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pk), static_cast<const T*>(pv), bt,
-      seq_lens, positions, static_cast<T*>(out), S, N, D, bs, M, scale);
+struct Args {
+  const void *q, *pool_k, *pool_v;
+  const float *k_scale, *v_scale;
+  const int *block_tables, *seq_lens, *positions;
+  void* out;
+  int B, S, N, D, bs, M;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, typename KV>
+cudaError_t launch(const Args& a) {
+  paged_attention_kernel<T, KV><<<a.B * a.N, kThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const KV*>(a.pool_k),
+      static_cast<const KV*>(a.pool_v), a.k_scale, a.v_scale, a.block_tables, a.seq_lens,
+      a.positions, static_cast<T*>(a.out), a.S, a.N, a.D, a.bs, a.M, a.scale);
   return cudaGetLastError();
 }
 
-int dispatch(const void* q, const void* pk, const void* pv, const int* bt, const int* seq_lens,
-             const int* positions, void* out, int B, int S, int N, int D, int bs, int M,
-             float scale, int dtype, cudaStream_t stream) {
-  if (S < 1 || S > kMaxS || D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;
-  if (B == 0 || N == 0) return 0;
+template <typename T>
+int dispatch_pool(const Args& a, int pool) {
+  switch (pool) {
+    case DST_POOL_FP:
+      return launch<T, T>(a);
+    case DST_POOL_INT8:
+      return launch<T, int8_t>(a);
+    case DST_POOL_FP8_E4M3:
+      return launch<T, __nv_fp8_e4m3>(a);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+int dispatch(const Args& a, int dtype, int pool) {
+  if (a.S < 1 || a.S > kMaxS || a.D < 1 || a.D > kMaxD) return (int)cudaErrorInvalidValue;
+  if ((pool != DST_POOL_FP) != (a.k_scale != nullptr && a.v_scale != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (a.B == 0 || a.N == 0) return 0;
   switch (dtype) {
     case DST_DTYPE_F32:
-      return launch<float>(q, pk, pv, bt, seq_lens, positions, out, B, S, N, D, bs, M, scale,
-                           stream);
+      return dispatch_pool<float>(a, pool);
     case DST_DTYPE_BF16:
-      return launch<__nv_bfloat16>(q, pk, pv, bt, seq_lens, positions, out, B, S, N, D, bs, M,
-                                   scale, stream);
+      return dispatch_pool<__nv_bfloat16>(a, pool);
     case DST_DTYPE_F16:
-      return launch<__half>(q, pk, pv, bt, seq_lens, positions, out, B, S, N, D, bs, M, scale,
-                            stream);
+      return dispatch_pool<__half>(a, pool);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -174,20 +227,26 @@ int dispatch(const void* q, const void* pk, const void* pv, const int* bt, const
 
 }  // namespace
 
-// q [B, N, D]; pools [P, bs, N, D]; block_tables [B, M]; seq_lens [B]; out [B, N, D]
+// q [B, N, D]; pools [P, bs, N, D] of q's type (pool 0) or 1-byte (pool 1: int8, 2: fp8 e4m3)
+// with k_scale / v_scale [P, bs, N] fp32, else null; block_tables [B, M]; seq_lens [B];
+// out [B, N, D]
 extern "C" int dst_paged_decode(const void* q, const void* pool_k, const void* pool_v,
+                                const float* k_scale, const float* v_scale,
                                 const int* block_tables, const int* seq_lens, void* out, int B,
-                                int N, int D, int bs, int M, float scale, int dtype,
+                                int N, int D, int bs, int M, float scale, int dtype, int pool,
                                 cudaStream_t stream) {
-  return dispatch(q, pool_k, pool_v, block_tables, seq_lens, nullptr, out, B, 1, N, D, bs, M,
-                  scale, dtype, stream);
+  const Args a{q, pool_k, pool_v, k_scale, v_scale, block_tables, seq_lens, nullptr, out,
+               B, 1, N, D, bs, M, scale, stream};
+  return dispatch(a, dtype, pool);
 }
 
 // q [B, S, N, D]; positions [B, S]; out [B, S, N, D]
 extern "C" int dst_paged_spec_decode(const void* q, const void* pool_k, const void* pool_v,
+                                     const float* k_scale, const float* v_scale,
                                      const int* block_tables, const int* positions, void* out,
                                      int B, int S, int N, int D, int bs, int M, float scale,
-                                     int dtype, cudaStream_t stream) {
-  return dispatch(q, pool_k, pool_v, block_tables, nullptr, positions, out, B, S, N, D, bs, M,
-                  scale, dtype, stream);
+                                     int dtype, int pool, cudaStream_t stream) {
+  const Args a{q, pool_k, pool_v, k_scale, v_scale, block_tables, nullptr, positions, out,
+               B, S, N, D, bs, M, scale, stream};
+  return dispatch(a, dtype, pool);
 }

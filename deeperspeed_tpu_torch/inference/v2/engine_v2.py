@@ -8,7 +8,9 @@ is chosen on the device.  The host computes only block tables
 (``DSStateManager`` + ``BlockedAllocator``).
 
 * The KV pools are one [num_blocks, block_size, N, D] pair per layer,
-  owned by the engine and updated in place by the model.
+  owned by the engine and updated in place by the model; with
+  ``kv_cache.dtype`` "int8" or "fp8" they hold 1-byte payload and each has
+  an fp32 scale pool [num_blocks, block_size, N] beside it.
 * Rows are padded to power-of-two buckets exactly as in the JAX package
   (``_round_buckets``): the bucket ``s_pad``, not a row's real length,
   picks the attention route, so the same rounds take the same kernels.
@@ -16,8 +18,8 @@ is chosen on the device.  The host computes only block tables
   copies when a write would touch a shared block; the round applies them
   to every pool before the forward writes any KV.
 
-Not ported yet: tensor parallelism, int8/fp8 pools, the host KV tier, KV
-block export/import, long-context sessions, and the request tracer.
+Not ported yet: tensor parallelism, the host KV tier, KV block
+export/import and long-context serving.
 """
 
 import dataclasses
@@ -29,9 +31,13 @@ import torch
 
 from ...accelerator import resolve_device
 from ...models.gpt_neox import SPEC_DECODE_WINDOW
+from ...ops.quantizer import byte_view
 from ...ops.sampling import sample_tokens, verify_draft
+from ...quantization import canonical_dtype, wire_dtype
 from ...telemetry import get_registry
+from ...telemetry import serving as serving_events
 from ...telemetry.registry import LATENCY_BUCKETS_S
+from ...telemetry.trace import get_tracer
 from ...utils.logging import log_dist
 from .config import RaggedInferenceEngineConfig
 from .ragged_manager import DSStateManager
@@ -71,6 +77,15 @@ class RoundOutputs:
         return self.tokens[row, offs:offs + a + 1]
 
 
+def _round_seam(batch_uids, outputs):
+    """Fault-injection seam on the scheduling round: a test or a fault
+    harness patches this module attribute to simulate a slow step,
+    non-finite logits, forced draft rejection, or an out-of-memory error
+    inside a round.  Receives and returns :class:`RoundOutputs`; the
+    production path is an identity passthrough."""
+    return outputs
+
+
 class InferenceEngineV2:
     """Paged continuous-batching engine over a :class:`GPTNeoX` module.
 
@@ -92,9 +107,12 @@ class InferenceEngineV2:
                 "tensor-parallel serving (tp_size > 1) is not ported yet")
         if config.kv_tier.enabled:
             raise NotImplementedError("the host KV tier is not ported yet")
-        if config.kv_cache.quantized:
+        if config.kv_cache.quantized and canonical_dtype(
+                config.kv_cache.dtype) not in ("int8", "fp8_e4m3"):
             raise NotImplementedError(
-                f"{config.kv_cache.dtype} KV pools are not ported yet")
+                f"kv_cache.dtype {config.kv_cache.dtype!r}: the paged "
+                "attention kernels take int8 and fp8 (e4m3) pools; e5m2 "
+                "pools are not ported")
         self.device = resolve_device(device)
         if params is not None:
             model.load_state_dict(params)
@@ -113,15 +131,27 @@ class InferenceEngineV2:
         n = sum(p.numel() for p in self.module.parameters())
         log_dist(
             f"InferenceEngineV2: {n/1e6:.1f}M params | blocks="
-            f"{config.kv_cache.num_blocks}x{config.kv_cache.block_size} | "
-            f"{self.device}", ranks=[0])
+            f"{config.kv_cache.num_blocks}x{config.kv_cache.block_size}"
+            f"{' ' + config.kv_cache.dtype if config.kv_cache.quantized else ''}"
+            f" | {self.device}", ranks=[0])
 
     def _init_cache(self):
         mc = self.module.config
         shape = (self.config.kv_cache.num_blocks,
                  self.config.kv_cache.block_size, mc.num_heads, mc.head_dim)
-        return [tuple(torch.zeros(shape, dtype=mc.dtype, device=self.device)
-                      for _ in range(2))
+        kvc = self.config.kv_cache
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        if not kvc.quantized:
+            return [(zeros(shape, mc.dtype), zeros(shape, mc.dtype))
+                    for _ in range(mc.num_layers)]
+        # 1-byte payload pools + per-(slot, head) fp32 scale pools
+        pool = wire_dtype(kvc.dtype)
+        return [(zeros(shape, pool), zeros(shape, pool),
+                 zeros(shape[:3], torch.float32),
+                 zeros(shape[:3], torch.float32))
                 for _ in range(mc.num_layers)]
 
     # --------------------------------------------------------------- the step
@@ -133,10 +163,11 @@ class InferenceEngineV2:
         by token choice and draft verification on the device."""
         if copies:
             # copy-on-write block copies first; sources are read before any
-            # destination is written (index_select makes the copy)
+            # destination is written (index_select makes the copy); payload
+            # and scale pools alike
             src = torch.tensor([s for s, _ in copies], device=self.device)
             dst = torch.tensor([d for _, d in copies], device=self.device)
-            for pool in (p for pair in self.kv_cache for p in pair):
+            for pool in (byte_view(p) for layer in self.kv_cache for p in layer):
                 pool.index_copy_(0, dst, pool.index_select(0, src))
         s_pad = tokens.shape[1]
         cols = torch.arange(s_pad, dtype=torch.int32, device=self.device)
@@ -294,18 +325,36 @@ class InferenceEngineV2:
             finite=finite.cpu().numpy()[:len(ops)],
             R=r_pad,
             logits=last_logits)
+        # fault seam (identity in production): may delay, corrupt, or raise
+        # -- before commit_tokens, so an injected round failure leaves
+        # sequence bookkeeping exactly as a real device fault would
+        outputs = _round_seam(batch_uids, outputs)
 
+        drafted_total, accepted_total, emitted_total = 0, 0, 0
         for row, (uid, toks, dk) in enumerate(ops):
             a = min(int(outputs.accepted[row]), dk)
             # fed tokens whose KV is valid: everything up to the last
             # accepted draft; rejected drafts' tokens are not committed
             sm.commit_tokens(uid, toks[:toks.size - dk + a])
             if dk:
+                # rejection = drop the forked tail: blocks wholly beyond
+                # the committed range free at refcount 0
                 sm.rollback_draft_tail(uid)
+                drafted_total += dk
+                accepted_total += a
+            emitted_total += a + 1
 
-        # later slice: the request tracer's engine_round span and the
-        # serving speculation events (telemetry/trace.py, telemetry/serving.py)
         reg = get_registry()
+        tracer = get_tracer()
+        if tracer.enabled:
+            # engine-side round span: one record per ragged round, on the
+            # engine's own lane (requests' per-round spans live with the
+            # scheduler, which knows their TraceContexts)
+            tracer.record_span(
+                "engine_round", "engine",
+                dur_s=time.perf_counter() - t_start,
+                n_seqs=len(ops), n_tokens=int(total_tokens),
+                decodes=n_decodes, dispatch=self.dispatch_count - 1)
         if reg.enabled:
             # .cpu() above already waited for the round, so the wall time
             # covers it all
@@ -317,13 +366,16 @@ class InferenceEngineV2:
                           buckets=LATENCY_BUCKETS_S).observe(
                 dt, extends=len(ops) - n_decodes, decodes=n_decodes)
             reg.counter("infer/dispatches").inc()
+            serving_events.emit_speculation(drafted_total, accepted_total,
+                                            emitted_total, len(ops))
             alloc = sm.allocator
             reg.scalar("infer/cache_util").record(
                 alloc.allocated_blocks / alloc.total_blocks)
             if not self._kv_bytes_recorded:
                 self._kv_bytes_recorded = True
                 reg.scalar("infer/kv_bytes").record(
-                    float(self.kv_pool_bytes), dtype=self.config.dtype)
+                    float(self.kv_pool_bytes),
+                    dtype=self.config.kv_cache.dtype or self.config.dtype)
         return outputs
 
     def put(self, batch_uids: List, batch_tokens: List) -> np.ndarray:
@@ -335,9 +387,9 @@ class InferenceEngineV2:
 
     @property
     def kv_pool_bytes(self) -> int:
-        """Total bytes of the KV pools, all layers."""
+        """Total bytes of the KV pools (payload + scales, all layers)."""
         return sum(p.numel() * p.element_size()
-                   for pair in self.kv_cache for p in pair)
+                   for layer in self.kv_cache for p in layer)
 
     def flush(self, uid) -> bool:
         """Free a finished sequence.  Idempotent: an unknown or already

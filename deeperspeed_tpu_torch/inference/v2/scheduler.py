@@ -1,0 +1,662 @@
+"""Token-budget scheduler with queueing + KV preemption for the v2 engine
+(counterpart of ``deeperspeed_tpu/inference/v2/scheduler.py``).
+
+Equivalent of the scheduling layer the reference runs above its ragged
+engine: ``inference/v2/scheduling_utils.py:9`` (SchedulingResult /
+SchedulingError -- engine-full, KV-full, length overflow) and the
+state-manager policies of ``ragged_manager.py:19``.  The reference's
+headline mechanism (Dynamic SplitFuse) is here too: long prompts are
+CHUNKED across scheduling rounds so every round's token count stays at the
+budget sweet spot, and short prompts compose with in-flight decodes.
+
+Policies:
+
+* **Admission** -- each round packs (a) all live decode sequences (1 token
+  each, capped by ``max_decode_batch``), then (b) queued prefill chunks
+  FIFO, under three budgets: ``max_ragged_batch_size`` (tokens),
+  ``max_ragged_sequence_count`` (sequences), and free KV blocks.  A prompt
+  whose remainder exceeds the remaining token budget contributes a chunk
+  this round and stays queued (SplitFuse); its logits surface only when
+  the LAST chunk runs.
+* **Queueing** -- requests that don't fit wait in a FIFO; pool exhaustion
+  is therefore a scheduling state, not an allocator error.
+* **Preemption** -- if the KV pool can't even hold the live decodes' next
+  round, the YOUNGEST live sequence is evicted (its blocks freed, its full
+  token history requeued for re-prefill) until the rest fit -- the
+  recompute-style preemption of the reference's state manager; FIFO
+  victims would starve the head of the line.
+"""
+
+import logging
+import math
+import time
+from collections import OrderedDict, deque
+from enum import Enum
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ...telemetry import get_registry
+from ...telemetry import serving as serving_events
+from ...telemetry.registry import LATENCY_BUCKETS_S
+from ...telemetry.trace import get_tracer
+from ...utils.logging import log_dist
+
+
+class UnservableRequestError(MemoryError):
+    """A request that can NEVER be scheduled (its sequence has outgrown the
+    whole KV pool).  Carries the uid so a front end can quarantine exactly
+    the offending request instead of tearing the loop down."""
+
+    def __init__(self, uid, message):
+        super().__init__(message)
+        self.uid = uid
+
+
+class SchedulingResult(Enum):
+    """Mirror of reference ``scheduling_utils.py:9``."""
+
+    SUCCESS = 0
+    ENGINE_FULL = 1        # token/sequence budget exhausted this round
+    KV_CACHE_FULL = 2      # no blocks free; queued (or preempting)
+    MAX_LENGTH_EXCEEDED = 3
+    QUARANTINED = 4        # uid removed by the step-failure circuit breaker
+
+
+class RaggedRequest:
+    """One in-flight generation request (scheduler-side bookkeeping)."""
+
+    def __init__(self, uid, tokens):
+        self.uid = uid
+        self.history: List[int] = list(np.asarray(tokens).reshape(-1))
+        self.fed = 0              # tokens already sent to the engine
+        self.preemptions = 0
+        self.last_result = SchedulingResult.SUCCESS
+        self.enqueued_at = time.monotonic()
+        self.first_scheduled_at = None  # queue-latency bookkeeping
+        # resilience bookkeeping (stamped by the front end / recovery path)
+        self.deadline = None      # absolute time.monotonic() budget, or None
+        self.slo = None           # SLO class name, observability only
+        self.requeue_count = 0    # every recompute-requeue, any cause
+        self.step_failures = 0    # failed rounds this request was part of
+        self.not_before = 0.0     # admission backoff gate (monotonic time)
+        self.trace = None         # TraceContext: per-round span parent
+        # multi-tenant bookkeeping (stamped by the front end's admission)
+        self.tenant = None        # tenant label, or None (single-tenant)
+        self.fair_key = 0.0       # weighted fair-share start tag (SFQ)
+
+    @property
+    def pending(self) -> int:
+        return len(self.history) - self.fed
+
+    def requeue_for_recompute(self, cap: Optional[int] = None):
+        # preemption/failure throws away computed KV: every already-fed
+        # token must re-prefill (minus whatever the prefix cache still holds
+        # when the sequence is re-admitted).  Loud because a steady stream
+        # of these means the pool is undersized for the working set.
+        self.requeue_count += 1
+        serving_events.emit_requeue(self.uid, self.requeue_count, cap=cap)
+        if cap is not None and self.requeue_count > cap:
+            # a livelocked request (requeued over and over without ever
+            # completing) must be OBSERVABLE even where no circuit breaker
+            # sits above the scheduler
+            log_dist(
+                f"sequence uid={self.uid} exceeded the requeue cap "
+                f"({self.requeue_count} > {cap}): likely livelocked",
+                ranks=[0], level=logging.WARNING)
+        if self.fed:
+            reg = get_registry()
+            if reg.enabled:
+                reg.counter("infer/recompute_tokens").inc(self.fed)
+            log_dist(
+                f"preempted sequence uid={self.uid}: requeueing "
+                f"{self.fed} tokens for recompute (preemption "
+                f"#{self.preemptions + 1})", ranks=[0],
+                level=logging.WARNING)
+        self.fed = 0
+        self.preemptions += 1
+
+
+class DSScheduler:
+    """Continuous-batching scheduler over ``InferenceEngineV2.put_round``.
+
+    ``request()`` enqueues work; ``step()`` runs one scheduling round and
+    returns ``{uid: new token ids}`` (an int32 array, >= 1 tokens when
+    speculation lands) for every sequence whose scheduled tokens completed
+    its current prompt/continuation.  Tokens are chosen ON DEVICE by the
+    engine's round per its ``SamplingConfig``; the scheduler never
+    sees logits on the hot path.  ``step()`` never raises on pool
+    exhaustion -- it queues or preempts.
+
+    With ``speculative.method`` configured (or an explicit ``drafter``),
+    each live decode row also carries up to k drafted tokens, budgeted as
+    1 + k tokens at admission and physically pre-reserved; the
+    ``SpeculationGovernor`` degrades k to 0 when the realized accept rate
+    stops paying for the wider rows.
+    """
+
+    def __init__(self, engine, prefill_chunk: Optional[int] = None,
+                 admission_policy: Optional[Callable] = None,
+                 max_requeues: Optional[int] = None,
+                 max_step_failures: Optional[int] = None,
+                 retry_backoff: Optional[Callable[[int], float]] = None,
+                 drafter=None,
+                 admission_gate: Optional[Callable] = None):
+        from .speculative import NGramDrafter, SpeculationGovernor
+
+        self.engine = engine
+        smc = engine.config.state_manager
+        self._smc = smc
+        self.token_budget = smc.max_ragged_batch_size
+        self.seq_budget = smc.max_ragged_sequence_count
+        self.prefill_chunk = prefill_chunk or self.token_budget
+        spec = engine.config.speculative
+        self.spec_config = spec
+        if drafter is not None:
+            self.drafter = drafter
+        elif spec.enabled and spec.method == "ngram":
+            self.drafter = NGramDrafter(spec.ngram_max, spec.ngram_min)
+        else:
+            if spec.enabled and spec.method == "draft":
+                log_dist(
+                    'speculative.method == "draft" needs an injected drafter '
+                    "(DSScheduler(..., drafter=CallableDrafter(fn))); "
+                    "decoding non-speculatively", ranks=[0],
+                    level=logging.WARNING)
+            self.drafter = None
+        self.governor = SpeculationGovernor(spec)
+        # admission_policy: key function over RaggedRequest; when set, the
+        # wait queue is stably re-ordered by it each round (smallest key
+        # admits first), replacing flat FIFO -- the front end installs EDF
+        # (earliest deadline first) here so lateness feeds admission as
+        # priority instead of arrival order
+        self.admission_policy = admission_policy
+        # admission_gate: predicate over uid; a waiting request whose gate
+        # returns False sits out the round (like not_before backoff) but
+        # keeps its queue position.  The disaggregated front end installs
+        # "migration not pending" here so a decode-side fallback prompt
+        # cannot be admitted while its KV is still in flight from prefill.
+        self.admission_gate = admission_gate
+        # requeue-cap observability (satellite) + circuit-breaker knobs: a
+        # request in > max_step_failures failed rounds is quarantined, and
+        # retry_backoff(n) seconds must pass before its n-th re-admission
+        self.max_requeues = max_requeues
+        self.max_step_failures = max_step_failures
+        self.retry_backoff = retry_backoff
+        # live: uid -> RaggedRequest with KV resident (decodable)
+        self.live: "OrderedDict[object, RaggedRequest]" = OrderedDict()
+        # waiting: requests with pending prompt tokens (new, chunked, or
+        # preempted) in FIFO (or admission_policy) order
+        self.waiting: deque = deque()
+        self.preemption_count = 0
+        self.redundant_finish_count = 0
+        # uid -> cause, requests removed by the circuit breaker
+        self.quarantined: Dict[object, str] = {}
+        # (request, cause) tuples from failed rounds, drained by the front
+        # end (or any caller) via take_round_failures()
+        self._round_failures: List[Tuple[RaggedRequest, str]] = []
+        # cumulative rounds that failed (exception or non-finite logits);
+        # never reset -- pool-level health watches the delta per round
+        self.step_failure_count = 0
+
+    # ----------------------------------------------------------------- intake
+    def request(self, uid, tokens, deadline: Optional[float] = None,
+                slo: Optional[str] = None, trace=None,
+                tenant: Optional[str] = None,
+                fair_key: Optional[float] = None) -> SchedulingResult:
+        """Enqueue a new prompt (unknown uid) or a continuation token
+        (live uid, e.g. the token sampled from the last logits).
+
+        ``deadline`` is an absolute ``time.monotonic()`` budget the
+        admission policy may prioritize by (the scheduler itself never
+        cancels -- the front end sweeps expired requests); ``slo`` is the
+        request's service-class name, observability only; ``trace`` is the
+        request's TraceContext, the parent of its per-round spans;
+        ``tenant``/``fair_key`` are the multi-tenant admission stamps (the
+        fair-share start tag orders the wait queue ahead of the EDF
+        tie-break when the tenant layer is on)."""
+        toks = np.asarray(tokens, np.int32).reshape(-1)
+        if uid in self.quarantined:
+            return SchedulingResult.QUARANTINED  # poisoned uid stays out
+        if uid in self.live:
+            req = self.live[uid]
+            req.history.extend(int(t) for t in toks)
+            if trace is not None and req.trace is None:
+                req.trace = trace
+            return SchedulingResult.SUCCESS
+        for req in self.waiting:
+            if req.uid == uid:
+                req.history.extend(int(t) for t in toks)
+                if trace is not None and req.trace is None:
+                    req.trace = trace
+                return SchedulingResult.SUCCESS
+        max_ctx = self._smc.max_context
+        if toks.size > max_ctx:
+            return SchedulingResult.MAX_LENGTH_EXCEEDED
+        # a prompt that cannot fit the WHOLE pool even alone is unservable
+        # -- rejecting here (not mid-serve) prevents an admission livelock
+        # where the head of the queue can never be satisfied
+        sm = self.engine.state_manager
+        if math.ceil(toks.size / sm.block_size) > sm.allocator.total_blocks:
+            return SchedulingResult.KV_CACHE_FULL
+        req = RaggedRequest(uid, toks)
+        req.deadline, req.slo = deadline, slo
+        req.trace = trace
+        req.tenant = tenant
+        if fair_key is not None:
+            req.fair_key = float(fair_key)
+        self.waiting.append(req)
+        return SchedulingResult.SUCCESS
+
+    def finish(self, uid) -> bool:
+        """Caller is done with a sequence: free its KV + bookkeeping.
+        Idempotent: finishing an unknown or already-finished uid is a
+        counted no-op (the cancellation path -- deadline sweeps, breaker
+        teardown, user aborts -- double-finishes routinely), never a
+        KeyError.  Returns whether anything was actually released."""
+        released = False
+        if uid in self.live:
+            del self.live[uid]
+            self.engine.flush(uid)
+            released = True
+        # filter waiting even for a live uid: a mid-chunk prompt is
+        # appendleft'ed back for its next-round tail, so the same uid can be
+        # live AND queued -- leaving the entry behind resurrects the
+        # sequence (re-prefilled from scratch) and leaks its re-allocated KV
+        n = len(self.waiting)
+        self.waiting = deque(r for r in self.waiting if r.uid != uid)
+        released = released or len(self.waiting) < n
+        if not released:
+            self.redundant_finish_count += 1
+            reg = get_registry()
+            if reg.enabled:
+                reg.counter("infer/redundant_finish").inc(uid=str(uid))
+        return released
+
+    def take_round_failures(self) -> List[Tuple[RaggedRequest, str]]:
+        """Drain the (request, cause) log of step-failure recoveries since
+        the last call -- the front end's circuit-breaker feed."""
+        out, self._round_failures = self._round_failures, []
+        return out
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.waiting) or any(
+            r.pending > 0 for r in self.live.values())
+
+    # -------------------------------------------------------------- one round
+    def _blocks_for(self, req: RaggedRequest, n_tokens: int) -> int:
+        """Blocks the engine would need to extend ``req`` by ``n_tokens``
+        (fresh capacity + copy-on-write replacements of shared blocks)."""
+        return self.engine.state_manager.blocks_for_extend(req.uid, n_tokens)
+
+    def _free_blocks(self) -> int:
+        """Admission headroom: the free pool plus what LRU eviction of
+        cache-only prefix blocks could reclaim on demand (a cached prefix
+        is never a reason to queue or preempt work)."""
+        return self.engine.state_manager.free_blocks_with_evictable()
+
+    def _preempt_youngest(self, protect) -> bool:
+        """Evict the most recently admitted live sequence not in ``protect``;
+        its full history goes to the FRONT of the wait queue for
+        re-prefill."""
+        waiting_uids = {r.uid for r in self.waiting}
+        for uid in reversed(self.live):
+            if uid in protect:
+                continue
+            req = self.live.pop(uid)
+            self.engine.flush(uid)
+            req.requeue_for_recompute(cap=self.max_requeues)
+            # a mid-chunk prefill is already queued (same object) -- resetting
+            # ``fed`` is enough; appending again would duplicate the uid
+            if uid not in waiting_uids:
+                self.waiting.appendleft(req)
+            self.preemption_count += 1
+            return True
+        return False
+
+    def preempt_victims(self, victim_pred, max_victims: int = 1) -> int:
+        """Targeted preemption: evict up to ``max_victims`` live sequences
+        matching ``victim_pred`` (youngest first), re-queueing each for
+        recompute exactly like :meth:`_preempt_youngest`.  The eviction IS
+        the COW rollback path -- ``engine.flush`` drops every block the
+        sequence holds to refcount 0 (shared prefix blocks survive in the
+        cache), so ``BlockedAllocator.audit()`` stays clean.  The tenant
+        layer uses this to evict best-effort decodes when a latency-class
+        request would miss its deadline.  Returns the eviction count."""
+        evicted = 0
+        waiting_uids = {r.uid for r in self.waiting}
+        for uid in list(reversed(self.live)):
+            if evicted >= max_victims:
+                break
+            req = self.live[uid]
+            if not victim_pred(req):
+                continue
+            del self.live[uid]
+            self.engine.flush(uid)
+            req.requeue_for_recompute(cap=self.max_requeues)
+            if uid not in waiting_uids:
+                self.waiting.appendleft(req)
+            self.preemption_count += 1
+            evicted += 1
+        return evicted
+
+    # ---------------------------------------------------- failure recovery
+    def _requeue_failed(self, req: RaggedRequest, cause: str) -> None:
+        """A round this request was part of failed (non-finite logits or an
+        engine-side exception): flush its KV (whatever landed is suspect),
+        requeue it for recompute with bounded backoff -- or quarantine it
+        once the circuit breaker's failure budget is spent."""
+        if req.uid in self.live:
+            del self.live[req.uid]
+        # poison containment first: any cache entry this sequence's blocks
+        # back is suspect, and must go before flush() drops the ownership
+        # information needed to find them
+        self.engine.state_manager.drop_cached_blocks(req.uid)
+        self.engine.flush(req.uid)
+        req.step_failures += 1
+        self._round_failures.append((req, cause))
+        tracer = get_tracer()
+        if tracer.enabled and req.trace is not None:
+            req.trace.event("round_failure", cause=cause, uid=str(req.uid),
+                            step_failures=req.step_failures)
+        if (self.max_step_failures is not None
+                and req.step_failures > self.max_step_failures):
+            # circuit breaker: the poison request is removed entirely so it
+            # cannot wedge the batch a (max_retries+2)-th time
+            self.waiting = deque(r for r in self.waiting if r.uid != req.uid)
+            self.quarantined[req.uid] = cause
+            serving_events.emit_quarantine(req.uid, cause)
+            tracer.flight_dump("circuit_break",
+                               extra={"uid": str(req.uid), "cause": cause,
+                                      "step_failures": req.step_failures})
+            log_dist(
+                f"quarantined sequence uid={req.uid} after "
+                f"{req.step_failures} failed rounds ({cause})", ranks=[0],
+                level=logging.ERROR)
+            return
+        req.requeue_for_recompute(cap=self.max_requeues)
+        if self.retry_backoff is not None:
+            req.not_before = time.monotonic() + float(
+                self.retry_backoff(req.step_failures))
+        if not any(r.uid == req.uid for r in self.waiting):
+            self.waiting.appendleft(req)
+
+    def _recover_failed_round(self, sched, cause: str) -> None:
+        self.step_failure_count += 1
+        serving_events.emit_step_failure(cause, len(sched))
+        log_dist(f"scheduling round failed ({cause}): requeueing "
+                 f"{len(sched)} requests", ranks=[0], level=logging.WARNING)
+        for req, *_ in sched:
+            self._requeue_failed(req, cause)
+
+    def step(self) -> Dict[object, np.ndarray]:
+        """Run one scheduling round; returns the new token ids (int32
+        array, >= 1 entries when speculation lands) for completed feeds."""
+        sm = self.engine.state_manager
+        budget = self.token_budget
+        sched: List = []          # (req, n_tokens, completes, draft)
+
+        # (a) live decodes with a pending continuation token.  A live uid
+        # that is ALSO queued is a mid-chunk prefill (SplitFuse) -- its
+        # pending tokens are prompt remainder, not a decode; scheduling it
+        # here too would put the uid in one ragged batch twice.
+        waiting_uids = {r.uid for r in self.waiting}
+        decodes = [r for r in self.live.values()
+                   if r.pending > 0 and r.uid not in waiting_uids]
+        decodes = decodes[: self._smc.max_decode_batch]
+        # speculative drafts ride the decode rows: the history already ends
+        # with the pending continuation token, so the drafter's lookup tail
+        # is exactly the token this round feeds.  Drafts are capped so the
+        # sequence can never speculate past max_context.
+        spec_k = self.governor.effective_k if self.drafter is not None else 0
+        drafts: Dict[object, List[int]] = {}
+        if spec_k:
+            max_ctx = self._smc.max_context
+            for r in decodes:
+                room = max_ctx - len(r.history)
+                if room <= 0:
+                    continue
+                d = self.drafter.propose(r.history, min(spec_k, room))
+                if d:
+                    drafts[r.uid] = d
+        # KV safety for decodes: preempt youngest until the must-run set
+        # (continuation token + that row's drafted tail) fits
+        while True:
+            need = sum(self._blocks_for(r, 1 + len(drafts.get(r.uid, ())))
+                       for r in decodes)
+            if need <= self._free_blocks():
+                break
+            protect = {r.uid for r in decodes}
+            victim_found = self._preempt_youngest(protect)
+            if not victim_found:
+                # preempt from within the decode set itself (drop the
+                # youngest decode to the wait queue)
+                victim = decodes.pop()
+                self.live.pop(victim.uid)
+                self.engine.flush(victim.uid)
+                victim.requeue_for_recompute(cap=self.max_requeues)
+                self.waiting.appendleft(victim)
+                self.preemption_count += 1
+                drafts.pop(victim.uid, None)
+            decodes = [r for r in decodes if r.uid in self.live]
+        for r in decodes:
+            if budget <= 0 or len(sched) >= self.seq_budget:
+                r.last_result = SchedulingResult.ENGINE_FULL
+                continue
+            d = drafts.get(r.uid, [])
+            if len(d) >= budget:
+                # shrink the draft before giving up the row: the real
+                # continuation token always fits when budget >= 1
+                d = d[: budget - 1]
+            cost = 1 + len(d)
+            sched.append((r, 1, True, d))
+            budget -= cost
+            # PHYSICALLY reserve the decode's blocks now (idempotent for
+            # put_round's own extend): a bookkeeping-only reserve is not
+            # enough with the prefix cache, because prefill admission below
+            # can pin this round's evictable blocks via match_prefix -- the
+            # capacity the decode was counting on would silently vanish
+            # between the check above and engine.put_round
+            sm.extend(r.uid, cost)
+
+        # (b) queued prefills, chunked to the remaining token budget.
+        # Decode blocks are already allocated, so the allocator state is
+        # authoritative headroom for admission.  With an admission_policy
+        # the queue is stably re-ordered by priority key (EDF when the
+        # front end installs its deadline policy); backoff-gated requests
+        # (retrying after a failed round) sit out until their not_before.
+        now = time.monotonic()
+        if self.admission_policy is not None and len(self.waiting) > 1:
+            self.waiting = deque(sorted(self.waiting,
+                                        key=self.admission_policy))
+        deferred = [r for r in self.waiting if r.not_before > now
+                    or (self.admission_gate is not None
+                        and not self.admission_gate(r.uid))]
+        if deferred:
+            held = {id(r) for r in deferred}
+            self.waiting = deque(r for r in self.waiting
+                                 if id(r) not in held)
+        while self.waiting and budget > 0 and len(sched) < self.seq_budget:
+            req = self.waiting[0]
+            # cache-aware admission: a fresh (or preempted-and-flushed)
+            # prompt first attaches every prefix block the cache still
+            # holds -- those tokens are already resident, so they bypass
+            # the token budget entirely (req.fed jumps past them) and the
+            # chunk below only covers the cache miss
+            if req.fed == 0 and not sm.known(req.uid):
+                matched = sm.match_prefix(req.uid, req.history)
+                if matched:
+                    req.fed = matched
+            n = min(req.pending, budget, self.prefill_chunk)
+            if n <= 0:
+                break
+            headroom = self._free_blocks()
+            if self._blocks_for(req, n) > headroom:
+                req.last_result = SchedulingResult.KV_CACHE_FULL
+                # try to make room rather than stall the head of the queue;
+                # protect the candidate and EVERYTHING already packed this
+                # round -- a victim with a batch entry (e.g. a still-live
+                # mid-chunk prefill whose last chunk was just admitted)
+                # would re-enter the queue head and land in the same ragged
+                # batch twice
+                protect = ({r.uid for r, *_ in sched}
+                           | {r.uid for r in decodes} | {req.uid})
+                if self._preempt_youngest(protect):
+                    continue
+                break  # FIFO: don't leapfrog the head of the queue
+            self.waiting.popleft()
+            completes = n == req.pending
+            sched.append((req, n, completes, []))
+            budget -= n
+            # reserve via the engine's own bookkeeping, so later candidates
+            # (and put() itself) see the reduced pool
+            sm.extend(req.uid, n)
+            if not completes:
+                # rest of the prompt runs NEXT round -- stop admitting, or
+                # the still-unadvanced req.fed would be sliced again into
+                # this same batch
+                self.waiting.appendleft(req)
+                break
+
+        if deferred:
+            # backoff-gated requests rejoin the queue (the next round's
+            # policy sort restores priority order)
+            self.waiting.extend(deferred)
+        if not sched:
+            if self.waiting and self.waiting[0].not_before <= now \
+                    and (self.admission_gate is None
+                         or self.admission_gate(self.waiting[0].uid)) \
+                    and not (set(self.live) - {self.waiting[0].uid}):
+                # nothing runnable, nothing preemptable (the only live uid,
+                # if any, is the stuck head itself): the head sequence has
+                # grown past what the whole pool can hold
+                req = self.waiting[0]
+                raise UnservableRequestError(
+                    req.uid,
+                    f"sequence {req.uid} needs "
+                    f"{self._blocks_for(req, req.pending)} KV blocks but the "
+                    f"whole pool is {sm.allocator.total_blocks}; it can "
+                    f"never be scheduled")
+            return {}
+
+        uids = [r.uid for r, *_ in sched]
+        tokens = [r.history[r.fed: r.fed + n] for r, n, *_ in sched]
+        batch_drafts = [d for *_, d in sched]
+        reg = get_registry()
+        tracer = get_tracer()
+        if reg.enabled or tracer.enabled:
+            now = time.monotonic()
+            for req, *_ in sched:
+                if req.first_scheduled_at is None:
+                    req.first_scheduled_at = now
+                    wait = now - req.enqueued_at
+                    if reg.enabled:
+                        reg.histogram("inference/queue_latency_s",
+                                      buckets=LATENCY_BUCKETS_S).observe(wait)
+                        serving_events.emit_queue_wait(req.slo, wait)
+                    if tracer.enabled and req.trace is not None:
+                        req.trace.record("queue_wait", dur_s=wait,
+                                         uid=str(req.uid))
+                        req.trace.annotate(queue_wait_s=wait)
+        if reg.enabled:
+            reg.scalar("inference/waiting_requests").record(len(self.waiting))
+            reg.scalar("inference/live_sequences").record(len(self.live))
+            if self.preemption_count:
+                reg.scalar("inference/preemptions").record(
+                    self.preemption_count)
+        # per-request round spans: cheap enabled-check first -- when tracing
+        # is off this is one attribute read and the generator never runs, so
+        # the one-dispatch hot path pays nothing
+        traced = tracer.enabled and any(r.trace is not None for r, *_ in sched)
+        decode_uids = {r.uid for r in decodes} if traced else ()
+        t_round = time.monotonic() if traced else 0.0
+        try:
+            outputs = self.engine.put_round(uids, tokens, batch_drafts)
+        except Exception as e:  # noqa: BLE001 -- a poisoned round (OOM, fault
+            # injection, device error) must not wedge serving: every request
+            # of the round is flushed + requeued (or quarantined), the loop
+            # stays alive, and the failure is loudly logged + counted
+            self._recover_failed_round(sched, f"{type(e).__name__}: {e}")
+            return {}
+
+        # non-finite logits are a poisoned ROW (numerically broken request,
+        # bad weights slice, injected fault): requeue exactly the offending
+        # rows, surface the rest -- one bad request never fails its batch
+        finite = np.asarray(outputs.finite, bool)
+        results: Dict[object, np.ndarray] = {}
+        drafted_total = accepted_total = 0
+        round_dur = (time.monotonic() - t_round) if traced else 0.0
+        for row, (req, n, completes, d) in enumerate(sched):
+            if traced and req.trace is not None:
+                kind = ("decode_round" if req.uid in decode_uids
+                        else "prefill_chunk")
+                attrs = {"n_tokens": int(n), "uid": str(req.uid),
+                         "finite": bool(finite[row])}
+                if d:
+                    attrs["draft"] = len(d)
+                    if finite[row]:
+                        attrs["accepted"] = len(outputs.emitted(row)) - 1
+                req.trace.record(kind, dur_s=round_dur, **attrs)
+            if not finite[row]:
+                self._requeue_failed(req, "nan_logits")
+                continue
+            req.fed += n
+            new_toks = outputs.emitted(row)
+            dk = len(d)
+            if dk:
+                # accepted drafts are committed output: fold them into
+                # history/fed so the next continuation request appends
+                # after them (their KV is already committed engine-side)
+                a = len(new_toks) - 1
+                drafted_total += dk
+                accepted_total += a
+                if a:
+                    req.history.extend(int(t) for t in new_toks[:a])
+                    req.fed += a
+            req.last_result = SchedulingResult.SUCCESS
+            if req.uid not in self.live:
+                self.live[req.uid] = req
+            self.live.move_to_end(req.uid)
+            if completes:
+                results[req.uid] = np.asarray(new_toks, np.int32)
+        if spec_k or not self.governor.active:
+            # feed the governor every round it governs: speculative rounds
+            # move the accept-rate EMA, cooldown rounds tick toward re-probe
+            self.governor.observe(drafted_total, accepted_total)
+        if not finite.all():
+            self.step_failure_count += 1
+            serving_events.emit_step_failure(
+                "nan_logits", int((~finite).sum()))
+        return results
+
+    # ----------------------------------------------------------- serving loop
+    def generate(self, prompts: List, max_new_tokens: int = 32,
+                 eos_token_id: Optional[int] = None) -> List[np.ndarray]:
+        """Serving loop: feeds all prompts through the scheduler, consuming
+        the on-device-sampled continuations (possibly several tokens per
+        round under speculation) until length/EOS; tolerates pools far
+        smaller than the working set via queueing + preemption."""
+        uids = list(range(len(prompts)))
+        outs = {u: list(np.asarray(p).reshape(-1)) for u, p in
+                zip(uids, prompts)}
+        remaining = {u: max_new_tokens for u in uids}
+        for u, p in zip(uids, prompts):
+            self.request(u, p)
+        while self.has_work:
+            for u, toks in self.step().items():
+                done = False
+                last = None
+                for tok in (int(t) for t in np.asarray(toks).reshape(-1)):
+                    outs[u].append(tok)
+                    last = tok
+                    remaining[u] -= 1
+                    if remaining[u] <= 0 or (eos_token_id is not None
+                                             and tok == eos_token_id):
+                        done = True
+                        break
+                if done:
+                    self.finish(u)
+                else:
+                    self.request(u, [last])
+        return [np.asarray(outs[u], np.int32) for u in uids]

@@ -22,7 +22,10 @@ each layer reads and writes a [P, bs, N, D] KV pool pair that the inference
 engine owns.  Serving attention is routed by the row bucket S, as in the
 JAX package: S == 1 to the paged decode kernel, 2 <= S <= 8 to the
 speculative-decode kernel, and longer rows to plain masked attention over
-the gathered blocks.
+the gathered blocks.  A quantized pool (int8 / fp8) is written through
+``quantize_kv`` with its per-(slot, head) scales beside it; the decode
+kernels dequantize inside their token walk, the prefill path after its
+gather.
 
 Not ported yet (construction raises, naming the ROADMAP item): MoE layers,
 dropout, remat, chunked cross entropy, sequence parallelism.
@@ -40,7 +43,9 @@ from torch import nn
 from ..accelerator import resolve_device
 from ..ops.attention import (dot_product_attention, paged_decode_attention,
                              paged_spec_decode_attention)
+from ..ops.quantizer import byte_view, dequantize_kv, quantize_kv
 from ..ops.transformer import apply_rotary_pos_emb, layer_norm, rotary_tables
+from ..quantization import canonical_dtype
 
 # rows this short (S <= 8) walk only their live KV blocks in the paged
 # (speculative-)decode kernels; longer rows take the dense prefill path.
@@ -177,27 +182,40 @@ class GPTNeoXAttention(nn.Module):
     def _paged_attention(self, q, k, v, positions, kv, paged):
         """Blocked KV-pool attention.  Writes happen before reads, so a token
         attends to itself; stale data in reallocated blocks is excluded by
-        the position mask."""
-        pool_k, pool_v = kv
+        the position mask.  ``kv`` is (pool_k, pool_v), plus (k_scale,
+        v_scale) [P, bs, N] fp32 when the pools are quantized."""
+        pool_k, pool_v, *scale_pools = kv
+        k_scale, v_scale = scale_pools if scale_pools else (None, None)
         B, S, N, D = q.shape
         # in place: the JAX package donated the pools to the step and got
-        # new ones back; here the engine's pools are mutated
-        for pool, new in ((pool_k, k), (pool_v, v)):
-            pool.view(-1, N, D).index_copy_(
-                0, paged.write_rows,
-                new.reshape(-1, N, D).index_select(0, paged.src_rows))
+        # new ones back; here the engine's pools are mutated.  Padded tokens
+        # are left out of src_rows, so neither payload nor scale of a padded
+        # row ever lands in a live slot.
+        for pool, scales, new in ((pool_k, k_scale, k), (pool_v, v_scale, v)):
+            new = new.reshape(-1, N, D).index_select(0, paged.src_rows)
+            if scales is not None:
+                # quantize-on-write: the pool never holds fp values
+                new, new_scale = quantize_kv(new, canonical_dtype(pool.dtype))
+                scales.view(-1, N).index_copy_(0, paged.write_rows, new_scale)
+            byte_view(pool).view(-1, N, D).index_copy_(
+                0, paged.write_rows, byte_view(new))
         tables = paged.block_tables
         if S == 1:
             out = paged_decode_attention(q[:, 0].contiguous(), pool_k, pool_v,
-                                         tables, positions[:, 0] + 1)
+                                         tables, positions[:, 0] + 1,
+                                         k_scale=k_scale, v_scale=v_scale)
             return out[:, None]
         if S <= SPEC_DECODE_WINDOW:
             return paged_spec_decode_attention(q.contiguous(), pool_k, pool_v,
-                                               tables, positions)
+                                               tables, positions,
+                                               k_scale=k_scale, v_scale=v_scale)
         # prefill: plain masked attention over the gathered blocks
         idx = tables.long()
-        K = pool_k[idx].reshape(B, -1, N, D)
-        V = pool_v[idx].reshape(B, -1, N, D)
+        K = byte_view(pool_k)[idx].view(pool_k.dtype).reshape(B, -1, N, D)
+        V = byte_view(pool_v)[idx].view(pool_v.dtype).reshape(B, -1, N, D)
+        if k_scale is not None:
+            K = dequantize_kv(K, k_scale[idx].reshape(B, -1, N), q.dtype)
+            V = dequantize_kv(V, v_scale[idx].reshape(B, -1, N), q.dtype)
         kv_pos = torch.arange(K.shape[1], device=q.device)
         mask = kv_pos[None, None, None, :] <= positions[:, None, :, None]
         return dot_product_attention(q, K, V, mask=mask, causal=False)
@@ -317,8 +335,9 @@ class GPTNeoX(nn.Module):
 
     def forward(self, input_ids, positions=None, paged_state=None,
                 logits_positions=None):
-        """``paged_state`` (serving) carries ``kv_cache`` (one (pool_k,
-        pool_v) pair per layer, updated in place), ``block_tables`` [B, M]
+        """``paged_state`` (serving) carries ``kv_cache`` (per layer (pool_k,
+        pool_v), or (pool_k, pool_v, k_scale, v_scale) for quantized pools,
+        updated in place), ``block_tables`` [B, M]
         int32 and ``write_mask`` [B, S] bool.  ``logits_positions`` [B] or
         [B, R] projects only those positions of each row through the head."""
         B, S = input_ids.shape

@@ -52,8 +52,9 @@ _SIGNATURES = {
         "dst_flash_bwd_dkv": ([_vp] * 8 + [_i] * 6 + [_vp], _i),
     },
     "paged_attention": {
-        "dst_paged_decode": ([_vp] * 6 + [_i] * 5 + [_f, _i, _vp], _i),
-        "dst_paged_spec_decode": ([_vp] * 6 + [_i] * 6 + [_f, _i, _vp], _i),
+        "dst_paged_decode": ([_vp] * 8 + [_i] * 5 + [_f, _i, _i, _vp], _i),
+        "dst_paged_spec_decode": ([_vp] * 8 + [_i] * 6 + [_f, _i, _i, _vp],
+                                  _i),
     },
     "topk": {
         "dst_sorted_topk": ([_vp, _vp, _vp, _i, _i, _i, _vp], _i),

@@ -138,7 +138,7 @@ class DeeperSpeedConfig:
                               "Multi-process training")
         if zero:
             raise _not_ported(f"zero_optimization keys {sorted(zero)}",
-                              "Optimizer kernels and offload"
+                              "Offload"
                               if any(k.startswith("offload") for k in zero)
                               else "Multi-process training")
         self.zero_stage = 0

@@ -204,7 +204,7 @@ def build_optimizer(name, params_cfg, mup_multipliers=None):
     if name in (FUSED_ADAM_OPTIMIZER, FUSED_LION_OPTIMIZER):
         raise NotImplementedError(
             f"optimizer {name!r} (the opt-in fused kernel) is not ported yet "
-            f"(ROADMAP Queue A, 'Optimizer kernels and offload')")
+            f"(ROADMAP Queue A, 'Training leftovers')")
     if name == ONEBIT_ADAM_OPTIMIZER:
         raise NotImplementedError(
             "optimizer 'onebitadam' is not ported yet (ROADMAP Queue A, "

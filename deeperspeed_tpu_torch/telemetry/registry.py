@@ -438,5 +438,9 @@ def registry_from_config(cfg, job_name=None):
     )
     if cfg.enabled:
         set_registry(reg)
-    # later slice: the request tracer (telemetry/trace.py) is not ported yet
+    trace_cfg = getattr(cfg, "trace", None)
+    if trace_cfg is not None and getattr(trace_cfg, "enabled", False):
+        from .trace import tracer_from_config  # avoid import cycle
+
+        tracer_from_config(cfg, job_name=job_name)
     return reg

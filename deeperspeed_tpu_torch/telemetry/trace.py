@@ -1,0 +1,507 @@
+"""Request-path tracing: spans, trace contexts, and a flight recorder
+(counterpart of ``deeperspeed_tpu/telemetry/trace.py``).
+
+The scalar channels in :mod:`.registry` answer "how many / how fast on
+average"; this module answers "where did *this* request's time go".  A
+:class:`Span` is one timed interval (trace_id / span_id / parent_id, a
+monotonic-clock duration anchored to a wall-clock start, explicit
+attributes).  A :class:`TraceContext` is the handle a request carries
+through the stack -- the frontend opens the root ``request`` span, every
+layer underneath (routing, scheduler rounds, KV migration, fabric hops)
+attaches children to it, and the two-field ``wire()`` payload rides an
+optional ``trace`` key on ``wire_proto`` control frames so spans stitch
+across process boundaries.
+
+Ownership is the exactly-once rule: only the context created by the
+outermost ``submit`` has ``owns=True``; replayed pool attempts and
+fabric-host shadows adopt the trace with ``owns=False``, so token events
+and the terminal SLO record are emitted once per request no matter how
+many times the stream is re-placed.
+
+Finished spans land in a bounded in-memory ring, an optional rank-0
+``trace.jsonl`` (reusing :class:`~.registry.JsonlSink`), and the
+:class:`FlightRecorder` -- a smaller ring that ``flight_dump`` snapshots
+to disk whenever failover, circuit-break, drain-past-grace, wire
+corruption, or the stall watchdog fires.  ``export_chrome`` renders the
+ring as Chrome-trace / Perfetto JSON (one ``tid`` lane per trace).
+
+The hot-path contract: a disabled tracer costs one attribute read
+(``get_tracer().enabled``) per call site and zero per-token work -- call
+sites must check ``enabled`` before building spans, exactly like the
+``reg.enabled`` idiom in :mod:`.serving`.
+"""
+
+import json
+import os
+import threading
+import time
+import uuid
+from collections import deque
+
+from ..utils.logging import logger
+from .registry import JsonlSink, _is_rank0, get_registry
+
+
+def new_id():
+    """16-hex-char random id (trace or span)."""
+    return uuid.uuid4().hex[:16]
+
+
+def quantile(sorted_samples, q):
+    """Linear-interpolated quantile of an already-sorted sample list.
+
+    ``q`` in [0, 1].  Replaces the round-to-nearest-index pick that made
+    small-sample percentiles land on arbitrary observations.
+    """
+    if not sorted_samples:
+        return None
+    if len(sorted_samples) == 1:
+        return sorted_samples[0]
+    pos = min(max(q, 0.0), 1.0) * (len(sorted_samples) - 1)
+    lo = int(pos)
+    hi = min(lo + 1, len(sorted_samples) - 1)
+    frac = pos - lo
+    return sorted_samples[lo] * (1.0 - frac) + sorted_samples[hi] * frac
+
+
+class Span:
+    """One open timed interval.  Closed via ``Tracer.end_span`` (which
+    turns it into a plain record dict); cheap on purpose -- slots, two
+    clock reads, no allocation beyond the attrs dict."""
+
+    __slots__ = ("trace_id", "span_id", "parent_id", "name", "start_unix",
+                 "_t0", "attrs")
+
+    def __init__(self, trace_id, span_id, parent_id, name, attrs):
+        self.trace_id = trace_id
+        self.span_id = span_id
+        self.parent_id = parent_id
+        self.name = name
+        self.attrs = attrs
+        self.start_unix = time.time()
+        self._t0 = time.monotonic()
+
+
+class _SpanScope:
+    """``with tracer.span(...)`` / ``ctx.span(...)`` helper."""
+
+    __slots__ = ("_tracer", "span")
+
+    def __init__(self, tracer, span):
+        self._tracer = tracer
+        self.span = span
+
+    def __enter__(self):
+        return self.span
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is not None:
+            self.span.attrs["error"] = exc_type.__name__
+        self._tracer.end_span(self.span)
+        return False
+
+
+class FlightRecorder:
+    """Bounded ring of the most recent span/event records plus postmortem
+    dumps: ``dump(reason)`` snapshots the ring to a ``flight_*.json`` file
+    so the evidence survives the crash that triggered it.  Dump count is
+    capped -- a flapping replica must not fill the disk -- but the cap
+    *rotates*: once ``max_dumps`` is reached the oldest dump is deleted to
+    make room, because the most recent incident is the one an operator
+    actually wants (dropping new dumps would lose exactly that one)."""
+
+    def __init__(self, dump_dir, capacity=256, max_dumps=64):
+        self.dump_dir = dump_dir
+        self._ring = deque(maxlen=max(int(capacity), 1))
+        self.max_dumps = int(max_dumps)
+        self.dumps = []          # paths currently on disk, oldest first
+        self.rotated_dumps = 0   # oldest dumps deleted to admit new ones
+        self._seq = 0            # monotonic dump number (survives rotation)
+
+    def record(self, rec):
+        self._ring.append(rec)
+
+    def recent(self, n=None):
+        out = list(self._ring)
+        return out if n is None else out[-n:]
+
+    def dump(self, reason, extra=None):
+        while len(self.dumps) >= max(self.max_dumps, 1):
+            oldest = self.dumps.pop(0)
+            try:
+                os.remove(oldest)
+            except OSError:
+                pass
+            self.rotated_dumps += 1
+            reg = get_registry()
+            if reg.enabled:   # imported from .registry -- no serving dep
+                reg.counter("trace/flight_dumps_rotated").inc()
+        snap = {"ts": time.time(), "reason": str(reason),
+                "extra": dict(extra) if extra else {},
+                "spans": list(self._ring)}
+        safe = "".join(c if (c.isalnum() or c in "-_") else "_"
+                       for c in str(reason)) or "dump"
+        os.makedirs(self.dump_dir, exist_ok=True)
+        self._seq += 1
+        path = os.path.join(
+            self.dump_dir, f"flight_{safe}_{self._seq}.json")
+        with open(path, "w") as f:
+            json.dump(snap, f, indent=2, default=str)
+        self.dumps.append(path)
+        return path
+
+
+class Tracer:
+    """Span sink + flight recorder.  ``enabled=False`` (the process-global
+    default) builds a null tracer: no directories, no files, every method
+    an early-out -- but call sites still must gate on ``enabled`` so the
+    traced hot path pays nothing when tracing is off."""
+
+    def __init__(self, enabled=False, run_dir="telemetry", job_name="run",
+                 jsonl=True, rank0_only=True, buffer_spans=2048,
+                 flight_spans=256, max_dumps=64):
+        self.enabled = bool(enabled)
+        self.run_dir = os.path.join(run_dir or "telemetry", job_name or "run")
+        self._lock = threading.Lock()
+        self._spans = deque(maxlen=max(int(buffer_spans), 1))
+        self.recorder = FlightRecorder(self.run_dir, capacity=flight_spans,
+                                       max_dumps=max_dumps)
+        self.jsonl_path = None
+        self._jsonl = None
+        self.span_count = 0
+        if self.enabled and jsonl and ((not rank0_only) or _is_rank0()):
+            self.jsonl_path = os.path.join(self.run_dir, "trace.jsonl")
+            self._jsonl = JsonlSink(self.jsonl_path)
+
+    # ------------------------------------------------------------- spans
+    def start_span(self, name, trace_id=None, parent_id=None, **attrs):
+        return Span(trace_id or new_id(), new_id(), parent_id, name, attrs)
+
+    def end_span(self, span, **attrs):
+        """Close ``span`` and record it; returns the record dict."""
+        if attrs:
+            span.attrs.update(attrs)
+        rec = {"kind": "span", "name": span.name, "trace_id": span.trace_id,
+               "span_id": span.span_id, "parent_id": span.parent_id,
+               "ts": span.start_unix,
+               "dur_s": time.monotonic() - span._t0}
+        rec.update(span.attrs)
+        self._record(rec)
+        return rec
+
+    def span(self, name, trace_id=None, parent_id=None, **attrs):
+        return _SpanScope(self, self.start_span(name, trace_id=trace_id,
+                                                parent_id=parent_id, **attrs))
+
+    def record_span(self, name, trace_id, parent_id=None, start_unix=None,
+                    dur_s=0.0, **attrs):
+        """Record an already-elapsed interval (e.g. queue wait measured
+        from a stored enqueue stamp) without open-span bookkeeping."""
+        rec = {"kind": "span", "name": name, "trace_id": trace_id,
+               "span_id": new_id(), "parent_id": parent_id,
+               "ts": (time.time() - dur_s) if start_unix is None
+               else start_unix,
+               "dur_s": float(dur_s)}
+        rec.update(attrs)
+        self._record(rec)
+        return rec
+
+    def event(self, name, trace_id, parent_id=None, **attrs):
+        """Instantaneous marker (token arrival, fallback decision...)."""
+        rec = {"kind": "event", "name": name, "trace_id": trace_id,
+               "span_id": new_id(), "parent_id": parent_id,
+               "ts": time.time(), "dur_s": 0.0}
+        rec.update(attrs)
+        self._record(rec)
+        return rec
+
+    def _record(self, rec):
+        if not self.enabled:
+            return
+        with self._lock:
+            self.span_count += 1
+            self._spans.append(rec)
+            self.recorder.record(rec)
+            if self._jsonl is not None:
+                self._jsonl.write(rec)
+
+    def reset(self):
+        """Drop buffered spans (bench arms call this between warm-up and
+        measurement so percentile tables cover only measured work); the
+        flight ring and jsonl stream are untouched."""
+        with self._lock:
+            self._spans.clear()
+
+    # ----------------------------------------------------------- readers
+    def spans(self, trace_id=None, name=None):
+        with self._lock:
+            out = list(self._spans)
+        if trace_id is not None:
+            out = [r for r in out if r["trace_id"] == trace_id]
+        if name is not None:
+            out = [r for r in out if r["name"] == name]
+        return out
+
+    def recent(self, n=None):
+        """Flight-recorder view: the last ``n`` records (watchdog hook)."""
+        with self._lock:
+            return self.recorder.recent(n)
+
+    @property
+    def flight_dumps(self):
+        return list(self.recorder.dumps)
+
+    # ----------------------------------------------------- flight dumps
+    def flight_dump(self, reason, extra=None):
+        """Snapshot the flight ring to disk; never raises into the serving
+        path (a postmortem helper must not cause the mortem)."""
+        if not self.enabled:
+            return None
+        try:
+            with self._lock:
+                path = self.recorder.dump(reason, extra=extra)
+            if path is not None:
+                logger.warning(f"flight recorder dump ({reason}) -> {path}")
+            return path
+        except Exception as e:
+            logger.warning(f"flight recorder dump failed: {e}")
+            return None
+
+    # ----------------------------------------------------------- export
+    def export_chrome(self, path, trace_id=None):
+        """Write the span ring as Chrome-trace JSON (``chrome://tracing``
+        / Perfetto 'trace event' format): one tid lane per trace_id so
+        each request reads as a waterfall."""
+        recs = self.spans(trace_id=trace_id)
+        lanes = {}
+        events = []
+        for r in recs:
+            tid = lanes.setdefault(r["trace_id"], len(lanes) + 1)
+            args = {k: v for k, v in r.items()
+                    if k not in ("kind", "name", "trace_id", "span_id",
+                                 "parent_id", "ts", "dur_s")}
+            args["trace_id"] = r["trace_id"]
+            args["span_id"] = r["span_id"]
+            if r.get("parent_id"):
+                args["parent_id"] = r["parent_id"]
+            ev = {"name": r["name"], "cat": "request", "pid": 0, "tid": tid,
+                  "ts": r["ts"] * 1e6, "args": args}
+            if r["kind"] == "event":
+                ev.update(ph="i", s="t")
+            else:
+                ev.update(ph="X", dur=r["dur_s"] * 1e6)
+            events.append(ev)
+        meta = [{"name": "thread_name", "ph": "M", "pid": 0, "tid": tid,
+                 "args": {"name": f"trace {tid_name[:8]}"}}
+                for tid_name, tid in lanes.items()]
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as f:
+            json.dump({"traceEvents": meta + events,
+                       "displayTimeUnit": "ms"}, f)
+        return path
+
+    def flush(self):
+        if self._jsonl is not None:
+            with self._lock:
+                self._jsonl.flush()
+
+    def close(self):
+        if self._jsonl is not None:
+            with self._lock:
+                self._jsonl.close()
+
+
+class TraceContext:
+    """The handle a request carries: (trace_id, span_id-to-parent-under,
+    ownership).  ``root`` starts a new trace and owns it; ``adopt`` joins
+    an existing trace (wire payload or an outer ticket's context) without
+    ownership, optionally opening a local scope span that ``close()``
+    finishes at the adopter's terminal transition."""
+
+    __slots__ = ("tracer", "trace_id", "span_id", "owns", "_open")
+
+    def __init__(self, tracer, trace_id, span_id, owns, open_span=None):
+        self.tracer = tracer
+        self.trace_id = trace_id
+        self.span_id = span_id
+        self.owns = owns
+        self._open = open_span
+
+    # ------------------------------------------------------ constructors
+    @classmethod
+    def root(cls, tracer, name="request", **attrs):
+        span = tracer.start_span(name, **attrs)
+        return cls(tracer, span.trace_id, span.span_id, True, span)
+
+    @classmethod
+    def adopt(cls, tracer, payload, scope=None, **attrs):
+        """Join the trace described by ``payload`` (a ``wire()`` dict).
+        Returns None for a missing/foreign payload so call sites can fall
+        back to an untraced request."""
+        if not payload or not isinstance(payload, dict):
+            return None
+        trace_id = payload.get("trace_id")
+        if not trace_id:
+            return None
+        parent = payload.get("span_id")
+        if scope is None:
+            return cls(tracer, trace_id, parent, False, None)
+        span = tracer.start_span(scope, trace_id=trace_id, parent_id=parent,
+                                 **attrs)
+        return cls(tracer, trace_id, span.span_id, False, span)
+
+    def fork(self, name, **attrs):
+        """Child context under this one (a pool placement attempt, a
+        fabric shadow): same trace, new open scope span, never owning."""
+        span = self.tracer.start_span(name, trace_id=self.trace_id,
+                                      parent_id=self.span_id, **attrs)
+        return TraceContext(self.tracer, self.trace_id, span.span_id, False,
+                            span)
+
+    # ------------------------------------------------------------ wire
+    def wire(self):
+        """The two fields that cross a process boundary."""
+        return {"trace_id": self.trace_id, "span_id": self.span_id}
+
+    # ---------------------------------------------------------- emitters
+    def span(self, name, **attrs):
+        return self.tracer.span(name, trace_id=self.trace_id,
+                                parent_id=self.span_id, **attrs)
+
+    def record(self, name, start_unix=None, dur_s=0.0, **attrs):
+        return self.tracer.record_span(name, self.trace_id,
+                                       parent_id=self.span_id,
+                                       start_unix=start_unix, dur_s=dur_s,
+                                       **attrs)
+
+    def event(self, name, **attrs):
+        return self.tracer.event(name, self.trace_id,
+                                 parent_id=self.span_id, **attrs)
+
+    def annotate(self, **attrs):
+        if self._open is not None:
+            self._open.attrs.update(attrs)
+
+    def close(self, **attrs):
+        """Finish this context's open scope span (idempotent)."""
+        span, self._open = self._open, None
+        if span is not None:
+            self.tracer.end_span(span, **attrs)
+
+
+# ------------------------------------------------------- flight reasons
+# The known ``flight_dump(reason)`` vocabulary, so postmortem tooling (and
+# fault-injection tests' dump assertions) match against one registry instead
+# of scattered string literals.  ``stall_*`` reasons from the watchdog are
+# prefixed per trigger and not enumerated here.
+FLIGHT_REASONS = {
+    "quarantine": "request exhausted its step-failure retries",
+    "circuit_break": "scheduler quarantined a request mid-round",
+    "replica_eject": "pool ejected a replica (health breaker / gossip)",
+    "failover": "in-flight request re-placed off a dead replica",
+    "drain_past_grace": "drain grace expired; survivors migrated",
+    "recompute_fallback": "KV migration written off; prompt recomputed",
+    "kv_corrupt": "host-tier block failed its digest check",
+    "wire_corruption": "fabric frame failed checksum/decode",
+    # elasticity + multi-tenant isolation
+    "scale_out": "autoscaler added a warm replica to the pool",
+    "scale_in": "autoscaler drained a replica out of the pool",
+    "tenant_throttle": "tenant token bucket rejected admission",
+    "preempt_best_effort": "best-effort decodes evicted for a "
+                           "near-deadline latency tenant",
+    # pool-global observability plane
+    "slo_burn": "fast-window SLO burn-rate alert fired on pool-aggregated "
+                "latency percentiles",
+    # rolling weight hot-swap
+    "deploy_abort": "rolling update aborted (stream verification failure "
+                    "or canary divergence); old weights kept/restored",
+}
+
+
+# --------------------------------------------------------------- SLO math
+def slo_percentiles(records, quantiles=(0.5, 0.95, 0.99)):
+    """Per-SLO-class latency percentiles from closed root ``request``
+    spans.  Returns ``{slo: {metric: {p50: ..., p95: ...}, count: n}}``
+    for the metrics the terminal transition stamps (ttft_s, tpot_s,
+    e2e_s, queue_wait_s)."""
+    by_slo = {}
+    for r in records:
+        if r.get("kind") != "span" or r.get("name") != "request":
+            continue
+        slo = r.get("slo", "standard")
+        by_slo.setdefault(slo, []).append(r)
+    out = {}
+    for slo, recs in sorted(by_slo.items()):
+        table = {"count": len(recs)}
+        for metric in ("ttft_s", "tpot_s", "e2e_s", "queue_wait_s"):
+            samples = sorted(r[metric] for r in recs
+                             if isinstance(r.get(metric), (int, float)))
+            if not samples:
+                continue
+            table[metric] = {f"p{int(q * 100)}": quantile(samples, q)
+                             for q in quantiles}
+        out[slo] = table
+    return out
+
+
+def tenant_percentiles(records, quantiles=(0.5, 0.95, 0.99)):
+    """Per-tenant latency percentiles from closed root ``request`` spans
+    that carry a ``tenant`` attribute (stamped by the multi-tenant
+    frontend).  Same table shape as :func:`slo_percentiles`, keyed by
+    tenant; requests without the attribute are excluded rather than
+    lumped, so single-tenant traffic yields an empty table."""
+    by_tenant = {}
+    for r in records:
+        if r.get("kind") != "span" or r.get("name") != "request":
+            continue
+        tenant = r.get("tenant")
+        if tenant is None:
+            continue
+        by_tenant.setdefault(str(tenant), []).append(r)
+    out = {}
+    for tenant, recs in sorted(by_tenant.items()):
+        table = {"count": len(recs)}
+        for metric in ("ttft_s", "tpot_s", "e2e_s", "queue_wait_s"):
+            samples = sorted(r[metric] for r in recs
+                             if isinstance(r.get(metric), (int, float)))
+            if not samples:
+                continue
+            table[metric] = {f"p{int(q * 100)}": quantile(samples, q)
+                             for q in quantiles}
+        out[tenant] = table
+    return out
+
+
+# ------------------------------------------------------------- process glue
+_TRACER = Tracer(enabled=False)
+
+
+def get_tracer():
+    """Process-global tracer (a disabled null tracer until configured)."""
+    return _TRACER
+
+
+def set_tracer(tracer):
+    global _TRACER
+    _TRACER = tracer
+    return tracer
+
+
+def tracer_from_config(cfg, job_name=None):
+    """Build a tracer from a ``TelemetryConfig`` block (its ``trace``
+    sub-block) and install it as the process-global default when enabled.
+    Mirrors :func:`~.registry.registry_from_config`."""
+    tr = cfg.trace
+    tracer = Tracer(
+        enabled=cfg.enabled and tr.enabled,
+        run_dir=cfg.output_path or "telemetry",
+        job_name=job_name or cfg.job_name or "run",
+        jsonl=tr.jsonl,
+        rank0_only=cfg.rank0_only,
+        buffer_spans=tr.buffer_spans,
+        flight_spans=tr.flight_spans,
+        max_dumps=tr.max_dumps,
+    )
+    if tracer.enabled:
+        set_tracer(tracer)
+    return tracer

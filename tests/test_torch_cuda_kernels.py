@@ -18,6 +18,7 @@ import torch
 
 from chip_smoke import flash_shares
 from deeperspeed_tpu_torch.ops.attention import flash, paged
+from deeperspeed_tpu_torch.ops.quantizer import quantize_kv
 from deeperspeed_tpu_torch.ops.sampling import topk
 from deeperspeed_tpu_torch.ops.transformer import normalize
 
@@ -116,6 +117,97 @@ def test_paged_wrappers_reject_what_the_kernel_does_not_take(gen):
                                                       device="cuda"))
 
 
+# K2q / K3q: the same walk over int8 and fp8 e4m3 pools with per-(slot, head)
+# fp32 scales, against the plain versions on the same quantized pools.
+KV_DTYPES = ["int8", "fp8"]
+
+
+def _quantized_pools(gen, B, N, D, bs, M, P, kv_dtype):
+    pk, pv, tables = _pools(gen, B, N, D, bs, M, P, torch.float32)
+    # per-token magnitudes over two octaves, so the scales matter
+    mag = 2 ** (2 * torch.rand(P, bs, N, 1, generator=gen, device="cuda") - 1)
+    (qk, sk), (qv, sv) = quantize_kv(pk * mag, kv_dtype), quantize_kv(pv * mag, kv_dtype)
+    return qk, qv, sk, sv, tables
+
+
+@pytest.mark.parametrize("kv_dtype", KV_DTYPES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("D,bs", [(16, 8), (64, 8), (64, 16), (80, 16), (96, 32),
+                                  (128, 16), (128, 32)])
+def test_paged_decode_quantized(gen, D, bs, dtype, kv_dtype):
+    B, N, M = 5, 3, 6
+    qk, qv, sk, sv, tables = _quantized_pools(gen, B, N, D, bs, M, 4 * M, kv_dtype)
+    q = torch.randn(B, N, D, generator=gen, device="cuda").to(dtype)
+    lens = torch.tensor([1, bs, bs + 1, M * bs - 3, M * bs], dtype=torch.int32,
+                        device="cuda")
+    got = paged.paged_decode_attention(q, qk, qv, tables, lens, k_scale=sk, v_scale=sv)
+    want = paged._decode_reference(q, qk, qv, tables, lens, D ** -0.5, sk, sv)
+    assert got.dtype == dtype
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("kv_dtype", KV_DTYPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("S", range(1, 9))
+def test_paged_spec_decode_quantized(gen, S, dtype, kv_dtype):
+    B, N, D, bs, M = 4, 2, 64, 16, 5
+    qk, qv, sk, sv, tables = _quantized_pools(gen, B, N, D, bs, M, 3 * M, kv_dtype)
+    q = torch.randn(B, S, N, D, generator=gen, device="cuda").to(dtype)
+    last = torch.tensor([S - 1, 20, 47, M * bs - 1], device="cuda")
+    pos = (last[:, None] - S + 1 + torch.arange(S, device="cuda")).to(torch.int32)
+    got = paged.paged_spec_decode_attention(q, qk, qv, tables, pos.contiguous(),
+                                            k_scale=sk, v_scale=sv)
+    want = paged._spec_decode_reference(q, qk, qv, tables, pos, D ** -0.5, sk, sv)
+    _close(got, want, dtype)
+    # each query sums in the same order whatever S is: query sq of the
+    # S-wide launch equals a plain decode at that query's length, bit for bit
+    for sq in range(S):
+        dec = paged.paged_decode_attention(q[:, sq].contiguous(), qk, qv, tables,
+                                           (pos[:, sq] + 1).contiguous(),
+                                           k_scale=sk, v_scale=sv)
+        assert torch.equal(got[:, sq], dec)
+
+
+@pytest.mark.parametrize("kv_dtype", KV_DTYPES)
+def test_paged_quantized_row_with_no_live_token_is_zero(gen, kv_dtype):
+    qk, qv, sk, sv, tables = _quantized_pools(gen, 2, 2, 64, 16, 2, 4, kv_dtype)
+    q = torch.randn(2, 2, 64, generator=gen, device="cuda")
+    lens = torch.tensor([0, 5], dtype=torch.int32, device="cuda")
+    out = paged.paged_decode_attention(q, qk, qv, tables, lens, k_scale=sk, v_scale=sv)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    assert torch.isfinite(out).all()
+
+
+def test_paged_quantized_counts_and_rejections(gen):
+    from deeperspeed_tpu_torch.ops.cuda_utils import LAUNCHES
+
+    qk, qv, sk, sv, tables = _quantized_pools(gen, 2, 2, 64, 16, 2, 4, "fp8")
+    q = torch.randn(2, 2, 64, generator=gen, device="cuda")
+    lens = torch.tensor([3, 5], dtype=torch.int32, device="cuda")
+    LAUNCHES.clear()
+    paged.paged_decode_attention(q, qk, qv, tables, lens, k_scale=sk, v_scale=sv)
+    paged.paged_spec_decode_attention(q[:, None].contiguous(), qk, qv, tables,
+                                      (lens - 1)[:, None].contiguous(),
+                                      k_scale=sk, v_scale=sv)
+    assert dict(LAUNCHES) == {"paged_decode_q": 1, "paged_spec_decode_q": 1}
+    with pytest.raises(ValueError, match="both k_scale and v_scale"):
+        paged.paged_decode_attention(q, qk, qv, tables, lens, k_scale=sk)
+    with pytest.raises(TypeError):      # fp pools with scales
+        paged.paged_decode_attention(q, q.new_zeros(qk.shape), q.new_zeros(qk.shape),
+                                     tables, lens, k_scale=sk, v_scale=sv)
+    with pytest.raises(TypeError):      # e5m2 pools are refused
+        e5 = qk.float().to(torch.float8_e5m2)
+        paged.paged_decode_attention(q, e5, e5, tables, lens, k_scale=sk, v_scale=sv)
+    with pytest.raises(TypeError):      # quantized pools without scales
+        paged.paged_decode_attention(q, qk, qv, tables, lens)
+    with pytest.raises(ValueError):     # scales of another shape
+        paged.paged_decode_attention(q, qk, qv, tables, lens, k_scale=sk[:, :8],
+                                     v_scale=sv[:, :8])
+    with pytest.raises(TypeError):      # scales in another type
+        paged.paged_decode_attention(q, qk, qv, tables, lens, k_scale=sk.half(),
+                                     v_scale=sv.half())
+
+
 @pytest.mark.parametrize("V,k", [(7, 7), (1000, 1), (1000, 64), (50304, 50)])
 def test_sorted_topk(gen, V, k):
     x = torch.randn(9, V, generator=gen, device="cuda")
@@ -149,6 +241,48 @@ def test_engine_on_the_card_matches_the_cpu():
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
     assert LAUNCHES["layer_norm"] > 0 and LAUNCHES["paged_decode"] > 0
+
+
+@pytest.mark.parametrize("kv_dtype", KV_DTYPES)
+def test_scheduler_on_the_card_matches_the_cpu(kv_dtype):
+    """Scheduler + quantized pool + speculation on tiny(): card tokens equal
+    the CPU's and the non-speculative card run's, through K2q and K3q."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deeperspeed_tpu_torch.inference.v2 import DSScheduler, InferenceEngineV2
+    from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
+    from deeperspeed_tpu_torch.ops.cuda_utils import LAUNCHES
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def run(device, speculative):
+        cfg = {"dtype": "float32",
+               "kv_cache": {"num_blocks": 9, "block_size": 8, "dtype": kv_dtype},
+               "state_manager": {"max_context": 64, "max_decode_batch": 4}}
+        if speculative:
+            cfg["speculative"] = {"method": "ngram", "k": 4}
+        eng = InferenceEngineV2(GPTNeoX(GPTNeoXConfig.tiny(), device="cpu", seed=3),
+                                cfg, device=device)
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(0, 256, 22) for _ in range(2)] + \
+            [np.asarray([5, 6, 7, 8] * 5)]
+        sched = DSScheduler(eng)
+        outs = sched.generate(prompts, max_new_tokens=10)
+        sm = eng.state_manager
+        sm.prefix_cache.evict(sm.allocator.total_blocks)
+        sm.allocator.audit()
+        assert sm.allocator.free_blocks == sm.allocator.total_blocks
+        return outs, sched
+
+    LAUNCHES.clear()
+    got, sched = run(None, True)
+    assert sched.preemption_count > 0       # 9 blocks: decode growth preempts
+    assert LAUNCHES["paged_decode_q"] + LAUNCHES["paged_spec_decode_q"] > 0
+    assert LAUNCHES["paged_spec_decode_q"] > 0
+    assert LAUNCHES["paged_decode"] == LAUNCHES["paged_spec_decode"] == 0
+    for other in (run(None, False)[0], run("cpu", True)[0]):
+        for g, w in zip(got, other):
+            np.testing.assert_array_equal(g, w)
 
 
 # Flash attention (K5-K7) against the plain versions on the same tensors,

@@ -151,8 +151,9 @@ def test_warmup_buckets_match_jax(engines):
     assert teng._round_buckets(5, 4, 2) == (8, 4, 4)
 
 
-@pytest.mark.parametrize("bad", [{"tp_size": 2}, {"kv_cache": {"dtype": "int8"}},
-                                 {"kv_cache": {"dtype": "fp8"}},
+@pytest.mark.parametrize("bad", [{"tp_size": 2},
+                                 {"kv_cache": {"dtype": "fp8_e5m2"}},
+                                 {"kv_cache": {"dtype": "e5m2"}},
                                  {"kv_tier": {"enabled": True}}])
 def test_unported_options_raise(bad):
     with pytest.raises(NotImplementedError):

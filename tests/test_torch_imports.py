@@ -35,6 +35,12 @@ def test_port_imports_no_jax():
         "import deeperspeed_tpu_torch.models, deeperspeed_tpu_torch.runtime.engine\n"
         "import deeperspeed_tpu_torch.ops.attention.flash\n"
         "import deeperspeed_tpu_torch.utils.tree\n"
+        "import deeperspeed_tpu_torch.quantization\n"
+        "import deeperspeed_tpu_torch.ops.quantizer\n"
+        "import deeperspeed_tpu_torch.telemetry.trace\n"
+        "import deeperspeed_tpu_torch.telemetry.serving\n"
+        "import deeperspeed_tpu_torch.inference.v2.scheduler\n"
+        "import deeperspeed_tpu_torch.inference.v2.speculative\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'deeperspeed_tpu' or m.startswith('deeperspeed_tpu.')]\n"
         "print('LOADED', bad)")
@@ -79,6 +85,8 @@ def test_chip_smoke_and_tools_import_no_jax():
     (flash._dkv_cuda, "flash_bwd_dkv"),
     (paged._decode_cuda, "paged_decode"),
     (paged._spec_decode_cuda, "paged_spec_decode"),
+    (paged._decode_cuda, "paged_decode_q"),
+    (paged._spec_decode_cuda, "paged_spec_decode_q"),
     (topk._topk_cuda, "sorted_topk"),
 ])
 def test_cuda_branch_launches_its_own_kernel(fn, kernel):

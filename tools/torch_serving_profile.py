@@ -8,7 +8,11 @@ Serves ``chip_smoke.py``'s served configuration (``SERVED_ECFG``,
 from a seed, a 4096 x 16 block KV pool, prompts of 128-512 tokens) through
 ``deeperspeed_tpu_torch``'s ``InferenceEngineV2``, then traces with
 ``torch.profiler`` two windows: one prefill round of 8 prompts, and 8
-pure-decode rounds at ``SERVED_BATCH`` sequences.  For each window it
+pure-decode rounds at ``SERVED_BATCH`` sequences.  A third window is the
+scheduled configuration (``scheduled_ecfg``, ``scheduled_prompts``: an fp8
+KV pool, n-gram speculation with k 4, ``SCHEDULED_BATCH`` sequences behind
+``DSScheduler``): 8 scheduler steps once every prompt is decoding, drafter,
+quantize-on-write and the K2q/K3q kernels included.  For each window it
 prints one JSON line: the host wall time per round (ending in a
 synchronize), the device time per round summed over kernels, the device's
 idle share (1 - device/wall, unclamped: a negative share means kernels were
@@ -73,8 +77,9 @@ def main():
         print("torch_serving_profile: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import SERVED_BATCH, SERVED_ECFG, served_model, served_prompts
-    from deeperspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from chip_smoke import (SCHEDULED_BATCH, SERVED_BATCH, SERVED_ECFG, scheduled_ecfg,
+                            scheduled_prompts, served_model, served_prompts)
+    from deeperspeed_tpu_torch.inference.v2 import DSScheduler, InferenceEngineV2
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -107,7 +112,34 @@ def main():
     report["decode"]["batch"] = batch
     report["decode"]["tokens_per_s"] = (
         batch * 1e3 / report["decode"]["wall_ms_per_round"])
-    for key in ("prefill", "decode"):
+    del eng
+    torch.cuda.empty_cache()
+
+    # the scheduled path: every prompt prefilled and decoding, then traced
+    seng = InferenceEngineV2(model, scheduled_ecfg(model.config.head_dim))
+    sched = DSScheduler(seng)
+    for u, p in enumerate(scheduled_prompts(np, model.config.vocab_size, SCHEDULED_BATCH)):
+        sched.request(u, p)
+    emitted = [0]
+
+    def scheduled_step():
+        for u, toks in sched.step().items():
+            emitted[0] += len(toks)
+            sched.request(u, [int(toks[-1])])
+
+    while sched.waiting:
+        scheduled_step()
+    for _ in range(4):                      # warm the decode path
+        scheduled_step()
+    emitted[0] = 0
+    report["scheduled_decode"] = _window(torch, profile, acts, scheduled_step,
+                                         DECODE_ROUNDS)
+    w = report["scheduled_decode"]
+    w["batch"] = len(sched.live)
+    w["speculative_k"] = sched.governor.effective_k
+    w["tokens_per_round"] = emitted[0] / DECODE_ROUNDS
+    w["tokens_per_s"] = w["tokens_per_round"] * 1e3 / w["wall_ms_per_round"]
+    for key in ("prefill", "decode", "scheduled_decode"):
         w = report[key]
         print(f"[{key}] {card}: wall {w['wall_ms_per_round']:.3f} ms/round, "
               f"device {w['device_ms_per_round']:.3f} ms/round, idle share "
