@@ -14,8 +14,9 @@ package, and goes through these phases, each printing its lines:
    library call's (where one PyTorch call computes the same function), and
    the least time the card could take (bound): serving's K1 LayerNorm
    forward, K2 paged decode, K3 paged speculative decode, K4 sorted top-k,
-   and training's K5 flash-attention forward, K7 its dq pass, K6 its dk/dv
-   pass and K8 the LayerNorm backward;
+   training's K5 flash-attention forward, K7 its dq pass, K6 its dk/dv
+   pass and K8 the LayerNorm backward, and the optimizers' B6 fused Adam
+   and B7 fused Lion over Pythia-160M's 162,322,944 parameters;
 4. Pythia-160M (12 layers, full width) in fp32 served through
    ``InferenceEngineV2`` on the card and on the CPU from the same seeded
    weights: logits must agree to 2e-3 every round, and tokens wherever the
@@ -42,12 +43,32 @@ package, and goes through these phases, each printing its lines:
 9. ``bench.py``'s training step: Pythia-160M at full depth in bf16, batch
    16 of 1024 tokens, Adam lr 1e-4, clip 1.0, ZeRO-0; 2 warm-up steps and
    10 timed ones; the loss must be finite and the counters of K1, K5, K6,
-   K7 and K8 must rise.
+   K7 and K8 must rise;
+10. the rest of single-card training, checked: Pythia-160M at full width
+    with 2 layers in fp32, 3 steps on the card and on the CPU from the same
+    seeded weights and batches, losses within 1e-4 relative, for FusedAdam
+    and FusedLion with weight decay 0.01, and for Adam with the chunked
+    loss (``ce_chunk_tokens`` 96 over 2 x 128 tokens), block recompute
+    (``activation_checkpointing``) and gas 2 driven through the legacy
+    ``forward``/``backward``/``step``; on the card the chunked loss must
+    equal the monolithic loss of the same weights within 1e-5;
+11. the rest of single-card training at full size: phase 9's model and
+    batch shape with FusedAdam, fed through ``training_data=`` (a seeded
+    numpy column store of 12 batches) with ``train_batch()`` taking no
+    arguments, ``ce_chunk_tokens`` 4096 and block recompute; 2 warm-up
+    steps and 10 timed ones: B6 must launch exactly once a step and K1,
+    K5-K8 must rise; then 3 steps with FusedLion (B7 once a step);
+12. dropout on the card: 2 full-width layers in bf16 with hidden and
+    attention dropout 0.1, 3 steps: losses finite, two engines from one
+    seed equal, the flash counters flat while training (attention takes
+    the dense path, as in the JAX package), and ``eval_batch`` equal to the
+    same weights' loss without dropout.
 
 The second-to-last line is the JSON summary of the kernels (a kernel's
-``launches`` sums its counts on the three main paths, serving in phase 5,
-scheduled serving in phase 7 and training in phase 9, each read right after
-its own run and listed in ``launches_by_path``), the last ``{"ok": true, "device": {...}}``.  Any
+``launches`` sums its counts on the main paths, serving in phase 5,
+scheduled serving in phase 7, training in phase 9, and this slice's
+training in phase 11 (FusedAdam, then FusedLion), each read right after its
+own run and listed in ``launches_by_path``), the last ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero; without a CUDA device, or outside a
 checkout, it exits 2 and prints no result.
 """
@@ -131,18 +152,41 @@ TRAIN_CONFIG = {"train_batch_size": TRAIN_BATCH,
                 "steps_per_print": 1000000}
 
 
-def trained_model(device=None):
+def trained_model(device=None, **config):
     """Pythia-160M at full width and depth in bf16, random weights from ``SEED``."""
     import torch
 
     from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
-    return GPTNeoX(GPTNeoXConfig.pythia_160m(dtype=torch.bfloat16, max_seq_len=TRAIN_SEQ),
+    return GPTNeoX(GPTNeoXConfig.pythia_160m(dtype=torch.bfloat16, max_seq_len=TRAIN_SEQ,
+                                             **config),
                    device=device, seed=SEED)
 
 
 def trained_batch(model):
     """bench.py's batch: one fixed batch of random tokens, reused each step."""
     return model.example_batch(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=SEED)
+
+
+# The rest of single-card training (phase 11), shared with
+# tools/torch_train_profile.py --fused: phase 9's step with FusedAdam, the
+# loader over training_data=, the chunked loss and block recompute.
+FUSED_CE_CHUNK, FUSED_DATA_BATCHES = 4096, 12
+FUSED_TRAIN_CONFIG = {**TRAIN_CONFIG,
+                      "optimizer": {"type": "FusedAdam", "params": {"lr": 1e-4}},
+                      "activation_checkpointing": {"partition_activations": True}}
+
+
+def fused_trained_model(device=None):
+    """Phase 9's model with ``ce_chunk_tokens`` 4096."""
+    return trained_model(device, ce_chunk_tokens=FUSED_CE_CHUNK)
+
+
+def fused_training_data(np, vocab):
+    """A seeded numpy column store of ``FUSED_DATA_BATCHES`` batches of
+    ``TRAIN_BATCH`` rows of ``TRAIN_SEQ`` next-token pairs."""
+    toks = np.random.default_rng(SEED + 5).integers(
+        0, vocab, (FUSED_DATA_BATCHES * TRAIN_BATCH, TRAIN_SEQ + 1))
+    return {"input_ids": toks[:, :-1], "labels": toks[:, 1:]}
 
 
 def served_model(device=None):
@@ -492,6 +536,107 @@ def phase_training_kernels(torch, rows_out):
     return rows_out
 
 
+def param_shapes(cfg):
+    """The parameter shapes of a GPT-NeoX config, in the module's order."""
+    H, V, F4 = cfg.hidden_size, cfg.vocab_size, cfg.intermediate_size
+    layer = [(H,), (H,), (H,), (H,), (3 * H, H), (3 * H,), (H, H), (H,),
+             (F4, H), (F4,), (H, F4), (H,)]
+    return [(V, H)] + layer * cfg.num_layers + [(H,), (H,), (V, H)]
+
+
+def phase_optimizer_kernels(torch, rows_out):
+    """Phase 3, the optimizers: B6 and B7 against their plain versions over
+    Pythia-160M's parameters as the engine holds them (flat fp32 buffers,
+    a view per parameter)."""
+    from deeperspeed_tpu_torch.models import GPTNeoXConfig
+    from deeperspeed_tpu_torch.ops.adam import fused_adam
+    from deeperspeed_tpu_torch.ops.lion import fused_lion
+    from deeperspeed_tpu_torch.runtime.optimizers import _bias_correction
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    report = _reporter(rows_out)
+    shapes = param_shapes(GPTNeoXConfig.pythia_160m())
+    n = sum(math.prod(s) for s in shapes)
+    b1, b2, eps, count = 0.9, 0.999, 1e-8, 3
+    bc1, bc2 = _bias_correction(b1, count), _bias_correction(b2, count)
+    ulp2 = 2.0 ** -22                     # two fp32 ulps, relative
+
+    def views(flat):
+        out, off = [], 0
+        for shape in shapes:
+            size = math.prod(shape)
+            out.append(flat[off:off + size].view(shape))
+            off += size
+        return out
+
+    def rel_err(got, want, rtol, what, where=None):
+        err = (got - want).abs()
+        bad = err > rtol * want.abs()
+        if where is not None:
+            bad &= where
+        if bool(bad.any()):
+            raise AssertionError(f"{what}: kernel disagrees with its plain version "
+                                 f"at {int(bad.sum())} elements (max abs err "
+                                 f"{err.max().item():.3e}, rtol {rtol})")
+        return err.max().item()
+
+    g = torch.randn(n, generator=gen, device=dev) * 1e-2
+    m = torch.randn(n, generator=gen, device=dev) * 1e-2
+    v = torch.randn(n, generator=gen, device=dev).square() * 1e-4
+    # ---- B6
+    gk, mk, vk = g.clone(), m.clone(), v.clone()
+    gp, mp, vp = g.clone(), m.clone(), v.clone()
+    lists = [views(gk), views(mk), views(vk)]
+    fused_adam.fused_adam_(*lists, count, b1, b2, eps)
+    fused_adam._adam_leaf_update_plain([gp], [mp], [vp], bc1, bc2, b1, b2, eps)
+    err = max(rel_err(mk, mp, ulp2, "fused_adam m"), rel_err(vk, vp, ulp2, "fused_adam v"),
+              rel_err(gk, gp, 2e-6, "fused_adam u"))
+    exact = bool(torch.equal(mk, mp) and torch.equal(vk, vp))
+    del gp, mp, vp
+    param = torch.nn.Parameter(m.clone())
+    param.grad = g.clone()
+    library = torch.optim.Adam([param], lr=1e-4, betas=(b1, b2), eps=eps, fused=True)
+    t, by = _bound(24 * n, 12 * n, torch.float32)
+    report("fused_adam", f"B6 fused_adam n={n} fp32 (library: torch.optim.Adam "
+           f"fused=True, which also applies lr)", dict(
+               max_abs_err=err,
+               ms=_time_ms(torch, lambda: fused_adam.fused_adam_(
+                   *lists, count, b1, b2, eps)),
+               plain_ms=_time_ms(torch, lambda: fused_adam._adam_leaf_update_plain(
+                   [gk], [mk], [vk], bc1, bc2, b1, b2, eps), iters=5),
+               library_ms=_time_ms(torch, library.step),
+               bound_ms=t, bound_by=by))
+    print(f"[kernels] B6 m' and v' equal the plain version's bit for bit: {exact}",
+          flush=True)
+    del gk, mk, vk, param, library, lists
+    # ---- B7
+    gk, mk = g.clone(), m.clone()
+    gp, mp = g.clone(), m.clone()
+    lists = [views(gk), views(mk)]
+    fused_lion.fused_lion_(*lists, b1, 0.99)
+    fused_lion._lion_leaf_plain([gp], [mp], b1, 0.99)
+    bm, bg = b1 * m, (1.0 - b1) * g
+    clear = (bm + bg).abs() > ulp2 * (bm.abs() + bg.abs())
+    err = rel_err(mk, mp, ulp2, "fused_lion m")
+    if bool(((gk != gp) & clear).any()):
+        raise AssertionError("fused_lion u: kernel's sign differs from its plain version")
+    exact = bool(torch.equal(gk, gp) and torch.equal(mk, mp))
+    del gp, mp, bm, bg, clear
+    t, by = _bound(16 * n, 6 * n, torch.float32)
+    report("fused_lion", f"B7 fused_lion n={n} fp32", dict(
+        max_abs_err=err,
+        ms=_time_ms(torch, lambda: fused_lion.fused_lion_(*lists, b1, 0.99)),
+        plain_ms=_time_ms(torch, lambda: fused_lion._lion_leaf_plain([gk], [mk], b1, 0.99),
+                          iters=5),
+        library_ms=None, bound_ms=t, bound_by=by))
+    print(f"[kernels] B7 u and m' equal the plain version's bit for bit: {exact}; "
+          f"no PyTorch call computes Lion", flush=True)
+    del g, m, v, gk, mk, lists
+    torch.cuda.empty_cache()
+    return rows_out
+
+
 def phase_checked(torch, np):
     """Phase 4: fp32 Pythia-160M on the card against the same on the CPU."""
     from deeperspeed_tpu_torch.inference.v2 import InferenceEngineV2
@@ -837,6 +982,189 @@ def phase_trained(torch, launches):
     return counts
 
 
+def phase_fused_checked(torch, np):
+    """Phase 10: FusedAdam, FusedLion, and Adam with the chunked loss, block
+    recompute and the legacy API, 2 full-width layers in fp32, card vs CPU."""
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
+
+    # TF32 stays off (phase 4): fp32 products in full fp32
+    tol = 1e-4     # summation order over 768-4096-wide products and the CE (phase 8)
+    base = {"train_batch_size": 2, "gradient_clipping": 1.0,
+            "optimizer": {"type": "Adam", "params": {"lr": 1e-4}}}
+    cases = {
+        "FusedAdam, weight decay 0.01": (
+            {**base, "optimizer": {"type": "FusedAdam",
+                                   "params": {"lr": 1e-4, "weight_decay": 0.01}}}, {}),
+        "FusedLion, weight decay 0.01": (
+            {**base, "optimizer": {"type": "FusedLion",
+                                   "params": {"lr": 1e-5, "weight_decay": 0.01}}}, {}),
+        "Adam, ce_chunk_tokens 96, recompute, gas 2, legacy API": (
+            {**base, "gradient_accumulation_steps": 2,
+             "activation_checkpointing": {"partition_activations": True}},
+            {"ce_chunk_tokens": 96}),
+    }
+    for name, (cfg, model_kw) in cases.items():
+        two_layers = dataclasses.replace(GPTNeoXConfig.pythia_160m(**model_kw), num_layers=2)
+        engines = [dst.initialize(model=GPTNeoX(two_layers, device=d, seed=SEED),
+                                  config=cfg, device=d)[0] for d in ("cuda", "cpu")]
+        legacy = "legacy" in name
+        rng = np.random.default_rng(SEED + 6)
+        V = two_layers.vocab_size
+        worst = 0.0
+        for step in range(3):
+            toks = rng.integers(0, V, (2, 129))
+            batch = {"input_ids": toks[:, :-1], "labels": toks[:, 1:]}
+            losses = []
+            for e in engines:
+                if legacy:        # one row a microbatch, through forward/backward/step
+                    micro = [float(e.backward(e.forward({k: v[i:i + 1] for k, v in
+                                                         batch.items()})))
+                             for i in range(2)]
+                    e.step()
+                    losses.append(sum(micro) / 2)
+                else:
+                    losses.append(float(e.train_batch(batch=batch)))
+            lg, lc = losses
+            rel = abs(lg - lc) / abs(lc)
+            worst = max(worst, rel)
+            if not (math.isfinite(lg) and rel <= tol):
+                raise AssertionError(f"{name}, step {step}: card loss {lg} vs CPU {lc}")
+        msg = ""
+        if legacy:
+            card = engines[0]
+            dev_batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+            with torch.no_grad():
+                chunked = float(card._loss_fn(card.module, dev_batch, None))
+                card.module.replace_config(ce_chunk_tokens=0)
+                whole = float(card.module.loss_fn()(card.module, dev_batch, None))
+                card.module.replace_config(ce_chunk_tokens=96)
+            if abs(chunked - whole) > 1e-5 * abs(whole):
+                raise AssertionError(f"chunked loss {chunked} vs monolithic {whole}")
+            msg = (f"; on the card the chunked loss {chunked:.7f} vs monolithic "
+                   f"{whole:.7f} ({abs(chunked - whole) / abs(whole):.2e} relative, tol 1e-5)")
+        print(f"[fused-checked] Pythia-160M width, 2 layers, fp32, B 2 x S 128, {name}: "
+              f"3 steps, losses card vs CPU within {worst:.2e} relative (tol {tol}); "
+              f"last loss {lg:.6f}{msg}", flush=True)
+        del engines
+        torch.cuda.empty_cache()
+
+
+def _fused_flops_share(cfg, n_params, tokens_per_s):
+    """Phase 9's model-FLOPs share: 6 N (input embedding excluded) + the
+    attention term, over 989 TFLOP/s."""
+    flops_per_token = 6 * (n_params - cfg.vocab_size * cfg.hidden_size) \
+        + 12 * cfg.num_layers * cfg.hidden_size * TRAIN_SEQ
+    return flops_per_token * tokens_per_s / PEAK_OPS_PER_S["bfloat16"]
+
+
+def phase_fused_trained(torch, np, launches):
+    """Phase 11: the slice's main path at full size, timed; counts kernel
+    launches.  Returns the FusedAdam run's counts and the FusedLion run's."""
+    import deeperspeed_tpu_torch as dst
+
+    model = fused_trained_model()
+    data = fused_training_data(np, model.config.vocab_size)
+    engine = dst.initialize(model=model, config=FUSED_TRAIN_CONFIG, training_data=data)[0]
+    cfg = engine.module.config
+    if not cfg.remat:
+        raise AssertionError("activation_checkpointing did not turn block recompute on")
+    for _ in range(2):                                # warm-up
+        loss = engine.train_batch()
+    first = float(loss)
+    torch.cuda.reset_peak_memory_stats()
+    launches.clear()                                  # main path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        loss = engine.train_batch()
+    loss = float(loss)                                # waits for the last step
+    dt = time.perf_counter() - t0
+    counts = dict(launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not (math.isfinite(first) and math.isfinite(loss)):
+        raise AssertionError(f"non-finite training loss: {first}, {loss}")
+    if counts.get("fused_adam", 0) != TRAIN_STEPS:
+        raise AssertionError(f"fused_adam launched {counts.get('fused_adam', 0)} times in "
+                             f"{TRAIN_STEPS} steps: {counts}")
+    for name in ("layer_norm", "layer_norm_bwd", "flash_fwd", "flash_bwd_dq",
+                 "flash_bwd_dkv"):
+        if counts.get(name, 0) < 1:
+            raise AssertionError(f"training never launched {name}: {counts}")
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / dt
+    n_params = sum(p.numel() for p in engine.master_params.values())
+    print(f"[fused-trained] Pythia-160M bf16, B {TRAIN_BATCH} x S {TRAIN_SEQ}, FusedAdam, "
+          f"clip 1.0, ZeRO-0, training_data= ({FUSED_DATA_BATCHES} batches) and "
+          f"train_batch(), ce_chunk_tokens {FUSED_CE_CHUNK}, block recompute: "
+          f"{dt / TRAIN_STEPS * 1e3:.2f} ms/step over {TRAIN_STEPS} steps, "
+          f"{tokens_per_s:.1f} tokens/s, model-FLOPs share "
+          f"{_fused_flops_share(cfg, n_params, tokens_per_s):.4f} of 989 TFLOP/s; loss "
+          f"{first:.4f} -> {loss:.4f}; peak memory {peak:.2f} GB", flush=True)
+    print(f"[fused-trained] launches in the timed steps {counts}", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+
+    lion_cfg = {**FUSED_TRAIN_CONFIG,
+                "optimizer": {"type": "FusedLion", "params": {"lr": 1e-5}}}
+    engine = dst.initialize(model=fused_trained_model(), config=lion_cfg,
+                            training_data=data)[0]
+    launches.clear()                                  # the Lion run starts here
+    losses = [float(engine.train_batch()) for _ in range(3)]
+    lion = dict(launches)
+    if lion.get("fused_lion", 0) != 3 or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"FusedLion run: losses {losses}, launches {lion}")
+    print(f"[fused-trained] FusedLion lr 1e-5, 3 steps: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; launches {lion}", flush=True)
+    del engine, model
+    torch.cuda.empty_cache()
+    return counts, lion
+
+
+def phase_dropout(torch, np, launches):
+    """Phase 12: hidden and attention dropout 0.1 on the card, bf16."""
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
+
+    def two_layers(rate):
+        return dataclasses.replace(
+            GPTNeoXConfig.pythia_160m(dtype=torch.bfloat16, hidden_dropout=rate,
+                                      attention_dropout=rate), num_layers=2)
+
+    cfg = {"train_batch_size": 4, "gradient_clipping": 1.0, "bf16": {"enabled": True},
+           "optimizer": {"type": "FusedAdam", "params": {"lr": 1e-4}}}
+    engines = [dst.initialize(model=GPTNeoX(two_layers(0.1), seed=SEED), config=cfg)[0]
+               for _ in range(2)]
+    rng = np.random.default_rng(SEED + 7)
+    V = engines[0].module.config.vocab_size
+    flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    runs = []
+    for step in range(3):
+        toks = rng.integers(0, V, (4, 257))
+        batch = {"input_ids": toks[:, :-1], "labels": toks[:, 1:]}
+        before = {k: launches.get(k, 0) for k in flash}
+        runs.append([float(e.train_batch(batch=batch)) for e in engines])
+        after = {k: launches.get(k, 0) for k in flash}
+        if after != before:
+            raise AssertionError(f"training with dropout launched flash: {before} -> {after}")
+    if not all(math.isfinite(x) for r in runs for x in r) or any(a != b for a, b in runs):
+        raise AssertionError(f"dropout runs from one seed differ or are not finite: {runs}")
+    eval_batch = {"input_ids": toks[:, :-1], "labels": toks[:, 1:]}
+    got = float(engines[0].eval_batch(batch=eval_batch))
+    plain = dst.initialize(model=GPTNeoX(two_layers(0.0), seed=SEED), config=cfg,
+                           model_parameters={n: t.clone() for n, t in
+                                             engines[0].master_params.items()})[0]
+    want = float(plain.eval_batch(batch=eval_batch))
+    if got != want:
+        raise AssertionError(f"eval_batch with dropout configured {got} != without {want}")
+    print(f"[dropout] Pythia-160M width, 2 layers, bf16, hidden and attention dropout "
+          f"0.1, B 4 x S 256, 3 FusedAdam steps: losses "
+          f"{', '.join(f'{r[0]:.6f}' for r in runs)}, equal in two engines from one seed; "
+          f"flash counters flat while training; eval_batch {got:.6f} equals the same "
+          f"weights without dropout", flush=True)
+    del engines, plain
+    torch.cuda.empty_cache()
+
+
 def main():
     try:
         import torch
@@ -871,7 +1199,7 @@ def main():
     print(f"[build] all kernels in {time.perf_counter() - t0:.1f} s "
           f"(one nvcc per source, in parallel)", flush=True)
 
-    rows = phase_training_kernels(torch, phase_kernels(torch))
+    rows = phase_optimizer_kernels(torch, phase_training_kernels(torch, phase_kernels(torch)))
     phase_checked(torch, np)
     # each main path's counts, read right after its own run
     paths = {"serving": phase_served(torch, np, cuda_utils.LAUNCHES)}
@@ -879,6 +1207,10 @@ def main():
     paths["scheduled"] = phase_scheduled(torch, np, cuda_utils.LAUNCHES)
     phase_trained_checked(torch, np)
     paths["training"] = phase_trained(torch, cuda_utils.LAUNCHES)
+    phase_fused_checked(torch, np)
+    paths["training_fused"], paths["training_fused_lion"] = phase_fused_trained(
+        torch, np, cuda_utils.LAUNCHES)
+    phase_dropout(torch, np, cuda_utils.LAUNCHES)
 
     sources = {
         "layer_norm": ("deeperspeed_tpu_torch/csrc/layer_norm.cu",
@@ -902,6 +1234,10 @@ def main():
                          "deeperspeed_tpu/ops/attention/pallas_flash.py:117"),
         "layer_norm_bwd": ("deeperspeed_tpu_torch/csrc/layer_norm.cu",
                            "deeperspeed_tpu/ops/transformer/normalize.py:44"),
+        "fused_adam": ("deeperspeed_tpu_torch/csrc/fused_optimizers.cu",
+                       "deeperspeed_tpu/ops/adam/pallas_adam.py:23"),
+        "fused_lion": ("deeperspeed_tpu_torch/csrc/fused_optimizers.cu",
+                       "deeperspeed_tpu/ops/lion/fused_lion.py:32"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():

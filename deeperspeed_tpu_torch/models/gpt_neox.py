@@ -27,8 +27,14 @@ the gathered blocks.  A quantized pool (int8 / fp8) is written through
 kernels dequantize inside their token walk, the prefill path after its
 gather.
 
+Training (``loss_fn``) adds what the JAX package's training forward has:
+hidden and attention dropout from an explicit ``torch.Generator``,
+block-level recompute (``remat``, ``torch.utils.checkpoint``), progressive
+layer drop, random-LTD on the middle blocks, and the chunked cross entropy
+(``ce_chunk_tokens``).
+
 Not ported yet (construction raises, naming the ROADMAP item): MoE layers,
-dropout, remat, chunked cross entropy, sequence parallelism.
+sequence parallelism.
 """
 
 import dataclasses
@@ -39,13 +45,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..accelerator import resolve_device
 from ..ops.attention import (dot_product_attention, paged_decode_attention,
                              paged_spec_decode_attention)
+from ..ops.attention.core import keep_mask
 from ..ops.quantizer import byte_view, dequantize_kv, quantize_kv
 from ..ops.transformer import apply_rotary_pos_emb, layer_norm, rotary_tables
 from ..quantization import canonical_dtype
+from ..runtime.data_pipeline.data_routing.basic_layer import (
+    random_ltd_gather, random_ltd_scatter, take_tokens)
 
 # rows this short (S <= 8) walk only their live KV blocks in the paged
 # (speculative-)decode kernels; longer rows take the dense prefill path.
@@ -160,7 +170,8 @@ class GPTNeoXAttention(nn.Module):
         self.query_key_value = nn.Linear(H, 3 * H)
         self.dense = nn.Linear(H, H)
 
-    def forward(self, x, positions, kv=None, paged: Optional[PagedState] = None):
+    def forward(self, x, positions, kv=None, paged: Optional[PagedState] = None,
+                rng=None):
         cfg = self.config
         B, S, H = x.shape
         # per-head [q | k | v] layout, as the flax Dense output is reshaped
@@ -176,7 +187,11 @@ class GPTNeoXAttention(nn.Module):
             out = self._paged_attention(q, k, v.contiguous(), positions, kv,
                                         paged)
         else:
-            out = dot_product_attention(q, k, v, causal=True)
+            # training (an rng) with attention_dropout > 0 takes the dense
+            # path with dropout on the probabilities, as in the JAX package
+            rate = cfg.attention_dropout if rng is not None else 0.0
+            out = dot_product_attention(q, k, v, causal=True, dropout_rate=rate,
+                                        generator=rng)
         return _dense(self.dense, out.reshape(B, S, H), cfg.dtype)
 
     def _paged_attention(self, q, k, v, positions, kv, paged):
@@ -248,24 +263,56 @@ class GPTNeoXBlock(nn.Module):
         self.attention = GPTNeoXAttention(config)
         self.mlp = GPTNeoXMLP(config)
 
-    def forward(self, x, positions, kv=None, paged=None):
-        attn_out = self.attention(self.input_layernorm(x), positions, kv, paged)
-        if self.config.use_parallel_residual:
+    def forward(self, x, positions, kv=None, paged=None, rng=None):
+        """``rng`` (a ``torch.Generator``, training only) draws the
+        attention and hidden dropout masks; None is deterministic."""
+        cfg = self.config
+        attn_out = self.attention(self.input_layernorm(x), positions, kv, paged,
+                                  rng)
+        if cfg.use_parallel_residual:
             mlp_out = self.mlp(self.post_attention_layernorm(x))
-            return x + attn_out + mlp_out
-        x = x + attn_out
-        return x + self.mlp(self.post_attention_layernorm(x))
+            x = x + attn_out + mlp_out
+        else:
+            x = x + attn_out
+            x = x + self.mlp(self.post_attention_layernorm(x))
+        if cfg.hidden_dropout > 0.0 and rng is not None:
+            # on the whole residual stream after the adds (flax nn.Dropout:
+            # x / keep where kept, else 0)
+            keep = keep_mask(x.shape, cfg.hidden_dropout, rng, x.device)
+            x = torch.where(keep, x / (1.0 - cfg.hidden_dropout),
+                            torch.zeros((), dtype=x.dtype, device=x.device))
+        return x
+
+
+def _remat_block(blk, x, positions, rng):
+    """``blk(x, positions, rng=rng)`` whose activations are recomputed in
+    the backward pass (``torch.utils.checkpoint``, the JAX package's
+    ``nn.remat`` of the block).  The checkpoint replays the default
+    generators, not ``rng``: the recompute sets ``rng`` back to its state
+    at block entry, so it draws the forward's dropout masks again, and then
+    restores the state it found, so later draws are those a run without
+    remat makes."""
+    entry = None if rng is None else rng.get_state()
+    runs = [0]
+
+    def run(x_in):
+        runs[0] += 1
+        if rng is None or runs[0] == 1:
+            return blk(x_in, positions, rng=rng)
+        later = rng.get_state()
+        rng.set_state(entry)
+        try:
+            return blk(x_in, positions, rng=rng)
+        finally:
+            rng.set_state(later)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
 def _not_ported(config):
     """The first configuration feature the port does not run yet, or None."""
     if config.moe_num_experts > 1:
         return "MoE layers (ROADMAP Queue A, 'Llama/Mistral, v1 inference and MoE')"
-    for name in ("hidden_dropout", "attention_dropout"):
-        if getattr(config, name) > 0.0:
-            return f"{name} > 0 (ROADMAP Queue A, 'Training leftovers')"
-    if config.remat:
-        return "remat (ROADMAP Queue A, 'Training leftovers')"
     return None
 
 
@@ -317,12 +364,19 @@ class GPTNeoX(nn.Module):
         for mod in self.modules():
             if isinstance(mod, (nn.Linear, nn.Embedding)):
                 mod.to(dtype)
-        self.config = dataclasses.replace(self.config, dtype=dtype)
+        self.replace_config(dtype=dtype)
+        for mod in self.modules():
+            if isinstance(mod, ModelLayerNorm):
+                mod.dtype = dtype
+        return self
+
+    def replace_config(self, **changes):
+        """Give this model and each of its blocks ``config`` with
+        ``changes`` (the engine turns ``remat`` on this way)."""
+        self.config = dataclasses.replace(self.config, **changes)
         for mod in self.modules():
             if hasattr(mod, "config"):
                 mod.config = self.config
-            if isinstance(mod, ModelLayerNorm):
-                mod.dtype = dtype
         return self
 
     def _paged_writes(self, paged_state, positions, block_size):
@@ -334,12 +388,23 @@ class GPTNeoX(nn.Module):
         return PagedState(tables, flat.index_select(0, src), src)
 
     def forward(self, input_ids, positions=None, paged_state=None,
-                logits_positions=None):
+                logits_positions=None, rng=None, pld_theta=None,
+                random_ltd_tokens=None, return_hidden=False):
         """``paged_state`` (serving) carries ``kv_cache`` (per layer (pool_k,
         pool_v), or (pool_k, pool_v, k_scale, v_scale) for quantized pools,
         updated in place), ``block_tables`` [B, M]
         int32 and ``write_mask`` [B, S] bool.  ``logits_positions`` [B] or
-        [B, R] projects only those positions of each row through the head."""
+        [B, R] projects only those positions of each row through the head.
+
+        Training passes ``rng``, a ``torch.Generator`` on the model's
+        device: it draws the dropout masks, and with ``pld_theta`` (progressive
+        layer drop: block i > 0 survives with probability
+        1 - (i+1)/L (1 - theta)) and ``random_ltd_tokens`` k (random-LTD: the
+        middle blocks see a sorted random k-subset of each row, at its own
+        positions) their draws too.  Without ``rng`` the forward is
+        deterministic and those arguments are ignored.  ``return_hidden``
+        returns the final LayerNorm's output (the chunked loss owns the
+        head)."""
         B, S = input_ids.shape
         if positions is None:
             positions = torch.arange(S, device=input_ids.device).expand(B, S)
@@ -350,9 +415,29 @@ class GPTNeoX(nn.Module):
             kv_cache = paged_state["kv_cache"]
             paged = self._paged_writes(paged_state, positions,
                                        kv_cache[0][0].shape[1])
-        for blk, kv in zip(self.layers, kv_cache):
-            x = blk(x, positions, kv, paged)
+        L = len(self.layers)
+        remat = self.config.remat and paged is None and torch.is_grad_enabled()
+        for i, (blk, kv) in enumerate(zip(self.layers, kv_cache)):
+            if paged is not None:
+                x = blk(x, positions, kv, paged)
+                continue
+            x_in, pos_in, idx = x, positions, None
+            if (rng is not None and random_ltd_tokens is not None
+                    and 0 < random_ltd_tokens < S and 0 < i < L - 1):
+                x_in, idx = random_ltd_gather(x, random_ltd_tokens, rng)
+                pos_in = take_tokens(positions, idx)
+            y = (_remat_block(blk, x_in, pos_in, rng) if remat
+                 else blk(x_in, pos_in, rng=rng))
+            if idx is not None:
+                y = random_ltd_scatter(x, y, idx)
+            if rng is not None and pld_theta is not None and i > 0:
+                keep_p = 1.0 - ((i + 1) / L) * (1.0 - pld_theta)
+                keep = torch.rand((), generator=rng, device=x.device) < keep_p
+                y = torch.where(keep, y, x)
+            x = y
         x = self.final_layer_norm(x)
+        if return_hidden:
+            return x
         if logits_positions is not None:
             lp = logits_positions.long()
             if lp.dim() == 1:
@@ -372,16 +457,34 @@ class GPTNeoX(nn.Module):
                 "labels": toks[:, 1:].contiguous()}
 
     def loss_fn(self):
-        """``loss(model, batch) -> fp32 scalar``: mean next-token cross
-        entropy over the tokens where ``batch["loss_mask"]`` (default all)
-        is set, as logsumexp minus the gold logit over fp32 logits."""
-        if self.config.ce_chunk_tokens > 0:
-            raise NotImplementedError(
-                "GPTNeoX: ce_chunk_tokens > 0 (the chunked cross entropy) is "
-                "not ported yet (ROADMAP Queue A, 'Training leftovers')")
+        """``loss(model, batch, rng=None) -> fp32 scalar``: mean next-token
+        cross entropy over the tokens where ``batch["loss_mask"]`` (default
+        all) is set, as logsumexp minus the gold logit over fp32 logits.
 
-        def loss(model, batch):
-            logits = model(batch["input_ids"]).to(torch.float32)
+        ``rng`` (the engine's ``torch.Generator`` in training, None in
+        evaluation) makes the forward stochastic: dropout, and the
+        progressive layer drop and random-LTD draws when the engine passes
+        ``batch["pld_theta"]`` and ``random_ltd_tokens``.  ``deterministic``
+        overrides (the JAX package's ``_apply_setup``).  With
+        ``ce_chunk_tokens`` > 0 the loss is the chunked one (see
+        :func:`_chunked_ce`)."""
+        cfg = self.config
+        if cfg.ce_chunk_tokens > 0 and cfg.moe_num_experts > 1:
+            raise NotImplementedError(
+                "ce_chunk_tokens with MoE is not ported yet: the chunked path "
+                "bypasses the aux-loss collection (ROADMAP Queue A, "
+                "'Llama/Mistral, v1 inference and MoE')")
+
+        def setup(batch, rng, deterministic, random_ltd_tokens):
+            if deterministic is None:
+                deterministic = rng is None
+            return {"rng": None if deterministic else rng,
+                    "pld_theta": batch.get("pld_theta"),
+                    "random_ltd_tokens": random_ltd_tokens}
+
+        def loss(model, batch, rng=None, deterministic=None, random_ltd_tokens=None):
+            kwargs = setup(batch, rng, deterministic, random_ltd_tokens)
+            logits = model(batch["input_ids"], **kwargs).to(torch.float32)
             lse = torch.logsumexp(logits, dim=-1)
             gold = torch.gather(logits, -1, batch["labels"][..., None])[..., 0]
             token_ll = gold - lse
@@ -389,7 +492,15 @@ class GPTNeoX(nn.Module):
             mask = torch.ones_like(token_ll) if mask is None else mask.to(token_ll.dtype)
             return -(token_ll * mask).sum() / mask.sum().clamp(min=1.0)
 
-        return loss
+        def loss_chunked(model, batch, rng=None, deterministic=None,
+                         random_ltd_tokens=None):
+            kwargs = setup(batch, rng, deterministic, random_ltd_tokens)
+            hidden = model(batch["input_ids"], return_hidden=True, **kwargs)
+            return _chunked_ce(hidden, model.embed_out.weight, batch["labels"],
+                               batch.get("loss_mask"), model.config.ce_chunk_tokens,
+                               model.config.dtype)
+
+        return loss_chunked if cfg.ce_chunk_tokens > 0 else loss
 
     def no_cast_paths(self):
         """Parameter names (regexes) that stay fp32 under mixed precision:
@@ -423,6 +534,45 @@ class GPTNeoX(nn.Module):
         attn = 3 * h * h + 3 * h + h * h + h  # qkv + out proj
         lns = 4 * h
         return v * h + L * (attn + mlp + lns) + 2 * h + v * h
+
+
+def _ce_chunk(xc, w, labels, mask, dtype):
+    """Sum over one chunk of (gold - logsumexp) * mask, logits in fp32."""
+    logits = F.linear(xc.to(dtype), w.to(dtype)).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[:, None])[:, 0]
+    return ((gold - lse) * mask).sum()
+
+
+def _chunked_ce(hidden, w, labels, mask, chunk_tokens, dtype):
+    """The chunked fused-linear cross entropy (``loss_chunked`` of the JAX
+    package): the [T, H] hidden states (T = B S, padded with zero rows to a
+    multiple of C = min(``chunk_tokens``, T), labels and mask padded with
+    zeros) go through the head C tokens at a time, each chunk's [C, V]
+    logits in fp32; the loss is -(sum of the chunks' sums) / max(mask sum,
+    1), both sums in fp32.  Each chunk runs under ``torch.utils.checkpoint``,
+    which keeps only its inputs ([C, H]) for the backward and recomputes its
+    logits there, so no [T, V] logits are ever live."""
+    B, S, H = hidden.shape
+    T = B * S
+    C = min(chunk_tokens, T)
+    n_chunks = -(-T // C)
+    pad = n_chunks * C - T
+    x = hidden.reshape(T, H)
+    labels = labels.reshape(-1)
+    mask = (torch.ones(T, dtype=torch.float32, device=hidden.device) if mask is None
+            else mask.reshape(-1).to(torch.float32))
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    num = den = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(n_chunks):
+        sl = slice(c * C, (c + 1) * C)
+        num = num + checkpoint(_ce_chunk, x[sl], w, labels[sl], mask[sl], dtype,
+                               use_reentrant=False, preserve_rng_state=False)
+        den = den + mask[sl].sum()
+    return -num / den.clamp(min=1.0)
 
 
 def params_from_jax(tree) -> dict:

@@ -8,6 +8,13 @@ call on the CPU (where the JAX package takes its reference path too), is
 the dense path: two products and a softmax, left to ``torch.matmul``-class
 operators as the JAX package left it to XLA.  Serving prefill passes a
 mask, so it takes the dense path, as it does in the JAX package.
+
+Attention dropout (training with ``dropout_rate > 0``) lives on the dense
+path only, as in the JAX package, whose flash kernels have none: the
+probabilities, cast to q's type, keep each entry with probability
+1 - rate and are scaled by 1 / (1 - rate).  The keep mask is drawn from the
+caller's ``torch.Generator`` (uniforms below 1 - rate, ``bernoulli``'s
+rule), never from the default generators.
 """
 
 import math
@@ -24,7 +31,14 @@ def _scale_for(q):
     return float(1.0 / root)
 
 
-def _reference_attention(q, k, v, mask=None, causal=True, scale=None):
+def keep_mask(shape, rate, generator, device):
+    """Bool [shape]: True with probability 1 - ``rate``, from ``generator``."""
+    u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+    return u < 1.0 - rate
+
+
+def _reference_attention(q, k, v, mask=None, causal=True, scale=None,
+                         dropout_rate=0.0, generator=None):
     """Scores and softmax in fp32; probabilities cast back to q's type
     before the product with v.  ``mask`` broadcasts to [B, N, Sq, Sk]."""
     seq_q, seq_k = q.shape[-3], k.shape[-3]
@@ -39,12 +53,20 @@ def _reference_attention(q, k, v, mask=None, causal=True, scale=None):
     if mask is not None:
         logits = logits.masked_fill(~mask, fill)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    if dropout_rate > 0.0 and generator is not None:
+        keep = keep_mask(probs.shape, dropout_rate, generator, probs.device)
+        probs = probs * keep / (1.0 - dropout_rate)
     return torch.einsum("bnqk,bknd->bqnd", probs, v)
 
 
-def dot_product_attention(q, k, v, mask=None, causal=True, scale=None):
-    """Multi-head attention over [batch, seq, heads, head_dim] tensors."""
-    if get_accelerator(q.device).use_cuda_kernels() and mask is None:
+def dot_product_attention(q, k, v, mask=None, causal=True, scale=None,
+                          dropout_rate=0.0, generator=None):
+    """Multi-head attention over [batch, seq, heads, head_dim] tensors;
+    dropout on the probabilities when ``dropout_rate > 0`` and a
+    ``generator`` is given."""
+    if (get_accelerator(q.device).use_cuda_kernels() and mask is None
+            and dropout_rate == 0.0):
         if flash_attention_supported(q.shape, q.dtype) and q.shape == k.shape:
             return flash_attention(q, k, v, causal=causal, scale=scale)
-    return _reference_attention(q, k, v, mask=mask, causal=causal, scale=scale)
+    return _reference_attention(q, k, v, mask=mask, causal=causal, scale=scale,
+                                dropout_rate=dropout_rate, generator=generator)

@@ -38,7 +38,7 @@ LAUNCHES = Counter()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-_vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_vp, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C signature of every exported function, per source file
 _SIGNATURES = {
     "layer_norm": {
@@ -58,6 +58,10 @@ _SIGNATURES = {
     },
     "topk": {
         "dst_sorted_topk": ([_vp, _vp, _vp, _i, _i, _i, _vp], _i),
+    },
+    "fused_optimizers": {
+        "dst_fused_adam": ([_vp, _i, _ll] + [_f] * 7 + [_vp], _i),
+        "dst_fused_lion": ([_vp, _i, _ll] + [_f] * 4 + [_vp], _i),
     },
 }
 

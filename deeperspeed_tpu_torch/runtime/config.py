@@ -3,20 +3,23 @@
 The subset the single-device training slice reads: the batch triangle
 (``train_batch_size`` = micro batch x ``gradient_accumulation_steps`` on
 one device), ``optimizer``, ``scheduler``, ``fp16`` / ``bf16``,
-``gradient_clipping``, ``seed``, ``steps_per_print`` and
-``zero_optimization`` with stage 0.  Any other key raises
+``gradient_clipping``, ``seed``, ``steps_per_print``,
+``zero_optimization`` with stage 0, ``activation_checkpointing``,
+``data_types.grad_accum_dtype``, ``progressive_layer_drop``,
+``curriculum_learning`` and ``data_efficiency``.  Any other key raises
 ``NotImplementedError`` naming the ROADMAP item that ports it: a config
 the port would run differently from the JAX package is refused, not
 ignored.
 """
 
 import json
-from typing import Any, Dict, List, Union
+from typing import Any, Dict, List, Optional, Union
 
 import torch
 from pydantic import Field
 
 from .config_utils import DeeperSpeedConfigModel
+from .precision import ACCUM_DTYPES
 from .constants import (
     BFLOAT16,
     FP16,
@@ -38,6 +41,8 @@ SUPPORTED_KEYS = {
     TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU,
     GRADIENT_ACCUMULATION_STEPS, OPTIMIZER, SCHEDULER, FP16, BFLOAT16,
     "bfloat16", GRADIENT_CLIPPING, SEED, STEPS_PER_PRINT, ZERO_OPTIMIZATION,
+    "activation_checkpointing", "data_types", "progressive_layer_drop",
+    "curriculum_learning", "data_efficiency",
 }
 
 # where the keys that the slice refuses will be ported
@@ -48,11 +53,6 @@ _ROADMAP = {
     "pipeline": "Pipelines",
     "moe": "Llama/Mistral, v1 inference and MoE",
     "checkpoint": "Checkpoints",
-    "progressive_layer_drop": "Training leftovers",
-    "data_efficiency": "Training leftovers",
-    "curriculum_learning": "Training leftovers",
-    "activation_checkpointing": "Training leftovers",
-    "data_types": "Training leftovers",
     "hybrid_engine": "The rest of the surface",
 }
 
@@ -100,6 +100,46 @@ class BF16Config(DeeperSpeedConfigModel):
     enabled: bool = False
 
 
+class ActivationCheckpointingConfig(DeeperSpeedConfigModel):
+    """Any of ``partition_activations``, ``number_checkpoints`` and
+    ``cpu_checkpointing`` turns on block-level recompute (the model's
+    ``remat``); on one card there is nothing to partition, and the
+    recompute stays on the device."""
+
+    partition_activations: bool = False
+    cpu_checkpointing: bool = False
+    contiguous_memory_optimization: bool = False
+    number_checkpoints: Optional[int] = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
+
+
+class CurriculumParams(DeeperSpeedConfigModel):
+    curriculum_type: str = "seqlen"
+    min_difficulty: int = 8
+    max_difficulty: int = 1024
+    schedule_type: str = "fixed_linear"
+    schedule_config: Dict[str, Any] = {}
+
+
+class CurriculumConfig(DeeperSpeedConfigModel):
+    enabled: bool = False
+    params: CurriculumParams = Field(default_factory=CurriculumParams)
+
+
+class ProgressiveLayerDropConfig(DeeperSpeedConfigModel):
+    enabled: bool = False
+    theta: float = 0.5
+    gamma: float = 0.001
+
+
+class DataEfficiencyConfig(DeeperSpeedConfigModel):
+    enabled: bool = False
+    seed: int = 1234
+    data_sampling: Dict[str, Any] = {}
+    data_routing: Dict[str, Any] = {}
+
+
 class DeeperSpeedConfig:
     """Top-level config from a dict or a path to a JSON file; one device."""
 
@@ -142,6 +182,20 @@ class DeeperSpeedConfig:
                               if any(k.startswith("offload") for k in zero)
                               else "Multi-process training")
         self.zero_stage = 0
+        data_types = dict(pd.get("data_types", {}))
+        self.grad_accum_dtype = data_types.pop("grad_accum_dtype", None)
+        if data_types:
+            raise _not_ported(f"data_types keys {sorted(data_types)}",
+                              "The rest of the surface")
+        if self.grad_accum_dtype not in ACCUM_DTYPES:
+            raise ValueError(f"data_types.grad_accum_dtype {self.grad_accum_dtype!r}: "
+                             f"expected fp32, bf16 or fp16")
+        self.activation_checkpointing = ActivationCheckpointingConfig(
+            **pd.get("activation_checkpointing", {}))
+        self.curriculum = CurriculumConfig(**pd.get("curriculum_learning", {}))
+        self.progressive_layer_drop = ProgressiveLayerDropConfig(
+            **pd.get("progressive_layer_drop", {}))
+        self.data_efficiency = DataEfficiencyConfig(**pd.get("data_efficiency", {}))
         self.train_dtype = self._resolve_train_dtype()
 
     # -- batch triangle (reference ``config.py:914-957`` semantics) on one

@@ -1,0 +1,139 @@
+"""Deterministic data loading (counterpart of
+``deeperspeed_tpu/runtime/dataloader.py``, numpy only).
+
+``DeeperSpeedDataLoader`` batches a map-style dataset with a seeded,
+epoch-stable shuffle (``np.random.RandomState(seed + epoch)``), so its
+batches equal the JAX package's loader's for the same dataset and seed on
+one process.  ``RepeatingLoader`` wraps any loader into an infinite
+iterator (reference ``dataloader.py:17``).
+
+Not ported yet, both with several processes (ROADMAP Queue A,
+'Multi-process training'): the per-process slice of each global batch
+(``num_shards``/``shard_index``), and ``DevicePrefetchingLoader`` (the
+``comm.overlap`` prefetch).
+"""
+
+import numpy as np
+
+
+class RepeatingLoader:
+    def __init__(self, loader):
+        self.loader = loader
+        self.data_iter = iter(self.loader)
+
+    def __iter__(self):
+        return self
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __next__(self):
+        try:
+            batch = next(self.data_iter)
+        except StopIteration:
+            self.data_iter = iter(self.loader)
+            batch = next(self.data_iter)
+        return batch
+
+
+class DeeperSpeedDataLoader:
+    """Batches a map-style dataset deterministically.
+
+    ``dataset`` may be: a dict of numpy arrays (column store), a sequence of
+    examples (dicts or tuples), or anything with ``__getitem__``/``__len__``.
+    Shuffling is seeded and epoch-stable: the same seed and epoch give the
+    same permutation.
+    """
+
+    def __init__(self, dataset, batch_size, collate_fn=None, drop_last=True,
+                 shuffle=True, seed=1234, sampler=None):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.collate_fn = collate_fn
+        self.drop_last = drop_last
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = 0
+        self._batch_idx = 0        # batches delivered in the current epoch
+        self._resume_batch_idx = 0  # fast-forward target after a restore
+        # optional index sampler (curriculum data sampler): an object whose
+        # ``next_batch_indices()`` yields the global batch's sample ids
+        # (reference DeepSpeedDataSampler consumed by ``deepspeed_io``)
+        self.sampler = sampler
+        if isinstance(dataset, dict):
+            lens = {k: len(v) for k, v in dataset.items()}
+            assert len(set(lens.values())) == 1, f"ragged columns: {lens}"
+            self._n = next(iter(lens.values()))
+            self._columnar = True
+        else:
+            self._n = len(dataset)
+            self._columnar = False
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+
+    # -- checkpointable iterator position ---------------------------------
+    # the (epoch, batch_idx) pair fully determines the next sample under
+    # the seeded epoch-stable shuffle, so persisting it in
+    # ``engine_state.json`` makes resume consume the exact batches an
+    # uninterrupted run would -- no replay, no skips
+
+    def state_dict(self):
+        return {"epoch": int(self.epoch), "batch_idx": int(self._batch_idx)}
+
+    def load_state_dict(self, state):
+        b = int(state.get("batch_idx", 0))
+        n = max(len(self), 1)
+        # batch_idx == len(self) means the epoch's last batch was delivered
+        # but the generator never resumed to roll the epoch over -- resume
+        # at the next epoch's start, not by replaying this one
+        self.epoch = int(state.get("epoch", 0)) + b // n
+        self._resume_batch_idx = b % n
+
+    def __len__(self):
+        if self.drop_last:
+            return self._n // self.batch_size
+        return (self._n + self.batch_size - 1) // self.batch_size
+
+    def __iter__(self):
+        start, self._resume_batch_idx = self._resume_batch_idx, 0
+        if self.sampler is not None:
+            for i in range(len(self)):
+                batch_idx = np.asarray(self.sampler.next_batch_indices())
+                if i < start:
+                    continue  # fast-forward: sampler state still advances
+                self._batch_idx = i + 1
+                yield self._gather(batch_idx)
+            self.epoch += 1
+            self._batch_idx = 0
+            return
+        order = np.arange(self._n)
+        if self.shuffle:
+            rng = np.random.RandomState(self.seed + self.epoch)
+            rng.shuffle(order)
+        for i in range(start, len(self)):
+            idx = order[i * self.batch_size:(i + 1) * self.batch_size]
+            # set BEFORE yield: while the generator is suspended mid-epoch,
+            # state_dict() must equal the count of batches already delivered
+            self._batch_idx = i + 1
+            yield self._gather(idx)
+        self.epoch += 1
+        self._batch_idx = 0
+
+    def _gather(self, idx):
+        if self._columnar:
+            batch = {k: np.asarray(v)[idx] for k, v in self.dataset.items()}
+        else:
+            examples = [self.dataset[int(i)] for i in idx]
+            if self.collate_fn is not None:
+                return self.collate_fn(examples)
+            first = examples[0]
+            if isinstance(first, dict):
+                batch = {k: np.stack([e[k] for e in examples]) for k in first}
+            elif isinstance(first, (tuple, list)):
+                batch = tuple(np.stack([e[j] for e in examples]) for j in range(len(first)))
+            else:
+                batch = np.stack(examples)
+        if self.collate_fn is not None:
+            return self.collate_fn(batch)
+        return batch

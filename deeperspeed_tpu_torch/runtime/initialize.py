@@ -31,13 +31,10 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     if hasattr(model, "stage_forward"):
         raise NotImplementedError(
             "pipeline modules are not ported yet (ROADMAP Queue A, 'Pipelines')")
-    if collate_fn is not None:
-        raise NotImplementedError(
-            "the dataloader (collate_fn=) is not ported yet (ROADMAP Queue A, "
-            "'Training leftovers')")
     engine = DeeperSpeedEngine(
         model=model, config=config, optimizer=optimizer,
         model_parameters=model_parameters, loss_fn=loss_fn,
-        training_data=training_data, lr_scheduler=lr_scheduler, device=device)
+        training_data=training_data, collate_fn=collate_fn,
+        lr_scheduler=lr_scheduler, device=device)
     log_dist("initialize() complete", ranks=[0])
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler

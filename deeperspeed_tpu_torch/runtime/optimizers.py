@@ -11,7 +11,10 @@ gradients after the update).  The learning rate is applied by the engine,
 ``master - lr * update``, as in the JAX engine.
 
 Ops run as ``torch._foreach_*`` over every tensor at once, so a step is a
-few multi-tensor launches rather than a few per tensor.
+few multi-tensor launches rather than a few per tensor.  ``FusedAdam`` and
+``FusedLion`` take the cores of ``ops/adam`` and ``ops/lion`` instead:
+kernels B6 and B7, one launch a step over flat moment buffers.  MuAdam and
+AdamW stay unfused, as in the JAX package.
 """
 
 import dataclasses
@@ -185,8 +188,15 @@ def scale_by_trust_ratio():
     return GradientTransformation(lambda params: None, update)
 
 
-def _adam_like(cfg, adamw=False, mup_multipliers=None):
-    parts = [scale_by_adam(b1=cfg.betas[0], b2=cfg.betas[1], eps=cfg.eps)]
+def _adam_like(cfg, adamw=False, mup_multipliers=None, use_fused=False):
+    if use_fused:
+        # B6 (ops/adam): one launch a step over the flat moment buffers
+        from ..ops.adam import scale_by_fused_adam
+
+        core = scale_by_fused_adam(b1=cfg.betas[0], b2=cfg.betas[1], eps=cfg.eps)
+    else:
+        core = scale_by_adam(b1=cfg.betas[0], b2=cfg.betas[1], eps=cfg.eps)
+    parts = [core]
     if mup_multipliers is not None:
         parts.append(scale_by_mup(mup_multipliers))
     if cfg.weight_decay and adamw:
@@ -201,16 +211,13 @@ def build_optimizer(name, params_cfg, mup_multipliers=None):
     """name + ``OptimizerParams`` -> transformation (lr excluded: the
     engine applies it from the schedule)."""
     name = name.lower()
-    if name in (FUSED_ADAM_OPTIMIZER, FUSED_LION_OPTIMIZER):
-        raise NotImplementedError(
-            f"optimizer {name!r} (the opt-in fused kernel) is not ported yet "
-            f"(ROADMAP Queue A, 'Training leftovers')")
     if name == ONEBIT_ADAM_OPTIMIZER:
         raise NotImplementedError(
             "optimizer 'onebitadam' is not ported yet (ROADMAP Queue A, "
             "'Multi-process training')")
-    if name in (ADAM_OPTIMIZER, CPU_ADAM_OPTIMIZER):
-        return _adam_like(params_cfg, adamw=False, mup_multipliers=mup_multipliers)
+    if name in (ADAM_OPTIMIZER, CPU_ADAM_OPTIMIZER, FUSED_ADAM_OPTIMIZER):
+        return _adam_like(params_cfg, adamw=False, mup_multipliers=mup_multipliers,
+                          use_fused=name == FUSED_ADAM_OPTIMIZER)
     if name == ADAMW_OPTIMIZER:
         return _adam_like(params_cfg, adamw=True, mup_multipliers=mup_multipliers)
     if name == MUADAM_OPTIMIZER:
@@ -229,8 +236,15 @@ def build_optimizer(name, params_cfg, mup_multipliers=None):
                                    eps=params_cfg.eps),
                      add_decayed_weights(params_cfg.weight_decay),
                      scale_by_trust_ratio())
-    if name == LION_OPTIMIZER:
-        parts = [scale_by_lion(b1=params_cfg.betas[0], b2=params_cfg.betas[1])]
+    if name in (LION_OPTIMIZER, FUSED_LION_OPTIMIZER):
+        if name == FUSED_LION_OPTIMIZER:
+            # B7 (ops/lion): one launch a step over the flat moment buffer
+            from ..ops.lion import scale_by_fused_lion
+
+            core = scale_by_fused_lion(b1=params_cfg.betas[0], b2=params_cfg.betas[1])
+        else:
+            core = scale_by_lion(b1=params_cfg.betas[0], b2=params_cfg.betas[1])
+        parts = [core]
         if params_cfg.weight_decay:
             parts.append(add_decayed_weights(params_cfg.weight_decay))
         return chain(*parts)

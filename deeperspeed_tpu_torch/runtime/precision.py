@@ -76,13 +76,19 @@ def update_loss_scale(state, overflow, fp16_config):
     )
 
 
+ACCUM_DTYPES = {None: torch.float32, "fp32": torch.float32,
+                "bf16": torch.bfloat16, "fp16": torch.float16}
+
+
 class MixedPrecisionPolicy:
     """Dtype roles of the train step: ``param_dtype`` is the compute type of
-    the working weights; masters, optimizer state and the gradient
-    accumulation are fp32 (the engine's buffers)."""
+    the working weights; masters and optimizer state are fp32, and
+    ``accum_dtype`` is the type the microbatch gradients are summed in
+    (``data_types.grad_accum_dtype``, fp32 by default)."""
 
     def __init__(self, config):
         self.param_dtype = config.train_dtype
+        self.accum_dtype = ACCUM_DTYPES[config.grad_accum_dtype]
         self.is_fp16 = config.fp16.enabled
         self.is_bf16 = config.bf16.enabled
         self.is_mixed = self.is_fp16 or self.is_bf16

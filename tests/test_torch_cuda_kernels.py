@@ -9,7 +9,9 @@ machine does not have, hence ``--noconftest``):
 chip_smoke.py holds the same kernels at the serving and training paths'
 shapes; these tests sweep the edges: odd and large hidden sizes, every
 dtype, head dims and block sizes, every query count, rows with ties, -inf
-and no live token, ragged sequence lengths, causal and full attention.
+and no live token, ragged sequence lengths, causal and full attention, the
+fused optimizers over flat buffers and over separate (also non-contiguous)
+tensors of many sizes.
 """
 
 import numpy as np
@@ -17,7 +19,9 @@ import pytest
 import torch
 
 from chip_smoke import flash_shares
+from deeperspeed_tpu_torch.ops.adam import fused_adam
 from deeperspeed_tpu_torch.ops.attention import flash, paged
+from deeperspeed_tpu_torch.ops.lion import fused_lion
 from deeperspeed_tpu_torch.ops.quantizer import quantize_kv
 from deeperspeed_tpu_torch.ops.sampling import topk
 from deeperspeed_tpu_torch.ops.transformer import normalize
@@ -440,3 +444,125 @@ def test_training_on_the_card_matches_the_cpu(mode):
         kernels += ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"]
     for name in kernels:
         assert LAUNCHES[name] > 0, name
+
+
+# B6/B7 against their plain versions: each product and sum is rounded on
+# its own in both, so m' and v' (and B7's u) agree to the bit; the held
+# limit is two fp32 ulps (2^-22 relative), as chip_smoke.py holds them.  B6's
+# u differs by how PyTorch divides by a scalar: rtol 2e-6.
+OPTIM_SIZES = [1, 3, 127, 1000, 1024, 4099, 70001]
+
+
+def _optim_case(gen, sizes, layout, n_moments):
+    """Gradients and moments for tensors of ``sizes``: views into flat
+    buffers (the engine's layout), separate tensors, or separate strided
+    (non-contiguous) ones."""
+    total = sum(sizes)
+    flats = [torch.randn(total, generator=gen, device="cuda") * s
+             for s in (1e-2, 1e-2, 1e-3)[:1 + n_moments]]
+    if n_moments == 2:
+        flats[2] = flats[2].abs()
+    out = []
+    for flat in flats:
+        views, off = [], 0
+        for n in sizes:
+            v = flat[off:off + n]
+            off += n
+            if layout == "separate":
+                v = v.clone()
+            elif layout == "strided":      # every other element of a buffer
+                v = torch.empty(n, 2, device="cuda")[:, 0].copy_(v)
+            views.append(v)
+        out.append(views)
+    return out
+
+
+def _check_rel(got, want, rtol, what):
+    for a, b in zip(got, want):
+        bad = (a - b).abs() > rtol * b.abs()
+        assert not bool(bad.any()), (what, float((a - b).abs().max()))
+
+
+@pytest.mark.parametrize("layout", ["flat", "separate", "strided"])
+def test_fused_adam(gen, layout):
+    from deeperspeed_tpu_torch.ops.cuda_utils import LAUNCHES
+    from deeperspeed_tpu_torch.runtime.optimizers import _bias_correction
+
+    g, m, v = _optim_case(gen, OPTIM_SIZES, layout, 2)
+    if layout == "strided":
+        assert not g[1].is_contiguous()
+    ref = [[t.clone() for t in lst] for lst in (g, m, v)]
+    cache = {}                         # the second step reuses the first's table
+    for count in (1, 7):
+        before = LAUNCHES["fused_adam"]
+        fused_adam.fused_adam_(g, m, v, count, 0.9, 0.999, 1e-8, cache)
+        assert LAUNCHES["fused_adam"] == before + 1
+        assert bool(cache) == (layout != "strided")   # copies written back: no cache
+        fused_adam._adam_leaf_update_plain(*ref, _bias_correction(0.9, count),
+                                           _bias_correction(0.999, count),
+                                           0.9, 0.999, 1e-8)
+        _check_rel(m, ref[1], 2 ** -22, "m")
+        _check_rel(v, ref[2], 2 ** -22, "v")
+        _check_rel(g, ref[0], 2e-6, "u")
+        for a, b in zip(g, ref[0]):    # the kernel's update is the next gradient
+            b.copy_(a)
+
+
+@pytest.mark.parametrize("layout", ["flat", "separate", "strided"])
+def test_fused_lion(gen, layout):
+    from deeperspeed_tpu_torch.ops.cuda_utils import LAUNCHES
+
+    g, m = _optim_case(gen, OPTIM_SIZES, layout, 1)
+    g[2].view(-1)[:5] = 0.0            # c = 0 where g and m are both 0
+    m[2].view(-1)[:5] = 0.0
+    g[-1].view(-1)[3] = float("nan")   # sign(NaN) is NaN, as jnp.sign gives it
+    ref = [[t.clone() for t in lst] for lst in (g, m)]
+    before = LAUNCHES["fused_lion"]
+    fused_lion.fused_lion_(g, m, 0.9, 0.99)
+    assert LAUNCHES["fused_lion"] == before + 1
+    fused_lion._lion_leaf_plain(*ref, 0.9, 0.99)
+    assert bool(g[-1].view(-1)[3].isnan()) and bool(m[-1].view(-1)[3].isnan())
+    _check_rel([t.nan_to_num() for t in m], [t.nan_to_num() for t in ref[1]], 2 ** -22, "m")
+    for a, b in zip(g, ref[0]):
+        assert torch.equal(a.isnan(), b.isnan())
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
+        assert set(a[~a.isnan()].unique().tolist()) <= {-1.0, 0.0, 1.0}
+    assert float(g[2].view(-1)[:5].abs().sum()) == 0.0
+
+
+def test_fused_optimizers_reject_what_the_kernel_does_not_take(gen):
+    g = [torch.randn(10, device="cuda")]
+    with pytest.raises(TypeError):
+        fused_adam.fused_adam_([g[0].half()], [g[0].clone()], [g[0].clone()], 1)
+    with pytest.raises(ValueError):
+        fused_lion.fused_lion_(g, [torch.zeros(11, device="cuda")])
+    with pytest.raises(ValueError):
+        fused_lion.fused_lion_(g, [torch.zeros(10)])
+
+
+@pytest.mark.parametrize("name", ["FusedAdam", "FusedLion"])
+def test_fused_optimizer_training_on_the_card_matches_the_cpu(name):
+    """Tiny GPT-NeoX in fp32, 3 steps with weight decay, chunked loss and
+    block recompute: card and CPU losses within 1e-5, one launch a step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
+    from deeperspeed_tpu_torch.ops.cuda_utils import LAUNCHES
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernel = {"FusedAdam": "fused_adam", "FusedLion": "fused_lion"}[name]
+    cfg = {"train_batch_size": 4, "gradient_clipping": 1.0,
+           "optimizer": {"type": name, "params": {"lr": 1e-3, "weight_decay": 0.01}},
+           "activation_checkpointing": {"partition_activations": True}}
+    engines = [dst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(ce_chunk_tokens=48),
+                                            device=d, seed=3), config=cfg, device=d)[0]
+               for d in ("cuda", "cpu")]
+    rng = np.random.default_rng(0)
+    LAUNCHES.clear()
+    for _ in range(3):
+        toks = rng.integers(0, 256, (4, 65))
+        batch = {"input_ids": toks[:, :-1], "labels": toks[:, 1:]}
+        lg, lc = (float(e.train_batch(batch=batch)) for e in engines)
+        assert abs(lg - lc) <= 1e-5 * abs(lc), (lg, lc)
+    assert LAUNCHES[kernel] == 3

@@ -12,7 +12,10 @@ from pathlib import Path
 import pytest
 import torch
 
+from deeperspeed_tpu_torch.accelerator.cuda_accelerator import CudaAccelerator
+from deeperspeed_tpu_torch.ops.adam import fused_adam
 from deeperspeed_tpu_torch.ops.attention import flash, paged
+from deeperspeed_tpu_torch.ops.lion import fused_lion
 from deeperspeed_tpu_torch.ops.sampling import topk
 from deeperspeed_tpu_torch.ops.transformer import normalize
 
@@ -41,6 +44,14 @@ def test_port_imports_no_jax():
         "import deeperspeed_tpu_torch.telemetry.serving\n"
         "import deeperspeed_tpu_torch.inference.v2.scheduler\n"
         "import deeperspeed_tpu_torch.inference.v2.speculative\n"
+        "import deeperspeed_tpu_torch.ops.adam, deeperspeed_tpu_torch.ops.lion\n"
+        "import deeperspeed_tpu_torch.ops.multi_tensor\n"
+        "import deeperspeed_tpu_torch.runtime.dataloader\n"
+        "import deeperspeed_tpu_torch.runtime.progressive_layer_drop\n"
+        "import deeperspeed_tpu_torch.runtime.data_pipeline\n"
+        "import deeperspeed_tpu_torch.runtime.data_pipeline.data_routing\n"
+        "import deeperspeed_tpu_torch.runtime.data_pipeline.data_sampling\n"
+        "import deeperspeed_tpu_torch.runtime.data_pipeline.data_sampling.data_analyzer\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'deeperspeed_tpu' or m.startswith('deeperspeed_tpu.')]\n"
         "print('LOADED', bad)")
@@ -88,6 +99,8 @@ def test_chip_smoke_and_tools_import_no_jax():
     (paged._decode_cuda, "paged_decode_q"),
     (paged._spec_decode_cuda, "paged_spec_decode_q"),
     (topk._topk_cuda, "sorted_topk"),
+    (fused_adam._adam_cuda, "fused_adam"),
+    (fused_lion._lion_cuda, "fused_lion"),
 ])
 def test_cuda_branch_launches_its_own_kernel(fn, kernel):
     """Each wrapper's CUDA branch calls its ctypes launch, counts it, and
@@ -96,8 +109,29 @@ def test_cuda_branch_launches_its_own_kernel(fn, kernel):
     assert "library(" in src and f'check(err, "{kernel}")' in src
     for banned in ("torch.nn.functional", "F.", "torch.topk", "torch.sort",
                    "softmax", "einsum", "_reference", "_ref(", "matmul",
-                   "scaled_dot_product"):
+                   "scaled_dot_product", "_plain", "_foreach", "torch.optim"):
         assert banned not in src, f"{fn.__name__} uses {banned}"
+
+
+@pytest.mark.parametrize("module,step,plain,args", [
+    (fused_adam, "fused_adam_", "_adam_leaf_update_plain", 4),
+    (fused_lion, "fused_lion_", "_lion_leaf_plain", 2),
+])
+def test_fused_optimizers_on_cuda_launch_or_raise(monkeypatch, module, step, plain, args):
+    """Where the accelerator runs the kernels, the fused optimizers go to
+    their CUDA branch, which launches or raises (here: the tensors are not
+    on a card); they never fall back to the plain version."""
+    calls = []
+    monkeypatch.setattr(module, "get_accelerator", lambda device=None: CudaAccelerator())
+    monkeypatch.setattr(module, plain, lambda *a, **k: calls.append(a))
+    tensors = [[torch.full((5,), 3.0)]] + [[torch.ones(5)] for _ in range(args // 2)]
+    extra = (1,) if args == 4 else ()
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        getattr(module, step)(*tensors, *extra)
+    assert not calls
+    monkeypatch.undo()
+    getattr(module, step)(*tensors, *extra)        # a CPU tensor takes the plain version
+    assert float(tensors[1][0][0]) != 1.0          # the moment moved
 
 
 def test_chip_smoke_needs_the_card_and_the_checkout(tmp_path):

@@ -226,10 +226,11 @@ def test_optimizer_trajectory_matches_jax(name, params, model_kw):
     ("zero_optimization", {"stage": 0, "offload_optimizer": {"device": "cpu"}}),
     ("comm", {"overlap": {"enabled": True}}),
     ("pipeline", {"stages": 2}),
-    ("progressive_layer_drop", {"enabled": True}),
-    ("optimizer", {"type": "FusedAdam", "params": {"lr": 1e-3}}),
+    ("hybrid_engine", {"enabled": True}),
+    ("optimizer", {"type": "OneBitAdam", "params": {"lr": 1e-3, "freeze_step": 2,
+                                                    "cuda_aware": False}}),
     ("optimizer", {"type": "OneBitAdam", "params": {"lr": 1e-3}}),
-    ("activation_checkpointing", {"partition_activations": True}),
+    ("compression_training", {"weight_quantization": {}}),
 ])
 def test_unported_config_raises(key, value):
     with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -237,20 +238,37 @@ def test_unported_config_raises(key, value):
                         config={**BASE, key: value}, device="cpu")
 
 
-@pytest.mark.parametrize("model_kw", [{"moe_num_experts": 4}, {"hidden_dropout": 0.1},
-                                      {"attention_dropout": 0.1}, {"remat": True}])
-def test_unported_model_features_raise(model_kw):
+class _StageModel(torch.nn.Module):
+    """What initialize() takes for a pipeline module: one with stage_forward."""
+
+    def stage_forward(self, *args):
+        raise AssertionError("never called")
+
+
+@pytest.mark.parametrize("case", ["moe", "mesh", "mpu", "pipeline_module"])
+def test_unported_model_features_raise(case):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GPTNeoX(GPTNeoXConfig.tiny(**model_kw), device="cpu")
+        if case == "moe":
+            GPTNeoX(GPTNeoXConfig.tiny(moe_num_experts=4), device="cpu")
+        elif case == "pipeline_module":
+            tdst.initialize(model=_StageModel(), config=BASE, device="cpu")
+        else:
+            tdst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(), device="cpu"),
+                            config=BASE, device="cpu", **{case: object()})
 
 
 def test_chunked_loss_and_dataloader_raise():
+    """The chunked loss refuses MoE (the JAX package's rule), and the
+    loader refuses the prefetch that comm.overlap asks for."""
     model = GPTNeoX(GPTNeoXConfig.tiny(ce_chunk_tokens=64), device="cpu")
-    with pytest.raises(NotImplementedError, match="ce_chunk_tokens"):
+    model.replace_config(moe_num_experts=4)
+    with pytest.raises(NotImplementedError, match="ce_chunk_tokens with MoE is not ported yet"):
         model.loss_fn()
-    with pytest.raises(NotImplementedError, match="dataloader"):
-        tdst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(), device="cpu"), config=BASE,
-                        training_data=[1, 2], device="cpu")
+    data = {"input_ids": np.zeros((16, 8), np.int64), "labels": np.zeros((16, 8), np.int64)}
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tdst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(), device="cpu"),
+                        config={**BASE, "comm": {"overlap": {"prefetch_depth": 2}}},
+                        training_data=data, device="cpu")
 
 
 @pytest.mark.parametrize("kw", [{}, {"hidden_size": 256, "num_heads": 4,

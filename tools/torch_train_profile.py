@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Where a training step of the PyTorch port spends its time on the card.
 
-    python3 tools/torch_train_profile.py [--json PATH]
+    python3 tools/torch_train_profile.py [--fused] [--json PATH]
 
 Trains ``chip_smoke.py``'s trained configuration (``TRAIN_CONFIG``,
 ``trained_model``, ``trained_batch``: bench.py's step, Pythia-160M in bf16,
 batch 16 of 1024 tokens, Adam, clip 1.0, ZeRO-0, random weights from a
 seed) through ``deeperspeed_tpu_torch.initialize`` and
 ``engine.train_batch``: 2 warm-up steps, then ``torch.profiler`` traces 3
-steps.  It prints one JSON line: the host wall time per step (ending in a
+steps.  ``--fused`` trains phase 11's configuration instead
+(``FUSED_TRAIN_CONFIG``, ``fused_trained_model``, ``fused_training_data``:
+the same step with FusedAdam, ``ce_chunk_tokens`` 4096 and block recompute,
+fed through ``training_data=`` and ``train_batch()``).  It prints one JSON line: the host wall time per step (ending in a
 synchronize), the device time per step summed over kernels, the device's
 idle share (1 - device/wall, unclamped: a negative share means kernels
 were counted twice or overlap), and the kernels in order of device time;
@@ -31,6 +34,9 @@ WARMUP, STEPS = 2, 3
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="write the full report to this file")
+    ap.add_argument("--fused", action="store_true",
+                    help="profile phase 11's configuration (FusedAdam, chunked "
+                         "loss, block recompute, training_data=)")
     args = ap.parse_args()
 
     import torch
@@ -40,16 +46,26 @@ def main():
         print("torch_train_profile: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import TRAIN_CONFIG, trained_batch, trained_model
+    import numpy as np
+
+    from chip_smoke import (FUSED_TRAIN_CONFIG, TRAIN_CONFIG, fused_trained_model,
+                            fused_training_data, trained_batch, trained_model)
 
     import deeperspeed_tpu_torch as dst
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
-    model = trained_model()
-    engine = dst.initialize(model=model, config=TRAIN_CONFIG)[0]
-    batch = {k: v.cuda() for k, v in trained_batch(model).items()}
+    if args.fused:
+        model = fused_trained_model()
+        engine = dst.initialize(model=model, config=FUSED_TRAIN_CONFIG,
+                                training_data=fused_training_data(
+                                    np, model.config.vocab_size))[0]
+        batch = None                          # train_batch() pulls from the loader
+    else:
+        model = trained_model()
+        engine = dst.initialize(model=model, config=TRAIN_CONFIG)[0]
+        batch = {k: v.cuda() for k, v in trained_batch(model).items()}
     for _ in range(WARMUP):
         engine.train_batch(batch=batch)
     torch.cuda.synchronize()
@@ -74,6 +90,7 @@ def main():
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
     report = {
         "card": card, "torch": torch.__version__, "steps": STEPS,
+        "config": "fused" if args.fused else "trained",
         "loss": float(loss),
         "wall_ms_per_step": wall * 1e3 / STEPS,
         "device_ms_per_step": busy / STEPS,
