@@ -16,7 +16,10 @@ package, and goes through these phases, each printing its lines:
    forward, K2 paged decode, K3 paged speculative decode, K4 sorted top-k,
    training's K5 flash-attention forward, K7 its dq pass, K6 its dk/dv
    pass and K8 the LayerNorm backward, and the optimizers' B6 fused Adam
-   and B7 fused Lion over Pythia-160M's 162,322,944 parameters;
+   and B7 fused Lion over Pythia-160M's 162,322,944 parameters, and the qgZ
+   gradient path's B5 fused dequant-reduce at its largest shape (the input
+   embedding at world 2, [2, 150912, 128]) over int8, fp8 e5m2 and e4m3,
+   bit for bit;
 4. Pythia-160M (12 layers, full width) in fp32 served through
    ``InferenceEngineV2`` on the card and on the CPU from the same seeded
    weights: logits must agree to 2e-3 every round, and tokens wherever the
@@ -62,15 +65,35 @@ package, and goes through these phases, each printing its lines:
     attention dropout 0.1, 3 steps: losses finite, two engines from one
     seed equal, the flash counters flat while training (attention takes
     the dense path, as in the JAX package), and ``eval_batch`` equal to the
-    same weights' loss without dropout.
+    same weights' loss without dropout;
+13. data-parallel training, checked: two processes share the card over
+    ``gloo`` (NCCL refuses two ranks on one device; every collective is
+    staged through host memory), spawned once (``--dp-worker``) after the
+    build, for phases 13 and 14.  Pythia-160M at full width with 2 layers in
+    fp32, global batch 4 x 128 (2 rows a rank), 3 Adam steps with clip 1.0,
+    at ZeRO stages 0-3, each held against one process on the card from the
+    same weights and batches (losses and the first grad norm within 1e-4
+    relative, as phase 8); stages 1-3 hold half the fp32 masters and Adam
+    moments, stage 3 half the partitioned compute parameters, in fewer
+    allocated bytes than the one process; then stage 0 with
+    ``comm.quantized`` int8 and fp8: losses within 1e-3 relative of the one
+    process (the first within 1e-4), equal on both ranks, and B5 launched
+    once a step for each parameter of at least 128 x 2 elements;
+14. data-parallel training at full size: phase 9's step (Pythia-160M bf16,
+    global batch 16 x 1024, 8 rows a rank, Adam lr 1e-4, clip 1.0) at world
+    2 on the card, at ZeRO stage 2 and at stage 0 with ``comm.quantized``
+    int8; 1 warm-up step and 3 timed ones: losses finite and equal on both
+    ranks, B5 once a step for each of the 148 parameters under qgZ; wall
+    ms/step over gloo via host, two ranks on one card.
 
 The second-to-last line is the JSON summary of the kernels (a kernel's
 ``launches`` sums its counts on the main paths, serving in phase 5,
-scheduled serving in phase 7, training in phase 9, and this slice's
-training in phase 11 (FusedAdam, then FusedLion), each read right after its
+scheduled serving in phase 7, training in phase 9, the rest of training
+in phase 11 (FusedAdam, then FusedLion), and data-parallel training in
+phase 14 (rank 0's counts, stage 2, then qgZ), each read right after its
 own run and listed in ``launches_by_path``), the last ``{"ok": true, "device": {...}}``.  Any
-failure raises and exits non-zero; without a CUDA device, or outside a
-checkout, it exits 2 and prints no result.
+failure, of a phase or of a worker, raises and exits non-zero; without a
+CUDA device, or outside a checkout, it exits 2 and prints no result.
 """
 
 import copy
@@ -79,6 +102,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -187,6 +211,41 @@ def fused_training_data(np, vocab):
     toks = np.random.default_rng(SEED + 5).integers(
         0, vocab, (FUSED_DATA_BATCHES * TRAIN_BATCH, TRAIN_SEQ + 1))
     return {"input_ids": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+# Data-parallel training (phases 13 and 14): two processes on the one card,
+# gloo as the transport (NCCL refuses two ranks on one device).
+DP_WORLD = 2
+DP_CHECK_STEPS, DP_CHECK_ROWS, DP_CHECK_SEQ = 3, 4, 128
+DP_CHECK_CONFIG = {"train_batch_size": DP_CHECK_ROWS, "gradient_clipping": 1.0,
+                   "optimizer": {"type": "Adam", "params": {"lr": 1e-4}}}
+DP_CHECK_RUNS = {
+    **{f"stage{s}": {**DP_CHECK_CONFIG, "zero_optimization": {"stage": s}}
+       for s in range(4)},
+    **{f"qgz-{w}": {**DP_CHECK_CONFIG, "comm": {"quantized": {"enabled": True,
+                                                            "wire_dtype": w}}}
+       for w in ("int8", "fp8")}}
+DP_QGZ_TOL, DP_QGZ_NORM_TOL = 1e-3, 1e-2   # see phase_dp_checked
+DP_FULL_STEPS = 3
+DP_FULL_RUNS = {
+    "stage2": {**TRAIN_CONFIG, "zero_optimization": {"stage": 2}},
+    "qgz-int8": {**TRAIN_CONFIG, "comm": {"quantized": {"enabled": True}}}}
+
+
+def dp_check_model(device=None):
+    """Phase 8's model: Pythia-160M at full width with 2 layers, fp32."""
+    from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
+    return GPTNeoX(dataclasses.replace(GPTNeoXConfig.pythia_160m(), num_layers=2),
+                   device=device, seed=SEED)
+
+
+def dp_check_batches(np, vocab):
+    rng = np.random.default_rng(SEED + 40)
+    out = []
+    for _ in range(DP_CHECK_STEPS):
+        toks = rng.integers(0, vocab, (DP_CHECK_ROWS, DP_CHECK_SEQ + 1))
+        out.append({"input_ids": toks[:, :-1], "labels": toks[:, 1:]})
+    return out
 
 
 def served_model(device=None):
@@ -633,6 +692,44 @@ def phase_optimizer_kernels(torch, rows_out):
     print(f"[kernels] B7 u and m' equal the plain version's bit for bit: {exact}; "
           f"no PyTorch call computes Lion", flush=True)
     del g, m, v, gk, mk, lists
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+def phase_quantizer_kernel(torch, rows_out):
+    """Phase 3, the qgZ path: B5 against its plain version at the input
+    embedding's shape at world 2 ([2, 150912, 128]: 38,633,472 elements a
+    peer, one scale a row of 128), for int8, fp8 e5m2 (the gradient wire's
+    fp8) and fp8 e4m3; bit for bit."""
+    from deeperspeed_tpu_torch.ops.quantizer import fused
+    from deeperspeed_tpu_torch.quantization import BlockScaledTensor
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    report = _reporter(rows_out)
+    n, rows, d = 2, 150912, 128
+    x = torch.randn(n, rows, d, generator=gen, device=dev) * 1e-3
+    for wire in ("int8", "fp8_e5m2", "fp8_e4m3"):
+        t = BlockScaledTensor.quantize(x, wire, d)
+        q3, s3, g = fused._normalize(t.values, t.scales, d)
+        got = fused.fused_dequant_reduce(t)
+        want = fused._dequant_reduce_plain(q3, s3, g)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+            raise AssertionError(f"dequant_reduce {wire}: {bad} elements differ from the "
+                                 f"plain version's bits")
+        # each value byte and scale read once, the fp32 sum written once
+        t_b, by = _bound(n * rows * d + 4 * n * rows + 4 * rows * d,
+                         (2 * n - 1) * rows * d, torch.float32)
+        report("dequant_reduce", f"B5 dequant_reduce {wire} [{n}, {rows}, {d}] -> fp32 "
+               f"(library: none, no PyTorch call sums block-scaled peers)", dict(
+                   max_abs_err=(got - want).abs().max().item(),
+                   ms=_time_ms(torch, lambda: fused.fused_dequant_reduce(t)),
+                   plain_ms=_time_ms(torch, lambda: fused._dequant_reduce_plain(q3, s3, g),
+                                     iters=5),
+                   library_ms=None, bound_ms=t_b, bound_by=by))
+        print(f"[kernels] B5 {wire}: equal to the plain version bit for bit", flush=True)
+    del x, t, got, want
     torch.cuda.empty_cache()
     return rows_out
 
@@ -1165,6 +1262,248 @@ def phase_dropout(torch, np, launches):
     torch.cuda.empty_cache()
 
 
+def _engine_record(torch, eng, losses, b5):
+    """What a data-parallel run reports of its engine: losses, the first
+    grad norm, the elements it holds, B5's launches a step."""
+    from deeperspeed_tpu_torch.utils.tree import tree_leaves
+
+    return {"losses": losses, "grad_norm0": None, "b5": b5,
+            "master_numel": sum(t.numel() for t in eng.master_params.values()),
+            "opt_numel": sum(t.numel() for t in tree_leaves(eng.opt_state)
+                             if isinstance(t, torch.Tensor)),
+            "shard_numel": sum(g.shard.numel() for *_, g in eng._compute if g is not None)}
+
+
+def dp_worker(rank, rendezvous, out_path):
+    """One of the two processes of phases 13 and 14 (``--dp-worker``): joins
+    the gloo group, runs every data-parallel configuration, and writes what
+    it saw to ``out_path`` as JSON.  The parent checks it."""
+    import numpy as np
+    import torch
+
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch import comm
+    from deeperspeed_tpu_torch.ops.cuda_utils import LAUNCHES
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dst.init_distributed("gloo", init_method=f"file://{rendezvous}", rank=rank,
+                         world_size=DP_WORLD, timeout=600)
+    results = {}
+    batches = None
+    for name, cfg in DP_CHECK_RUNS.items():              # phase 13
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        eng = dst.initialize(model=dp_check_model(), config=cfg)[0]
+        batches = batches or dp_check_batches(np, eng.module.config.vocab_size)
+        losses, b5, norm0 = [], [], None
+        for step, b in enumerate(batches):
+            LAUNCHES.clear()
+            losses.append(float(eng.train_batch(batch=b)))
+            b5.append(LAUNCHES["dequant_reduce"])
+            norm0 = eng.get_global_grad_norm() if step == 0 else norm0
+        rec = _engine_record(torch, eng, losses, b5)
+        rec.update(grad_norm0=norm0, allocated=torch.cuda.memory_allocated() - base)
+        results[name] = rec
+        del eng
+        torch.cuda.empty_cache()
+    for name, cfg in DP_FULL_RUNS.items():               # phase 14
+        model = trained_model()
+        eng = dst.initialize(model=model, config=cfg)[0]
+        batch = {k: v.cuda() for k, v in trained_batch(model).items()}
+        first = float(eng.train_batch(batch=batch))      # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        comm.STAGED.clear()
+        comm.STAGED_SECONDS.clear()
+        LAUNCHES.clear()                                  # main path starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [float(eng.train_batch(batch=batch)) for _ in range(DP_FULL_STEPS)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rec = _engine_record(torch, eng, [first] + losses,
+                             LAUNCHES["dequant_reduce"] / DP_FULL_STEPS)
+        rec.update(ms_per_step=dt / DP_FULL_STEPS * 1e3, launches=dict(LAUNCHES),
+                   staged_bytes_per_step=sum(comm.STAGED.values()) / DP_FULL_STEPS,
+                   staged_ms_per_step={op: t / DP_FULL_STEPS * 1e3
+                                       for op, t in comm.STAGED_SECONDS.items()},
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        results[f"full-{name}"] = rec
+        del eng, model
+        torch.cuda.empty_cache()
+    with open(out_path, "w") as f:
+        json.dump(results, f)
+    comm.destroy()
+    return 0
+
+
+def _spawn_dp_workers(workdir):
+    """Start the two ``--dp-worker`` processes; returns them with their log
+    and result paths."""
+    procs = []
+    for rank in range(DP_WORLD):
+        log = open(workdir / f"rank{rank}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dp-worker", str(rank),
+             str(workdir / "rendezvous"), str(workdir / f"rank{rank}.json")],
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT), log,
+            workdir / f"rank{rank}.log", workdir / f"rank{rank}.json"))
+    return procs
+
+
+def _join_dp_workers(procs, timeout=900):
+    """Wait for every worker; if one fails or the time runs out, stop the
+    others and raise with the failed ones' log tails."""
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p, *_ in procs):
+            if any(p.poll() not in (None, 0) for p, *_ in procs) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p, log, *_ in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+    failed = [(rank, p.returncode, path.read_text()[-4000:])
+              for rank, (p, _, path, _) in enumerate(procs) if p.returncode != 0]
+    if failed:
+        raise AssertionError("data-parallel worker failed: " + "; ".join(
+            f"rank {r} exit {rc}:\n{tail}" for r, rc, tail in failed))
+    return [json.loads(out.read_text()) for *_, out in procs]
+
+
+def phase_dp(torch, np):
+    """Phases 13 and 14: the one process of phase 13 on the card, then the
+    two workers (spawned once, after the build), then the checks.  Returns
+    rank 0's launch counts of phase 14's stage-2 and qgZ runs."""
+    import deeperspeed_tpu_torch as dst
+
+    # phase 13's reference: one process on the card, same weights and batches
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    ref = dst.initialize(model=dp_check_model(), config=DP_CHECK_CONFIG)[0]
+    batches = dp_check_batches(np, ref.module.config.vocab_size)
+    ref_losses = []
+    for step, b in enumerate(batches):
+        ref_losses.append(float(ref.train_batch(batch=b)))
+        if step == 0:
+            ref_norm = ref.get_global_grad_norm()
+    ref_alloc = torch.cuda.memory_allocated() - base
+    total = sum(t.numel() for t in ref.master_params.values())
+    partitioned = sum(p.numel() for p in ref.module.parameters()
+                      if p.dim() >= 2 and p.numel() >= 100_000)
+    n_big = sum(p.numel() >= 128 * DP_WORLD for p in ref.module.parameters())
+    del ref
+    torch.cuda.empty_cache()
+
+    build = ROOT / ".build"
+    build.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    r0, r1 = _join_dp_workers(_spawn_dp_workers(Path(tempfile.mkdtemp(dir=build))))
+    print(f"[dp] two workers on the card over gloo: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    phase_dp_checked(r0, r1, ref_losses, ref_norm, ref_alloc, total, partitioned, n_big)
+    return phase_dp_full(r0, r1)
+
+
+def phase_dp_checked(r0, r1, ref_losses, ref_norm, ref_alloc, total, partitioned, n_big):
+    """Phase 13's checks.  qgZ tolerances: losses within 1e-3 relative from
+    the second on (the first comes before any update, within 1e-4): on the
+    CPU the quantized reduction moves tiny()'s losses by at most 1.1e-4
+    relative from the exact one after two Adam steps at lr 1e-3
+    (tests/test_torch_zero.py); here lr is 1e-4.  The first grad norm,
+    which is of the quantized gradient itself, within 1e-2: fp8 e5m2 keeps
+    3 significant bits (each value within 6.25%), int8 7 (a group's values
+    within 0.4% of its largest); on tiny() on the CPU the norm moved 2.5e-3
+    under e5m2."""
+    tol = 1e-4      # phase 8's: summation order over the products and the CE
+    for name in DP_CHECK_RUNS:
+        a, b = r0[name], r1[name]
+        if a["losses"] != b["losses"]:
+            raise AssertionError(f"{name}: ranks report different losses "
+                                 f"{a['losses']} / {b['losses']}")
+        rels = [abs(x - y) / abs(y) for x, y in zip(a["losses"], ref_losses)]
+        qgz = name.startswith("qgz")
+        limit = [tol] + [DP_QGZ_TOL if qgz else tol] * (len(rels) - 1)
+        if any(r > lim for r, lim in zip(rels, limit)):
+            raise AssertionError(f"{name}: losses {a['losses']} vs one process "
+                                 f"{ref_losses} (relative {rels})")
+        if abs(a["grad_norm0"] - ref_norm) > (DP_QGZ_NORM_TOL if qgz else tol) * ref_norm:
+            raise AssertionError(f"{name}: first grad norm {a['grad_norm0']} vs {ref_norm}")
+        want_b5 = [n_big] * DP_CHECK_STEPS if qgz else [0] * DP_CHECK_STEPS
+        if a["b5"] != want_b5 or b["b5"] != want_b5:
+            raise AssertionError(f"{name}: B5 launches a step {a['b5']} / {b['b5']}, "
+                                 f"expected {want_b5}")
+        held = [a["master_numel"], b["master_numel"]]
+        stage = int(name[-1]) if name.startswith("stage") else 0
+        if stage >= 1 and (sum(held) != total or max(held) > math.ceil(total / 2)):
+            raise AssertionError(f"{name}: masters held {held} of {total}")
+        if stage == 0 and held != [total, total]:
+            raise AssertionError(f"{name}: masters held {held} of {total}")
+        if a["opt_numel"] != 2 * held[0] or b["opt_numel"] != 2 * held[1]:
+            raise AssertionError(f"{name}: Adam moments {a['opt_numel']} / "
+                                 f"{b['opt_numel']} for masters {held}")
+        if stage == 3:
+            shards = [a["shard_numel"], b["shard_numel"]]
+            if not all(partitioned / 2 <= x <= partitioned / 2 + 8 for x in shards):
+                raise AssertionError(f"stage 3: compute partitions {shards} of "
+                                     f"{partitioned}")
+            if not max(a["allocated"], b["allocated"]) < ref_alloc:
+                raise AssertionError(f"stage 3: {a['allocated']} / {b['allocated']} bytes "
+                                     f"allocated, one process {ref_alloc}")
+        print(f"[dp-checked] {name}: losses {', '.join(f'{x:.6f}' for x in a['losses'])} "
+              f"on both ranks (one process {', '.join(f'{x:.6f}' for x in ref_losses)}; "
+              f"max relative {max(rels):.2e}); grad norm {a['grad_norm0']:.6f} vs "
+              f"{ref_norm:.6f}; masters held {held} of {total}; B5 a step {a['b5']}; "
+              f"allocated {a['allocated'] / 1e9:.3f} GB (one process "
+              f"{ref_alloc / 1e9:.3f} GB)", flush=True)
+
+
+def phase_dp_full(r0, r1):
+    """Phase 14's checks and readings."""
+    from deeperspeed_tpu_torch.models import GPTNeoXConfig
+
+    n_big = sum(math.prod(s) >= 128 * DP_WORLD
+                for s in param_shapes(GPTNeoXConfig.pythia_160m()))
+    counts = {}
+    for name in DP_FULL_RUNS:
+        a, b = r0[f"full-{name}"], r1[f"full-{name}"]
+        if a["losses"] != b["losses"] or not all(map(math.isfinite, a["losses"])):
+            raise AssertionError(f"full {name}: losses {a['losses']} / {b['losses']}")
+        want = n_big if name.startswith("qgz") else 0
+        if a["b5"] != want or b["b5"] != want:
+            raise AssertionError(f"full {name}: B5 launches a step {a['b5']} / "
+                                 f"{b['b5']}, expected {want}")
+        for kernel in ("layer_norm", "layer_norm_bwd", "flash_fwd", "flash_bwd_dq",
+                       "flash_bwd_dkv"):
+            if a["launches"].get(kernel, 0) < 1:
+                raise AssertionError(f"full {name}: {kernel} never launched")
+        tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (max(a["ms_per_step"], b["ms_per_step"])
+                                                  / 1e3)
+        print(f"[dp-full] Pythia-160M bf16, global B {TRAIN_BATCH} x S {TRAIN_SEQ} "
+              f"({TRAIN_BATCH // DP_WORLD} rows a rank), Adam, clip 1.0, {name}, gloo via "
+              f"host, two ranks on one card: {a['ms_per_step']:.2f} / "
+              f"{b['ms_per_step']:.2f} ms/step (rank 0 / 1) over {DP_FULL_STEPS} steps, "
+              f"{tokens_per_s:.1f} tokens/s; losses "
+              f"{', '.join(f'{x:.4f}' for x in a['losses'])} on both ranks; B5 "
+              f"{a['b5']:.0f} a step; staged through host "
+              f"{a['staged_bytes_per_step'] / 1e9:.3f} GB a step; peak memory "
+              f"{a['peak_gb']:.2f} / {b['peak_gb']:.2f} GB", flush=True)
+        staged = a["staged_ms_per_step"]
+        print(f"[dp-full] {name} rank 0: collectives staged through host (gloo, host "
+              f"clock, copies included) {sum(staged.values()):.2f} of "
+              f"{a['ms_per_step']:.2f} ms a step: "
+              + ", ".join(f"{op} {ms:.2f}" for op, ms in sorted(staged.items())),
+              flush=True)
+        print(f"[dp-full] {name} rank 0 launches in the timed steps {a['launches']}",
+              flush=True)
+        counts[name] = a["launches"]
+    return counts
+
+
 def main():
     try:
         import torch
@@ -1179,6 +1518,8 @@ def main():
         print("chip_smoke: run it from the root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if sys.argv[1:2] == ["--dp-worker"]:
+        return dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     import numpy as np
 
     from deeperspeed_tpu_torch.ops import cuda_utils
@@ -1199,7 +1540,8 @@ def main():
     print(f"[build] all kernels in {time.perf_counter() - t0:.1f} s "
           f"(one nvcc per source, in parallel)", flush=True)
 
-    rows = phase_optimizer_kernels(torch, phase_training_kernels(torch, phase_kernels(torch)))
+    rows = phase_quantizer_kernel(torch, phase_optimizer_kernels(
+        torch, phase_training_kernels(torch, phase_kernels(torch))))
     phase_checked(torch, np)
     # each main path's counts, read right after its own run
     paths = {"serving": phase_served(torch, np, cuda_utils.LAUNCHES)}
@@ -1211,6 +1553,8 @@ def main():
     paths["training_fused"], paths["training_fused_lion"] = phase_fused_trained(
         torch, np, cuda_utils.LAUNCHES)
     phase_dropout(torch, np, cuda_utils.LAUNCHES)
+    dp = phase_dp(torch, np)
+    paths["dp_stage2"], paths["dp_qgz"] = dp["stage2"], dp["qgz-int8"]
 
     sources = {
         "layer_norm": ("deeperspeed_tpu_torch/csrc/layer_norm.cu",
@@ -1238,6 +1582,8 @@ def main():
                        "deeperspeed_tpu/ops/adam/pallas_adam.py:23"),
         "fused_lion": ("deeperspeed_tpu_torch/csrc/fused_optimizers.cu",
                        "deeperspeed_tpu/ops/lion/fused_lion.py:32"),
+        "dequant_reduce": ("deeperspeed_tpu_torch/csrc/dequant_reduce.cu",
+                           "deeperspeed_tpu/ops/quantizer/fused.py:52"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():

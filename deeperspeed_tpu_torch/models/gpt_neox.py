@@ -56,6 +56,7 @@ from ..ops.transformer import apply_rotary_pos_emb, layer_norm, rotary_tables
 from ..quantization import canonical_dtype
 from ..runtime.data_pipeline.data_routing.basic_layer import (
     random_ltd_gather, random_ltd_scatter, take_tokens)
+from ..utils.recompute import checkpoint_replaying
 
 # rows this short (S <= 8) walk only their live KV blocks in the paged
 # (speculative-)decode kernels; longer rows take the dense prefill path.
@@ -144,6 +145,19 @@ def _dense(lin, x, dtype):
     """``lin`` applied in ``dtype`` (flax ``Dense(dtype=...)`` promotion)."""
     b = None if lin.bias is None else lin.bias.to(dtype)
     return F.linear(x.to(dtype), lin.weight.to(dtype), b)
+
+
+class ModelLinear(nn.Linear):
+    """``nn.Linear`` applied in ``config.dtype`` (the output head).  Called
+    as a module, so an engine that gathers weights at their module's call
+    (ZeRO stage 3) gathers it there."""
+
+    def __init__(self, config, in_features, out_features, bias=True):
+        super().__init__(in_features, out_features, bias=bias)
+        self.config = config
+
+    def forward(self, x):
+        return _dense(self, x, self.config.dtype)
 
 
 class ModelLayerNorm(nn.Module):
@@ -286,27 +300,9 @@ class GPTNeoXBlock(nn.Module):
 
 def _remat_block(blk, x, positions, rng):
     """``blk(x, positions, rng=rng)`` whose activations are recomputed in
-    the backward pass (``torch.utils.checkpoint``, the JAX package's
-    ``nn.remat`` of the block).  The checkpoint replays the default
-    generators, not ``rng``: the recompute sets ``rng`` back to its state
-    at block entry, so it draws the forward's dropout masks again, and then
-    restores the state it found, so later draws are those a run without
-    remat makes."""
-    entry = None if rng is None else rng.get_state()
-    runs = [0]
-
-    def run(x_in):
-        runs[0] += 1
-        if rng is None or runs[0] == 1:
-            return blk(x_in, positions, rng=rng)
-        later = rng.get_state()
-        rng.set_state(entry)
-        try:
-            return blk(x_in, positions, rng=rng)
-        finally:
-            rng.set_state(later)
-
-    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+    the backward pass (the JAX package's ``nn.remat`` of the block), the
+    dropout masks drawn from ``rng`` replayed exactly."""
+    return checkpoint_replaying(lambda x_in: blk(x_in, positions, rng=rng), x, rng=rng)
 
 
 def _not_ported(config):
@@ -339,8 +335,8 @@ class GPTNeoX(nn.Module):
         self.final_layer_norm = ModelLayerNorm(config.hidden_size,
                                                config.layernorm_eps,
                                                config.dtype)
-        self.embed_out = nn.Linear(config.hidden_size, config.vocab_size,
-                                   bias=False)
+        self.embed_out = ModelLinear(config, config.hidden_size, config.vocab_size,
+                                     bias=False)
         self._init_weights(torch.Generator().manual_seed(seed))
         self.to(device)
 
@@ -443,7 +439,7 @@ class GPTNeoX(nn.Module):
             if lp.dim() == 1:
                 lp = lp[:, None]
             x = torch.gather(x, 1, lp[..., None].expand(-1, -1, x.shape[-1]))
-        return _dense(self.embed_out, x, self.config.dtype)
+        return self.embed_out(x)
 
     # ------------------------------------------------------------ engine API
     def example_batch(self, batch_size=2, seq_len=None, seed=0):

@@ -63,6 +63,9 @@ _SIGNATURES = {
         "dst_fused_adam": ([_vp, _i, _ll] + [_f] * 7 + [_vp], _i),
         "dst_fused_lion": ([_vp, _i, _ll] + [_f] * 4 + [_vp], _i),
     },
+    "dequant_reduce": {
+        "dst_dequant_reduce": ([_vp, _vp, _vp, _i, _ll, _ll, _ll, _i, _vp], _i),
+    },
 }
 
 _loaded = {}

@@ -1,0 +1,188 @@
+"""Process topology (counterpart of ``deeperspeed_tpu/parallel/topology.py``).
+
+* :class:`ProcessTopology` -- cartesian coordinate algebra over named axes
+  (reference ``runtime/pipe/topology.py:12``), a plain copy of the JAX
+  package's: no devices needed.
+* :class:`MeshTopology` -- the process grid over the canonical axes
+  ``('pp', 'dp', 'zshard', 'ep', 'sp', 'tp')``.  The JAX package binds them
+  to a ``jax.sharding.Mesh``; here one process drives one device, and the
+  data-parallel axis is the ``torch.distributed`` world: ``dp`` must equal
+  the world size.  Every other axis above 1 raises ``NotImplementedError``
+  naming the ROADMAP item that ports it.
+"""
+
+from collections import namedtuple
+from itertools import product as cartesian
+
+# Canonical mesh axis names.
+PP_AXIS = "pp"
+DP_AXIS = "dp"
+ZSHARD_AXIS = "zshard"  # MiCS/hpZ secondary-partition subgroup (inner dp)
+EP_AXIS = "ep"
+SP_AXIS = "sp"
+TP_AXIS = "tp"
+ALL_AXES = (PP_AXIS, DP_AXIS, ZSHARD_AXIS, EP_AXIS, SP_AXIS, TP_AXIS)
+
+# where the axes the port does not run yet will be ported (ROADMAP Queue A)
+_AXIS_ITEMS = {
+    PP_AXIS: "Pipelines",
+    ZSHARD_AXIS: "Multi-process training, part 2",
+    EP_AXIS: "Llama/Mistral, v1 inference and MoE",
+    SP_AXIS: "Sequence parallelism",
+    TP_AXIS: "Multi-process training, part 2",
+}
+
+
+class ProcessTopology:
+    """Cartesian product of named axes; maps ranks <-> coordinates.
+
+    The rank of a coordinate is its index in row-major (C) order over
+    ``dims``, with ``axes[0]`` the outermost axis.
+    """
+
+    def __init__(self, axes, dims):
+        self.axes = list(axes)
+        self.dims = list(dims)
+        assert len(self.axes) == len(self.dims)
+        self.ProcessCoord = namedtuple("ProcessCoord", self.axes)
+        self.mapping = {}
+        for coord in cartesian(*[range(d) for d in self.dims]):
+            key = self.ProcessCoord(**{axis: coord[self.axes.index(axis)] for axis in self.axes})
+            self.mapping[key] = len(self.mapping)
+
+    def get_rank(self, **coord_kwargs):
+        if len(coord_kwargs) != len(self.axes):
+            raise ValueError(f"get_rank() needs all axes {self.axes}, got {coord_kwargs}")
+        key = self.ProcessCoord(**coord_kwargs)
+        return self.mapping[key]
+
+    def get_axis_names(self):
+        return self.axes
+
+    def get_rank_repr(self, rank, omit_axes=("data", "pipe"), inner_sep="_", outer_sep="-"):
+        omit_axes = list(omit_axes)
+        axes = [a for a in self.get_axis_names() if a not in omit_axes]
+        names = []
+        for ax in axes:
+            ax_rank = getattr(self.get_coord(rank=rank), ax)
+            names.append(f"{ax}{inner_sep}{ax_rank:02d}")
+        return outer_sep.join(names)
+
+    def get_dim(self, axis):
+        if axis not in self.axes:
+            return 0
+        return self.dims[self.axes.index(axis)]
+
+    def get_coord(self, rank):
+        for coord, idx in self.mapping.items():
+            if idx == rank:
+                return coord
+        raise ValueError(f"rank {rank} not found in topology")
+
+    def get_axis_comm_lists(self, axis):
+        """All rank-lists that vary only along ``axis`` (the axis "groups")."""
+        if axis not in self.axes:
+            return []
+        other_axes = [a for a in self.axes if a != axis]
+        lists = []
+        for coord in cartesian(*[range(self.get_dim(a)) for a in other_axes]):
+            other = dict(zip(other_axes, coord))
+            ranks = [self.get_rank(**{axis: i}, **other) for i in range(self.get_dim(axis))]
+            lists.append(ranks)
+        return lists
+
+    def filter_match(self, **filter_kwargs):
+        """Ranks whose coordinates match all given axis=value filters."""
+
+        def _match(coord):
+            return all(getattr(coord, k) == v for k, v in filter_kwargs.items())
+
+        return sorted(idx for coord, idx in self.mapping.items() if _match(coord))
+
+    def get_axis_list(self, axis, idx):
+        return [r for coord, r in self.mapping.items() if getattr(coord, axis) == idx]
+
+    def world_size(self):
+        return len(self.mapping)
+
+    def __str__(self):
+        return str(self.mapping)
+
+
+_GLOBAL_MESH = None
+
+
+def _world_size():
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+class MeshTopology:
+    """The process grid: ``dp`` data-parallel processes (the
+    ``torch.distributed`` world, or 1 without one), every other axis 1."""
+
+    def __init__(self, pp=1, dp=None, zshard=1, ep=1, sp=1, tp=1):
+        sizes = dict(zip(ALL_AXES, (pp, dp, zshard, ep, sp, tp)))
+        for axis, item in _AXIS_ITEMS.items():
+            if sizes[axis] != 1:
+                raise NotImplementedError(
+                    f"mesh axis {axis}={sizes[axis]} is not ported yet "
+                    f"(ROADMAP Queue A, '{item}')")
+        world = _world_size()
+        if dp is None:
+            dp = world
+        if dp != world:
+            raise ValueError(f"mesh dp={dp} must equal the torch.distributed "
+                             f"world size {world}: one process drives one device")
+        sizes[DP_AXIS] = dp
+        self.sizes = sizes
+
+    @property
+    def pp(self):
+        return self.sizes[PP_AXIS]
+
+    @property
+    def dp(self):
+        return self.sizes[DP_AXIS]
+
+    @property
+    def zshard(self):
+        return self.sizes[ZSHARD_AXIS]
+
+    @property
+    def ep(self):
+        return self.sizes[EP_AXIS]
+
+    @property
+    def sp(self):
+        return self.sizes[SP_AXIS]
+
+    @property
+    def tp(self):
+        return self.sizes[TP_AXIS]
+
+    @property
+    def data_parallel_size(self):
+        """Replication degree seen by the optimizer: dp (the other
+        data-parallel axes are 1 here)."""
+        return self.dp * self.zshard * self.ep * self.sp
+
+
+def set_mesh(mesh_topology):
+    global _GLOBAL_MESH
+    _GLOBAL_MESH = mesh_topology
+    return mesh_topology
+
+
+def get_mesh():
+    """The process-global MeshTopology (a pure data-parallel one over the
+    world by default, rebuilt if the world changed since)."""
+    global _GLOBAL_MESH
+    if _GLOBAL_MESH is None or _GLOBAL_MESH.dp != _world_size():
+        _GLOBAL_MESH = MeshTopology()
+    return _GLOBAL_MESH
+
+
+def axis_size(axis):
+    return get_mesh().sizes[axis]

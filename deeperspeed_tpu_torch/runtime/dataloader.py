@@ -4,13 +4,13 @@
 ``DeeperSpeedDataLoader`` batches a map-style dataset with a seeded,
 epoch-stable shuffle (``np.random.RandomState(seed + epoch)``), so its
 batches equal the JAX package's loader's for the same dataset and seed on
-one process.  ``RepeatingLoader`` wraps any loader into an infinite
-iterator (reference ``dataloader.py:17``).
+one process; with ``num_shards`` processes each takes its contiguous slice
+of every global batch (``shard_index``), as the JAX loader does.
+``RepeatingLoader`` wraps any loader into an infinite iterator (reference
+``dataloader.py:17``).
 
-Not ported yet, both with several processes (ROADMAP Queue A,
-'Multi-process training'): the per-process slice of each global batch
-(``num_shards``/``shard_index``), and ``DevicePrefetchingLoader`` (the
-``comm.overlap`` prefetch).
+Not ported yet (ROADMAP Queue A, 'Multi-process training, part 2'):
+``DevicePrefetchingLoader`` (the ``comm.overlap`` prefetch).
 """
 
 import numpy as np
@@ -42,11 +42,14 @@ class DeeperSpeedDataLoader:
     ``dataset`` may be: a dict of numpy arrays (column store), a sequence of
     examples (dicts or tuples), or anything with ``__getitem__``/``__len__``.
     Shuffling is seeded and epoch-stable: the same seed and epoch give the
-    same permutation.
+    same permutation on every process.  ``batch_size`` is the global batch;
+    process ``shard_index`` of ``num_shards`` (by default the
+    ``torch.distributed`` rank and world) gets its contiguous slice of it.
     """
 
     def __init__(self, dataset, batch_size, collate_fn=None, drop_last=True,
-                 shuffle=True, seed=1234, sampler=None):
+                 shuffle=True, seed=1234, sampler=None, num_shards=None,
+                 shard_index=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn
@@ -60,6 +63,15 @@ class DeeperSpeedDataLoader:
         # ``next_batch_indices()`` yields the global batch's sample ids
         # (reference DeepSpeedDataSampler consumed by ``deepspeed_io``)
         self.sampler = sampler
+        if num_shards is None:
+            from .. import comm
+
+            num_shards, shard_index = comm.get_world_size(), comm.get_rank()
+        self.num_shards = num_shards
+        self.shard_index = shard_index or 0
+        if batch_size % num_shards:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"{num_shards} processes")
         if isinstance(dataset, dict):
             lens = {k: len(v) for k, v in dataset.items()}
             assert len(set(lens.values())) == 1, f"ragged columns: {lens}"
@@ -95,6 +107,18 @@ class DeeperSpeedDataLoader:
             return self._n // self.batch_size
         return (self._n + self.batch_size - 1) // self.batch_size
 
+    def _shard(self, idx):
+        """This process's contiguous slice of a global batch's indices (the
+        rows the JAX batch sharding over dp gives it)."""
+        if self.num_shards == 1:
+            return idx
+        if len(idx) % self.num_shards:
+            raise ValueError(f"batch of {len(idx)} samples not divisible by "
+                             f"{self.num_shards} processes; use drop_last=True or "
+                             f"a divisible batch size")
+        per = len(idx) // self.num_shards
+        return idx[self.shard_index * per:(self.shard_index + 1) * per]
+
     def __iter__(self):
         start, self._resume_batch_idx = self._resume_batch_idx, 0
         if self.sampler is not None:
@@ -103,7 +127,7 @@ class DeeperSpeedDataLoader:
                 if i < start:
                     continue  # fast-forward: sampler state still advances
                 self._batch_idx = i + 1
-                yield self._gather(batch_idx)
+                yield self._gather(self._shard(batch_idx))
             self.epoch += 1
             self._batch_idx = 0
             return
@@ -112,7 +136,7 @@ class DeeperSpeedDataLoader:
             rng = np.random.RandomState(self.seed + self.epoch)
             rng.shuffle(order)
         for i in range(start, len(self)):
-            idx = order[i * self.batch_size:(i + 1) * self.batch_size]
+            idx = self._shard(order[i * self.batch_size:(i + 1) * self.batch_size])
             # set BEFORE yield: while the generator is suspended mid-epoch,
             # state_dict() must equal the count of batches already delivered
             self._batch_idx = i + 1

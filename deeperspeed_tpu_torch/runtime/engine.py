@@ -1,4 +1,4 @@
-"""DeeperSpeedEngine: the training engine, ZeRO-0 on one device
+"""DeeperSpeedEngine: the training engine, on one process or several
 (counterpart of ``deeperspeed_tpu/runtime/engine.py``).
 
 The JAX engine compiles one train step: a ``scan`` over the gradient-
@@ -21,6 +21,26 @@ the same step runs eagerly, in the same order and precision:
 * fp16 skips the update of a step whose gradients overflow and backs the
   loss scale off (``precision.py``).
 
+Several processes (``torch.distributed``, one device each; the world is
+the data-parallel axis): every rank takes its contiguous slice of each
+global microbatch (``batch=`` and ``data_iter=`` carry global
+microbatches; the engine's loader yields each rank its slice), and the
+gradient is the mean over ranks, reduced in ``communication_data_type``
+(else the accumulation type).  ZeRO (``zero/sharding.py``): at stage 0
+every rank keeps everything and all-reduces the accumulated gradients once
+a step; stages 1-3 keep only the rank's partition of the masters and the
+optimizer state (the optimizer steps over the rank's *pieces* of the
+parameters, views that keep each parameter's number of dimensions), and
+all-gather the compute copy after the update; stage 1 reduce-scatters the
+accumulated gradients once a step, stages 2-3 each microbatch's; stage 3
+also partitions the compute parameters and gathers them at their module's
+call (``zero/stage3.py``).  The global norm and the fp16 overflow flag are
+taken across ranks, and the reported loss is the mean of the ranks'.  qgZ
+(``comm.quantized`` or ``zero_quantized_gradients`` at stage 0) reduces
+each parameter's mean gradient of at least ``group_size x world`` elements
+through ``comm.all_reduce_quantized`` (B5 on the card), the smaller ones
+exactly, as the JAX engine does.
+
 Two ways to drive it share that code: ``train_batch`` (a whole step over
 gas microbatches, from ``batch=``, ``data_iter=`` or, without arguments,
 the loader built from ``training_data=``), and the legacy
@@ -28,30 +48,35 @@ the loader built from ``training_data=``), and the legacy
 accumulate through :meth:`_accumulate` and finish through
 :meth:`_finish_step`, so they give the same bits.
 
-Training draws its randomness (dropout, progressive layer drop, random-LTD)
-from one ``torch.Generator`` on the engine's device seeded from
-``config.seed``; evaluation draws none.  The data-efficiency stack
-(curriculum seqlen truncation, progressive layer drop, random-LTD) runs on
-the host between steps, as in the JAX engine.
+Training draws its randomness (dropout, random-LTD) from one
+``torch.Generator`` on the engine's device seeded from ``config.seed`` plus
+the rank, so ranks draw different masks for their different rows;
+evaluation draws none.  The data-efficiency stack (curriculum seqlen
+truncation, progressive layer drop, random-LTD) runs on the host between
+steps, as in the JAX engine.
 
 The loss function is ``loss(model, batch, rng)`` (the model's
 ``loss_fn()``, or ``loss_fn=``): ``rng`` is the generator in training and
 None in evaluation.
 
-Not ported yet (raising ``NotImplementedError``): ZeRO stages above 0 and
-several processes, checkpoints, the prefetching loader, eigenvalue,
-compression and the step telemetry.
+Not ported yet (raising ``NotImplementedError``): checkpoints, the
+prefetching loader, eigenvalue, compression and the step telemetry; over
+several processes, progressive layer drop (its draws must agree across
+ranks), LAMB at stage 1-3 (its trust ratio needs whole parameters) and the
+chunked loss at stage 3 (it reads the head's weight outside the head).
 """
 
+import math
 import re
 
 import numpy as np
 import torch
 
+from .. import comm
 from ..accelerator import resolve_device
 from ..utils.logging import log_dist, logger
 from ..utils.tree import tree_global_norm
-from .config import DeeperSpeedConfig
+from .config import COMM_DTYPES, PART2, DeeperSpeedConfig, _not_ported
 from .lr_schedules import get_lr_schedule_fn
 from .optimizers import build_optimizer, identity
 from .precision import (
@@ -60,6 +85,9 @@ from .precision import (
     init_loss_scale,
     update_loss_scale,
 )
+from .zero import stage3
+from .zero.quantized import fused_flat_reduce
+from .zero.sharding import build_partition_plan, unit_of
 
 
 class DeeperSpeedEngine:
@@ -70,6 +98,11 @@ class DeeperSpeedEngine:
             config = DeeperSpeedConfig(config)
         self.config = config
         self.device = resolve_device(device)
+        self.group = comm.get_data_parallel_group()
+        self.world, self.rank = self.group.size(), self.group.rank()
+        if config.world_size != self.world:
+            raise ValueError(f"config built for {config.world_size} processes, "
+                             f"the world has {self.world}")
 
         # ---- activation checkpointing: any requested option turns on
         # block-level recompute (JAX engine ``engine.py:127-145``)
@@ -82,8 +115,14 @@ class DeeperSpeedEngine:
                                "mapped to on-device rematerialization")
             model.replace_config(remat=True)
             log_dist("activation checkpointing: block remat enabled", ranks=[0])
+        self._check_multi_process(model)
 
         self.precision = MixedPrecisionPolicy(config)
+        self._init_qgz()
+        # the type the data-parallel reduction runs in (the JAX engine's
+        # ``reduce_dtype or accum_dtype``)
+        self._comm_dtype = (COMM_DTYPES[config.communication_data_type]
+                            or self._accum_dtype)
         if loss_fn is None:
             if not hasattr(model, "loss_fn"):
                 raise ValueError("pass loss_fn= or use a model exposing .loss_fn()")
@@ -128,7 +167,7 @@ class DeeperSpeedEngine:
             config.fp16 if self.precision.is_fp16 else None, self.device)
         # the training randomness: dropout, layer drop, token subsets
         self._rng = torch.Generator(device=self.device)
-        self._rng.manual_seed(config.seed)
+        self._rng.manual_seed(config.seed + self.rank)
         self.step_count = 0          # optimizer steps taken (skips excluded)
         self.global_steps = 0
         self.global_samples = 0
@@ -136,6 +175,7 @@ class DeeperSpeedEngine:
         self.skipped_steps = 0
         self._last_metrics = {}
         self._acc_count = 0          # microbatches in the accumulation buffer
+        self._reduced = False        # allreduce_gradients() ran for this step
         self._cached_loss = None
 
         # the data-efficiency schedulers precede the loader: deepspeed_io's
@@ -150,60 +190,191 @@ class DeeperSpeedEngine:
                                                          collate_fn=collate_fn)
             self._data_iterator = iter(RepeatingLoader(self.training_dataloader))
 
+    # ------------------------------------------------------- process checks
+    def _check_multi_process(self, model):
+        """What the port refuses over several processes or at ZeRO stages,
+        and stage 3's one change to the model (it recomputes each unit)."""
+        cfg = self.config
+        if self.world > 1 and cfg.progressive_layer_drop.enabled:
+            raise _not_ported("progressive_layer_drop over several processes", PART2)
+        if (cfg.zero_stage >= 1 and self.world > 1 and cfg.optimizer is not None
+                and cfg.optimizer.type.lower() == "lamb"):
+            raise _not_ported("LAMB at ZeRO stages 1-3 over several processes", PART2)
+        mcfg = getattr(model, "config", None)
+        if cfg.zero_stage == 3:
+            if getattr(mcfg, "ce_chunk_tokens", 0) > 0:
+                raise _not_ported("ce_chunk_tokens at ZeRO stage 3", PART2)
+            if getattr(mcfg, "remat", False):
+                # the stage-3 wrapper recomputes every unit (it gathers
+                # inside the recompute), so block recompute would run twice
+                model.replace_config(remat=False)
+
+    def _init_qgz(self):
+        """qgZ (the JAX engine's ``engine.py:322-362``): the quantized
+        data-parallel reduction, at stage 0 only."""
+        cfg = self.config
+        cq = cfg.comm_quantized
+        self._qgz = bool(cq.enabled)
+        if cfg.zero_quantized_gradients and not self._qgz:
+            if cfg.zero_stage == 0:
+                self._qgz = True
+            else:
+                logger.warning("zero_quantized_gradients: the qgZ reduction requires "
+                               "stage 0 (stage %d keeps the plain reduction); ignoring",
+                               cfg.zero_stage)
+        if self._qgz:
+            if cq.enabled and cfg.zero_stage > 0:
+                raise ValueError("comm.quantized requires zero stage 0: the qgZ "
+                                 "reduction needs replicated masters")
+            if self.precision.is_fp16:
+                raise ValueError("comm.quantized supports fp32/bf16 only")
+            if self.world == 1:
+                logger.warning("comm.quantized: one process, nothing to quantize; "
+                               "running plain reduction")
+                self._qgz = False
+        # the qgZ loop sums microbatch gradients in fp32, whatever
+        # grad_accum_dtype says (JAX ``_grads_for_batch_qgz``)
+        self._accum_dtype = torch.float32 if self._qgz else self.precision.accum_dtype
+
     # ------------------------------------------------------------------ state
     def _build_state(self):
+        """The flat buffers of the partition plan (``zero/sharding.py``):
+        masters and gradients hold this rank's partition of every region
+        (the whole region at stage 0), the accumulation buffer whole local
+        gradients (stages 0-1) or the partitions (stages 2-3), and the
+        compute copy each region's whole buffer in its compute type (a
+        partition of it for the regions stage 3 gathers).  Every rank starts
+        from rank 0's weights."""
         named = dict(self.module.named_parameters())
         patterns = (self.module.no_cast_paths()
                     if hasattr(self.module, "no_cast_paths")
                     else [r"embed_in\.weight"])
-        cast = [n for n, p in named.items()
-                if self.precision.compute_dtype(
-                    p, any(re.search(pat, n) for pat in patterns)) != torch.float32]
-        kept = [n for n in named if n not in set(cast)]
-        self._order = cast + kept
-        sizes = [named[n].numel() for n in self._order]
-        total = sum(sizes)
-        n_cast = sum(sizes[:len(cast)])
-
-        self._master_flat = torch.empty(total, dtype=torch.float32, device=self.device)
-        self._grad_flat = torch.zeros(total, dtype=torch.float32, device=self.device)
-        accum = self.precision.accum_dtype
-        self._acc_flat = (self._grad_flat if accum == torch.float32 else
-                          torch.zeros(total, dtype=accum, device=self.device))
-        self._compute_flat = torch.empty(n_cast, dtype=self.precision.param_dtype,
-                                         device=self.device)
+        specs = {n: (tuple(p.shape), self.precision.compute_dtype(
+            p, any(re.search(pat, n) for pat in patterns))) for n, p in named.items()}
+        stage = self.config.zero_stage
+        self.plan = plan = build_partition_plan(
+            specs, stage, self.world, self.rank, self.config.param_persistence_threshold,
+            {n: unit_of(n, self.module) for n in named} if stage == 3 else None)
+        self._order = plan.order
+        dev, f32, accum = self.device, torch.float32, self._accum_dtype
+        local = plan.local_numel
+        self._master_flat = torch.empty(local, dtype=f32, device=dev)
+        self._grad_flat = torch.zeros(local, dtype=f32, device=dev)
+        acc_numel = sum(r.padded for r in plan.regions) if stage == 1 else local
+        self._acc_flat = (self._grad_flat if accum == f32 and acc_numel == local else
+                          torch.zeros(acc_numel, dtype=accum, device=dev))
         self.master_params, self.grads = {}, {}
-        self._acc_views = []
-        off = 0
+        self._params, self._acc_views = [], []   # whole-gradient accumulation
+        self._scatter = []      # stages 2-3: (region, its parameters, acc partition)
+        self._compute = []      # (region, master partition, compute buffer, gathered)
+        self._gathered_acc = []  # stage 3: accumulation partitions the gathers feed
+        units = {}
+        acc_off = 0
         with torch.no_grad():
-            for n, size in zip(self._order, sizes):
-                p = named[n]
-                view = self._master_flat[off:off + size].view(p.shape)
-                view.copy_(p.detach())
-                self.master_params[n] = view
-                self.grads[n] = self._grad_flat[off:off + size].view(p.shape)
-                self._acc_views.append(self._acc_flat[off:off + size].view(p.shape))
-                p.data = (self._compute_flat[off:off + size].view(p.shape)
-                          if off < n_cast else view)
-                off += size
-        self._params = [named[n] for n in self._order]
-        self._n_cast = n_cast
-        self._refresh_compute()
+            for region, base in zip(plan.regions, plan.bases()):
+                params = [named[n] for n in region.names]
+                full = torch.zeros(region.padded, dtype=f32, device=dev)
+                for p, off in zip(params, region.offsets):
+                    full[off:off + p.numel()].copy_(p.detach().reshape(-1))
+                if self.world > 1:
+                    comm.broadcast(full, 0, self.group)
+                i0 = plan.index * region.part
+                master = self._master_flat[base:base + region.part]
+                master.copy_(full[i0:i0 + region.part])
+                for n, shape, a, b, at in region.pieces(plan.index):
+                    keep = shape if b - a == named[n].numel() else \
+                        (b - a,) + (1,) * (len(shape) - 1)
+                    span = slice(base + at, base + at + b - a)
+                    self.master_params[n] = self._master_flat[span].view(keep)
+                    self.grads[n] = self._grad_flat[span].view(keep)
+                acc = base if stage != 1 else acc_off
+                acc_off += region.padded
+                if stage <= 1:
+                    for p, off in zip(params, region.offsets):
+                        self._params.append(p)
+                        self._acc_views.append(
+                            self._acc_flat[acc + off:acc + off + p.numel()].view(p.shape))
+                acc_part = self._acc_flat[base:base + region.part]
+                if region.gathered:
+                    shard = full[i0:i0 + region.part].to(region.dtype, copy=True)
+                    shard.requires_grad_(True)
+                    gathered = stage3.GatheredRegion(
+                        region, shard, self.group, self._comm_dtype,
+                        lambda part, acc=acc_part: acc.add_(part.to(acc.dtype)))
+                    units.setdefault(region.unit, []).append(gathered)
+                    self._gathered_acc.append(acc_part)
+                    for p in params:
+                        p.data = torch.empty(0, dtype=region.dtype, device=dev)
+                    self._compute.append((region, master, None, gathered))
+                    continue
+                if stage >= 2:
+                    self._params.extend(params)
+                    self._scatter.append((region, params, acc_part))
+                if stage == 0 and region.dtype == f32:
+                    buf = None          # the parameters are the master views
+                    for p, off in zip(params, region.offsets):
+                        p.data = master[off:off + p.numel()].view(p.shape)
+                else:
+                    buf = full.to(region.dtype)
+                    for p, off in zip(params, region.offsets):
+                        p.data = buf[off:off + p.numel()].view(p.shape)
+                self._compute.append((region, master, buf, None))
+        for unit, gathered in units.items():
+            stage3.install(self.module.get_submodule(unit) if unit else self.module,
+                           unit + "." if unit else "", gathered)
 
     @torch.no_grad()
     def _refresh_compute(self):
-        """The compute copy from the masters: one cast copy (the JAX
-        engine's ``cast_for_compute``)."""
-        if self._n_cast:
-            self._compute_flat.copy_(self._master_flat[:self._n_cast])
+        """The compute copy from the masters (the JAX engine's
+        ``cast_for_compute``): one cast copy per region on one rank, an
+        all-gather of the cast partitions over several, and at stage 3 the
+        cast partition alone for the regions gathered at use."""
+        for region, master, buf, gathered in self._compute:
+            if gathered is not None:
+                gathered.shard.copy_(master)
+            elif buf is None:
+                continue
+            elif region.parts == 1:
+                buf.copy_(master)
+            else:
+                comm.all_gather_into(buf, master.to(region.dtype), self.group)
+
+    def full_master_params(self):
+        """Every fp32 master whole, by name (gathered from the ranks'
+        partitions at stages 1-3)."""
+        out = {}
+        with torch.no_grad():
+            for region, base in zip(self.plan.regions, self.plan.bases()):
+                part = self._master_flat[base:base + region.part]
+                full = part.clone() if region.parts == 1 else comm.all_gather_into(
+                    torch.empty(region.padded, dtype=torch.float32, device=self.device),
+                    part, self.group)
+                for n, shape, off in zip(region.names, region.shapes, region.offsets):
+                    size = math.prod(shape)
+                    out[n] = full[off:off + size].view(shape).clone()
+        return out
 
     # ------------------------------------------------------------------ data
     def _to_device(self, mb):
         return {k: torch.as_tensor(v).to(self.device) for k, v in mb.items()}
 
-    def _stack_microbatches(self, data):
+    def _local(self, mb):
+        """This rank's contiguous slice of the rows of a global microbatch
+        (the rows the JAX batch sharding over dp gives it)."""
+        if self.world == 1:
+            return mb
+        rows = {len(v) for v in mb.values()}
+        if len(rows) != 1 or next(iter(rows)) % self.world:
+            raise ValueError(f"microbatch rows {sorted(rows)} not divisible by "
+                             f"{self.world} processes")
+        per = next(iter(rows)) // self.world
+        return {k: v[self.rank * per:(self.rank + 1) * per] for k, v in mb.items()}
+
+    def _stack_microbatches(self, data, local=False):
         """gas microbatch dicts from a full batch dict (split along rows), a
-        list/tuple of gas microbatches, or an iterator yielding them."""
+        list/tuple of gas microbatches, or an iterator yielding them; each
+        a global microbatch, of which this rank keeps its rows (``local``:
+        already this rank's, as the engine's loader yields them)."""
         gas = self.gradient_accumulation_steps()
         if isinstance(data, (list, tuple)):
             micro = list(data)
@@ -219,17 +390,17 @@ class DeeperSpeedEngine:
             mb = next(iter(rows)) // gas
             micro = [{k: v[i * mb:(i + 1) * mb] for k, v in data.items()}
                      for i in range(gas)]
-        return [self._to_device(m) for m in micro]
+        return [self._to_device(m if local else self._local(m)) for m in micro]
 
     def deepspeed_io(self, dataset, batch_size=None, data_sampler=None, collate_fn=None):
-        """The engine's loader over ``dataset``: microbatches of
-        ``train_micro_batch_size_per_gpu`` rows, shuffled from
-        ``config.seed``; with ``data_efficiency.data_sampling`` enabled, drawn
-        by the curriculum sampler from a metric-sorted order (JAX engine
-        ``deepspeed_io``)."""
+        """The engine's loader over ``dataset``: global microbatches of
+        ``train_micro_batch_size_per_gpu`` x world rows, shuffled from
+        ``config.seed``, of which it yields this rank's slice; with
+        ``data_efficiency.data_sampling`` enabled, drawn by the curriculum
+        sampler from a metric-sorted order (JAX engine ``deepspeed_io``)."""
         from .dataloader import DeeperSpeedDataLoader
 
-        bs = batch_size or self.train_micro_batch_size_per_gpu()
+        bs = batch_size or self.train_micro_batch_size_per_gpu() * self.world
         de = self.config.data_efficiency
         ds_cfg = dict(de.data_sampling)
         if data_sampler is None and de.enabled and ds_cfg.get("enabled"):
@@ -249,7 +420,8 @@ class DeeperSpeedEngine:
             )
         return DeeperSpeedDataLoader(dataset, batch_size=bs, collate_fn=collate_fn,
                                      drop_last=True, seed=self.config.seed,
-                                     sampler=data_sampler)
+                                     sampler=data_sampler, num_shards=self.world,
+                                     shard_index=self.rank)
 
     # ------------------------------------------------- data-efficiency stack
     def _init_data_efficiency(self):
@@ -303,26 +475,49 @@ class DeeperSpeedEngine:
     def _accumulate(self, loss, scale):
         """Backward of one microbatch's ``loss`` (times ``scale`` under fp16)
         and its gradients, cast to the accumulation type, added into the
-        accumulation buffer."""
-        (loss if scale is None else loss * scale).to(torch.float32).backward()
-        accum = self.precision.accum_dtype
-        views, grads, missing = [], [], []
-        for p, v in zip(self._params, self._acc_views):
-            if p.grad is None:          # a block PLD or random-LTD skipped
-                missing.append(v)
-            else:
-                views.append(v)
-                grads.append(p.grad if accum == torch.float32 else p.grad.to(accum))
+        accumulation buffer: whole at stages 0-1; at stages 2-3 this rank's
+        partition of their sum over ranks (stage 3's gathered regions get
+        theirs from the gather's backward)."""
         if self._acc_count == 0:
-            if missing:
-                torch._foreach_zero_(missing)
-            if views:
-                torch._foreach_copy_(views, grads)
-        elif views:
-            torch._foreach_add_(views, grads)
+            for acc in self._gathered_acc:
+                acc.zero_()
+        (loss if scale is None else loss * scale).to(torch.float32).backward()
+        if self._scatter:
+            self._scatter_micro()
+        else:
+            accum = self._accum_dtype
+            views, grads, missing = [], [], []
+            for p, v in zip(self._params, self._acc_views):
+                if p.grad is None:          # a block PLD or random-LTD skipped
+                    missing.append(v)
+                else:
+                    views.append(v)
+                    grads.append(p.grad if accum == torch.float32 else p.grad.to(accum))
+            if self._acc_count == 0:
+                if missing:
+                    torch._foreach_zero_(missing)
+                if views:
+                    torch._foreach_copy_(views, grads)
+            elif views:
+                torch._foreach_add_(views, grads)
         self._acc_count += 1
         for p in self._params:
             p.grad = None
+
+    def _scatter_micro(self):
+        """Stages 2-3: each region's microbatch gradients, in the
+        communication type, reduce-scattered into this rank's partition
+        (the sum over ranks) and added to its accumulation."""
+        for region, params, acc_part in self._scatter:
+            buf = torch.zeros(region.padded, dtype=self._comm_dtype, device=self.device)
+            for p, off in zip(params, region.offsets):
+                if p.grad is not None:      # a block PLD or random-LTD skipped
+                    buf[off:off + p.numel()].copy_(p.grad.reshape(-1))
+            part = comm.reduce_scatter(buf, self.group)
+            if self._acc_count == 0:
+                acc_part.copy_(part)
+            else:
+                acc_part.add_(part.to(acc_part.dtype))
 
     def _micro_loss(self, mb, ltd=None):
         for p in self._params:
@@ -335,20 +530,19 @@ class DeeperSpeedEngine:
         return self.loss_scale_state.scale if self.precision.is_fp16 else None
 
     def _finish_step(self, divisor):
-        """Mean gradients (the accumulated sum over ``divisor``, in the
-        accumulation type), unscale, overflow check, global norm, clip,
-        update and loss-scale update: the JAX engine's train step after its
-        microbatch scan, and its ``_make_apply``."""
+        """Mean gradients (the accumulated sum over ``divisor`` microbatches
+        and the ranks, in the accumulation type), unscale, overflow check,
+        global norm, clip, update and loss-scale update: the JAX engine's
+        train step after its microbatch scan, and its ``_make_apply``."""
         g = self._grad_flat
         with torch.no_grad():
-            self._acc_flat.div_(divisor)
-            if self._acc_flat is not g:
-                g.copy_(self._acc_flat)
+            if not self._reduced:
+                self._reduce_gradients(divisor)
             fp16 = self.precision.is_fp16
             if fp16:
                 g.mul_(1.0 / self.loss_scale_state.scale)
-            overflow = has_inf_or_nan([g]) if fp16 else None
-            grad_norm = tree_global_norm([g])
+            overflow = self._any_rank(has_inf_or_nan([g])) if fp16 else None
+            grad_norm = self._global_norm(g)
             clip = self.config.gradient_clipping
             if clip > 0:
                 g.mul_(torch.clamp(clip / (grad_norm + 1e-6), max=1.0))
@@ -362,18 +556,80 @@ class DeeperSpeedEngine:
                 self.loss_scale_state = update_loss_scale(
                     self.loss_scale_state, overflow, self.config.fp16)
         self._acc_count = 0
+        self._reduced = False
         self.global_steps += 1
         self.global_samples += self.train_batch_size()
         self.skipped_steps += int(skipped)
         return {"grad_norm": grad_norm, "lr": lr, "overflow": skipped,
                 "loss_scale": self.loss_scale_state.scale}
 
+    def _reduce_gradients(self, divisor):
+        """The mean gradient over ``divisor`` microbatches and the ranks,
+        into the fp32 gradient buffer (this rank's partitions at stages
+        1-3)."""
+        acc, g, n = self._acc_flat, self._grad_flat, self.world
+        if self._qgz:
+            self._reduce_qgz(divisor)
+        elif self.plan.stage == 1:
+            off = 0
+            for region, base in zip(self.plan.regions, self.plan.bases()):
+                whole = acc[off:off + region.padded].to(self._comm_dtype)
+                off += region.padded
+                part = comm.reduce_scatter(whole, self.group).to(acc.dtype)
+                g[base:base + region.part].copy_(part.div_(divisor * n))
+        else:
+            if self.plan.stage == 0 and n > 1:
+                if acc.dtype == self._comm_dtype:
+                    comm.all_reduce(acc, group=self.group)
+                else:
+                    acc.copy_(comm.all_reduce(acc.to(self._comm_dtype), group=self.group))
+            acc.div_(divisor * n)
+            if acc is not g:
+                g.copy_(acc)
+
+    def _reduce_qgz(self, divisor):
+        """qgZ (JAX ``_grads_for_batch_qgz``): each parameter's mean over
+        microbatches, then its mean over ranks, through the quantized
+        all-reduce for parameters of at least ``group_size x world``
+        elements and one exact all-reduce for the smaller ones together."""
+        cq = self.config.comm_quantized
+        acc = self._acc_flat                 # fp32, the gradient buffer itself
+        acc.div_(divisor)
+        small = [v for v in self._acc_views if v.numel() < cq.group_size * self.world]
+        large = [v for v in self._acc_views if v.numel() >= cq.group_size * self.world]
+        if small:
+            for v, r in zip(small, fused_flat_reduce(
+                    small, lambda t: comm.all_reduce(t, comm.ReduceOp.AVG, self.group))):
+                v.copy_(r)
+        for v in large:
+            v.copy_(comm.all_reduce_quantized(
+                v, op=comm.ReduceOp.AVG, group=self.group, group_size=cq.group_size,
+                impl=cq.impl, wire_dtype=cq.wire_dtype))
+
+    def _partitioned(self):
+        return self.plan.stage >= 1 and self.world > 1
+
+    def _global_norm(self, g):
+        """The L2 norm of the whole gradient: of the local buffer where it
+        is whole, else the root of the ranks' summed squares."""
+        if not self._partitioned():
+            return tree_global_norm([g])
+        sq = torch.dot(g, g).reshape(1)
+        return torch.sqrt(comm.all_reduce(sq, group=self.group))[0]
+
+    def _any_rank(self, flag):
+        """A bool scalar, true if it is on any rank holding a partition."""
+        if not self._partitioned():
+            return flag
+        return comm.all_reduce(flag.to(torch.float32).reshape(1), comm.ReduceOp.MAX,
+                               self.group)[0] > 0
+
     @torch.no_grad()
     def _apply(self, lr):
         updates, self.opt_state = self.tx.update(dict(self.grads), self.opt_state,
                                                  self.master_params)
-        masters = [self.master_params[n] for n in self._order]
-        ups = [updates[n] for n in self._order]
+        masters = list(self.master_params.values())
+        ups = [updates[n] for n in self.master_params]
         torch._foreach_add_(masters, ups, alpha=1.0 if self._updates_include_lr else -lr)
         self._refresh_compute()
 
@@ -394,8 +650,9 @@ class DeeperSpeedEngine:
             if self._data_iterator is None:
                 raise ValueError("no data: pass data_iter/batch or training_data")
             data_iter = self._data_iterator   # persistent: keeps advancing epochs
+        local = data_iter is self._data_iterator and data_iter is not None
         data = batch if batch is not None else data_iter
-        micro, ltd = self._apply_data_efficiency(self._stack_microbatches(data))
+        micro, ltd = self._apply_data_efficiency(self._stack_microbatches(data, local))
         scale = self._scale()
         self._acc_count = 0
         losses = []
@@ -404,6 +661,8 @@ class DeeperSpeedEngine:
             self._accumulate(loss, scale)
             losses.append(loss.detach().to(torch.float32))
         loss = torch.stack(losses).mean()
+        if self.world > 1:
+            comm.all_reduce(loss.reshape(1), comm.ReduceOp.AVG, self.group)
         self.micro_steps += len(micro)
         metrics = self._finish_step(len(micro))
         self._report({"loss": loss, **metrics})
@@ -415,13 +674,17 @@ class DeeperSpeedEngine:
         gradients."""
         data = batch if batch is not None else data_iter
         micro = self._stack_microbatches(data)
-        return torch.stack([self._loss_fn(self.module, mb, None).to(torch.float32)
+        loss = torch.stack([self._loss_fn(self.module, mb, None).to(torch.float32)
                             for mb in micro]).mean()
+        if self.world > 1:
+            comm.all_reduce(loss.reshape(1), comm.ReduceOp.AVG, self.group)
+        return loss
 
     # -- legacy fwd/bwd/step API (reference ``engine.py:1775,1916,2114``)
     def forward(self, batch):
-        """The loss of one microbatch, its graph kept for :meth:`backward`."""
-        self._cached_loss = self._micro_loss(self._to_device(batch))
+        """The loss of one (global) microbatch's rows on this rank, its
+        graph kept for :meth:`backward`."""
+        self._cached_loss = self._micro_loss(self._to_device(self._local(batch)))
         return self._cached_loss
 
     __call__ = forward
@@ -452,9 +715,18 @@ class DeeperSpeedEngine:
     def zero_grad(self):
         """Drop the accumulated gradients."""
         self._acc_count = 0
+        self._reduced = False
 
     def allreduce_gradients(self, bucket_size=None):
-        """No-op: one device holds every gradient."""
+        """Reduce the accumulated gradients now (their mean over gas
+        microbatches and the ranks), rather than in :meth:`step`; at stages
+        2-3 only the last division is left by then.  Without accumulated
+        gradients there is nothing to reduce."""
+        if self._acc_count == 0 or self._reduced:
+            return
+        with torch.no_grad():
+            self._reduce_gradients(self.gradient_accumulation_steps())
+        self._reduced = True
 
     # ------------------------------------------------------------ properties
     def train_batch_size(self):
@@ -470,7 +742,7 @@ class DeeperSpeedEngine:
         return self.config.zero_stage
 
     def zero_optimization(self):
-        return False
+        return self.config.zero_stage > 0
 
     def fp16_enabled(self):
         return self.precision.is_fp16

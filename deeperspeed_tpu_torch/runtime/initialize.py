@@ -2,11 +2,18 @@
 ``deeperspeed_tpu/runtime/initialize.py``).
 
 Returns the reference's 4-tuple ``(engine, optimizer, dataloader,
-lr_scheduler)``.  The single-device engine is the one ported; a pipeline
-model, a mesh or an ``mpu`` raise ``NotImplementedError`` (the hybrid
-engine's config block is refused by the config).
+lr_scheduler)``.  Over several processes it joins the process group first
+(``comm.init_distributed``, from the ``RANK``/``WORLD_SIZE`` environment)
+unless the caller already has; ``mesh=`` is a ``parallel.MeshTopology``
+whose ``dp`` is the process count.  A pipeline model or an ``mpu`` raise
+``NotImplementedError`` (the hybrid engine's config block is refused by the
+config).
 """
 
+import os
+
+from .. import comm
+from ..parallel import MeshTopology, set_mesh
 from .engine import DeeperSpeedEngine
 from ..utils.logging import log_dist
 
@@ -15,7 +22,10 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, mpu=None,
                dist_init_required=None, collate_fn=None, config=None, mesh=None,
                loss_fn=None, config_params=None, device=None):
-    """``device`` is CUDA unless the caller passes ``device="cpu"``."""
+    """``device`` is CUDA unless the caller passes ``device="cpu"``.  When
+    this call joins the process group, it does so over ``nccl`` on CUDA and
+    ``gloo`` on the CPU; processes that share a GPU call
+    ``init_distributed("gloo", ...)`` first."""
     if model is None:
         raise ValueError("deeperspeed_tpu_torch.initialize requires a model")
     if config is None:
@@ -24,13 +34,17 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         config = args.deepspeed_config
     if config is None:
         raise ValueError("no config: pass config= or args.deepspeed_config")
-    if mesh is not None or mpu is not None:
+    if mpu is not None:
         raise NotImplementedError(
-            "mesh/mpu (several devices) is not ported yet (ROADMAP Queue A, "
-            "'Multi-process training')")
+            "mpu (tensor-parallel groups) is not ported yet (ROADMAP Queue A, "
+            "'Multi-process training, part 2')")
     if hasattr(model, "stage_forward"):
         raise NotImplementedError(
             "pipeline modules are not ported yet (ROADMAP Queue A, 'Pipelines')")
+    if int(os.environ.get("WORLD_SIZE", 1)) > 1 and dist_init_required is not False:
+        comm.init_distributed(
+            dist_backend="gloo" if str(device).startswith("cpu") else "nccl")
+    set_mesh(MeshTopology(**mesh.sizes) if mesh is not None else MeshTopology())
     engine = DeeperSpeedEngine(
         model=model, config=config, optimizer=optimizer,
         model_parameters=model_parameters, loss_fn=loss_fn,

@@ -1,0 +1,166 @@
+"""ZeRO stages as a partition of the engine's flat buffers (counterpart of
+``deeperspeed_tpu/runtime/zero/sharding.py``).
+
+The stages mean what they mean in the JAX package (``sharding.py:1-25``):
+
+* stage 0: fp32 masters, optimizer state and gradients replicated on every
+  rank; the gradients all-reduced;
+* stage 1: masters and optimizer state partitioned over the data-parallel
+  ranks; each rank accumulates whole gradients and reduce-scatters them
+  once a step, updates its partition, and the compute copy is all-gathered;
+* stage 2: the gradients partitioned too: each microbatch's gradients are
+  reduce-scattered into the rank's partition as they are made;
+* stage 3: the compute parameters of two or more dimensions and at least
+  ``param_persistence_threshold`` elements partitioned too, gathered where
+  they are used (``stage3.py``); the others (vectors, small matrices) stay
+  whole on every rank, as the JAX package keeps them replicated.
+
+The JAX package decides a placement per leaf and lets XLA emit the
+collectives.  Here the layout is upstream DeepSpeed's flat partition
+(``stage_1_and_2.py``): parameters, in order, are laid back to back in a
+*region* -- one flat buffer of one compute dtype -- padded to a multiple of
+the world size and cut into ``world`` equal contiguous parts; rank r owns
+part r.  A parameter may straddle two parts, so a rank's optimizer sees
+*pieces*: the stretch of each parameter inside its part.
+
+Regions: at stages 0-2, one per compute dtype (the cast parameters, then
+those kept in fp32); at stage 3, one per (unit, compute dtype, persistent
+or not), where a unit is the module whose forward gathers the parameters
+(an element of a top-level ``ModuleList``, or a top-level child).
+"""
+
+import dataclasses
+from typing import List
+
+import torch
+
+
+@dataclasses.dataclass
+class Region:
+    """Parameters laid back to back in one flat buffer of ``dtype`` (their
+    compute type), cut into ``parts`` equal contiguous partitions."""
+
+    names: List[str]
+    shapes: List[tuple]
+    offsets: List[int]      # where each parameter starts in the region
+    dtype: torch.dtype
+    parts: int              # 1 at stage 0 (nothing partitioned)
+    unit: str = ""          # stage 3: the module that gathers it
+    gathered: bool = False  # stage 3: compute parameters partitioned too
+
+    @property
+    def numel(self):
+        return self.offsets[-1] + _size(self.shapes[-1]) if self.names else 0
+
+    @property
+    def part(self):
+        """Elements of one partition."""
+        return -(-self.numel // self.parts)
+
+    @property
+    def padded(self):
+        return self.part * self.parts
+
+    def span(self, rank):
+        """[lo, hi) of the region that partition ``rank`` holds."""
+        lo = min(rank * self.part, self.numel)
+        return lo, min(lo + self.part, self.numel)
+
+    def pieces(self, rank):
+        """(name, shape, start, stop in the parameter, offset in the
+        partition) for each parameter partition ``rank`` holds part of."""
+        lo, hi = self.span(rank)
+        for name, shape, off in zip(self.names, self.shapes, self.offsets):
+            a, b = max(off, lo), min(off + _size(shape), hi)
+            if a < b:
+                yield name, shape, a - off, b - off, a - lo
+
+
+def _size(shape):
+    n = 1
+    for d in shape:
+        n *= d
+    return n
+
+
+@dataclasses.dataclass
+class ZeroPartitionPlan:
+    stage: int
+    world: int
+    index: int              # the partition this rank holds (0 at stage 0)
+    regions: List[Region]
+
+    @property
+    def order(self):
+        """Every parameter name, in region order."""
+        return [n for r in self.regions for n in r.names]
+
+    def bases(self):
+        """Where each region's partition starts in the rank's flat buffers
+        (masters, gradients), which hold one partition of every region."""
+        out, off = [], 0
+        for r in self.regions:
+            out.append(off)
+            off += r.part
+        return out
+
+    @property
+    def local_numel(self):
+        return sum(r.part for r in self.regions)
+
+
+def unit_of(name, module):
+    """The module path whose forward gathers parameter ``name`` at stage 3:
+    ``layers.3`` for an element of a top-level ``ModuleList``, else the
+    top-level child (``embed_in``), or ``""`` for the root's own."""
+    parts = name.split(".")
+    if len(parts) == 1:
+        return ""
+    child = getattr(module, parts[0])
+    if isinstance(child, torch.nn.ModuleList):
+        return ".".join(parts[:2])
+    return parts[0]
+
+
+def _partitioned(shape, threshold):
+    """Whether stage 3 partitions a compute parameter of ``shape``."""
+    return len(shape) >= 2 and _size(shape) >= threshold
+
+
+def _region(params, names, dtype, parts, unit="", gathered=False):
+    shapes = [tuple(params[n][0]) for n in names]
+    offsets, off = [], 0
+    for s in shapes:
+        offsets.append(off)
+        off += _size(s)
+    return Region(list(names), shapes, offsets, dtype, parts, unit, gathered)
+
+
+def build_partition_plan(params, stage, world, rank, persistence_threshold=100_000,
+                         units=None):
+    """The regions of ``params`` (an ordered dict name -> (shape, compute
+    dtype)) at ``stage`` over ``world`` ranks.  ``units`` maps each name to
+    its gathering module (stage 3)."""
+    parts = world if stage >= 1 else 1
+    cast = [n for n, (_, dt) in params.items() if dt != torch.float32]
+    kept = [n for n, (_, dt) in params.items() if dt == torch.float32]
+    regions = []
+    if stage < 3:
+        for names in (cast, kept):
+            if names:
+                regions.append(_region(params, names, params[names[0]][1], parts))
+        return ZeroPartitionPlan(stage, world, rank if parts > 1 else 0, regions)
+    seen = []
+    for n in params:
+        if units[n] not in seen:
+            seen.append(units[n])
+    for unit in seen:
+        for names in (cast, kept):
+            mine = [n for n in names if units[n] == unit]
+            for gathered in (False, True):
+                group = [n for n in mine if gathered == _partitioned(
+                    params[n][0], persistence_threshold)]
+                if group:
+                    regions.append(_region(params, group, params[group[0]][1], parts,
+                                           unit, gathered))
+    return ZeroPartitionPlan(stage, world, rank, regions)

@@ -1,0 +1,110 @@
+"""ZeRO stage 3: compute parameters gathered where they are used.
+
+The JAX package leaves the gathers to XLA at each use site.  Here each
+*unit* (``sharding.unit_of``: a transformer block, the embedding, the
+head) that owns partitioned regions gets its ``forward`` wrapped:
+
+* the wrapper runs the unit under recompute
+  (``utils.recompute.checkpoint_replaying``, which replays the engine's
+  dropout generator), so no activation of the unit -- and no gathered
+  weight -- outlives its forward;
+* inside, each region's partition (a leaf tensor of the compute dtype,
+  ``shard``) is all-gathered into a whole flat buffer, and the unit's
+  parameters are swapped for views of it for the duration of the call;
+* the recompute in the backward pass gathers again; the gather's backward
+  reduce-scatters the buffer's gradient (cast to the communication dtype)
+  and adds this rank's part to the engine's accumulation buffer (``sink``).
+
+Outside a call the unit's partitioned parameters hold no data.
+"""
+
+import contextlib
+
+import torch
+
+from ...comm import all_gather_into, reduce_scatter
+from ...utils.recompute import checkpoint_replaying
+
+
+class _GatherRegion(torch.autograd.Function):
+    """shard [part] -> the whole region [padded]; backward reduce-scatters
+    the gradient into the region's sink and gives the shard none."""
+
+    @staticmethod
+    def forward(ctx, shard, gathered):
+        ctx.gathered = gathered
+        full = torch.empty(gathered.region.padded, dtype=shard.dtype, device=shard.device)
+        return all_gather_into(full, shard, gathered.group)
+
+    @staticmethod
+    def backward(ctx, grad_full):
+        g = ctx.gathered
+        g.sink(reduce_scatter(grad_full.to(g.comm_dtype).contiguous(), g.group))
+        return None, None
+
+
+class GatheredRegion:
+    """A partitioned region of compute parameters: its ``shard`` (this
+    rank's partition, a leaf the recompute tracks) and where its gradient
+    goes (``sink``: a callable taking this rank's reduce-scattered sum)."""
+
+    def __init__(self, region, shard, group, comm_dtype, sink):
+        self.region, self.shard, self.group = region, shard, group
+        self.comm_dtype, self.sink = comm_dtype, sink
+
+    def views(self, full, prefix):
+        """The region's parameters as views of the gathered buffer, by
+        their names inside the unit (``prefix`` stripped)."""
+        r = self.region
+        return {n[len(prefix):]: full[off:off + _numel(shape)].view(shape)
+                for n, shape, off in zip(r.names, r.shapes, r.offsets)}
+
+
+def _numel(shape):
+    n = 1
+    for d in shape:
+        n *= d
+    return n
+
+
+@contextlib.contextmanager
+def _swapped(module, tensors):
+    """``module``'s parameters named in ``tensors`` replaced by those
+    tensors for the duration of the block."""
+    saved = []
+    for name, t in tensors.items():
+        owner_path, _, attr = name.rpartition(".")
+        owner = module.get_submodule(owner_path) if owner_path else module
+        saved.append((owner, attr, owner._parameters[attr]))
+        owner._parameters[attr] = t
+    try:
+        yield
+    finally:
+        for owner, attr, p in saved:
+            owner._parameters[attr] = p
+
+
+def _generator(args, kwargs):
+    for v in list(args) + list(kwargs.values()):
+        if isinstance(v, torch.Generator):
+            return v
+    return None
+
+
+def install(module, prefix, regions):
+    """Wrap ``module.forward`` (the unit at ``prefix``, e.g. ``layers.3.``)
+    to gather ``regions`` (:class:`GatheredRegion`) around each call."""
+    inner = module.forward
+
+    def forward(*args, **kwargs):
+        def run(*shards):
+            tensors = {}
+            for g, shard in zip(regions, shards):
+                tensors.update(g.views(_GatherRegion.apply(shard, g), prefix))
+            with _swapped(module, tensors):
+                return inner(*args, **kwargs)
+
+        return checkpoint_replaying(run, *[g.shard for g in regions],
+                                    rng=_generator(args, kwargs))
+
+    module.forward = forward

@@ -11,7 +11,9 @@ shapes; these tests sweep the edges: odd and large hidden sizes, every
 dtype, head dims and block sizes, every query count, rows with ties, -inf
 and no live token, ragged sequence lengths, causal and full attention, the
 fused optimizers over flat buffers and over separate (also non-contiguous)
-tensors of many sizes.
+tensors of many sizes, the fused dequant-reduce (B5) bit for bit over every
+1-byte type, peer count and alignment, and two training processes sharing
+the card over gloo.
 """
 
 import numpy as np
@@ -22,7 +24,8 @@ from chip_smoke import flash_shares
 from deeperspeed_tpu_torch.ops.adam import fused_adam
 from deeperspeed_tpu_torch.ops.attention import flash, paged
 from deeperspeed_tpu_torch.ops.lion import fused_lion
-from deeperspeed_tpu_torch.ops.quantizer import quantize_kv
+from deeperspeed_tpu_torch.ops.quantizer import fused, quantize_kv
+from deeperspeed_tpu_torch.quantization import BlockScaledTensor
 from deeperspeed_tpu_torch.ops.sampling import topk
 from deeperspeed_tpu_torch.ops.transformer import normalize
 
@@ -566,3 +569,74 @@ def test_fused_optimizer_training_on_the_card_matches_the_cpu(name):
         lg, lc = (float(e.train_batch(batch=batch)) for e in engines)
         assert abs(lg - lc) <= 1e-5 * abs(lc), (lg, lc)
     assert LAUNCHES[kernel] == 3
+
+
+@pytest.mark.parametrize("wire", ["int8", "fp8_e4m3", "fp8_e5m2"])
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("rows,d,offset", [(150, 128, 0), (7, 256, 0), (33, 96, 0),
+                                           (40, 128, 3), (1, 16, 0)],
+                         ids=["path", "two-groups", "one-group-a-row", "unaligned",
+                              "one-row"])
+def test_dequant_reduce(gen, wire, n, rows, d, offset):
+    """B5 equals its plain version bit for bit: 16-value loads where the
+    values are aligned and each run of 16 keeps one scale, one value at a
+    time otherwise (an offset view, a row of 96 with one group)."""
+    x = torch.randn(n, rows, d, generator=gen, device="cuda")
+    x[0, 0, :4] = -0.0
+    x[:, -1] = 0.0
+    t = BlockScaledTensor.quantize(x, wire, 128)
+    values = t.values
+    if offset:
+        raw = torch.empty(values.numel() + offset, dtype=torch.uint8, device="cuda")
+        values = raw[offset:].view(values.dtype).view(values.shape)
+        values.copy_(t.values)
+    got = fused.fused_dequant_reduce(BlockScaledTensor(values, t.scales, 128))
+    want = fused._dequant_reduce_plain(*fused._normalize(values, t.scales, 128)[:2],
+                                       fused._normalize(values, t.scales, 128)[2])
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_dequant_reduce_rejects_what_the_kernel_does_not_take(gen):
+    q = torch.zeros(2, 4, 128, dtype=torch.int8, device="cuda")
+    with pytest.raises(TypeError):
+        fused.fused_dequant_reduce(q, torch.ones(2, 4, 1, device="cuda").half())
+    with pytest.raises(ValueError):
+        fused.fused_dequant_reduce(q, torch.ones(2, 4, 1))
+    with pytest.raises(ValueError):
+        fused.fused_dequant_reduce(q.float(), torch.ones(2, 4, 1, device="cuda"))
+
+
+def test_two_processes_on_one_card_over_gloo(tmp_path):
+    """Two ranks share the card over gloo (every collective staged through
+    host memory, ``comm.STAGED``): ZeRO stages 0 and 3 and qgZ train tiny
+    GPT-NeoX in fp32, with equal losses on both ranks, stage 3 within 1e-5
+    of stage 0, and B5 launched 12 times a step under qgZ."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
+    from deeperspeed_tpu_torch.ops import cuda_utils
+    from torch_dp_worker import spawn
+
+    cuda_utils.build()            # every kernel, before the two ranks would race for them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    start = GPTNeoX(GPTNeoXConfig.tiny(), device="cpu", seed=5).state_dict()
+    rng = np.random.default_rng(5)
+    arrays = {f"w/{k}": v.numpy() for k, v in start.items()}
+    for i in range(3):
+        toks = rng.integers(0, 256, (8, 33)).astype(np.int64)
+        arrays[f"b{i}/input_ids"], arrays[f"b{i}/labels"] = toks[:, :-1], toks[:, 1:]
+    base = {"train_batch_size": 8, "gradient_accumulation_steps": 2,
+            "gradient_clipping": 1.0, "optimizer": {"type": "Adam", "params": {"lr": 1e-3}}}
+    runs = {"stage0": {**base, "zero_optimization": {"stage": 0}},
+            "stage3": {**base, "zero_optimization": {"stage": 3,
+                                                     "param_persistence_threshold": 1000}},
+            "qgz": {**base, "comm": {"quantized": {"enabled": True}}}}
+    spec = {"kind": "train", "n_batches": 3, "device": "cuda", "runs": [
+        {"name": n, "config": c, "dtype": "fp32", "steps": 3} for n, c in runs.items()]}
+    r0, r1 = spawn(spec, arrays, tmp_path, timeout=400)
+    for name in runs:
+        assert np.array_equal(r0[f"{name}/losses"], r1[f"{name}/losses"]), name
+    s0, s3 = r0["stage0/losses"], r0["stage3/losses"]
+    assert np.all(np.abs(s3 - s0) <= 1e-5 * np.abs(s0)), (s0, s3)
+    assert list(r0["qgz/b5_calls"]) == [12, 12, 12]
+    assert list(r0["stage0/b5_calls"]) == [0, 0, 0]

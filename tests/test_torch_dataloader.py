@@ -106,7 +106,8 @@ def test_state_dict_resumes_where_jax_resumes():
 
 def test_shards_and_repeating_loader_match_jax():
     """The one-process loader yields each global batch whole: the JAX
-    loader's two shards of it, one after the other."""
+    loader's two shards of it, one after the other; with two shards, each
+    process's slice equals the JAX loader's shard."""
     cols = _columns(32)
     shards = [jloader.DeeperSpeedDataLoader(cols, batch_size=8, seed=1, num_shards=2,
                                             shard_index=index) for index in range(2)]
@@ -114,14 +115,22 @@ def test_shards_and_repeating_loader_match_jax():
     for a, b0, b1 in zip(ours, *shards):
         assert len(a["input_ids"]) == 8
         _assert_batches_equal(a, {k: np.concatenate([b0[k], b1[k]]) for k in a})
+    for index in range(2):
+        mine = tloader.DeeperSpeedDataLoader(cols, batch_size=8, seed=1, num_shards=2,
+                                             shard_index=index)
+        theirs = jloader.DeeperSpeedDataLoader(cols, batch_size=8, seed=1, num_shards=2,
+                                               shard_index=index)
+        for a, b in zip(mine, theirs):
+            assert len(a["input_ids"]) == 4
+            _assert_batches_equal(a, b)
     loader = tloader.DeeperSpeedDataLoader(cols, batch_size=8, seed=1)
     ours, theirs = tloader.RepeatingLoader(loader), jloader.RepeatingLoader(
         jloader.DeeperSpeedDataLoader(cols, batch_size=8, seed=1, num_shards=1))
     assert len(ours) == len(theirs) == 4
     for _ in range(10):               # 2.5 epochs
         _assert_batches_equal(next(ours), next(theirs))
-    with pytest.raises(TypeError):    # several processes wait for Queue A 3
-        tloader.DeeperSpeedDataLoader(cols, batch_size=8, num_shards=2)
+    with pytest.raises(ValueError):   # a global batch that does not split
+        tloader.DeeperSpeedDataLoader(cols, batch_size=9, num_shards=2)
 
 
 def test_engine_training_data_matches_jax():

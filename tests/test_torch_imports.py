@@ -16,6 +16,7 @@ from deeperspeed_tpu_torch.accelerator.cuda_accelerator import CudaAccelerator
 from deeperspeed_tpu_torch.ops.adam import fused_adam
 from deeperspeed_tpu_torch.ops.attention import flash, paged
 from deeperspeed_tpu_torch.ops.lion import fused_lion
+from deeperspeed_tpu_torch.ops.quantizer import fused
 from deeperspeed_tpu_torch.ops.sampling import topk
 from deeperspeed_tpu_torch.ops.transformer import normalize
 
@@ -52,6 +53,12 @@ def test_port_imports_no_jax():
         "import deeperspeed_tpu_torch.runtime.data_pipeline.data_routing\n"
         "import deeperspeed_tpu_torch.runtime.data_pipeline.data_sampling\n"
         "import deeperspeed_tpu_torch.runtime.data_pipeline.data_sampling.data_analyzer\n"
+        "import deeperspeed_tpu_torch.comm, deeperspeed_tpu_torch.comm.compressed\n"
+        "import deeperspeed_tpu_torch.parallel, deeperspeed_tpu_torch.ops.quantizer.fused\n"
+        "import deeperspeed_tpu_torch.runtime.zero.sharding\n"
+        "import deeperspeed_tpu_torch.runtime.zero.stage3\n"
+        "import deeperspeed_tpu_torch.runtime.zero.quantized\n"
+        "import deeperspeed_tpu_torch.utils.recompute\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'deeperspeed_tpu' or m.startswith('deeperspeed_tpu.')]\n"
         "print('LOADED', bad)")
@@ -101,6 +108,7 @@ def test_chip_smoke_and_tools_import_no_jax():
     (topk._topk_cuda, "sorted_topk"),
     (fused_adam._adam_cuda, "fused_adam"),
     (fused_lion._lion_cuda, "fused_lion"),
+    (fused._dequant_reduce_cuda, "dequant_reduce"),
 ])
 def test_cuda_branch_launches_its_own_kernel(fn, kernel):
     """Each wrapper's CUDA branch calls its ctypes launch, counts it, and
@@ -132,6 +140,23 @@ def test_fused_optimizers_on_cuda_launch_or_raise(monkeypatch, module, step, pla
     monkeypatch.undo()
     getattr(module, step)(*tensors, *extra)        # a CPU tensor takes the plain version
     assert float(tensors[1][0][0]) != 1.0          # the moment moved
+
+
+def test_dequant_reduce_on_cuda_launches_or_raises(monkeypatch):
+    """Where the accelerator runs the kernels, B5's wrapper goes to its CUDA
+    branch, which launches or raises (here: the tensors are not on a card);
+    it never falls back to the plain version."""
+    from deeperspeed_tpu_torch.quantization import BlockScaledTensor
+
+    t = BlockScaledTensor.quantize(torch.randn(2, 4, 128), "int8", 128)
+    calls = []
+    monkeypatch.setattr(fused, "get_accelerator", lambda device=None: CudaAccelerator())
+    monkeypatch.setattr(fused, "_dequant_reduce_plain", lambda *a: calls.append(a))
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        fused.fused_dequant_reduce(t)
+    assert not calls
+    monkeypatch.undo()
+    assert fused.fused_dequant_reduce(t).shape == (4, 128)   # CPU: the plain version
 
 
 def test_chip_smoke_needs_the_card_and_the_checkout(tmp_path):

@@ -222,7 +222,7 @@ def test_optimizer_trajectory_matches_jax(name, params, model_kw):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("zero_optimization", {"stage": 2}),
+    ("zero_optimization", {"stage": 2, "zero_hpz_partition_size": 2}),
     ("zero_optimization", {"stage": 0, "offload_optimizer": {"device": "cpu"}}),
     ("comm", {"overlap": {"enabled": True}}),
     ("pipeline", {"stages": 2}),
@@ -252,6 +252,10 @@ def test_unported_model_features_raise(case):
             GPTNeoX(GPTNeoXConfig.tiny(moe_num_experts=4), device="cpu")
         elif case == "pipeline_module":
             tdst.initialize(model=_StageModel(), config=BASE, device="cpu")
+        elif case == "mesh":
+            tdst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(), device="cpu"),
+                            config={**BASE, "mesh": {"model_parallel_size": 2}},
+                            device="cpu")
         else:
             tdst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(), device="cpu"),
                             config=BASE, device="cpu", **{case: object()})
