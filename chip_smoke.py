@@ -19,7 +19,13 @@ package, and goes through these phases, each printing its lines:
    and B7 fused Lion over Pythia-160M's 162,322,944 parameters, and the qgZ
    gradient path's B5 fused dequant-reduce at its largest shape (the input
    embedding at world 2, [2, 150912, 128]) over int8, fp8 e5m2 and e4m3,
-   bit for bit;
+   bit for bit, and the legacy ops' B9 tanh-GELU forward and backward
+   over [16 x 512, 3072] (fp32, fp16), B8 the fused softmax forward and
+   backward over attention scores ([16, 12, 1024, 1024] bf16 at scale
+   0.125, [4, 12, 1024, 1024] fp32, a width of 1000), and B10 block-sparse
+   attention's forward, dq and dk/dv passes at [4, 4096, 12, 64] bf16
+   under the Fixed layout (block 128, causal), beside dense flash K5-K7 at
+   the same shape;
 4. Pythia-160M (12 layers, full width) in fp32 served through
    ``InferenceEngineV2`` on the card and on the CPU from the same seeded
    weights: logits must agree to 2e-3 every round, and tokens wherever the
@@ -84,14 +90,37 @@ package, and goes through these phases, each printing its lines:
     2 on the card, at ZeRO stage 2 and at stage 0 with ``comm.quantized``
     int8; 1 warm-up step and 3 timed ones: losses finite and equal on both
     ranks, B5 once a step for each of the 148 parameters under qgZ; wall
-    ms/step over gloo via host, two ranks on one card.
+    ms/step over gloo via host, two ranks on one card;
+15. the legacy layer, checked: two ``DeeperSpeedTransformerLayer``s at full
+    width (768 / 12 heads / 3072) in fp32, 2 x 128 tokens, trained 3 Adam
+    steps through ``initialize(model=..., loss_fn=...)`` on the card and
+    on the CPU from the same seeded weights and batches (the mean square
+    against a seeded target), pre- and post-LN, without a mask (flash on
+    the card) and with a key-padding mask (the dense path): losses within
+    1e-4 relative;
+16. the legacy layer at full size: 12 layers at those widths, 16 x 512
+    tokens, Adam lr 1e-4, 2 warm-up and 5 timed steps, in fp32 without
+    dropout (flash K5-K7, K1/K8, B9) and with ``fp16=True`` and dropout
+    0.1 (the dense attention, K1/K8, B9): losses finite, B9 12 forward and
+    12 backward launches a step, flash rising in fp32 and flat in fp16;
+    ms/step, tokens/s, peak memory;
+17. sparse attention: ``SparseSelfAttention`` in fp32 at [2, 512, 2, 16]
+    (block 128), card against CPU, for Dense and every config; the Dense
+    layout against flash K5-K7 at [4, 4096, 12, 64] bf16; then Fixed,
+    BSLongformer, BigBird, Variable and Fixed with a layout per head at
+    that shape in bf16, forward and backward through autograd, against the
+    plain version in fp32 on the card: B10 launches once a pass;
+18. ``fused_softmax`` forward and backward through autograd at phase 3's
+    bf16 shape: B8 launches once each way.
 
 The second-to-last line is the JSON summary of the kernels (a kernel's
 ``launches`` sums its counts on the main paths, serving in phase 5,
 scheduled serving in phase 7, training in phase 9, the rest of training
-in phase 11 (FusedAdam, then FusedLion), and data-parallel training in
-phase 14 (rank 0's counts, stage 2, then qgZ), each read right after its
-own run and listed in ``launches_by_path``), the last ``{"ok": true, "device": {...}}``.  Any
+in phase 11 (FusedAdam, then FusedLion), data-parallel training in
+phase 14 (rank 0's counts, stage 2, then qgZ), the legacy layer in phase
+16 (fp32, then fp16), sparse attention in phase 17 and the fused softmax in
+phase 18, each read right after its own run and listed in
+``launches_by_path``), the last ``{"ok": true, "device": {...}}``.  Any
 failure, of a phase or of a worker, raises and exits non-zero; without a
 CUDA device, or outside a checkout, it exits 2 and prints no result.
 """
@@ -246,6 +275,36 @@ def dp_check_batches(np, vocab):
         toks = rng.integers(0, vocab, (DP_CHECK_ROWS, DP_CHECK_SEQ + 1))
         out.append({"input_ids": toks[:, :-1], "labels": toks[:, 1:]})
     return out
+
+
+# The legacy encoder layer (phases 15 and 16), shared with
+# tests/test_torch_legacy_ops.py: a stack of DeeperSpeedTransformerLayers
+# trained on the mean square against a seeded target.
+def legacy_stack(torch, cfg, n_layers, device=None, seed=SEED):
+    """``n_layers`` legacy layers of ``cfg`` in sequence, layer i from seed
+    ``seed + i``; ``forward(x, mask=None, rng=None)``."""
+    from deeperspeed_tpu_torch.ops.transformer.transformer import \
+        DeeperSpeedTransformerLayer
+
+    class LegacyStack(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.layers = torch.nn.ModuleList(
+                DeeperSpeedTransformerLayer(cfg, device=device, seed=seed + i)
+                for i in range(n_layers))
+
+        def forward(self, x, mask=None, rng=None):
+            for layer in self.layers:
+                x = layer(x, mask, rng)
+            return x
+
+    return LegacyStack()
+
+
+def legacy_loss(model, batch, rng):
+    """The engine's ``loss(model, batch, rng)`` for :func:`legacy_stack`."""
+    out = model(batch["x"], batch.get("mask"), rng)
+    return (out.float() - batch["y"]).pow(2).mean()
 
 
 def served_model(device=None):
@@ -730,6 +789,197 @@ def phase_quantizer_kernel(torch, rows_out):
                    library_ms=None, bound_ms=t_b, bound_by=by))
         print(f"[kernels] B5 {wire}: equal to the plain version bit for bit", flush=True)
     del x, t, got, want
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+# B10's full-size shape (phases 3 and 17): Pythia-160M's attention width
+# over a long sequence, under the Fixed layout.
+SPARSE_SHAPE = (4, 4096, 12, 64)
+SPARSE_BLOCK = 128
+SPARSE_FIXED = {"num_local_blocks": 4, "num_global_blocks": 1,
+                "attention": "unidirectional"}
+# B8/B9 tolerances in the working type: one ulp of the element (rtol) plus a
+# floor.  Both sides compute in fp32 and round once, so they differ by at
+# most one rounding; the floor covers results below the type's normal
+# range (gelu of large negative x) and, for B8's backward, the fp32 sum
+# sum(p dy) taken in another order (on unit-scale inputs, about 1e-7 of a
+# term, magnified by the scale at most 1).
+ULP_TOL = {"bfloat16": (2 ** -7, 1e-6), "float16": (2 ** -10, 1e-6)}
+
+
+def _ulp_close(torch, got, want, what, fp32_tol):
+    """fp32: the JAX tests' (rtol, atol); bf16/fp16: :data:`ULP_TOL`."""
+    rtol, atol = fp32_tol if got.dtype == torch.float32 else \
+        ULP_TOL[str(got.dtype).replace("torch.", "")]
+    return _close(torch, got, want, atol, rtol, what)
+
+
+def _live_pairs(np, layout, block, causal):
+    """(query, key) pairs a layout [LH, nb, nb] keeps, summed over its heads:
+    the work B10 does on these inputs (causal: the blocks below the
+    diagonal whole, those on it as triangles)."""
+    lay = np.asarray(layout, dtype=np.int64)
+    if not causal:
+        return int(lay.sum()) * block * block
+    diag = int(np.trace(lay, axis1=1, axis2=2).sum())
+    below = int(np.tril(lay, -1).sum())
+    return below * block * block + diag * (block * (block + 1) // 2)
+
+
+def phase_legacy_kernels(torch, np, rows_out):
+    """Phase 3, the legacy ops and sparse attention: B9 tanh-GELU at the
+    legacy layer's FFN activation, B8 the fused softmax at attention-score
+    shapes, and B10 block-sparse attention at SPARSE_SHAPE under the Fixed
+    layout, each against its plain version."""
+    import torch.nn.functional as F
+
+    from deeperspeed_tpu_torch.ops.attention import flash
+    from deeperspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+    from deeperspeed_tpu_torch.ops.sparse_attention import sparse_attention as _sa
+    from deeperspeed_tpu_torch.ops.transformer import activations, softmax
+
+    sparse = sys.modules[_sa.__module__]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    report = _reporter(rows_out)
+    f32 = torch.float32
+
+    # ---- B9 over [16 x 512, 3072]: the FFN activation of phase 16's batch
+    for dtype in (f32, torch.float16):
+        x = (3 * torch.randn(16 * 512, 3072, generator=gen, device=dev)).to(dtype)
+        dy = torch.randn(16 * 512, 3072, generator=gen, device=dev).to(dtype)
+        n, e = x.numel(), x.element_size()
+        what = f"[{16 * 512}, 3072] {str(dtype).replace('torch.', '')}"
+        err = _ulp_close(torch, activations._gelu_cuda(x), activations._gelu_ref(x),
+                         f"gelu_fwd {what}", (1e-5, 1e-6))
+        t, by = _bound(2 * n * e, 15 * n, f32)      # fp32 arithmetic whatever the type
+        report("gelu_fwd", f"B9 gelu_fwd {what}", dict(
+            max_abs_err=err, ms=_time_ms(torch, lambda: activations._gelu_cuda(x)),
+            plain_ms=_time_ms(torch, lambda: activations._gelu_ref(x)),
+            library_ms=_time_ms(torch, lambda: F.gelu(x, approximate="tanh")),
+            bound_ms=t, bound_by=by))
+        # the JAX test's gradient tolerance: gelu'(x) cancels near its zero
+        # (x ~ -0.75), where FMA contraction moves the fp32 result by ~1e-6
+        err = _ulp_close(torch, activations._dgelu_cuda(x, dy),
+                         activations._dgelu_ref(x, dy), f"gelu_bwd {what}", (1e-4, 1e-5))
+        t, by = _bound(3 * n * e, 20 * n, f32)
+        report("gelu_bwd", f"B9 gelu_bwd {what}", dict(
+            max_abs_err=err, ms=_time_ms(torch, lambda: activations._dgelu_cuda(x, dy)),
+            plain_ms=_time_ms(torch, lambda: activations._dgelu_ref(x, dy)),
+            library_ms=_time_ms(torch, lambda: torch.ops.aten.gelu_backward(
+                dy, x, approximate="tanh")),
+            bound_ms=t, bound_by=by))
+        del x, dy
+
+    # ---- B8 over attention scores: [16, 12, 1024, 1024] bf16 at scale
+    # 0.125, [4, 12, 1024, 1024] fp32, and a width of 1000
+    for shape, dtype in (((16, 12, 1024, 1024), torch.bfloat16),
+                         ((4, 12, 1024, 1024), f32), ((4, 12, 1024, 1000), torch.bfloat16)):
+        x = (4 * torch.randn(*shape, generator=gen, device=dev)).to(dtype)
+        dy = torch.randn(*shape, generator=gen, device=dev).to(dtype)
+        n, e, scale = x.numel(), x.element_size(), 0.125
+        what = f"{list(shape)} {str(dtype).replace('torch.', '')} scale {scale}"
+        y = softmax._fwd_cuda(x, scale)
+        err = _ulp_close(torch, y, softmax._softmax_ref(x, scale), f"softmax_fwd {what}",
+                         (1e-5, 1e-6))
+        xs = x * scale
+        t, by = _bound(2 * n * e, 5 * n, f32)
+        report("softmax_fwd", f"B8 softmax_fwd {what} (library: torch.softmax of the "
+               f"pre-scaled input)", dict(
+                   max_abs_err=err, ms=_time_ms(torch, lambda: softmax._fwd_cuda(x, scale)),
+                   plain_ms=_time_ms(torch, lambda: softmax._softmax_ref(x, scale), iters=5),
+                   library_ms=_time_ms(torch, lambda: torch.softmax(xs, dim=-1)),
+                   bound_ms=t, bound_by=by))
+        err = _ulp_close(torch, softmax._bwd_cuda(y, dy, scale),
+                         softmax._softmax_bwd_ref(y, dy, scale), f"softmax_bwd {what}",
+                         (1e-4, 1e-5))
+        t, by = _bound(3 * n * e, 4 * n, f32)
+        report("softmax_bwd", f"B8 softmax_bwd {what} (library: "
+               f"torch._softmax_backward_data, without the scale)", dict(
+                   max_abs_err=err, ms=_time_ms(torch, lambda: softmax._bwd_cuda(y, dy, scale)),
+                   plain_ms=_time_ms(torch, lambda: softmax._softmax_bwd_ref(y, dy, scale),
+                                     iters=5),
+                   library_ms=_time_ms(torch, lambda: torch._softmax_backward_data(
+                       dy, y, -1, dtype)),
+                   bound_ms=t, bound_by=by))
+        del x, dy, y, xs
+        torch.cuda.empty_cache()
+
+    # ---- B10 at SPARSE_SHAPE, bf16, block 128, Fixed layout, causal
+    B, S, N, D = SPARSE_SHAPE
+    bf16, causal, scale = torch.bfloat16, True, D ** -0.5
+    cfg = FixedSparsityConfig(num_heads=N, block=SPARSE_BLOCK, **SPARSE_FIXED)
+    host_layout = cfg.make_layout(S)
+    layout = sparse.device_layout(host_layout, dev)
+    q, k, v, do = (torch.randn(B, S, N, D, generator=gen, device=dev).to(bf16)
+                   for _ in range(4))
+    what = f"B={B} S={S} N={N} D={D} block {SPARSE_BLOCK} Fixed causal bf16"
+    o, lse = sparse._fwd_cuda(q, k, v, layout, causal, scale, SPARSE_BLOCK)
+    ro, rlse = sparse._fwd_reference(q, k, v, layout, causal, scale)
+    err_fwd, use_o = flash_close(torch, o, ro, f"sparse_fwd {what}")
+    _close(torch, lse, rlse, 1e-4, 1e-5, f"sparse_fwd LSE {what}")
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(B * N, S).contiguous()
+    rdq, rdk, rdv = sparse._bwd_reference(q, k, v, do, lse, delta, layout, causal, scale)
+    dq = sparse._dq_cuda(q, k, v, do, lse, delta, layout, causal, scale, SPARSE_BLOCK)
+    dk, dv = sparse._dkv_cuda(q, k, v, do, lse, delta, layout, causal, scale, SPARSE_BLOCK)
+    err_dq, use_dq = flash_close(torch, dq, rdq, f"sparse_bwd_dq {what}")
+    (err_dk, use_dk), (err_dv, use_dv) = (flash_close(torch, dk, rdk, f"sparse dk {what}"),
+                                          flash_close(torch, dv, rdv, f"sparse dv {what}"))
+    print(f"[kernels] sparse {what}: share of the limit used O {use_o:.3f}, dq "
+          f"{use_dq:.3f}, dk {use_dk:.3f}, dv {use_dv:.3f}", flush=True)
+    del rdq, rdk, rdv, ro, rlse, dq, dk, dv
+    torch.cuda.empty_cache()
+    live = _live_pairs(np, host_layout, SPARSE_BLOCK, causal)
+    density = live / (N * (S * (S + 1) // 2))
+    mac, io, vec = B * live * D, B * S * N * D * 2, B * N * S * 4
+    # the library yardstick: SDPA with the layout expanded to a token mask
+    tok = sparse._token_mask(layout, S, causal)            # [1 or N, S, S] bool
+    q4, k4, v4, do4 = (t.transpose(1, 2) for t in (q, k, v, do))
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=tok)
+        torch.autograd.grad(out, (qg, kg, vg), do4)
+
+    lib_fwd = _time_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                                    attn_mask=tok), iters=5)
+    lib_fwd_bwd = _time_ms(torch, sdpa_fwd_bwd, iters=5)
+    t, by = _bound(4 * io + vec, 2 * 2 * mac, bf16)
+    report("sparse_fwd", f"B10 sparse_fwd {what} (live share {density:.4f})", dict(
+        max_abs_err=err_fwd,
+        ms=_time_ms(torch, lambda: sparse._fwd_cuda(q, k, v, layout, causal, scale,
+                                                    SPARSE_BLOCK)),
+        plain_ms=_time_ms(torch, lambda: sparse._fwd_reference(q, k, v, layout, causal,
+                                                               scale), iters=3),
+        library_ms=lib_fwd, bound_ms=t, bound_by=by))
+    bwd_plain = _time_ms(torch, lambda: sparse._bwd_reference(
+        q, k, v, do, lse, delta, layout, causal, scale), iters=3)
+    t, by = _bound(5 * io + 2 * vec, 3 * 2 * mac, bf16)
+    report("sparse_bwd_dq", f"B10 sparse_bwd_dq {what}", dict(
+        max_abs_err=err_dq,
+        ms=_time_ms(torch, lambda: sparse._dq_cuda(q, k, v, do, lse, delta, layout, causal,
+                                                   scale, SPARSE_BLOCK)),
+        plain_ms=bwd_plain, library_ms=lib_fwd_bwd, bound_ms=t, bound_by=by))
+    t, by = _bound(6 * io + 2 * vec, 4 * 2 * mac, bf16)
+    report("sparse_bwd_dkv", f"B10 sparse_bwd_dkv {what}", dict(
+        max_abs_err=max(err_dk, err_dv),
+        ms=_time_ms(torch, lambda: sparse._dkv_cuda(q, k, v, do, lse, delta, layout, causal,
+                                                    scale, SPARSE_BLOCK)),
+        plain_ms=bwd_plain, library_ms=lib_fwd_bwd, bound_ms=t, bound_by=by))
+    # dense flash at the same shape: time scales with the live share
+    fo, flse = flash._fwd_cuda(q, k, v, causal)
+    fdelta = (do.float() * fo.float()).sum(-1).transpose(1, 2).reshape(B * N, S).contiguous()
+    dense = [_time_ms(torch, fn) for fn in (
+        lambda: flash._fwd_cuda(q, k, v, causal),
+        lambda: flash._dq_cuda(q, k, v, do, flse, fdelta, causal),
+        lambda: flash._dkv_cuda(q, k, v, do, flse, fdelta, causal))]
+    print(f"[kernels] B10 beside dense flash at {what}: K5 {dense[0]:.4f} ms, K7 "
+          f"{dense[1]:.4f} ms, K6 {dense[2]:.4f} ms over all {S * (S + 1) // 2} causal "
+          f"pairs a head; the layout keeps {density:.4f} of them.  library_ms of the two "
+          f"backward passes is SDPA forward + backward under the token mask "
+          f"({lib_fwd_bwd:.4f} ms); plain_ms is the whole plain backward", flush=True)
+    del q, k, v, do, o, lse, delta, tok, q4, k4, v4, do4, qg, kg, vg, fo, flse, fdelta
     torch.cuda.empty_cache()
     return rows_out
 
@@ -1504,6 +1754,272 @@ def phase_dp_full(r0, r1):
     return counts
 
 
+# The legacy layer at full size (phase 16): the config's default widths
+# (hidden 768, 12 heads, FFN 3072: Pythia-160M's and BERT-base's), 12
+# layers, 16 x 512 tokens, Adam lr 1e-4.
+LEGACY_LAYERS = 12
+LEGACY_BATCH, LEGACY_SEQ = 16, 512
+LEGACY_STEPS = 5
+LEGACY_CONFIG = {"train_batch_size": LEGACY_BATCH,
+                 "optimizer": {"type": "Adam", "params": {"lr": 1e-4}}}
+
+
+def _legacy_batch(np, rows, seq, hidden, seed, masked=False):
+    """Seeded hidden states and target; with ``masked``, a key-padding mask
+    keeping a seeded prefix of each row (at least half)."""
+    rng = np.random.default_rng(seed)
+    b = {"x": rng.standard_normal((rows, seq, hidden)).astype(np.float32),
+         "y": rng.standard_normal((rows, seq, hidden)).astype(np.float32)}
+    if masked:
+        keep = rng.integers(seq // 2, seq + 1, rows)
+        b["mask"] = (np.arange(seq)[None] < keep[:, None]).astype(np.int32)
+    return b
+
+
+def phase_legacy_checked(torch, np):
+    """Phase 15: two legacy layers at full width in fp32, 2 x 128 tokens,
+    3 Adam steps on the card and on the CPU from the same seeded weights and
+    batches: pre- and post-LN, without a mask (flash on the card) and with a
+    key-padding mask (the dense path)."""
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.ops.transformer.transformer import \
+        DeeperSpeedTransformerConfig
+
+    # TF32 stays off (phase 4): fp32 products in full fp32
+    tol = 1e-4     # phase 8's: summation order over 768-3072-wide products
+    config = {"train_batch_size": 2, "gradient_clipping": 1.0,
+              "optimizer": {"type": "Adam", "params": {"lr": 1e-4}}}
+    worst = {}
+    for pre_ln in (True, False):
+        for masked in (False, True):
+            cfg = DeeperSpeedTransformerConfig(pre_layer_norm=pre_ln, attn_dropout_ratio=0.0,
+                                               hidden_dropout_ratio=0.0)
+            engines = [dst.initialize(model=legacy_stack(torch, cfg, 2, d), config=config,
+                                      loss_fn=legacy_loss, device=d)[0]
+                       for d in ("cuda", "cpu")]
+            name = f"{'pre' if pre_ln else 'post'}-LN {'mask' if masked else 'no mask'}"
+            worst[name] = 0.0
+            for step in range(3):
+                b = _legacy_batch(np, 2, 128, cfg.hidden_size, SEED + 50 + step, masked)
+                lg, lc = (float(e.train_batch(batch=b)) for e in engines)
+                rel = abs(lg - lc) / abs(lc)
+                worst[name] = max(worst[name], rel)
+                if rel > tol:
+                    raise AssertionError(f"legacy {name} step {step}: card loss {lg} vs "
+                                         f"CPU {lc}")
+            del engines
+    print(f"[legacy-checked] 2 legacy layers (768/12/3072) fp32, B 2 x S 128, 3 Adam steps: "
+          f"losses card vs CPU within {', '.join(f'{k} {v:.2e}' for k, v in worst.items())} "
+          f"relative (tol {tol})", flush=True)
+    torch.cuda.empty_cache()
+
+
+def phase_legacy(torch, np, launches):
+    """Phase 16: 12 legacy layers at full width, 16 x 512 tokens, Adam, in
+    fp32 without dropout (flash K5-K7, K1/K8, B9) and with ``fp16=True``
+    and dropout 0.1 (the dense attention, K1/K8, B9).  Returns the counts of
+    the timed steps of both runs, summed."""
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.ops.transformer.transformer import \
+        DeeperSpeedTransformerConfig
+
+    flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    total = {}
+    for fp16, rate in ((False, 0.0), (True, 0.1)):
+        cfg = DeeperSpeedTransformerConfig(fp16=fp16, attn_dropout_ratio=rate,
+                                           hidden_dropout_ratio=rate,
+                                           num_hidden_layers=LEGACY_LAYERS)
+        engine = dst.initialize(model=legacy_stack(torch, cfg, LEGACY_LAYERS), loss_fn=legacy_loss,
+                                config=LEGACY_CONFIG)[0]
+        batch = {k: torch.from_numpy(v).cuda() for k, v in _legacy_batch(
+            np, LEGACY_BATCH, LEGACY_SEQ, cfg.hidden_size, SEED + 60).items()}
+        for _ in range(2):                                # warm-up
+            loss = engine.train_batch(batch=batch)
+        first = float(loss)
+        torch.cuda.reset_peak_memory_stats()
+        launches.clear()                                  # main path starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LEGACY_STEPS):
+            loss = engine.train_batch(batch=batch)
+        loss = float(loss)                                # waits for the last step
+        dt = time.perf_counter() - t0
+        counts = dict(launches)
+        name = "fp16, dropout 0.1" if fp16 else "fp32, no dropout"
+        if not (math.isfinite(first) and math.isfinite(loss)):
+            raise AssertionError(f"legacy {name}: non-finite loss {first}, {loss}")
+        per_step = LEGACY_LAYERS * LEGACY_STEPS
+        for k in ("gelu_fwd", "gelu_bwd"):
+            if counts.get(k, 0) != per_step:
+                raise AssertionError(f"legacy {name}: {k} launched {counts.get(k, 0)} times "
+                                     f"in {LEGACY_STEPS} steps, not {per_step}")
+        for k in ("layer_norm", "layer_norm_bwd"):
+            if counts.get(k, 0) < 1:
+                raise AssertionError(f"legacy {name} never launched {k}: {counts}")
+        flash_counts = [counts.get(k, 0) for k in flash]
+        if fp16 and any(flash_counts):
+            raise AssertionError(f"legacy {name} launched flash: {flash_counts}")
+        if not fp16 and min(flash_counts) < per_step:
+            raise AssertionError(f"legacy {name}: flash launched {flash_counts}")
+        tokens_per_s = LEGACY_BATCH * LEGACY_SEQ * LEGACY_STEPS / dt
+        print(f"[legacy] {LEGACY_LAYERS} legacy layers (768/12/3072, pre-LN) {name}, "
+              f"B {LEGACY_BATCH} x S {LEGACY_SEQ}, Adam lr 1e-4: "
+              f"{dt / LEGACY_STEPS * 1e3:.2f} ms/step over {LEGACY_STEPS} steps, "
+              f"{tokens_per_s:.1f} tokens/s; loss {first:.6f} -> {loss:.6f}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+        print(f"[legacy] {name} launches in the timed steps {counts}", flush=True)
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        del engine, batch
+        torch.cuda.empty_cache()
+    return total
+
+
+SPARSE_CONFIGS = {
+    "Fixed": ("FixedSparsityConfig", SPARSE_FIXED, True),
+    "BSLongformer": ("BSLongformerSparsityConfig", {
+        "num_sliding_window_blocks": 3, "global_block_indices": [0],
+        "attention": "unidirectional"}, True),
+    "BigBird": ("BigBirdSparsityConfig", {
+        "num_random_blocks": 1, "num_sliding_window_blocks": 3, "num_global_blocks": 1,
+        "attention": "bidirectional", "seed": 0}, False),
+    "Variable": ("VariableSparsityConfig", {
+        "local_window_blocks": [4], "global_block_indices": [0], "num_random_blocks": 1,
+        "attention": "bidirectional"}, False),
+    "Fixed per head": ("FixedSparsityConfig", {
+        **SPARSE_FIXED, "different_layout_per_head": True,
+        "num_different_global_patterns": 4}, True),
+}
+
+
+def phase_sparse(torch, np, launches):
+    """Phase 17: ``SparseSelfAttention`` checked card against CPU in fp32 at
+    [2, 512, 2, 16] for every config, the Dense layout against flash
+    K5-K7, then each config at SPARSE_SHAPE in bf16, forward and backward
+    through autograd, against the plain version on the card: on the same
+    bf16 operands (fp32 arithmetic, P and dS rounded to bf16 where the
+    kernel rounds them) within FLASH_TOL, and on fp32 copies (no rounding
+    at all) within FLASH_TOL's per-head bound.  Returns the counts of the
+    full-size runs."""
+    import deeperspeed_tpu_torch.ops.sparse_attention as sa
+    from deeperspeed_tpu_torch.ops.attention import flash
+
+    sparse = sys.modules[sa.sparse_attention.__module__]
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 70)
+
+    def run(attn, qkv, do):
+        leaves = [t.detach().clone().requires_grad_() for t in qkv]
+        out = attn(*leaves)
+        return (out, *torch.autograd.grad(out, leaves, do))
+
+    # checked: fp32, card against CPU, the JAX tests' tolerances
+    qkv = [torch.randn(2, 512, 2, 16, generator=gen) for _ in range(3)]
+    do = torch.randn(2, 512, 2, 16, generator=gen)
+    worst = 0.0
+    for name, (cls, kw, causal) in {"Dense": ("DenseSparsityConfig", {}, True),
+                                    **SPARSE_CONFIGS}.items():
+        attn = sa.SparseSelfAttention(getattr(sa, cls)(num_heads=2, block=128, **kw),
+                                      causal=causal)
+        got = run(attn, [t.to(dev) for t in qkv], do.to(dev))
+        want = run(attn, qkv, do)
+        for g, w, tol in zip(got, want, (2e-5, 2e-4, 2e-4, 2e-4)):
+            worst = max(worst, _close(torch, g.cpu(), w, tol, tol,
+                                      f"sparse {name} card vs CPU"))
+    print(f"[sparse-checked] SparseSelfAttention fp32 [2, 512, 2, 16] block 128, Dense and "
+          f"the five configs: card vs CPU max abs err {worst:.3e} (tol 2e-5 output, 2e-4 "
+          f"grads)", flush=True)
+
+    # the Dense layout against flash K5-K7 at SPARSE_SHAPE in bf16
+    B, S, N, D = SPARSE_SHAPE
+    bf16 = torch.bfloat16
+    qkv = [torch.randn(*SPARSE_SHAPE, generator=gen).to(dev, bf16) for _ in range(3)]
+    do = torch.randn(*SPARSE_SHAPE, generator=gen).to(dev, bf16)
+    dense = sa.SparseSelfAttention(sa.DenseSparsityConfig(num_heads=N, block=SPARSE_BLOCK))
+    got = run(dense, qkv, do)
+    want = run(lambda q, k, v: flash.mha(q, k, v, causal=True), qkv, do)
+    errs = [flash_close(torch, g, w, f"sparse Dense vs flash {n}")
+            for g, w, n in zip(got, want, ("O", "dq", "dk", "dv"))]
+    print(f"[sparse] Dense layout vs flash K5-K7 at {list(SPARSE_SHAPE)} bf16 causal: max abs "
+          f"err / share of FLASH_TOL used, O/dq/dk/dv "
+          f"{', '.join(f'{e:.3e} / {x:.3f}' for e, x in errs)}", flush=True)
+    del got, want
+
+    def plain(args, grad_out, layout, causal):
+        o, lse = sparse._fwd_reference(*args, layout, causal, D ** -0.5)
+        delta = (grad_out.float() * o.float()).sum(-1).transpose(1, 2).reshape(B * N, S)
+        return (o, *sparse._bwd_reference(*args, grad_out, lse, delta.contiguous(), layout,
+                                          causal, D ** -0.5))
+
+    # full size: each config in bf16 against the plain version
+    ref_args = [t.float() for t in qkv]
+    kernels = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
+    launches.clear()                                      # main path starts here
+    for name, (cls, kw, causal) in SPARSE_CONFIGS.items():
+        attn = sa.SparseSelfAttention(getattr(sa, cls)(num_heads=N, block=SPARSE_BLOCK, **kw),
+                                      causal=causal)
+        before = [launches.get(k, 0) for k in kernels]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run(attn, qkv, do)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = [launches.get(k, 0) for k in kernels]
+        if [a - b for a, b in zip(after, before)] != [1, 1, 1]:
+            raise AssertionError(f"sparse {name}: B10 launches {before} -> {after}")
+        layout = attn.device_layout(S, qkv[0].device)
+        want = plain(qkv, do, layout, causal)
+        shares = [flash_close(torch, g, w, f"sparse {name} {n} vs plain")[1]
+                  for g, w, n in zip(got, want, ("O", "dq", "dk", "dv"))]
+        exact = plain(ref_args, do.float(), layout, causal)
+        heads = [flash_shares(torch, g, w)[2] for g, w in zip(got, exact)]
+        if max(heads) > 1.0:
+            raise AssertionError(f"sparse {name}: per-head error against the fp32 plain "
+                                 f"version beyond FLASH_TOL's head bound: {heads}")
+        if not all(torch.isfinite(g).all() for g in got):
+            raise AssertionError(f"sparse {name}: non-finite output or gradient")
+        density = _live_pairs(np, layout.cpu().numpy(), SPARSE_BLOCK, causal) / (
+            N * (S * (S + 1) // 2 if causal else S * S))
+        print(f"[sparse] {name} ({'causal' if causal else 'full'}, live share "
+              f"{density:.4f}) {list(SPARSE_SHAPE)} bf16 block {SPARSE_BLOCK}: forward + "
+              f"backward {ms:.2f} ms (host clock, first call of this layout); share of "
+              f"FLASH_TOL used O/dq/dk/dv vs the plain version on the bf16 operands "
+              f"{', '.join(f'{x:.3f}' for x in shares)}, of its head bound vs the fp32 "
+              f"plain version {', '.join(f'{x:.3f}' for x in heads)}", flush=True)
+        del got, want, exact
+    counts = dict(launches)
+    del qkv, do, ref_args
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_softmax(torch, launches):
+    """Phase 18: ``fused_softmax`` forward and backward through autograd at
+    phase 3's bf16 shape; B8's counters must rise."""
+    from deeperspeed_tpu_torch.ops.transformer import fused_softmax
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
+    x = (4 * torch.randn(16, 12, 1024, 1024, generator=gen, device="cuda")).to(torch.bfloat16)
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    x.requires_grad_()
+    launches.clear()                                      # main path starts here
+    y = fused_softmax(x, 0.125)
+    (dx,) = torch.autograd.grad(y, x, dy)
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    if [counts.get(k, 0) for k in ("softmax_fwd", "softmax_bwd")] != [1, 1]:
+        raise AssertionError(f"fused_softmax launched {counts}")
+    sums = y.float().sum(-1)
+    if not (torch.isfinite(dx.float()).all() and (sums - 1).abs().max() < 0.05):
+        raise AssertionError("fused_softmax: rows do not sum to 1 or dx is not finite")
+    print(f"[softmax] fused_softmax [16, 12, 1024, 1024] bf16 scale 0.125 through autograd: "
+          f"rows sum to 1 within {(sums - 1).abs().max().item():.2e}; launches {counts}",
+          flush=True)
+    del x, dy, y, dx
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     try:
         import torch
@@ -1540,8 +2056,8 @@ def main():
     print(f"[build] all kernels in {time.perf_counter() - t0:.1f} s "
           f"(one nvcc per source, in parallel)", flush=True)
 
-    rows = phase_quantizer_kernel(torch, phase_optimizer_kernels(
-        torch, phase_training_kernels(torch, phase_kernels(torch))))
+    rows = phase_legacy_kernels(torch, np, phase_quantizer_kernel(torch, phase_optimizer_kernels(
+        torch, phase_training_kernels(torch, phase_kernels(torch)))))
     phase_checked(torch, np)
     # each main path's counts, read right after its own run
     paths = {"serving": phase_served(torch, np, cuda_utils.LAUNCHES)}
@@ -1555,6 +2071,10 @@ def main():
     phase_dropout(torch, np, cuda_utils.LAUNCHES)
     dp = phase_dp(torch, np)
     paths["dp_stage2"], paths["dp_qgz"] = dp["stage2"], dp["qgz-int8"]
+    phase_legacy_checked(torch, np)
+    paths["legacy_layer"] = phase_legacy(torch, np, cuda_utils.LAUNCHES)
+    paths["sparse_attention"] = phase_sparse(torch, np, cuda_utils.LAUNCHES)
+    paths["softmax"] = phase_softmax(torch, cuda_utils.LAUNCHES)
 
     sources = {
         "layer_norm": ("deeperspeed_tpu_torch/csrc/layer_norm.cu",
@@ -1584,6 +2104,20 @@ def main():
                        "deeperspeed_tpu/ops/lion/fused_lion.py:32"),
         "dequant_reduce": ("deeperspeed_tpu_torch/csrc/dequant_reduce.cu",
                            "deeperspeed_tpu/ops/quantizer/fused.py:52"),
+        "gelu_fwd": ("deeperspeed_tpu_torch/csrc/activations.cu",
+                     "deeperspeed_tpu/ops/transformer/activations.py:35"),
+        "gelu_bwd": ("deeperspeed_tpu_torch/csrc/activations.cu",
+                     "deeperspeed_tpu/ops/transformer/activations.py:39"),
+        "softmax_fwd": ("deeperspeed_tpu_torch/csrc/softmax.cu",
+                        "deeperspeed_tpu/ops/transformer/softmax.py:23"),
+        "softmax_bwd": ("deeperspeed_tpu_torch/csrc/softmax.cu",
+                        "deeperspeed_tpu/ops/transformer/softmax.py:30"),
+        "sparse_fwd": ("deeperspeed_tpu_torch/csrc/sparse_attention.cu",
+                       "deeperspeed_tpu/ops/sparse_attention/sparse_attention.py:27"),
+        "sparse_bwd_dq": ("deeperspeed_tpu_torch/csrc/sparse_attention.cu",
+                          "deeperspeed_tpu/ops/sparse_attention/sparse_attention.py:64"),
+        "sparse_bwd_dkv": ("deeperspeed_tpu_torch/csrc/sparse_attention.cu",
+                           "deeperspeed_tpu/ops/sparse_attention/sparse_attention.py:93"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():

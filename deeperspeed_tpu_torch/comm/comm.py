@@ -41,6 +41,7 @@ from collections import Counter
 import torch
 import torch.distributed as dist
 
+from ..accelerator.real_accelerator import local_cuda_index
 from ..parallel import topology as topo
 
 # bytes copied between the card and host memory to run a gloo collective,
@@ -115,8 +116,10 @@ def init_distributed(dist_backend=None, auto_mpi_discovery=False, timeout=None,
     ``dist_backend``: ``"nccl"`` or ``"gloo"``, the caller's choice.
     ``init_method`` (``tcp://host:port``, ``file:///path``, or ``env://``
     by default), ``rank`` and ``world_size`` default to the ``RANK`` and
-    ``WORLD_SIZE`` environment variables.  A world of one process needs no
-    group and starts none."""
+    ``WORLD_SIZE`` environment variables.  On ``nccl`` with ``LOCAL_RANK``
+    set, the process first makes ``cuda:{LOCAL_RANK}`` its current card, so
+    that ranks on one host take one card each.  A world of one process
+    needs no group and starts none."""
     if dist.is_initialized():
         return
     if rank < 0:
@@ -128,6 +131,10 @@ def init_distributed(dist_backend=None, auto_mpi_discovery=False, timeout=None,
     if dist_backend not in ("nccl", "gloo"):
         raise ValueError(f"dist_backend {dist_backend!r}: name 'nccl' (one GPU a "
                          f"process) or 'gloo' (CPU, or processes sharing a GPU)")
+    if dist_backend == "nccl":
+        index = local_cuda_index()
+        if index is not None:
+            torch.cuda.set_device(index)
     dist.init_process_group(
         dist_backend, init_method=init_method or "env://", rank=rank,
         world_size=world_size,

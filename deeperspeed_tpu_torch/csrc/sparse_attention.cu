@@ -1,0 +1,806 @@
+// B10: block-sparse flash attention -- forward, dq pass and dk/dv pass.
+//
+// Replaces the TPU kernels of
+// deeperspeed_tpu/ops/sparse_attention/sparse_attention.py:
+//   `_sp_fwd_kernel` (launched by `_sparse_fwd`),
+//   `_sp_dq_kernel`  (`_sparse_bwd`, first pass),
+//   `_sp_dkv_kernel` (`_sparse_bwd`, second pass).
+// They are flash attention (ops/attention/pallas_flash.py) under a block
+// layout: an int32 [LH, nb, nb] table (LH 1, broadcast over heads, or N;
+// the head of folded row bh is bh % N) of which (query block, key block)
+// pairs attend.  A zero entry skips its tiles in all three passes, so the
+// work scales with the layout's density, not with S^2.
+//
+// Numerics, as the TPU kernels: scores are q.k^T in fp32, times `scale`
+// (not a pre-scaled q); P is rounded to v's type before P.V and P^T.dO;
+// dS = P (dP - delta) scale is rounded to q's type before dS.K and dS^T.Q;
+// dq, dk and dv are summed in fp32 and rounded once.  Within a live tile,
+// causality masks col > row.  Masked entries get P = 0 explicitly, so a
+// query row with no live key writes zeros (O, dq, and its share of dk and
+// dv), as the TPU kernel's docstring promises (that kernel itself takes
+// exp(NEG_INF - NEG_INF) = 1 while its running max is still NEG_INF); its
+// LSE is written as NEG_INF.
+//
+// Tiles: T = 64, 32 or 16 rows (the largest that divides the block; the
+// wrapper takes blocks that are multiples of 16).  A tile reads the layout
+// entry of the block that holds it.  S is a multiple of the block, so no
+// tile is ragged.
+//
+// Bound on the H100: operations on the live tiles (2 S_live D per product).
+//
+// Two implementations, as flash_attention.cu: fp32 on CUDA cores (256
+// threads as 16 x 16; thread (ty, tx) owns rows R ty .. R ty + R - 1 and
+// columns tx + 16 j of a T x T score tile, R = T / 16; operand tiles in
+// shared memory as fp32 with pitch D + 1), and bf16 on the tensor cores
+// (`mma.sync.m16n8k16` bf16 -> fp32; T / 16 warps, warp w owning rows
+// 16 w .. 16 w + 15; scores, P and dS in registers; operand tiles in shared
+// memory as bf16 with pitch D + 8).  The bf16 kernels take D = 16, 32, 64
+// or 128 (the wrapper zero-pads D up to one of them; the scale is passed
+// in, so padding changes no score) and 16-byte aligned operands.
+//
+// Layout of q, k, v, o, dO, dq, dk, dv: contiguous [B, S, N, D]; a head's
+// rows have stride N D.  LSE and delta: fp32 [B N, S].  Grid: (B N, S / T).
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace {
+
+__device__ __forceinline__ size_t row_off(int b, int s, int n, int S, int N, int D) {
+  return (((size_t)b * S + s) * N + n) * D;
+}
+
+// The layout row (query block qb) or column (key block kb) of head n.
+__device__ __forceinline__ const int* layout_of(const int* layout, int n, int LH, int nb) {
+  return layout + (size_t)(LH == 1 ? 0 : n) * nb * nb;
+}
+
+__device__ __forceinline__ float half_warp_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  const int* layout;
+  void *o, *dq, *dk, *dv;
+  float* lse_out;
+  int B, S, N, D, LH, block, causal;
+  float scale;
+};
+
+// ---------------------------------------------------------------- fp32
+namespace f32 {
+
+constexpr int THREADS = 256;  // 16 x 16
+
+// T rows from row0 of head (b, n) into shared memory (pitch D + 1).
+template <int T>
+__device__ void load_tile(float* dst, const float* __restrict__ src, int b, int n, int row0,
+                          int S, int N, int D) {
+  const int pitch = D + 1;
+  for (int idx = threadIdx.x; idx < T * D; idx += THREADS) {
+    const int r = idx / D;
+    const int d = idx - r * D;
+    dst[r * pitch + d] = src[row_off(b, row0 + r, n, S, N, D) + d];
+  }
+}
+
+// acc[i][j] = A[R ty + i, :] . Bm[tx + 16 j, :] over D columns.
+template <int R>
+__device__ __forceinline__ void tile_dot(float (&acc)[R][R], const float* A, const float* Bm,
+                                         int D, int ty, int tx) {
+  const int pitch = D + 1;
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < R; ++j) acc[i][j] = 0.f;
+  const float* a0 = A + (R * ty) * pitch;
+  const float* b0 = Bm + tx * pitch;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float a[R], bv[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) a[i] = a0[i * pitch + d];
+#pragma unroll
+    for (int j = 0; j < R; ++j) bv[j] = b0[16 * j * pitch + d];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+  }
+}
+
+// acc[i][jj] += sum_r W[R ty + i, r] * M[r, tx + 16 jj], r < T (W pitch T + 1).
+template <int T, int NJ>
+__device__ __forceinline__ void tile_accum(float (&acc)[T / 16][NJ], const float* W,
+                                           const float* M, int D, int ty, int tx) {
+  constexpr int R = T / 16;
+  const int pitch = D + 1;
+  for (int r = 0; r < T; ++r) {
+    float w[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) w[i] = W[(R * ty + i) * (T + 1) + r];
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int c = tx + 16 * jj;
+      if (c < D) {
+        const float m = M[r * pitch + c];
+#pragma unroll
+        for (int i = 0; i < R; ++i) acc[i][jj] = fmaf(w[i], m, acc[i][jj]);
+      }
+    }
+  }
+}
+
+template <int T, int NJ>
+__global__ void __launch_bounds__(THREADS) fwd_kernel(Args a) {
+  constexpr int R = T / 16;
+  extern __shared__ float smem[];
+  const int D = a.D, S = a.S, N = a.N, pitch = D + 1;
+  float* Qs = smem;
+  float* Ks = Qs + T * pitch;
+  float* Vs = Ks + T * pitch;
+  float* Ps = Vs + T * pitch;
+  const int bh = blockIdx.x, b = bh / N, n = bh % N;
+  const int q0 = blockIdx.y * T;
+  const int nb = S / a.block;
+  const int* lay = layout_of(a.layout, n, a.LH, nb) + (q0 / a.block) * nb;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+
+  load_tile<T>(Qs, q, b, n, q0, S, N, D);
+  float m[R], l[R], acc[R][NJ];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    m[i] = DST_NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = 0.f;
+  }
+  for (int k0 = 0; k0 < S; k0 += T) {
+    if (a.causal && k0 > q0 + T - 1) break;  // this tile and all later ones masked
+    if (lay[k0 / a.block] == 0) continue;
+    __syncthreads();
+    load_tile<T>(Ks, k, b, n, k0, S, N, D);
+    load_tile<T>(Vs, v, b, n, k0, S, N, D);
+    __syncthreads();
+    float s[R][R];
+    tile_dot<R>(s, Qs, Ks, D, ty, tx);
+    const bool diag = a.causal && k0 + T - 1 > q0;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int row = q0 + R * ty + i;
+      float mx = DST_NEG_INF;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        s[i][j] *= a.scale;
+        if (diag && k0 + tx + 16 * j > row) s[i][j] = DST_NEG_INF;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], half_warp_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const bool live = !(diag && k0 + tx + 16 * j > row);
+        const float p = live ? expf(s[i][j] - m_new) : 0.f;
+        psum += p;
+        Ps[(R * ty + i) * (T + 1) + tx + 16 * j] = p;
+      }
+      l[i] = l[i] * alpha + half_warp_sum(psum);
+      m[i] = m_new;
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) acc[i][jj] *= alpha;
+    }
+    __syncthreads();
+    tile_accum<T, NJ>(acc, Ps, Vs, D, ty, tx);
+  }
+  float* o = static_cast<float*>(a.o);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + R * ty + i;
+    const size_t base = row_off(b, row, n, S, N, D);
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int c = tx + 16 * jj;
+      if (c < D) o[base + c] = l[i] > 0.f ? acc[i][jj] / l[i] : 0.f;
+    }
+    if (tx == 0) a.lse_out[(size_t)bh * S + row] = l[i] > 0.f ? m[i] + logf(l[i]) : DST_NEG_INF;
+  }
+}
+
+template <int T, int NJ>
+__global__ void __launch_bounds__(THREADS) dq_kernel(Args a) {
+  constexpr int R = T / 16;
+  extern __shared__ float smem[];
+  const int D = a.D, S = a.S, N = a.N, pitch = D + 1;
+  float* Qs = smem;
+  float* dOs = Qs + T * pitch;
+  float* Ks = dOs + T * pitch;
+  float* Vs = Ks + T * pitch;
+  float* dSs = Vs + T * pitch;
+  const int bh = blockIdx.x, b = bh / N, n = bh % N;
+  const int q0 = blockIdx.y * T;
+  const int nb = S / a.block;
+  const int* lay = layout_of(a.layout, n, a.LH, nb) + (q0 / a.block) * nb;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* dout = static_cast<const float*>(a.dout);
+
+  load_tile<T>(Qs, q, b, n, q0, S, N, D);
+  load_tile<T>(dOs, dout, b, n, q0, S, N, D);
+  float row_lse[R], row_delta[R], acc[R][NJ];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + R * ty + i;
+    row_lse[i] = a.lse[(size_t)bh * S + row];
+    row_delta[i] = a.delta[(size_t)bh * S + row];
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = 0.f;
+  }
+  for (int k0 = 0; k0 < S; k0 += T) {
+    if (a.causal && k0 > q0 + T - 1) break;
+    if (lay[k0 / a.block] == 0) continue;
+    __syncthreads();
+    load_tile<T>(Ks, k, b, n, k0, S, N, D);
+    load_tile<T>(Vs, v, b, n, k0, S, N, D);
+    __syncthreads();
+    float s[R][R], dp[R][R];
+    tile_dot<R>(s, Qs, Ks, D, ty, tx);
+    tile_dot<R>(dp, dOs, Vs, D, ty, tx);
+    const bool diag = a.causal && k0 + T - 1 > q0;
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const bool live = !(diag && k0 + tx + 16 * j > q0 + R * ty + i);
+        const float p = live ? expf(s[i][j] * a.scale - row_lse[i]) : 0.f;
+        dSs[(R * ty + i) * (T + 1) + tx + 16 * j] = p * (dp[i][j] - row_delta[i]) * a.scale;
+      }
+    __syncthreads();
+    tile_accum<T, NJ>(acc, dSs, Ks, D, ty, tx);
+  }
+  float* dq = static_cast<float*>(a.dq);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const size_t base = row_off(b, q0 + R * ty + i, n, S, N, D);
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int c = tx + 16 * jj;
+      if (c < D) dq[base + c] = acc[i][jj];
+    }
+  }
+}
+
+template <int T, int NJ>
+__global__ void __launch_bounds__(THREADS) dkv_kernel(Args a) {
+  constexpr int R = T / 16;
+  extern __shared__ float smem[];
+  const int D = a.D, S = a.S, N = a.N, pitch = D + 1;
+  float* Ks = smem;
+  float* Vs = Ks + T * pitch;
+  float* Qs = Vs + T * pitch;
+  float* dOs = Qs + T * pitch;
+  float* PTs = dOs + T * pitch;       // P^T tile, [k row][q row]
+  float* dSTs = PTs + T * (T + 1);    // dS^T tile
+  float* Ls = dSTs + T * (T + 1);     // LSE of the q tile's rows
+  float* Ds = Ls + T;                 // delta of the q tile's rows
+  const int bh = blockIdx.x, b = bh / N, n = bh % N;
+  const int k0 = blockIdx.y * T;
+  const int nb = S / a.block;
+  const int* lay = layout_of(a.layout, n, a.LH, nb) + k0 / a.block;  // column: stride nb
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* dout = static_cast<const float*>(a.dout);
+
+  load_tile<T>(Ks, k, b, n, k0, S, N, D);
+  load_tile<T>(Vs, v, b, n, k0, S, N, D);
+  float dk_acc[R][NJ], dv_acc[R][NJ];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) dk_acc[i][jj] = dv_acc[i][jj] = 0.f;
+  for (int q0 = 0; q0 < S; q0 += T) {
+    if (a.causal && q0 + T - 1 < k0) continue;  // every entry above the diagonal
+    if (lay[(size_t)(q0 / a.block) * nb] == 0) continue;
+    __syncthreads();
+    load_tile<T>(Qs, q, b, n, q0, S, N, D);
+    load_tile<T>(dOs, dout, b, n, q0, S, N, D);
+    for (int r = threadIdx.x; r < T; r += THREADS) {
+      Ls[r] = a.lse[(size_t)bh * S + q0 + r];
+      Ds[r] = a.delta[(size_t)bh * S + q0 + r];
+    }
+    __syncthreads();
+    float st[R][R], dpt[R][R];
+    tile_dot<R>(st, Ks, Qs, D, ty, tx);   // st[i][j] = k row R ty + i . q row tx + 16 j
+    tile_dot<R>(dpt, Vs, dOs, D, ty, tx);
+    const bool diag = a.causal && k0 + T - 1 > q0;
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int qr = tx + 16 * j;
+        const bool live = !(diag && k0 + R * ty + i > q0 + qr);
+        const float p = live ? expf(st[i][j] * a.scale - Ls[qr]) : 0.f;
+        PTs[(R * ty + i) * (T + 1) + qr] = p;
+        dSTs[(R * ty + i) * (T + 1) + qr] = p * (dpt[i][j] - Ds[qr]) * a.scale;
+      }
+    __syncthreads();
+    tile_accum<T, NJ>(dv_acc, PTs, dOs, D, ty, tx);
+    tile_accum<T, NJ>(dk_acc, dSTs, Qs, D, ty, tx);
+  }
+  float* dk = static_cast<float*>(a.dk);
+  float* dv = static_cast<float*>(a.dv);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const size_t base = row_off(b, k0 + R * ty + i, n, S, N, D);
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int c = tx + 16 * jj;
+      if (c < D) {
+        dk[base + c] = dk_acc[i][jj];
+        dv[base + c] = dv_acc[i][jj];
+      }
+    }
+  }
+}
+
+template <int T>
+size_t smem_bytes(int which, int D) {
+  const size_t tile = (size_t)T * (D + 1), ptile = (size_t)T * (T + 1);
+  if (which == 0) return (3 * tile + ptile) * sizeof(float);
+  if (which == 1) return (4 * tile + ptile) * sizeof(float);
+  return (4 * tile + 2 * ptile + 2 * T) * sizeof(float);
+}
+
+}  // namespace f32
+
+// ---------------------------------------------------------------- bf16
+namespace tc {
+
+typedef __nv_bfloat16 bf16;
+
+// T rows from row0 of head (b, n) into shared memory (pitch D + 8) with
+// 16-byte copies.
+template <int T, int D>
+__device__ void load_tile(bf16* dst, const bf16* __restrict__ src, int b, int n, int row0,
+                          int S, int N) {
+  constexpr int VECS = D / 8, LD = D + 8, THREADS = 2 * T;
+  for (int idx = threadIdx.x; idx < T * VECS; idx += THREADS) {
+    const int r = idx / VECS;
+    const int c = (idx - r * VECS) * 8;
+    *reinterpret_cast<uint4*>(dst + r * LD + c) =
+        *reinterpret_cast<const uint4*>(src + row_off(b, row0 + r, n, S, N, D) + c);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// c += a . b for one 16 x 8 x 16 tile.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// s[nt] = A[16 rows of this warp] . Bm[8 nt + (0..7)]^T over D columns: a
+// 16 x T score block from two [T, D] tiles.
+template <int T, int D>
+__device__ __forceinline__ void scores(float (&s)[T / 8][4], const bf16* A, const bf16* Bm,
+                                       int warp, int g, int t) {
+  constexpr int LD = D + 8, NT = T / 8;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const bf16* ap = A + (16 * warp + g) * LD + 16 * ks + 2 * t;
+    const uint32_t a[4] = {ld32(ap), ld32(ap + 8 * LD), ld32(ap + 8), ld32(ap + 8 * LD + 8)};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const bf16* bp = Bm + (8 * nt + g) * LD + 16 * ks + 2 * t;
+      mma(s[nt], a, ld32(bp), ld32(bp + 8));
+    }
+  }
+}
+
+// acc[dt] += W . M over the tile's T rows: W a 16 x T block in score
+// layout (rounded to bf16 here), M a [T, D] tile in shared memory.
+template <int T, int D>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4], const float (&w)[T / 8][4],
+                                           const bf16* M, int g, int t) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int j = 0; j < T / 16; ++j) {
+    const uint32_t a[4] = {pack(w[2 * j][0], w[2 * j][1]), pack(w[2 * j][2], w[2 * j][3]),
+                           pack(w[2 * j + 1][0], w[2 * j + 1][1]),
+                           pack(w[2 * j + 1][2], w[2 * j + 1][3])};
+    const bf16* m0 = M + (16 * j + 2 * t) * LD + g;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      const bf16* mp = m0 + 8 * dt;
+      mma(acc[dt], a, pack(mp[0], mp[LD]), pack(mp[8 * LD], mp[9 * LD]));
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Rows (row, row + 8) of a 16 x D accumulator block as bf16, scaled.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ out, const float (&acc)[D / 8][4],
+                                           int b, int n, int row, int S, int N, int t,
+                                           float scale0, float scale1) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float sc = h ? scale1 : scale0;
+    bf16* base = out + row_off(b, row + 8 * h, n, S, N, D) + 2 * t;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+      *reinterpret_cast<uint32_t*>(base + 8 * dt) =
+          pack(acc[dt][2 * h] * sc, acc[dt][2 * h + 1] * sc);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void zero(float (&acc)[D / 8][4]) {
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+}
+
+// Is score (row, col) of a tile live?  Only tiles on the diagonal mask.
+__device__ __forceinline__ bool live(bool diag, int row, int col) { return !diag || col <= row; }
+
+template <int T, int D>
+__global__ void __launch_bounds__(2 * T) fwd_kernel(Args a) {
+  constexpr int LD = D + 8, NT = T / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + T * LD;
+  bf16* Vs = Ks + T * LD;
+  const int S = a.S, N = a.N;
+  const int bh = blockIdx.x, b = bh / N, n = bh % N;
+  const int q0 = blockIdx.y * T;
+  const int nb = S / a.block;
+  const int* lay = layout_of(a.layout, n, a.LH, nb) + (q0 / a.block) * nb;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row = q0 + 16 * warp + g;  // and row + 8
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+
+  load_tile<T, D>(Qs, q, b, n, q0, S, N);
+  float m[2] = {DST_NEG_INF, DST_NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+  zero<D>(acc);
+  for (int k0 = 0; k0 < S; k0 += T) {
+    if (a.causal && k0 > q0 + T - 1) break;
+    if (lay[k0 / a.block] == 0) continue;
+    __syncthreads();
+    load_tile<T, D>(Ks, k, b, n, k0, S, N);
+    load_tile<T, D>(Vs, v, b, n, k0, S, N);
+    __syncthreads();
+    float s[NT][4];
+    scores<T, D>(s, Qs, Ks, warp, g, t);
+    const bool diag = a.causal && k0 + T - 1 > q0;
+    float mx[2] = {DST_NEG_INF, DST_NEG_INF};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[nt][i] *= a.scale;
+        if (!live(diag, row + 8 * (i >> 1), k0 + 8 * nt + 2 * t + (i & 1)))
+          s[nt][i] = DST_NEG_INF;
+        mx[i >> 1] = fmaxf(mx[i >> 1], s[nt][i]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m[h], quad_max(mx[h]));
+      alpha[h] = expf(m[h] - m_new);
+      m[h] = m_new;
+    }
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool ok = live(diag, row + 8 * (i >> 1), k0 + 8 * nt + 2 * t + (i & 1));
+        s[nt][i] = ok ? expf(s[nt][i] - m[i >> 1]) : 0.f;
+        psum[i >> 1] += s[nt][i];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + quad_sum(psum[h]);
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      acc[dt][0] *= alpha[0];
+      acc[dt][1] *= alpha[0];
+      acc[dt][2] *= alpha[1];
+      acc[dt][3] *= alpha[1];
+    }
+    accumulate<T, D>(acc, s, Vs, g, t);
+  }
+  store_rows<D>(static_cast<bf16*>(a.o), acc, b, n, row, S, N, t,
+                l[0] > 0.f ? 1.f / l[0] : 0.f, l[1] > 0.f ? 1.f / l[1] : 0.f);
+  if (t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      a.lse_out[(size_t)bh * S + row + 8 * h] = l[h] > 0.f ? m[h] + logf(l[h]) : DST_NEG_INF;
+  }
+}
+
+template <int T, int D>
+__global__ void __launch_bounds__(2 * T) dq_kernel(Args a) {
+  constexpr int LD = D + 8, NT = T / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dOs = Qs + T * LD;
+  bf16* Ks = dOs + T * LD;
+  bf16* Vs = Ks + T * LD;
+  const int S = a.S, N = a.N;
+  const int bh = blockIdx.x, b = bh / N, n = bh % N;
+  const int q0 = blockIdx.y * T;
+  const int nb = S / a.block;
+  const int* lay = layout_of(a.layout, n, a.LH, nb) + (q0 / a.block) * nb;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row = q0 + 16 * warp + g;
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+
+  load_tile<T, D>(Qs, static_cast<const bf16*>(a.q), b, n, q0, S, N);
+  load_tile<T, D>(dOs, static_cast<const bf16*>(a.dout), b, n, q0, S, N);
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row_lse[h] = a.lse[(size_t)bh * S + row + 8 * h];
+    row_delta[h] = a.delta[(size_t)bh * S + row + 8 * h];
+  }
+  float acc[D / 8][4];
+  zero<D>(acc);
+  for (int k0 = 0; k0 < S; k0 += T) {
+    if (a.causal && k0 > q0 + T - 1) break;
+    if (lay[k0 / a.block] == 0) continue;
+    __syncthreads();
+    load_tile<T, D>(Ks, k, b, n, k0, S, N);
+    load_tile<T, D>(Vs, v, b, n, k0, S, N);
+    __syncthreads();
+    float s[NT][4], dp[NT][4];
+    scores<T, D>(s, Qs, Ks, warp, g, t);
+    scores<T, D>(dp, dOs, Vs, warp, g, t);
+    const bool diag = a.causal && k0 + T - 1 > q0;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = i >> 1;
+        const bool ok = live(diag, row + 8 * h, k0 + 8 * nt + 2 * t + (i & 1));
+        const float p = ok ? expf(s[nt][i] * a.scale - row_lse[h]) : 0.f;
+        s[nt][i] = p * (dp[nt][i] - row_delta[h]) * a.scale;  // dS
+      }
+    accumulate<T, D>(acc, s, Ks, g, t);
+  }
+  store_rows<D>(static_cast<bf16*>(a.dq), acc, b, n, row, S, N, t, 1.f, 1.f);
+}
+
+template <int T, int D>
+__global__ void __launch_bounds__(2 * T) dkv_kernel(Args a) {
+  constexpr int LD = D + 8, NT = T / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + T * LD;
+  bf16* Qs = Vs + T * LD;
+  bf16* dOs = Qs + T * LD;
+  float* Ls = reinterpret_cast<float*>(dOs + T * LD);  // LSE of the q tile's rows
+  float* Ds = Ls + T;                                   // delta of the q tile's rows
+  const int S = a.S, N = a.N;
+  const int bh = blockIdx.x, b = bh / N, n = bh % N;
+  const int k0 = blockIdx.y * T;
+  const int nb = S / a.block;
+  const int* lay = layout_of(a.layout, n, a.LH, nb) + k0 / a.block;  // column: stride nb
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int krow = k0 + 16 * warp + g;  // and krow + 8
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* dout = static_cast<const bf16*>(a.dout);
+
+  load_tile<T, D>(Ks, static_cast<const bf16*>(a.k), b, n, k0, S, N);
+  load_tile<T, D>(Vs, static_cast<const bf16*>(a.v), b, n, k0, S, N);
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  zero<D>(dk_acc);
+  zero<D>(dv_acc);
+  for (int q0 = 0; q0 < S; q0 += T) {
+    if (a.causal && q0 + T - 1 < k0) continue;
+    if (lay[(size_t)(q0 / a.block) * nb] == 0) continue;
+    __syncthreads();
+    load_tile<T, D>(Qs, q, b, n, q0, S, N);
+    load_tile<T, D>(dOs, dout, b, n, q0, S, N);
+    for (int i = threadIdx.x; i < T; i += 2 * T) {
+      Ls[i] = a.lse[(size_t)bh * S + q0 + i];
+      Ds[i] = a.delta[(size_t)bh * S + q0 + i];
+    }
+    __syncthreads();
+    float st[NT][4], dpt[NT][4];
+    scores<T, D>(st, Ks, Qs, warp, g, t);    // S^T: k rows . q rows
+    scores<T, D>(dpt, Vs, dOs, warp, g, t);  // dP^T: v rows . dO rows
+    const bool diag = a.causal && k0 + T - 1 > q0;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qc = 8 * nt + 2 * t + (i & 1);
+        const bool ok = live(diag, q0 + qc, krow + 8 * (i >> 1));
+        const float p = ok ? expf(st[nt][i] * a.scale - Ls[qc]) : 0.f;
+        st[nt][i] = p;                                      // P^T
+        dpt[nt][i] = p * (dpt[nt][i] - Ds[qc]) * a.scale;  // dS^T
+      }
+    accumulate<T, D>(dv_acc, st, dOs, g, t);
+    accumulate<T, D>(dk_acc, dpt, Qs, g, t);
+  }
+  store_rows<D>(static_cast<bf16*>(a.dk), dk_acc, b, n, krow, S, N, t, 1.f, 1.f);
+  store_rows<D>(static_cast<bf16*>(a.dv), dv_acc, b, n, krow, S, N, t, 1.f, 1.f);
+}
+
+template <int T, int D>
+size_t smem_bytes(int which) {
+  const size_t tile = (size_t)T * (D + 8) * sizeof(bf16);
+  if (which == 0) return 3 * tile;
+  if (which == 1) return 4 * tile;
+  return 4 * tile + 2 * T * sizeof(float);
+}
+
+}  // namespace tc
+
+// ------------------------------------------------------------------ launchers
+template <typename K>
+cudaError_t start(K kernel, dim3 grid, int threads, size_t smem, const Args& a,
+                  cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, threads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// which: 0 forward, 1 dq, 2 dk/dv.
+template <int T, int NJ>
+cudaError_t launch_f32(int which, const Args& a, cudaStream_t stream) {
+  const dim3 grid(a.B * a.N, a.S / T);
+  const size_t smem = f32::smem_bytes<T>(which, a.D);
+  switch (which) {
+    case 0: return start(f32::fwd_kernel<T, NJ>, grid, f32::THREADS, smem, a, stream);
+    case 1: return start(f32::dq_kernel<T, NJ>, grid, f32::THREADS, smem, a, stream);
+    default: return start(f32::dkv_kernel<T, NJ>, grid, f32::THREADS, smem, a, stream);
+  }
+}
+
+template <int T>
+cudaError_t f32_by_head_dim(int which, const Args& a, cudaStream_t stream) {
+  if (a.D <= 16) return launch_f32<T, 1>(which, a, stream);
+  if (a.D <= 32) return launch_f32<T, 2>(which, a, stream);
+  if (a.D <= 64) return launch_f32<T, 4>(which, a, stream);
+  return launch_f32<T, 8>(which, a, stream);
+}
+
+template <int T, int D>
+cudaError_t launch_tc(int which, const Args& a, cudaStream_t stream) {
+  const dim3 grid(a.B * a.N, a.S / T);
+  const size_t smem = tc::smem_bytes<T, D>(which);
+  switch (which) {
+    case 0: return start(tc::fwd_kernel<T, D>, grid, 2 * T, smem, a, stream);
+    case 1: return start(tc::dq_kernel<T, D>, grid, 2 * T, smem, a, stream);
+    default: return start(tc::dkv_kernel<T, D>, grid, 2 * T, smem, a, stream);
+  }
+}
+
+template <int T>
+cudaError_t tc_by_head_dim(int which, const Args& a, cudaStream_t stream) {
+  switch (a.D) {
+    case 16: return launch_tc<T, 16>(which, a, stream);
+    case 32: return launch_tc<T, 32>(which, a, stream);
+    case 64: return launch_tc<T, 64>(which, a, stream);
+    case 128: return launch_tc<T, 128>(which, a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool aligned16(const void* p) { return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+template <int T>
+cudaError_t by_type(int which, const Args& a, int dtype, cudaStream_t stream) {
+  switch (dtype) {
+    case DST_DTYPE_F32: return f32_by_head_dim<T>(which, a, stream);
+    case DST_DTYPE_BF16:
+      if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) || !aligned16(a.dout) ||
+          !aligned16(a.o) || !aligned16(a.dq) || !aligned16(a.dk) || !aligned16(a.dv))
+        return cudaErrorInvalidValue;
+      return tc_by_head_dim<T>(which, a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int run(int which, Args& a, int dtype, cudaStream_t stream) {
+  if (a.B * a.N == 0 || a.S == 0) return 0;
+  if (a.D < 1 || a.D > 128 || a.block < 16 || a.block % 16 != 0 || a.S % a.block != 0 ||
+      (a.LH != 1 && a.LH != a.N))
+    return (int)cudaErrorInvalidValue;
+  if (a.block % 64 == 0) return (int)by_type<64>(which, a, dtype, stream);
+  if (a.block % 32 == 0) return (int)by_type<32>(which, a, dtype, stream);
+  return (int)by_type<16>(which, a, dtype, stream);
+}
+
+Args make(const void* q, const void* k, const void* v, const int* layout, int B, int S, int N,
+          int D, int LH, int block, int causal, float scale) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.layout = layout;
+  a.B = B; a.S = S; a.N = N; a.D = D; a.LH = LH; a.block = block; a.causal = causal;
+  a.scale = scale;
+  return a;
+}
+
+}  // namespace
+
+extern "C" int dst_sparse_fwd(const void* q, const void* k, const void* v, const int* layout,
+                              void* o, float* lse, int B, int S, int N, int D, int LH,
+                              int block, int causal, float scale, int dtype,
+                              cudaStream_t stream) {
+  Args a = make(q, k, v, layout, B, S, N, D, LH, block, causal, scale);
+  a.o = o; a.lse_out = lse;
+  return run(0, a, dtype, stream);
+}
+
+extern "C" int dst_sparse_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                                 const float* lse, const float* delta, const int* layout,
+                                 void* dq, int B, int S, int N, int D, int LH, int block,
+                                 int causal, float scale, int dtype, cudaStream_t stream) {
+  Args a = make(q, k, v, layout, B, S, N, D, LH, block, causal, scale);
+  a.dout = dout; a.lse = lse; a.delta = delta; a.dq = dq;
+  return run(1, a, dtype, stream);
+}
+
+extern "C" int dst_sparse_bwd_dkv(const void* q, const void* k, const void* v,
+                                  const void* dout, const float* lse, const float* delta,
+                                  const int* layout, void* dk, void* dv, int B, int S, int N,
+                                  int D, int LH, int block, int causal, float scale, int dtype,
+                                  cudaStream_t stream) {
+  Args a = make(q, k, v, layout, B, S, N, D, LH, block, causal, scale);
+  a.dout = dout; a.lse = lse; a.delta = delta; a.dk = dk; a.dv = dv;
+  return run(2, a, dtype, stream);
+}

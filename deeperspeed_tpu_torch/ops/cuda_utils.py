@@ -66,6 +66,19 @@ _SIGNATURES = {
     "dequant_reduce": {
         "dst_dequant_reduce": ([_vp, _vp, _vp, _i, _ll, _ll, _ll, _i, _vp], _i),
     },
+    "activations": {
+        "dst_gelu_fwd": ([_vp, _vp, _ll, _i, _vp], _i),
+        "dst_gelu_bwd": ([_vp, _vp, _vp, _ll, _i, _vp], _i),
+    },
+    "softmax": {
+        "dst_softmax_fwd": ([_vp, _vp, _ll, _i, _f, _i, _vp], _i),
+        "dst_softmax_bwd": ([_vp, _vp, _vp, _ll, _i, _f, _i, _vp], _i),
+    },
+    "sparse_attention": {
+        "dst_sparse_fwd": ([_vp] * 6 + [_i] * 7 + [_f, _i, _vp], _i),
+        "dst_sparse_bwd_dq": ([_vp] * 8 + [_i] * 7 + [_f, _i, _vp], _i),
+        "dst_sparse_bwd_dkv": ([_vp] * 9 + [_i] * 7 + [_f, _i, _vp], _i),
+    },
 }
 
 _loaded = {}
@@ -160,6 +173,8 @@ def require_cuda(kernel, *tensors, dtype=None):
     """Validate what a kernel takes: every tensor on one CUDA device and
     contiguous; ``dtype``, when given, shared by all of them."""
     dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel}: tensors on {dev}, not on a CUDA device")
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{kernel}: tensors on {t.device} and {dev}")

@@ -35,7 +35,12 @@ all-gather the compute copy after the update; stage 1 reduce-scatters the
 accumulated gradients once a step, stages 2-3 each microbatch's; stage 3
 also partitions the compute parameters and gathers them at their module's
 call (``zero/stage3.py``).  The global norm and the fp16 overflow flag are
-taken across ranks, and the reported loss is the mean of the ranks'.  qgZ
+taken across ranks, and the reported loss is the mean of the ranks'.
+Where microbatches carry ``loss_mask``, each rank's masked mean is first
+weighted by its share of the microbatch's mask over all ranks
+(:meth:`_mask_weights`), so that the mean over ranks, of the losses and of
+the gradients, is the global masked mean the JAX engine takes over the
+dp-sharded rows (train, eval and the legacy API alike).  qgZ
 (``comm.quantized`` or ``zero_quantized_gradients`` at stage 0) reduces
 each parameter's mean gradient of at least ``group_size x world`` elements
 through ``comm.all_reduce_quantized`` (B5 on the card), the smaller ones
@@ -519,6 +524,18 @@ class DeeperSpeedEngine:
             else:
                 acc_part.add_(part.to(acc_part.dtype))
 
+    def _mask_weights(self, micro):
+        """Per microbatch, this rank's weight ``world * count_r / max(count,
+        1)``: ``count_r`` the sum of the rank's ``loss_mask``, ``count`` its
+        sum over ranks, all microbatches' counts in one all-reduce.  None on
+        one process, under qgZ (the JAX qgZ path takes per-rank means, too)
+        and without a mask, where nothing changes."""
+        if self.world == 1 or self._qgz or not all("loss_mask" in mb for mb in micro):
+            return None
+        counts = torch.stack([mb["loss_mask"].to(torch.float32).sum() for mb in micro])
+        total = comm.all_reduce(counts.clone(), group=self.group)
+        return self.world * counts / total.clamp(min=1.0)
+
     def _micro_loss(self, mb, ltd=None):
         for p in self._params:
             p.grad = None
@@ -655,9 +672,12 @@ class DeeperSpeedEngine:
         micro, ltd = self._apply_data_efficiency(self._stack_microbatches(data, local))
         scale = self._scale()
         self._acc_count = 0
+        weights = self._mask_weights(micro)
         losses = []
-        for mb in micro:
+        for i, mb in enumerate(micro):
             loss = self._micro_loss(mb, ltd)
+            if weights is not None:
+                loss = loss * weights[i]
             self._accumulate(loss, scale)
             losses.append(loss.detach().to(torch.float32))
         loss = torch.stack(losses).mean()
@@ -674,8 +694,10 @@ class DeeperSpeedEngine:
         gradients."""
         data = batch if batch is not None else data_iter
         micro = self._stack_microbatches(data)
-        loss = torch.stack([self._loss_fn(self.module, mb, None).to(torch.float32)
-                            for mb in micro]).mean()
+        losses = torch.stack([self._loss_fn(self.module, mb, None).to(torch.float32)
+                              for mb in micro])
+        weights = self._mask_weights(micro)
+        loss = (losses if weights is None else losses * weights).mean()
         if self.world > 1:
             comm.all_reduce(loss.reshape(1), comm.ReduceOp.AVG, self.group)
         return loss
@@ -683,8 +705,13 @@ class DeeperSpeedEngine:
     # -- legacy fwd/bwd/step API (reference ``engine.py:1775,1916,2114``)
     def forward(self, batch):
         """The loss of one (global) microbatch's rows on this rank, its
-        graph kept for :meth:`backward`."""
-        self._cached_loss = self._micro_loss(self._to_device(self._local(batch)))
+        graph kept for :meth:`backward`; with a ``loss_mask`` over several
+        processes, weighted as :meth:`_mask_weights` says (its mean over
+        ranks is the global masked mean)."""
+        mb = self._to_device(self._local(batch))
+        loss = self._micro_loss(mb)
+        weights = self._mask_weights([mb])
+        self._cached_loss = loss if weights is None else loss * weights[0]
         return self._cached_loss
 
     __call__ = forward

@@ -12,9 +12,14 @@ dtype, head dims and block sizes, every query count, rows with ties, -inf
 and no live token, ragged sequence lengths, causal and full attention, the
 fused optimizers over flat buffers and over separate (also non-contiguous)
 tensors of many sizes, the fused dequant-reduce (B5) bit for bit over every
-1-byte type, peer count and alignment, and two training processes sharing
-the card over gloo.
+1-byte type, peer count and alignment, two training processes sharing
+the card over gloo, tanh-GELU (B9) and the fused softmax (B8) over every
+type and odd widths, and block-sparse attention (B10) over every sparsity
+config, block sizes 16-128, head dims that need padding, per-head layouts,
+causal and not, and rows with no live key.
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -27,7 +32,11 @@ from deeperspeed_tpu_torch.ops.lion import fused_lion
 from deeperspeed_tpu_torch.ops.quantizer import fused, quantize_kv
 from deeperspeed_tpu_torch.quantization import BlockScaledTensor
 from deeperspeed_tpu_torch.ops.sampling import topk
-from deeperspeed_tpu_torch.ops.transformer import normalize
+from deeperspeed_tpu_torch.ops.sparse_attention import sparsity_config
+from deeperspeed_tpu_torch.ops.transformer import activations, normalize, softmax
+
+# the package exports the function under the module's name
+sparse = importlib.import_module("deeperspeed_tpu_torch.ops.sparse_attention.sparse_attention")
 
 pytestmark = pytest.mark.cuda
 
@@ -640,3 +649,143 @@ def test_two_processes_on_one_card_over_gloo(tmp_path):
     assert np.all(np.abs(s3 - s0) <= 1e-5 * np.abs(s0)), (s0, s3)
     assert list(r0["qgz/b5_calls"]) == [12, 12, 12]
     assert list(r0["stage0/b5_calls"]) == [0, 0, 0]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", [(1,), (1000,), (7, 333), (64, 3072)])
+def test_gelu(gen, shape, dtype):
+    x = (3 * torch.randn(*shape, generator=gen, device="cuda")).to(dtype)
+    dy = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    y = activations._gelu_cuda(x)
+    assert y.dtype == dtype
+    _close(y, activations._gelu_ref(x), dtype)
+    _close(activations._dgelu_cuda(x, dy), activations._dgelu_ref(x, dy), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("rows,W", [(1, 1), (5, 7), (33, 100), (64, 128), (16, 1000),
+                                    (8, 1024), (3, 50304)])
+def test_softmax(gen, rows, W, dtype):
+    x = (4 * torch.randn(rows, W, generator=gen, device="cuda")).to(dtype)
+    dy = torch.randn(rows, W, generator=gen, device="cuda").to(dtype)
+    y = softmax._fwd_cuda(x, 0.125)
+    assert y.dtype == dtype
+    _close(y, softmax._softmax_ref(x, 0.125), dtype)
+    _close(softmax._bwd_cuda(y, dy, 0.125), softmax._softmax_bwd_ref(y, dy, 0.125), dtype)
+
+
+def test_gelu_and_softmax_autograd_launch_the_kernels(gen):
+    from deeperspeed_tpu_torch.ops.cuda_utils import LAUNCHES
+    from deeperspeed_tpu_torch.ops.transformer import bias_gelu, fused_softmax
+
+    x = torch.randn(4, 256, generator=gen, device="cuda", requires_grad=True)
+    b = torch.randn(256, generator=gen, device="cuda", requires_grad=True)
+    LAUNCHES.clear()
+    (bias_gelu(x, b).sum() + fused_softmax(x, 0.5).square().sum()).backward()
+    assert [LAUNCHES[k] for k in ("gelu_fwd", "gelu_bwd", "softmax_fwd", "softmax_bwd")] \
+        == [1, 1, 1, 1]
+
+
+SPARSE_CONFIGS = {
+    "dense": (sparsity_config.DenseSparsityConfig, {}),
+    "fixed": (sparsity_config.FixedSparsityConfig, {"num_local_blocks": 2}),
+    "bigbird": (sparsity_config.BigBirdSparsityConfig, {"num_random_blocks": 1}),
+    "longformer": (sparsity_config.BSLongformerSparsityConfig, {}),
+    "variable": (sparsity_config.VariableSparsityConfig, {"local_window_blocks": [1, 2],
+                                                          "num_random_blocks": 1}),
+    "fixed-per-head": (sparsity_config.FixedSparsityConfig, {
+        "num_local_blocks": 2, "different_layout_per_head": True,
+        "num_different_global_patterns": 2}),
+}
+
+
+def _sparse_case(gen, name, dtype, causal, B=2, S=512, N=3, D=64, block=128):
+    cls, kw = SPARSE_CONFIGS[name]
+    if cls is not sparsity_config.DenseSparsityConfig:
+        kw = {**kw, "attention": "unidirectional" if causal else "bidirectional"}
+    layout = sparse.device_layout(cls(num_heads=N, block=block, **kw).make_layout(S), "cuda")
+    q, k, v, do = (torch.randn(B, S, N, D, generator=gen, device="cuda").to(dtype)
+                   for _ in range(4))
+    return q, k, v, do, layout
+
+
+def _sparse_vs_plain(q, k, v, do, layout, causal, block):
+    """Each B10 pass against the plain version on the same inputs."""
+    scale = q.shape[-1] ** -0.5
+    o, lse = sparse._fwd_cuda(q, k, v, layout, causal, scale, block)
+    ro, rlse = sparse._fwd_reference(q, k, v, layout, causal, scale)
+    B, S, N, _ = q.shape
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(B * N, S).contiguous()
+    dq = sparse._dq_cuda(q, k, v, do, lse, delta, layout, causal, scale, block)
+    dk, dv = sparse._dkv_cuda(q, k, v, do, lse, delta, layout, causal, scale, block)
+    want = sparse._bwd_reference(q, k, v, do, lse, delta, layout, causal, scale)
+    return (o, dq, dk, dv), (ro, *want), (lse, rlse)
+
+
+def _sparse_agree(got, want, lses, dtype):
+    lse, rlse = lses
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-4)
+    for g, w, tol in zip(got, want, (2e-5, 2e-4, 2e-4, 2e-4)):
+        assert g.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+        else:
+            _, elem, heads = flash_shares(torch, g, w)
+            assert elem <= 1.0 and heads <= 1.0, (elem, heads)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("name", list(SPARSE_CONFIGS))
+def test_sparse_attention(gen, name, dtype, causal):
+    q, k, v, do, layout = _sparse_case(gen, name, dtype, causal)
+    _sparse_agree(*_sparse_vs_plain(q, k, v, do, layout, causal, 128), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("block,D", [(16, 64), (32, 16), (48, 40), (64, 128), (128, 72),
+                                     (256, 8)])
+def test_sparse_attention_blocks_and_head_dims(gen, block, D, dtype):
+    """Tiles of 16, 32 and 64 rows under blocks of 16-256, and head dims the
+    bf16 kernels take only zero-padded."""
+    S = 8 * block
+    for causal in (True, False):
+        q, k, v, do, layout = _sparse_case(gen, "bigbird", dtype, causal, S=S, D=D,
+                                           block=block)
+        _sparse_agree(*_sparse_vs_plain(q, k, v, do, layout, causal, block), dtype)
+
+
+def test_sparse_rows_with_no_live_key_are_zero(gen):
+    """A causal call over a layout whose query block 0 sees only key block 1:
+    its rows have no live key, and O and dq are zero there."""
+    layout = torch.tensor([[[0, 1], [1, 1]]], dtype=torch.int32, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.randn(1, 256, 2, 64, generator=gen, device="cuda").to(dtype)
+                       for _ in range(4))
+        got, want, lses = _sparse_vs_plain(q, k, v, do, layout, True, 128)
+        _sparse_agree(got, want, lses, dtype)
+        assert not got[0][:, :128].any() and not got[1][:, :128].any()
+
+
+def test_sparse_attention_autograd_and_rejections(gen):
+    from deeperspeed_tpu_torch.ops.cuda_utils import LAUNCHES
+
+    cfg = sparsity_config.FixedSparsityConfig(num_heads=2, block=64, num_local_blocks=2,
+                                              attention="unidirectional")
+    attn = sparse.SparseSelfAttention(cfg)
+    q, k, v = (torch.randn(1, 256, 2, 32, generator=gen, device="cuda", requires_grad=True)
+               for _ in range(3))
+    LAUNCHES.clear()
+    attn(q, k, v).square().sum().backward()
+    assert [LAUNCHES[n] for n in ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")] \
+        == [1, 1, 1]
+    assert list(attn._on_device) == [(256, q.device)]     # put on the card once
+    layout = attn._on_device[(256, q.device)]
+    x = q.detach()
+    with pytest.raises(ValueError, match="multiples of 16"):
+        sparse._fwd_cuda(x[:, :192], x[:, :192], x[:, :192],
+                         torch.ones(1, 8, 8, dtype=torch.int32, device="cuda"), True, 1.0, 24)
+    with pytest.raises(ValueError, match="fp32/bf16"):
+        sparse._fwd_cuda(x.half(), x.half(), x.half(), layout, True, 1.0, 64)
+    with pytest.raises(ValueError, match="does not fit"):
+        sparse._fwd_cuda(x, x, x, layout[:, :2, :2].contiguous(), True, 1.0, 64)

@@ -2,6 +2,7 @@
 package, its kernel wrappers launch their own kernels on CUDA tensors, and
 chip_smoke.py refuses to run without a card."""
 
+import importlib
 import inspect
 import os
 import re
@@ -18,7 +19,10 @@ from deeperspeed_tpu_torch.ops.attention import flash, paged
 from deeperspeed_tpu_torch.ops.lion import fused_lion
 from deeperspeed_tpu_torch.ops.quantizer import fused
 from deeperspeed_tpu_torch.ops.sampling import topk
-from deeperspeed_tpu_torch.ops.transformer import normalize
+# the package exports the function under the module's name
+sparse_attention = importlib.import_module(
+    "deeperspeed_tpu_torch.ops.sparse_attention.sparse_attention")
+from deeperspeed_tpu_torch.ops.transformer import activations, normalize, softmax
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "deeperspeed_tpu_torch"
@@ -59,6 +63,11 @@ def test_port_imports_no_jax():
         "import deeperspeed_tpu_torch.runtime.zero.stage3\n"
         "import deeperspeed_tpu_torch.runtime.zero.quantized\n"
         "import deeperspeed_tpu_torch.utils.recompute\n"
+        "import deeperspeed_tpu_torch.ops.transformer.activations\n"
+        "import deeperspeed_tpu_torch.ops.transformer.softmax\n"
+        "import deeperspeed_tpu_torch.ops.transformer.transformer\n"
+        "import deeperspeed_tpu_torch.ops.sparse_attention\n"
+        "import deeperspeed_tpu_torch.ops.sparse_attention.sparsity_config\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'deeperspeed_tpu' or m.startswith('deeperspeed_tpu.')]\n"
         "print('LOADED', bad)")
@@ -109,6 +118,11 @@ def test_chip_smoke_and_tools_import_no_jax():
     (fused_adam._adam_cuda, "fused_adam"),
     (fused_lion._lion_cuda, "fused_lion"),
     (fused._dequant_reduce_cuda, "dequant_reduce"),
+    (activations._gelu_cuda, "gelu_fwd"),
+    (activations._dgelu_cuda, "gelu_bwd"),
+    (sparse_attention._fwd_cuda, "sparse_fwd"),
+    (sparse_attention._dq_cuda, "sparse_bwd_dq"),
+    (sparse_attention._dkv_cuda, "sparse_bwd_dkv"),
 ])
 def test_cuda_branch_launches_its_own_kernel(fn, kernel):
     """Each wrapper's CUDA branch calls its ctypes launch, counts it, and
@@ -119,6 +133,39 @@ def test_cuda_branch_launches_its_own_kernel(fn, kernel):
                    "softmax", "einsum", "_reference", "_ref(", "matmul",
                    "scaled_dot_product", "_plain", "_foreach", "torch.optim"):
         assert banned not in src, f"{fn.__name__} uses {banned}"
+
+
+@pytest.mark.parametrize("fn,kernel", [(softmax._fwd_cuda, "softmax_fwd"),
+                                       (softmax._bwd_cuda, "softmax_bwd")])
+def test_softmax_cuda_branch_launches_its_own_kernel(fn, kernel):
+    """B8's CUDA branch (its library is named ``softmax``, so the word
+    itself is not banned here): its own launch, no library softmax."""
+    src = inspect.getsource(fn)
+    assert "library(" in src and f'check(err, "{kernel}")' in src
+    for banned in ("torch.nn.functional", "F.", "torch.softmax", ".softmax(",
+                   "_softmax_backward_data", "_ref(", "exp(", "einsum", "_plain"):
+        assert banned not in src, f"{fn.__name__} uses {banned}"
+
+
+@pytest.mark.parametrize("call,plain", [
+    (lambda: activations.gelu_tanh(torch.ones(4, requires_grad=True)).sum().backward(),
+     (activations, "_gelu_ref")),
+    (lambda: softmax.fused_softmax(torch.ones(2, 4)), (softmax, "_softmax_ref")),
+    (lambda: sparse_attention.sparse_attention(*[torch.ones(1, 32, 1, 16)] * 3,
+                                               [[1, 1], [1, 1]]),
+     (sparse_attention, "_fwd_reference")),
+])
+def test_new_wrappers_on_cuda_launch_or_raise(monkeypatch, call, plain):
+    """Where the accelerator runs the kernels, B8, B9 and B10 go to their
+    CUDA branch, which launches or raises (here: the tensors are not on a
+    card); they never fall back to the plain version."""
+    module, name = plain
+    calls = []
+    monkeypatch.setattr(module, "get_accelerator", lambda device=None: CudaAccelerator())
+    monkeypatch.setattr(module, name, lambda *a: calls.append(a))
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        call()
+    assert not calls
 
 
 @pytest.mark.parametrize("module,step,plain,args", [

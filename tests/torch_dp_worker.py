@@ -14,7 +14,10 @@ to ``OUT.npz``.  Job kinds:
   (the CPU by default); it records the losses, the grad norms, the
   elements of the masters, optimizer state and stage-3 partitions it
   holds, the calls of B5 (its plain version, or the kernel's launches on
-  the card), the warnings, and on rank 0 the final fp32 masters;
+  the card), the warnings, and on rank 0 the final fp32 masters; a run
+  with ``legacy`` steps through ``forward``/``backward``/``step`` (its
+  losses are this rank's), one with ``eval`` also records ``eval_batch``
+  of the first batch after training;
 * ``comm``: each case runs one quantized collective on this rank's input
   ``x/<case>/<rank>``.
 """
@@ -59,7 +62,8 @@ def _train(spec, job, rank, out):
     warnings = []
     engine_module.logger.warning = lambda msg, *a: warnings.append(msg % a if a else msg)
     start = {k[2:]: torch.from_numpy(job[k]) for k in job.files if k.startswith("w/")}
-    batches = [{key: job[f"b{i}/{key}"] for key in ("input_ids", "labels")}
+    keys = sorted({k.split("/", 1)[1] for k in job.files if k.startswith("b0/")})
+    batches = [{key: job[f"b{i}/{key}"] for key in keys}
                for i in range(spec["n_batches"])]
     for run in spec["runs"]:
         name = run["name"]
@@ -74,13 +78,18 @@ def _train(spec, job, rank, out):
         LAUNCHES.clear()
         losses, norms, b5 = [], [], []
         for step in range(run["steps"]):
-            loss = eng.train_batch() if data is not None else eng.train_batch(
-                batch=batches[step])
+            if run.get("legacy"):
+                loss = _legacy_step(eng, batches[step])
+            else:
+                loss = eng.train_batch() if data is not None else eng.train_batch(
+                    batch=batches[step])
             losses.append(float(loss))
             norms.append(eng.get_global_grad_norm())
             b5.append(calls[0] + LAUNCHES["dequant_reduce"])
             calls[0] = 0
             LAUNCHES.clear()
+        if run.get("eval"):
+            out[f"{name}/eval"] = np.array(float(eng.eval_batch(batch=batches[0])))
         out[f"{name}/losses"] = np.array(losses)
         out[f"{name}/grad_norms"] = np.array(norms)
         out[f"{name}/b5_calls"] = np.array(b5)
@@ -94,6 +103,20 @@ def _train(spec, job, rank, out):
         if rank == 0:
             for param, t in final.items():
                 out[f"{name}/final/{param}"] = t.cpu().numpy()
+
+
+def _legacy_step(eng, batch):
+    """One step through ``forward``/``backward``/``step`` over gas global
+    microbatches; returns the mean of this rank's microbatch losses."""
+    gas = eng.gradient_accumulation_steps()
+    per = len(batch["input_ids"]) // gas
+    losses = []
+    for i in range(gas):
+        loss = eng.forward({k: v[i * per:(i + 1) * per] for k, v in batch.items()})
+        eng.backward(loss)
+        losses.append(float(loss))
+    eng.step()
+    return sum(losses) / gas
 
 
 def _comm(spec, job, rank, out):
