@@ -13,7 +13,8 @@ package, and goes through these phases, each printing its lines:
    PyTorch version on the card, with its time, the plain version's, one
    library call's (where one PyTorch call computes the same function), and
    the least time the card could take (bound): serving's K1 LayerNorm
-   forward, K2 paged decode, K3 paged speculative decode, K4 sorted top-k,
+   forward, K2 paged decode (also 4 sequences at a 4096-token context),
+   K3 paged speculative decode, K4 sorted top-k,
    training's K5 flash-attention forward, K7 its dq pass, K6 its dk/dv
    pass and K8 the LayerNorm backward, and the optimizers' B6 fused Adam
    and B7 fused Lion over Pythia-160M's 162,322,944 parameters, and the qgZ
@@ -440,9 +441,10 @@ def phase_kernels(torch):
         return raw[tables.long()].reshape(B, ctx, *pool.shape[2:]).transpose(1, 2) \
             .contiguous().view(pool.dtype)
 
-    def paged_case(B, N, D, ctx, pk, pv, tables, kv_dtype):
-        """Decode and speculative decode over one pair of pools: K2 and K3
-        (``kv_dtype`` None) or K2q and K3q (the pools quantized first)."""
+    def paged_case(B, N, D, ctx, pk, pv, tables, kv_dtype, spec=True):
+        """Decode and (at D 64, unless ``spec`` is False) speculative decode
+        over one pair of pools: K2 and K3 (``kv_dtype`` None) or K2q and K3q
+        (the pools quantized first)."""
         scale = D ** -0.5
         sk = sv = None
         if kv_dtype is not None:
@@ -489,7 +491,7 @@ def phase_kernels(torch):
                     plain_ms=_time_ms(torch, lambda: decode_plain(full), iters=5),
                     library_ms=_time_ms(torch, lambda: library(q[:, :, None, :])),
                     bound_ms=t, bound_by=by))
-        if D != 64:
+        if D != 64 or not spec:
             return
 
         def spec(qs, pos):
@@ -531,6 +533,11 @@ def phase_kernels(torch):
         # fp8 before int8: it is the pool the scheduled path (phase 7) serves from
         for kv_dtype in (None, "fp8", "int8"):
             paged_case(B, N, D, ctx, pk, pv, tables, kv_dtype)
+    # few sequences at long context: one CTA per (sequence, head) gives 48
+    # CTAs on the 132 SMs
+    B, N, D, ctx = 4, 12, 64, 4096
+    pk, pv, tables = pools(B, N, D, ctx)
+    paged_case(B, N, D, ctx, pk, pv, tables, None, spec=False)
 
     # ---- K4: sorted top-k over the GPT-NeoX vocab
     rows, V, k = 64, 50304, 50

@@ -9,7 +9,9 @@ machine does not have, hence ``--noconftest``):
 chip_smoke.py holds the same kernels at the serving and training paths'
 shapes; these tests sweep the edges: odd and large hidden sizes, every
 dtype, head dims and block sizes, every query count, rows with ties, -inf
-and no live token, ragged sequence lengths, causal and full attention, the
+and no live token, ragged sequence lengths (to 4096 tokens), pools that
+are misaligned or of odd head dims, stale block-table ids past a row's
+live blocks, causal and full attention, the
 fused optimizers over flat buffers and over separate (also non-contiguous)
 tensors of many sizes, the fused dequant-reduce (B5) bit for bit over every
 1-byte type, peer count and alignment, two training processes sharing
@@ -101,10 +103,12 @@ def test_paged_spec_decode(gen, S):
     got = paged.paged_spec_decode_attention(q, pk, pv, tables, pos.contiguous())
     want = paged._spec_decode_reference(q, pk, pv, tables, pos, D ** -0.5)
     _close(got, want, torch.bfloat16)
-    if S == 1:
-        dec = paged.paged_decode_attention(q[:, 0].contiguous(), pk, pv, tables,
-                                           (pos[:, 0] + 1).contiguous())
-        assert torch.equal(got[:, 0], dec)
+    # each query sums in the same order whatever S is: query sq of the
+    # S-wide launch equals a plain decode at that query's length, bit for bit
+    for sq in range(S):
+        dec = paged.paged_decode_attention(q[:, sq].contiguous(), pk, pv, tables,
+                                           (pos[:, sq] + 1).contiguous())
+        assert torch.equal(got[:, sq], dec)
 
 
 def test_paged_row_with_no_live_token_is_zero(gen):
@@ -222,6 +226,113 @@ def test_paged_quantized_counts_and_rejections(gen):
     with pytest.raises(TypeError):      # scales in another type
         paged.paged_decode_attention(q, qk, qv, tables, lens, k_scale=sk.half(),
                                      v_scale=sv.half())
+
+
+# The walk's edges, over every pool kind: long ragged contexts, one or two
+# rows, pools that force the element-by-element loads, stale table entries.
+POOL_KINDS = ["fp32", "bf16", "fp16"] + KV_DTYPES
+FP_POOLS = {"fp32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
+
+
+def _kind_case(gen, kind, B, N, D, bs, M, P, offset=0):
+    """(q's dtype, pool_k, pool_v, tables, scales) for one pool kind; the
+    pools start ``offset`` elements into their storage."""
+    if kind in KV_DTYPES:
+        pk, pv, sk, sv, tables = _quantized_pools(gen, B, N, D, bs, M, P, kind)
+        dtype, scales = torch.bfloat16, {"k_scale": sk, "v_scale": sv}
+    else:
+        dtype, scales = FP_POOLS[kind], {}
+        pk, pv, tables = _pools(gen, B, N, D, bs, M, P, dtype)
+    if offset:
+        def shifted(pool):
+            flat = torch.empty(pool.numel() + offset, dtype=pool.dtype, device="cuda")
+            view = flat[offset:].view(pool.shape)
+            view.view(torch.uint8).copy_(pool.view(torch.uint8))
+            return view
+        pk, pv = shifted(pk), shifted(pv)
+    return dtype, pk, pv, tables, scales
+
+
+def _decode_and_spec(gen, q, pk, pv, tables, lens, scales, S, dtype):
+    """Decode at ``lens`` and an S-wide speculative launch whose last query
+    sits at ``lens - 1``, each against its plain version; every query of
+    the S-wide launch equals a decode at its own length bit for bit."""
+    B, N, D = q.shape
+    got = paged.paged_decode_attention(q, pk, pv, tables, lens, **scales)
+    _close(got, paged._decode_reference(q, pk, pv, tables, lens, D ** -0.5, **scales), dtype)
+    qs = torch.randn(B, S, N, D, generator=gen, device="cuda").to(dtype)
+    pos = (lens[:, None] - S + torch.arange(S, device="cuda")).clamp(min=0).to(torch.int32)
+    spec = paged.paged_spec_decode_attention(qs, pk, pv, tables, pos, **scales)
+    _close(spec, paged._spec_decode_reference(qs, pk, pv, tables, pos, D ** -0.5, **scales),
+           dtype)
+    for sq in range(S):
+        dec = paged.paged_decode_attention(qs[:, sq].contiguous(), pk, pv, tables,
+                                           (pos[:, sq] + 1).contiguous(), **scales)
+        assert torch.equal(spec[:, sq], dec)
+    return got
+
+
+@pytest.mark.parametrize("kind", POOL_KINDS)
+@pytest.mark.parametrize("D", [64, 128])
+def test_paged_long_ragged_context(gen, D, kind):
+    # 256 blocks of 16; the lengths end at every offset of a 16-token walk
+    # step (4 warps of 4, 2 or 1 token slots), and one row is full
+    N, bs, M = 2, 16, 256
+    lens = torch.cat([16 * 180 + torch.arange(16), torch.tensor([M * bs])]).to(
+        torch.int32).cuda()
+    B = lens.numel()
+    dtype, pk, pv, tables, scales = _kind_case(gen, kind, B, N, D, bs, M, B * M)
+    q = torch.randn(B, N, D, generator=gen, device="cuda").to(dtype)
+    _decode_and_spec(gen, q, pk, pv, tables, lens, scales, 8, dtype)
+
+
+@pytest.mark.parametrize("kind", POOL_KINDS)
+@pytest.mark.parametrize("B", [1, 2])
+def test_paged_one_and_two_rows(gen, B, kind):
+    N, D, bs, M = 12, 64, 16, 64
+    dtype, pk, pv, tables, scales = _kind_case(gen, kind, B, N, D, bs, M, 2 * M)
+    q = torch.randn(B, N, D, generator=gen, device="cuda").to(dtype)
+    lens = torch.tensor([1000, 37][:B], dtype=torch.int32, device="cuda")
+    _decode_and_spec(gen, q, pk, pv, tables, lens, scales, 4, dtype)
+
+
+@pytest.mark.parametrize("kind", POOL_KINDS)
+@pytest.mark.parametrize("D,offset", [(64, 2), (100, 0), (100, 2)])
+def test_paged_unaligned_pools_and_odd_head_dim(gen, D, offset, kind):
+    # a pool 2 elements into its storage, or rows of 100 elements, leave the
+    # 16-byte (8-byte) loads misaligned: the kernel loads element by element
+    B, N, bs, M = 5, 3, 16, 6
+    dtype, pk, pv, tables, scales = _kind_case(gen, kind, B, N, D, bs, M, 4 * M, offset)
+    assert (pk.data_ptr() % 16 != 0) == (offset != 0)
+    q = torch.randn(B, N, D, generator=gen, device="cuda").to(dtype)
+    lens = torch.tensor([1, bs, bs + 1, M * bs - 3, M * bs], dtype=torch.int32,
+                        device="cuda")
+    _decode_and_spec(gen, q, pk, pv, tables, lens, scales, 3, dtype)
+
+
+@pytest.mark.parametrize("kind", POOL_KINDS)
+def test_paged_stale_table_entries_are_never_read(gen, kind):
+    # served tables may hold stale ids past a row's live blocks: an id out of
+    # the pool there changes nothing and raises no CUDA error
+    B, N, D, bs, M = 4, 3, 64, 16, 8
+    dtype, pk, pv, tables, scales = _kind_case(gen, kind, B, N, D, bs, M, 4 * M)
+    q = torch.randn(B, N, D, generator=gen, device="cuda").to(dtype)
+    lens = torch.tensor([0, 17, 64, M * bs - 1], dtype=torch.int32, device="cuda")
+    live = (lens + bs - 1) // bs
+    stale = tables.clone()
+    dead = torch.arange(M, device="cuda")[None, :] >= live[:, None]
+    stale[dead] = torch.where(torch.arange(int(dead.sum()), device="cuda") % 2 == 0,
+                              2 ** 30, -1).to(torch.int32)
+    want = paged.paged_decode_attention(q, pk, pv, tables, lens, **scales)
+    got = paged.paged_decode_attention(q, pk, pv, stale, lens, **scales)
+    qs = torch.randn(B, 4, N, D, generator=gen, device="cuda").to(dtype)
+    # row 0's queries sit before token 0 and see nothing, as its decode
+    pos = (lens[:, None] - 4 + torch.arange(4, device="cuda")).to(torch.int32)
+    spec_want = paged.paged_spec_decode_attention(qs, pk, pv, tables, pos, **scales)
+    spec_got = paged.paged_spec_decode_attention(qs, pk, pv, stale, pos, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(spec_got, spec_want)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
 
 
 @pytest.mark.parametrize("V,k", [(7, 7), (1000, 1), (1000, 64), (50304, 50)])
