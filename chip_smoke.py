@@ -13,10 +13,12 @@ package, and goes through these phases, each printing its lines:
    PyTorch version on the card, with its time, the plain version's, one
    library call's (where one PyTorch call computes the same function), and
    the least time the card could take (bound): serving's K1 LayerNorm
-   forward, K2 paged decode (also 4 sequences at a 4096-token context),
-   K3 paged speculative decode, K4 sorted top-k,
-   training's K5 flash-attention forward, K7 its dq pass, K6 its dk/dv
-   pass and K8 the LayerNorm backward, and the optimizers' B6 fused Adam
+   forward (also its kernel alone, from a CUDA graph of bare launches, and
+   one call's host microseconds at a decode round's 64 rows), K2 paged
+   decode (also 4 sequences at a 4096-token context), K3 paged speculative
+   decode, K4 sorted top-k, training's K5 flash-attention forward, K7 its
+   dq pass, K6 its dk/dv pass (also at one 4096-token sequence) and K8 the
+   LayerNorm backward, and the optimizers' B6 fused Adam
    and B7 fused Lion over Pythia-160M's 162,322,944 parameters, and the qgZ
    gradient path's B5 fused dequant-reduce at its largest shape (the input
    embedding at world 2, [2, 150912, 128]) over int8, fp8 e5m2 and e4m3,
@@ -342,6 +344,43 @@ def _time_ms(torch, fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def _graph_ms(torch, fn, iters=20):
+    """Mean device time of ``fn``'s launches alone: ``iters`` calls captured
+    in one CUDA graph, its replay timed with CUDA events (no host work
+    between the launches)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def _host_us(torch, fn, iters=200):
+    """Host microseconds of one call of ``fn``: a loop of calls on the host
+    clock with no synchronize inside, over the count."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
 def _close(torch, got, want, atol, rtol, what):
     err = (got.float() - want.float()).abs()
     bad = err > atol + rtol * want.float().abs()
@@ -383,10 +422,12 @@ def flash_close(torch, got, want, what, tol=FLASH_TOL):
 def _reporter(rows_out):
     def report(key, line, entry):
         lib = entry["library_ms"]
+        extra = "".join(f" {k}={entry[k]:.4f}" for k in (
+            "device_ms", "library_device_ms", "host_us", "library_host_us") if k in entry)
         print(f"[kernels] {line}: max_abs_err={entry['max_abs_err']:.3e} "
               f"ms={entry['ms']:.4f} plain_ms={entry['plain_ms']:.4f} "
               f"library_ms={'none' if lib is None else f'{lib:.4f}'} "
-              f"bound_ms={entry['bound_ms']:.4f} ({entry['bound_by']})",
+              f"bound_ms={entry['bound_ms']:.4f} ({entry['bound_by']}){extra}",
               flush=True)
         rows_out.setdefault(key, entry)     # the first shape is the path's
     return report
@@ -408,22 +449,35 @@ def phase_kernels(torch):
     report = _reporter(rows_out)
 
     # ---- K1: LayerNorm forward, decode-round rows and prefill rows, bf16
+    # x, gamma and beta (the served model's types).  ms is the call through
+    # the public function, which at both row counts is the host's enqueue
+    # rate, so it and the library's are averaged over 200 calls (a single
+    # host stall moves a 20-call mean by several microseconds); device_ms
+    # is the kernel alone (20 bare launches in a CUDA graph); host_us is
+    # one call's host time, with no synchronize in the loop.
     H = 768
     for rows in (64, 4096):
         x = torch.randn(rows, H, generator=gen, device=dev).to(bf16)
-        g = 1 + 0.1 * torch.randn(H, generator=gen, device=dev)
-        b = 0.1 * torch.randn(H, generator=gen, device=dev)
+        g = (1 + 0.1 * torch.randn(H, generator=gen, device=dev)).to(bf16)
+        b = (0.1 * torch.randn(H, generator=gen, device=dev)).to(bf16)
         y = normalize.layer_norm(x, g, b)
         ref = normalize._ln_ref(x, g, b, 1e-5, False)
         err = _close(torch, y, ref, 1e-2, 1e-2, f"layer_norm rows={rows}")
-        gb, bb = g.to(bf16), b.to(bf16)
-        t, by = _bound(2 * rows * H * 2 + 2 * H * 4, 8 * rows * H, bf16)
-        report("layer_norm", f"K1 layer_norm rows={rows} H={H} bf16", dict(
+        t, by = _bound(2 * rows * H * 2 + 2 * H * 2, 8 * rows * H, bf16)
+        entry = dict(
             max_abs_err=err,
-            ms=_time_ms(torch, lambda: normalize.layer_norm(x, g, b)),
+            ms=_time_ms(torch, lambda: normalize.layer_norm(x, g, b), iters=200),
             plain_ms=_time_ms(torch, lambda: normalize._ln_ref(x, g, b, 1e-5, False)),
-            library_ms=_time_ms(torch, lambda: F.layer_norm(x, (H,), gb, bb, 1e-5)),
-            bound_ms=t, bound_by=by))
+            library_ms=_time_ms(torch, lambda: F.layer_norm(x, (H,), g, b, 1e-5), iters=200),
+            bound_ms=t, bound_by=by,
+            device_ms=_graph_ms(torch, lambda: normalize._ln_cuda(x, g, b, 1e-5, False)),
+            library_device_ms=_graph_ms(torch, lambda: F.layer_norm(x, (H,), g, b, 1e-5)))
+        if rows == 64:
+            with torch.inference_mode():
+                entry["host_us"] = _host_us(torch, lambda: normalize.layer_norm(x, g, b))
+                entry["library_host_us"] = _host_us(
+                    torch, lambda: F.layer_norm(x, (H,), g, b, 1e-5))
+        report("layer_norm", f"K1 layer_norm rows={rows} H={H} bf16", entry)
 
     # ---- K2 / K3 over a scattered bf16 pool, and K2q / K3q over the same
     # values quantized into 1-byte pools with per-(slot, head) fp32 scales
@@ -572,9 +626,10 @@ def phase_training_kernels(torch, rows_out):
     report = _reporter(rows_out)
 
     # the training shape first (B 16, S 1024, N 12, D 64, causal), then a
-    # ragged S, D 128 and full (non-causal) attention
+    # ragged S, D 128, full (non-causal) attention and one long sequence
     for B, S, N, D, causal in ((16, 1024, 12, 64, True), (4, 1000, 12, 64, True),
-                               (4, 1024, 16, 128, True), (4, 1024, 12, 64, False)):
+                               (4, 1024, 16, 128, True), (4, 1024, 12, 64, False),
+                               (1, 4096, 12, 64, True)):
         q, k, v, do = (torch.randn(B, S, N, D, generator=gen, device=dev).to(bf16)
                        for _ in range(4))
         what = f"B={B} S={S} N={N} D={D} {'causal' if causal else 'full'} bf16"
@@ -2136,6 +2191,8 @@ def main():
                         "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                         "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
                         "bound_by": e["bound_by"], "library_ms": e["library_ms"]})
+        if "device_ms" in e:
+            kernels[-1]["device_ms"] = e["device_ms"]
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,12 +24,13 @@
 //
 // Two implementations of each kernel, one per type:
 //
-// * bf16 runs the tensor-core kernels of namespace `tc` (`mma.sync` bf16
-//   tiles, fp32 accumulators in registers; described there).  They take D
-//   a multiple of 16 (every preset: D 64, 96, 128) and 16-byte aligned
-//   operands; the wrapper zero-pads D = 8 mod 16 and copies a misaligned
-//   view, and the launcher refuses anything else.  `wgmma`/TMA pipelines
-//   are later work.
+// * bf16 runs tensor-core kernels.  The forward (K5) is the Hopper kernel
+//   of namespace `hopper`: TMA loads into a two-stage ring and `wgmma`
+//   products (described there).  The backward passes (K7, K6) are the
+//   `mma.sync` kernels of namespace `tc`.  All take D a multiple of 16
+//   (every preset: D 64, 80, 128) and 16-byte aligned operands; the
+//   wrapper zero-pads D = 8 mod 16 and copies a misaligned view, and the
+//   launcher refuses anything else.
 // * fp32 runs the CUDA-core kernels below:
 //   256 threads per CTA as a 16 x 16 grid; thread (ty, tx) owns the four
 //   tile rows 4ty..4ty+3 and the columns tx + 16j.  Every operand tile
@@ -43,6 +44,8 @@
 // every product accumulates in fp32.  Causal tiles wholly above the diagonal are skipped;
 // the ragged edge (S not a multiple of 64) is masked by bounds, with no
 // padding copies.
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
+
 #include <cstdint>
 
 #include "common.cuh"
@@ -350,10 +353,10 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 
 // ------------------------------------------------------------------------
-// Tensor-core path (bf16, D a multiple of 16): FlashAttention-2's register-
-// resident design on `mma.sync.m16n8k16` (bf16 in, fp32 accumulate).  128
-// threads (4 warps) per CTA; warp w owns rows 16w..16w+15 of the CTA's
-// 64-row tile (q rows for K5/K7, k rows for K6).  Operand tiles are staged
+// Tensor-core backward (bf16, D a multiple of 16): FlashAttention-2's
+// register-resident design on `mma.sync.m16n8k16` (bf16 in, fp32
+// accumulate).  128 threads (4 warps) per CTA; warp w owns rows
+// 16w..16w+15 of the CTA's 64-row tile (q rows for K7, k rows for K6).  Operand tiles are staged
 // in shared memory as bf16 with a row pitch of D + 8 (so a fragment load
 // hits 32 distinct banks); scores, P, dS and the output accumulators stay
 // in registers.  A lane holds the scores of two rows (g = lane / 4 and
@@ -489,81 +492,6 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ out, const float (
 
 template <int DT>
 __global__ void __launch_bounds__(THREADS)
-fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-           bf16* __restrict__ o, float* __restrict__ lse, int S, int N, int causal) {
-  constexpr int D = DT * 16, LD = D + 8;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + TILE * LD;
-  bf16* Vs = Ks + TILE * LD;
-  const int bh = blockIdx.x, b = bh / N, n = bh % N;
-  const int qt = gridDim.y - 1 - blockIdx.y;
-  const int q0 = qt * TILE;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row = q0 + 16 * warp + g;   // and row + 8
-
-  load_tile(Qs, q, b, n, q0, S, N, D);
-  float m[2] = {DST_NEG_INF, DST_NEG_INF}, l[2] = {0.f, 0.f};
-  float acc[2 * DT][4];
-#pragma unroll
-  for (int dt = 0; dt < 2 * DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  const int nk = (S + TILE - 1) / TILE;
-  const int kt_end = causal ? qt + 1 : nk;
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * TILE;
-    __syncthreads();
-    load_tile(Ks, k, b, n, k0, S, N, D);
-    load_tile(Vs, v, b, n, k0, S, N, D);
-    __syncthreads();
-    float s[8][4];
-    scores<DT>(s, Qs, Ks, warp, g, t);
-    const bool edge = (causal && kt == qt) || k0 + TILE > S;
-    float mx[2] = {DST_NEG_INF, DST_NEG_INF};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        // rows >= S are computed on zeros and never stored
-        if (edge && !live(row + 8 * (i >> 1), k0 + 8 * nt + 2 * t + (i & 1), S, causal))
-          s[nt][i] = DST_NEG_INF;
-        mx[i >> 1] = fmaxf(mx[i >> 1], s[nt][i]);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float m_new = fmaxf(m[h], quad_max(mx[h]));
-      alpha[h] = expf(m[h] - m_new);
-      m[h] = m_new;
-    }
-    float psum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[nt][i] = expf(s[nt][i] - m[i >> 1]);
-        psum[i >> 1] += s[nt][i];
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + quad_sum(psum[h]);
-#pragma unroll
-    for (int dt = 0; dt < 2 * DT; ++dt) {
-      acc[dt][0] *= alpha[0];
-      acc[dt][1] *= alpha[0];
-      acc[dt][2] *= alpha[1];
-      acc[dt][3] *= alpha[1];
-    }
-    accumulate<DT>(acc, s, Vs, g, t);
-  }
-  store_rows<DT>(o, acc, b, n, row, S, N, t, 1.f / l[0], 1.f / l[1]);
-  if (t == 0) {
-    if (row < S) lse[(size_t)bh * S + row] = m[0] + logf(l[0]);
-    if (row + 8 < S) lse[(size_t)bh * S + row + 8] = m[1] + logf(l[1]);
-  }
-}
-
-template <int DT>
-__global__ void __launch_bounds__(THREADS)
 dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
           const bf16* __restrict__ dout, const float* __restrict__ lse,
           const float* __restrict__ delta, bf16* __restrict__ dq, int S, int N, int causal) {
@@ -681,6 +609,385 @@ inline size_t tile_bytes(int D) { return (size_t)TILE * (D + 8) * sizeof(bf16); 
 
 }  // namespace tc
 
+// ------------------------------------------------------------------------
+// K5 on Hopper (bf16, D a multiple of 16 up to 128).
+//
+// One CTA is one warpgroup (128 threads) and owns a 64-row q tile of one
+// (b, n) head; warp w owns rows 16w..16w+15, as in `tc`.  Heavy causal
+// tiles are scheduled first.
+//
+// Loads: TMA, one tensor map each for q, k and v over their [B, S, N, D]
+// layout (dims (D, N, S, B), no fold copy), a box of 64 columns x 1 head x
+// 64 rows with 128-byte swizzle; D > 64 takes two boxes.  TMA zero-fills
+// columns past D and rows past S.  Q is loaded once; K and V go through a
+// two-stage ring with one mbarrier a stage, armed with `expect_tx` for the
+// full boxes (out-of-bounds bytes count).  Thread 0 issues tile j + 1's
+// loads before tile j's math; a barrier at the end of tile j frees its
+// stage for tile j + 2.
+//
+// Products: S = Q K^T by `wgmma m64n64k16` with Q and K both K-major in
+// shared memory (D / 16 k-steps, each 32 bytes further along the swizzled
+// 128-byte rows).  O += P V by `wgmma m64n64k16` with P as the register A
+// operand (the score accumulator's layout rounded to bf16, as `tc` packs
+// it) and V as an MN-major B operand (the transpose bit), one 64-column
+// box at a time: D 80..112 compute the zero columns of the second box,
+// which the epilogue drops.  In each warp the `wgmma` accumulator has the
+// `mma.sync` m16n8 C layout over its 16 rows, so the masking, the online
+// softmax (fp32, `quad_max`/`quad_sum`, the alpha rescale) and the
+// epilogue are `tc`'s.  exp(x) is taken as exp2(x log2 e): at 64 exps per
+// 64 x 64 x D product the softmax's instructions, not the tensor cores,
+// set a tile's time, and `expf`'s range reduction costs more than the
+// multiply.
+//
+// Bound: near the card's balance point at S 1024, D 64 (bytes for the
+// causal training shape, operations without the mask).  What holds it
+// back: one warpgroup runs its S product, its softmax and its P V product
+// in turn, so the tensor cores idle during the softmax unless another CTA
+// of the SM (5 at D <= 64 by registers, 2 above by shared memory) fills
+// the gap.
+//
+// Rounding: P to bf16 before P V, every sum in fp32; O in bf16, LSE
+// m + log l in fp32.
+namespace hopper {
+
+constexpr int THREADS = 128;                 // one warpgroup
+constexpr uint32_t BOX_BYTES = TILE * 128;   // 64 rows of 64 bf16 columns
+constexpr uint32_t ATOM_BYTES = 1024;        // 8 swizzled 128-byte rows
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete.  A load that never
+// lands traps after ~10 s instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  long long t0 = 0;
+  while (true) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (t0 == 0) t0 = clock64();
+    else if (clock64() - t0 > 20000000000LL) __trap();
+  }
+}
+
+// One box of a [B, S, N, D] tensor: columns c0.., head n, rows s0.., batch b.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int n, int s0, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(n), "r"(s0),
+        "r"(b)
+      : "memory");
+}
+
+// A shared-memory matrix descriptor with 128-byte swizzle; byte offsets
+// `lbo` and `sbo` (the tile bases are 1024-byte aligned, so base offset 0).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous products.
+__device__ __forceinline__ void fence_regs(float (&d)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(d[i][j])::"memory");
+}
+
+#define DST_WG_D32(d)                                                                     \
+  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),   \
+      "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]),             \
+      "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),             \
+      "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]),             \
+      "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]),             \
+      "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+
+#define DST_WG_REGS32                                                                     \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d (+)= A B for a 64 x 64 x 16 step, A and B K-major in shared memory;
+// d is overwritten when `accumulate` is 0.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DST_WG_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : DST_WG_D32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B for a 64 x 64 x 16 step, A (bf16 pairs) in registers, B
+// MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DST_WG_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : DST_WG_D32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// K and V tile kt of head (b, n) into stage kt & 1 of the ring at `ring`
+// (K then V, DB boxes each), arming the stage's mbarrier for the full boxes
+// (out-of-bounds bytes count).
+template <int DB>
+__device__ __forceinline__ void load_kv(uint32_t ring, uint32_t bars, const CUtensorMap* tk,
+                                        const CUtensorMap* tv, int kt, int n, int b) {
+  constexpr uint32_t TILE_BYTES = DB * BOX_BYTES;
+  const int st = kt & 1;
+  const uint32_t kst = ring + 2 * TILE_BYTES * st;
+  const uint32_t bar = bars + 8 + 8 * st;
+  mbar_expect_tx(bar, 2 * TILE_BYTES);
+#pragma unroll
+  for (int box = 0; box < DB; ++box) {
+    tma_load(kst + box * BOX_BYTES, tk, bar, 64 * box, n, kt * TILE, b);
+    tma_load(kst + TILE_BYTES + box * BOX_BYTES, tv, bar, 64 * box, n, kt * TILE, b);
+  }
+}
+
+// S = Q K^T for one key tile (DT k-steps of 16, each 32 bytes further along
+// the swizzled 128-byte rows; the second box from k-step 4), issued and
+// committed; the caller waits.
+template <int DT>
+__device__ __forceinline__ void issue_scores(float (&s)[8][4], uint32_t qs, uint32_t kst) {
+  fence_regs(s);
+  wg_fence();
+#pragma unroll
+  for (int ks = 0; ks < DT; ++ks) {
+    const uint32_t off = (ks >> 2) * BOX_BYTES + (ks & 3) * 32;
+    wgmma_ss(s, desc(qs + off, 16, ATOM_BYTES), desc(kst + off, 16, ATOM_BYTES), ks > 0);
+  }
+  wg_commit();
+}
+
+template <int DT>
+__global__ void __launch_bounds__(THREADS)
+fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+           const __grid_constant__ CUtensorMap tv, tc::bf16* __restrict__ o,
+           float* __restrict__ lse, int S, int N, int causal) {
+  constexpr int D = DT * 16;
+  constexpr int DB = (DT + 3) / 4;                 // 64-column boxes a tile
+  constexpr uint32_t TILE_BYTES = DB * BOX_BYTES;
+  constexpr float L2E = 1.4426950408889634f;      // exp(x) = exp2(x log2 e)
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // Q | K stage 0 | V stage 0 | K stage 1 | V stage 1 | 3 mbarriers
+  const uint32_t qs = smem_addr(smem_raw);
+  if (qs & (ATOM_BYTES - 1)) __trap();             // the swizzle needs 1024-byte tiles
+  const uint32_t ring = qs + TILE_BYTES;
+  const uint32_t bars = ring + 4 * TILE_BYTES;     // Q's, then stage 0's and 1's
+  const int bh = blockIdx.x, b = bh / N, n = bh % N;
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int q0 = qt * TILE;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row = q0 + 16 * warp + g;   // and row + 8
+  const int nk = (S + TILE - 1) / TILE;
+  // causal: the key tiles up to the one holding the tile's last row
+  const int kt_end = causal ? min(nk, (q0 + 2 * TILE - 1) / TILE) : nk;
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bars, TILE_BYTES);
+#pragma unroll
+    for (int box = 0; box < DB; ++box)
+      tma_load(qs + box * BOX_BYTES, &tq, bars, 64 * box, n, q0, b);
+    load_kv<DB>(ring, bars, &tk, &tv, 0, n, b);
+  }
+  __syncwarp();
+
+  float m[2] = {DST_NEG_INF, DST_NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[DB][8][4];
+  float s[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
+#pragma unroll
+  for (int c = 0; c < DB; ++c)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[c][nt][i] = 0.f;
+  mbar_wait(bars, 0);
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int st = kt & 1;
+    if (tid == 0 && kt + 1 < kt_end)   // its stage was freed at the end of kt - 1
+      load_kv<DB>(ring, bars, &tk, &tv, kt + 1, n, b);
+    __syncwarp();
+    mbar_wait(bars + 8 + 8 * st, (kt >> 1) & 1);
+    __syncwarp();
+    const uint32_t kst = ring + 2 * TILE_BYTES * st;
+    const uint32_t vst = kst + TILE_BYTES;
+    issue_scores<DT>(s, qs, kst);
+    wg_wait_all();
+    fence_regs(s);
+
+    const int k0 = kt * TILE;
+    // masked: a tile reaching past this q tile's first row (causal), or the ragged edge
+    const bool edge = (causal && k0 + TILE - 1 > q0) || k0 + TILE > S;
+    float mx[2] = {DST_NEG_INF, DST_NEG_INF};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // rows >= S are computed on zeros and never stored
+        if (edge && !live(row + 8 * (i >> 1), k0 + 8 * nt + 2 * t + (i & 1), S, causal))
+          s[nt][i] = DST_NEG_INF;
+        mx[i >> 1] = fmaxf(mx[i >> 1], s[nt][i]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m[h], tc::quad_max(mx[h]));
+      alpha[h] = exp2f((m[h] - m_new) * L2E);
+      m[h] = m_new;
+    }
+#pragma unroll
+    for (int c = 0; c < DB; ++c) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        acc[c][nt][0] *= alpha[0];
+        acc[c][nt][1] *= alpha[0];
+        acc[c][nt][2] *= alpha[1];
+        acc[c][nt][3] *= alpha[1];
+      }
+      fence_regs(acc[c]);
+    }
+    // P = exp(S - m) straight into the A operand, rounded to bf16; keys
+    // 16kk.. are score tiles 2kk and 2kk + 1
+    float psum[2] = {0.f, 0.f};
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float e[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          e[j][i] = exp2f((s[2 * kk + j][i] - m[i >> 1]) * L2E);
+          psum[i >> 1] += e[j][i];
+        }
+      pa[kk][0] = tc::pack(e[0][0], e[0][1]);
+      pa[kk][1] = tc::pack(e[0][2], e[0][3]);
+      pa[kk][2] = tc::pack(e[1][0], e[1][1]);
+      pa[kk][3] = tc::pack(e[1][2], e[1][3]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + tc::quad_sum(psum[h]);
+
+    // O += P V, one 64-column box of V at a time
+    wg_fence();
+#pragma unroll
+    for (int c = 0; c < DB; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc[c], pa[kk], desc(vst + c * BOX_BYTES + kk * 2 * ATOM_BYTES, BOX_BYTES,
+                                      ATOM_BYTES));
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int c = 0; c < DB; ++c) fence_regs(acc[c]);
+    __syncthreads();   // every warp is done with this stage before it is refilled
+  }
+
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    if (r >= S) continue;
+    tc::bf16* base = o + row_off(b, r, n, S, N, D) + 2 * t;
+#pragma unroll
+    for (int dt = 0; dt < 2 * DT; ++dt)
+      *reinterpret_cast<uint32_t*>(base + 8 * dt) =
+          tc::pack(acc[dt >> 3][dt & 7][2 * h] * inv[h], acc[dt >> 3][dt & 7][2 * h + 1] * inv[h]);
+  }
+  if (t == 0) {
+    if (row < S) lse[(size_t)bh * S + row] = m[0] + logf(l[0]);
+    if (row + 8 < S) lse[(size_t)bh * S + row + 8] = m[1] + logf(l[1]);
+  }
+}
+
+#undef DST_WG_D32
+#undef DST_WG_REGS32
+
+// Q, a two-stage ring of K and V, and three mbarriers.
+template <int DT>
+constexpr size_t smem_bytes() {
+  return 5 * (size_t)((DT + 3) / 4) * BOX_BYTES + 3 * 8;
+}
+
+// cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPoint (the
+// library links no libcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a [B, S, N, D] bf16 tensor as dims (D, N, S, B), with a
+// box of 64 columns x 1 head x 64 rows, 128-byte swizzle, zero fill.
+bool head_map(CUtensorMap* map, const void* base, int B, int S, int N, int D) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)N * D * 2,
+                                 (cuuint64_t)S * N * D * 2};
+  const cuuint32_t box[4] = {64, 1, TILE, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+}  // namespace hopper
+
 // ------------------------------------------------------------------ launchers
 template <typename K>
 cudaError_t prepare(K kernel, size_t smem) {
@@ -767,10 +1074,15 @@ cudaError_t launch_tc(int which, const Args& a, cudaStream_t stream) {
   const bf16* v = static_cast<const bf16*>(a.v);
   cudaError_t e;
   if (which == 0) {
-    const size_t smem = 3 * tc::tile_bytes(D);
-    if ((e = prepare(tc::fwd_kernel<DT>, smem)) != cudaSuccess) return e;
-    tc::fwd_kernel<DT><<<grid, tc::THREADS, smem, stream>>>(
-        q, k, v, static_cast<bf16*>(a.o), a.lse_out, a.S, a.N, a.causal);
+    CUtensorMap tq, tk, tv;
+    if (!hopper::head_map(&tq, q, a.B, a.S, a.N, D) ||
+        !hopper::head_map(&tk, k, a.B, a.S, a.N, D) ||
+        !hopper::head_map(&tv, v, a.B, a.S, a.N, D))
+      return cudaErrorInvalidValue;
+    const size_t smem = hopper::smem_bytes<DT>();
+    if ((e = prepare(hopper::fwd_kernel<DT>, smem)) != cudaSuccess) return e;
+    hopper::fwd_kernel<DT><<<grid, hopper::THREADS, smem, stream>>>(
+        tq, tk, tv, static_cast<bf16*>(a.o), a.lse_out, a.S, a.N, a.causal);
   } else if (which == 1) {
     const size_t smem = 4 * tc::tile_bytes(D);
     if ((e = prepare(tc::dq_kernel<DT>, smem)) != cudaSuccess) return e;

@@ -9,70 +9,303 @@
 // (4 B/element in bf16) against ~8 flops of fp32 arithmetic, far below the
 // card's ~20 flops/byte balance point for fp32 CUDA-core math.
 //
-// Design: one CTA per row.  The CTA loads its row once into shared memory
-// as fp32, takes the mean with a block reduction, then the CENTRED variance
-// sum((x - mean)^2) over the held values (what the TPU kernel does, not
-// E[x^2] - mean^2), and writes (x - mean) * rsqrt(var + eps) * gamma (+ beta)
-// in the input's type.  `rms` skips the mean (RMSNorm).  gamma and beta are
-// fp32; x and y are fp32, bf16 or fp16.  Any H is taken: the row lives in
-// dynamic shared memory (H * 4 bytes).
+// What K1 computes: fp32 statistics, the CENTRED variance
+// mean((x - mean)^2) (what the TPU kernel does, not E[x^2] - mean^2), and
+// (x - mean) * rsqrt(var + eps) * gamma (+ beta) in x's type.  `rms` skips
+// the mean (RMSNorm).  x and y are fp32, bf16 or fp16; gamma and beta come
+// in their own type (fp32, bf16 or fp16, the same for both) and are upcast
+// in registers, which is exact.
+//
+// Design: the row lives in registers, so x is read from device memory once
+// and the variance is a second sum over the held values.
+//
+// * A warp per row for H <= 32 * 8 vectors (2048 in a 2-byte type, 1024 in
+//   fp32).  A CTA of ROW_WARPS warps takes that many consecutive rows.  Lane
+//   l holds the vectors l, l + 32, ...; a vector is 16 bytes of x (8 bf16 or
+//   fp16 values, 4 fp32), so neighbouring lanes load and store neighbouring
+//   16-byte words.  The sums are warp shuffle trees: no shared memory, no
+//   barrier.
+// * A CTA per row above that: the same layout with the CTA's threads in
+//   place of the lanes, the warps' shuffle sums crossing through one small
+//   shared array per statistic (two barriers a row).  Up to 512 threads of
+//   32 values (4 vectors in a 2-byte type, 8 in fp32) hold H <= 16,384; a
+//   wider row loops over the row and reads x again from L2 for each pass.
+// * When H is not a multiple of the vector width or x, y, gamma or beta is
+//   not 16-byte aligned, the same kernel loads and stores element by element
+//   into the same registers: one grid-uniform flag decided at launch.
+// * Every sum runs in a fixed order (per thread in vector order, then fixed
+//   shuffle trees, then warps in order), with no atomics: two launches give
+//   the same bits.
+#include <cstdint>
+
 #include "common.cuh"
 
-template <typename T>
-__global__ void ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                              const float* __restrict__ beta, T* __restrict__ y, int H,
-                              float eps, int rms) {
-  extern __shared__ float row[];
-  __shared__ float scratch[32];
-  const size_t base = (size_t)blockIdx.x * H;
-  float local = 0.f;
-  for (int i = threadIdx.x; i < H; i += blockDim.x) {
-    const float v = dst_to_float(x[base + i]);
-    row[i] = v;
-    local += v;
+namespace {
+
+constexpr int ROW_WARPS = 4;       // rows (one warp each) per CTA, small H
+constexpr int MAX_VECS = 8;        // vectors a thread holds in registers
+constexpr int CTA_THREADS = 512;   // most threads of a CTA per row (128 registers)
+constexpr int CTA_VALUES = 32;     // values a thread of a CTA per row holds
+constexpr int LOOP = 0;            // NV of the variant that loops over a wide row
+
+// The 32-bit words of one vector of N values of type T, loaded with 16-byte
+// (or 8-byte) loads; and the values of a word.
+template <typename T, int N>
+struct Words {
+  static constexpr int W = (int)sizeof(T) * N / 4;
+  uint32_t w[W];
+};
+
+template <typename T, int N>
+__device__ __forceinline__ Words<T, N> load_words(const T* __restrict__ p) {
+  Words<T, N> v;
+  if constexpr (Words<T, N>::W % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < Words<T, N>::W / 4; ++i) {
+      const uint4 u = reinterpret_cast<const uint4*>(p)[i];
+      v.w[4 * i] = u.x; v.w[4 * i + 1] = u.y; v.w[4 * i + 2] = u.z; v.w[4 * i + 3] = u.w;
+    }
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    v.w[0] = u.x; v.w[1] = u.y;
   }
-  const float mean = rms ? 0.f : dst_block_sum(local, scratch) / (float)H;
-  local = 0.f;
-  for (int i = threadIdx.x; i < H; i += blockDim.x) {
-    const float c = row[i] - mean;
-    local += c * c;
-  }
-  const float var = dst_block_sum(local, scratch) / (float)H;
-  const float rstd = rsqrtf(var + eps);
-  for (int i = threadIdx.x; i < H; i += blockDim.x) {
-    float out = (row[i] - mean) * rstd * gamma[i];
-    if (beta != nullptr) out += beta[i];
-    y[base + i] = dst_from_float<T>(out);
+  return v;
+}
+
+__device__ __forceinline__ void unpack(uint32_t w, float* out, float) {
+  out[0] = __uint_as_float(w);
+}
+__device__ __forceinline__ void unpack(uint32_t w, float* out, __nv_bfloat16) {
+  out[0] = __uint_as_float(w << 16);            // bf16 -> fp32 is a shift: exact
+  out[1] = __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ void unpack(uint32_t w, float* out, __half) {
+  out[0] = __half2float(__ushort_as_half((unsigned short)(w & 0xffffu)));
+  out[1] = __half2float(__ushort_as_half((unsigned short)(w >> 16)));
+}
+
+// N values of type T at p (16-byte aligned) into out as fp32.
+template <typename T, int N>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p, float* out) {
+  const Words<T, N> v = load_words<T, N>(p);
+  constexpr int PER = 4 / (int)sizeof(T);
+#pragma unroll
+  for (int i = 0; i < Words<T, N>::W; ++i) unpack(v.w[i], out + PER * i, T());
+}
+
+__device__ __forceinline__ uint32_t pack2(float a, float b, __nv_bfloat16) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ uint32_t pack2(float a, float b, __half) {
+  __half2 v = __floats2half2_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// N fp32 values into one 16-byte store of type T at p.
+template <typename T, int N>
+__device__ __forceinline__ void store_vec(T* __restrict__ p, const float* v) {
+  if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *reinterpret_cast<uint4*>(p) = make_uint4(pack2(v[0], v[1], T()), pack2(v[2], v[3], T()),
+                                              pack2(v[4], v[5], T()), pack2(v[6], v[7], T()));
   }
 }
 
-template <typename T>
-static cudaError_t launch_ln(const void* x, const float* gamma, const float* beta, void* y,
-                             int rows, int H, float eps, int rms, cudaStream_t stream) {
-  int threads = ((H / 4 + 31) / 32) * 32;
-  threads = threads < 32 ? 32 : (threads > 512 ? 512 : threads);
-  const size_t smem = (size_t)H * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(ln_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+// Sum over the `width` threads of a row; every thread gets the result.  A
+// warp per row: the shuffle tree.  A CTA per row: the shuffle tree, then the
+// warps' sums in warp order through `part` (one slot a warp).
+template <bool CTA>
+__device__ __forceinline__ float row_sum(float v, float* part) {
+  v = dst_warp_sum(v);
+  if constexpr (CTA) {
+    if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
+    __syncthreads();
+    v = 0.f;
+    const int nwarps = blockDim.x >> 5;
+    for (int w = 0; w < nwarps; ++w) v += part[w];
   }
-  ln_fwd_kernel<T><<<rows, threads, smem, stream>>>(
-      static_cast<const T*>(x), gamma, beta, static_cast<T*>(y), H, eps, rms);
+  return v;
+}
+
+// NV vectors of VEC values a thread (NV == LOOP: loop over the row).  CTA:
+// a CTA per row, else a warp per row.  G is gamma's and beta's type.
+template <typename T, typename G, int NV, bool CTA>
+__global__ void __launch_bounds__(CTA_THREADS)
+ln_fwd_kernel(const T* __restrict__ x, const G* __restrict__ gamma, const G* __restrict__ beta,
+              T* __restrict__ y, int rows, int H, float eps, int rms, int vec) {
+  constexpr int VEC = 16 / (int)sizeof(T);
+  __shared__ float part[2][32];
+  const int width = CTA ? blockDim.x : 32;
+  const int t = CTA ? threadIdx.x : (threadIdx.x & 31);
+  const int row = CTA ? blockIdx.x : blockIdx.x * ROW_WARPS + (threadIdx.x >> 5);
+  if (!CTA && row >= rows) return;   // a whole warp: no barrier follows
+  const T* __restrict__ xr = x + (size_t)row * H;
+  T* __restrict__ yr = y + (size_t)row * H;
+
+  if constexpr (NV == LOOP) {
+    // fp32 rows too wide for registers: three passes, x re-read from L2
+    float s = 0.f;
+    for (int i = t; i < H; i += width) s += dst_to_float(xr[i]);
+    const float mean = rms ? 0.f : row_sum<CTA>(s, part[0]) / (float)H;
+    s = 0.f;
+    for (int i = t; i < H; i += width) {
+      const float c = dst_to_float(xr[i]) - mean;
+      s += c * c;
+    }
+    const float rstd = rsqrtf(row_sum<CTA>(s, part[1]) / (float)H + eps);
+    for (int i = t; i < H; i += width) {
+      float out = (dst_to_float(xr[i]) - mean) * rstd * dst_to_float(gamma[i]);
+      if (beta != nullptr) out += dst_to_float(beta[i]);
+      yr[i] = dst_from_float<T>(out);
+    }
+    return;
+  } else {
+    float v[NV][VEC];
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int e0 = (j * width + t) * VEC;
+      if (vec) {
+        if (e0 < H) load_vec<T, VEC>(xr + e0, v[j]);
+        else {
+#pragma unroll
+          for (int c = 0; c < VEC; ++c) v[j][c] = 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < VEC; ++c) v[j][c] = e0 + c < H ? dst_to_float(xr[e0 + c]) : 0.f;
+      }
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) s += v[j][c];
+    }
+    const float mean = rms ? 0.f : row_sum<CTA>(s, part[0]) / (float)H;
+    s = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int e0 = (j * width + t) * VEC;
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) {
+        const float d = e0 + c < H ? v[j][c] - mean : 0.f;
+        s += d * d;
+      }
+    }
+    const float rstd = rsqrtf(row_sum<CTA>(s, part[1]) / (float)H + eps);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int e0 = (j * width + t) * VEC;
+      if (e0 >= H) continue;
+      float g[VEC], b[VEC];
+      if (vec) {
+        load_vec<G, VEC>(gamma + e0, g);
+        if (beta != nullptr) load_vec<G, VEC>(beta + e0, b);
+      } else {
+#pragma unroll
+        for (int c = 0; c < VEC; ++c) {
+          g[c] = e0 + c < H ? dst_to_float(gamma[e0 + c]) : 0.f;
+          b[c] = beta != nullptr && e0 + c < H ? dst_to_float(beta[e0 + c]) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) {
+        v[j][c] = (v[j][c] - mean) * rstd * g[c];
+        if (beta != nullptr) v[j][c] += b[c];
+      }
+      if (vec) {
+        store_vec<T, VEC>(yr + e0, v[j]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < VEC; ++c)
+          if (e0 + c < H) yr[e0 + c] = dst_from_float<T>(v[j][c]);
+      }
+    }
+  }
+}
+
+template <typename T, typename G, int NV, bool CTA>
+cudaError_t launch_ln_nv(const void* x, const void* gamma, const void* beta, void* y, int rows,
+                         int H, float eps, int rms, int vec, int threads, cudaStream_t stream) {
+  const int grid = CTA ? rows : (rows + ROW_WARPS - 1) / ROW_WARPS;
+  ln_fwd_kernel<T, G, NV, CTA><<<grid, threads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const G*>(gamma), static_cast<const G*>(beta),
+      static_cast<T*>(y), rows, H, eps, rms, vec);
   return cudaGetLastError();
 }
 
-extern "C" int dst_layer_norm_fwd(const void* x, const float* gamma, const float* beta, void* y,
+template <typename T, typename G, bool CTA>
+cudaError_t launch_ln_cta(const void* x, const void* gamma, const void* beta, void* y, int rows,
+                          int H, float eps, int rms, int vec, int nv, int threads,
+                          cudaStream_t stream) {
+#define DST_LN_NV(NV) \
+  launch_ln_nv<T, G, NV, CTA>(x, gamma, beta, y, rows, H, eps, rms, vec, threads, stream)
+  switch (nv) {
+    case 1: return DST_LN_NV(1);
+    case 2: return DST_LN_NV(2);
+    case 4: return DST_LN_NV(4);
+    default:   // 8 vectors: a warp per row, or fp32 in a CTA per row (CTA_VALUES)
+      if constexpr (CTA && sizeof(T) == 2) return cudaErrorInvalidValue;
+      else return DST_LN_NV(8);
+  }
+#undef DST_LN_NV
+}
+
+bool aligned16(const void* p) {
+  return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <typename T, typename G>
+cudaError_t launch_ln(const void* x, const void* gamma, const void* beta, void* y, int rows,
+                      int H, float eps, int rms, cudaStream_t stream) {
+  constexpr int VEC = 16 / (int)sizeof(T);
+  const int vec = H % VEC == 0 && aligned16(x) && aligned16(y) && aligned16(gamma) &&
+                  aligned16(beta);
+  const int nvec = (H + VEC - 1) / VEC;   // vectors a row (the last may be partial)
+  if (nvec <= 32 * MAX_VECS) {             // a warp per row
+    const int nv = nvec <= 32 ? 1 : nvec <= 64 ? 2 : nvec <= 128 ? 4 : 8;
+    return launch_ln_cta<T, G, false>(x, gamma, beta, y, rows, H, eps, rms, vec, nv,
+                                      32 * ROW_WARPS, stream);
+  }
+  if (nvec <= CTA_THREADS * (CTA_VALUES / VEC)) {   // a CTA per row
+    const int nv = nvec <= 512 ? 1 : nvec <= 1024 ? 2 : nvec <= 2048 ? 4 : 8;
+    const int threads = ((nvec + nv - 1) / nv + 31) / 32 * 32;
+    return launch_ln_cta<T, G, true>(x, gamma, beta, y, rows, H, eps, rms, vec, nv, threads,
+                                     stream);
+  }
+  return launch_ln_nv<T, G, LOOP, true>(x, gamma, beta, y, rows, H, eps, rms, vec, CTA_THREADS,
+                                        stream);
+}
+
+template <typename T>
+cudaError_t launch_ln_gamma(const void* x, const void* gamma, const void* beta, void* y,
+                            int rows, int H, float eps, int rms, int gamma_dtype,
+                            cudaStream_t stream) {
+  switch (gamma_dtype) {
+    case DST_DTYPE_F32: return launch_ln<T, float>(x, gamma, beta, y, rows, H, eps, rms, stream);
+    case DST_DTYPE_BF16:
+      return launch_ln<T, __nv_bfloat16>(x, gamma, beta, y, rows, H, eps, rms, stream);
+    case DST_DTYPE_F16: return launch_ln<T, __half>(x, gamma, beta, y, rows, H, eps, rms, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" int dst_layer_norm_fwd(const void* x, const void* gamma, const void* beta, void* y,
                                   int rows, int H, float eps, int rms, int dtype,
-                                  cudaStream_t stream) {
+                                  int gamma_dtype, cudaStream_t stream) {
   if (rows == 0) return 0;
+  if (H <= 0) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case DST_DTYPE_F32:
-      return launch_ln<float>(x, gamma, beta, y, rows, H, eps, rms, stream);
+      return (int)launch_ln_gamma<float>(x, gamma, beta, y, rows, H, eps, rms, gamma_dtype,
+                                         stream);
     case DST_DTYPE_BF16:
-      return launch_ln<__nv_bfloat16>(x, gamma, beta, y, rows, H, eps, rms, stream);
+      return (int)launch_ln_gamma<__nv_bfloat16>(x, gamma, beta, y, rows, H, eps, rms,
+                                                 gamma_dtype, stream);
     case DST_DTYPE_F16:
-      return launch_ln<__half>(x, gamma, beta, y, rows, H, eps, rms, stream);
+      return (int)launch_ln_gamma<__half>(x, gamma, beta, y, rows, H, eps, rms, gamma_dtype,
+                                          stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -42,8 +42,8 @@ _vp, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longl
 # C signature of every exported function, per source file
 _SIGNATURES = {
     "layer_norm": {
-        "dst_layer_norm_fwd": ([_vp, _vp, _vp, _vp, _i, _i, _f, _i, _i, _vp],
-                               _i),
+        "dst_layer_norm_fwd": ([_vp, _vp, _vp, _vp, _i, _i, _f, _i, _i, _i,
+                                _vp], _i),
         "dst_layer_norm_bwd": ([_vp] * 8 + [_i, _i, _f, _i, _i, _i, _vp], _i),
     },
     "flash_attention": {
@@ -153,12 +153,16 @@ def library(name):
 
 
 def stream_of(t):
-    """PyTorch's current stream on ``t``'s device, as a C pointer."""
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    """PyTorch's current stream on ``t``'s (CUDA) device, as the raw
+    ``cudaStream_t`` handle (an int, which ``ctypes`` passes as a pointer).
+    Reads the handle without building a ``torch.cuda.Stream`` object, as
+    PyTorch's own kernel launchers do."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+    """``t``'s data pointer, an int that ``ctypes`` passes as a pointer."""
+    return t.data_ptr()
 
 
 def check(err, kernel):

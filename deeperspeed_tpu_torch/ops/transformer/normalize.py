@@ -9,15 +9,24 @@ tensor they run :func:`_ln_ref` and :func:`_ln_bwd_ref`, the same
 arithmetic in PyTorch: fp32 statistics, the centred variance, output in the
 input's type, the backward recomputing the statistics from x.
 
+The forward is on the serving path once or twice a layer every decode
+round, where the host's time per call sets the round, so its call path is
+short: where nothing needs a gradient (grad mode off, as under
+``torch.no_grad`` or ``inference_mode``, or no input requiring one) it
+calls the forward directly, without the ``autograd.Function``; the tensor's
+own device picks the kernel or the plain version; and the checks are a few
+attribute reads.
+
 gamma and beta may come in any float type (bf16 under mixed-precision
 training, where the engine casts every weight but the input embedding):
-the kernels take them upcast to fp32, which is exact, and dgamma/dbeta come
-back in gamma's type, as in the JAX package.
+K1 takes them in their own type and upcasts them in registers, which is
+exact, so the forward casts nothing.  K8 takes gamma in fp32 (the backward
+casts it), and dgamma/dbeta come back in gamma's type, as in the JAX
+package.
 """
 
 import torch
 
-from ...accelerator import get_accelerator
 from ..cuda_utils import check, dtype_code, library, ptr, require_cuda, \
     stream_of
 
@@ -62,16 +71,28 @@ def _check_vecs(kernel, x, vecs):
 
 
 def _ln_cuda(x, gamma, beta, eps, rms):
-    """K1 on the card: one launch over all rows of ``x``."""
+    """K1 on the card: one launch over all rows of ``x``.  x contiguous in
+    fp32, bf16 or fp16; gamma and beta [H], contiguous, on x's card, both
+    of one float type (any of the three)."""
     h = x.shape[-1]
-    _check_vecs("layer_norm", x, (gamma,) if beta is None else (gamma, beta))
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"layer_norm: tensors on {dev}, not on a CUDA device")
+    if not x.is_contiguous():
+        raise ValueError("layer_norm: tensors must be contiguous")
+    code, gcode = dtype_code(x.dtype), dtype_code(gamma.dtype)
+    for v in (gamma,) if beta is None else (gamma, beta):
+        if v.device != dev or not v.is_contiguous() or v.shape != (h,) \
+                or v.dtype != gamma.dtype:
+            raise ValueError(f"layer_norm: gamma/beta must be contiguous [{h}] "
+                             f"of one dtype on {dev}")
     y = torch.empty_like(x)
     rows = x.numel() // h
     if rows == 0:
         return y
     err = library("layer_norm").dst_layer_norm_fwd(
         ptr(x), ptr(gamma), None if beta is None else ptr(beta), ptr(y),
-        rows, h, float(eps), int(rms), dtype_code(x.dtype), stream_of(x))
+        rows, h, eps, rms, code, gcode, stream_of(x))
     check(err, "layer_norm")
     return y
 
@@ -101,13 +122,15 @@ def _ln_bwd_cuda(x, gamma, dy, eps, rms):
 
 
 def _fwd(x, gamma, beta, eps, rms):
-    if get_accelerator(x.device).use_cuda_kernels():
+    # the entry points resolved the device: a CUDA tensor launches K1 (or
+    # raises), a CPU tensor takes the plain version
+    if x.is_cuda:
         return _ln_cuda(x, gamma, beta, eps, rms)
     return _ln_ref(x, gamma, beta, eps, rms)
 
 
 def _bwd(x, gamma, dy, eps, rms):
-    if get_accelerator(x.device).use_cuda_kernels():
+    if x.is_cuda:
         return _ln_bwd_cuda(x, gamma, dy, eps, rms)
     return _ln_bwd_ref(x, gamma, dy, eps, rms)
 
@@ -118,19 +141,17 @@ class _Norm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, eps, rms):
         x = x.contiguous()
-        g32 = gamma.to(torch.float32)
-        b32 = None if beta is None else beta.to(torch.float32)
-        ctx.save_for_backward(x, g32)
+        ctx.save_for_backward(x, gamma)
         ctx.eps, ctx.rms = eps, rms
         ctx.gamma_dtype = gamma.dtype
         ctx.has_beta = beta is not None
-        return _fwd(x, g32, b32, eps, rms)
+        return _fwd(x, gamma, beta, eps, rms)
 
     @staticmethod
     def backward(ctx, dy):
-        x, g32 = ctx.saved_tensors
+        x, gamma = ctx.saved_tensors
         h = x.shape[-1]
-        dx, dg, db = _bwd(x.reshape(-1, h), g32,
+        dx, dg, db = _bwd(x.reshape(-1, h), gamma.to(torch.float32),
                           dy.contiguous().reshape(-1, h), ctx.eps, ctx.rms)
         dg = dg.to(ctx.gamma_dtype)
         db = db.to(ctx.gamma_dtype) if ctx.has_beta else None
@@ -138,7 +159,10 @@ class _Norm(torch.autograd.Function):
 
 
 def _norm(x, gamma, beta, eps, rms):
-    return _Norm.apply(x, gamma, beta, eps, rms)
+    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad or (
+            beta is not None and beta.requires_grad)):
+        return _Norm.apply(x, gamma, beta, float(eps), bool(rms))
+    return _fwd(x.contiguous(), gamma, beta, float(eps), bool(rms))
 
 
 def layer_norm(x, gamma, beta, eps=1e-5):

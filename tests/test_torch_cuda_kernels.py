@@ -72,6 +72,123 @@ def test_layer_norm(gen, rows, H, dtype, rms):
     _close(got, normalize._ln_ref(x, g, b, 1e-5, rms), dtype)
 
 
+def _ln_inputs(gen, rows, H, dtype, gamma_dtype=torch.float32):
+    x = (2 * torch.randn(rows, H, generator=gen, device="cuda") + 0.5).to(dtype)
+    g = (1 + 0.1 * torch.randn(H, generator=gen, device="cuda")).to(gamma_dtype)
+    b = (0.1 * torch.randn(H, generator=gen, device="cuda")).to(gamma_dtype)
+    return x, g, b
+
+
+# the presets' hidden sizes (a warp per row up to 2048 in 2-byte types and
+# 1024 in fp32, a CTA per row above)
+@pytest.mark.parametrize("rms", [False, True], ids=["layer", "rms"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("H", [1024, 2048, 2560, 5120, 8192])
+def test_layer_norm_preset_widths(gen, H, dtype, rms):
+    x, g, b = _ln_inputs(gen, 37, H, dtype)
+    b = None if rms else b
+    got = normalize._norm(x, g, b, 1e-5, rms)
+    _close(got, normalize._ln_ref(x, g, b, 1e-5, rms), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("rows,H", [(1, 768), (65537, 768), (65537, 64), (1, 16384)])
+def test_layer_norm_row_counts(gen, rows, H, dtype):
+    x, g, b = _ln_inputs(gen, rows, H, dtype)
+    _close(normalize._norm(x, g, b, 1e-5, False), normalize._ln_ref(x, g, b, 1e-5, False),
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("H", [768, 5120])
+@pytest.mark.parametrize("which", ["x", "gamma"])
+def test_layer_norm_unaligned_views(gen, H, dtype, which):
+    """A view at a one-element offset is not 16-byte aligned: the kernel
+    takes its element-by-element path, with the same results."""
+    rows = 9
+    x, g, b = _ln_inputs(gen, rows, H, dtype)
+    if which == "x":
+        flat = torch.empty(rows * H + 1, dtype=dtype, device="cuda")
+        flat[1:].copy_(x.reshape(-1))
+        x = flat[1:].view(rows, H)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    else:
+        flat = torch.empty(2 * H + 1, dtype=g.dtype, device="cuda")
+        flat[1:H + 1].copy_(g)
+        flat[H + 1:].copy_(b)
+        g, b = flat[1:H + 1], flat[H + 1:]
+        assert g.data_ptr() % 16 != 0
+    got = normalize._ln_cuda(x, g, b, 1e-5, False)
+    _close(got, normalize._ln_ref(x, g, b, 1e-5, False), dtype)
+
+
+@pytest.mark.parametrize("rms", [False, True], ids=["layer", "rms"])
+@pytest.mark.parametrize("gamma_dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("H", [100, 768, 4096])
+def test_layer_norm_gamma_in_its_own_type(gen, H, dtype, gamma_dtype, rms):
+    """gamma and beta in bf16 or fp16 go to the kernel as they are (no cast
+    launch) and are upcast exactly in registers."""
+    from deeperspeed_tpu_torch.ops.cuda_utils import LAUNCHES
+
+    x, g, b = _ln_inputs(gen, 21, H, dtype, gamma_dtype)
+    b = None if rms else b
+    LAUNCHES.clear()
+    got = normalize._norm(x, g, b, 1e-5, rms)
+    assert LAUNCHES["layer_norm"] == 1
+    _close(got, normalize._ln_ref(x, g, b, 1e-5, rms), dtype)
+    want = normalize._norm(x, g.float(), None if rms else b.float(), 1e-5, rms)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("H", [768, 100, 5120, 40000])
+def test_layer_norm_launches_repeat_bit_for_bit(gen, H, dtype):
+    x, g, b = _ln_inputs(gen, 300, H, dtype)
+    first = normalize._ln_cuda(x, g, b, 1e-5, False)
+    assert torch.equal(first, normalize._ln_cuda(x, g, b, 1e-5, False))
+    _close(first, normalize._ln_ref(x, g, b, 1e-5, False), dtype)
+
+
+def test_layer_norm_grad_modes_agree_with_one_launch_each(gen):
+    """Under no_grad and inference_mode the forward skips the
+    autograd.Function; with grad it goes through it.  All three give the
+    same bits, with one K1 launch each."""
+    from deeperspeed_tpu_torch.ops.cuda_utils import LAUNCHES
+
+    x, g, b = _ln_inputs(gen, 64, 768, torch.bfloat16, torch.bfloat16)
+    outs = []
+    for mode in ("no_grad", "inference_mode", "grad"):
+        LAUNCHES.clear()
+        if mode == "no_grad":
+            with torch.no_grad():
+                outs.append(normalize.layer_norm(x, g, b))
+        elif mode == "inference_mode":
+            with torch.inference_mode():
+                outs.append(normalize.layer_norm(x, g, b))
+        else:
+            gr = g.clone().requires_grad_()
+            y = normalize.layer_norm(x, gr, b)
+            assert y.requires_grad
+            outs.append(y.detach())
+        assert LAUNCHES["layer_norm"] == 1, mode
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+def test_layer_norm_rejects_what_the_kernel_does_not_take(gen):
+    x, g, b = _ln_inputs(gen, 4, 64, torch.bfloat16)
+    with pytest.raises(ValueError):
+        normalize._ln_cuda(x.t(), g, b, 1e-5, False)           # not contiguous
+    with pytest.raises(ValueError):
+        normalize._ln_cuda(x, g[:32], b, 1e-5, False)          # gamma not [H]
+    with pytest.raises(ValueError):
+        normalize._ln_cuda(x, g, b.to(torch.bfloat16), 1e-5, False)  # two types
+    with pytest.raises(ValueError):
+        normalize._ln_cuda(x, g.cpu(), b.cpu(), 1e-5, False)   # another device
+    with pytest.raises(TypeError):
+        normalize._ln_cuda(x.double(), g, b, 1e-5, False)
+
+
 def _pools(gen, B, N, D, bs, M, P, dtype):
     pk = torch.randn(P, bs, N, D, generator=gen, device="cuda").to(dtype)
     pv = torch.randn(P, bs, N, D, generator=gen, device="cuda").to(dtype)
@@ -464,6 +581,29 @@ def test_flash_backward(gen, D, S, dtype, causal):
     for got, want in zip((dq, dk, dv), flash._bwd_reference(q, k, v, do, lse, delta, causal)):
         assert got.dtype == dtype
         _flash_close(got, want, dtype, grad=True)
+
+
+# K5's edges on the card: head dims whose second 64-column box is partly
+# out of bounds (80, 112), one long sequence, S one row past a tile, a
+# single head, and two waves of 132 CTAs
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("B,S,N,D", [(2, 300, 3, 80), (2, 300, 3, 112), (1, 4096, 2, 64),
+                                     (2, 65, 3, 64), (2, 127, 3, 128), (1, 200, 1, 64),
+                                     (24, 64, 11, 64), (4, 130, 66, 96)])
+def test_flash_forward_edges(gen, B, S, N, D, causal):
+    q, k, v, _ = _qkv(gen, S, D, torch.bfloat16, B=B, N=N)
+    o, lse = flash._fwd_cuda(q, k, v, causal)
+    ro, rlse = flash._fwd_reference(q, k, v, causal)
+    _flash_close(o, ro, torch.bfloat16)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("D", [64, 80, 128])
+def test_flash_forward_launches_repeat_bit_for_bit(gen, D):
+    q, k, v, _ = _qkv(gen, 1000, D, torch.bfloat16)
+    o1, l1 = flash._fwd_cuda(q, k, v, True)
+    o2, l2 = flash._fwd_cuda(q, k, v, True)
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
 
 
 def test_flash_takes_unaligned_bf16_operands(gen):

@@ -97,3 +97,96 @@ def test_norm_backward_with_bf16_gamma():
         ref = np.asarray(ref.astype(jnp.float32))
         np.testing.assert_allclose(a.float().numpy(), ref, rtol=2e-2,
                                    atol=2e-2 * np.abs(ref).max(), err_msg=name)
+
+
+def _dispatch_inputs(seed, H=256):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((4, 25, H)) * 2 + 0.5).astype(np.float32)
+    g = (1 + 0.1 * rng.standard_normal(H)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(H)).astype(np.float32)
+    dy = rng.standard_normal((4, 25, H)).astype(np.float32)
+    return x, g, b, dy
+
+
+@pytest.mark.parametrize("mode", ["no_grad", "inference_mode", "grad_x", "grad_gamma"])
+def test_norm_dispatch_matches_plain_and_jax(mode):
+    """The slimmed call path on the CPU: without a gradient to take (no_grad,
+    inference_mode) it skips the autograd.Function; with grad on x or on
+    gamma it goes through it.  The output equals ``_ln_ref`` and the JAX
+    package's ``layer_norm`` (fp32, 1e-5: summation order only), and the
+    gradients that flow equal ``_ln_bwd_ref``'s (the same function on the
+    same inputs: 1e-6)."""
+    from deeperspeed_tpu_torch.ops.transformer import normalize
+
+    x, g, b, dy = _dispatch_inputs(11)
+    tx, tg, tb = (torch.from_numpy(a) for a in (x, g, b))
+    if mode == "grad_x":
+        tx.requires_grad_()
+    elif mode == "grad_gamma":
+        tg.requires_grad_()
+    if mode == "no_grad":
+        with torch.no_grad():
+            y = layer_norm(tx, tg, tb)
+    elif mode == "inference_mode":
+        with torch.inference_mode():
+            y = layer_norm(tx, tg, tb)
+    else:
+        y = layer_norm(tx, tg, tb)
+    assert y.requires_grad == mode.startswith("grad")
+    want = jax_layer_norm(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b), use_pallas=True)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    assert torch.equal(y.detach(), normalize._ln_ref(tx.detach(), tg.detach(), tb, 1e-5, False))
+    if mode.startswith("grad"):
+        y.backward(torch.from_numpy(dy))
+        rdx, rdg, _ = normalize._ln_bwd_ref(torch.from_numpy(x).reshape(-1, x.shape[-1]),
+                                            torch.from_numpy(g),
+                                            torch.from_numpy(dy).reshape(-1, x.shape[-1]),
+                                            1e-5, False)
+        got, ref = (tx.grad, rdx.reshape(x.shape)) if mode == "grad_x" else (tg.grad, rdg)
+        assert (tg.grad is None) == (mode == "grad_x") and (tx.grad is None) == (mode == "grad_gamma")
+        torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("rms", [False, True], ids=["layer", "rms"])
+def test_bf16_gamma_reaches_the_forward_without_a_cast(monkeypatch, rms):
+    """gamma and beta in bf16 (mixed-precision training) go to the forward
+    as they are: the kernel takes them in their own type, so no cast runs
+    before it.  The result equals the plain version on fp32 copies (the
+    upcast is exact)."""
+    from deeperspeed_tpu_torch.ops.transformer import normalize
+
+    x, g, b, _ = _dispatch_inputs(12)
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    tg = torch.from_numpy(g).to(torch.bfloat16).requires_grad_()
+    tb = torch.from_numpy(b).to(torch.bfloat16).requires_grad_()
+    seen = []
+    real = normalize._ln_ref
+    monkeypatch.setattr(normalize, "_ln_ref", lambda x, g, b, *a: (
+        seen.append((g.dtype, None if b is None else b.dtype, g.data_ptr())), real(x, g, b, *a))[1])
+    y = rms_norm(tx, tg) if rms else layer_norm(tx, tg, tb)
+    assert seen == [(torch.bfloat16, None if rms else torch.bfloat16, tg.data_ptr())]
+    want = real(tx, tg.detach().float(), None if rms else tb.detach().float(), 1e-5, rms)
+    assert y.dtype == torch.bfloat16 and torch.equal(y.detach(), want)
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["forward", "forward_backward"])
+def test_cpu_tensor_never_reaches_the_kernel_library(monkeypatch, grad):
+    """On the CPU (whose accelerator runs no CUDA kernels) the tensor's own
+    device sends LayerNorm to its plain versions: ``library()`` is never
+    called, forward or backward."""
+    from deeperspeed_tpu_torch.accelerator import get_accelerator
+    from deeperspeed_tpu_torch.ops.transformer import normalize
+
+    assert not get_accelerator("cpu").use_cuda_kernels()
+
+    def no_library(name):
+        raise AssertionError(f"library({name!r}) reached from a CPU tensor")
+
+    monkeypatch.setattr(normalize, "library", no_library)
+    x, g, b, dy = _dispatch_inputs(13, H=96)
+    tx = torch.from_numpy(x).requires_grad_(grad)
+    y = layer_norm(tx, torch.from_numpy(g), torch.from_numpy(b))
+    if grad:
+        y.backward(torch.from_numpy(dy))
+        assert tx.grad is not None and torch.isfinite(tx.grad).all()
+    assert torch.isfinite(y).all()
