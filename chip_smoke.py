@@ -8,7 +8,8 @@ package, and goes through these phases, each printing its lines:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
 2. the build of every kernel from ``deeperspeed_tpu_torch/csrc`` with nvcc
-   (one process per source, all started together);
+   (one process per source, all started together), with each source's
+   ``ptxas`` registers and spill bytes;
 3. each kernel at the shapes its path gives it, held against its plain
    PyTorch version on the card, with its time, the plain version's, one
    library call's (where one PyTorch call computes the same function), and
@@ -16,7 +17,9 @@ package, and goes through these phases, each printing its lines:
    forward (also its kernel alone, from a CUDA graph of bare launches, and
    one call's host microseconds at a decode round's 64 rows), K2 paged
    decode (also 4 sequences at a 4096-token context), K3 paged speculative
-   decode, K4 sorted top-k, training's K5 flash-attention forward, K7 its
+   decode, K4 sorted top-k (64 rows and the sampled run's 8, each also
+   alone from a CUDA graph, and rows with a NaN or masked to fewer finite
+   values than k, bit for bit), training's K5 flash-attention forward, K7 its
    dq pass, K6 its dk/dv pass (also at one 4096-token sequence) and K8 the
    LayerNorm backward, and the optimizers' B6 fused Adam
    and B7 fused Lion over Pythia-160M's 162,322,944 parameters, and the qgZ
@@ -25,7 +28,8 @@ package, and goes through these phases, each printing its lines:
    bit for bit, and the legacy ops' B9 tanh-GELU forward and backward
    over [16 x 512, 3072] (fp32, fp16), B8 the fused softmax forward and
    backward over attention scores ([16, 12, 1024, 1024] bf16 at scale
-   0.125, [4, 12, 1024, 1024] fp32, a width of 1000), and B10 block-sparse
+   0.125, [4, 12, 1024, 1024] fp32, a width of 1000; the forward also
+   alone from a CUDA graph), and B10 block-sparse
    attention's forward, dq and dk/dv passes at [4, 4096, 12, 64] bf16
    under the Fixed layout (block 128, causal), beside dense flash K5-K7 at
    the same shape;
@@ -132,6 +136,7 @@ import copy
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -424,10 +429,12 @@ def _reporter(rows_out):
         lib = entry["library_ms"]
         extra = "".join(f" {k}={entry[k]:.4f}" for k in (
             "device_ms", "library_device_ms", "host_us", "library_host_us") if k in entry)
+        ratio = "" if lib is None else f" x_library={entry['ms'] / lib:.3f}"
         print(f"[kernels] {line}: max_abs_err={entry['max_abs_err']:.3e} "
               f"ms={entry['ms']:.4f} plain_ms={entry['plain_ms']:.4f} "
               f"library_ms={'none' if lib is None else f'{lib:.4f}'} "
-              f"bound_ms={entry['bound_ms']:.4f} ({entry['bound_by']}){extra}",
+              f"bound_ms={entry['bound_ms']:.4f} ({entry['bound_by']}) "
+              f"bound_share={entry['bound_ms'] / entry['ms']:.3f}{ratio}{extra}",
               flush=True)
         rows_out.setdefault(key, entry)     # the first shape is the path's
     return report
@@ -593,23 +600,31 @@ def phase_kernels(torch):
     pk, pv, tables = pools(B, N, D, ctx)
     paged_case(B, N, D, ctx, pk, pv, tables, None, spec=False)
 
-    # ---- K4: sorted top-k over the GPT-NeoX vocab
-    rows, V, k = 64, 50304, 50
-    x = torch.randn(rows, V, generator=gen, device=dev)
-    masked = x.clone()
-    masked[:, 20:] = float("-inf")     # fewer finite values than k
-    for inp in (masked, x):
-        kv, ki = topk.sorted_topk(inp, k)
-        rv, ri = topk._topk_reference(inp, k)
-        if not (torch.equal(kv, rv) and torch.equal(ki, ri)):
-            raise AssertionError("sorted_topk disagrees with its plain version")
-    t, by = _bound(rows * V * 4 + rows * k * 8, rows * V, torch.float32)
-    report("sorted_topk", f"K4 sorted_topk rows={rows} V={V} k={k} fp32", dict(
-        max_abs_err=0.0,
-        ms=_time_ms(torch, lambda: topk.sorted_topk(x, k)),
-        plain_ms=_time_ms(torch, lambda: topk._topk_reference(x, k), iters=3),
-        library_ms=_time_ms(torch, lambda: torch.topk(x, k)),
-        bound_ms=t, bound_by=by))
+    # ---- K4: sorted top-k over the GPT-NeoX vocab: 64 rows, then the
+    # served sampled run's 8; device_ms is the kernel alone (a CUDA graph)
+    V, k = 50304, 50
+    for rows in (64, 8):
+        x = torch.randn(rows, V, generator=gen, device=dev)
+        masked = x.clone()
+        masked[:, 20:] = float("-inf")     # fewer finite values than k
+        nan = x.clone()
+        nan[::2, V // 3] = float("nan")    # NaN and index V in every output
+        for inp in (masked, x, nan):
+            kv, ki = topk.sorted_topk(inp, k)
+            rv, ri = topk._topk_reference(inp, k)
+            if not (torch.equal(ki, ri) and torch.equal(kv.isnan(), rv.isnan())
+                    and torch.equal(kv.nan_to_num(), rv.nan_to_num())):
+                raise AssertionError("sorted_topk disagrees with its plain version")
+        if not (bool(kv[::2].isnan().all()) and bool((ki[::2] == V).all())):
+            raise AssertionError("sorted_topk: a row with a NaN must give NaN and index V")
+        t, by = _bound(rows * V * 4 + rows * k * 8, rows * V, torch.float32)
+        report("sorted_topk", f"K4 sorted_topk rows={rows} V={V} k={k} fp32", dict(
+            max_abs_err=0.0,
+            ms=_time_ms(torch, lambda: topk.sorted_topk(x, k)),
+            plain_ms=_time_ms(torch, lambda: topk._topk_reference(x, k), iters=3),
+            library_ms=_time_ms(torch, lambda: torch.topk(x, k)),
+            bound_ms=t, bound_by=by,
+            device_ms=_graph_ms(torch, lambda: topk._topk_cuda(x, k))))
     return rows_out
 
 
@@ -952,7 +967,8 @@ def phase_legacy_kernels(torch, np, rows_out):
                    max_abs_err=err, ms=_time_ms(torch, lambda: softmax._fwd_cuda(x, scale)),
                    plain_ms=_time_ms(torch, lambda: softmax._softmax_ref(x, scale), iters=5),
                    library_ms=_time_ms(torch, lambda: torch.softmax(xs, dim=-1)),
-                   bound_ms=t, bound_by=by))
+                   bound_ms=t, bound_by=by,
+                   device_ms=_graph_ms(torch, lambda: softmax._fwd_cuda(x, scale))))
         err = _ulp_close(torch, softmax._bwd_cuda(y, dy, scale),
                          softmax._softmax_bwd_ref(y, dy, scale), f"softmax_bwd {what}",
                          (1e-4, 1e-5))
@@ -2113,7 +2129,12 @@ def main():
     t0 = time.perf_counter()
     logs = cuda_utils.build()
     for name, (secs, log) in logs.items():
-        print(f"[build] {name}.cu: {secs:.1f} s", flush=True)
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spill = sum(int(a) + int(b) for a, b in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", log))
+        ptxas = f", {len(regs)} kernels, {min(regs)}-{max(regs)} registers, " \
+            f"{spill} spill bytes (ptxas)" if regs else ""
+        print(f"[build] {name}.cu: {secs:.1f} s{ptxas}", flush=True)
         print(log, file=sys.stderr)
     print(f"[build] all kernels in {time.perf_counter() - t0:.1f} s "
           f"(one nvcc per source, in parallel)", flush=True)

@@ -36,9 +36,8 @@
 // * Every sum runs in a fixed order (per thread in vector order, then fixed
 //   shuffle trees, then warps in order), with no atomics: two launches give
 //   the same bits.
-#include <cstdint>
-
-#include "common.cuh"
+// The 16-byte loads and stores are vec.cuh's, shared with B8's forward.
+#include "vec.cuh"
 
 namespace {
 
@@ -47,71 +46,6 @@ constexpr int MAX_VECS = 8;        // vectors a thread holds in registers
 constexpr int CTA_THREADS = 512;   // most threads of a CTA per row (128 registers)
 constexpr int CTA_VALUES = 32;     // values a thread of a CTA per row holds
 constexpr int LOOP = 0;            // NV of the variant that loops over a wide row
-
-// The 32-bit words of one vector of N values of type T, loaded with 16-byte
-// (or 8-byte) loads; and the values of a word.
-template <typename T, int N>
-struct Words {
-  static constexpr int W = (int)sizeof(T) * N / 4;
-  uint32_t w[W];
-};
-
-template <typename T, int N>
-__device__ __forceinline__ Words<T, N> load_words(const T* __restrict__ p) {
-  Words<T, N> v;
-  if constexpr (Words<T, N>::W % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < Words<T, N>::W / 4; ++i) {
-      const uint4 u = reinterpret_cast<const uint4*>(p)[i];
-      v.w[4 * i] = u.x; v.w[4 * i + 1] = u.y; v.w[4 * i + 2] = u.z; v.w[4 * i + 3] = u.w;
-    }
-  } else {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    v.w[0] = u.x; v.w[1] = u.y;
-  }
-  return v;
-}
-
-__device__ __forceinline__ void unpack(uint32_t w, float* out, float) {
-  out[0] = __uint_as_float(w);
-}
-__device__ __forceinline__ void unpack(uint32_t w, float* out, __nv_bfloat16) {
-  out[0] = __uint_as_float(w << 16);            // bf16 -> fp32 is a shift: exact
-  out[1] = __uint_as_float(w & 0xffff0000u);
-}
-__device__ __forceinline__ void unpack(uint32_t w, float* out, __half) {
-  out[0] = __half2float(__ushort_as_half((unsigned short)(w & 0xffffu)));
-  out[1] = __half2float(__ushort_as_half((unsigned short)(w >> 16)));
-}
-
-// N values of type T at p (16-byte aligned) into out as fp32.
-template <typename T, int N>
-__device__ __forceinline__ void load_vec(const T* __restrict__ p, float* out) {
-  const Words<T, N> v = load_words<T, N>(p);
-  constexpr int PER = 4 / (int)sizeof(T);
-#pragma unroll
-  for (int i = 0; i < Words<T, N>::W; ++i) unpack(v.w[i], out + PER * i, T());
-}
-
-__device__ __forceinline__ uint32_t pack2(float a, float b, __nv_bfloat16) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t pack2(float a, float b, __half) {
-  __half2 v = __floats2half2_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// N fp32 values into one 16-byte store of type T at p.
-template <typename T, int N>
-__device__ __forceinline__ void store_vec(T* __restrict__ p, const float* v) {
-  if constexpr (sizeof(T) == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-    *reinterpret_cast<uint4*>(p) = make_uint4(pack2(v[0], v[1], T()), pack2(v[2], v[3], T()),
-                                              pack2(v[4], v[5], T()), pack2(v[6], v[7], T()));
-  }
-}
 
 // Sum over the `width` threads of a row; every thread gets the result.  A
 // warp per row: the shuffle tree.  A CTA per row: the shuffle tree, then the
@@ -248,10 +182,6 @@ cudaError_t launch_ln_cta(const void* x, const void* gamma, const void* beta, vo
       else return DST_LN_NV(8);
   }
 #undef DST_LN_NV
-}
-
-bool aligned16(const void* p) {
-  return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 template <typename T, typename G>

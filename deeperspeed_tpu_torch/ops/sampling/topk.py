@@ -4,18 +4,27 @@
 Decode-time sampling needs only the k largest logits of each row, sorted
 descending (the top-k filter threshold is the k-th value).  For a CUDA
 tensor :func:`sorted_topk` launches the hand-written kernel of
-``csrc/topk.cu``; for a CPU tensor it runs :func:`_topk_reference`, the same
-k rounds of arg-max in PyTorch.
+``csrc/topk.cu``: up to :data:`K_MAX` a radix select over the row's keys,
+then a sort of the few candidates, at any vocabulary size; above it the
+port's first kernel, k rounds of arg-max over the row held in shared
+memory, which takes rows of up to about 56K values.  For a CPU tensor it
+runs :func:`_topk_reference`, k rounds of arg-max in PyTorch.
 
-Both follow ``lax.top_k``: ties go to the lowest index, and a taken slot is
-marked by a flag, so it is never chosen again even in a row whose values
-are <= -1e30 (the TPU kernel's -1e30 overwrite would choose it again).
+Both follow ``lax.top_k``: ties go to the lowest index (-0.0 and 0.0 tie),
+and a taken slot is marked by a flag, so it is never chosen again even in a
+row whose values are <= -1e30 (the TPU kernel's -1e30 overwrite would
+choose it again).  A row that holds a NaN gives NaN and index V in every
+output, as the TPU kernel's NaN-propagating max does.
 """
 
 import torch
 
 from ...accelerator import get_accelerator
 from ..cuda_utils import check, library, ptr, require_cuda, stream_of
+
+
+# the largest k the kernel's radix select takes (csrc/topk.cu K_MAX)
+K_MAX = 2048
 
 
 def _topk_reference(x, k):
@@ -41,7 +50,7 @@ def _topk_cuda(x, k):
     """K4 on the card."""
     require_cuda("sorted_topk", x, dtype=torch.float32)
     rows, V = x.shape
-    # a row too long for shared memory makes the launch fail, and raise
+    # above K_MAX a row too long for shared memory makes the launch fail, and raise
     lib = library("topk")
     vals = torch.empty(rows, k, dtype=torch.float32, device=x.device)
     idx = torch.empty(rows, k, dtype=torch.int32, device=x.device)
@@ -57,6 +66,9 @@ def sorted_topk(x, k):
     """Top-k values (descending) and their indices per row.
 
     x [rows, V] float32 -> (vals [rows, k] float32, idx [rows, k] int32)
+
+    On the card any V is taken up to k = :data:`K_MAX`; above it the row
+    must fit in shared memory (V up to about 56K), or the launch raises.
     """
     rows, V = x.shape
     k = int(k)

@@ -36,7 +36,7 @@ def _rows(x):
 
 
 def _fwd_cuda(x, scale):
-    """B8 forward on the card: one CTA a row."""
+    """B8 forward on the card: the row in registers, a warp (or a CTA) a row."""
     require_cuda("softmax_fwd", x)
     y = torch.empty_like(x)
     err = library("softmax").dst_softmax_fwd(ptr(x), ptr(y), _rows(x), x.shape[-1],

@@ -11,12 +11,15 @@ shapes; these tests sweep the edges: odd and large hidden sizes, every
 dtype, head dims and block sizes, every query count, rows with ties, -inf
 and no live token, ragged sequence lengths (to 4096 tokens), pools that
 are misaligned or of odd head dims, stale block-table ids past a row's
-live blocks, causal and full attention, the
+live blocks, causal and full attention, sorted top-k (K4) bit for bit
+over rows of ties, -inf, signed zeros and NaN, vocabularies to 128,256,
+k above the radix path's limit and unaligned slices, the
 fused optimizers over flat buffers and over separate (also non-contiguous)
 tensors of many sizes, the fused dequant-reduce (B5) bit for bit over every
 1-byte type, peer count and alignment, two training processes sharing
 the card over gloo, tanh-GELU (B9) and the fused softmax (B8) over every
-type and odd widths, and block-sparse attention (B10) over every sparsity
+type, odd widths and each forward path's widths, unaligned rows and rows
+of -inf or NaN, and block-sparse attention (B10) over every sparsity
 config, block sizes 16-128, head dims that need padding, per-head layouts,
 causal and not, and rows with no live key.
 """
@@ -452,16 +455,64 @@ def test_paged_stale_table_entries_are_never_read(gen, kind):
     assert torch.equal(got[0], torch.zeros_like(got[0]))
 
 
-@pytest.mark.parametrize("V,k", [(7, 7), (1000, 1), (1000, 64), (50304, 50)])
-def test_sorted_topk(gen, V, k):
-    x = torch.randn(9, V, generator=gen, device="cuda")
+def _topk_rows(gen, rows, V):
+    """rows (>= 7) of V logits, with the rows where the tie and sign rules
+    matter: ties, half masked, all -inf, signed zeros, a NaN, fewer finite
+    values than k."""
+    x = torch.randn(rows, V, generator=gen, device="cuda")
     x[1] = torch.randint(0, 3, (V,), generator=gen, device="cuda").float()  # ties
     x[2, V // 2:] = float("-inf")                                           # masked
     x[3] = float("-inf")
+    x[4] = 0.0                                                              # signed zeros
+    x[4, ::3] = -0.0
+    x[4, 1::5] = -1.0
+    x[5, V // 3] = float("nan")
+    x[6, 3:] = float("-inf")                                                # 3 finite
+    return x
+
+
+def _check_topk(x, k):
     kv, ki = topk.sorted_topk(x, k)
     rv, ri = topk._topk_reference(x, k)
-    assert torch.equal(kv, rv) and torch.equal(ki, ri)
-    assert all(len(set(row)) == k for row in ki.tolist())
+    torch.cuda.synchronize()
+    assert torch.equal(ki, ri)
+    assert torch.equal(kv.isnan(), rv.isnan())
+    assert torch.equal(kv.nan_to_num(), rv.nan_to_num())
+    for row, vals in zip(ki.tolist(), kv.isnan().tolist()):
+        assert all(vals) or len(set(row)) == k
+    return kv, ki
+
+
+# k <= K_MAX: the radix select, at any V (128,256 is Llama-3's vocabulary);
+# (4096, 3000): the round kernel above K_MAX
+@pytest.mark.parametrize("V,k", [(7, 7), (1000, 1), (1000, 64), (50304, 50), (128256, 50),
+                                 (4096, 2048), (4096, 3000), (1001, 50)])
+def test_sorted_topk(gen, V, k):
+    x = _topk_rows(gen, 9, V)
+    kv, ki = _check_topk(x, k)
+    assert torch.equal(ki[5], torch.full_like(ki[5], V)) and bool(kv[5].isnan().all())
+    assert torch.equal(ki[3], torch.arange(k, dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.parametrize("case", ["rows8", "unaligned", "nan_row", "one_row"])
+def test_sorted_topk_shapes(gen, case):
+    """The served shape (8 rows of the GPT-NeoX vocabulary), a slice whose
+    pointer is not 16-byte aligned (the element path), a row that is
+    finite but for one NaN, and a single row."""
+    V, k = 50304, 50
+    if case == "rows8":
+        x = _topk_rows(gen, 8, V)
+    elif case == "unaligned":
+        flat = torch.randn(9 * V + 1, generator=gen, device="cuda")
+        x = flat[1:].view(9, V)
+        x[:7] = _topk_rows(gen, 7, V)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    elif case == "nan_row":
+        x = torch.randn(2, V, generator=gen, device="cuda")
+        x[0, V - 1] = float("nan")
+    else:
+        x = torch.randn(1, V, generator=gen, device="cuda")
+    _check_topk(x, k)
 
 
 def test_engine_on_the_card_matches_the_cpu():
@@ -913,16 +964,59 @@ def test_gelu(gen, shape, dtype):
     _close(activations._dgelu_cuda(x, dy), activations._dgelu_ref(x, dy), dtype)
 
 
+# B8's forward against its plain version: fp32 at the JAX tests' (rtol,
+# atol), bf16 / fp16 at one ulp of the element (chip_smoke.ULP_TOL)
+SOFTMAX_TOL = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (2 ** -7, 1e-6),
+               torch.float16: (2 ** -10, 1e-6)}
+
+
+def _softmax_close(got, want):
+    rtol, atol = SOFTMAX_TOL[want.dtype]
+    assert torch.equal(got.isnan(), want.isnan())
+    torch.testing.assert_close(got.float().nan_to_num(), want.float().nan_to_num(), rtol=rtol,
+                               atol=atol)
+
+
+# widths on each forward path: a warp per row to 1024 (fp32) / 2048 values,
+# a CTA per row to 16,384, a loop above; 7, 100, 333 and 1000 ragged or odd
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("rows,W", [(1, 1), (5, 7), (33, 100), (64, 128), (16, 1000),
-                                    (8, 1024), (3, 50304)])
+                                    (8, 1024), (3, 50304), (9, 2048), (7, 333), (5, 4096),
+                                    (4, 2049), (3, 16384), (2, 16385)])
 def test_softmax(gen, rows, W, dtype):
     x = (4 * torch.randn(rows, W, generator=gen, device="cuda")).to(dtype)
     dy = torch.randn(rows, W, generator=gen, device="cuda").to(dtype)
     y = softmax._fwd_cuda(x, 0.125)
     assert y.dtype == dtype
-    _close(y, softmax._softmax_ref(x, 0.125), dtype)
+    _softmax_close(y, softmax._softmax_ref(x, 0.125))
     _close(softmax._bwd_cuda(y, dy, 0.125), softmax._softmax_bwd_ref(y, dy, 0.125), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("W", [1024, 4096, 50304, 333])
+def test_softmax_special_rows(gen, W, dtype):
+    """An x two elements past an aligned address (the element path), rows
+    of -inf, with a NaN, half masked and at a negative scale: the NaN mask
+    and the values equal the plain version's, and two launches the same
+    bits."""
+    rows = 6
+    flat = (4 * torch.randn(rows * W + 2, generator=gen, device="cuda")).to(dtype)
+    x = flat[2:].view(rows, W)
+    assert x.data_ptr() % 16 != 0
+    x[0] = float("-inf")
+    x[1, W // 2] = float("nan")
+    x[2, : W // 2] = float("-inf")
+    x[3, W - 1] = float("inf")
+    for scale in (0.125, -0.5):
+        y = softmax._fwd_cuda(x, scale)
+        _softmax_close(y, softmax._softmax_ref(x, scale))
+        assert bool(y[0].isnan().all()) and bool(y[1].isnan().all())
+        assert torch.equal(softmax._fwd_cuda(x, scale).view(torch.int16 if dtype != torch.float32
+                                                            else torch.int32),
+                           y.view(torch.int16 if dtype != torch.float32 else torch.int32))
+        aligned = x.clone()
+        assert aligned.data_ptr() % 16 == 0
+        _softmax_close(softmax._fwd_cuda(aligned, scale), softmax._softmax_ref(x, scale))
 
 
 def test_gelu_and_softmax_autograd_launch_the_kernels(gen):

@@ -103,6 +103,23 @@ def test_softmax_matches_jax(shape, scale, mode):
     _agree(dx, vjp(jdy)[0], mode, 1e-4, 1e-5)
 
 
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+def test_softmax_special_rows_match_jax(mode):
+    """A row of -inf, a row with a NaN, a half-masked row and a row with +inf:
+    the port's forward gives the JAX kernel's values and NaN rows (the
+    kernel B8 is held to the same plain version on the card)."""
+    x = 4 * np.random.default_rng(8).standard_normal((5, 256)).astype(np.float32)
+    x[0] = -np.inf
+    x[1, 100] = np.nan
+    x[2, :128] = -np.inf
+    x[3, 255] = np.inf
+    _, jdt, tdt = DTYPES[mode]
+    jy = jax_softmax(jnp.asarray(x, jdt), scale=0.125, use_pallas=True)
+    y = fused_softmax(torch.from_numpy(x).to(tdt), 0.125)
+    _agree(y, jy, mode, 1e-5, 1e-6)
+    assert y[[0, 1, 3]].float().isnan().all() and not y[[2, 4]].float().isnan().any()
+
+
 # ---------------------------------------------------------------- the layer
 H, HEADS, B, S = 64, 4, 2, 16
 

@@ -1,6 +1,8 @@
 """K4 (sorted top-k) and the token-selection functions of the PyTorch port
 against the JAX package on the CPU."""
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -10,8 +12,12 @@ import torch
 from deeperspeed_tpu.ops.sampling import sample_tokens as jax_sample_tokens
 from deeperspeed_tpu.ops.sampling import sorted_topk as jax_sorted_topk
 from deeperspeed_tpu.ops.sampling import verify_draft as jax_verify_draft
+from deeperspeed_tpu_torch.accelerator.cuda_accelerator import CudaAccelerator
 from deeperspeed_tpu_torch.ops.sampling import (sample_tokens, sorted_topk,
                                                 verify_draft)
+from deeperspeed_tpu_torch.ops.sampling import topk
+
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.mark.parametrize("k", [1, 4, 16])
@@ -45,6 +51,50 @@ def test_topk_never_retakes_a_slot_below_the_sentinel():
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ri))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(rv))
     assert all(len(set(row)) == 4 for row in ti.tolist())
+
+
+def test_topk_nan_row_matches_jax_kernel():
+    """A row that holds a NaN gives NaN and index V in every output: the JAX
+    kernel's max propagates the NaN and no slot equals it.  K4 on the card
+    follows the same rule (tests/test_torch_cuda_kernels.py)."""
+    x = np.array([[1, np.nan, 3, -0.0, 0, 2], [1, 4, 3, -0.0, 0, 2]], np.float32)
+    jv, ji = jax_sorted_topk(jnp.asarray(x), 3, force_kernel=True)
+    tv, ti = sorted_topk(torch.from_numpy(x), 3)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    assert ti[0].tolist() == [6, 6, 6] and bool(tv[0].isnan().all())
+    assert ti[1].tolist() == [1, 2, 5]
+
+
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_topk_signed_zeros_tie_by_index_as_jax_kernel(k):
+    """-0.0 == 0.0: a tie between them goes to the lower index."""
+    x = np.array([[-0.0, 0.0, -0.0, 1.0, -1.0, 0.0, -2.0, -0.0]], np.float32)
+    _, ji = jax_sorted_topk(jnp.asarray(x), k, force_kernel=True)
+    tv, ti = sorted_topk(torch.from_numpy(x), k)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    assert ti[0].tolist() == [3, 0, 1, 2, 5, 7, 4, 6][:k]
+
+
+@pytest.mark.parametrize("k", [4, topk.K_MAX, topk.K_MAX + 1])
+def test_topk_on_cuda_launches_or_raises(monkeypatch, k):
+    """Where the accelerator runs the kernels, sorted_topk goes to K4's CUDA
+    branch at every k (the radix select up to K_MAX, the round kernel
+    above), which launches or raises (here: the tensor is not on a card);
+    it never falls back to the plain version."""
+    calls = []
+    monkeypatch.setattr(topk, "get_accelerator", lambda device=None: CudaAccelerator())
+    monkeypatch.setattr(topk, "_topk_reference", lambda *a: calls.append(a))
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        sorted_topk(torch.zeros(2, topk.K_MAX + 1), k)
+    assert not calls
+
+
+def test_topk_k_max_is_the_kernels():
+    """The wrapper's K_MAX is the bound the launcher of csrc/topk.cu uses."""
+    src = (ROOT / "deeperspeed_tpu_torch" / "csrc" / "topk.cu").read_text()
+    assert f"constexpr int K_MAX = {topk.K_MAX};" in src
+    assert "if (k <= K_MAX)" in src
 
 
 def test_topk_k_out_of_range():
