@@ -20,13 +20,16 @@ package, and goes through these phases, each printing its lines:
    decode, K4 sorted top-k (64 rows and the sampled run's 8, each also
    alone from a CUDA graph, and rows with a NaN or masked to fewer finite
    values than k, bit for bit), training's K5 flash-attention forward, K7 its
-   dq pass, K6 its dk/dv pass (also at one 4096-token sequence) and K8 the
+   dq pass, K6 its dk/dv pass (also at one 4096-token sequence; two
+   launches bit for bit; beside them the library's attention backward
+   alone, the op that ``F.scaled_dot_product_attention`` dispatches to,
+   named and timed from the saved forward outputs) and K8 the
    LayerNorm backward, and the optimizers' B6 fused Adam
    and B7 fused Lion over Pythia-160M's 162,322,944 parameters, and the qgZ
    gradient path's B5 fused dequant-reduce at its largest shape (the input
    embedding at world 2, [2, 150912, 128]) over int8, fp8 e5m2 and e4m3,
    bit for bit, and the legacy ops' B9 tanh-GELU forward and backward
-   over [16 x 512, 3072] (fp32, fp16), B8 the fused softmax forward and
+   over [16 x 512, 3072] (fp32, bf16, fp16), B8 the fused softmax forward and
    backward over attention scores ([16, 12, 1024, 1024] bf16 at scale
    0.125, [4, 12, 1024, 1024] fp32, a width of 1000; the forward also
    alone from a CUDA graph), and B10 block-sparse
@@ -386,6 +389,17 @@ def _host_us(torch, fn, iters=200):
     return (t1 - t0) / iters * 1e6
 
 
+def _backward_ops(torch, out, inputs, grad):
+    """The names of the aten backward ops that ``out``'s autograd node runs
+    (one ``torch.autograd.grad`` under the profiler, host side only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        torch.autograd.grad(out, inputs, grad, retain_graph=True)
+    return sorted({e.key for e in prof.key_averages()
+                   if e.key.startswith("aten::") and "backward" in e.key})
+
+
 def _close(torch, got, want, atol, rtol, what):
     err = (got.float() - want.float()).abs()
     bad = err > atol + rtol * want.float().abs()
@@ -661,10 +675,13 @@ def phase_training_kernels(torch, rows_out):
             flash_close(torch, dk, rdk, f"flash_bwd_dkv dk {what}"),
             flash_close(torch, dv, rdv, f"flash_bwd_dkv dv {what}"))
         err_dkv = max(err_dk, err_dv)
+        dk2, dv2 = flash._dkv_cuda(q, k, v, do, lse, delta, causal)
+        if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+            raise AssertionError(f"flash_bwd_dkv {what}: two launches differ")
         print(f"[kernels] flash {what}: share of the limit used (largest of per "
               f"element and per head) O {use_o:.3f}, dq {use_dq:.3f}, dk {use_dk:.3f}, "
-              f"dv {use_dv:.3f}", flush=True)
-        del rdq, rdk, rdv, dk, dv
+              f"dv {use_dv:.3f}; dk/dv repeat bit for bit", flush=True)
+        del rdq, rdk, rdv, dk, dv, dk2, dv2
         # live (query, key) pairs: the products' work on these inputs
         live = S * (S + 1) // 2 if causal else S * S
         mac, io, vec = B * N * D * live, B * S * N * D * 2, B * N * S * 4
@@ -676,6 +693,11 @@ def phase_training_kernels(torch, rows_out):
             torch.autograd.grad(out, (qg, kg, vg), do4)
 
         lib_fwd_bwd = _time_ms(torch, sdpa_fwd_bwd, iters=10)
+        # the library's backward alone, from the saved forward outputs
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        lib_bwd_ops = _backward_ops(torch, out, (qg, kg, vg), do4)
+        lib_bwd = _time_ms(torch, lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do4, retain_graph=True), iters=10)
         t, by = _bound(4 * io + vec, 2 * 2 * mac, bf16)
         report("flash_fwd", f"K5 flash_fwd {what}", dict(
             max_abs_err=err_fwd,
@@ -687,20 +709,23 @@ def phase_training_kernels(torch, rows_out):
         t, by = _bound(5 * io + 2 * vec, 3 * 2 * mac, bf16)
         bwd_plain = _time_ms(torch, lambda: flash._bwd_reference(
             q, k, v, do, lse, delta, causal), iters=3)
+        ms_dq = _time_ms(torch, lambda: flash._dq_cuda(q, k, v, do, lse, delta, causal))
         report("flash_bwd_dq", f"K7 flash_bwd_dq {what}", dict(
-            max_abs_err=err_dq,
-            ms=_time_ms(torch, lambda: flash._dq_cuda(q, k, v, do, lse, delta, causal)),
-            plain_ms=bwd_plain, library_ms=None, bound_ms=t, bound_by=by))
+            max_abs_err=err_dq, ms=ms_dq, plain_ms=bwd_plain, library_ms=None,
+            bound_ms=t, bound_by=by))
         t, by = _bound(6 * io + 2 * vec, 4 * 2 * mac, bf16)
+        ms_dkv = _time_ms(torch, lambda: flash._dkv_cuda(q, k, v, do, lse, delta, causal))
         report("flash_bwd_dkv", f"K6 flash_bwd_dkv {what}", dict(
-            max_abs_err=err_dkv,
-            ms=_time_ms(torch, lambda: flash._dkv_cuda(q, k, v, do, lse, delta, causal)),
-            plain_ms=bwd_plain, library_ms=None, bound_ms=t, bound_by=by))
-        print(f"[kernels] library yardstick {what}: SDPA forward + backward "
-              f"{lib_fwd_bwd:.4f} ms (no one library call computes dq alone or "
-              f"dk/dv alone; plain_ms of K6 and K7 is the whole plain backward)",
-              flush=True)
-        del q, k, v, do, o, lse, ro, rlse, qg, kg, vg
+            max_abs_err=err_dkv, ms=ms_dkv, plain_ms=bwd_plain, library_ms=None,
+            bound_ms=t, bound_by=by))
+        print(f"[kernels] library yardstick {what}: SDPA backward alone "
+              f"({out.grad_fn.name()}: {', '.join(lib_bwd_ops)}) {lib_bwd:.4f} ms from the "
+              f"saved forward outputs; K7 + K6 together {ms_dq + ms_dkv:.4f} ms = "
+              f"{(ms_dq + ms_dkv) / lib_bwd:.3f}x it; SDPA forward + backward "
+              f"{lib_fwd_bwd:.4f} ms (no one library call computes dq alone or dk/dv "
+              f"alone, so library_ms of K6 and K7 is none; plain_ms of both is the whole "
+              f"plain backward)", flush=True)
+        del q, k, v, do, o, lse, ro, rlse, qg, kg, vg, out
         torch.cuda.empty_cache()
 
     # ---- K8: LayerNorm backward at the training rows (B 16 x S 1024)
@@ -923,7 +948,7 @@ def phase_legacy_kernels(torch, np, rows_out):
     f32 = torch.float32
 
     # ---- B9 over [16 x 512, 3072]: the FFN activation of phase 16's batch
-    for dtype in (f32, torch.float16):
+    for dtype in (f32, torch.bfloat16, torch.float16):
         x = (3 * torch.randn(16 * 512, 3072, generator=gen, device=dev)).to(dtype)
         dy = torch.randn(16 * 512, 3072, generator=gen, device=dev).to(dtype)
         n, e = x.numel(), x.element_size()
@@ -935,7 +960,9 @@ def phase_legacy_kernels(torch, np, rows_out):
             max_abs_err=err, ms=_time_ms(torch, lambda: activations._gelu_cuda(x)),
             plain_ms=_time_ms(torch, lambda: activations._gelu_ref(x)),
             library_ms=_time_ms(torch, lambda: F.gelu(x, approximate="tanh")),
-            bound_ms=t, bound_by=by))
+            bound_ms=t, bound_by=by,
+            device_ms=_graph_ms(torch, lambda: activations._gelu_cuda(x)),
+            library_device_ms=_graph_ms(torch, lambda: F.gelu(x, approximate="tanh"))))
         # the JAX test's gradient tolerance: gelu'(x) cancels near its zero
         # (x ~ -0.75), where FMA contraction moves the fp32 result by ~1e-6
         err = _ulp_close(torch, activations._dgelu_cuda(x, dy),
@@ -946,7 +973,10 @@ def phase_legacy_kernels(torch, np, rows_out):
             plain_ms=_time_ms(torch, lambda: activations._dgelu_ref(x, dy)),
             library_ms=_time_ms(torch, lambda: torch.ops.aten.gelu_backward(
                 dy, x, approximate="tanh")),
-            bound_ms=t, bound_by=by))
+            bound_ms=t, bound_by=by,
+            device_ms=_graph_ms(torch, lambda: activations._dgelu_cuda(x, dy)),
+            library_device_ms=_graph_ms(torch, lambda: torch.ops.aten.gelu_backward(
+                dy, x, approximate="tanh"))))
         del x, dy
 
     # ---- B8 over attention scores: [16, 12, 1024, 1024] bf16 at scale

@@ -24,10 +24,10 @@
 //
 // Two implementations of each kernel, one per type:
 //
-// * bf16 runs tensor-core kernels.  The forward (K5) is the Hopper kernel
-//   of namespace `hopper`: TMA loads into a two-stage ring and `wgmma`
-//   products (described there).  The backward passes (K7, K6) are the
-//   `mma.sync` kernels of namespace `tc`.  All take D a multiple of 16
+// * bf16 runs tensor-core kernels.  The forward (K5) and the dk/dv pass
+//   (K6) are the Hopper kernels of namespace `hopper`: TMA loads into a
+//   two-stage ring and `wgmma` products (described there).  The dq pass
+//   (K7) is the `mma.sync` kernel of namespace `tc`.  All take D a multiple of 16
 //   (every preset: D 64, 80, 128) and 16-byte aligned operands; the
 //   wrapper zero-pads D = 8 mod 16 and copies a misaligned view, and the
 //   launcher refuses anything else.
@@ -355,8 +355,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ------------------------------------------------------------------------
 // Tensor-core backward (bf16, D a multiple of 16): FlashAttention-2's
 // register-resident design on `mma.sync.m16n8k16` (bf16 in, fp32
-// accumulate).  128 threads (4 warps) per CTA; warp w owns rows
-// 16w..16w+15 of the CTA's 64-row tile (q rows for K7, k rows for K6).  Operand tiles are staged
+// accumulate), for K7.  128 threads (4 warps) per CTA; warp w owns rows
+// 16w..16w+15 of the CTA's 64-row q tile.  Operand tiles are staged
 // in shared memory as bf16 with a row pitch of D + 8 (so a fragment load
 // hits 32 distinct banks); scores, P, dS and the output accumulators stay
 // in registers.  A lane holds the scores of two rows (g = lane / 4 and
@@ -471,22 +471,19 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Write rows (g, g + 8) of a 16 x D accumulator block as bf16, scaled.
+// Write rows (g, g + 8) of a 16 x D accumulator block as bf16.
 template <int DT>
 __device__ __forceinline__ void store_rows(bf16* __restrict__ out, const float (&acc)[2 * DT][4],
-                                           int b, int n, int row, int S, int N, int t,
-                                           float scale0, float scale1) {
+                                           int b, int n, int row, int S, int N, int t) {
   constexpr int D = DT * 16;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = row + 8 * h;
     if (r >= S) continue;
-    const float sc = h ? scale1 : scale0;
     bf16* base = out + row_off(b, r, n, S, N, D) + 2 * t;
 #pragma unroll
     for (int dt = 0; dt < 2 * DT; ++dt)
-      *reinterpret_cast<uint32_t*>(base + 8 * dt) =
-          pack(acc[dt][2 * h] * sc, acc[dt][2 * h + 1] * sc);
+      *reinterpret_cast<uint32_t*>(base + 8 * dt) = pack(acc[dt][2 * h], acc[dt][2 * h + 1]);
   }
 }
 
@@ -542,67 +539,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
       }
     accumulate<DT>(acc, s, Ks, g, t);
   }
-  store_rows<DT>(dq, acc, b, n, row, S, N, t, 1.f, 1.f);
-}
-
-template <int DT>
-__global__ void __launch_bounds__(THREADS)
-dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-           const bf16* __restrict__ dout, const float* __restrict__ lse,
-           const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
-           int S, int N, int causal) {
-  constexpr int D = DT * 16, LD = D + 8;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + TILE * LD;
-  bf16* Qs = Vs + TILE * LD;
-  bf16* dOs = Qs + TILE * LD;
-  float* Ls = reinterpret_cast<float*>(dOs + TILE * LD);  // LSE of the q tile's rows
-  float* Ds = Ls + TILE;                                   // delta of the q tile's rows
-  const int bh = blockIdx.x, b = bh / N, n = bh % N;
-  const int kt = blockIdx.y;
-  const int k0 = kt * TILE;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int krow = k0 + 16 * warp + g;   // and krow + 8
-
-  load_tile(Ks, k, b, n, k0, S, N, D);
-  load_tile(Vs, v, b, n, k0, S, N, D);
-  float dk_acc[2 * DT][4], dv_acc[2 * DT][4];
-#pragma unroll
-  for (int dt = 0; dt < 2 * DT; ++dt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk_acc[dt][i] = dv_acc[dt][i] = 0.f;
-  const int nq = (S + TILE - 1) / TILE;
-  for (int qt = causal ? kt : 0; qt < nq; ++qt) {
-    const int q0 = qt * TILE;
-    __syncthreads();
-    load_tile(Qs, q, b, n, q0, S, N, D);
-    load_tile(dOs, dout, b, n, q0, S, N, D);
-    for (int i = threadIdx.x; i < TILE; i += THREADS) {
-      const bool in = q0 + i < S;
-      Ls[i] = in ? lse[(size_t)bh * S + q0 + i] : 0.f;
-      Ds[i] = in ? delta[(size_t)bh * S + q0 + i] : 0.f;
-    }
-    __syncthreads();
-    float st[8][4], dpt[8][4];
-    scores<DT>(st, Ks, Qs, warp, g, t);    // S^T: k rows . q rows
-    scores<DT>(dpt, Vs, dOs, warp, g, t);  // dP^T: v rows . dO rows
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qc = 8 * nt + 2 * t + (i & 1);
-        const bool ok = live(q0 + qc, krow + 8 * (i >> 1), S, causal);
-        const float p = ok ? expf(st[nt][i] - Ls[qc]) : 0.f;
-        st[nt][i] = p;                          // P^T
-        dpt[nt][i] = p * (dpt[nt][i] - Ds[qc]);  // dS^T
-      }
-    accumulate<DT>(dv_acc, st, dOs, g, t);
-    accumulate<DT>(dk_acc, dpt, Qs, g, t);
-  }
-  store_rows<DT>(dk, dk_acc, b, n, krow, S, N, t, 1.f, 1.f);
-  store_rows<DT>(dv, dv_acc, b, n, krow, S, N, t, 1.f, 1.f);
+  store_rows<DT>(dq, acc, b, n, row, S, N, t);
 }
 
 inline size_t tile_bytes(int D) { return (size_t)TILE * (D + 8) * sizeof(bf16); }
@@ -757,37 +694,71 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// K and V tile kt of head (b, n) into stage kt & 1 of the ring at `ring`
-// (K then V, DB boxes each), arming the stage's mbarrier for the full boxes
-// (out-of-bounds bytes count).
+// Rows row0 .. row0+63 of head (b, n) of two tensors (K and V for K5, Q and
+// dO for K6) into stage `st` of the ring at `ring` (the first tensor, then
+// the second, DB boxes each), arming the stage's mbarrier for the full
+// boxes (out-of-bounds bytes count).
 template <int DB>
-__device__ __forceinline__ void load_kv(uint32_t ring, uint32_t bars, const CUtensorMap* tk,
-                                        const CUtensorMap* tv, int kt, int n, int b) {
+__device__ __forceinline__ void load_pair(uint32_t ring, uint32_t bars, const CUtensorMap* ta,
+                                          const CUtensorMap* tb, int st, int row0, int n,
+                                          int b) {
   constexpr uint32_t TILE_BYTES = DB * BOX_BYTES;
-  const int st = kt & 1;
-  const uint32_t kst = ring + 2 * TILE_BYTES * st;
+  const uint32_t ast = ring + 2 * TILE_BYTES * st;
   const uint32_t bar = bars + 8 + 8 * st;
   mbar_expect_tx(bar, 2 * TILE_BYTES);
 #pragma unroll
   for (int box = 0; box < DB; ++box) {
-    tma_load(kst + box * BOX_BYTES, tk, bar, 64 * box, n, kt * TILE, b);
-    tma_load(kst + TILE_BYTES + box * BOX_BYTES, tv, bar, 64 * box, n, kt * TILE, b);
+    tma_load(ast + box * BOX_BYTES, ta, bar, 64 * box, n, row0, b);
+    tma_load(ast + TILE_BYTES + box * BOX_BYTES, tb, bar, 64 * box, n, row0, b);
   }
 }
 
-// S = Q K^T for one key tile (DT k-steps of 16, each 32 bytes further along
-// the swizzled 128-byte rows; the second box from k-step 4), issued and
-// committed; the caller waits.
+// s = A B^T for two 64-row tiles, both K-major over D (K5: Q K^T; K6: K Q^T
+// and V dO^T): DT k-steps of 16, each 32 bytes further along the swizzled
+// 128-byte rows, the second box from k-step 4; issued and committed, the
+// caller waits.
 template <int DT>
-__device__ __forceinline__ void issue_scores(float (&s)[8][4], uint32_t qs, uint32_t kst) {
+__device__ __forceinline__ void issue_scores(float (&s)[8][4], uint32_t as, uint32_t bs) {
   fence_regs(s);
   wg_fence();
 #pragma unroll
   for (int ks = 0; ks < DT; ++ks) {
     const uint32_t off = (ks >> 2) * BOX_BYTES + (ks & 3) * 32;
-    wgmma_ss(s, desc(qs + off, 16, ATOM_BYTES), desc(kst + off, 16, ATOM_BYTES), ks > 0);
+    wgmma_ss(s, desc(as + off, 16, ATOM_BYTES), desc(bs + off, 16, ATOM_BYTES), ks > 0);
   }
   wg_commit();
+}
+
+// The A operand of one k-step of 16 columns from two 8-column score tiles
+// in the accumulator's layout, rounded to bf16.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&lo)[4],
+                                       const float (&hi)[4]) {
+  a[0] = tc::pack(lo[0], lo[1]);
+  a[1] = tc::pack(lo[2], lo[3]);
+  a[2] = tc::pack(hi[0], hi[1]);
+  a[3] = tc::pack(hi[2], hi[3]);
+}
+
+// Write rows (row, row + 8) of a 64 x D accumulator (DB boxes of 64
+// columns; each warp holds its 16 rows in the `mma.sync` C layout) as
+// bf16, scaled; columns past D and rows past S are dropped.
+template <int DT>
+__device__ __forceinline__ void store_rows(tc::bf16* __restrict__ out,
+                                           const float (&acc)[(DT + 3) / 4][8][4], int b, int n,
+                                           int row, int S, int N, int t, float scale0,
+                                           float scale1) {
+  constexpr int D = DT * 16;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    if (r >= S) continue;
+    const float sc = h ? scale1 : scale0;
+    tc::bf16* base = out + row_off(b, r, n, S, N, D) + 2 * t;
+#pragma unroll
+    for (int dt = 0; dt < 2 * DT; ++dt)
+      *reinterpret_cast<uint32_t*>(base + 8 * dt) =
+          tc::pack(acc[dt >> 3][dt & 7][2 * h] * sc, acc[dt >> 3][dt & 7][2 * h + 1] * sc);
+  }
 }
 
 template <int DT>
@@ -795,7 +766,6 @@ __global__ void __launch_bounds__(THREADS)
 fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
            const __grid_constant__ CUtensorMap tv, tc::bf16* __restrict__ o,
            float* __restrict__ lse, int S, int N, int causal) {
-  constexpr int D = DT * 16;
   constexpr int DB = (DT + 3) / 4;                 // 64-column boxes a tile
   constexpr uint32_t TILE_BYTES = DB * BOX_BYTES;
   constexpr float L2E = 1.4426950408889634f;      // exp(x) = exp2(x log2 e)
@@ -825,7 +795,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
 #pragma unroll
     for (int box = 0; box < DB; ++box)
       tma_load(qs + box * BOX_BYTES, &tq, bars, 64 * box, n, q0, b);
-    load_kv<DB>(ring, bars, &tk, &tv, 0, n, b);
+    load_pair<DB>(ring, bars, &tk, &tv, 0, 0, n, b);
   }
   __syncwarp();
 
@@ -846,7 +816,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
   for (int kt = 0; kt < kt_end; ++kt) {
     const int st = kt & 1;
     if (tid == 0 && kt + 1 < kt_end)   // its stage was freed at the end of kt - 1
-      load_kv<DB>(ring, bars, &tk, &tv, kt + 1, n, b);
+      load_pair<DB>(ring, bars, &tk, &tv, (kt + 1) & 1, (kt + 1) * TILE, n, b);
     __syncwarp();
     mbar_wait(bars + 8 + 8 * st, (kt >> 1) & 1);
     __syncwarp();
@@ -901,10 +871,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
           e[j][i] = exp2f((s[2 * kk + j][i] - m[i >> 1]) * L2E);
           psum[i >> 1] += e[j][i];
         }
-      pa[kk][0] = tc::pack(e[0][0], e[0][1]);
-      pa[kk][1] = tc::pack(e[0][2], e[0][3]);
-      pa[kk][2] = tc::pack(e[1][0], e[1][1]);
-      pa[kk][3] = tc::pack(e[1][2], e[1][3]);
+      pack_a(pa[kk], e[0], e[1]);
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + tc::quad_sum(psum[h]);
@@ -924,30 +891,204 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
     __syncthreads();   // every warp is done with this stage before it is refilled
   }
 
-  const float inv[2] = {1.f / l[0], 1.f / l[1]};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = row + 8 * h;
-    if (r >= S) continue;
-    tc::bf16* base = o + row_off(b, r, n, S, N, D) + 2 * t;
-#pragma unroll
-    for (int dt = 0; dt < 2 * DT; ++dt)
-      *reinterpret_cast<uint32_t*>(base + 8 * dt) =
-          tc::pack(acc[dt >> 3][dt & 7][2 * h] * inv[h], acc[dt >> 3][dt & 7][2 * h + 1] * inv[h]);
-  }
+  store_rows<DT>(o, acc, b, n, row, S, N, t, 1.f / l[0], 1.f / l[1]);
   if (t == 0) {
     if (row < S) lse[(size_t)bh * S + row] = m[0] + logf(l[0]);
     if (row + 8 < S) lse[(size_t)bh * S + row + 8] = m[1] + logf(l[1]);
   }
 }
 
+// ------------------------------------------------------------------------
+// K6 on Hopper: one CTA (one warpgroup) owns a 64-row k tile of one (b, n)
+// head and walks the q tiles that attend to it (causal: from the diagonal
+// tile down; k tiles are scheduled in order, so the heaviest go first).
+//
+// Loads: K and V once, by TMA (the tensor maps of K5); Q and dO through a
+// two-stage ring, one mbarrier a stage, q tile j + 1 issued by thread 0
+// before tile j's math.  Each stage also holds its q rows' LSE (times
+// log2 e) and delta, 64 fp32 each: a 1-D bulk copy would need a 16-byte
+// aligned source, which (bh S + q0) 4 bytes is not when S mod 4 != 0, so
+// each thread loads one of the 128 values with a plain load at the start
+// of tile j and stores it into the other stage at the end of tile j.
+//
+// Products, all K5's two forms: S^T = K Q^T and dP^T = V dO^T with K (V)
+// the K-major A and Q (dO) the K-major B (`issue_scores`, K5's Q K^T with
+// the roles swapped), then dV += P^T dO and dK += dS^T Q with P^T (dS^T) in
+// registers as the A operand and dO (Q) the MN-major B (`wgmma_rs`, K5's
+// P V), one 64-column box at a time.  The same swizzled Q and dO tiles
+// serve as K-major and as MN-major B: only the descriptor differs.
+//
+// In registers the accumulator's rows are k rows and its columns q rows,
+// so the LSE, delta and the causal mask are indexed by the column
+// 8 nt + 2t + (0, 1).  P = exp2(s log2 e - LSE log2 e) as in K5.  The
+// diagonal tile (causal) and the ragged last q tile have a masked body, the
+// q tiles below the diagonal an unmasked one (`pl.when(qi > ki)` in the
+// TPU kernel); rows past S are zero (TMA fill, LSE and delta 0), so they
+// add nothing even unmasked.  dK and dV are rounded to bf16 once and
+// stored by each thread from its accumulator fragments: no atomics, so
+// launches repeat bit for bit.
+//
+// Bound: operations (4 products of 64 x 64 x D a pair of tiles).  What
+// holds it back: as in K5, one warpgroup runs its products and its
+// elementwise part in turn; a second CTA on the SM fills the gaps.
+//
+// Rounding: P to bf16 before P^T dO, dS = P (dP - delta) from the fp32 P
+// rounded to bf16 before dS^T Q, every sum in fp32.
+template <bool MASKED>
+__device__ __forceinline__ void dkv_probs(float (&st)[8][4], float (&dpt)[8][4],
+                                          const float* lse2, const float* dlt, int q0, int krow,
+                                          int S, int causal, int t) {
+  constexpr float L2E = 1.4426950408889634f;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int qc = 8 * nt + 2 * t;
+    const float2 l = *reinterpret_cast<const float2*>(lse2 + qc);
+    const float2 d = *reinterpret_cast<const float2*>(dlt + qc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float p = exp2f(fmaf(st[nt][i], L2E, -((i & 1) ? l.y : l.x)));
+      if (MASKED && !live(q0 + qc + (i & 1), krow + 8 * (i >> 1), S, causal)) p = 0.f;
+      st[nt][i] = p;                                        // P^T
+      dpt[nt][i] = p * (dpt[nt][i] - ((i & 1) ? d.y : d.x));  // dS^T
+    }
+  }
+}
+
+template <int DT>
+__global__ void __launch_bounds__(THREADS, 1)
+dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+           const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           tc::bf16* __restrict__ dk, tc::bf16* __restrict__ dv, int S, int N, int causal) {
+  constexpr int DB = (DT + 3) / 4;
+  constexpr uint32_t TILE_BYTES = DB * BOX_BYTES;
+  constexpr float L2E = 1.4426950408889634f;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // K | V | stage 0: Q, dO | stage 1: Q, dO | the stages' LSE and delta | 3 mbarriers
+  const uint32_t ks = smem_addr(smem_raw);
+  if (ks & (ATOM_BYTES - 1)) __trap();             // the swizzle needs 1024-byte tiles
+  const uint32_t vs = ks + TILE_BYTES;
+  const uint32_t ring = vs + TILE_BYTES;
+  float* rows = reinterpret_cast<float*>(smem_raw + 6 * TILE_BYTES);  // [stage][LSE, delta][64]
+  const uint32_t bars = ks + 6 * TILE_BYTES + 4 * TILE * sizeof(float);  // K/V's, stage 0's, 1's
+  const int bh = blockIdx.x, b = bh / N, n = bh % N;
+  const int kt = blockIdx.y;
+  const int k0 = kt * TILE;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int krow = k0 + 16 * warp + g;   // and krow + 8
+  const int nq = (S + TILE - 1) / TILE;
+  const int qt0 = causal ? kt : 0;
+  const int tiles = nq - qt0;
+  // thread tid's entry of a stage's table for q tile qt: LSE log2 e of row
+  // tid (tid < 64) or delta of row tid - 64; 0 past S
+  auto row_value = [&](int qt) -> float {
+    const int r = qt * TILE + (tid & (TILE - 1));
+    if (r >= S) return 0.f;
+    return tid < TILE ? lse[(size_t)bh * S + r] * L2E : delta[(size_t)bh * S + r];
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  rows[tid] = row_value(qt0);
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bars, 2 * TILE_BYTES);
+#pragma unroll
+    for (int box = 0; box < DB; ++box) {
+      tma_load(ks + box * BOX_BYTES, &tk, bars, 64 * box, n, k0, b);
+      tma_load(vs + box * BOX_BYTES, &tv, bars, 64 * box, n, k0, b);
+    }
+    load_pair<DB>(ring, bars, &tq, &tdo, 0, qt0 * TILE, n, b);
+  }
+  __syncwarp();
+
+  float dka[DB][8][4], dva[DB][8][4], st[8][4], dpt[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      st[nt][i] = dpt[nt][i] = 0.f;
+#pragma unroll
+      for (int c = 0; c < DB; ++c) dka[c][nt][i] = dva[c][nt][i] = 0.f;
+    }
+  mbar_wait(bars, 0);
+  for (int j = 0; j < tiles; ++j) {
+    const int stg = j & 1;
+    const int q0 = (qt0 + j) * TILE;
+    const bool more = j + 1 < tiles;
+    if (tid == 0 && more)   // its stage was freed at the end of tile j - 1
+      load_pair<DB>(ring, bars, &tq, &tdo, stg ^ 1, q0 + TILE, n, b);
+    const float next = more ? row_value(qt0 + j + 1) : 0.f;   // stored at the tile's end
+    __syncwarp();
+    mbar_wait(bars + 8 + 8 * stg, (j >> 1) & 1);
+    __syncwarp();
+    const uint32_t qs = ring + 2 * TILE_BYTES * stg;
+    const uint32_t dos = qs + TILE_BYTES;
+    issue_scores<DT>(st, ks, qs);    // S^T: k rows . q rows
+    issue_scores<DT>(dpt, vs, dos);  // dP^T: v rows . dO rows
+    wg_wait_all();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    const float* lse2 = rows + 2 * TILE * stg;
+    if ((causal && q0 == k0) || q0 + TILE > S)
+      dkv_probs<true>(st, dpt, lse2, lse2 + TILE, q0, krow, S, causal, t);
+    else
+      dkv_probs<false>(st, dpt, lse2, lse2 + TILE, q0, krow, S, causal, t);
+    // q rows 16kk.. are score tiles 2kk and 2kk + 1
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pack_a(pa[kk], st[2 * kk], st[2 * kk + 1]);
+      pack_a(da[kk], dpt[2 * kk], dpt[2 * kk + 1]);
+    }
+
+    // dV += P^T dO and dK += dS^T Q, one 64-column box at a time
+    wg_fence();
+#pragma unroll
+    for (int c = 0; c < DB; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(dva[c], pa[kk], desc(dos + c * BOX_BYTES + kk * 2 * ATOM_BYTES, BOX_BYTES,
+                                      ATOM_BYTES));
+#pragma unroll
+    for (int c = 0; c < DB; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(dka[c], da[kk], desc(qs + c * BOX_BYTES + kk * 2 * ATOM_BYTES, BOX_BYTES,
+                                      ATOM_BYTES));
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int c = 0; c < DB; ++c) {
+      fence_regs(dva[c]);
+      fence_regs(dka[c]);
+    }
+    if (more) rows[2 * TILE * (stg ^ 1) + tid] = next;
+    __syncthreads();   // every warp is done with this stage before it is refilled
+  }
+
+  store_rows<DT>(dk, dka, b, n, krow, S, N, t, 1.f, 1.f);
+  store_rows<DT>(dv, dva, b, n, krow, S, N, t, 1.f, 1.f);
+}
+
 #undef DST_WG_D32
 #undef DST_WG_REGS32
 
-// Q, a two-stage ring of K and V, and three mbarriers.
+// K5: Q, a two-stage ring of K and V, and three mbarriers.
 template <int DT>
 constexpr size_t smem_bytes() {
   return 5 * (size_t)((DT + 3) / 4) * BOX_BYTES + 3 * 8;
+}
+
+// K6: K, V, a two-stage ring of Q and dO, the stages' LSE and delta, and
+// three mbarriers.
+template <int DT>
+constexpr size_t dkv_smem_bytes() {
+  return 6 * (size_t)((DT + 3) / 4) * BOX_BYTES + 4 * TILE * sizeof(float) + 3 * 8;
 }
 
 // cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPoint (the
@@ -1090,11 +1231,17 @@ cudaError_t launch_tc(int which, const Args& a, cudaStream_t stream) {
         q, k, v, static_cast<const bf16*>(a.dout), a.lse, a.delta, static_cast<bf16*>(a.dq),
         a.S, a.N, a.causal);
   } else {
-    const size_t smem = 4 * tc::tile_bytes(D) + 2 * TILE * sizeof(float);
-    if ((e = prepare(tc::dkv_kernel<DT>, smem)) != cudaSuccess) return e;
-    tc::dkv_kernel<DT><<<grid, tc::THREADS, smem, stream>>>(
-        q, k, v, static_cast<const bf16*>(a.dout), a.lse, a.delta, static_cast<bf16*>(a.dk),
-        static_cast<bf16*>(a.dv), a.S, a.N, a.causal);
+    CUtensorMap tq, tk, tv, tdo;
+    if (!hopper::head_map(&tq, q, a.B, a.S, a.N, D) ||
+        !hopper::head_map(&tk, k, a.B, a.S, a.N, D) ||
+        !hopper::head_map(&tv, v, a.B, a.S, a.N, D) ||
+        !hopper::head_map(&tdo, a.dout, a.B, a.S, a.N, D))
+      return cudaErrorInvalidValue;
+    const size_t smem = hopper::dkv_smem_bytes<DT>();
+    if ((e = prepare(hopper::dkv_kernel<DT>, smem)) != cudaSuccess) return e;
+    hopper::dkv_kernel<DT><<<grid, hopper::THREADS, smem, stream>>>(
+        tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+        a.S, a.N, a.causal);
   }
   return cudaGetLastError();
 }

@@ -47,8 +47,11 @@ def _topk_reference(x, k):
 
 
 def _topk_cuda(x, k):
-    """K4 on the card."""
-    require_cuda("sorted_topk", x, dtype=torch.float32)
+    """K4 on the card.  The kernel reads fp32 rows: another float type, or a
+    strided view, is widened and made contiguous first, as the reference
+    casts the row to fp32 (exact, so values, ties and order are kept)."""
+    x = x.to(torch.float32).contiguous()
+    require_cuda("sorted_topk", x)
     rows, V = x.shape
     # above K_MAX a row too long for shared memory makes the launch fail, and raise
     lib = library("topk")
@@ -65,7 +68,8 @@ def _topk_cuda(x, k):
 def sorted_topk(x, k):
     """Top-k values (descending) and their indices per row.
 
-    x [rows, V] float32 -> (vals [rows, k] float32, idx [rows, k] int32)
+    x [rows, V] of any float type, taken as fp32 -> (vals [rows, k] float32,
+    idx [rows, k] int32)
 
     On the card any V is taken up to k = :data:`K_MAX`; above it the row
     must fit in shared memory (V up to about 56K), or the launch raises.

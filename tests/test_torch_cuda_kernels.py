@@ -13,11 +13,14 @@ and no live token, ragged sequence lengths (to 4096 tokens), pools that
 are misaligned or of odd head dims, stale block-table ids past a row's
 live blocks, causal and full attention, sorted top-k (K4) bit for bit
 over rows of ties, -inf, signed zeros and NaN, vocabularies to 128,256,
-k above the radix path's limit and unaligned slices, the
+k above the radix path's limit, unaligned slices, bf16 / fp16 logits and
+transposed views, the flash dk/dv pass (K6) at the forward's edges and
+repeated bit for bit, the
 fused optimizers over flat buffers and over separate (also non-contiguous)
 tensors of many sizes, the fused dequant-reduce (B5) bit for bit over every
 1-byte type, peer count and alignment, two training processes sharing
-the card over gloo, tanh-GELU (B9) and the fused softmax (B8) over every
+the card over gloo, tanh-GELU (B9) over every type and its vector and
+scalar paths (bit for bit between them), the fused softmax (B8) over every
 type, odd widths and each forward path's widths, unaligned rows and rows
 of -inf or NaN, and block-sparse attention (B10) over every sparsity
 config, block sizes 16-128, head dims that need padding, per-head layouts,
@@ -473,7 +476,7 @@ def _topk_rows(gen, rows, V):
 
 def _check_topk(x, k):
     kv, ki = topk.sorted_topk(x, k)
-    rv, ri = topk._topk_reference(x, k)
+    rv, ri = topk._topk_reference(x.float(), k)   # on the fp32 widening
     torch.cuda.synchronize()
     assert torch.equal(ki, ri)
     assert torch.equal(kv.isnan(), rv.isnan())
@@ -494,14 +497,22 @@ def test_sorted_topk(gen, V, k):
     assert torch.equal(ki[3], torch.arange(k, dtype=torch.int32, device="cuda"))
 
 
-@pytest.mark.parametrize("case", ["rows8", "unaligned", "nan_row", "one_row"])
+@pytest.mark.parametrize("case", ["rows8", "unaligned", "nan_row", "one_row", "bf16", "fp16",
+                                  "transposed"])
 def test_sorted_topk_shapes(gen, case):
     """The served shape (8 rows of the GPT-NeoX vocabulary), a slice whose
     pointer is not 16-byte aligned (the element path), a row that is
-    finite but for one NaN, and a single row."""
+    finite but for one NaN, a single row, and what the reference takes
+    beyond fp32 rows: bf16 and fp16 logits and a transposed view, each
+    equal to the plain version on the fp32 widening."""
     V, k = 50304, 50
     if case == "rows8":
         x = _topk_rows(gen, 8, V)
+    elif case in ("bf16", "fp16"):
+        x = _topk_rows(gen, 9, V).to(torch.bfloat16 if case == "bf16" else torch.float16)
+    elif case == "transposed":
+        x = _topk_rows(gen, 9, V).t().contiguous().t()
+        assert not x.is_contiguous()
     elif case == "unaligned":
         flat = torch.randn(9 * V + 1, generator=gen, device="cuda")
         x = flat[1:].view(9, V)
@@ -605,6 +616,11 @@ def _qkv(gen, S, D, dtype, B=2, N=3):
             for _ in range(4)]
 
 
+def _delta(do, o):
+    B, S, N, _ = o.shape
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(B * N, S).contiguous()
+
+
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("S", [1, 7, 64, 1000, 1024])
@@ -625,8 +641,7 @@ def test_flash_forward(gen, D, S, dtype, causal):
 def test_flash_backward(gen, D, S, dtype, causal):
     q, k, v, do = _qkv(gen, S, D, dtype, B=1)
     o, lse = flash._fwd_reference(q, k, v, causal)
-    B, _, N, _ = q.shape
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(B * N, S).contiguous()
+    delta = _delta(do, o)
     dq = flash._dq_cuda(q, k, v, do, lse, delta, causal)
     dk, dv = flash._dkv_cuda(q, k, v, do, lse, delta, causal)
     for got, want in zip((dq, dk, dv), flash._bwd_reference(q, k, v, do, lse, delta, causal)):
@@ -637,10 +652,12 @@ def test_flash_backward(gen, D, S, dtype, causal):
 # K5's edges on the card: head dims whose second 64-column box is partly
 # out of bounds (80, 112), one long sequence, S one row past a tile, a
 # single head, and two waves of 132 CTAs
+FLASH_EDGES = [(2, 300, 3, 80), (2, 300, 3, 112), (1, 4096, 2, 64), (2, 65, 3, 64),
+               (2, 127, 3, 128), (1, 200, 1, 64), (24, 64, 11, 64), (4, 130, 66, 96)]
+
+
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("B,S,N,D", [(2, 300, 3, 80), (2, 300, 3, 112), (1, 4096, 2, 64),
-                                     (2, 65, 3, 64), (2, 127, 3, 128), (1, 200, 1, 64),
-                                     (24, 64, 11, 64), (4, 130, 66, 96)])
+@pytest.mark.parametrize("B,S,N,D", FLASH_EDGES)
 def test_flash_forward_edges(gen, B, S, N, D, causal):
     q, k, v, _ = _qkv(gen, S, D, torch.bfloat16, B=B, N=N)
     o, lse = flash._fwd_cuda(q, k, v, causal)
@@ -649,12 +666,36 @@ def test_flash_forward_edges(gen, B, S, N, D, causal):
     torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-4)
 
 
+# K6's edges, the same shapes: the Q/dO ring over an odd or even count of q
+# tiles, the ragged last q tile, second boxes partly out of bounds
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("B,S,N,D", FLASH_EDGES)
+def test_flash_dkv_edges(gen, B, S, N, D, causal):
+    q, k, v, do = _qkv(gen, S, D, torch.bfloat16, B=B, N=N)
+    o, lse = flash._fwd_reference(q, k, v, causal)
+    delta = _delta(do, o)
+    dk, dv = flash._dkv_cuda(q, k, v, do, lse, delta, causal)
+    _, rdk, rdv = flash._bwd_reference(q, k, v, do, lse, delta, causal)
+    _flash_close(dk, rdk, torch.bfloat16, grad=True)
+    _flash_close(dv, rdv, torch.bfloat16, grad=True)
+
+
 @pytest.mark.parametrize("D", [64, 80, 128])
 def test_flash_forward_launches_repeat_bit_for_bit(gen, D):
     q, k, v, _ = _qkv(gen, 1000, D, torch.bfloat16)
     o1, l1 = flash._fwd_cuda(q, k, v, True)
     o2, l2 = flash._fwd_cuda(q, k, v, True)
     assert torch.equal(o1, o2) and torch.equal(l1, l2)
+
+
+@pytest.mark.parametrize("D", [64, 80, 128])
+def test_flash_dkv_launches_repeat_bit_for_bit(gen, D):
+    q, k, v, do = _qkv(gen, 1000, D, torch.bfloat16)
+    o, lse = flash._fwd_cuda(q, k, v, True)
+    delta = _delta(do, o)
+    dk1, dv1 = flash._dkv_cuda(q, k, v, do, lse, delta, True)
+    dk2, dv2 = flash._dkv_cuda(q, k, v, do, lse, delta, True)
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
 
 
 def test_flash_takes_unaligned_bf16_operands(gen):
@@ -669,7 +710,7 @@ def test_flash_takes_unaligned_bf16_operands(gen):
     o, lse = flash._fwd_cuda(q, k, v, True)
     ro, rlse = flash._fwd_reference(q, k, v, True)
     _flash_close(o, ro, torch.bfloat16)
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(B * N, S).contiguous()
+    delta = _delta(do, o)
     dq = flash._dq_cuda(q, k, v, do, lse, delta, True)
     _flash_close(dq, flash._bwd_reference(q, k, v, do, lse, delta, True)[0],
                  torch.bfloat16, grad=True)
@@ -962,6 +1003,32 @@ def test_gelu(gen, shape, dtype):
     assert y.dtype == dtype
     _close(y, activations._gelu_ref(x), dtype)
     _close(activations._dgelu_cuda(x, dy), activations._dgelu_ref(x, dy), dtype)
+
+
+def _unaligned_copy(t):
+    """The values of ``t`` in a view one element past an aligned address."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    view = buf[1:].view(t.shape)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+# B9's paths: the scalar loop alone (n below one chunk of 256 threads x 2
+# vectors: 1, 7, 9), whole chunks and a scalar tail (4097, 65543), and the
+# same values in views that are not 16-byte aligned (the scalar loop over
+# every element), which must give the vector path's results bit for bit
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("n", [1, 7, 9, 4097, 65543])
+def test_gelu_paths(gen, n, dtype):
+    x = (3 * torch.randn(n, generator=gen, device="cuda")).to(dtype)
+    dy = torch.randn(n, generator=gen, device="cuda").to(dtype)
+    y, dx = activations._gelu_cuda(x), activations._dgelu_cuda(x, dy)
+    _close(y, activations._gelu_ref(x), dtype)
+    _close(dx, activations._dgelu_ref(x, dy), dtype)
+    xu, dyu = _unaligned_copy(x), _unaligned_copy(dy)
+    assert torch.equal(activations._gelu_cuda(xu), y)
+    assert torch.equal(activations._dgelu_cuda(xu, dyu), dx)
 
 
 # B8's forward against its plain version: fp32 at the JAX tests' (rtol,

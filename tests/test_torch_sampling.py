@@ -90,6 +90,31 @@ def test_topk_on_cuda_launches_or_raises(monkeypatch, k):
     assert not calls
 
 
+@pytest.mark.parametrize("case", ["bf16", "fp16", "transposed"])
+def test_topk_cuda_takes_what_the_reference_takes(monkeypatch, case):
+    """K4's card path takes any float type and a strided view, as the
+    reference casts the row to fp32: it widens x to contiguous fp32 before
+    it validates it, so a CPU tensor gets the device error, and what the
+    validation sees is the exact fp32 widening."""
+    x = torch.randn(4, 64)
+    x = {"bf16": x.bfloat16(), "fp16": x.half(), "transposed": x.t().contiguous().t()}[case]
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        topk._topk_cuda(x, 3)
+    seen = []
+
+    def validate(kernel, *ts, dtype=None):
+        seen.append((ts, dtype))
+        raise ValueError("validated")
+
+    monkeypatch.setattr(topk, "require_cuda", validate)
+    with pytest.raises(ValueError, match="validated"):
+        topk._topk_cuda(x, 3)
+    ((widened,), dtype), = seen
+    assert dtype in (None, torch.float32)
+    assert widened.dtype == torch.float32 and widened.is_contiguous()
+    assert torch.equal(widened, x.float())
+
+
 def test_topk_k_max_is_the_kernels():
     """The wrapper's K_MAX is the bound the launcher of csrc/topk.cu uses."""
     src = (ROOT / "deeperspeed_tpu_torch" / "csrc" / "topk.cu").read_text()
