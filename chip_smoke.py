@@ -21,10 +21,12 @@ package, and goes through these phases, each printing its lines:
    alone from a CUDA graph, and rows with a NaN or masked to fewer finite
    values than k, bit for bit), training's K5 flash-attention forward, K7 its
    dq pass, K6 its dk/dv pass (also at one 4096-token sequence; two
-   launches bit for bit; beside them the library's attention backward
-   alone, the op that ``F.scaled_dot_product_attention`` dispatches to,
-   named and timed from the saved forward outputs) and K8 the
-   LayerNorm backward, and the optimizers' B6 fused Adam
+   launches of each bit for bit; beside them the library's attention
+   backward alone, the op that ``F.scaled_dot_product_attention``
+   dispatches to, named and timed from the saved forward outputs) and K8
+   the LayerNorm backward (two launches bit for bit; also its two kernels
+   alone from a CUDA graph, beside ``aten.native_layer_norm_backward``
+   alone), and the optimizers' B6 fused Adam
    and B7 fused Lion over Pythia-160M's 162,322,944 parameters, and the qgZ
    gradient path's B5 fused dequant-reduce at its largest shape (the input
    embedding at world 2, [2, 150912, 128]) over int8, fp8 e5m2 and e4m3,
@@ -668,8 +670,10 @@ def phase_training_kernels(torch, rows_out):
         _close(torch, lse, rlse, 1e-4, 1e-5, f"flash_fwd LSE {what}")
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(B * N, S).contiguous()
         rdq, rdk, rdv = flash._bwd_reference(q, k, v, do, lse, delta, causal)
-        err_dq, use_dq = flash_close(torch, flash._dq_cuda(q, k, v, do, lse, delta, causal),
-                                     rdq, f"flash_bwd_dq {what}")
+        dq = flash._dq_cuda(q, k, v, do, lse, delta, causal)
+        err_dq, use_dq = flash_close(torch, dq, rdq, f"flash_bwd_dq {what}")
+        if not torch.equal(dq, flash._dq_cuda(q, k, v, do, lse, delta, causal)):
+            raise AssertionError(f"flash_bwd_dq {what}: two launches differ")
         dk, dv = flash._dkv_cuda(q, k, v, do, lse, delta, causal)
         (err_dk, use_dk), (err_dv, use_dv) = (
             flash_close(torch, dk, rdk, f"flash_bwd_dkv dk {what}"),
@@ -680,8 +684,8 @@ def phase_training_kernels(torch, rows_out):
             raise AssertionError(f"flash_bwd_dkv {what}: two launches differ")
         print(f"[kernels] flash {what}: share of the limit used (largest of per "
               f"element and per head) O {use_o:.3f}, dq {use_dq:.3f}, dk {use_dk:.3f}, "
-              f"dv {use_dv:.3f}; dk/dv repeat bit for bit", flush=True)
-        del rdq, rdk, rdv, dk, dv, dk2, dv2
+              f"dv {use_dv:.3f}; dq and dk/dv repeat bit for bit", flush=True)
+        del rdq, rdk, rdv, dq, dk, dv, dk2, dv2
         # live (query, key) pairs: the products' work on these inputs
         live = S * (S + 1) // 2 if causal else S * S
         mac, io, vec = B * N * D * live, B * S * N * D * 2, B * N * S * 4
@@ -709,22 +713,31 @@ def phase_training_kernels(torch, rows_out):
         t, by = _bound(5 * io + 2 * vec, 3 * 2 * mac, bf16)
         bwd_plain = _time_ms(torch, lambda: flash._bwd_reference(
             q, k, v, do, lse, delta, causal), iters=3)
-        ms_dq = _time_ms(torch, lambda: flash._dq_cuda(q, k, v, do, lse, delta, causal))
+        # device_ms: the kernel alone from a CUDA graph (at B 4 a launch takes
+        # about as long on the host as on the card, so events time the host)
+        def dq_call():
+            return flash._dq_cuda(q, k, v, do, lse, delta, causal)
+
+        def dkv_call():
+            return flash._dkv_cuda(q, k, v, do, lse, delta, causal)
+
+        ms_dq, dev_dq = _time_ms(torch, dq_call), _graph_ms(torch, dq_call)
         report("flash_bwd_dq", f"K7 flash_bwd_dq {what}", dict(
             max_abs_err=err_dq, ms=ms_dq, plain_ms=bwd_plain, library_ms=None,
-            bound_ms=t, bound_by=by))
+            bound_ms=t, bound_by=by, device_ms=dev_dq))
         t, by = _bound(6 * io + 2 * vec, 4 * 2 * mac, bf16)
-        ms_dkv = _time_ms(torch, lambda: flash._dkv_cuda(q, k, v, do, lse, delta, causal))
+        ms_dkv, dev_dkv = _time_ms(torch, dkv_call), _graph_ms(torch, dkv_call)
         report("flash_bwd_dkv", f"K6 flash_bwd_dkv {what}", dict(
             max_abs_err=err_dkv, ms=ms_dkv, plain_ms=bwd_plain, library_ms=None,
-            bound_ms=t, bound_by=by))
+            bound_ms=t, bound_by=by, device_ms=dev_dkv))
         print(f"[kernels] library yardstick {what}: SDPA backward alone "
               f"({out.grad_fn.name()}: {', '.join(lib_bwd_ops)}) {lib_bwd:.4f} ms from the "
               f"saved forward outputs; K7 + K6 together {ms_dq + ms_dkv:.4f} ms = "
-              f"{(ms_dq + ms_dkv) / lib_bwd:.3f}x it; SDPA forward + backward "
-              f"{lib_fwd_bwd:.4f} ms (no one library call computes dq alone or dk/dv "
-              f"alone, so library_ms of K6 and K7 is none; plain_ms of both is the whole "
-              f"plain backward)", flush=True)
+              f"{(ms_dq + ms_dkv) / lib_bwd:.3f}x it (alone, from CUDA graphs, "
+              f"{dev_dq + dev_dkv:.4f} ms = {(dev_dq + dev_dkv) / lib_bwd:.3f}x); SDPA "
+              f"forward + backward {lib_fwd_bwd:.4f} ms (no one library call computes dq "
+              f"alone or dk/dv alone, so library_ms of K6 and K7 is none; plain_ms of both "
+              f"is the whole plain backward)", flush=True)
         del q, k, v, do, o, lse, ro, rlse, qg, kg, vg, out
         torch.cuda.empty_cache()
 
@@ -741,18 +754,34 @@ def phase_training_kernels(torch, rows_out):
     for got, want, name in ((dg, rdg, "dgamma"), (db, rdb, "dbeta")):
         err = max(err, _close(torch, got, want, 1e-5 * want.abs().max().item(), 1e-4,
                               f"layer_norm_bwd {name}"))
-    xl = x.clone().requires_grad_()
-    gl = g.to(bf16).requires_grad_()
-    bl = torch.zeros(H, device=dev, dtype=bf16, requires_grad=True)
-    yl = F.layer_norm(xl, (H,), gl, bl, 1e-5)
+    if not all(torch.equal(a, b) for a, b in zip(
+            (dx, dg, db), normalize._ln_bwd_cuda(x, g, dy, 1e-5, False))):
+        raise AssertionError("layer_norm_bwd: two launches differ")
+    # the library's LayerNorm backward kernels alone, on the saved mean and
+    # rstd of its forward (bf16 weight and bias, as under mixed precision)
+    gl, bl = g.to(bf16), torch.zeros(H, device=dev, dtype=bf16)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [H], gl, bl, 1e-5)
+
+    def library():
+        return torch.ops.aten.native_layer_norm_backward(dy, x, [H], mean, rstd, gl, bl,
+                                                         [True, True, True])
+
+    # and through autograd, as a training step reaches it
+    xl, gr, br = (a.clone().requires_grad_() for a in (x, gl, bl))
+    yl = F.layer_norm(xl, (H,), gr, br, 1e-5)
+    autograd_ms = _time_ms(torch, lambda: torch.autograd.grad(
+        yl, (xl, gr, br), dy, retain_graph=True))
+    print(f"[kernels] K8 yardstick rows={rows} H={H} bf16: torch.autograd.grad through "
+          f"F.layer_norm {autograd_ms:.4f} ms", flush=True)
     t, by = _bound(3 * rows * H * 2 + 3 * H * 4, 20 * rows * H, torch.float32)
     report("layer_norm_bwd", f"K8 layer_norm_bwd rows={rows} H={H} bf16", dict(
         max_abs_err=err,
         ms=_time_ms(torch, lambda: normalize._ln_bwd_cuda(x, g, dy, 1e-5, False)),
         plain_ms=_time_ms(torch, lambda: normalize._ln_bwd_ref(x, g, dy, 1e-5, False)),
-        library_ms=_time_ms(torch, lambda: torch.autograd.grad(
-            yl, (xl, gl, bl), dy, retain_graph=True)),
-        bound_ms=t, bound_by=by))
+        library_ms=_time_ms(torch, library),
+        bound_ms=t, bound_by=by,
+        device_ms=_graph_ms(torch, lambda: normalize._ln_bwd_cuda(x, g, dy, 1e-5, False)),
+        library_device_ms=_graph_ms(torch, library)))
     return rows_out
 
 

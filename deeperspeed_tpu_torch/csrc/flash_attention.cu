@@ -24,11 +24,10 @@
 //
 // Two implementations of each kernel, one per type:
 //
-// * bf16 runs tensor-core kernels.  The forward (K5) and the dk/dv pass
-//   (K6) are the Hopper kernels of namespace `hopper`: TMA loads into a
-//   two-stage ring and `wgmma` products (described there).  The dq pass
-//   (K7) is the `mma.sync` kernel of namespace `tc`.  All take D a multiple of 16
-//   (every preset: D 64, 80, 128) and 16-byte aligned operands; the
+// * bf16 runs the Hopper kernels of namespace `hopper`: TMA loads into a
+//   two-stage ring and `wgmma` products (described there), K5 the
+//   forward, K6 the dk/dv pass and K7 the dq pass.  All take D a multiple of
+//   16 (every preset: D 64, 80, 128) and 16-byte aligned operands; the
 //   wrapper zero-pads D = 8 mod 16 and copies a misaligned view, and the
 //   launcher refuses anything else.
 // * fp32 runs the CUDA-core kernels below:
@@ -353,205 +352,11 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 
 // ------------------------------------------------------------------------
-// Tensor-core backward (bf16, D a multiple of 16): FlashAttention-2's
-// register-resident design on `mma.sync.m16n8k16` (bf16 in, fp32
-// accumulate), for K7.  128 threads (4 warps) per CTA; warp w owns rows
-// 16w..16w+15 of the CTA's 64-row q tile.  Operand tiles are staged
-// in shared memory as bf16 with a row pitch of D + 8 (so a fragment load
-// hits 32 distinct banks); scores, P, dS and the output accumulators stay
-// in registers.  A lane holds the scores of two rows (g = lane / 4 and
-// g + 8) at eight column pairs; a row's max and sum reduce over the four
-// lanes that share g.  The score accumulator's layout is the A operand's
-// layout of the next product, so P (and dS) go from registers to the
-// tensor cores after one rounding to bf16, with no trip through memory.
-// Rounding is the CUDA-core kernels': P and dS rounded to bf16 before
-// their products, every sum in fp32.
-namespace tc {
-
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
-
-typedef __nv_bfloat16 bf16;
-
-// Rows row0 .. row0+63 of head (b, n) into shared memory (pitch D + 8) with
-// 16-byte copies; rows >= S are zero.
-__device__ void load_tile(bf16* dst, const bf16* __restrict__ src, int b, int n, int row0,
-                          int S, int N, int D) {
-  const int vecs = D / 8;
-  const int ld = D + 8;
-  for (int idx = threadIdx.x; idx < TILE * vecs; idx += THREADS) {
-    const int r = idx / vecs;
-    const int c = (idx - r * vecs) * 8;
-    const int s = row0 + r;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (s < S) v = *reinterpret_cast<const uint4*>(src + row_off(b, s, n, S, N, D) + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
-  }
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// c += a . b for one 16 x 8 x 16 tile.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A fragment of rows 16w.. of a tile (pitch ld) at columns 16ks..
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int ld, int row,
-                                       int col) {
-  a[0] = ld32(tile + row * ld + col);
-  a[1] = ld32(tile + (row + 8) * ld + col);
-  a[2] = ld32(tile + row * ld + col + 8);
-  a[3] = ld32(tile + (row + 8) * ld + col + 8);
-}
-
-// s[nt] = A[16 rows of this warp] . Bm[8nt + (0..7)]^T over the D columns:
-// a 16 x 64 score block from two [64, D] tiles.
-template <int DT>
-__device__ __forceinline__ void scores(float (&s)[8][4], const bf16* A, const bf16* Bm,
-                                       int warp, int g, int t) {
-  constexpr int LD = DT * 16 + 8;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < DT; ++ks) {
-    uint32_t a[4];
-    load_a(a, A, LD, 16 * warp + g, 16 * ks + 2 * t);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const bf16* bp = Bm + (8 * nt + g) * LD + 16 * ks + 2 * t;
-      mma(s[nt], a, ld32(bp), ld32(bp + 8));
-    }
-  }
-}
-
-// acc[dt] += W . M over the tile's 64 rows, with W a 16 x 64 block held in
-// score layout (rounded to bf16 here) and M a [64, D] tile in shared memory.
-template <int DT>
-__device__ __forceinline__ void accumulate(float (&acc)[2 * DT][4], const float (&w)[8][4],
-                                           const bf16* M, int g, int t) {
-  constexpr int LD = DT * 16 + 8;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint32_t a[4] = {pack(w[2 * j][0], w[2 * j][1]), pack(w[2 * j][2], w[2 * j][3]),
-                           pack(w[2 * j + 1][0], w[2 * j + 1][1]),
-                           pack(w[2 * j + 1][2], w[2 * j + 1][3])};
-    const bf16* m0 = M + (16 * j + 2 * t) * LD + g;
-#pragma unroll
-    for (int dt = 0; dt < 2 * DT; ++dt) {
-      const bf16* mp = m0 + 8 * dt;
-      mma(acc[dt], a, pack(mp[0], mp[LD]), pack(mp[8 * LD], mp[9 * LD]));
-    }
-  }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Write rows (g, g + 8) of a 16 x D accumulator block as bf16.
-template <int DT>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ out, const float (&acc)[2 * DT][4],
-                                           int b, int n, int row, int S, int N, int t) {
-  constexpr int D = DT * 16;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = row + 8 * h;
-    if (r >= S) continue;
-    bf16* base = out + row_off(b, r, n, S, N, D) + 2 * t;
-#pragma unroll
-    for (int dt = 0; dt < 2 * DT; ++dt)
-      *reinterpret_cast<uint32_t*>(base + 8 * dt) = pack(acc[dt][2 * h], acc[dt][2 * h + 1]);
-  }
-}
-
-template <int DT>
-__global__ void __launch_bounds__(THREADS)
-dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-          const bf16* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ delta, bf16* __restrict__ dq, int S, int N, int causal) {
-  constexpr int D = DT * 16, LD = D + 8;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + TILE * LD;
-  bf16* Ks = dOs + TILE * LD;
-  bf16* Vs = Ks + TILE * LD;
-  const int bh = blockIdx.x, b = bh / N, n = bh % N;
-  const int qt = gridDim.y - 1 - blockIdx.y;
-  const int q0 = qt * TILE;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row = q0 + 16 * warp + g;
-
-  load_tile(Qs, q, b, n, q0, S, N, D);
-  load_tile(dOs, dout, b, n, q0, S, N, D);
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = row + 8 * h;
-    row_lse[h] = r < S ? lse[(size_t)bh * S + r] : 0.f;
-    row_delta[h] = r < S ? delta[(size_t)bh * S + r] : 0.f;
-  }
-  float acc[2 * DT][4];
-#pragma unroll
-  for (int dt = 0; dt < 2 * DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  const int nk = (S + TILE - 1) / TILE;
-  const int kt_end = causal ? qt + 1 : nk;
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * TILE;
-    __syncthreads();
-    load_tile(Ks, k, b, n, k0, S, N, D);
-    load_tile(Vs, v, b, n, k0, S, N, D);
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    scores<DT>(s, Qs, Ks, warp, g, t);
-    scores<DT>(dp, dOs, Vs, warp, g, t);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int h = i >> 1;
-        const bool ok = live(row + 8 * h, k0 + 8 * nt + 2 * t + (i & 1), S, causal);
-        const float p = ok ? expf(s[nt][i] - row_lse[h]) : 0.f;
-        s[nt][i] = p * (dp[nt][i] - row_delta[h]);   // dS
-      }
-    accumulate<DT>(acc, s, Ks, g, t);
-  }
-  store_rows<DT>(dq, acc, b, n, row, S, N, t);
-}
-
-inline size_t tile_bytes(int D) { return (size_t)TILE * (D + 8) * sizeof(bf16); }
-
-}  // namespace tc
-
-// ------------------------------------------------------------------------
 // K5 on Hopper (bf16, D a multiple of 16 up to 128).
 //
 // One CTA is one warpgroup (128 threads) and owns a 64-row q tile of one
-// (b, n) head; warp w owns rows 16w..16w+15, as in `tc`.  Heavy causal
-// tiles are scheduled first.
+// (b, n) head; warp w owns rows 16w..16w+15.  Heavy causal tiles are
+// scheduled first.
 //
 // Loads: TMA, one tensor map each for q, k and v over their [B, S, N, D]
 // layout (dims (D, N, S, B), no fold copy), a box of 64 columns x 1 head x
@@ -565,13 +370,16 @@ inline size_t tile_bytes(int D) { return (size_t)TILE * (D + 8) * sizeof(bf16); 
 // Products: S = Q K^T by `wgmma m64n64k16` with Q and K both K-major in
 // shared memory (D / 16 k-steps, each 32 bytes further along the swizzled
 // 128-byte rows).  O += P V by `wgmma m64n64k16` with P as the register A
-// operand (the score accumulator's layout rounded to bf16, as `tc` packs
-// it) and V as an MN-major B operand (the transpose bit), one 64-column
-// box at a time: D 80..112 compute the zero columns of the second box,
-// which the epilogue drops.  In each warp the `wgmma` accumulator has the
-// `mma.sync` m16n8 C layout over its 16 rows, so the masking, the online
-// softmax (fp32, `quad_max`/`quad_sum`, the alpha rescale) and the
-// epilogue are `tc`'s.  exp(x) is taken as exp2(x log2 e): at 64 exps per
+// operand (the score accumulator's layout rounded to bf16 pairs) and V as
+// an MN-major B operand (the transpose bit), one 64-column box at a time:
+// D 80..112 compute the zero columns of the second box, which the epilogue
+// drops.  In each warp the `wgmma` accumulator has the `mma.sync` m16n8 C
+// layout over its 16 rows: lane (g = lane / 4, t = lane % 4) holds rows g
+// and g + 8 at the column pairs 8 nt + 2t, so a row's max and sum reduce
+// over the four lanes that share g (`quad_max`/`quad_sum`), and the
+// accumulator packed to bf16 pairs is the A operand of the next product.
+// The online softmax is fp32 with the alpha rescale.  exp(x) is taken as
+// exp2(x log2 e): at 64 exps per
 // 64 x 64 x D product the softmax's instructions, not the tensor cores,
 // set a tile's time, and `expf`'s range reduction costs more than the
 // multiply.
@@ -590,6 +398,24 @@ namespace hopper {
 constexpr int THREADS = 128;                 // one warpgroup
 constexpr uint32_t BOX_BYTES = TILE * 128;   // 64 rows of 64 bf16 columns
 constexpr uint32_t ATOM_BYTES = 1024;        // 8 swizzled 128-byte rows
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Max and sum over the four lanes that hold one row.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -733,17 +559,17 @@ __device__ __forceinline__ void issue_scores(float (&s)[8][4], uint32_t as, uint
 // in the accumulator's layout, rounded to bf16.
 __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&lo)[4],
                                        const float (&hi)[4]) {
-  a[0] = tc::pack(lo[0], lo[1]);
-  a[1] = tc::pack(lo[2], lo[3]);
-  a[2] = tc::pack(hi[0], hi[1]);
-  a[3] = tc::pack(hi[2], hi[3]);
+  a[0] = pack(lo[0], lo[1]);
+  a[1] = pack(lo[2], lo[3]);
+  a[2] = pack(hi[0], hi[1]);
+  a[3] = pack(hi[2], hi[3]);
 }
 
 // Write rows (row, row + 8) of a 64 x D accumulator (DB boxes of 64
 // columns; each warp holds its 16 rows in the `mma.sync` C layout) as
 // bf16, scaled; columns past D and rows past S are dropped.
 template <int DT>
-__device__ __forceinline__ void store_rows(tc::bf16* __restrict__ out,
+__device__ __forceinline__ void store_rows(bf16* __restrict__ out,
                                            const float (&acc)[(DT + 3) / 4][8][4], int b, int n,
                                            int row, int S, int N, int t, float scale0,
                                            float scale1) {
@@ -753,18 +579,18 @@ __device__ __forceinline__ void store_rows(tc::bf16* __restrict__ out,
     const int r = row + 8 * h;
     if (r >= S) continue;
     const float sc = h ? scale1 : scale0;
-    tc::bf16* base = out + row_off(b, r, n, S, N, D) + 2 * t;
+    bf16* base = out + row_off(b, r, n, S, N, D) + 2 * t;
 #pragma unroll
     for (int dt = 0; dt < 2 * DT; ++dt)
       *reinterpret_cast<uint32_t*>(base + 8 * dt) =
-          tc::pack(acc[dt >> 3][dt & 7][2 * h] * sc, acc[dt >> 3][dt & 7][2 * h + 1] * sc);
+          pack(acc[dt >> 3][dt & 7][2 * h] * sc, acc[dt >> 3][dt & 7][2 * h + 1] * sc);
   }
 }
 
 template <int DT>
 __global__ void __launch_bounds__(THREADS)
 fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-           const __grid_constant__ CUtensorMap tv, tc::bf16* __restrict__ o,
+           const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
            float* __restrict__ lse, int S, int N, int causal) {
   constexpr int DB = (DT + 3) / 4;                 // 64-column boxes a tile
   constexpr uint32_t TILE_BYTES = DB * BOX_BYTES;
@@ -842,7 +668,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
     float alpha[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float m_new = fmaxf(m[h], tc::quad_max(mx[h]));
+      const float m_new = fmaxf(m[h], quad_max(mx[h]));
       alpha[h] = exp2f((m[h] - m_new) * L2E);
       m[h] = m_new;
     }
@@ -874,7 +700,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
       pack_a(pa[kk], e[0], e[1]);
     }
 #pragma unroll
-    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + tc::quad_sum(psum[h]);
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + quad_sum(psum[h]);
 
     // O += P V, one 64-column box of V at a time
     wg_fence();
@@ -959,7 +785,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
            const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
            const float* __restrict__ lse, const float* __restrict__ delta,
-           tc::bf16* __restrict__ dk, tc::bf16* __restrict__ dv, int S, int N, int causal) {
+           bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int N, int causal) {
   constexpr int DB = (DT + 3) / 4;
   constexpr uint32_t TILE_BYTES = DB * BOX_BYTES;
   constexpr float L2E = 1.4426950408889634f;
@@ -1075,6 +901,155 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
   store_rows<DT>(dv, dva, b, n, krow, S, N, t, 1.f, 1.f);
 }
 
+// ------------------------------------------------------------------------
+// K7 on Hopper: one CTA (one warpgroup) owns a 64-row q tile of one (b, n)
+// head and walks the k tiles it attends to (causal: up to the diagonal
+// tile), as K5 does; heavy causal tiles are scheduled first.
+//
+// Loads: Q and dO once, by TMA (the tensor maps of K6); K and V through
+// K5's two-stage ring (`load_pair`), k tile j + 1 issued by thread 0 before
+// tile j's math.  Each thread's two rows of LSE (times log2 e) and delta
+// are plain loads at the start.
+//
+// Products, all K5's forms: S = Q K^T and dP = dO V^T with both operands
+// K-major (`issue_scores`), issued together and waited for once; then
+// dQ += dS K with dS in registers as the A operand and K the MN-major B
+// (`wgmma_rs`, K5's P V with V replaced by K), one 64-column box at a time.
+//
+// Rows are q rows and columns k rows, K5's orientation: LSE and delta are
+// indexed by the row (row, row + 8), the causal mask by the column
+// 8 nt + 2t + (0, 1).  P = exp2(s log2 e - LSE log2 e), dS = P (dP - delta).
+// The diagonal tile (causal) and the ragged last k tile have a masked body,
+// the k tiles below the diagonal an unmasked one (`pl.when(ki < qi)` in the
+// TPU kernel).  Key rows past S arrive as zeros and would add nothing to
+// dS K, but their P would be exp2(-LSE log2 e), not 0: the masked body
+// zeroes it by bounds, so P is the reference's.  q rows past S are zero
+// with LSE and delta 0 (dS = 0) and are never stored.  dQ is rounded to
+// bf16 once and stored by each thread from its fragments: no atomics, so
+// launches repeat bit for bit.
+//
+// Bound: operations (3 products of 64 x 64 x D a pair of tiles).  What
+// holds it back: as in K5 and K6, one warpgroup runs its products and its
+// elementwise part in turn; other CTAs of the SM fill the gaps.
+//
+// Rounding: P in fp32, dS rounded to bf16 before dS K, every sum in fp32.
+template <bool MASKED>
+__device__ __forceinline__ void dq_scores(float (&s)[8][4], const float (&dp)[8][4],
+                                          const float (&lse2)[2], const float (&dlt)[2],
+                                          int row, int k0, int S, int causal, int t) {
+  constexpr float L2E = 1.4426950408889634f;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int h = i >> 1;
+      float p = exp2f(fmaf(s[nt][i], L2E, -lse2[h]));
+      if (MASKED && !live(row + 8 * h, k0 + 8 * nt + 2 * t + (i & 1), S, causal)) p = 0.f;
+      s[nt][i] = p * (dp[nt][i] - dlt[h]);   // dS
+    }
+}
+
+template <int DT>
+__global__ void __launch_bounds__(THREADS)
+dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+          const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          bf16* __restrict__ dq, int S, int N, int causal) {
+  constexpr int DB = (DT + 3) / 4;
+  constexpr uint32_t TILE_BYTES = DB * BOX_BYTES;
+  constexpr float L2E = 1.4426950408889634f;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // Q | dO | K stage 0 | V stage 0 | K stage 1 | V stage 1 | 3 mbarriers
+  const uint32_t qs = smem_addr(smem_raw);
+  if (qs & (ATOM_BYTES - 1)) __trap();             // the swizzle needs 1024-byte tiles
+  const uint32_t dos = qs + TILE_BYTES;
+  const uint32_t ring = dos + TILE_BYTES;
+  const uint32_t bars = ring + 4 * TILE_BYTES;     // Q/dO's, then stage 0's and 1's
+  const int bh = blockIdx.x, b = bh / N, n = bh % N;
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int q0 = qt * TILE;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row = q0 + 16 * warp + g;   // and row + 8
+  const int nk = (S + TILE - 1) / TILE;
+  const int kt_end = causal ? qt + 1 : nk;
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bars, 2 * TILE_BYTES);
+#pragma unroll
+    for (int box = 0; box < DB; ++box) {
+      tma_load(qs + box * BOX_BYTES, &tq, bars, 64 * box, n, q0, b);
+      tma_load(dos + box * BOX_BYTES, &tdo, bars, 64 * box, n, q0, b);
+    }
+    load_pair<DB>(ring, bars, &tk, &tv, 0, 0, n, b);
+  }
+  __syncwarp();
+
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    lse2[h] = r < S ? lse[(size_t)bh * S + r] * L2E : 0.f;
+    dlt[h] = r < S ? delta[(size_t)bh * S + r] : 0.f;
+  }
+  float acc[DB][8][4], s[8][4], dp[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[nt][i] = dp[nt][i] = 0.f;
+#pragma unroll
+      for (int c = 0; c < DB; ++c) acc[c][nt][i] = 0.f;
+    }
+  mbar_wait(bars, 0);
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int st = kt & 1;
+    if (tid == 0 && kt + 1 < kt_end)   // its stage was freed at the end of kt - 1
+      load_pair<DB>(ring, bars, &tk, &tv, (kt + 1) & 1, (kt + 1) * TILE, n, b);
+    __syncwarp();
+    mbar_wait(bars + 8 + 8 * st, (kt >> 1) & 1);
+    __syncwarp();
+    const uint32_t kst = ring + 2 * TILE_BYTES * st;
+    const uint32_t vst = kst + TILE_BYTES;
+    issue_scores<DT>(s, qs, kst);     // S: q rows . k rows
+    issue_scores<DT>(dp, dos, vst);   // dP: dO rows . v rows
+    wg_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    const int k0 = kt * TILE;
+    if ((causal && kt == qt) || k0 + TILE > S)
+      dq_scores<true>(s, dp, lse2, dlt, row, k0, S, causal, t);
+    else
+      dq_scores<false>(s, dp, lse2, dlt, row, k0, S, causal, t);
+    // keys 16kk.. are score tiles 2kk and 2kk + 1
+    uint32_t da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pack_a(da[kk], s[2 * kk], s[2 * kk + 1]);
+
+    // dQ += dS K, one 64-column box of K at a time
+    wg_fence();
+#pragma unroll
+    for (int c = 0; c < DB; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc[c], da[kk], desc(kst + c * BOX_BYTES + kk * 2 * ATOM_BYTES, BOX_BYTES,
+                                      ATOM_BYTES));
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int c = 0; c < DB; ++c) fence_regs(acc[c]);
+    __syncthreads();   // every warp is done with this stage before it is refilled
+  }
+
+  store_rows<DT>(dq, acc, b, n, row, S, N, t, 1.f, 1.f);
+}
+
 #undef DST_WG_D32
 #undef DST_WG_REGS32
 
@@ -1089,6 +1064,12 @@ constexpr size_t smem_bytes() {
 template <int DT>
 constexpr size_t dkv_smem_bytes() {
   return 6 * (size_t)((DT + 3) / 4) * BOX_BYTES + 4 * TILE * sizeof(float) + 3 * 8;
+}
+
+// K7: Q, dO, a two-stage ring of K and V, and three mbarriers.
+template <int DT>
+constexpr size_t dq_smem_bytes() {
+  return 6 * (size_t)((DT + 3) / 4) * BOX_BYTES + 3 * 8;
 }
 
 // cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPoint (the
@@ -1224,12 +1205,6 @@ cudaError_t launch_tc(int which, const Args& a, cudaStream_t stream) {
     if ((e = prepare(hopper::fwd_kernel<DT>, smem)) != cudaSuccess) return e;
     hopper::fwd_kernel<DT><<<grid, hopper::THREADS, smem, stream>>>(
         tq, tk, tv, static_cast<bf16*>(a.o), a.lse_out, a.S, a.N, a.causal);
-  } else if (which == 1) {
-    const size_t smem = 4 * tc::tile_bytes(D);
-    if ((e = prepare(tc::dq_kernel<DT>, smem)) != cudaSuccess) return e;
-    tc::dq_kernel<DT><<<grid, tc::THREADS, smem, stream>>>(
-        q, k, v, static_cast<const bf16*>(a.dout), a.lse, a.delta, static_cast<bf16*>(a.dq),
-        a.S, a.N, a.causal);
   } else {
     CUtensorMap tq, tk, tv, tdo;
     if (!hopper::head_map(&tq, q, a.B, a.S, a.N, D) ||
@@ -1237,11 +1212,18 @@ cudaError_t launch_tc(int which, const Args& a, cudaStream_t stream) {
         !hopper::head_map(&tv, v, a.B, a.S, a.N, D) ||
         !hopper::head_map(&tdo, a.dout, a.B, a.S, a.N, D))
       return cudaErrorInvalidValue;
-    const size_t smem = hopper::dkv_smem_bytes<DT>();
-    if ((e = prepare(hopper::dkv_kernel<DT>, smem)) != cudaSuccess) return e;
-    hopper::dkv_kernel<DT><<<grid, hopper::THREADS, smem, stream>>>(
-        tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
-        a.S, a.N, a.causal);
+    if (which == 1) {
+      const size_t smem = hopper::dq_smem_bytes<DT>();
+      if ((e = prepare(hopper::dq_kernel<DT>, smem)) != cudaSuccess) return e;
+      hopper::dq_kernel<DT><<<grid, hopper::THREADS, smem, stream>>>(
+          tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dq), a.S, a.N, a.causal);
+    } else {
+      const size_t smem = hopper::dkv_smem_bytes<DT>();
+      if ((e = prepare(hopper::dkv_kernel<DT>, smem)) != cudaSuccess) return e;
+      hopper::dkv_kernel<DT><<<grid, hopper::THREADS, smem, stream>>>(
+          tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+          a.S, a.N, a.causal);
+    }
   }
   return cudaGetLastError();
 }

@@ -37,6 +37,8 @@
 //   shuffle trees, then warps in order), with no atomics: two launches give
 //   the same bits.
 // The 16-byte loads and stores are vec.cuh's, shared with B8's forward.
+#include <algorithm>
+
 #include "vec.cuh"
 
 namespace {
@@ -244,134 +246,378 @@ extern "C" int dst_layer_norm_fwd(const void* x, const void* gamma, const void* 
 // K8: LayerNorm / RMSNorm backward.
 //
 // Bound on the H100: bytes (x and dy read, dx written: 6 B/element in bf16,
-// ~20 flops of fp32 arithmetic per element).
+// ~16 fp32 operations an element).
 //
-// Design: like the TPU kernel, the statistics are recomputed from x rather
-// than stored by the forward.  One CTA takes a group of `rows_per_cta`
-// consecutive rows; each of its warps takes every nwarps-th row of the
-// group, one row at a time, with warp shuffles for the row's sums (mean,
-// centred variance, mean(dy*g), mean(dy*g*xhat)) and no block barrier.  The
-// row is re-read from L1 between passes.  Each warp adds dy*xhat and dy
-// into its own dgamma/dbeta accumulators in shared memory (8*H bytes a
-// warp; fewer warps for a large H).  At the end the CTA sums its warps'
-// accumulators in warp order into its fp32 partial row.  The TPU kernel
-// carried those sums from one grid step to the next; here CTAs run in no
-// order, so a second kernel sums the partials per column in CTA order.  No
-// atomics: results do not vary between runs.  Any H up to 29,056 (one
-// warp's accumulators) is taken; x, dy and dx are fp32, bf16 or fp16; gamma
-// is fp32.
-template <typename T>
-__global__ void ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                              const T* __restrict__ dy, T* __restrict__ dx,
-                              float* __restrict__ dg_part, float* __restrict__ db_part, int rows,
-                              int H, float eps, int rms, int rows_per_cta) {
-  extern __shared__ float acc[];  // per warp: dgamma [H], then dbeta [H]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  float* dg = acc + (size_t)warp * 2 * H;
-  float* db = dg + H;
-  for (int i = lane; i < H; i += 32) dg[i] = db[i] = 0.f;
+// What K8 computes, as the TPU kernel: the row's statistics recomputed from
+// x in fp32 (mean, the centred variance, rstd; no mean under `rms`), xhat
+// and dyg = dy gamma, m1 = mean(dyg) and m2 = mean(dyg xhat), dx = (dyg -
+// m1 - xhat m2) rstd in x's type, and dgamma = sum over rows of dy xhat,
+// dbeta = sum over rows of dy, in fp32.  gamma comes in its own type (fp32,
+// bf16 or fp16) and is upcast in registers, which is exact.
+//
+// Design: K1's two layouts, the row in registers, x and dy read once each
+// with 16-byte loads (vec.cuh).
+// * Each CTA takes one strip of consecutive rows, and the grid is sized to
+//   fill the card: the kernel's occupancy times the SMs, at most the
+//   wrapper's capacity of partial rows (a few CTAs an SM).
+// * A warp per row for H <= 1024: 4 warps a CTA, warp w taking rows w,
+//   w + 4, ... of the strip, lane l the vectors l, l + 32, ... of a row (at
+//   most 32 values); the sums are shuffle trees.  A CTA per row up to 512
+//   threads of 16 values (H <= 8192): fewer values a thread than K1's,
+//   because each thread holds four arrays (x, then xhat and dx; dy, then
+//   dyg; the two accumulators).  The mean and the centred variance are two
+//   sums over the held values, m1 and m2 one pass of two sums; gamma is
+//   read once a row (from L1), dx goes out through `store_vec`.
+// * dgamma and dbeta in registers: a thread always holds the same columns
+//   of every row it takes, so it sums dy xhat and dy for them over its rows
+//   with no memory traffic an element.  At the end a CTA per row writes its
+//   threads' sums as its fp32 partial row; the warps of a warp-per-row CTA
+//   add theirs in warp order through shared memory (8 H bytes a warp).
+// * Wider rows: a CTA per row that loops over the row, re-reading x and dy
+//   from L2 for each pass, and keeps its partial row in device memory (each
+//   thread its own columns: no atomics), so any H is taken.
+// * A second kernel sums the CTAs' partial rows per column in CTA order,
+//   32 columns a CTA over the card: its 8 warps each sum one strip of the
+//   partial rows, and the strips' sums are added in order.
+// * When H is not a multiple of the vector width or x, dy, dx or gamma is
+//   not 16-byte aligned, the same kernel loads and stores element by
+//   element into the same registers: one grid-uniform flag, as in K1.
+// * Every sum runs in a fixed order and there are no atomics: two launches
+//   give the same bits (the grid depends only on the card and the shape).
+namespace {
+
+constexpr int BWD_WARP_VALUES = 32;   // values a lane holds, a warp per row
+constexpr int BWD_CTA_VALUES = 16;    // values a thread holds, a CTA per row
+
+// The sums of two values over a row's threads, as `row_sum` (one barrier
+// for both).
+template <bool CTA>
+__device__ __forceinline__ float2 row_sum2(float a, float b, float (*part)[32]) {
+  a = dst_warp_sum(a);
+  b = dst_warp_sum(b);
+  if constexpr (CTA) {
+    if ((threadIdx.x & 31) == 0) {
+      part[0][threadIdx.x >> 5] = a;
+      part[1][threadIdx.x >> 5] = b;
+    }
+    __syncthreads();
+    a = b = 0.f;
+    const int nwarps = blockDim.x >> 5;
+    for (int w = 0; w < nwarps; ++w) {
+      a += part[0][w];
+      b += part[1][w];
+    }
+  }
+  return make_float2(a, b);
+}
+
+// NV vectors of VEC values a thread (NV == LOOP: loop over the row).  CTA:
+// a CTA per row, else a warp per row.  G is gamma's type.  `part` holds the
+// grid's partial rows, dgamma's [gridDim.x, H] then dbeta's.
+template <typename T, typename G, int NV, bool CTA>
+__global__ void __launch_bounds__(CTA ? CTA_THREADS : 32 * ROW_WARPS)
+ln_bwd_kernel(const T* __restrict__ x, const G* __restrict__ gamma, const T* __restrict__ dy,
+              T* __restrict__ dx, float* __restrict__ part, int rows, int H, float eps, int rms,
+              int vec, int rows_per_cta) {
+  constexpr int VEC = 16 / (int)sizeof(T);
+  __shared__ float sums[4][32];        // a CTA per row: mean, variance, (m1, m2)
+  extern __shared__ float warp_acc[];  // a warp per row: [warp][dgamma, dbeta][H]
+  const int width = CTA ? blockDim.x : 32;
+  const int t = CTA ? threadIdx.x : (threadIdx.x & 31);
+  const int warp = threadIdx.x >> 5;
   const int r0 = blockIdx.x * rows_per_cta;
   const int r1 = min(rows, r0 + rows_per_cta);
-  for (int r = r0 + warp; r < r1; r += nwarps) {
-    const T* xr = x + (size_t)r * H;
-    const T* dyr = dy + (size_t)r * H;
-    float local = 0.f;
-    for (int i = lane; i < H; i += 32) local += dst_to_float(xr[i]);
-    const float mean = rms ? 0.f : dst_warp_sum(local) / (float)H;
-    local = 0.f;
-    for (int i = lane; i < H; i += 32) {
-      const float c = dst_to_float(xr[i]) - mean;
-      local += c * c;
+  float* __restrict__ pg = part + (size_t)blockIdx.x * H;
+  float* __restrict__ pb = part + ((size_t)gridDim.x + blockIdx.x) * H;
+
+  if constexpr (NV == LOOP) {
+    // rows too wide for registers: four passes, x and dy re-read from L2
+    for (int r = r0; r < r1; ++r) {
+      const T* __restrict__ xr = x + (size_t)r * H;
+      const T* __restrict__ dyr = dy + (size_t)r * H;
+      T* __restrict__ dxr = dx + (size_t)r * H;
+      float s = 0.f;
+      for (int i = t; i < H; i += width) s += dst_to_float(xr[i]);
+      const float mean = rms ? 0.f : row_sum<true>(s, sums[0]) / (float)H;
+      s = 0.f;
+      for (int i = t; i < H; i += width) {
+        const float c = dst_to_float(xr[i]) - mean;
+        s += c * c;
+      }
+      const float rstd = rsqrtf(row_sum<true>(s, sums[1]) / (float)H + eps);
+      float s1 = 0.f, s2 = 0.f;
+      for (int i = t; i < H; i += width) {
+        const float xhat = (dst_to_float(xr[i]) - mean) * rstd;
+        const float dyg = dst_to_float(dyr[i]) * dst_to_float(gamma[i]);
+        s1 += dyg;
+        s2 += dyg * xhat;
+      }
+      const float2 m = row_sum2<true>(s1, s2, sums + 2);
+      const float m1 = rms ? 0.f : m.x / (float)H, m2 = m.y / (float)H;
+      for (int i = t; i < H; i += width) {
+        const float xhat = (dst_to_float(xr[i]) - mean) * rstd;
+        const float dyv = dst_to_float(dyr[i]);
+        dxr[i] = dst_from_float<T>((dyv * dst_to_float(gamma[i]) - m1 - xhat * m2) * rstd);
+        pg[i] = (r == r0 ? 0.f : pg[i]) + dyv * xhat;
+        pb[i] = (r == r0 ? 0.f : pb[i]) + dyv;
+      }
     }
-    const float rstd = rsqrtf(dst_warp_sum(local) / (float)H + eps);
-    float s1 = 0.f, s2 = 0.f;
-    for (int i = lane; i < H; i += 32) {
-      const float xhat = (dst_to_float(xr[i]) - mean) * rstd;
-      const float dyg = dst_to_float(dyr[i]) * gamma[i];
-      s1 += dyg;
-      s2 += dyg * xhat;
+  } else {
+    float xv[NV][VEC], dv[NV][VEC], ag[NV][VEC], ab[NV][VEC];
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) ag[j][c] = ab[j][c] = 0.f;
+    for (int r = r0 + (CTA ? 0 : warp); r < r1; r += CTA ? 1 : ROW_WARPS) {
+      const T* __restrict__ xr = x + (size_t)r * H;
+      const T* __restrict__ dyr = dy + (size_t)r * H;
+      T* __restrict__ dxr = dx + (size_t)r * H;
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int e0 = (j * width + t) * VEC;
+        if (vec) {
+          if (e0 < H) {
+            load_vec<T, VEC>(xr + e0, xv[j]);
+            load_vec<T, VEC>(dyr + e0, dv[j]);
+          } else {
+#pragma unroll
+            for (int c = 0; c < VEC; ++c) xv[j][c] = dv[j][c] = 0.f;
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < VEC; ++c) {
+            const bool in = e0 + c < H;
+            xv[j][c] = in ? dst_to_float(xr[e0 + c]) : 0.f;
+            dv[j][c] = in ? dst_to_float(dyr[e0 + c]) : 0.f;
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < VEC; ++c) s += xv[j][c];
+      }
+      const float mean = rms ? 0.f : row_sum<CTA>(s, sums[0]) / (float)H;
+      s = 0.f;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int e0 = (j * width + t) * VEC;
+#pragma unroll
+        for (int c = 0; c < VEC; ++c) {
+          const float d = e0 + c < H ? xv[j][c] - mean : 0.f;
+          s += d * d;
+        }
+      }
+      const float rstd = rsqrtf(row_sum<CTA>(s, sums[1]) / (float)H + eps);
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int e0 = (j * width + t) * VEC;
+        float g[VEC];
+        if (vec) {
+          if (e0 < H) {
+            load_vec<G, VEC>(gamma + e0, g);
+          } else {
+#pragma unroll
+            for (int c = 0; c < VEC; ++c) g[c] = 0.f;
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < VEC; ++c) g[c] = e0 + c < H ? dst_to_float(gamma[e0 + c]) : 0.f;
+        }
+#pragma unroll
+        for (int c = 0; c < VEC; ++c) {
+          const float xhat = e0 + c < H ? (xv[j][c] - mean) * rstd : 0.f;
+          xv[j][c] = xhat;
+          ag[j][c] += dv[j][c] * xhat;
+          ab[j][c] += dv[j][c];
+          dv[j][c] *= g[c];   // dyg
+          s1 += dv[j][c];
+          s2 += dv[j][c] * xhat;
+        }
+      }
+      const float2 m = row_sum2<CTA>(s1, s2, sums + 2);
+      const float m1 = rms ? 0.f : m.x / (float)H, m2 = m.y / (float)H;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int e0 = (j * width + t) * VEC;
+        if (e0 >= H) continue;
+#pragma unroll
+        for (int c = 0; c < VEC; ++c) xv[j][c] = (dv[j][c] - m1 - xv[j][c] * m2) * rstd;
+        if (vec) {
+          store_vec<T, VEC>(dxr + e0, xv[j]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < VEC; ++c)
+            if (e0 + c < H) dxr[e0 + c] = dst_from_float<T>(xv[j][c]);
+        }
+      }
     }
-    const float m1 = rms ? 0.f : dst_warp_sum(s1) / (float)H;
-    const float m2 = dst_warp_sum(s2) / (float)H;
-    T* dxr = dx + (size_t)r * H;
-    for (int i = lane; i < H; i += 32) {
-      const float xhat = (dst_to_float(xr[i]) - mean) * rstd;
-      const float dyv = dst_to_float(dyr[i]);
-      dxr[i] = dst_from_float<T>((dyv * gamma[i] - m1 - xhat * m2) * rstd);
-      dg[i] += dyv * xhat;
-      db[i] += dyv;
+    // this CTA's partial row of dgamma and dbeta
+    float* __restrict__ og = CTA ? pg : warp_acc + (size_t)warp * 2 * H;
+    float* __restrict__ ob = CTA ? pb : og + H;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int e0 = (j * width + t) * VEC;
+#pragma unroll
+      for (int c = 0; c < VEC; ++c)
+        if (e0 + c < H) {
+          og[e0 + c] = ag[j][c];
+          ob[e0 + c] = ab[j][c];
+        }
+    }
+    if constexpr (!CTA) {
+      __syncthreads();
+      for (int i = threadIdx.x; i < 2 * H; i += blockDim.x) {
+        float sum = 0.f;
+        for (int w = 0; w < ROW_WARPS; ++w) sum += warp_acc[(size_t)w * 2 * H + i];
+        if (i < H) pg[i] = sum;
+        else pb[i - H] = sum;
+      }
     }
   }
+}
+
+// dgamma and dbeta: the column sums of the [nblk, H] partial rows of each,
+// in CTA order.  A CTA takes 32 of the 2 H columns (dgamma's, then
+// dbeta's); warp w sums the w-th of 8 consecutive strips of partial rows,
+// and the strips' sums are added in order.
+__global__ void __launch_bounds__(256)
+ln_bwd_reduce_kernel(const float* __restrict__ part, float* __restrict__ dg,
+                     float* __restrict__ db, int nblk, int H) {
+  __shared__ float strip[8][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  const int m = c < H ? 0 : 1;
+  const int col = c - m * H;
+  const int per = (nblk + 7) / 8;
+  const int b1 = min(nblk, (w + 1) * per);
+  float s = 0.f;
+  if (c < 2 * H) {
+    const float* __restrict__ p = part + (size_t)m * nblk * H + col;
+#pragma unroll 4
+    for (int b = w * per; b < b1; ++b) s += p[(size_t)b * H];
+  }
+  strip[w][lane] = s;
   __syncthreads();
-  const size_t out = (size_t)blockIdx.x * H;
-  for (int i = threadIdx.x; i < H; i += blockDim.x) {
-    float sg = 0.f, sb = 0.f;
-    for (int w = 0; w < nwarps; ++w) {
-      sg += acc[(size_t)w * 2 * H + i];
-      sb += acc[(size_t)w * 2 * H + H + i];
-    }
-    dg_part[out + i] = sg;
-    db_part[out + i] = sb;
+  if (w == 0 && c < 2 * H) {
+    float total = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) total += strip[i][lane];
+    (m ? db : dg)[col] = total;
   }
 }
 
-// Column sums of the [nblk, H] partials, in CTA order.
-__global__ void ln_bwd_reduce_kernel(const float* __restrict__ dg_part,
-                                     const float* __restrict__ db_part, float* __restrict__ dg,
-                                     float* __restrict__ db, int nblk, int H) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= H) return;
-  float sg = 0.f, sb = 0.f;
-  for (int b = 0; b < nblk; ++b) {
-    sg += dg_part[(size_t)b * H + i];
-    sb += db_part[(size_t)b * H + i];
-  }
-  dg[i] = sg;
-  db[i] = sb;
-}
-
-template <typename T>
-static cudaError_t launch_ln_bwd(const void* x, const float* gamma, const void* dy, void* dx,
-                                 float* dg_part, float* db_part, float* dg, float* db, int rows,
-                                 int H, float eps, int rms, int rows_per_cta,
-                                 cudaStream_t stream) {
-  // as many warps (up to 8) as their accumulators fit in ~200 KB
-  const size_t per_warp = 2 * (size_t)H * sizeof(float);
-  int warps = (int)((200 * 1024) / per_warp);
-  warps = warps < 1 ? 1 : (warps > 8 ? 8 : warps);
-  const int threads = 32 * warps;
-  const size_t smem = warps * per_warp;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(ln_bwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const int nblk = (rows + rows_per_cta - 1) / rows_per_cta;
-  ln_bwd_kernel<T><<<nblk, threads, smem, stream>>>(
-      static_cast<const T*>(x), gamma, static_cast<const T*>(dy), static_cast<T*>(dx), dg_part,
-      db_part, rows, H, eps, rms, rows_per_cta);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  ln_bwd_reduce_kernel<<<(H + 255) / 256, 256, 0, stream>>>(dg_part, db_part, dg, db, nblk, H);
+template <typename T, typename G, int NV, bool CTA>
+cudaError_t launch_ln_bwd_nv(const void* x, const void* gamma, const void* dy, void* dx,
+                             float* part, float* dg, float* db, int rows, int H, float eps,
+                             int rms, int vec, int threads, int cap, cudaStream_t stream) {
+  auto kernel = ln_bwd_kernel<T, G, NV, CTA>;
+  const size_t smem = CTA ? 0 : (size_t)ROW_WARPS * 2 * H * sizeof(float);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
+          cudaSuccess)
+    return e;
+  // one strip of rows a CTA, as many CTAs as are resident at once (at most
+  // `cap`, the partial rows the wrapper allocated)
+  const int units = CTA ? rows : (rows + ROW_WARPS - 1) / ROW_WARPS;
+  int nblk = std::min({cap, std::max(per_sm, 1) * sms, units});
+  const int rows_per_cta = (rows + nblk - 1) / nblk;
+  nblk = (rows + rows_per_cta - 1) / rows_per_cta;
+  kernel<<<nblk, threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const G*>(gamma), static_cast<const T*>(dy),
+      static_cast<T*>(dx), part, rows, H, eps, rms, vec, rows_per_cta);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  ln_bwd_reduce_kernel<<<(2 * H + 31) / 32, 256, 0, stream>>>(part, dg, db, nblk, H);
   return cudaGetLastError();
 }
 
-extern "C" int dst_layer_norm_bwd(const void* x, const float* gamma, const void* dy, void* dx,
-                                  float* dg_part, float* db_part, float* dg, float* db, int rows,
-                                  int H, float eps, int rms, int rows_per_cta, int dtype,
+template <typename T, typename G>
+cudaError_t launch_ln_bwd(const void* x, const void* gamma, const void* dy, void* dx,
+                          float* part, float* dg, float* db, int rows, int H, float eps, int rms,
+                          int cap, cudaStream_t stream) {
+  constexpr int VEC = 16 / (int)sizeof(T);
+  const int vec = H % VEC == 0 && aligned16(x) && aligned16(dy) && aligned16(dx) &&
+                  aligned16(gamma);
+  const int nvec = (H + VEC - 1) / VEC;   // vectors a row (the last may be partial)
+#define DST_LN_BWD(NV, CTA, THREADS)                                                         \
+  launch_ln_bwd_nv<T, G, NV, CTA>(x, gamma, dy, dx, part, dg, db, rows, H, eps, rms, vec,   \
+                                  THREADS, cap, stream)
+  if (nvec <= 32 * (BWD_WARP_VALUES / VEC)) {   // a warp per row
+    const int nv = (nvec + 31) / 32;
+    const int warp = 32 * ROW_WARPS;
+    if constexpr (VEC == 8) {   // 2-byte types: up to 4 vectors a lane
+      switch (nv) {
+        case 1: return DST_LN_BWD(1, false, warp);
+        case 2: return DST_LN_BWD(2, false, warp);
+        case 3: return DST_LN_BWD(3, false, warp);
+        default: return DST_LN_BWD(4, false, warp);
+      }
+    } else {                    // fp32: up to 8
+      switch (nv) {
+        case 1: return DST_LN_BWD(1, false, warp);
+        case 2: return DST_LN_BWD(2, false, warp);
+        case 3: case 4: return DST_LN_BWD(4, false, warp);
+        case 5: case 6: return DST_LN_BWD(6, false, warp);
+        default: return DST_LN_BWD(8, false, warp);
+      }
+    }
+  }
+  constexpr int CTA_NV = BWD_CTA_VALUES / VEC;   // 2 in 2-byte types, 4 in fp32
+  if (nvec <= CTA_THREADS * CTA_NV) {             // a CTA per row
+    const int nv = nvec <= CTA_THREADS ? 1 : nvec <= 2 * CTA_THREADS ? 2 : 4;
+    const int threads = ((nvec + nv - 1) / nv + 31) / 32 * 32;
+    switch (nv) {
+      case 1: return DST_LN_BWD(1, true, threads);
+      case 2: return DST_LN_BWD(2, true, threads);
+      default:
+        if constexpr (CTA_NV == 4) return DST_LN_BWD(4, true, threads);
+        else return cudaErrorInvalidValue;
+    }
+  }
+  return DST_LN_BWD(LOOP, true, CTA_THREADS);
+#undef DST_LN_BWD
+}
+
+template <typename T>
+cudaError_t launch_ln_bwd_gamma(const void* x, const void* gamma, const void* dy, void* dx,
+                                float* part, float* dg, float* db, int rows, int H, float eps,
+                                int rms, int cap, int gamma_dtype, cudaStream_t stream) {
+  switch (gamma_dtype) {
+    case DST_DTYPE_F32:
+      return launch_ln_bwd<T, float>(x, gamma, dy, dx, part, dg, db, rows, H, eps, rms, cap,
+                                     stream);
+    case DST_DTYPE_BF16:
+      return launch_ln_bwd<T, __nv_bfloat16>(x, gamma, dy, dx, part, dg, db, rows, H, eps, rms,
+                                             cap, stream);
+    case DST_DTYPE_F16:
+      return launch_ln_bwd<T, __half>(x, gamma, dy, dx, part, dg, db, rows, H, eps, rms, cap,
+                                      stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// part: room for 2 x cap x H fp32 partial rows; dg, db: [H] fp32, every
+// entry written.
+extern "C" int dst_layer_norm_bwd(const void* x, const void* gamma, const void* dy, void* dx,
+                                  float* part, float* dg, float* db, int rows, int H, float eps,
+                                  int rms, int cap, int dtype, int gamma_dtype,
                                   cudaStream_t stream) {
   if (rows == 0) return 0;
+  if (H <= 0 || cap <= 0) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case DST_DTYPE_F32:
-      return launch_ln_bwd<float>(x, gamma, dy, dx, dg_part, db_part, dg, db, rows, H, eps, rms,
-                                  rows_per_cta, stream);
+      return (int)launch_ln_bwd_gamma<float>(x, gamma, dy, dx, part, dg, db, rows, H, eps, rms,
+                                             cap, gamma_dtype, stream);
     case DST_DTYPE_BF16:
-      return launch_ln_bwd<__nv_bfloat16>(x, gamma, dy, dx, dg_part, db_part, dg, db, rows, H,
-                                          eps, rms, rows_per_cta, stream);
+      return (int)launch_ln_bwd_gamma<__nv_bfloat16>(x, gamma, dy, dx, part, dg, db, rows, H,
+                                                     eps, rms, cap, gamma_dtype, stream);
     case DST_DTYPE_F16:
-      return launch_ln_bwd<__half>(x, gamma, dy, dx, dg_part, db_part, dg, db, rows, H, eps, rms,
-                                   rows_per_cta, stream);
+      return (int)launch_ln_bwd_gamma<__half>(x, gamma, dy, dx, part, dg, db, rows, H, eps, rms,
+                                              cap, gamma_dtype, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

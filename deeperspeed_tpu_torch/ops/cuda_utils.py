@@ -44,7 +44,8 @@ _SIGNATURES = {
     "layer_norm": {
         "dst_layer_norm_fwd": ([_vp, _vp, _vp, _vp, _i, _i, _f, _i, _i, _i,
                                 _vp], _i),
-        "dst_layer_norm_bwd": ([_vp] * 8 + [_i, _i, _f, _i, _i, _i, _vp], _i),
+        "dst_layer_norm_bwd": ([_vp] * 7 + [_i, _i, _f, _i, _i, _i, _i, _vp],
+                               _i),
     },
     "flash_attention": {
         "dst_flash_fwd": ([_vp] * 5 + [_i] * 6 + [_vp], _i),

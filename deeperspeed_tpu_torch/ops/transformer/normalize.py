@@ -20,18 +20,21 @@ attribute reads.
 gamma and beta may come in any float type (bf16 under mixed-precision
 training, where the engine casts every weight but the input embedding):
 K1 takes them in their own type and upcasts them in registers, which is
-exact, so the forward casts nothing.  K8 takes gamma in fp32 (the backward
-casts it), and dgamma/dbeta come back in gamma's type, as in the JAX
-package.
+exact, so the forward casts nothing.  K8 takes gamma the same way, so the
+backward casts nothing before it either; dgamma/dbeta come back from it in
+fp32 and are cast to gamma's type, as in the JAX package's ``_norm_bwd``.
 """
+
+import functools
 
 import torch
 
 from ..cuda_utils import check, dtype_code, library, ptr, require_cuda, \
     stream_of
 
-# rows per CTA of K8; each CTA writes one fp32 partial row of dgamma/dbeta
-BWD_ROWS_PER_CTA = 64
+# K8's CTAs an SM at most: each CTA takes one strip of rows and writes one
+# fp32 partial row of dgamma and of dbeta
+BWD_CTAS_PER_SM = 4
 
 
 def _ln_ref(x, gamma, beta, eps, rms):
@@ -62,12 +65,12 @@ def _ln_bwd_ref(x, gamma, dy, eps, rms):
     return dx.to(x.dtype), (dy32 * xhat).sum(dim=0), dy32.sum(dim=0)
 
 
-def _check_vecs(kernel, x, vecs):
-    h = x.shape[-1]
-    require_cuda(kernel, x, *vecs)
-    for v in vecs:
-        if v.dtype != torch.float32 or v.shape != (h,):
-            raise ValueError(f"{kernel}: gamma/beta must be float32 [{h}]")
+_GAMMA_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _ln_cuda(x, gamma, beta, eps, rms):
@@ -99,24 +102,27 @@ def _ln_cuda(x, gamma, beta, eps, rms):
 
 def _ln_bwd_cuda(x, gamma, dy, eps, rms):
     """K8 on the card over [rows, H]: the row kernel and the fixed-order
-    sum of its per-CTA partials, counted as one launch."""
+    sum of its per-CTA partials, counted as one launch.  x and dy
+    contiguous, of one type; gamma [H], contiguous, on x's card, of any
+    float type.  dgamma and dbeta come back in fp32."""
     rows, h = x.shape
-    _check_vecs("layer_norm_bwd", x, (gamma,))
     require_cuda("layer_norm_bwd", x, dy, dtype=x.dtype)
-    if 8 * h > 232448:
-        raise ValueError(f"layer_norm_bwd: H {h} exceeds the kernel's shared "
-                         f"memory (H <= 29056)")
+    require_cuda("layer_norm_bwd", x, gamma)
+    if gamma.dtype not in _GAMMA_DTYPES or gamma.shape != (h,):
+        raise ValueError(f"layer_norm_bwd: gamma must be [{h}] of a float type")
     dx = torch.empty_like(x)
-    dg = torch.zeros(h, dtype=torch.float32, device=x.device)
-    db = torch.zeros(h, dtype=torch.float32, device=x.device)
     if rows == 0:
-        return dx, dg, db
-    nblk = -(-rows // BWD_ROWS_PER_CTA)
-    parts = torch.empty(2, nblk, h, dtype=torch.float32, device=x.device)
+        return (dx, torch.zeros(h, dtype=torch.float32, device=x.device),
+                torch.zeros(h, dtype=torch.float32, device=x.device))
+    # every entry of dg and db is written by the kernel's second pass
+    dg = torch.empty(h, dtype=torch.float32, device=x.device)
+    db = torch.empty(h, dtype=torch.float32, device=x.device)
+    cap = min(rows, BWD_CTAS_PER_SM * _sm_count(x.device.index))
+    parts = torch.empty(2 * cap * h, dtype=torch.float32, device=x.device)
     err = library("layer_norm").dst_layer_norm_bwd(
-        ptr(x), ptr(gamma), ptr(dy), ptr(dx), ptr(parts[0]), ptr(parts[1]),
-        ptr(dg), ptr(db), rows, h, float(eps), int(rms), BWD_ROWS_PER_CTA,
-        dtype_code(x.dtype), stream_of(x))
+        ptr(x), ptr(gamma), ptr(dy), ptr(dx), ptr(parts), ptr(dg), ptr(db),
+        rows, h, float(eps), int(rms), cap, dtype_code(x.dtype),
+        dtype_code(gamma.dtype), stream_of(x))
     check(err, "layer_norm_bwd")
     return dx, dg, db
 
@@ -151,7 +157,7 @@ class _Norm(torch.autograd.Function):
     def backward(ctx, dy):
         x, gamma = ctx.saved_tensors
         h = x.shape[-1]
-        dx, dg, db = _bwd(x.reshape(-1, h), gamma.to(torch.float32),
+        dx, dg, db = _bwd(x.reshape(-1, h), gamma,
                           dy.contiguous().reshape(-1, h), ctx.eps, ctx.rms)
         dg = dg.to(ctx.gamma_dtype)
         db = db.to(ctx.gamma_dtype) if ctx.has_beta else None

@@ -14,8 +14,10 @@ are misaligned or of odd head dims, stale block-table ids past a row's
 live blocks, causal and full attention, sorted top-k (K4) bit for bit
 over rows of ties, -inf, signed zeros and NaN, vocabularies to 128,256,
 k above the radix path's limit, unaligned slices, bf16 / fp16 logits and
-transposed views, the flash dk/dv pass (K6) at the forward's edges and
-repeated bit for bit, the
+transposed views, the flash dk/dv (K6) and dq (K7) passes at the
+forward's edges and repeated bit for bit, the LayerNorm backward (K8) at
+every preset width, above its register layouts and repeated bit for bit,
+with gamma in its own type, the
 fused optimizers over flat buffers and over separate (also non-contiguous)
 tensors of many sizes, the fused dequant-reduce (B5) bit for bit over every
 1-byte type, peer count and alignment, two training processes sharing
@@ -680,6 +682,19 @@ def test_flash_dkv_edges(gen, B, S, N, D, causal):
     _flash_close(dv, rdv, torch.bfloat16, grad=True)
 
 
+# K7's edges, the same shapes: the K/V ring over an odd or even count of k
+# tiles, the ragged last k tile, second boxes partly out of bounds, N 66
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("B,S,N,D", FLASH_EDGES)
+def test_flash_dq_edges(gen, B, S, N, D, causal):
+    q, k, v, do = _qkv(gen, S, D, torch.bfloat16, B=B, N=N)
+    o, lse = flash._fwd_reference(q, k, v, causal)
+    delta = _delta(do, o)
+    dq = flash._dq_cuda(q, k, v, do, lse, delta, causal)
+    _flash_close(dq, flash._bwd_reference(q, k, v, do, lse, delta, causal)[0],
+                 torch.bfloat16, grad=True)
+
+
 @pytest.mark.parametrize("D", [64, 80, 128])
 def test_flash_forward_launches_repeat_bit_for_bit(gen, D):
     q, k, v, _ = _qkv(gen, 1000, D, torch.bfloat16)
@@ -696,6 +711,15 @@ def test_flash_dkv_launches_repeat_bit_for_bit(gen, D):
     dk1, dv1 = flash._dkv_cuda(q, k, v, do, lse, delta, True)
     dk2, dv2 = flash._dkv_cuda(q, k, v, do, lse, delta, True)
     assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+
+
+@pytest.mark.parametrize("D", [64, 80, 128])
+def test_flash_dq_launches_repeat_bit_for_bit(gen, D):
+    q, k, v, do = _qkv(gen, 1000, D, torch.bfloat16)
+    o, lse = flash._fwd_cuda(q, k, v, True)
+    delta = _delta(do, o)
+    dq1 = flash._dq_cuda(q, k, v, do, lse, delta, True)
+    assert torch.equal(dq1, flash._dq_cuda(q, k, v, do, lse, delta, True))
 
 
 def test_flash_takes_unaligned_bf16_operands(gen):
@@ -735,8 +759,12 @@ def test_flash_autograd_launches_the_kernels(gen):
 
 @pytest.mark.parametrize("gamma_dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
+# K8's layouts: a warp per row to H 1024, a CTA per row to 8192 (the
+# presets 2048-6144), the looping CTA above (16384, 20000); 100 and 4095
+# take the element-by-element path
 @pytest.mark.parametrize("rows,H", [(1, 64), (7, 100), (300, 768), (130, 4095),
-                                    (33, 16384)])
+                                    (33, 16384), (37, 1024), (37, 2048), (37, 4096),
+                                    (37, 6144), (9, 20000)])
 def test_layer_norm_backward(gen, rows, H, dtype, gamma_dtype):
     """dx within the dtype's TOL; dgamma/dbeta sum the rows in another
     order (per-CTA partials), so they are held relative to their largest
@@ -758,6 +786,37 @@ def test_layer_norm_backward(gen, rows, H, dtype, gamma_dtype):
     torch.testing.assert_close(gr.grad.float(), dg.to(gamma_dtype).float())
     rms_dx, _, _ = normalize._ln_bwd_cuda(x, g.float(), dy, 1e-5, True)
     _close(rms_dx, normalize._ln_bwd_ref(x, g.float(), dy, 1e-5, True)[0], dtype)
+
+
+def _ln_bwd_inputs(gen, rows, H, dtype, gamma_dtype=torch.float32):
+    x, g, _ = _ln_inputs(gen, rows, H, dtype, gamma_dtype)
+    return x, g, torch.randn(rows, H, generator=gen, device="cuda").to(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("H", [768, 100, 6144, 20000])
+def test_layer_norm_backward_launches_repeat_bit_for_bit(gen, H, dtype):
+    x, g, dy = _ln_bwd_inputs(gen, 300, H, dtype)
+    first = normalize._ln_bwd_cuda(x, g, dy, 1e-5, False)
+    for a, b in zip(first, normalize._ln_bwd_cuda(x, g, dy, 1e-5, False)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rms", [False, True], ids=["layer", "rms"])
+@pytest.mark.parametrize("gamma_dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("H", [100, 768, 4096, 20000])
+def test_layer_norm_backward_gamma_in_its_own_type(gen, H, dtype, gamma_dtype, rms):
+    """gamma in bf16 or fp16 goes to K8 as it is (one launch, no cast) and
+    is upcast exactly in registers: the same bits as with an fp32 copy."""
+    from deeperspeed_tpu_torch.ops.cuda_utils import LAUNCHES
+
+    x, g, dy = _ln_bwd_inputs(gen, 45, H, dtype, gamma_dtype)
+    LAUNCHES.clear()
+    got = normalize._ln_bwd_cuda(x, g, dy, 1e-5, rms)
+    assert LAUNCHES["layer_norm_bwd"] == 1
+    for a, b in zip(got, normalize._ln_bwd_cuda(x, g.float(), dy, 1e-5, rms)):
+        assert torch.equal(a, b)
 
 
 # card vs CPU losses over 3 steps: fp32 differs by summation order only

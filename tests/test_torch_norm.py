@@ -169,6 +169,37 @@ def test_bf16_gamma_reaches_the_forward_without_a_cast(monkeypatch, rms):
     assert y.dtype == torch.bfloat16 and torch.equal(y.detach(), want)
 
 
+@pytest.mark.parametrize("rms", [False, True], ids=["layer", "rms"])
+def test_bf16_gamma_reaches_the_backward_without_a_cast(monkeypatch, rms):
+    """gamma in bf16 goes to the backward as it is: K8 takes it in its own
+    type, so no cast runs before it.  The grads equal the plain version's
+    on an fp32 copy of gamma (the upcast is exact), cast to gamma's type."""
+    from deeperspeed_tpu_torch.ops.transformer import normalize
+
+    x, g, b, dy = _dispatch_inputs(14)
+    tx = torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+    tg = torch.from_numpy(g).to(torch.bfloat16).requires_grad_()
+    tb = torch.from_numpy(b).to(torch.bfloat16).requires_grad_()
+    tdy = torch.from_numpy(dy).to(torch.bfloat16)
+    seen = []
+    real = normalize._ln_bwd_ref
+    monkeypatch.setattr(normalize, "_ln_bwd_ref", lambda x, g, *a: (
+        seen.append((g.dtype, g.data_ptr())), real(x, g, *a))[1])
+    y = rms_norm(tx, tg) if rms else layer_norm(tx, tg, tb)
+    y.backward(tdy)
+    assert seen == [(torch.bfloat16, tg.data_ptr())]
+    h = x.shape[-1]
+    dx, dg, db = real(tx.detach().reshape(-1, h), tg.detach().float(), tdy.reshape(-1, h),
+                      1e-5, rms)
+    assert tg.grad.dtype == torch.bfloat16
+    assert torch.equal(tx.grad, dx.reshape(x.shape))
+    assert torch.equal(tg.grad, dg.to(torch.bfloat16))
+    if rms:
+        assert tb.grad is None
+    else:
+        assert torch.equal(tb.grad, db.to(torch.bfloat16))
+
+
 @pytest.mark.parametrize("grad", [False, True], ids=["forward", "forward_backward"])
 def test_cpu_tensor_never_reaches_the_kernel_library(monkeypatch, grad):
     """On the CPU (whose accelerator runs no CUDA kernels) the tensor's own
