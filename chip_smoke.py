@@ -36,7 +36,10 @@ package, and goes through these phases, each printing its lines:
    0.125, [4, 12, 1024, 1024] fp32, a width of 1000; the forward also
    alone from a CUDA graph), and B10 block-sparse
    attention's forward, dq and dk/dv passes at [4, 4096, 12, 64] bf16
-   under the Fixed layout (block 128, causal), beside dense flash K5-K7 at
+   under the Fixed layout (block 128, causal; the backward passes two
+   launches bit for bit, also alone from CUDA graphs, beside SDPA's
+   backward alone under the layout as a token mask; the Hopper backward's
+   walk lengths under phase 17's layouts), beside dense flash K5-K7 at
    the same shape;
 4. Pythia-160M (12 layers, full width) in fp32 served through
    ``InferenceEngineV2`` on the card and on the CPU from the same seeded
@@ -121,7 +124,8 @@ package, and goes through these phases, each printing its lines:
     layout against flash K5-K7 at [4, 4096, 12, 64] bf16; then Fixed,
     BSLongformer, BigBird, Variable and Fixed with a layout per head at
     that shape in bf16, forward and backward through autograd, against the
-    plain version in fp32 on the card: B10 launches once a pass;
+    plain version in fp32 on the card: B10 launches once a pass; then each
+    config's device time a pass by kernel (``torch.profiler``);
 18. ``fused_softmax`` forward and backward through autograd at phase 3's
     bf16 shape: B8 launches once each way.
 
@@ -375,6 +379,49 @@ def _graph_ms(torch, fn, iters=20):
     torch.cuda.synchronize()
     del graph
     return start.elapsed_time(end) / iters
+
+
+def _kernels_ms(torch, fn, iters=20, counts=False):
+    """Device ms a call of ``fn`` spends in each kernel, by the kernel's
+    name without its template arguments: ``torch.profiler`` over ``iters``
+    calls after a warm-up.  With ``counts``, also each kernel's launches
+    a call in the trace."""
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out, launches = defaultdict(float), defaultdict(float)
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA" and e.self_device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "").replace("void ", "")
+            name = name.split("(")[0].split("<")[0].strip().replace(" ", "_")
+            out[name] += e.self_device_time_total / 1e3 / iters
+            launches[name] += e.count / iters
+    return (dict(out), dict(launches)) if counts else dict(out)
+
+
+def _sparse_pass_ms(torch, fn, iters=3, tries=3):
+    """Device ms of one block-sparse attention pass (``fn``: forward and
+    backward), by kernel, from ``torch.profiler``: (total, {B10 kernel:
+    ms}, the rest), B10's kernels being those of namespaces ``tc``, ``f32``
+    and ``hopper::sparse_*``.  A trace that does not hold each of B10's
+    three kernels once a pass is taken again (a trace on the H100 was
+    seen to drop kernels), up to ``tries`` times; then None."""
+    for _ in range(tries):
+        parts, launches = _kernels_ms(torch, fn, iters, counts=True)
+        b10 = {k: ms for k, ms in parts.items()
+               if k.startswith(("tc::", "f32::", "hopper::sparse_"))}
+        if len(b10) == 3 and all(launches[k] == 1 for k in b10):
+            total = sum(parts.values())
+            return total, b10, total - sum(b10.values())
+    return None
 
 
 def _host_us(torch, fn, iters=200):
@@ -958,6 +1005,18 @@ def _live_pairs(np, layout, block, causal):
     return below * block * block + diag * (block * (block + 1) // 2)
 
 
+def _walk_lengths(np, layout, block, causal):
+    """The walks of B10's Hopper backward kernels on a layout [LH, nb, nb]:
+    for each layout head and 64-row tile, the live k tiles a q tile visits
+    (dq) and the live q tiles a k tile visits (dk/dv), causal: at or below
+    the diagonal.  Two int arrays [LH, S / 64]."""
+    tpb = block // 64
+    live = (np.asarray(layout) != 0).repeat(tpb, 1).repeat(tpb, 2)
+    if causal:
+        live = live & np.tri(live.shape[1], dtype=bool)
+    return live.sum(2), live.sum(1)
+
+
 def phase_legacy_kernels(torch, np, rows_out):
     """Phase 3, the legacy ops and sparse attention: B9 tanh-GELU at the
     legacy layer's FFN activation, B8 the fused softmax at attention-score
@@ -965,6 +1024,7 @@ def phase_legacy_kernels(torch, np, rows_out):
     layout, each against its plain version."""
     import torch.nn.functional as F
 
+    import deeperspeed_tpu_torch.ops.sparse_attention as sa
     from deeperspeed_tpu_torch.ops.attention import flash
     from deeperspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
     from deeperspeed_tpu_torch.ops.sparse_attention import sparse_attention as _sa
@@ -1058,15 +1118,34 @@ def phase_legacy_kernels(torch, np, rows_out):
     _close(torch, lse, rlse, 1e-4, 1e-5, f"sparse_fwd LSE {what}")
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(B * N, S).contiguous()
     rdq, rdk, rdv = sparse._bwd_reference(q, k, v, do, lse, delta, layout, causal, scale)
-    dq = sparse._dq_cuda(q, k, v, do, lse, delta, layout, causal, scale, SPARSE_BLOCK)
-    dk, dv = sparse._dkv_cuda(q, k, v, do, lse, delta, layout, causal, scale, SPARSE_BLOCK)
+
+    def dq_call():
+        return sparse._dq_cuda(q, k, v, do, lse, delta, layout, causal, scale, SPARSE_BLOCK)
+
+    def dkv_call():
+        return sparse._dkv_cuda(q, k, v, do, lse, delta, layout, causal, scale, SPARSE_BLOCK)
+
+    dq, (dk, dv) = dq_call(), dkv_call()
     err_dq, use_dq = flash_close(torch, dq, rdq, f"sparse_bwd_dq {what}")
     (err_dk, use_dk), (err_dv, use_dv) = (flash_close(torch, dk, rdk, f"sparse dk {what}"),
                                           flash_close(torch, dv, rdv, f"sparse dv {what}"))
+    dk2, dv2 = dkv_call()
+    if not (torch.equal(dq, dq_call()) and torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+        raise AssertionError(f"sparse backward {what}: two launches differ")
     print(f"[kernels] sparse {what}: share of the limit used O {use_o:.3f}, dq "
-          f"{use_dq:.3f}, dk {use_dk:.3f}, dv {use_dv:.3f}", flush=True)
-    del rdq, rdk, rdv, ro, rlse, dq, dk, dv
+          f"{use_dq:.3f}, dk {use_dk:.3f}, dv {use_dv:.3f}; dq and dk/dv repeat bit for bit",
+          flush=True)
+    del rdq, rdk, rdv, ro, rlse, dq, dk, dv, dk2, dv2
     torch.cuda.empty_cache()
+    # the Hopper backward's walks under each of phase 17's layouts (a long
+    # dk/dv walk at the end of the grid is a tail)
+    for name, (cls, kw, cfg_causal) in SPARSE_CONFIGS.items():
+        lay = getattr(sa, cls)(num_heads=N, block=SPARSE_BLOCK, **kw).make_layout(S)
+        dq_walk, dkv_walk = _walk_lengths(np, lay, SPARSE_BLOCK, cfg_causal)
+        print(f"[kernels] B10 walk {name} ({'causal' if cfg_causal else 'full'}): 64-row "
+              f"tiles visited by a dq CTA largest {dq_walk.max()} mean {dq_walk.mean():.2f}, "
+              f"by a dk/dv CTA largest {dkv_walk.max()} mean {dkv_walk.mean():.2f} "
+              f"(of {S // 64})", flush=True)
     live = _live_pairs(np, host_layout, SPARSE_BLOCK, causal)
     density = live / (N * (S * (S + 1) // 2))
     mac, io, vec = B * live * D, B * S * N * D * 2, B * N * S * 4
@@ -1074,14 +1153,19 @@ def phase_legacy_kernels(torch, np, rows_out):
     tok = sparse._token_mask(layout, S, causal)            # [1 or N, S, S] bool
     q4, k4, v4, do4 = (t.transpose(1, 2) for t in (q, k, v, do))
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
-
-    def sdpa_fwd_bwd():
-        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=tok)
-        torch.autograd.grad(out, (qg, kg, vg), do4)
-
     lib_fwd = _time_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4,
                                                                     attn_mask=tok), iters=5)
-    lib_fwd_bwd = _time_ms(torch, sdpa_fwd_bwd, iters=5)
+    # its backward alone, from the saved forward outputs: event-timed, and
+    # its kernels' device time (torch.profiler)
+    out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=tok)
+    lib_bwd_ops = _backward_ops(torch, out, (qg, kg, vg), do4)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(out, (qg, kg, vg), do4, retain_graph=True)
+
+    lib_bwd = _time_ms(torch, sdpa_bwd, iters=5)
+    lib_bwd_kernels = _kernels_ms(torch, sdpa_bwd, iters=5)
+    lib_bwd_dev = sum(lib_bwd_kernels.values())
     t, by = _bound(4 * io + vec, 2 * 2 * mac, bf16)
     report("sparse_fwd", f"B10 sparse_fwd {what} (live share {density:.4f})", dict(
         max_abs_err=err_fwd,
@@ -1093,30 +1177,38 @@ def phase_legacy_kernels(torch, np, rows_out):
     bwd_plain = _time_ms(torch, lambda: sparse._bwd_reference(
         q, k, v, do, lse, delta, layout, causal, scale), iters=3)
     t, by = _bound(5 * io + 2 * vec, 3 * 2 * mac, bf16)
+    ms_dq, dev_dq = _time_ms(torch, dq_call), _graph_ms(torch, dq_call)
     report("sparse_bwd_dq", f"B10 sparse_bwd_dq {what}", dict(
-        max_abs_err=err_dq,
-        ms=_time_ms(torch, lambda: sparse._dq_cuda(q, k, v, do, lse, delta, layout, causal,
-                                                   scale, SPARSE_BLOCK)),
-        plain_ms=bwd_plain, library_ms=lib_fwd_bwd, bound_ms=t, bound_by=by))
+        max_abs_err=err_dq, ms=ms_dq, plain_ms=bwd_plain, library_ms=lib_bwd_dev,
+        bound_ms=t, bound_by=by, device_ms=dev_dq))
     t, by = _bound(6 * io + 2 * vec, 4 * 2 * mac, bf16)
+    ms_dkv, dev_dkv = _time_ms(torch, dkv_call), _graph_ms(torch, dkv_call)
     report("sparse_bwd_dkv", f"B10 sparse_bwd_dkv {what}", dict(
-        max_abs_err=max(err_dk, err_dv),
-        ms=_time_ms(torch, lambda: sparse._dkv_cuda(q, k, v, do, lse, delta, layout, causal,
-                                                    scale, SPARSE_BLOCK)),
-        plain_ms=bwd_plain, library_ms=lib_fwd_bwd, bound_ms=t, bound_by=by))
+        max_abs_err=max(err_dk, err_dv), ms=ms_dkv, plain_ms=bwd_plain,
+        library_ms=lib_bwd_dev, bound_ms=t, bound_by=by, device_ms=dev_dkv))
+    print(f"[kernels] B10 library yardstick {what}: SDPA backward alone under the token mask "
+          f"({out.grad_fn.name()}: {', '.join(lib_bwd_ops)}) {lib_bwd:.4f} ms event-timed, "
+          f"its kernels {lib_bwd_dev:.4f} ms ("
+          + ", ".join(f"{n} {ms:.4f}" for n, ms in sorted(lib_bwd_kernels.items()))
+          + f"); B10 dq + dk/dv alone {dev_dq + dev_dkv:.4f} ms = "
+          f"{(dev_dq + dev_dkv) / lib_bwd_dev:.3f}x it (library_ms of both passes is the "
+          f"whole SDPA backward's kernels; plain_ms of both is the whole plain backward)",
+          flush=True)
     # dense flash at the same shape: time scales with the live share
     fo, flse = flash._fwd_cuda(q, k, v, causal)
     fdelta = (do.float() * fo.float()).sum(-1).transpose(1, 2).reshape(B * N, S).contiguous()
-    dense = [_time_ms(torch, fn) for fn in (
-        lambda: flash._fwd_cuda(q, k, v, causal),
-        lambda: flash._dq_cuda(q, k, v, do, flse, fdelta, causal),
-        lambda: flash._dkv_cuda(q, k, v, do, flse, fdelta, causal))]
+    dense_calls = (lambda: flash._fwd_cuda(q, k, v, causal),
+                   lambda: flash._dq_cuda(q, k, v, do, flse, fdelta, causal),
+                   lambda: flash._dkv_cuda(q, k, v, do, flse, fdelta, causal))
+    dense = [_time_ms(torch, fn) for fn in dense_calls]
+    dense_dev = [_graph_ms(torch, fn) for fn in dense_calls[1:]]
     print(f"[kernels] B10 beside dense flash at {what}: K5 {dense[0]:.4f} ms, K7 "
           f"{dense[1]:.4f} ms, K6 {dense[2]:.4f} ms over all {S * (S + 1) // 2} causal "
-          f"pairs a head; the layout keeps {density:.4f} of them.  library_ms of the two "
-          f"backward passes is SDPA forward + backward under the token mask "
-          f"({lib_fwd_bwd:.4f} ms); plain_ms is the whole plain backward", flush=True)
-    del q, k, v, do, o, lse, delta, tok, q4, k4, v4, do4, qg, kg, vg, fo, flse, fdelta
+          f"pairs a head (alone, from CUDA graphs: K7 {dense_dev[0]:.4f}, K6 "
+          f"{dense_dev[1]:.4f}); the layout keeps {density:.4f} of them.  B10's backward "
+          f"alone {dev_dq + dev_dkv:.4f} ms = {(dev_dq + dev_dkv) / sum(dense_dev):.3f}x "
+          f"dense flash's ({sum(dense_dev):.4f} ms)", flush=True)
+    del q, k, v, do, o, lse, delta, tok, q4, k4, v4, do4, qg, kg, vg, out, fo, flse, fdelta
     torch.cuda.empty_cache()
     return rows_out
 
@@ -2125,6 +2217,20 @@ def phase_sparse(torch, np, launches):
               f"plain version {', '.join(f'{x:.3f}' for x in heads)}", flush=True)
         del got, want, exact
     counts = dict(launches)
+    # device time a pass (forward and backward through autograd, as above),
+    # by kernel (torch.profiler over 3 passes)
+    for name, (cls, kw, causal) in SPARSE_CONFIGS.items():
+        attn = sa.SparseSelfAttention(getattr(sa, cls)(num_heads=N, block=SPARSE_BLOCK, **kw),
+                                      causal=causal)
+        got = _sparse_pass_ms(torch, lambda: run(attn, qkv, do))
+        if got is None:
+            print(f"[sparse] {name} device time a pass: not measured (three traces lacked "
+                  f"one of B10's kernels)", flush=True)
+            continue
+        total, b10, rest = got
+        print(f"[sparse] {name} device time a pass {total:.4f} ms: "
+              + ", ".join(f"{k} {ms:.4f}" for k, ms in sorted(b10.items()))
+              + f", the rest {rest:.4f}", flush=True)
     del qkv, do, ref_args
     torch.cuda.empty_cache()
     return counts

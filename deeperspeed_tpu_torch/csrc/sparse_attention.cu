@@ -21,28 +21,49 @@
 // exp(NEG_INF - NEG_INF) = 1 while its running max is still NEG_INF); its
 // LSE is written as NEG_INF.
 //
-// Tiles: T = 64, 32 or 16 rows (the largest that divides the block; the
-// wrapper takes blocks that are multiples of 16).  A tile reads the layout
-// entry of the block that holds it.  S is a multiple of the block, so no
-// tile is ragged.
-//
 // Bound on the H100: operations on the live tiles (2 S_live D per product).
 //
-// Two implementations, as flash_attention.cu: fp32 on CUDA cores (256
-// threads as 16 x 16; thread (ty, tx) owns rows R ty .. R ty + R - 1 and
-// columns tx + 16 j of a T x T score tile, R = T / 16; operand tiles in
-// shared memory as fp32 with pitch D + 1), and bf16 on the tensor cores
-// (`mma.sync.m16n8k16` bf16 -> fp32; T / 16 warps, warp w owning rows
-// 16 w .. 16 w + 15; scores, P and dS in registers; operand tiles in shared
-// memory as bf16 with pitch D + 8).  The bf16 kernels take D = 16, 32, 64
-// or 128 (the wrapper zero-pads D up to one of them; the scale is passed
-// in, so padding changes no score) and 16-byte aligned operands.
+// Three implementations:
+//
+// * bf16 backward with blocks a multiple of 64 (every shipped config:
+//   block 64 or 128): the Hopper kernels of namespace `hopper` below,
+//   `sparse_dq_kernel` and `sparse_dkv_kernel`, on TMA and `wgmma`
+//   (hopper.cuh, the building blocks of flash K5-K7).  A CTA is one
+//   warpgroup and owns a 64-row tile; it first compacts its layout row
+//   (dq) or column (dk/dv) into a list of live blocks in shared memory
+//   (warp 0, a ballot and `__popc` over 32 entries at a time), expands
+//   each into its block / 64 tiles, drops under causality the tiles above
+//   the diagonal, and walks only that list: the tile after next is loaded
+//   by TMA into a two-stage ring while this one is computed, across gaps
+//   in the layout too.  Only a causal diagonal tile runs a masked body:
+//   S is a multiple of the block, so no tile is ragged.  A walk of length
+//   0 stores zeros (a key block no query attends to, a query block with
+//   no live key).  Bound: operations, 3 (dq) and 4 (dk/dv) products of
+//   64 x 64 x D a live tile pair.  What holds them back: one warpgroup
+//   runs its products and its exps in turn (flash K6/K7's limit), other
+//   CTAs of the SM fill the gaps; under Fixed the global key columns walk
+//   up to 5x the mean, a tail at the end of the dk/dv grid.
+// * the bf16 forward, and the bf16 backward with blocks of 16, 32 or 48
+//   (mod 64): `mma.sync.m16n8k16` bf16 -> fp32 on T = 64, 32 or 16-row
+//   tiles (the largest that divides the block); T / 16 warps, warp w
+//   owning rows 16 w .. 16 w + 15; scores, P and dS in registers; operand
+//   tiles loaded synchronously into shared memory as bf16 with pitch
+//   D + 8.  Every CTA steps over all S / T tiles of its row or column and
+//   reads the layout entry of each.
+// * fp32 on CUDA cores (256 threads as 16 x 16; thread (ty, tx) owns rows
+//   R ty .. R ty + R - 1 and columns tx + 16 j of a T x T score tile,
+//   R = T / 16; operand tiles in shared memory as fp32 with pitch D + 1).
+//
+// The bf16 kernels take D = 16, 32, 64 or 128 (the wrapper zero-pads D up
+// to one of them; the scale is passed in, so padding changes no score)
+// and 16-byte aligned operands (TMA's alignment too).
 //
 // Layout of q, k, v, o, dO, dq, dk, dv: contiguous [B, S, N, D]; a head's
 // rows have stride N D.  LSE and delta: fp32 [B N, S].  Grid: (B N, S / T).
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -688,6 +709,350 @@ size_t smem_bytes(int which) {
 
 }  // namespace tc
 
+// ------------------------------------------------------ bf16 backward on Hopper
+// The dq and dk/dv passes for blocks that are a multiple of 64: flash K7's
+// and K6's forms (flash_attention.cu, namespace `hopper`) over the live
+// tiles of the layout only, with B10's numerics: q is not pre-scaled, so P
+// = exp2(s scale log2 e - LSE log2 e) takes the scale in fp32 (the LSE is
+// the forward's natural-log one), and dS = P (dP - delta) scale carries the
+// scale before it is rounded to bf16.
+namespace hopper {
+
+// The live entries among blocks lo .. hi - 1 of a layout row (stride 1) or
+// column (stride nb), in order: their block ids into list[0 ..], their
+// count into *count.  Run by one whole warp, 32 entries a ballot.
+__device__ __forceinline__ void compact_live(int* list, int* count, const int* __restrict__ lay,
+                                             int stride, int lo, int hi, int lane) {
+  int c = 0;
+  for (int base = lo; base < hi; base += 32) {
+    const int i = base + lane;
+    const bool keep = i < hi && lay[(size_t)i * stride] != 0;
+    const unsigned m = __ballot_sync(0xffffffffu, keep);
+    if (keep) list[c + __popc(m & ((1u << lane) - 1))] = i;
+    c += __popc(m);
+  }
+  if (lane == 0) *count = c;
+}
+
+// dq: rows are q rows, columns k rows (K7's orientation).  `c` = scale
+// log2 e; lse2 = LSE log2 e of rows (row, row + 8).
+template <bool MASKED>
+__device__ __forceinline__ void sparse_dq_scores(float (&s)[8][4], const float (&dp)[8][4],
+                                                 const float (&lse2)[2], const float (&dlt)[2],
+                                                 float c, float scale, int row, int k0, int t) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int h = i >> 1;
+      float p = exp2f(fmaf(s[nt][i], c, -lse2[h]));
+      if (MASKED && k0 + 8 * nt + 2 * t + (i & 1) > row + 8 * h) p = 0.f;
+      s[nt][i] = p * (dp[nt][i] - dlt[h]) * scale;   // dS
+    }
+}
+
+// One warpgroup owns a 64-row q tile of head (b, n).  Causal, q tiles run
+// in reverse, so under Fixed (1 -> 11 live blocks a row) the heaviest go
+// first; full, in order, so the global rows of BigBird (block 0, 64 tiles
+// against a mean of 11) do not make a tail.  Q and dO are loaded once by TMA, each thread's two rows of LSE
+// and delta by plain loads; the walk's K and V tiles go through K5's ring
+// (`load_pair`).  S = Q K^T and dP = dO V^T by `wgmma_ss`, issued together;
+// dQ += dS K by `wgmma_rs` with K the MN-major B.
+template <int DT>
+__global__ void __launch_bounds__(THREADS)
+sparse_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 const int* __restrict__ layout, bf16* __restrict__ dq, int S, int N, int LH,
+                 int block, int causal, float scale) {
+  constexpr int DB = (DT + 3) / 4;
+  constexpr uint32_t TILE_BYTES = DB * BOX_BYTES;
+  constexpr float L2E = 1.4426950408889634f;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // Q | dO | K stage 0 | V stage 0 | K stage 1 | V stage 1 | 3 mbarriers |
+  // the walk: its count of live blocks, then their ids
+  const uint32_t qs = smem_addr(smem_raw);
+  if (qs & (ATOM_BYTES - 1)) __trap();             // the swizzle needs 1024-byte tiles
+  const uint32_t dos = qs + TILE_BYTES;
+  const uint32_t ring = dos + TILE_BYTES;
+  const uint32_t bars = ring + 4 * TILE_BYTES;     // Q/dO's, then stage 0's and 1's
+  int* walk = reinterpret_cast<int*>(smem_raw + 6 * TILE_BYTES + 3 * 8);
+  const int bh = blockIdx.x, b = bh / N, n = bh % N;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * TILE;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row = q0 + 16 * warp + g;   // and row + 8
+  const int nb = S / block, tpb = block / TILE, qb = qt / tpb;
+  const int* lay = layout + ((size_t)(LH == 1 ? 0 : n) * nb + qb) * nb;   // row qb
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bars, 2 * TILE_BYTES);
+#pragma unroll
+    for (int box = 0; box < DB; ++box) {
+      tma_load(qs + box * BOX_BYTES, &tq, bars, 64 * box, n, q0, b);
+      tma_load(dos + box * BOX_BYTES, &tdo, bars, 64 * box, n, q0, b);
+    }
+  }
+  __syncwarp();
+  if (warp == 0) compact_live(walk + 1, walk, lay, 1, 0, causal ? qb + 1 : nb, lane);
+  __syncthreads();
+  const int live = walk[0];
+  // causal: the diagonal block, the list's last when live, keeps its k
+  // tiles up to this q tile
+  const int tiles = live == 0 ? 0
+                    : causal && walk[live] == qb ? (live - 1) * tpb + qt - qb * tpb + 1
+                                                 : live * tpb;
+  auto key_tile = [&](int j) { return walk[1 + j / tpb] * tpb + j % tpb; };
+  if (tid == 0 && tiles > 0) load_pair<DB>(ring, bars, &tk, &tv, 0, key_tile(0) * TILE, n, b);
+  __syncwarp();
+
+  const float c = scale * L2E;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lse2[h] = lse[(size_t)bh * S + row + 8 * h] * L2E;
+    dlt[h] = delta[(size_t)bh * S + row + 8 * h];
+  }
+  float acc[DB][8][4], s[8][4], dp[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[nt][i] = dp[nt][i] = 0.f;
+#pragma unroll
+      for (int cc = 0; cc < DB; ++cc) acc[cc][nt][i] = 0.f;
+    }
+  mbar_wait(bars, 0);
+  for (int j = 0; j < tiles; ++j) {
+    const int st = j & 1;
+    const int kt = key_tile(j);
+    if (tid == 0 && j + 1 < tiles)   // its stage was freed at the end of j - 1
+      load_pair<DB>(ring, bars, &tk, &tv, st ^ 1, key_tile(j + 1) * TILE, n, b);
+    __syncwarp();
+    mbar_wait(bars + 8 + 8 * st, (j >> 1) & 1);
+    __syncwarp();
+    const uint32_t kst = ring + 2 * TILE_BYTES * st;
+    const uint32_t vst = kst + TILE_BYTES;
+    issue_scores<DT>(s, qs, kst);     // S: q rows . k rows
+    issue_scores<DT>(dp, dos, vst);   // dP: dO rows . v rows
+    wg_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    if (causal && kt == qt)
+      sparse_dq_scores<true>(s, dp, lse2, dlt, c, scale, row, kt * TILE, t);
+    else
+      sparse_dq_scores<false>(s, dp, lse2, dlt, c, scale, row, kt * TILE, t);
+    // keys 16kk.. are score tiles 2kk and 2kk + 1
+    uint32_t da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pack_a(da[kk], s[2 * kk], s[2 * kk + 1]);
+
+    // dQ += dS K, one 64-column box of K at a time
+    wg_fence();
+#pragma unroll
+    for (int cc = 0; cc < DB; ++cc)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc[cc], da[kk], desc(kst + cc * BOX_BYTES + kk * 2 * ATOM_BYTES, BOX_BYTES,
+                                       ATOM_BYTES));
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int cc = 0; cc < DB; ++cc) fence_regs(acc[cc]);
+    __syncthreads();   // every warp is done with this stage before it is refilled
+  }
+
+  store_rows<DT>(dq, acc, b, n, row, S, N, t, 1.f, 1.f);
+}
+
+// dk/dv: rows are k rows, columns q rows (K6's orientation); the q tile's
+// LSE log2 e and delta come from the stage's table.
+template <bool MASKED>
+__device__ __forceinline__ void sparse_dkv_probs(float (&st)[8][4], float (&dpt)[8][4],
+                                                 const float* lse2, const float* dlt, float c,
+                                                 float scale, int q0, int krow, int t) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int qc = 8 * nt + 2 * t;
+    const float2 l = *reinterpret_cast<const float2*>(lse2 + qc);
+    const float2 d = *reinterpret_cast<const float2*>(dlt + qc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float p = exp2f(fmaf(st[nt][i], c, -((i & 1) ? l.y : l.x)));
+      if (MASKED && krow + 8 * (i >> 1) > q0 + qc + (i & 1)) p = 0.f;
+      st[nt][i] = p;                                                  // P^T
+      dpt[nt][i] = p * (dpt[nt][i] - ((i & 1) ? d.y : d.x)) * scale;   // dS^T
+    }
+  }
+}
+
+// One warpgroup owns a 64-row k tile of head (b, n); k tiles run in order.
+// K and V are loaded once by TMA; the walk's Q and dO tiles go through K6's
+// ring, each stage with its q rows' LSE log2 e and delta (plain loads, one
+// value a thread, stored into the other stage at the end of a tile).
+// S^T = K Q^T and dP^T = V dO^T by `wgmma_ss`; dV += P^T dO and dK += dS^T Q
+// by `wgmma_rs` with dO and Q the MN-major B.
+template <int DT>
+__global__ void __launch_bounds__(THREADS, 1)
+sparse_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  const int* __restrict__ layout, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                  int S, int N, int LH, int block, int causal, float scale) {
+  constexpr int DB = (DT + 3) / 4;
+  constexpr uint32_t TILE_BYTES = DB * BOX_BYTES;
+  constexpr float L2E = 1.4426950408889634f;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // K | V | stage 0: Q, dO | stage 1: Q, dO | the stages' LSE and delta |
+  // 3 mbarriers | the walk: its count of live blocks, then their ids
+  const uint32_t ks = smem_addr(smem_raw);
+  if (ks & (ATOM_BYTES - 1)) __trap();             // the swizzle needs 1024-byte tiles
+  const uint32_t vs = ks + TILE_BYTES;
+  const uint32_t ring = vs + TILE_BYTES;
+  float* rows = reinterpret_cast<float*>(smem_raw + 6 * TILE_BYTES);  // [stage][LSE, delta][64]
+  const uint32_t bars = ks + 6 * TILE_BYTES + 4 * TILE * sizeof(float);  // K/V's, stage 0's, 1's
+  int* walk = reinterpret_cast<int*>(smem_raw + 6 * TILE_BYTES + 4 * TILE * sizeof(float) + 3 * 8);
+  const int bh = blockIdx.x, b = bh / N, n = bh % N;
+  const int kt = blockIdx.y;
+  const int k0 = kt * TILE;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int krow = k0 + 16 * warp + g;   // and krow + 8
+  const int nb = S / block, tpb = block / TILE, kb = kt / tpb;
+  const int* lay = layout + (size_t)(LH == 1 ? 0 : n) * nb * nb + kb;   // column kb: stride nb
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bars, 2 * TILE_BYTES);
+#pragma unroll
+    for (int box = 0; box < DB; ++box) {
+      tma_load(ks + box * BOX_BYTES, &tk, bars, 64 * box, n, k0, b);
+      tma_load(vs + box * BOX_BYTES, &tv, bars, 64 * box, n, k0, b);
+    }
+  }
+  __syncwarp();
+  if (warp == 0) compact_live(walk + 1, walk, lay, nb, causal ? kb : 0, nb, lane);
+  __syncthreads();
+  const int live = walk[0];
+  // causal: the diagonal block, the list's first when live, drops its q
+  // tiles above this k tile
+  const int skip = live > 0 && causal && walk[1] == kb ? kt - kb * tpb : 0;
+  const int tiles = live * tpb - skip;
+  auto q_tile = [&](int j) {
+    const int i = j + skip;
+    return walk[1 + i / tpb] * tpb + i % tpb;
+  };
+  // thread tid's entry of a stage's table for q tile qt: LSE log2 e of row
+  // tid (tid < 64) or delta of row tid - 64
+  auto row_value = [&](int qt) -> float {
+    const int r = qt * TILE + (tid & (TILE - 1));
+    return tid < TILE ? lse[(size_t)bh * S + r] * L2E : delta[(size_t)bh * S + r];
+  };
+  if (tiles > 0) {
+    if (tid == 0) load_pair<DB>(ring, bars, &tq, &tdo, 0, q_tile(0) * TILE, n, b);
+    rows[tid] = row_value(q_tile(0));
+  }
+  __syncthreads();
+
+  const float c = scale * L2E;
+  float dka[DB][8][4], dva[DB][8][4], st[8][4], dpt[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      st[nt][i] = dpt[nt][i] = 0.f;
+#pragma unroll
+      for (int cc = 0; cc < DB; ++cc) dka[cc][nt][i] = dva[cc][nt][i] = 0.f;
+    }
+  mbar_wait(bars, 0);
+  for (int j = 0; j < tiles; ++j) {
+    const int stg = j & 1;
+    const int qt = q_tile(j);
+    const bool more = j + 1 < tiles;
+    const int qn = more ? q_tile(j + 1) : 0;
+    if (tid == 0 && more)   // its stage was freed at the end of tile j - 1
+      load_pair<DB>(ring, bars, &tq, &tdo, stg ^ 1, qn * TILE, n, b);
+    const float next = more ? row_value(qn) : 0.f;   // stored at the tile's end
+    __syncwarp();
+    mbar_wait(bars + 8 + 8 * stg, (j >> 1) & 1);
+    __syncwarp();
+    const uint32_t qs = ring + 2 * TILE_BYTES * stg;
+    const uint32_t dos = qs + TILE_BYTES;
+    issue_scores<DT>(st, ks, qs);    // S^T: k rows . q rows
+    issue_scores<DT>(dpt, vs, dos);  // dP^T: v rows . dO rows
+    wg_wait_all();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    const float* lse2 = rows + 2 * TILE * stg;
+    if (causal && qt == kt)
+      sparse_dkv_probs<true>(st, dpt, lse2, lse2 + TILE, c, scale, qt * TILE, krow, t);
+    else
+      sparse_dkv_probs<false>(st, dpt, lse2, lse2 + TILE, c, scale, qt * TILE, krow, t);
+    // q rows 16kk.. are score tiles 2kk and 2kk + 1
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pack_a(pa[kk], st[2 * kk], st[2 * kk + 1]);
+      pack_a(da[kk], dpt[2 * kk], dpt[2 * kk + 1]);
+    }
+
+    // dV += P^T dO and dK += dS^T Q, one 64-column box at a time
+    wg_fence();
+#pragma unroll
+    for (int cc = 0; cc < DB; ++cc)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(dva[cc], pa[kk], desc(dos + cc * BOX_BYTES + kk * 2 * ATOM_BYTES, BOX_BYTES,
+                                       ATOM_BYTES));
+#pragma unroll
+    for (int cc = 0; cc < DB; ++cc)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(dka[cc], da[kk], desc(qs + cc * BOX_BYTES + kk * 2 * ATOM_BYTES, BOX_BYTES,
+                                       ATOM_BYTES));
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int cc = 0; cc < DB; ++cc) {
+      fence_regs(dva[cc]);
+      fence_regs(dka[cc]);
+    }
+    if (more) rows[2 * TILE * (stg ^ 1) + tid] = next;
+    __syncthreads();   // every warp is done with this stage before it is refilled
+  }
+
+  store_rows<DT>(dk, dka, b, n, krow, S, N, t, 1.f, 1.f);
+  store_rows<DT>(dv, dva, b, n, krow, S, N, t, 1.f, 1.f);
+}
+
+// dq: Q, dO, a two-stage ring of K and V, three mbarriers and the walk.
+template <int DT>
+size_t dq_smem_bytes(int nb) {
+  return 6 * (size_t)((DT + 3) / 4) * BOX_BYTES + 3 * 8 + (nb + 1) * sizeof(int);
+}
+
+// dk/dv: K, V, a two-stage ring of Q and dO, the stages' LSE and delta,
+// three mbarriers and the walk.
+template <int DT>
+size_t dkv_smem_bytes(int nb) {
+  return 6 * (size_t)((DT + 3) / 4) * BOX_BYTES + 4 * TILE * sizeof(float) + 3 * 8 +
+         (nb + 1) * sizeof(int);
+}
+
+}  // namespace hopper
+
 // ------------------------------------------------------------------ launchers
 template <typename K>
 cudaError_t start(K kernel, dim3 grid, int threads, size_t smem, const Args& a,
@@ -741,6 +1106,51 @@ cudaError_t tc_by_head_dim(int which, const Args& a, cudaStream_t stream) {
   }
 }
 
+// which: 1 dq, 2 dk/dv, on the Hopper kernels (bf16, block % 64 == 0).
+template <int DT>
+cudaError_t launch_hopper(int which, const Args& a, cudaStream_t stream) {
+  typedef __nv_bfloat16 bf16;
+  const int D = DT * 16, nb = a.S / a.block;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!hopper::head_map(&tq, a.q, a.B, a.S, a.N, D) ||
+      !hopper::head_map(&tk, a.k, a.B, a.S, a.N, D) ||
+      !hopper::head_map(&tv, a.v, a.B, a.S, a.N, D) ||
+      !hopper::head_map(&tdo, a.dout, a.B, a.S, a.N, D))
+    return cudaErrorInvalidValue;
+  const dim3 grid(a.B * a.N, a.S / hopper::TILE);
+  cudaError_t e;
+  if (which == 1) {
+    const size_t smem = hopper::dq_smem_bytes<DT>(nb);
+    if ((e = cudaFuncSetAttribute(hopper::sparse_dq_kernel<DT>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+        cudaSuccess)
+      return e;
+    hopper::sparse_dq_kernel<DT><<<grid, hopper::THREADS, smem, stream>>>(
+        tq, tk, tv, tdo, a.lse, a.delta, a.layout, static_cast<bf16*>(a.dq), a.S, a.N, a.LH,
+        a.block, a.causal, a.scale);
+  } else {
+    const size_t smem = hopper::dkv_smem_bytes<DT>(nb);
+    if ((e = cudaFuncSetAttribute(hopper::sparse_dkv_kernel<DT>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+        cudaSuccess)
+      return e;
+    hopper::sparse_dkv_kernel<DT><<<grid, hopper::THREADS, smem, stream>>>(
+        tq, tk, tv, tdo, a.lse, a.delta, a.layout, static_cast<bf16*>(a.dk),
+        static_cast<bf16*>(a.dv), a.S, a.N, a.LH, a.block, a.causal, a.scale);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t hopper_by_head_dim(int which, const Args& a, cudaStream_t stream) {
+  switch (a.D) {
+    case 16: return launch_hopper<1>(which, a, stream);
+    case 32: return launch_hopper<2>(which, a, stream);
+    case 64: return launch_hopper<4>(which, a, stream);
+    case 128: return launch_hopper<8>(which, a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 bool aligned16(const void* p) { return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <int T>
@@ -751,6 +1161,8 @@ cudaError_t by_type(int which, const Args& a, int dtype, cudaStream_t stream) {
       if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) || !aligned16(a.dout) ||
           !aligned16(a.o) || !aligned16(a.dq) || !aligned16(a.dk) || !aligned16(a.dv))
         return cudaErrorInvalidValue;
+      // the backward passes on Hopper whenever a block holds whole 64-row tiles
+      if (which != 0 && a.block % 64 == 0) return hopper_by_head_dim(which, a, stream);
       return tc_by_head_dim<T>(which, a, stream);
     default: return cudaErrorInvalidValue;
   }

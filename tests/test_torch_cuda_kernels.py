@@ -25,8 +25,10 @@ the card over gloo, tanh-GELU (B9) over every type and its vector and
 scalar paths (bit for bit between them), the fused softmax (B8) over every
 type, odd widths and each forward path's widths, unaligned rows and rows
 of -inf or NaN, and block-sparse attention (B10) over every sparsity
-config, block sizes 16-128, head dims that need padding, per-head layouts,
-causal and not, and rows with no live key.
+config, block sizes 16-256, head dims that need padding, per-head layouts,
+causal and not, and rows with no live key, with its Hopper backward
+passes (blocks 64, 128, 256) at every head dim, over a long Fixed layout,
+an empty key column and query row, and repeated bit for bit.
 """
 
 import importlib
@@ -1260,3 +1262,70 @@ def test_sparse_attention_autograd_and_rejections(gen):
         sparse._fwd_cuda(x.half(), x.half(), x.half(), layout, True, 1.0, 64)
     with pytest.raises(ValueError, match="does not fit"):
         sparse._fwd_cuda(x, x, x, layout[:, :2, :2].contiguous(), True, 1.0, 64)
+
+
+def _layout(seed, LH, nb, density=0.6):
+    """A random [LH, nb, nb] layout (some rows and columns of blocks may
+    come out empty)."""
+    lay = np.random.default_rng(seed).random((LH, nb, nb)) < density
+    return torch.tensor(lay.astype(np.int32), device="cuda")
+
+
+def _sparse_qkv(gen, B, S, N, D):
+    return [torch.randn(B, S, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(4)]
+
+
+# The bf16 backward passes on Hopper (blocks a multiple of 64): every head
+# dim the kernels take and those the wrapper pads (8 -> 16, 40 -> 64,
+# 72 -> 128), causal and full, one layout for all heads and one a head
+@pytest.mark.parametrize("per_head", [False, True], ids=["LH1", "LHN"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 8, 40, 72])
+@pytest.mark.parametrize("block", [64, 128, 256])
+def test_sparse_hopper_backward(gen, block, D, causal, per_head):
+    B, N, S = 2, 3, 4 * block
+    layout = _layout(block + D + 2 * causal + per_head, N if per_head else 1, S // block)
+    q, k, v, do = _sparse_qkv(gen, B, S, N, D)
+    _sparse_agree(*_sparse_vs_plain(q, k, v, do, layout, causal, block), torch.bfloat16)
+
+
+def test_sparse_hopper_backward_long_fixed(gen):
+    """Fixed at S 4096, block 128, causal: the dk/dv CTAs of key block 3
+    (a global column) walk 58 q tiles, so the ring wraps many times."""
+    cfg = sparsity_config.FixedSparsityConfig(num_heads=2, block=128, num_local_blocks=4,
+                                              num_global_blocks=1, attention="unidirectional")
+    layout = sparse.device_layout(cfg.make_layout(4096), "cuda")
+    assert int(layout[0, :, 3].sum()) == 29
+    q, k, v, do = _sparse_qkv(gen, 1, 4096, 2, 64)
+    _sparse_agree(*_sparse_vs_plain(q, k, v, do, layout, True, 128), torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_sparse_hopper_empty_column_and_row(gen, causal):
+    """Key block 1 is attended by no query, query block 2 attends to no key:
+    dk and dv are zero on key block 1 and dq on query block 2 (the kernels
+    write zeros, though their outputs come from torch.empty_like)."""
+    lay = np.ones((1, 4, 4), np.int32)
+    lay[:, :, 1] = 0
+    lay[:, 2, :] = 0
+    layout = torch.tensor(lay, device="cuda")
+    q, k, v, do = _sparse_qkv(gen, 2, 256, 3, 64)
+    got, want, lses = _sparse_vs_plain(q, k, v, do, layout, causal, 64)
+    _sparse_agree(got, want, lses, torch.bfloat16)
+    _, dq, dk, dv = got
+    assert not dq[:, 128:192].any()
+    assert not dk[:, 64:128].any() and not dv[:, 64:128].any()
+    assert dq[:, 192:].any() and dk[:, 128:].any()
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_sparse_hopper_launches_repeat_bit_for_bit(gen, D):
+    q, k, v, do, layout = _sparse_case(gen, "fixed", torch.bfloat16, True, S=1024, D=D)
+    scale = D ** -0.5
+    o, lse = sparse._fwd_cuda(q, k, v, layout, True, scale, 128)
+    delta = _delta(do, o)
+    args = (q, k, v, do, lse, delta, layout, True, scale, 128)
+    dq1, (dk1, dv1) = sparse._dq_cuda(*args), sparse._dkv_cuda(*args)
+    dq2, (dk2, dv2) = sparse._dq_cuda(*args), sparse._dkv_cuda(*args)
+    assert torch.equal(dq1, dq2) and torch.equal(dk1, dk2) and torch.equal(dv1, dv2)

@@ -19,7 +19,8 @@ from pathlib import Path
 
 # (family, pattern over the kernel's name), first match wins
 FAMILIES = [
-    ("flash K5-K7", r"hopper::(fwd|dkv|dq)_kernel|tc::(fwd|dq|dkv)_kernel|flash_(fwd|bwd)"),
+    ("B10 block-sparse", r"hopper::sparse_d(q|kv)_kernel|(tc|f32)::(fwd|dq|dkv)_kernel"),
+    ("flash K5-K7", r"hopper::(fwd|dkv|dq)_kernel|flash_(fwd|bwd)"),
     ("LayerNorm K1 + K8", r"ln_fwd_kernel|ln_bwd"),
     ("paged K2/K3", r"paged_attention_kernel"),
     ("B6/B7 fused optimizers", r"adam_kernel|lion_kernel"),
