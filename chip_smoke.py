@@ -36,11 +36,10 @@ package, and goes through these phases, each printing its lines:
    0.125, [4, 12, 1024, 1024] fp32, a width of 1000; the forward also
    alone from a CUDA graph), and B10 block-sparse
    attention's forward, dq and dk/dv passes at [4, 4096, 12, 64] bf16
-   under the Fixed layout (block 128, causal; the backward passes two
-   launches bit for bit, also alone from CUDA graphs, beside SDPA's
-   backward alone under the layout as a token mask; the Hopper backward's
-   walk lengths under phase 17's layouts), beside dense flash K5-K7 at
-   the same shape;
+   under the Fixed layout (block 128, causal; each pass two launches bit
+   for bit, also alone from CUDA graphs, beside SDPA's backward alone
+   under the layout as a token mask; the Hopper kernels' walk lengths
+   under phase 17's layouts), beside dense flash K5-K7 at the same shape;
 4. Pythia-160M (12 layers, full width) in fp32 served through
    ``InferenceEngineV2`` on the card and on the CPU from the same seeded
    weights: logits must agree to 2e-3 every round, and tokens wherever the
@@ -384,21 +383,27 @@ def _graph_ms(torch, fn, iters=20):
 def _kernels_ms(torch, fn, iters=20, counts=False):
     """Device ms a call of ``fn`` spends in each kernel, by the kernel's
     name without its template arguments: ``torch.profiler`` over ``iters``
-    calls after a warm-up.  With ``counts``, also each kernel's launches
-    a call in the trace."""
+    calls after a warm-up, one call a profiler step.  The profiler's own
+    warm-up step comes first and is not counted: a trace on the H100 late
+    in a long process was seen to drop the first call's records without
+    it.  With ``counts``, also each kernel's launches a call in the trace."""
     from collections import defaultdict
 
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+    traces = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=iters, repeat=1),
+                 on_trace_ready=lambda p: traces.append(p.key_averages())) as prof:
+        for _ in range(iters + 1):
             fn()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            prof.step()
     out, launches = defaultdict(float), defaultdict(float)
-    for e in prof.key_averages():
+    for e in traces[0]:
         if e.device_type.name == "CUDA" and e.self_device_time_total > 0:
             name = e.key.replace("(anonymous namespace)::", "").replace("void ", "")
             name = name.split("(")[0].split("<")[0].strip().replace(" ", "_")
@@ -413,7 +418,8 @@ def _sparse_pass_ms(torch, fn, iters=3, tries=3):
     ms}, the rest), B10's kernels being those of namespaces ``tc``, ``f32``
     and ``hopper::sparse_*``.  A trace that does not hold each of B10's
     three kernels once a pass is taken again (a trace on the H100 was
-    seen to drop kernels), up to ``tries`` times; then None."""
+    seen to drop kernels), up to ``tries`` times; then None, after a line
+    that says what the last trace held."""
     for _ in range(tries):
         parts, launches = _kernels_ms(torch, fn, iters, counts=True)
         b10 = {k: ms for k, ms in parts.items()
@@ -421,6 +427,8 @@ def _sparse_pass_ms(torch, fn, iters=3, tries=3):
         if len(b10) == 3 and all(launches[k] == 1 for k in b10):
             total = sum(parts.values())
             return total, b10, total - sum(b10.values())
+    print(f"[profile] the last trace held, launches a pass: "
+          + ", ".join(f"{k} {launches[k]:g}" for k in sorted(parts)), flush=True)
     return None
 
 
@@ -1112,10 +1120,17 @@ def phase_legacy_kernels(torch, np, rows_out):
     q, k, v, do = (torch.randn(B, S, N, D, generator=gen, device=dev).to(bf16)
                    for _ in range(4))
     what = f"B={B} S={S} N={N} D={D} block {SPARSE_BLOCK} Fixed causal bf16"
-    o, lse = sparse._fwd_cuda(q, k, v, layout, causal, scale, SPARSE_BLOCK)
+
+    def fwd_call():
+        return sparse._fwd_cuda(q, k, v, layout, causal, scale, SPARSE_BLOCK)
+
+    o, lse = fwd_call()
     ro, rlse = sparse._fwd_reference(q, k, v, layout, causal, scale)
     err_fwd, use_o = flash_close(torch, o, ro, f"sparse_fwd {what}")
     _close(torch, lse, rlse, 1e-4, 1e-5, f"sparse_fwd LSE {what}")
+    o2, lse2 = fwd_call()
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError(f"sparse_fwd {what}: two launches differ")
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(B * N, S).contiguous()
     rdq, rdk, rdv = sparse._bwd_reference(q, k, v, do, lse, delta, layout, causal, scale)
 
@@ -1133,9 +1148,9 @@ def phase_legacy_kernels(torch, np, rows_out):
     if not (torch.equal(dq, dq_call()) and torch.equal(dk, dk2) and torch.equal(dv, dv2)):
         raise AssertionError(f"sparse backward {what}: two launches differ")
     print(f"[kernels] sparse {what}: share of the limit used O {use_o:.3f}, dq "
-          f"{use_dq:.3f}, dk {use_dk:.3f}, dv {use_dv:.3f}; dq and dk/dv repeat bit for bit",
-          flush=True)
-    del rdq, rdk, rdv, ro, rlse, dq, dk, dv, dk2, dv2
+          f"{use_dq:.3f}, dk {use_dk:.3f}, dv {use_dv:.3f}; the forward, dq and dk/dv "
+          f"repeat bit for bit", flush=True)
+    del rdq, rdk, rdv, ro, rlse, dq, dk, dv, dk2, dv2, o2, lse2
     torch.cuda.empty_cache()
     # the Hopper backward's walks under each of phase 17's layouts (a long
     # dk/dv walk at the end of the grid is a tail)
@@ -1143,7 +1158,8 @@ def phase_legacy_kernels(torch, np, rows_out):
         lay = getattr(sa, cls)(num_heads=N, block=SPARSE_BLOCK, **kw).make_layout(S)
         dq_walk, dkv_walk = _walk_lengths(np, lay, SPARSE_BLOCK, cfg_causal)
         print(f"[kernels] B10 walk {name} ({'causal' if cfg_causal else 'full'}): 64-row "
-              f"tiles visited by a dq CTA largest {dq_walk.max()} mean {dq_walk.mean():.2f}, "
+              f"tiles visited by a forward or dq CTA largest {dq_walk.max()} mean "
+              f"{dq_walk.mean():.2f}, "
               f"by a dk/dv CTA largest {dkv_walk.max()} mean {dkv_walk.mean():.2f} "
               f"(of {S // 64})", flush=True)
     live = _live_pairs(np, host_layout, SPARSE_BLOCK, causal)
@@ -1167,13 +1183,12 @@ def phase_legacy_kernels(torch, np, rows_out):
     lib_bwd_kernels = _kernels_ms(torch, sdpa_bwd, iters=5)
     lib_bwd_dev = sum(lib_bwd_kernels.values())
     t, by = _bound(4 * io + vec, 2 * 2 * mac, bf16)
+    dev_fwd = _graph_ms(torch, fwd_call)
     report("sparse_fwd", f"B10 sparse_fwd {what} (live share {density:.4f})", dict(
-        max_abs_err=err_fwd,
-        ms=_time_ms(torch, lambda: sparse._fwd_cuda(q, k, v, layout, causal, scale,
-                                                    SPARSE_BLOCK)),
+        max_abs_err=err_fwd, ms=_time_ms(torch, fwd_call),
         plain_ms=_time_ms(torch, lambda: sparse._fwd_reference(q, k, v, layout, causal,
                                                                scale), iters=3),
-        library_ms=lib_fwd, bound_ms=t, bound_by=by))
+        library_ms=lib_fwd, bound_ms=t, bound_by=by, device_ms=dev_fwd))
     bwd_plain = _time_ms(torch, lambda: sparse._bwd_reference(
         q, k, v, do, lse, delta, layout, causal, scale), iters=3)
     t, by = _bound(5 * io + 2 * vec, 3 * 2 * mac, bf16)
@@ -1201,13 +1216,15 @@ def phase_legacy_kernels(torch, np, rows_out):
                    lambda: flash._dq_cuda(q, k, v, do, flse, fdelta, causal),
                    lambda: flash._dkv_cuda(q, k, v, do, flse, fdelta, causal))
     dense = [_time_ms(torch, fn) for fn in dense_calls]
-    dense_dev = [_graph_ms(torch, fn) for fn in dense_calls[1:]]
+    dense_dev = [_graph_ms(torch, fn) for fn in dense_calls]
     print(f"[kernels] B10 beside dense flash at {what}: K5 {dense[0]:.4f} ms, K7 "
           f"{dense[1]:.4f} ms, K6 {dense[2]:.4f} ms over all {S * (S + 1) // 2} causal "
-          f"pairs a head (alone, from CUDA graphs: K7 {dense_dev[0]:.4f}, K6 "
-          f"{dense_dev[1]:.4f}); the layout keeps {density:.4f} of them.  B10's backward "
-          f"alone {dev_dq + dev_dkv:.4f} ms = {(dev_dq + dev_dkv) / sum(dense_dev):.3f}x "
-          f"dense flash's ({sum(dense_dev):.4f} ms)", flush=True)
+          f"pairs a head (alone, from CUDA graphs: K5 {dense_dev[0]:.4f}, K7 "
+          f"{dense_dev[1]:.4f}, K6 {dense_dev[2]:.4f}); the layout keeps {density:.4f} of "
+          f"them.  B10's forward alone {dev_fwd:.4f} ms = {dev_fwd / dense_dev[0]:.3f}x "
+          f"K5's; its backward alone {dev_dq + dev_dkv:.4f} ms = "
+          f"{(dev_dq + dev_dkv) / sum(dense_dev[1:]):.3f}x dense flash's "
+          f"({sum(dense_dev[1:]):.4f} ms)", flush=True)
     del q, k, v, do, o, lse, delta, tok, q4, k4, v4, do4, qg, kg, vg, out, fo, flse, fdelta
     torch.cuda.empty_cache()
     return rows_out

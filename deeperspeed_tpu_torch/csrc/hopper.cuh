@@ -1,5 +1,5 @@
 // Building blocks of the Hopper (sm_90a) attention kernels: flash attention
-// K5-K7 (flash_attention.cu) and the block-sparse backward passes of B10
+// K5-K7 (flash_attention.cu) and the block-sparse passes of B10
 // (sparse_attention.cu).  Each source that includes this header builds its
 // own library, so everything here has internal linkage (an anonymous
 // namespace), as the kernels that use it do.

@@ -25,31 +25,31 @@
 //
 // Three implementations:
 //
-// * bf16 backward with blocks a multiple of 64 (every shipped config:
-//   block 64 or 128): the Hopper kernels of namespace `hopper` below,
+// * bf16 with blocks a multiple of 64 (every shipped config: block 64 or
+//   128): the Hopper kernels of namespace `hopper` below, `sparse_fwd_kernel`,
 //   `sparse_dq_kernel` and `sparse_dkv_kernel`, on TMA and `wgmma`
 //   (hopper.cuh, the building blocks of flash K5-K7).  A CTA is one
 //   warpgroup and owns a 64-row tile; it first compacts its layout row
-//   (dq) or column (dk/dv) into a list of live blocks in shared memory
-//   (warp 0, a ballot and `__popc` over 32 entries at a time), expands
-//   each into its block / 64 tiles, drops under causality the tiles above
-//   the diagonal, and walks only that list: the tile after next is loaded
-//   by TMA into a two-stage ring while this one is computed, across gaps
-//   in the layout too.  Only a causal diagonal tile runs a masked body:
+//   (forward, dq) or column (dk/dv) into a list of live blocks in shared
+//   memory (warp 0, a ballot and `__popc` over 32 entries at a time),
+//   expands each into its block / 64 tiles, drops under causality the tiles
+//   above the diagonal, and walks only that list: the tile after next is
+//   loaded by TMA into a two-stage ring while this one is computed, across
+//   gaps in the layout too.  Only a causal diagonal tile runs a masked body:
 //   S is a multiple of the block, so no tile is ragged.  A walk of length
 //   0 stores zeros (a key block no query attends to, a query block with
-//   no live key).  Bound: operations, 3 (dq) and 4 (dk/dv) products of
-//   64 x 64 x D a live tile pair.  What holds them back: one warpgroup
-//   runs its products and its exps in turn (flash K6/K7's limit), other
-//   CTAs of the SM fill the gaps; under Fixed the global key columns walk
-//   up to 5x the mean, a tail at the end of the dk/dv grid.
-// * the bf16 forward, and the bf16 backward with blocks of 16, 32 or 48
-//   (mod 64): `mma.sync.m16n8k16` bf16 -> fp32 on T = 64, 32 or 16-row
-//   tiles (the largest that divides the block); T / 16 warps, warp w
-//   owning rows 16 w .. 16 w + 15; scores, P and dS in registers; operand
-//   tiles loaded synchronously into shared memory as bf16 with pitch
-//   D + 8.  Every CTA steps over all S / T tiles of its row or column and
-//   reads the layout entry of each.
+//   no live key; the forward's LSE there is NEG_INF).  Bound: operations,
+//   2 (forward), 3 (dq) and 4 (dk/dv) products of 64 x 64 x D a live tile
+//   pair.  What holds them back: one warpgroup runs its products and its
+//   exps in turn (flash K5-K7's limit), other CTAs of the SM fill the gaps;
+//   under Fixed the global key columns walk up to 5x the mean, a tail at
+//   the end of the dk/dv grid.
+// * bf16 with blocks of 16, 32 or 48 (mod 64): `mma.sync.m16n8k16` bf16 ->
+//   fp32 on T = 32 or 16-row tiles (the larger that divides the block);
+//   T / 16 warps, warp w owning rows 16 w .. 16 w + 15; scores, P and dS in
+//   registers; operand tiles loaded synchronously into shared memory as
+//   bf16 with pitch D + 8.  Every CTA steps over all S / T tiles of its row
+//   or column and reads the layout entry of each.
 // * fp32 on CUDA cores (256 threads as 16 x 16; thread (ty, tx) owns rows
 //   R ty .. R ty + R - 1 and columns tx + 16 j of a T x T score tile,
 //   R = T / 16; operand tiles in shared memory as fp32 with pitch D + 1).
@@ -709,13 +709,15 @@ size_t smem_bytes(int which) {
 
 }  // namespace tc
 
-// ------------------------------------------------------ bf16 backward on Hopper
-// The dq and dk/dv passes for blocks that are a multiple of 64: flash K7's
-// and K6's forms (flash_attention.cu, namespace `hopper`) over the live
-// tiles of the layout only, with B10's numerics: q is not pre-scaled, so P
-// = exp2(s scale log2 e - LSE log2 e) takes the scale in fp32 (the LSE is
-// the forward's natural-log one), and dS = P (dP - delta) scale carries the
-// scale before it is rounded to bf16.
+// ------------------------------------------------------------- bf16 on Hopper
+// The forward, dq and dk/dv passes for blocks that are a multiple of 64:
+// flash K5's, K7's and K6's forms (flash_attention.cu, namespace `hopper`)
+// over the live tiles of the layout only, with B10's numerics: q is not
+// pre-scaled, so the scores take the scale in fp32 in the exponent, exp2(s
+// scale log2 e - m) with the forward's running max m in that domain; the
+// LSE is stored in natural log, (m + log2 l) ln 2, and the backward passes
+// take P = exp2(s scale log2 e - LSE log2 e); dS = P (dP - delta) scale
+// carries the scale before it is rounded to bf16.
 namespace hopper {
 
 // The live entries among blocks lo .. hi - 1 of a layout row (stride 1) or
@@ -732,6 +734,186 @@ __device__ __forceinline__ void compact_live(int* list, int* count, const int* _
     c += __popc(m);
   }
   if (lane == 0) *count = c;
+}
+
+// The walk of the forward and the dq pass: warp 0 compacts layout row qb
+// of q tile qt into walk (its count of live blocks, then their ids); every
+// thread gets the number of 64-row k tiles to visit.  Causal: the diagonal
+// block, the list's last when live, keeps its k tiles up to this q tile.
+__device__ __forceinline__ int row_walk(int* walk, const int* __restrict__ lay, int nb, int tpb,
+                                        int qt, int causal, int warp, int lane) {
+  const int qb = qt / tpb;
+  if (warp == 0) compact_live(walk + 1, walk, lay, 1, 0, causal ? qb + 1 : nb, lane);
+  __syncthreads();
+  const int live = walk[0];
+  return live == 0 ? 0
+         : causal && walk[live] == qb ? (live - 1) * tpb + qt - qb * tpb + 1
+                                      : live * tpb;
+}
+
+// The forward: rows are q rows, columns k rows (K5's orientation).  Scores
+// go to the log2 domain, s scale log2 e, in place; the causal diagonal
+// tile masks col > row to NEG_INF, whose exp2 is 0 against any finite
+// running max.  mx gets each row's largest score of the tile.
+template <bool MASKED>
+__device__ __forceinline__ void sparse_fwd_scores(float (&s)[8][4], float (&mx)[2], float c,
+                                                  int row, int k0, int t) {
+  mx[0] = mx[1] = DST_NEG_INF;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[nt][i] *= c;
+      if (MASKED && k0 + 8 * nt + 2 * t + (i & 1) > row + 8 * (i >> 1)) s[nt][i] = DST_NEG_INF;
+      mx[i >> 1] = fmaxf(mx[i >> 1], s[nt][i]);
+    }
+}
+
+// One warpgroup owns a 64-row q tile of head (b, n), in the dq pass's
+// order (causal: in reverse; full: in order), and walks the live k tiles
+// of its layout row as the dq pass does.  Q is loaded once by TMA; K and V
+// go through K5's ring (`load_pair`).  S = Q K^T by `wgmma_ss`; the online
+// softmax in fp32 on exp2 with the running max m in the log2 domain; P
+// rounded to bf16 straight into the register A operand; O += P V by
+// `wgmma_rs` with V the MN-major B.  A walk of length 0 (a query block
+// with no live key) leaves l = 0: O is stored as zeros, the LSE as NEG_INF.
+// Every row of a live walk has a key (the tiles below the diagonal are
+// whole, the diagonal tile holds the row's own key), so m is finite after
+// the first tile, and alpha = exp2(NEG_INF - m) = 0 there.
+template <int DT>
+__global__ void __launch_bounds__(THREADS)
+sparse_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, const int* __restrict__ layout,
+                  bf16* __restrict__ o, float* __restrict__ lse, int S, int N, int LH,
+                  int block, int causal, float scale) {
+  constexpr int DB = (DT + 3) / 4;
+  constexpr uint32_t TILE_BYTES = DB * BOX_BYTES;
+  constexpr float L2E = 1.4426950408889634f;
+  constexpr float LN2 = 0.6931471805599453f;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // Q | K stage 0 | V stage 0 | K stage 1 | V stage 1 | 3 mbarriers |
+  // the walk: its count of live blocks, then their ids
+  const uint32_t qs = smem_addr(smem_raw);
+  if (qs & (ATOM_BYTES - 1)) __trap();             // the swizzle needs 1024-byte tiles
+  const uint32_t ring = qs + TILE_BYTES;
+  const uint32_t bars = ring + 4 * TILE_BYTES;     // Q's, then stage 0's and 1's
+  int* walk = reinterpret_cast<int*>(smem_raw + 5 * TILE_BYTES + 3 * 8);
+  const int bh = blockIdx.x, b = bh / N, n = bh % N;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * TILE;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row = q0 + 16 * warp + g;   // and row + 8
+  const int nb = S / block, tpb = block / TILE, qb = qt / tpb;
+  const int* lay = layout + ((size_t)(LH == 1 ? 0 : n) * nb + qb) * nb;   // row qb
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bars, TILE_BYTES);
+#pragma unroll
+    for (int box = 0; box < DB; ++box)
+      tma_load(qs + box * BOX_BYTES, &tq, bars, 64 * box, n, q0, b);
+  }
+  __syncwarp();
+  const int tiles = row_walk(walk, lay, nb, tpb, qt, causal, warp, lane);
+  auto key_tile = [&](int j) { return walk[1 + j / tpb] * tpb + j % tpb; };
+  if (tid == 0 && tiles > 0) load_pair<DB>(ring, bars, &tk, &tv, 0, key_tile(0) * TILE, n, b);
+  __syncwarp();
+
+  const float c = scale * L2E;
+  float m[2] = {DST_NEG_INF, DST_NEG_INF}, l[2] = {0.f, 0.f};   // m: log2 domain
+  float acc[DB][8][4], s[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[nt][i] = 0.f;
+#pragma unroll
+      for (int cc = 0; cc < DB; ++cc) acc[cc][nt][i] = 0.f;
+    }
+  mbar_wait(bars, 0);
+  for (int j = 0; j < tiles; ++j) {
+    const int st = j & 1;
+    const int kt = key_tile(j);
+    if (tid == 0 && j + 1 < tiles)   // its stage was freed at the end of j - 1
+      load_pair<DB>(ring, bars, &tk, &tv, st ^ 1, key_tile(j + 1) * TILE, n, b);
+    __syncwarp();
+    mbar_wait(bars + 8 + 8 * st, (j >> 1) & 1);
+    __syncwarp();
+    const uint32_t kst = ring + 2 * TILE_BYTES * st;
+    const uint32_t vst = kst + TILE_BYTES;
+    issue_scores<DT>(s, qs, kst);
+    wg_wait_all();
+    fence_regs(s);
+
+    float mx[2];
+    if (causal && kt == qt)
+      sparse_fwd_scores<true>(s, mx, c, row, kt * TILE, t);
+    else
+      sparse_fwd_scores<false>(s, mx, c, row, kt * TILE, t);
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m[h], quad_max(mx[h]));
+      alpha[h] = exp2f(m[h] - m_new);
+      m[h] = m_new;
+    }
+#pragma unroll
+    for (int cc = 0; cc < DB; ++cc) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        acc[cc][nt][0] *= alpha[0];
+        acc[cc][nt][1] *= alpha[0];
+        acc[cc][nt][2] *= alpha[1];
+        acc[cc][nt][3] *= alpha[1];
+      }
+      fence_regs(acc[cc]);
+    }
+    // P = exp2(s - m) straight into the A operand, rounded to bf16; keys
+    // 16kk.. are score tiles 2kk and 2kk + 1
+    float psum[2] = {0.f, 0.f};
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float e[2][4];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          e[jj][i] = exp2f(s[2 * kk + jj][i] - m[i >> 1]);
+          psum[i >> 1] += e[jj][i];
+        }
+      pack_a(pa[kk], e[0], e[1]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + quad_sum(psum[h]);
+
+    // O += P V, one 64-column box of V at a time
+    wg_fence();
+#pragma unroll
+    for (int cc = 0; cc < DB; ++cc)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc[cc], pa[kk], desc(vst + cc * BOX_BYTES + kk * 2 * ATOM_BYTES, BOX_BYTES,
+                                       ATOM_BYTES));
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int cc = 0; cc < DB; ++cc) fence_regs(acc[cc]);
+    __syncthreads();   // every warp is done with this stage before it is refilled
+  }
+
+  store_rows<DT>(o, acc, b, n, row, S, N, t, l[0] > 0.f ? 1.f / l[0] : 0.f,
+                 l[1] > 0.f ? 1.f / l[1] : 0.f);
+  if (t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)   // natural log, as the backward passes read it
+      lse[(size_t)bh * S + row + 8 * h] = l[h] > 0.f ? (m[h] + log2f(l[h])) * LN2 : DST_NEG_INF;
+  }
 }
 
 // dq: rows are q rows, columns k rows (K7's orientation).  `c` = scale
@@ -800,14 +982,7 @@ sparse_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     }
   }
   __syncwarp();
-  if (warp == 0) compact_live(walk + 1, walk, lay, 1, 0, causal ? qb + 1 : nb, lane);
-  __syncthreads();
-  const int live = walk[0];
-  // causal: the diagonal block, the list's last when live, keeps its k
-  // tiles up to this q tile
-  const int tiles = live == 0 ? 0
-                    : causal && walk[live] == qb ? (live - 1) * tpb + qt - qb * tpb + 1
-                                                 : live * tpb;
+  const int tiles = row_walk(walk, lay, nb, tpb, qt, causal, warp, lane);
   auto key_tile = [&](int j) { return walk[1 + j / tpb] * tpb + j % tpb; };
   if (tid == 0 && tiles > 0) load_pair<DB>(ring, bars, &tk, &tv, 0, key_tile(0) * TILE, n, b);
   __syncwarp();
@@ -1037,6 +1212,12 @@ sparse_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
   store_rows<DT>(dv, dva, b, n, krow, S, N, t, 1.f, 1.f);
 }
 
+// forward: Q, a two-stage ring of K and V, three mbarriers and the walk.
+template <int DT>
+size_t fwd_smem_bytes(int nb) {
+  return 5 * (size_t)((DT + 3) / 4) * BOX_BYTES + 3 * 8 + (nb + 1) * sizeof(int);
+}
+
 // dq: Q, dO, a two-stage ring of K and V, three mbarriers and the walk.
 template <int DT>
 size_t dq_smem_bytes(int nb) {
@@ -1054,13 +1235,13 @@ size_t dkv_smem_bytes(int nb) {
 }  // namespace hopper
 
 // ------------------------------------------------------------------ launchers
-template <typename K>
-cudaError_t start(K kernel, dim3 grid, int threads, size_t smem, const Args& a,
-                  cudaStream_t stream) {
+template <typename K, typename... P>
+cudaError_t start(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t stream,
+                  const P&... args) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
-  kernel<<<grid, threads, smem, stream>>>(a);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
@@ -1070,9 +1251,9 @@ cudaError_t launch_f32(int which, const Args& a, cudaStream_t stream) {
   const dim3 grid(a.B * a.N, a.S / T);
   const size_t smem = f32::smem_bytes<T>(which, a.D);
   switch (which) {
-    case 0: return start(f32::fwd_kernel<T, NJ>, grid, f32::THREADS, smem, a, stream);
-    case 1: return start(f32::dq_kernel<T, NJ>, grid, f32::THREADS, smem, a, stream);
-    default: return start(f32::dkv_kernel<T, NJ>, grid, f32::THREADS, smem, a, stream);
+    case 0: return start(f32::fwd_kernel<T, NJ>, grid, f32::THREADS, smem, stream, a);
+    case 1: return start(f32::dq_kernel<T, NJ>, grid, f32::THREADS, smem, stream, a);
+    default: return start(f32::dkv_kernel<T, NJ>, grid, f32::THREADS, smem, stream, a);
   }
 }
 
@@ -1089,9 +1270,9 @@ cudaError_t launch_tc(int which, const Args& a, cudaStream_t stream) {
   const dim3 grid(a.B * a.N, a.S / T);
   const size_t smem = tc::smem_bytes<T, D>(which);
   switch (which) {
-    case 0: return start(tc::fwd_kernel<T, D>, grid, 2 * T, smem, a, stream);
-    case 1: return start(tc::dq_kernel<T, D>, grid, 2 * T, smem, a, stream);
-    default: return start(tc::dkv_kernel<T, D>, grid, 2 * T, smem, a, stream);
+    case 0: return start(tc::fwd_kernel<T, D>, grid, 2 * T, smem, stream, a);
+    case 1: return start(tc::dq_kernel<T, D>, grid, 2 * T, smem, stream, a);
+    default: return start(tc::dkv_kernel<T, D>, grid, 2 * T, smem, stream, a);
   }
 }
 
@@ -1106,7 +1287,8 @@ cudaError_t tc_by_head_dim(int which, const Args& a, cudaStream_t stream) {
   }
 }
 
-// which: 1 dq, 2 dk/dv, on the Hopper kernels (bf16, block % 64 == 0).
+// which: 0 forward, 1 dq, 2 dk/dv, on the Hopper kernels (bf16, block % 64
+// == 0).  The forward has no dO to map.
 template <int DT>
 cudaError_t launch_hopper(int which, const Args& a, cudaStream_t stream) {
   typedef __nv_bfloat16 bf16;
@@ -1115,30 +1297,26 @@ cudaError_t launch_hopper(int which, const Args& a, cudaStream_t stream) {
   if (!hopper::head_map(&tq, a.q, a.B, a.S, a.N, D) ||
       !hopper::head_map(&tk, a.k, a.B, a.S, a.N, D) ||
       !hopper::head_map(&tv, a.v, a.B, a.S, a.N, D) ||
-      !hopper::head_map(&tdo, a.dout, a.B, a.S, a.N, D))
+      (which != 0 && !hopper::head_map(&tdo, a.dout, a.B, a.S, a.N, D)))
     return cudaErrorInvalidValue;
   const dim3 grid(a.B * a.N, a.S / hopper::TILE);
-  cudaError_t e;
-  if (which == 1) {
-    const size_t smem = hopper::dq_smem_bytes<DT>(nb);
-    if ((e = cudaFuncSetAttribute(hopper::sparse_dq_kernel<DT>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
-        cudaSuccess)
-      return e;
-    hopper::sparse_dq_kernel<DT><<<grid, hopper::THREADS, smem, stream>>>(
-        tq, tk, tv, tdo, a.lse, a.delta, a.layout, static_cast<bf16*>(a.dq), a.S, a.N, a.LH,
-        a.block, a.causal, a.scale);
-  } else {
-    const size_t smem = hopper::dkv_smem_bytes<DT>(nb);
-    if ((e = cudaFuncSetAttribute(hopper::sparse_dkv_kernel<DT>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
-        cudaSuccess)
-      return e;
-    hopper::sparse_dkv_kernel<DT><<<grid, hopper::THREADS, smem, stream>>>(
-        tq, tk, tv, tdo, a.lse, a.delta, a.layout, static_cast<bf16*>(a.dk),
-        static_cast<bf16*>(a.dv), a.S, a.N, a.LH, a.block, a.causal, a.scale);
+  switch (which) {
+    case 0:
+      return start(hopper::sparse_fwd_kernel<DT>, grid, hopper::THREADS,
+                   hopper::fwd_smem_bytes<DT>(nb), stream, tq, tk, tv, a.layout,
+                   static_cast<bf16*>(a.o), a.lse_out, a.S, a.N, a.LH, a.block, a.causal,
+                   a.scale);
+    case 1:
+      return start(hopper::sparse_dq_kernel<DT>, grid, hopper::THREADS,
+                   hopper::dq_smem_bytes<DT>(nb), stream, tq, tk, tv, tdo, a.lse, a.delta,
+                   a.layout, static_cast<bf16*>(a.dq), a.S, a.N, a.LH, a.block, a.causal,
+                   a.scale);
+    default:
+      return start(hopper::sparse_dkv_kernel<DT>, grid, hopper::THREADS,
+                   hopper::dkv_smem_bytes<DT>(nb), stream, tq, tk, tv, tdo, a.lse, a.delta,
+                   a.layout, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.S, a.N,
+                   a.LH, a.block, a.causal, a.scale);
   }
-  return cudaGetLastError();
 }
 
 cudaError_t hopper_by_head_dim(int which, const Args& a, cudaStream_t stream) {
@@ -1161,9 +1339,10 @@ cudaError_t by_type(int which, const Args& a, int dtype, cudaStream_t stream) {
       if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) || !aligned16(a.dout) ||
           !aligned16(a.o) || !aligned16(a.dq) || !aligned16(a.dk) || !aligned16(a.dv))
         return cudaErrorInvalidValue;
-      // the backward passes on Hopper whenever a block holds whole 64-row tiles
-      if (which != 0 && a.block % 64 == 0) return hopper_by_head_dim(which, a, stream);
-      return tc_by_head_dim<T>(which, a, stream);
+      // all three passes on Hopper when a block holds whole 64-row tiles
+      // (T = 64), on mma.sync otherwise: no tc kernel is built at T = 64
+      if constexpr (T == 64) return hopper_by_head_dim(which, a, stream);
+      else return tc_by_head_dim<T>(which, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

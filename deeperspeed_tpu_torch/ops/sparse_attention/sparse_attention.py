@@ -15,10 +15,11 @@ For CUDA tensors the kernels of ``csrc/sparse_attention.cu`` run: fp32 or
 bf16, D <= 128, blocks that are multiples of 16; anything else raises.
 bf16 runs on the tensor-core kernels, which take D of 16, 32, 64 or 128:
 :func:`_operands` zero-pads D up to the next of them (the scale is passed
-in, so the scores do not move) and copies a misaligned view.  The bf16 dq
-and dk/dv passes of a block that is a multiple of 64 run on the Hopper
-kernels (TMA and ``wgmma``, walking only the layout's live 64-row tiles);
-the same wrappers launch them, and a refused launch raises.  For CPU
+in, so the scores do not move) and copies a misaligned view.  With a block
+that is a multiple of 64 all three bf16 passes run on the Hopper kernels
+(TMA and ``wgmma``, walking only the layout's live 64-row tiles), with
+blocks of 16, 32 or 48 on ``mma.sync``; the same wrappers launch both,
+and a refused launch raises.  For CPU
 tensors :func:`_fwd_reference` and :func:`_bwd_reference` compute the same
 functions densely, the layout expanded to a token mask.
 

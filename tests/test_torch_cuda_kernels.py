@@ -26,9 +26,10 @@ scalar paths (bit for bit between them), the fused softmax (B8) over every
 type, odd widths and each forward path's widths, unaligned rows and rows
 of -inf or NaN, and block-sparse attention (B10) over every sparsity
 config, block sizes 16-256, head dims that need padding, per-head layouts,
-causal and not, and rows with no live key, with its Hopper backward
-passes (blocks 64, 128, 256) at every head dim, over a long Fixed layout,
-an empty key column and query row, and repeated bit for bit.
+causal and not, and rows with no live key, with its Hopper passes
+(blocks 64, 128, 256) at every head dim, over a long Fixed layout, an
+empty key column and query row, and repeated bit for bit, and the forward
+kernel each block size launches.
 """
 
 import importlib
@@ -1313,10 +1314,13 @@ def test_sparse_hopper_empty_column_and_row(gen, causal):
     q, k, v, do = _sparse_qkv(gen, 2, 256, 3, 64)
     got, want, lses = _sparse_vs_plain(q, k, v, do, layout, causal, 64)
     _sparse_agree(got, want, lses, torch.bfloat16)
-    _, dq, dk, dv = got
+    o, dq, dk, dv = got
+    lse = lses[0].view(2, 3, 256)
+    assert not o[:, 128:192].any() and (lse[..., 128:192] == sparse.NEG_INF).all()
     assert not dq[:, 128:192].any()
     assert not dk[:, 64:128].any() and not dv[:, 64:128].any()
-    assert dq[:, 192:].any() and dk[:, 128:].any()
+    assert o[:, 192:].any() and dq[:, 192:].any() and dk[:, 128:].any()
+    assert (lse[..., 192:] > sparse.NEG_INF).all()
 
 
 @pytest.mark.parametrize("D", [64, 128])
@@ -1324,8 +1328,37 @@ def test_sparse_hopper_launches_repeat_bit_for_bit(gen, D):
     q, k, v, do, layout = _sparse_case(gen, "fixed", torch.bfloat16, True, S=1024, D=D)
     scale = D ** -0.5
     o, lse = sparse._fwd_cuda(q, k, v, layout, True, scale, 128)
+    o2, lse2 = sparse._fwd_cuda(q, k, v, layout, True, scale, 128)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
     delta = _delta(do, o)
     args = (q, k, v, do, lse, delta, layout, True, scale, 128)
     dq1, (dk1, dv1) = sparse._dq_cuda(*args), sparse._dkv_cuda(*args)
     dq2, (dk2, dv2) = sparse._dq_cuda(*args), sparse._dkv_cuda(*args)
     assert torch.equal(dq1, dq2) and torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+
+
+@pytest.mark.parametrize("block,kernel", [(64, "hopper::sparse_fwd_kernel"),
+                                          (128, "hopper::sparse_fwd_kernel"),
+                                          (16, "tc::fwd_kernel"), (32, "tc::fwd_kernel"),
+                                          (48, "tc::fwd_kernel")])
+def test_sparse_forward_kernel_by_block(gen, block, kernel):
+    """bf16 blocks that hold whole 64-row tiles run the Hopper forward, the
+    others the mma.sync one: the kernel launched, by name, from the trace
+    (traced again, up to three times, if a trace drops the kernel, as one
+    on the H100 was seen to)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, _, layout = _sparse_case(gen, "bigbird", torch.bfloat16, True, S=8 * block,
+                                      block=block)
+    sparse._fwd_cuda(q, k, v, layout, True, 0.125, block)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sparse._fwd_cuda(q, k, v, layout, True, 0.125, block)
+            torch.cuda.synchronize()
+        names = [e.key.replace("(anonymous namespace)::", "") for e in prof.key_averages()
+                 if e.device_type.name == "CUDA"]
+        b10 = [n for n in names if "fwd_kernel" in n]
+        if b10:
+            break
+    assert len(b10) == 1 and kernel in b10[0], names

@@ -1,9 +1,11 @@
 """Block-sparse attention of the PyTorch port against the JAX package on the
 CPU: every sparsity config's layout bit for bit (the seeded random blocks
 included), and ``sparse_attention`` forward and gradients for every config,
-causal and not, with shared and per-head layouts.  The JAX side runs its
-Pallas kernels in interpret mode (as ``tests/unit/ops/test_sparse_attention.py``
-does); the port runs B10's plain version.  Inputs are made with numpy.
+causal and not, with shared and per-head layouts, and under Fixed at the
+blocks (64, 256) and head dim (64) of the card's Hopper kernels.  The JAX
+side runs its Pallas kernels in interpret mode (as
+``tests/unit/ops/test_sparse_attention.py`` does); the port runs B10's
+plain version.  Inputs are made with numpy.
 
 Tolerances are the JAX tests': 2e-5 on the output, 2e-4 on the gradients
 (fp32; the two sum in other orders).  The one case where the two differ on
@@ -63,19 +65,19 @@ def test_layouts_equal_jax_bit_for_bit(name, attention):
         tcfg.make_layout(seq + 1)
 
 
-def _qkv(seed):
+def _qkv(seed, d=D):
     rng = np.random.default_rng(seed)
-    return [rng.standard_normal((B, S, N, D)).astype(np.float32) for _ in range(4)]
+    return [rng.standard_normal((B, S, N, d)).astype(np.float32) for _ in range(4)]
 
 
-def _both(layout, causal, q, k, v, do):
+def _both(layout, causal, q, k, v, do, block=BLOCK):
     """(output, dq, dk, dv) from the JAX kernels and from the port."""
     jo, vjp = jax.vjp(lambda a, b, c: jsa.sparse_attention(a, b, c, layout, causal=causal,
-                                                           block=BLOCK),
+                                                           block=block),
                       *(jnp.asarray(t) for t in (q, k, v)))
     want = [jo, *vjp(jnp.asarray(do))]
     tq, tk, tv = (torch.from_numpy(t).requires_grad_() for t in (q, k, v))
-    to = tsa.sparse_attention(tq, tk, tv, layout, causal=causal, block=BLOCK)
+    to = tsa.sparse_attention(tq, tk, tv, layout, causal=causal, block=block)
     got = [to, *torch.autograd.grad(to, (tq, tk, tv), torch.from_numpy(do))]
     return [np.asarray(w) for w in want], [g.detach().numpy() for g in got]
 
@@ -87,6 +89,20 @@ def test_sparse_attention_matches_jax(name, causal):
                     num_heads=N, block=BLOCK)
     layout = jcfg.make_layout(S)
     want, got = _both(layout, causal, *_qkv(NAMES.index(name) + 10 * causal))
+    for g, w, tol, what in zip(got, want, (2e-5, 2e-4, 2e-4, 2e-4), ("o", "dq", "dk", "dv")):
+        np.testing.assert_allclose(g, w, rtol=tol, atol=tol, err_msg=what)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("block", [64, 256])
+def test_sparse_attention_matches_jax_at_hopper_blocks(block, causal):
+    """Fixed at blocks 64 and 256 and D 64: the blocks and head dim whose
+    bf16 passes run on the card's Hopper kernels, of which this plain
+    version is the oracle."""
+    jcfg, _ = _pair("FixedSparsityConfig", "unidirectional" if causal else "bidirectional",
+                    num_heads=N, block=block)
+    layout = jcfg.make_layout(S)
+    want, got = _both(layout, causal, *_qkv(60 + block + causal, d=64), block=block)
     for g, w, tol, what in zip(got, want, (2e-5, 2e-4, 2e-4, 2e-4), ("o", "dq", "dk", "dv")):
         np.testing.assert_allclose(g, w, rtol=tol, atol=tol, err_msg=what)
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The attention backward passes (flash K6, K7; block-sparse B10's dq and
+"""The attention kernels (flash K5-K7; block-sparse B10's forward, dq and
 dk/dv) and the LayerNorm backward (K8) of the PyTorch port, each alone on
 the card, for one checkout.
 
@@ -16,9 +16,13 @@ prints one line a row, each with the card's name and power limit:
   forward the same way; and a digest of each output (K5's O and LSE, K7's
   dq, K6's dk and dv), equal between two trees whose kernels compute the
   same bits;
-- B10 ``sparse_bwd_dq`` and ``sparse_bwd_dkv`` at SPARSE_SHAPE (bf16,
-  block 128) under each of phase 17's five layouts, each alone from a CUDA
-  graph, on the LSE of the checkout's own forward;
+- B10 ``sparse_fwd``, ``sparse_bwd_dq`` and ``sparse_bwd_dkv`` at
+  SPARSE_SHAPE (bf16, block 128) under each of phase 17's five layouts,
+  each alone from a CUDA graph, with a digest of the forward's O and LSE
+  and of the backward's dq and dk + dv.  The backward passes take the LSE
+  and delta of the plain forward (``_fwd_reference``), so two trees feed
+  them equal inputs even where their forwards round apart; a pass through
+  autograd as phase 17 runs it, device time by kernel;
 - K8 ``layer_norm_bwd`` at rows 16384, H 768 in bf16 (gamma in fp32, which
   every tree takes): the whole call timed with CUDA events; the call from
   a CUDA graph (its kernels and fills, no host work); the device time of
@@ -28,10 +32,10 @@ prints one line a row, each with the card's name and power limit:
 - with ``--flex``, a yardstick that the port never calls: FlexAttention
   (``torch.nn.attention.flex_attention`` under ``torch.compile``, its block
   mask made from the same layout) at SPARSE_SHAPE under the five layouts,
-  forward + backward event-timed, its backward alone event-timed and its
-  backward's kernels (``torch.profiler``), and its output's largest
-  difference from B10's forward.  A layout that does not compile prints
-  why.
+  forward + backward event-timed, its forward alone (no autograd) and its
+  backward alone, each event-timed and by its kernels (``torch.profiler``),
+  and its output's largest difference from B10's forward.  A layout that
+  does not compile prints why.
 
 Needs a CUDA device; exits 2 without one.
 """
@@ -74,7 +78,8 @@ def _sparse_layouts(smoke, sa, N, S):
 
 def _flex_rows(torch, smoke, line, sparse, layouts, q, k, v, do):
     """FlexAttention under the five layouts: forward + backward, its
-    backward alone and its backward's kernels, beside B10's forward."""
+    forward and its backward alone and their kernels, beside B10's
+    forward."""
     _, S, N, D = q.shape
     block, scale = smoke.SPARSE_BLOCK, D ** -0.5
     try:
@@ -87,7 +92,8 @@ def _flex_rows(torch, smoke, line, sparse, layouts, q, k, v, do):
     except Exception as e:      # the row says why the yardstick is missing
         print(f"[flex] FlexAttention not available: {type(e).__name__}: {e}", flush=True)
         return
-    qg, kg, vg = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    q4, k4, v4 = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q4, k4, v4))
     do4 = do.transpose(1, 2).contiguous()
     for name, (host_layout, causal) in layouts.items():
         what = (f"FlexAttention {name} B={q.shape[0]} S={S} N={N} D={D} block {block} "
@@ -107,7 +113,12 @@ def _flex_rows(torch, smoke, line, sparse, layouts, q, k, v, do):
                 out = flex(qg, kg, vg, block_mask=bm, scale=scale)
                 torch.autograd.grad(out, (qg, kg, vg), do4)
 
+            def fwd():
+                return flex(q4, k4, v4, block_mask=bm, scale=scale)
+
             fwd_bwd_ms = smoke._time_ms(torch, fwd_bwd, iters=10)
+            fwd_ms = smoke._time_ms(torch, fwd, iters=10)
+            fwd_parts = smoke._kernels_ms(torch, fwd, iters=10)
             out = flex(qg, kg, vg, block_mask=bm, scale=scale)
 
             def bwd():
@@ -118,10 +129,13 @@ def _flex_rows(torch, smoke, line, sparse, layouts, q, k, v, do):
             dlay = sparse.device_layout(host_layout, q.device)
             o, _ = sparse._fwd_cuda(q, k, v, dlay, causal, scale, block)
             diff = (out.detach().transpose(1, 2).float() - o.float()).abs().max().item()
-            line(what, fwd_bwd_ms=fwd_bwd_ms, bwd_ms=bwd_ms,
+            line(what, fwd_bwd_ms=fwd_bwd_ms, fwd_ms=fwd_ms,
+                 fwd_kernels_ms=sum(fwd_parts.values()), bwd_ms=bwd_ms,
                  bwd_kernels_ms=sum(parts.values()), max_abs_diff_vs_b10_fwd=diff)
-            print(f"[flex] {name} backward kernels: "
-                  + ", ".join(f"{n} {ms:.4f}" for n, ms in sorted(parts.items())), flush=True)
+            for part, kernels in (("forward", fwd_parts), ("backward", parts)):
+                print(f"[flex] {name} {part} kernels: "
+                      + ", ".join(f"{n} {ms:.4f}" for n, ms in sorted(kernels.items())),
+                      flush=True)
             del out, o
         except Exception as e:  # the row says why this layout has no yardstick
             print(f"[flex] {what}: did not run: {type(e).__name__}: {e}", flush=True)
@@ -187,8 +201,11 @@ def main():
     for name, (host_layout, causal) in layouts.items():
         layout = sparse.device_layout(host_layout, dev)
         o, lse = sparse._fwd_cuda(q, k, v, layout, causal, scale, block)
-        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(B * N, S).contiguous()
-        args_ = (q, k, v, do, lse, delta, layout, causal, scale, block)
+        fwd_ms = graph(torch, lambda: sparse._fwd_cuda(q, k, v, layout, causal, scale, block))
+        ro, rlse = sparse._fwd_reference(q, k, v, layout, causal, scale)
+        delta = (do.float() * ro.float()).sum(-1).transpose(1, 2).reshape(B * N, S).contiguous()
+        args_ = (q, k, v, do, rlse, delta, layout, causal, scale, block)
+        dq, (dk, dv) = sparse._dq_cuda(*args_), sparse._dkv_cuda(*args_)
         dq_ms = graph(torch, lambda: sparse._dq_cuda(*args_))
         dkv_ms = graph(torch, lambda: sparse._dkv_cuda(*args_))
         # a pass through autograd as phase 17 runs it, device time by kernel
@@ -200,10 +217,13 @@ def main():
         passes = {} if got is None else {"pass_device_ms": got[0], "pass_b10_ms": sum(
             got[1].values()), "pass_rest_ms": got[2]}
         line(f"B10 sparse {name} B={B} S={S} N={N} D={D} block {block} "
-             f"{'causal' if causal else 'full'} bf16", "" if passes else " pass not measured",
-             dq_device_ms=dq_ms, dkv_device_ms=dkv_ms, dq_plus_dkv_device_ms=dq_ms + dkv_ms,
-             **passes)
-        del o, lse, delta, args_, leaves
+             f"{'causal' if causal else 'full'} bf16",
+             ("" if passes else " pass not measured")
+             + f" digests O+LSE {_digest(torch, o, lse)} dq {_digest(torch, dq)} "
+             f"dk+dv {_digest(torch, dk, dv)}",
+             fwd_device_ms=fwd_ms, dq_device_ms=dq_ms, dkv_device_ms=dkv_ms,
+             dq_plus_dkv_device_ms=dq_ms + dkv_ms, **passes)
+        del o, lse, ro, rlse, delta, args_, leaves, dq, dk, dv
         torch.cuda.empty_cache()
     if args.flex:
         _flex_rows(torch, smoke, line, sparse, layouts, q, k, v, do)

@@ -19,7 +19,7 @@ from pathlib import Path
 
 # (family, pattern over the kernel's name), first match wins
 FAMILIES = [
-    ("B10 block-sparse", r"hopper::sparse_d(q|kv)_kernel|(tc|f32)::(fwd|dq|dkv)_kernel"),
+    ("B10 block-sparse", r"hopper::sparse_(fwd|dq|dkv)_kernel|(tc|f32)::(fwd|dq|dkv)_kernel"),
     ("flash K5-K7", r"hopper::(fwd|dkv|dq)_kernel|flash_(fwd|bwd)"),
     ("LayerNorm K1 + K8", r"ln_fwd_kernel|ln_bwd"),
     ("paged K2/K3", r"paged_attention_kernel"),
