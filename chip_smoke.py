@@ -104,7 +104,8 @@ package, and goes through these phases, each printing its lines:
     2 on the card, at ZeRO stage 2 and at stage 0 with ``comm.quantized``
     int8; 1 warm-up step and 3 timed ones: losses finite and equal on both
     ranks, B5 once a step for each of the 148 parameters under qgZ; wall
-    ms/step over gloo via host, two ranks on one card;
+    ms/step over gloo via host, two ranks on one card; then (for phase 19)
+    phase 13's stage-2 run saves a checkpoint at world 2;
 15. the legacy layer, checked: two ``DeeperSpeedTransformerLayer``s at full
     width (768 / 12 heads / 3072) in fp32, 2 x 128 tokens, trained 3 Adam
     steps through ``initialize(model=..., loss_fn=...)`` on the card and
@@ -126,16 +127,31 @@ package, and goes through these phases, each printing its lines:
     plain version in fp32 on the card: B10 launches once a pass; then each
     config's device time a pass by kernel (``torch.profiler``);
 18. ``fused_softmax`` forward and backward through autograd at phase 3's
-    bf16 shape: B8 launches once each way.
+    bf16 shape: B8 launches once each way;
+19. checkpoints (into a temporary directory under ``.build``, removed at
+    the end): phase 9's step (bf16 Pythia-160M, B 16 x S 1024, Adam, clip
+    1.0) takes 2 steps, saves and takes 2 more; a fresh engine loads and
+    takes the same 2 (K1, K5-K8 must launch): the losses and a digest of
+    the fp32 masters and moments must be equal bit for bit; each file's
+    bytes, the save, verify and load seconds and GB/s beside the card's
+    name and power limit.  The same on 2 full-width layers for FusedAdam in
+    bf16 (B6's flat buffers), fp16 with an overflow on the first step after
+    the save (loss scale, ``skipped_steps``, ``step_count``) and dropout 0.1
+    (the generator); phase 13's workers' stage-2 save at world 2 loaded at
+    world 1 (digest equal to the workers' gathered state); and 4 prompts x
+    16 greedy tokens (top-k 1, through K4) served by ``InferenceEngineV2``
+    from the checkpoint's model file (``load_module_params`` then
+    ``params_from_jax``) equal to those served from the live masters.
 
 The second-to-last line is the JSON summary of the kernels (a kernel's
 ``launches`` sums its counts on the main paths, serving in phase 5,
 scheduled serving in phase 7, training in phase 9, the rest of training
 in phase 11 (FusedAdam, then FusedLion), data-parallel training in
 phase 14 (rank 0's counts, stage 2, then qgZ), the legacy layer in phase
-16 (fp32, then fp16), sparse attention in phase 17 and the fused softmax in
-phase 18, each read right after its own run and listed in
-``launches_by_path``), the last ``{"ok": true, "device": {...}}``.  Any
+16 (fp32, then fp16), sparse attention in phase 17, the fused softmax in
+phase 18 and the resumed steps of phase 19, each read right after its own
+run and listed in ``launches_by_path``), the last ``{"ok": true,
+"device": {...}}``.  Any
 failure, of a phase or of a worker, raises and exits non-zero; without a
 CUDA device, or outside a checkout, it exits 2 and prints no result.
 """
@@ -1827,6 +1843,20 @@ def dp_worker(rank, rendezvous, out_path):
         results[f"full-{name}"] = rec
         del eng, model
         torch.cuda.empty_cache()
+    # phase 19: phase 13's stage-2 run saved at world 2, for the parent to
+    # load at world 1
+    eng = dst.initialize(model=dp_check_model(),
+                         config={**DP_CHECK_CONFIG, "zero_optimization": {"stage": 2}})[0]
+    for b in batches:
+        eng.train_batch(batch=b)
+    ckpt_dir = Path(out_path).parent / "checkpoint"
+    t0 = time.perf_counter()
+    eng.save_checkpoint(str(ckpt_dir))
+    results["ckpt-stage2"] = {"dir": str(ckpt_dir), "save_s": time.perf_counter() - t0,
+                              "digest": _ckpt_digest(torch, eng),
+                              "step_count": eng.step_count}
+    del eng
+    torch.cuda.empty_cache()
     with open(out_path, "w") as f:
         json.dump(results, f)
     comm.destroy()
@@ -1874,7 +1904,8 @@ def _join_dp_workers(procs, timeout=900):
 def phase_dp(torch, np):
     """Phases 13 and 14: the one process of phase 13 on the card, then the
     two workers (spawned once, after the build), then the checks.  Returns
-    rank 0's launch counts of phase 14's stage-2 and qgZ runs."""
+    rank 0's launch counts of phase 14's stage-2 and qgZ runs, and what rank
+    0 recorded of its stage-2 checkpoint (phase 19)."""
     import deeperspeed_tpu_torch as dst
 
     # phase 13's reference: one process on the card, same weights and batches
@@ -1902,7 +1933,7 @@ def phase_dp(torch, np):
     print(f"[dp] two workers on the card over gloo: {time.perf_counter() - t0:.1f} s",
           flush=True)
     phase_dp_checked(r0, r1, ref_losses, ref_norm, ref_alloc, total, partitioned, n_big)
-    return phase_dp_full(r0, r1)
+    return phase_dp_full(r0, r1), r0["ckpt-stage2"]
 
 
 def phase_dp_checked(r0, r1, ref_losses, ref_norm, ref_alloc, total, partitioned, n_big):
@@ -2280,6 +2311,234 @@ def phase_softmax(torch, launches):
     return counts
 
 
+# Checkpoints on the card (phase 19): phase 9's step saved after 2 steps and
+# resumed; 2 full-width layers for FusedAdam, fp16 and dropout; 4 prompts x
+# 16 tokens served from the checkpoint.
+CKPT_STEPS = 2                       # before the save, and after it
+CKPT_ROWS, CKPT_SEQ = 4, 256         # the 2-layer runs' batches
+CKPT_SERVED, CKPT_NEW_TOKENS = 4, 16
+
+
+def _ckpt_digest(torch, eng):
+    """sha256 over an engine's whole fp32 masters and optimizer state as its
+    checkpoint names them (a collective over several processes)."""
+    import hashlib
+
+    import numpy as np
+
+    from deeperspeed_tpu_torch.runtime import checkpointing as ck
+
+    h = hashlib.sha256()
+
+    def walk(node):
+        for key in sorted(node):
+            h.update(key.encode())
+            v = node[key]
+            if isinstance(v, dict):
+                walk(v)
+            elif isinstance(v, torch.Tensor):
+                h.update(v.detach().contiguous().reshape(-1).view(torch.uint8)
+                         .cpu().numpy().tobytes())
+            else:
+                h.update(np.asarray(v).tobytes())
+
+    walk({"masters": ck.reference_masters(eng), "opt_state": ck.reference_opt_state(eng)})
+    return h.hexdigest()
+
+
+def _ckpt_resume(torch, make_engine, batches, workdir, launches=None):
+    """Train ``CKPT_STEPS`` steps, save, train ``CKPT_STEPS`` more; then a
+    fresh engine loads and trains the same steps.  Raises unless the losses,
+    the masters and optimizer state (digests), the loss scale, the counters
+    and the generator are equal bit for bit.  Returns the readings, with
+    ``counts``, the launches of the resumed steps."""
+    import numpy as np
+
+    first = make_engine()
+    for b in batches[:CKPT_STEPS]:
+        first.train_batch(batch=b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first.save_checkpoint(str(workdir))
+    save_s = time.perf_counter() - t0
+    tag = f"global_step{first.global_steps}"
+    info = dict(first.checkpoint_engine.commit_info)
+    live = first.full_master_params()
+    want = [float(first.train_batch(batch=b)) for b in batches[CKPT_STEPS:]]
+
+    def state(eng):
+        ls = eng.loss_scale_state
+        return {"digest": _ckpt_digest(torch, eng),
+                "loss_scale": [float(ls.scale), int(ls.growth_tracker), int(ls.hysteresis),
+                               bool(ls.found_overflow)],
+                "counters": [eng.step_count, eng.global_steps, eng.global_samples,
+                             eng.micro_steps, eng.skipped_steps],
+                "rng": eng._rng.get_state().tolist()}
+
+    want_state = state(first)
+    del first
+    torch.cuda.empty_cache()
+    second = make_engine()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    second.load_checkpoint(str(workdir))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if launches is not None:
+        launches.clear()                              # the resumed steps start here
+    got = [float(second.train_batch(batch=b)) for b in batches[CKPT_STEPS:]]
+    counts = dict(launches) if launches is not None else {}
+    got_state = state(second)
+    del second
+    torch.cuda.empty_cache()
+    if not np.array_equal(got, want, equal_nan=True):     # the skipped step's is NaN
+        raise AssertionError(f"resumed losses {got} != uninterrupted {want}")
+    for key in want_state:
+        if got_state[key] != want_state[key]:
+            raise AssertionError(f"resumed {key} {got_state[key]} != uninterrupted "
+                                 f"{want_state[key]}")
+    files = {p.name: p.stat().st_size for p in sorted((workdir / tag).iterdir())}
+    return {"losses": got, "save_s": save_s, "verify_s": info.get("verify_seconds"),
+            "load_s": load_s, "files": files, "tag": tag, "live": live,
+            "counts": counts, "state": got_state}
+
+
+def phase_checkpointed(torch, np, launches, card, dp_ckpt):
+    """Phase 19: checkpoints on the card.  Returns the launches of the
+    resumed full-size steps."""
+    import shutil
+
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig, params_from_jax
+    from deeperspeed_tpu_torch.runtime.checkpointing import load_module_params
+
+    root = Path(tempfile.mkdtemp(dir=ROOT / ".build"))
+    try:
+        # ---- phase 9's step at full size: bf16 Pythia-160M, B 16 x S 1024
+        models = [trained_model()]
+        batch = {k: v.cuda() for k, v in trained_batch(models[0]).items()}
+        full = _ckpt_resume(
+            torch, lambda: dst.initialize(model=models.pop() if models else trained_model(),
+                                          config=TRAIN_CONFIG)[0],
+            [batch] * (2 * CKPT_STEPS), root / "full", launches)
+        for name in ("layer_norm", "layer_norm_bwd", "flash_fwd", "flash_bwd_dq",
+                     "flash_bwd_dkv"):
+            if full["counts"].get(name, 0) < 1:
+                raise AssertionError(f"resumed steps never launched {name}: {full['counts']}")
+        total = sum(full["files"].values())
+        print(f"[checkpointed] {card}: Pythia-160M bf16, B {TRAIN_BATCH} x S {TRAIN_SEQ}, "
+              f"Adam, clip 1.0, ZeRO-0: {CKPT_STEPS} steps, save, {CKPT_STEPS} steps; a "
+              f"fresh engine loads and takes the same {CKPT_STEPS}: losses "
+              f"{', '.join(f'{x:.6f}' for x in full['losses'])} and the digest of masters "
+              f"and moments {full['state']['digest'][:16]} equal bit for bit", flush=True)
+        print(f"[checkpointed] {card}: files "
+              + ", ".join(f"{k} {v}" for k, v in full["files"].items())
+              + f" bytes ({total / 1e9:.3f} GB); save {full['save_s']:.3f} s "
+              f"({total / full['save_s'] / 1e9:.3f} GB/s, verify {full['verify_s']:.3f} s "
+              f"of it), load {full['load_s']:.3f} s ({total / full['load_s'] / 1e9:.3f} "
+              f"GB/s)", flush=True)
+        print(f"[checkpointed] launches in the resumed steps {full['counts']}", flush=True)
+
+        # ---- 2 full-width layers: FusedAdam (B6's flat buffers), fp16 with
+        # an overflow just after the save, dropout (the generator)
+        rng = np.random.default_rng(SEED + 19)
+        V = GPTNeoXConfig.pythia_160m().vocab_size
+        batches = []
+        for i in range(2 * CKPT_STEPS):
+            toks = rng.integers(0, V, (CKPT_ROWS, CKPT_SEQ + 1))
+            mask = np.ones((CKPT_ROWS, CKPT_SEQ), np.float32)
+            if i == CKPT_STEPS:
+                mask[1, 7] = np.inf           # a non-finite loss: fp16 skips this step
+            batches.append({"input_ids": toks[:, :-1], "labels": toks[:, 1:],
+                            "loss_mask": mask})
+        clean = [{**b, "loss_mask": np.ones_like(b["loss_mask"])} for b in batches]
+
+        def two_layers(dtype, **kw):
+            return GPTNeoX(dataclasses.replace(GPTNeoXConfig.pythia_160m(dtype=dtype, **kw),
+                                               num_layers=2), seed=SEED)
+
+        base = {"train_batch_size": CKPT_ROWS, "gradient_clipping": 1.0}
+        fused_adam = {"type": "FusedAdam", "params": {"lr": 1e-4}}
+        runs = {
+            "FusedAdam bf16": (lambda: dst.initialize(model=two_layers(torch.bfloat16), config={
+                **base, "bf16": {"enabled": True}, "optimizer": fused_adam})[0], clean),
+            "fp16, overflow after the save": (lambda: dst.initialize(
+                model=two_layers(torch.float16), config={
+                    **base, "fp16": {"enabled": True, "initial_scale_power": 12,
+                                     "hysteresis": 1},
+                    "optimizer": {"type": "Adam", "params": {"lr": 1e-4}}})[0], batches),
+            "dropout 0.1 bf16": (lambda: dst.initialize(
+                model=two_layers(torch.bfloat16, hidden_dropout=0.1, attention_dropout=0.1),
+                config={**base, "bf16": {"enabled": True},
+                        "optimizer": fused_adam})[0], clean),
+        }
+        for i, (name, (make, data)) in enumerate(runs.items()):
+            launches.clear()
+            r = _ckpt_resume(torch, make, data, root / f"two{i}")
+            if name.startswith("FusedAdam") and launches.get("fused_adam", 0) != 3 * CKPT_STEPS:
+                raise AssertionError(f"{name}: fused_adam launched "
+                                     f"{launches.get('fused_adam', 0)} times")
+            if name.startswith("fp16") and r["state"]["counters"][4] != 1:
+                raise AssertionError(f"{name}: counters {r['state']['counters']}")
+            print(f"[checkpointed] 2 full-width layers, {name}, B {CKPT_ROWS} x S {CKPT_SEQ}: "
+                  f"resumed losses {', '.join(f'{x:.6f}' for x in r['losses'])}, loss scale "
+                  f"{r['state']['loss_scale']}, step_count / global_steps / skipped "
+                  f"{r['state']['counters'][0]} / {r['state']['counters'][1]} / "
+                  f"{r['state']['counters'][4]}, generator and digest "
+                  f"{r['state']['digest'][:16]} equal bit for bit", flush=True)
+            shutil.rmtree(root / f"two{i}", ignore_errors=True)
+
+        # ---- the world-2 stage-2 save of phase 13's workers, loaded at world 1
+        one = dst.initialize(model=dp_check_model(), config=DP_CHECK_CONFIG)[0]
+        one.load_checkpoint(dp_ckpt["dir"])
+        digest = _ckpt_digest(torch, one)
+        if digest != dp_ckpt["digest"] or one.step_count != dp_ckpt["step_count"]:
+            raise AssertionError(f"world 1 load of the world-2 stage-2 save: digest "
+                                 f"{digest[:16]} != {dp_ckpt['digest'][:16]}")
+        print(f"[checkpointed] phase 13's 2 full-width layers saved at world 2, ZeRO "
+              f"stage 2 (save {dp_ckpt['save_s']:.3f} s on rank 0) and loaded at world 1: "
+              f"masters and moments (digest {digest[:16]}) equal the workers' gathered "
+              f"ones bit for bit", flush=True)
+        del one
+        shutil.rmtree(dp_ckpt["dir"], ignore_errors=True)
+
+        # ---- serving from the checkpoint against the live masters
+        ecfg = {"dtype": "bfloat16", "kv_cache": {"num_blocks": 256, "block_size": 16},
+                "state_manager": {"max_context": 1024, "max_ragged_batch_size": 2048,
+                                  "max_ragged_sequence_count": CKPT_SERVED,
+                                  "max_decode_batch": CKPT_SERVED},
+                "sampling": {"temperature": 1.0, "top_k": 1, "seed": SEED}}
+        prompts = [np.asarray(p) for p in served_prompts(np, V, CKPT_SERVED)]
+        weights = {"checkpoint": params_from_jax(load_module_params(
+                       str(root / "full"), full["tag"])),
+                   "live": full["live"]}
+        served = {}
+        for source, sd in weights.items():
+            model = served_model()
+            model.load_state_dict(sd)
+            launches.clear()
+            outs = InferenceEngineV2(model, ecfg).generate(prompts,
+                                                           max_new_tokens=CKPT_NEW_TOKENS)
+            served[source] = [o[len(p):].tolist() for p, o in zip(prompts, outs)]
+            counts = dict(launches)
+            for name in ("layer_norm", "paged_decode", "sorted_topk"):
+                if counts.get(name, 0) < 1:
+                    raise AssertionError(f"serving from {source} never launched {name}")
+            del model
+        if served["checkpoint"] != served["live"] or \
+                any(len(t) != CKPT_NEW_TOKENS for t in served["live"]):
+            raise AssertionError(f"tokens served from the checkpoint {served['checkpoint']} "
+                                 f"!= from the live masters {served['live']}")
+        print(f"[checkpointed] served {CKPT_SERVED} prompts x {CKPT_NEW_TOKENS} greedy "
+              f"tokens (top-k 1 through K4) from the checkpoint's model file: equal to "
+              f"those from the live engine's masters; launches {counts}", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return full["counts"]
+
+
 def main():
     try:
         import torch
@@ -2334,12 +2593,14 @@ def main():
     paths["training_fused"], paths["training_fused_lion"] = phase_fused_trained(
         torch, np, cuda_utils.LAUNCHES)
     phase_dropout(torch, np, cuda_utils.LAUNCHES)
-    dp = phase_dp(torch, np)
+    dp, dp_ckpt = phase_dp(torch, np)
     paths["dp_stage2"], paths["dp_qgz"] = dp["stage2"], dp["qgz-int8"]
     phase_legacy_checked(torch, np)
     paths["legacy_layer"] = phase_legacy(torch, np, cuda_utils.LAUNCHES)
     paths["sparse_attention"] = phase_sparse(torch, np, cuda_utils.LAUNCHES)
     paths["softmax"] = phase_softmax(torch, cuda_utils.LAUNCHES)
+    paths["training_resumed"] = phase_checkpointed(torch, np, cuda_utils.LAUNCHES, card,
+                                                   dp_ckpt)
 
     sources = {
         "layer_norm": ("deeperspeed_tpu_torch/csrc/layer_norm.cu",

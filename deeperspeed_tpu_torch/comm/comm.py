@@ -293,6 +293,13 @@ def broadcast(tensor, src=0, group=None, log_name="broadcast"):
     return tensor
 
 
+def barrier(group=None):
+    """Wait until every rank of ``group`` reaches it."""
+    group = _resolve_group(group)
+    if group.size() > 1:
+        dist.barrier(group=group.pg)
+
+
 # ------------------------------------------------- quantized collectives
 def _gradient_wire_dtype(wire_dtype):
     """The config's ``fp8`` spelling for the gradient wire: e5m2 (range over

@@ -57,6 +57,7 @@ from ..quantization import canonical_dtype
 from ..runtime.data_pipeline.data_routing.basic_layer import (
     random_ltd_gather, random_ltd_scatter, take_tokens)
 from ..utils.recompute import checkpoint_replaying
+from ..utils.tree import tree_sorted
 
 # rows this short (S <= 8) walk only their live KV blocks in the paged
 # (speculative-)decode kernels; longer rows take the dense prefill path.
@@ -498,6 +499,15 @@ class GPTNeoX(nn.Module):
 
         return loss_chunked if cfg.ce_chunk_tokens > 0 else loss
 
+    def to_reference_tree(self, state_dict):
+        """Checkpoints: the JAX package's parameter tree of ``state_dict``
+        (or of a per-parameter optimizer tree), :func:`params_to_jax`."""
+        return params_to_jax(state_dict)
+
+    def from_reference_tree(self, tree):
+        """Checkpoints: the inverse of :meth:`to_reference_tree`."""
+        return params_from_jax(tree)
+
     def no_cast_paths(self):
         """Parameter names (regexes) that stay fp32 under mixed precision:
         the embedding table, whose gradient accumulates by scatter-add."""
@@ -617,3 +627,45 @@ def params_from_jax(tree) -> dict:
     if unmapped:
         raise ValueError(f"params_from_jax: unmapped leaves {unmapped[:8]}")
     return sd
+
+
+_LINEARS = ("attention.query_key_value", "attention.dense", "mlp.dense_h_to_4h",
+            "mlp.dense_4h_to_h")
+
+
+def params_to_jax(state_dict) -> dict:
+    """The flax parameter tree of a :class:`GPTNeoX` state dict: the exact
+    inverse of :func:`params_from_jax`, each ``nn.Linear.weight`` [out, in]
+    transposed back to a ``Dense`` kernel [in, out] (a view), keys sorted.
+    Works on any dict keyed by parameter name (an optimizer's moments too).
+    Raises on a name it does not map."""
+    tree = {}
+
+    def put(path, value):
+        node = tree
+        *parents, last = path.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[last] = value
+
+    for name, value in state_dict.items():
+        parts = name.split(".")
+        if name == "embed_in.weight":
+            put("embed_in/embedding", value)
+        elif name == "embed_out.weight":
+            put("embed_out/kernel", value.t())
+        elif parts[0] == "final_layer_norm" and len(parts) == 2:
+            put(f"final_layer_norm/{'scale' if parts[1] == 'weight' else 'bias'}", value)
+        elif parts[0] == "layers" and len(parts) >= 4:
+            src, rest, leaf = f"layers_{int(parts[1])}", ".".join(parts[2:-1]), parts[-1]
+            if rest in ("input_layernorm", "post_attention_layernorm"):
+                put(f"{src}/{rest}/{'scale' if leaf == 'weight' else 'bias'}", value)
+            elif rest in _LINEARS and leaf == "weight":
+                put(f"{src}/{rest.replace('.', '/')}/kernel", value.t())
+            elif rest in _LINEARS and leaf == "bias":
+                put(f"{src}/{rest.replace('.', '/')}/bias", value)
+            else:
+                raise ValueError(f"params_to_jax: unmapped parameter {name!r}")
+        else:
+            raise ValueError(f"params_to_jax: unmapped parameter {name!r}")
+    return tree_sorted(tree)

@@ -19,7 +19,8 @@ equal the kernel's bit for bit).
 import torch
 
 from ...accelerator import get_accelerator
-from ...runtime.optimizers import GradientTransformation, _bias_correction
+from ...runtime.optimizers import (GradientTransformation, _bias_correction,
+                                   export_adam, restore_adam)
 from .. import multi_tensor
 from ..cuda_utils import check, library, ptr, stream_of
 
@@ -98,4 +99,6 @@ def scale_by_fused_adam(b1=0.9, b2=0.999, eps=1e-8):
                     [state["nu"][n] for n in names], count, b1, b2, eps, cache)
         return updates, {**state, "count": count}
 
-    return GradientTransformation(init, update)
+    # the JAX package's ScaleByFusedAdamState(count, mu, nu); a restore
+    # copies into the flat buffers, whose addresses ``cache`` holds
+    return GradientTransformation(init, update, export_adam, restore_adam)

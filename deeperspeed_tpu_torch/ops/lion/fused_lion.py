@@ -73,4 +73,10 @@ def scale_by_fused_lion(b1=0.9, b2=0.99):
                     cache)
         return updates, state
 
-    return GradientTransformation(init, update)
+    def restore(state, saved, load):
+        load(saved["mu"], state)       # in place: ``cache`` holds its address
+        return state
+
+    # the JAX package's ScaleByFusedLionState(mu)
+    return GradientTransformation(init, update, lambda state, tree: {"mu": tree(state)},
+                                  restore)

@@ -5,12 +5,12 @@ The subset the training slices read: the batch triangle
 the data-parallel world), ``optimizer``, ``scheduler``, ``fp16`` /
 ``bf16``, ``gradient_clipping``, ``seed``, ``steps_per_print``,
 ``zero_optimization`` (stages 0-3, ``param_persistence_threshold``,
-``zero_quantized_gradients``, and the bucket and overlap knobs the JAX
-package accepts and ignores), ``communication_data_type``,
+``zero_quantized_gradients``, and the bucket, overlap and checkpoint knobs
+the JAX package accepts and ignores), ``communication_data_type``,
 ``comm.quantized`` (qgZ), ``mesh.data_parallel_size``,
 ``activation_checkpointing``, ``data_types.grad_accum_dtype``,
-``progressive_layer_drop``, ``curriculum_learning`` and
-``data_efficiency``.  Any other key raises ``NotImplementedError`` naming
+``progressive_layer_drop``, ``curriculum_learning``, ``data_efficiency``
+and ``checkpoint``.  Any other key raises ``NotImplementedError`` naming
 the ROADMAP item that ports it: a config the port would run differently
 from the JAX package is refused, not ignored.
 """
@@ -46,14 +46,13 @@ SUPPORTED_KEYS = {
     "bfloat16", GRADIENT_CLIPPING, SEED, STEPS_PER_PRINT, ZERO_OPTIMIZATION,
     "activation_checkpointing", "data_types", "progressive_layer_drop",
     "curriculum_learning", "data_efficiency", "comm", "mesh",
-    "communication_data_type",
+    "communication_data_type", "checkpoint",
 }
 
 # where the keys that the slice refuses will be ported
 _ROADMAP = {
     "pipeline": "Pipelines",
     "moe": "Llama/Mistral, v1 inference and MoE",
-    "checkpoint": "Checkpoints",
     "hybrid_engine": "The rest of the surface",
 }
 
@@ -72,8 +71,10 @@ IGNORED_ZERO_KEYS = {
 # knobs whose default turns the feature off, accepted at that value
 _NO_OP_ZERO_KEYS = {"zero_hpz_partition_size": (1, -1, 0), "mics_shard_size": (1, -1, 0),
                     "zero_quantized_weights": (False,)}
-_CHECKPOINT_ZERO_KEYS = {"load_from_fp32_weights", "elastic_checkpoint",
-                         "gather_16bit_weights_on_model_save"}
+# checkpoint knobs the JAX package accepts as fields and does not act on:
+# its checkpoints always hold whole fp32 masters
+_CHECKPOINT_ZERO_KEYS = {"load_from_fp32_weights": True, "elastic_checkpoint": False,
+                         "gather_16bit_weights_on_model_save": False}
 COMM_DTYPES = {None: None, "fp32": torch.float32, "bf16": torch.bfloat16,
                "fp16": torch.float16}
 
@@ -159,6 +160,28 @@ class DataEfficiencyConfig(DeeperSpeedConfigModel):
     seed: int = 1234
     data_sampling: Dict[str, Any] = {}
     data_routing: Dict[str, Any] = {}
+
+
+class CheckpointConfig(DeeperSpeedConfigModel):
+    """``checkpoint``: the JAX package's fields (its ``CheckpointConfig``)."""
+
+    tag_validation: str = "Warn"  # Ignore | Warn | Fail
+    load_universal: bool = False
+    use_node_local_storage: bool = False
+    parallel_write: Dict[str, Any] = {}
+    # storage engine: "native" (sync) | "async" (background writer);
+    # async_save=True is a shorthand for "async"
+    writer: Optional[str] = None
+    async_save: bool = False
+    # the load path verifies each file's sha256 against the tag's manifest
+    # and walks back to the newest valid tag unless strict_load; transient
+    # IO errors retry with capped exponential backoff
+    # (io_retry_base_s * 2^attempt, at most io_retry_cap_s)
+    verify_on_load: bool = True
+    strict_load: bool = False
+    io_retries: int = 3
+    io_retry_base_s: float = 0.05
+    io_retry_cap_s: float = 2.0
 
 
 class CommQuantizedConfig(DeeperSpeedConfigModel):
@@ -265,6 +288,13 @@ class DeeperSpeedConfig:
         self.progressive_layer_drop = ProgressiveLayerDropConfig(
             **pd.get("progressive_layer_drop", {}))
         self.data_efficiency = DataEfficiencyConfig(**pd.get("data_efficiency", {}))
+        checkpoint = dict(pd.get("checkpoint", {}))
+        _known(checkpoint, CheckpointConfig, "checkpoint")
+        self.checkpoint_config = CheckpointConfig(**checkpoint)
+        if self.checkpoint_config.tag_validation.lower() not in ("ignore", "warn", "fail"):
+            raise ValueError(f"checkpoint.tag_validation "
+                             f"{self.checkpoint_config.tag_validation!r}: expected "
+                             f"Ignore, Warn or Fail")
         self.train_dtype = self._resolve_train_dtype()
 
     @staticmethod
@@ -284,6 +314,8 @@ class DeeperSpeedConfig:
         self.param_persistence_threshold = zero.pop("param_persistence_threshold",
                                                     100_000)
         self.zero_quantized_gradients = bool(zero.pop("zero_quantized_gradients", False))
+        for key, default in _CHECKPOINT_ZERO_KEYS.items():
+            setattr(self, key, bool(zero.pop(key, default)))
         for key in IGNORED_ZERO_KEYS:
             zero.pop(key, None)
         for key, no_op in _NO_OP_ZERO_KEYS.items():
@@ -292,7 +324,7 @@ class DeeperSpeedConfig:
         if zero:
             keys = sorted(zero)
             item = ("Offload" if any(k.startswith(("offload", "cpu_offload")) for k in keys)
-                    else "Checkpoints" if set(keys) <= _CHECKPOINT_ZERO_KEYS else PART2)
+                    else PART2)
             raise _not_ported(f"zero_optimization keys {keys}", item)
 
     def _comm(self, comm):

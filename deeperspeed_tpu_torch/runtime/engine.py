@@ -64,11 +64,20 @@ The loss function is ``loss(model, batch, rng)`` (the model's
 ``loss_fn()``, or ``loss_fn=``): ``rng`` is the generator in training and
 None in evaluation.
 
-Not ported yet (raising ``NotImplementedError``): checkpoints, the
-prefetching loader, eigenvalue, compression and the step telemetry; over
-several processes, progressive layer drop (its draws must agree across
-ranks), LAMB at stage 1-3 (its trust ratio needs whole parameters) and the
-chunked loss at stage 3 (it reads the head's weight outside the head).
+Checkpoints (``runtime/checkpointing.py``): :meth:`save_checkpoint` and
+:meth:`load_checkpoint` write and read the JAX package's format (whole fp32
+arrays under flax's names, the optax state as flax's dict of it), so either
+package loads the other's; a save at any world size and ZeRO stage loads at
+any other, each rank copying its own pieces in place
+(:meth:`gather_whole`, :meth:`load_whole`).  ``checkpoint.load_universal``
+loads a universal export (``checkpoint/universal.py``) instead.
+
+Not ported yet (raising ``NotImplementedError``): the prefetching loader,
+eigenvalue, compression, the step telemetry and the host-update
+(optimizer offload) checkpoint branch; over several processes, progressive
+layer drop (its draws must agree across ranks), LAMB at stage 1-3 (its
+trust ratio needs whole parameters) and the chunked loss at stage 3 (it
+reads the head's weight outside the head).
 """
 
 import math
@@ -345,19 +354,52 @@ class DeeperSpeedEngine:
                 comm.all_gather_into(buf, master.to(region.dtype), self.group)
 
     def full_master_params(self):
-        """Every fp32 master whole, by name (gathered from the ranks'
-        partitions at stages 1-3)."""
+        """Every fp32 master whole, by name, a copy (gathered from the
+        ranks' partitions at stages 1-3)."""
+        return {n: t.clone() for n, t in self.gather_whole(self.master_params).items()}
+
+    @torch.no_grad()
+    def gather_whole(self, local):
+        """Whole tensors by name from ``local``, a dict laid out like
+        :attr:`master_params` (this rank's pieces: the masters or a
+        per-parameter optimizer tree): views of ``local`` where a region is
+        not partitioned, else gathered from the ranks' partitions (a
+        collective every rank calls)."""
         out = {}
-        with torch.no_grad():
-            for region, base in zip(self.plan.regions, self.plan.bases()):
-                part = self._master_flat[base:base + region.part]
-                full = part.clone() if region.parts == 1 else comm.all_gather_into(
-                    torch.empty(region.padded, dtype=torch.float32, device=self.device),
-                    part, self.group)
-                for n, shape, off in zip(region.names, region.shapes, region.offsets):
-                    size = math.prod(shape)
-                    out[n] = full[off:off + size].view(shape).clone()
+        for region, base in zip(self.plan.regions, self.plan.bases()):
+            if region.parts == 1:
+                out.update((n, local[n]) for n in region.names)
+                continue
+            part = torch.zeros(region.part, dtype=torch.float32, device=self.device)
+            for n, _, a, b, at in region.pieces(self.plan.index):
+                part[at:at + b - a].copy_(local[n].reshape(-1))
+            full = comm.all_gather_into(
+                torch.empty(region.padded, dtype=torch.float32, device=self.device),
+                part, self.group)
+            for n, shape, off in zip(region.names, region.shapes, region.offsets):
+                out[n] = full[off:off + math.prod(shape)].view(shape)
         return out
+
+    @torch.no_grad()
+    def load_whole(self, whole, local, strict=True):
+        """Copy this rank's pieces of ``whole`` (name -> whole tensor, on any
+        device) into ``local`` (laid out like :attr:`master_params`), in
+        place: the tensors of ``local`` are never rebound.  ``strict``:
+        ``whole`` must name every parameter and nothing else."""
+        missing = [n for n in self._order if n not in whole]
+        extra = sorted(set(whole) - set(self._order))
+        if strict and (missing or extra):
+            raise KeyError(f"checkpoint parameters differ from the model's: missing "
+                           f"{missing[:5]}, unexpected {extra[:5]}")
+        for region in self.plan.regions:
+            for n, shape, a, b, _ in region.pieces(self.plan.index):
+                if n not in whole:
+                    continue
+                src = whole[n]
+                if tuple(src.shape) != tuple(shape):
+                    raise ValueError(f"checkpoint {n}: shape {tuple(src.shape)}, "
+                                     f"the model's {tuple(shape)}")
+                local[n].view(-1).copy_(src.reshape(-1)[a:b])
 
     # ------------------------------------------------------------------ data
     def _to_device(self, mb):
@@ -754,6 +796,43 @@ class DeeperSpeedEngine:
         with torch.no_grad():
             self._reduce_gradients(self.gradient_accumulation_steps())
         self._reduced = True
+
+    # ------------------------------------------------------------ checkpoint
+    def save_checkpoint(self, save_dir, tag=None, client_state=None, save_latest=True,
+                        exclude_frozen_parameters=False):
+        """Save between steps (every rank calls it; rank 0 writes); the tag
+        defaults to ``global_step{global_steps}``.  Returns the tag's
+        directory."""
+        from .checkpointing import save_checkpoint
+
+        return save_checkpoint(self, save_dir, tag=tag, client_state=client_state or {},
+                               save_latest=save_latest)
+
+    def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
+                        load_optimizer_states=True, load_lr_scheduler_states=True,
+                        load_module_only=False, custom_load_fn=None):
+        """Load the newest valid tag (or ``tag``) of ``load_dir``, written by
+        either package; returns ``(ckpt_dir, client_state)``, ``(None, {})``
+        when there is none.  With ``checkpoint.load_universal`` the
+        directory is a universal export.  The lr schedule is a function of
+        the restored step, so ``load_lr_scheduler_states`` has nothing more
+        to load."""
+        if self.config.checkpoint_config.load_universal:
+            from ..checkpoint.universal import load_universal_into_engine
+
+            if tag is not None:
+                logger.warning("load_universal: universal exports are untagged; "
+                               f"ignoring tag={tag}")
+            meta = load_universal_into_engine(
+                self, load_dir,
+                load_optimizer_states=load_optimizer_states and not load_module_only)
+            return load_dir, meta.get("client_state", {})
+        from .checkpointing import load_checkpoint
+
+        return load_checkpoint(self, load_dir, tag=tag,
+                               load_optimizer_states=load_optimizer_states,
+                               load_module_only=load_module_only,
+                               load_module_strict=load_module_strict)
 
     # ------------------------------------------------------------ properties
     def train_batch_size(self):

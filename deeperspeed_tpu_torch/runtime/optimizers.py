@@ -15,6 +15,17 @@ few multi-tensor launches rather than a few per tensor.  ``FusedAdam`` and
 ``FusedLion`` take the cores of ``ops/adam`` and ``ops/lion`` instead:
 kernels B6 and B7, one launch a step over flat moment buffers.  MuAdam and
 AdamW stay unfused, as in the JAX package.
+
+For checkpoints each transformation also has ``export(state, tree)``, its
+state as the nested dict flax makes of the optax state
+(``flax.serialization.to_state_dict``: a chain's states under ``"0"``,
+``"1"``, ...; a NamedTuple's fields in order; ``count`` an int32 0-d
+array), and ``restore(state, saved, load) -> state``, which loads such a
+dict back *in place*.  ``tree(per_param)`` turns a dict of the state's
+per-parameter tensors into the reference tree of whole arrays, and
+``load(saved_tree, per_param)`` copies one back into the existing tensors
+(``copy_``; never rebinding them: B6 and B7 keep the device addresses of
+their flat buffers from the first step).
 """
 
 import dataclasses
@@ -40,10 +51,28 @@ from .constants import (
 )
 
 
+def _no_export(state, tree):
+    """A stateless transformation's state: optax's EmptyState, ``{}``."""
+    if state is not None:
+        raise NotImplementedError("this transformation keeps state but has no export: "
+                                  "its checkpoint would drop it")
+    return {}
+
+
+def _no_restore(state, saved, load):
+    return state
+
+
 @dataclasses.dataclass
 class GradientTransformation:
     init: callable
     update: callable
+    export: callable = _no_export
+    restore: callable = _no_restore
+
+
+def _count(n):
+    return np.asarray(n, np.int32)
 
 
 def _lists(*dicts):
@@ -67,7 +96,14 @@ def chain(*transforms):
             new_state.append(s)
         return updates, new_state
 
-    return GradientTransformation(init, update)
+    def export(state, tree):
+        return {str(i): t.export(s, tree) for i, (t, s) in enumerate(zip(transforms, state))}
+
+    def restore(state, saved, load):
+        return [t.restore(s, saved[str(i)], load)
+                for i, (t, s) in enumerate(zip(transforms, state))]
+
+    return GradientTransformation(init, update, export, restore)
 
 
 def add_decayed_weights(weight_decay):
@@ -81,7 +117,9 @@ def add_decayed_weights(weight_decay):
                                 [params[n] for n in names], alpha=weight_decay)
         return updates, state
 
-    return GradientTransformation(lambda params: None, update)
+    # optax's MaskedState around an empty AddDecayedWeightsState
+    return GradientTransformation(lambda params: None, update,
+                                  lambda state, tree: {"inner_state": {}})
 
 
 def _bias_correction(decay, count):
@@ -110,7 +148,19 @@ def scale_by_adam(b1=0.9, b2=0.999, eps=1e-8):
         torch._foreach_copy_(g, u)
         return updates, {**state, "count": count}
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, export_adam, restore_adam)
+
+
+def export_adam(state, tree):
+    """optax ``ScaleByAdamState(count, mu, nu)``."""
+    return {"count": _count(state["count"]), "mu": tree(state["mu"]),
+            "nu": tree(state["nu"])}
+
+
+def restore_adam(state, saved, load):
+    load(saved["mu"], state["mu"])
+    load(saved["nu"], state["nu"])
+    return {**state, "count": int(saved["count"])}
 
 
 def scale_by_mup(multipliers):
@@ -136,25 +186,38 @@ def trace(decay):
         torch._foreach_copy_(g, t)
         return updates, state
 
-    return GradientTransformation(init, update)
+    def restore(state, saved, load):
+        load(saved["trace"], state)
+        return state
+
+    return GradientTransformation(init, update, lambda state, tree: {"trace": tree(state)},
+                                  restore)
 
 
 def scale_by_lion(b1=0.9, b2=0.99):
-    """optax ``scale_by_lion``: u = sign((1-b1) g + b1 mu); mu = (1-b2) g + b2 mu."""
+    """optax ``scale_by_lion``: u = sign((1-b1) g + b1 mu); mu = (1-b2) g + b2 mu.
+    The state is optax's ``ScaleByLionState(count, mu)``."""
     def init(params):
-        return tree_zeros_like(params)
+        return {"count": 0, "mu": tree_zeros_like(params)}
 
     def update(updates, state, params=None):
-        names, (g, mu) = _lists(updates, state)
+        names, (g, mu) = _lists(updates, state["mu"])
         u = torch._foreach_mul(mu, b1)
         torch._foreach_add_(u, g, alpha=1 - b1)
         torch._foreach_sign_(u)
         torch._foreach_mul_(mu, b2)
         torch._foreach_add_(mu, g, alpha=1 - b2)
         torch._foreach_copy_(g, u)
-        return updates, state
+        return updates, {**state, "count": state["count"] + 1}
 
-    return GradientTransformation(init, update)
+    def export(state, tree):
+        return {"count": _count(state["count"]), "mu": tree(state["mu"])}
+
+    def restore(state, saved, load):
+        load(saved["mu"], state["mu"])
+        return {**state, "count": int(saved["count"])}
+
+    return GradientTransformation(init, update, export, restore)
 
 
 def scale_by_rss(initial_accumulator_value=0.1, eps=1e-7):
@@ -171,7 +234,12 @@ def scale_by_rss(initial_accumulator_value=0.1, eps=1e-7):
             g.mul_(torch.where(s > 0, torch.rsqrt(s + eps), torch.zeros_like(s)))
         return updates, state
 
-    return GradientTransformation(init, update)
+    def restore(state, saved, load):
+        load(saved["sum_of_squares"], state)
+        return state
+
+    return GradientTransformation(
+        init, update, lambda state, tree: {"sum_of_squares": tree(state)}, restore)
 
 
 def scale_by_trust_ratio():

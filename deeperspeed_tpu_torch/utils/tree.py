@@ -21,6 +21,14 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_sorted(tree):
+    """``tree`` with every dict's keys in sorted order, as ``jax.tree_util``
+    rebuilds dicts (and so as the JAX package's checkpoint files hold them)."""
+    if isinstance(tree, dict):
+        return {k: tree_sorted(tree[k]) for k in sorted(tree)}
+    return tree
+
+
 def tree_cast(tree, dtype):
     """Cast all floating-point leaves to ``dtype``; leave ints/bools alone."""
     return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, tree)

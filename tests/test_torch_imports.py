@@ -68,15 +68,19 @@ def test_port_imports_no_jax():
         "import deeperspeed_tpu_torch.ops.transformer.transformer\n"
         "import deeperspeed_tpu_torch.ops.sparse_attention\n"
         "import deeperspeed_tpu_torch.ops.sparse_attention.sparsity_config\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'deeperspeed_tpu' or m.startswith('deeperspeed_tpu.')]\n"
+        "import deeperspeed_tpu_torch.checkpoint, deeperspeed_tpu_torch.checkpoint.msgpack_codec\n"
+        "import deeperspeed_tpu_torch.checkpoint.zero_to_fp32\n"
+        "import deeperspeed_tpu_torch.runtime.checkpointing\n"
+        "import deeperspeed_tpu_torch.runtime.checkpoint_engine\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'msgpack',\n"
+        "                                                   'deeperspeed_tpu')]\n"
         "print('LOADED', bad)")
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout
 
 
 BANNED = [
-    (re.compile(r"^\s*(import|from)\s+(jax|flax)\b", re.M), "imports JAX"),
+    (re.compile(r"^\s*(import|from)\s+(jax|flax|msgpack)\b", re.M), "imports JAX"),
     (re.compile(r"^\s*(import|from)\s+deeperspeed_tpu(\.|\s)", re.M),
      "imports the JAX package"),
     (re.compile(r"scaled_dot_product_attention"), "names a library attention"),

@@ -19,7 +19,15 @@ to ``OUT.npz``.  Job kinds:
   losses are this rank's), one with ``eval`` also records ``eval_batch``
   of the first batch after training;
 * ``comm``: each case runs one quantized collective on this rank's input
-  ``x/<case>/<rank>``.
+  ``x/<case>/<rank>``;
+* ``ckpt``: for each run, an engine as ``train`` makes it (``model`` holds
+  extra ``GPTNeoXConfig`` fields) first loads the checkpoint directory
+  ``load`` if it names one, then trains on the batches ``steps`` lists
+  (their indices), saving into ``save`` after ``save_after`` of them; at
+  ``loaded``, ``saved`` and ``final`` it records the state: on rank 0 the
+  whole masters and optimizer state under the checkpoint's names
+  (``m/<name>``, ``o/<name>``), on every rank its generator state, loss
+  scale, counters and loader position.
 """
 
 import json
@@ -37,11 +45,12 @@ from deeperspeed_tpu_torch.comm import compressed
 from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
 from deeperspeed_tpu_torch.ops.cuda_utils import LAUNCHES
 from deeperspeed_tpu_torch.ops.quantizer import fused
+from deeperspeed_tpu_torch.runtime import checkpointing as ck
 from deeperspeed_tpu_torch.runtime import engine as engine_module
 from deeperspeed_tpu_torch.runtime.zero import quantized
 from deeperspeed_tpu_torch.utils.tree import tree_leaves
 
-DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
 
 
 def _counting_b5():
@@ -119,6 +128,63 @@ def _legacy_step(eng, batch):
     return sum(losses) / gas
 
 
+def _flat(tree, prefix):
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}/{k}"
+        if isinstance(v, dict):
+            out.update(_flat(v, name))
+        else:
+            out[name] = np.array(v.detach().cpu() if isinstance(v, torch.Tensor) else v)
+    return out
+
+
+def _record(eng, rank, out, key):
+    """The engine's state under ``key`` (the gathers are collectives)."""
+    whole = {**_flat(ck.reference_masters(eng), f"{key}/m"),
+             **_flat(ck.reference_opt_state(eng), f"{key}/o")}
+    if rank == 0:
+        out.update(whole)
+    out[f"{key}/rng"] = eng._rng.get_state().numpy().copy()
+    out[f"{key}/loss_scale"] = np.array([float(getattr(eng.loss_scale_state, f))
+                                         for f in ck._LOSS_SCALE_FIELDS])
+    out[f"{key}/counters"] = np.array([eng.step_count, eng.global_steps,
+                                       eng.global_samples, eng.micro_steps,
+                                       eng.skipped_steps])
+    dl = eng.training_dataloader
+    out[f"{key}/loader"] = np.array(json.dumps(dl.state_dict() if dl is not None else None))
+
+
+def _ckpt(spec, job, rank, out):
+    start = {k[2:]: torch.from_numpy(job[k]) for k in job.files if k.startswith("w/")}
+    keys = sorted({k.split("/", 1)[1] for k in job.files if k.startswith("b0/")})
+    batches = [{key: job[f"b{i}/{key}"] for key in keys}
+               for i in range(spec["n_batches"])]
+    for run in spec["runs"]:
+        name = run["name"]
+        model = GPTNeoX(GPTNeoXConfig.tiny(dtype=DTYPES[run["dtype"]], **run.get("model", {})),
+                        device="cpu")
+        data = ({k[2:]: job[k] for k in job.files if k.startswith("d/")}
+                if run.get("training_data") else None)
+        eng, *_ = tdst.initialize(model=model, config=run["config"], model_parameters=start,
+                                  training_data=data, device="cpu")
+        if run.get("load"):
+            eng.load_checkpoint(run["load"])
+            _record(eng, rank, out, f"{name}/loaded")
+        losses = []
+        for j, i in enumerate(run["steps"]):
+            if run.get("save") and j == run["save_after"]:
+                eng.save_checkpoint(run["save"])
+                _record(eng, rank, out, f"{name}/saved")
+            loss = eng.train_batch() if data is not None else eng.train_batch(batch=batches[i])
+            losses.append(float(loss))
+        if run.get("save") and run["save_after"] == len(run["steps"]):
+            eng.save_checkpoint(run["save"])
+            _record(eng, rank, out, f"{name}/saved")
+        out[f"{name}/losses"] = np.array(losses)
+        _record(eng, rank, out, f"{name}/final")
+
+
 def _comm(spec, job, rank, out):
     group = comm.get_data_parallel_group()
     for case in spec["cases"]:
@@ -144,7 +210,7 @@ def main():
     job = np.load(job_path)
     spec = json.loads(str(job["spec"]))
     out = {}
-    {"train": _train, "comm": _comm}[spec["kind"]](spec, job, rank, out)
+    {"train": _train, "comm": _comm, "ckpt": _ckpt}[spec["kind"]](spec, job, rank, out)
     np.savez(out_path, **out)
     comm.destroy()
 
