@@ -141,7 +141,31 @@ package, and goes through these phases, each printing its lines:
     world 1 (digest equal to the workers' gathered state); and 4 prompts x
     16 greedy tokens (top-k 1, through K4) served by ``InferenceEngineV2``
     from the checkpoint's model file (``load_module_params`` then
-    ``params_from_jax``) equal to those served from the live masters.
+    ``params_from_jax``) equal to those served from the live masters;
+20. the wire: (a) four ``--wire-worker`` processes share the card over gloo
+    as a world of 2 x 2 (``comm.new_two_level_groups``); each runs the
+    two-level qgZ all-reduce and reduce-scatter, int8 and fp8, on
+    Pythia-160M's input-embedding gradient shape ([50304, 768] fp32 from a
+    seed), held bit for bit against the same schedule on CPU copies (B5's
+    plain version) and within the quantization error of the exact sum; B5
+    must launch once a hop; the analytic wire bytes the step record holds
+    and the bytes staged through host memory are printed.  (b) phase 13's
+    two workers run phase 13's model at gas 2 at stages 2 and 3 under
+    ``comm.overlap`` with ``bucket_mb`` 0 and 4, held against the
+    per-microbatch schedule (losses and each step's grad norm within 1e-4
+    relative, the bucketed losses equal to the unbucketed ones; the
+    gradient-reduction bytes staged a step against the per-microbatch
+    schedule's); OneBitAdam with ``freeze_step`` 1 over 3 steps (losses
+    finite and equal on both ranks; the loss after the exact-mean warm-up
+    step within 1e-6 relative of phase 13's Adam at stage 0; the first
+    sign-compressed reduction of a parameter of at least 2^20 elements
+    held against ``onebit_all_reduce`` on CPU copies of the same gradient
+    and error, mean and new error within 1e-5 of their largest value, as
+    ``mean|c|`` sums in another order); stage 3 with qwZ
+    (gather bytes staged against stage 3 without it, losses within 0.05);
+    and one ``comm.log_summary(show_straggler=True)`` table.  (c) phase 14's
+    step with gas 2 at world 2, stage 2, per microbatch and then deferred:
+    1 warm-up and 3 timed steps, ms/step and bytes staged a step.
 
 The second-to-last line is the JSON summary of the kernels (a kernel's
 ``launches`` sums its counts on the main paths, serving in phase 5,
@@ -149,8 +173,10 @@ scheduled serving in phase 7, training in phase 9, the rest of training
 in phase 11 (FusedAdam, then FusedLion), data-parallel training in
 phase 14 (rank 0's counts, stage 2, then qgZ), the legacy layer in phase
 16 (fp32, then fp16), sparse attention in phase 17, the fused softmax in
-phase 18 and the resumed steps of phase 19, each read right after its own
-run and listed in ``launches_by_path``), the last ``{"ok": true,
+phase 18, the resumed steps of phase 19, and in phase 20 the two-level
+schedule's B5 launches (rank 0) and the deferred full-size steps (rank 0),
+each read right after its own run and listed in ``launches_by_path``), the
+last ``{"ok": true,
 "device": {...}}``.  Any
 failure, of a phase or of a worker, raises and exits non-zero; without a
 CUDA device, or outside a checkout, it exits 2 and prints no result.
@@ -291,6 +317,32 @@ DP_FULL_STEPS = 3
 DP_FULL_RUNS = {
     "stage2": {**TRAIN_CONFIG, "zero_optimization": {"stage": 2}},
     "qgz-int8": {**TRAIN_CONFIG, "comm": {"quantized": {"enabled": True}}}}
+
+
+# The wire (phase 20): phase 13's model at gas 2 under the gradient
+# reduction's schedules, with qwZ, and 1-bit Adam at phase 13's gas 1;
+# phase 14's step at gas 2 per microbatch and deferred; the two-level qgZ
+# schedule over a world of 2 x 2 on Pythia-160M's input-embedding gradient.
+WIRE_GAS = 2
+WIRE_CHECK_CONFIG = {**DP_CHECK_CONFIG, "gradient_accumulation_steps": WIRE_GAS}
+WIRE_CHECK_RUNS = {
+    **{f"pmb-s{s}": {**WIRE_CHECK_CONFIG, "zero_optimization": {"stage": s}} for s in (2, 3)},
+    **{f"def-s{s}-b{b}": {**WIRE_CHECK_CONFIG, "zero_optimization": {"stage": s},
+                          "comm": {"overlap": {"enabled": True, "bucket_mb": b}}}
+       for s in (2, 3) for b in (0, 4)},
+    "qwz-s3": {**WIRE_CHECK_CONFIG,
+               "zero_optimization": {"stage": 3, "zero_quantized_weights": True}},
+    "onebit": {**DP_CHECK_CONFIG, "optimizer": {"type": "OneBitAdam",
+                                                "params": {"lr": 1e-4, "freeze_step": 1}}},
+}
+WIRE_LOGGED = "def-s2-b4"          # run with comms_logger on; its table is printed
+WIRE_FULL_RUNS = {
+    "per-microbatch": {**TRAIN_CONFIG, "gradient_accumulation_steps": WIRE_GAS,
+                       "zero_optimization": {"stage": 2}},
+    "deferred": {**TRAIN_CONFIG, "gradient_accumulation_steps": WIRE_GAS,
+                 "zero_optimization": {"stage": 2}, "comm": {"overlap": {"enabled": True}}}}
+WIRE_INTER, WIRE_INTRA = 2, 2
+WIRE_SHAPE = (50304, 768)
 
 
 def dp_check_model(device=None):
@@ -1843,6 +1895,49 @@ def dp_worker(rank, rendezvous, out_path):
         results[f"full-{name}"] = rec
         del eng, model
         torch.cuda.empty_cache()
+    for name, cfg in WIRE_CHECK_RUNS.items():           # phase 20 (b)
+        if name == WIRE_LOGGED:
+            cfg = {**cfg, "comms_logger": {"enabled": True}}
+        eng = dst.initialize(model=dp_check_model(), config=cfg)[0]
+        rec = {"losses": [], "staged": [], "b5": [], "grad_norms": []}
+        unwatch = _watch_onebit(torch, rec) if name == "onebit" else None
+        for b in batches:
+            comm.STAGED.clear()
+            LAUNCHES.clear()
+            rec["losses"].append(float(eng.train_batch(batch=b)))
+            rec["staged"].append(dict(comm.STAGED))
+            rec["b5"].append(LAUNCHES["dequant_reduce"])
+            rec["grad_norms"].append(eng.get_global_grad_norm())
+        if unwatch:
+            unwatch()
+        rec["footprint"] = eng.comm_footprint
+        if name == WIRE_LOGGED:
+            rec["comms_rows"] = comm.log_summary(show_straggler=True)
+            comm.comms_logger.enabled = False
+        results[f"wire-{name}"] = rec
+        del eng
+        torch.cuda.empty_cache()
+    for name, cfg in WIRE_FULL_RUNS.items():            # phase 20 (c)
+        model = trained_model()
+        eng = dst.initialize(model=model, config=cfg)[0]
+        batch = {k: v.cuda() for k, v in trained_batch(model).items()}
+        first = float(eng.train_batch(batch=batch))      # warm-up
+        comm.STAGED.clear()
+        comm.STAGED_SECONDS.clear()
+        LAUNCHES.clear()                                  # main path starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [float(eng.train_batch(batch=batch)) for _ in range(DP_FULL_STEPS)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        results[f"wire-full-{name}"] = {
+            "losses": [first] + losses, "ms_per_step": dt / DP_FULL_STEPS * 1e3,
+            "launches": dict(LAUNCHES), "footprint": eng.comm_footprint,
+            "staged_bytes_per_step": sum(comm.STAGED.values()) / DP_FULL_STEPS,
+            "grad_bytes_per_step": comm.STAGED["grad_reduce"] / DP_FULL_STEPS,
+            "grad_ms_per_step": comm.STAGED_SECONDS["grad_reduce"] / DP_FULL_STEPS * 1e3}
+        del eng, model
+        torch.cuda.empty_cache()
     # phase 19: phase 13's stage-2 run saved at world 2, for the parent to
     # load at world 1
     eng = dst.initialize(model=dp_check_model(),
@@ -1863,14 +1958,42 @@ def dp_worker(rank, rendezvous, out_path):
     return 0
 
 
-def _spawn_dp_workers(workdir):
-    """Start the two ``--dp-worker`` processes; returns them with their log
-    and result paths."""
+def _watch_onebit(torch, rec):
+    """Wrap ``comm/compressed.py`` ``onebit_all_reduce`` so that its first
+    call on a parameter of at least 2^20 elements also runs on CPU copies
+    of the same gradient and error (every rank makes the same call, so the
+    gloo collectives pair up); ``rec["cpu_check"]`` gets the largest
+    differences of the mean and the new error, each over its largest value.
+    Returns the function that restores the original."""
+    from deeperspeed_tpu_torch.comm import compressed
+
+    plain = compressed.onebit_all_reduce
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    def watched(x, group, error=None):
+        mean, err = plain(x, group, error)
+        if "cpu_check" not in rec and x.numel() >= 1 << 20:
+            m, e = plain(x.detach().cpu(), group,
+                         None if error is None else error.detach().cpu())
+            rec["cpu_check"] = {"numel": x.numel(), "on_cuda": x.is_cuda,
+                                "mean_rel": rel(mean, m), "error_rel": rel(err, e),
+                                "finite": bool(torch.isfinite(mean).all())}
+        return mean, err
+
+    compressed.onebit_all_reduce = watched
+    return lambda: setattr(compressed, "onebit_all_reduce", plain)
+
+
+def _spawn_dp_workers(workdir, flag="--dp-worker", world=DP_WORLD):
+    """Start the ``world`` worker processes (``flag``: ``--dp-worker`` or
+    ``--wire-worker``); returns them with their log and result paths."""
     procs = []
-    for rank in range(DP_WORLD):
+    for rank in range(world):
         log = open(workdir / f"rank{rank}.log", "w")
         procs.append((subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--dp-worker", str(rank),
+            [sys.executable, str(ROOT / "chip_smoke.py"), flag, str(rank),
              str(workdir / "rendezvous"), str(workdir / f"rank{rank}.json")],
             cwd=ROOT, stdout=log, stderr=subprocess.STDOUT), log,
             workdir / f"rank{rank}.log", workdir / f"rank{rank}.json"))
@@ -1933,7 +2056,7 @@ def phase_dp(torch, np):
     print(f"[dp] two workers on the card over gloo: {time.perf_counter() - t0:.1f} s",
           flush=True)
     phase_dp_checked(r0, r1, ref_losses, ref_norm, ref_alloc, total, partitioned, n_big)
-    return phase_dp_full(r0, r1), r0["ckpt-stage2"]
+    return phase_dp_full(r0, r1), r0["ckpt-stage2"], (r0, r1)
 
 
 def phase_dp_checked(r0, r1, ref_losses, ref_norm, ref_alloc, total, partitioned, n_big):
@@ -2539,6 +2662,212 @@ def phase_checkpointed(torch, np, launches, card, dp_ckpt):
     return full["counts"]
 
 
+def wire_worker(rank, rendezvous, out_path):
+    """One of the four processes of phase 20 (a) (``--wire-worker``): the
+    two-level qgZ all-reduce and reduce-scatter on the card and on CPU
+    copies, over the groups of a world of 2 x 2; writes what it saw to
+    ``out_path`` as JSON."""
+    import torch
+
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch import comm
+    from deeperspeed_tpu_torch.ops.cuda_utils import LAUNCHES
+
+    torch.set_num_threads(2)
+    world = WIRE_INTER * WIRE_INTRA
+    dst.init_distributed("gloo", init_method=f"file://{rendezvous}", rank=rank,
+                         world_size=world, timeout=600)
+    intra, inter = comm.new_two_level_groups(WIRE_INTER, WIRE_INTRA)
+
+    def grad(r):
+        g = torch.Generator().manual_seed(SEED + 60 + r)
+        return torch.randn(WIRE_SHAPE, generator=g) * (1.0 + r)
+
+    x = grad(rank)
+    exact = sum(grad(r) for r in range(world))
+    # participant (i_intra, i_inter) holds global chunk i_intra * n_inter + i_inter
+    i_inter, i_intra = divmod(rank, WIRE_INTRA)
+    chunk = exact.chunk(world)[i_intra * WIRE_INTER + i_inter]
+    xc = x.cuda()
+    results = {}
+    for wire in ("int8", "fp8"):
+        for op, fn, want in (("all_reduce", comm.all_reduce_quantized, exact),
+                             ("reduce_scatter", comm.reduce_scatter_quantized, chunk)):
+            torch.cuda.synchronize()
+            LAUNCHES.clear()
+            comm.STAGED.clear()
+            comm.comms_logger.begin_step()
+            t0 = time.perf_counter()
+            y = fn(xc, intra_group=intra, inter_group=inter, wire_dtype=wire)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            footprint = comm.comms_logger.end_step()
+            launches, staged = dict(LAUNCHES), sum(comm.STAGED.values())
+            plain = fn(x, intra_group=intra, inter_group=inter, wire_dtype=wire)
+            got = y.cpu()
+            results[f"{op}-{wire}"] = {
+                "launches": launches, "ms": ms, "staged_bytes": staged,
+                "footprint": footprint, "numel": y.numel(),
+                "bit_equal": bool(torch.equal(got.view(torch.int32),
+                                              plain.view(torch.int32))),
+                "max_abs_err": float((got - plain).abs().max()),
+                "rel_to_exact": float((got - want).abs().max() / want.abs().max())}
+    with open(out_path, "w") as f:
+        json.dump(results, f)
+    comm.destroy()
+    return 0
+
+
+def phase_wire(card, r0, r1):
+    """Phase 20, the wire: (b) and (c) from phase 13's two workers' results,
+    then (a) the four two-level workers.  Returns rank 0's launch counts of
+    the two-level collectives and of the deferred full-size steps."""
+    from deeperspeed_tpu_torch.telemetry import wire
+
+    # ---- (b) the schedules on phase 13's model, gas 2
+    for a, b in zip(*[[r[f"wire-{name}"] for name in WIRE_CHECK_RUNS] for r in (r0, r1)]):
+        if a["losses"] != b["losses"] or not all(map(math.isfinite, a["losses"])):
+            raise AssertionError(f"wire: losses {a['losses']} / {b['losses']}")
+    for stage in (2, 3):
+        base = r0[f"wire-pmb-s{stage}"]
+        grad_pmb = base["staged"][-1].get("grad_reduce", 0)
+        for bucket in (0, 4):
+            rec = r0[f"wire-def-s{stage}-b{bucket}"]
+            rels = [abs(x - y) / abs(y) for x, y in zip(rec["losses"], base["losses"])]
+            if max(rels) > 1e-4:
+                raise AssertionError(f"wire stage {stage} bucket {bucket}: losses "
+                                     f"{rec['losses']} vs per microbatch {base['losses']}")
+            # the norm is taken before clipping: it sees a wrong division by
+            # gas x world that Adam's scale-free update hides from the losses
+            nrels = [abs(x - y) / abs(y) for x, y in zip(rec["grad_norms"],
+                                                         base["grad_norms"])]
+            if max(nrels) > 1e-4:
+                raise AssertionError(f"wire stage {stage} bucket {bucket}: grad norms "
+                                     f"{rec['grad_norms']} vs per microbatch "
+                                     f"{base['grad_norms']}")
+            if bucket and rec["losses"] != r0[f"wire-def-s{stage}-b0"]["losses"]:
+                raise AssertionError(f"wire stage {stage}: bucketed losses {rec['losses']} "
+                                     f"differ from the unbucketed")
+            grad = rec["staged"][-1].get("grad_reduce", 0)
+            foot, = rec["footprint"]
+            print(f"[wire] {card}: 2 full-width layers fp32, gas {WIRE_GAS}, world "
+                  f"{DP_WORLD}, stage {stage}, deferred, bucket_mb {bucket}: losses "
+                  f"{', '.join(f'{x:.6f}' for x in rec['losses'])} on both ranks (per "
+                  f"microbatch {', '.join(f'{x:.6f}' for x in base['losses'])}; max "
+                  f"relative {max(rels):.2e}); grad norms "
+                  f"{', '.join(f'{x:.6f}' for x in rec['grad_norms'])} (per microbatch "
+                  f"{', '.join(f'{x:.6f}' for x in base['grad_norms'])}; max relative "
+                  f"{max(nrels):.2e}); {foot['count']} collectives a step; gradient "
+                  f"reduction staged through host {grad / 1e6:.3f} MB a step (per microbatch "
+                  f"{grad_pmb / 1e6:.3f} MB, {grad / max(grad_pmb, 1):.3f}x); analytic wire "
+                  f"bytes {foot['bytes'] / 1e6:.3f} MB ({foot['schedule']}; per microbatch "
+                  f"{base['footprint'][0]['bytes'] / 1e6:.3f} MB)", flush=True)
+    ob, adam = r0["wire-onebit"], r0["stage0"]["losses"]
+    # freeze_step 1: step 0 is exact Adam on the exact mean, so the loss
+    # after it is Adam's; steps 1-2 are sign-compressed
+    warm = abs(ob["losses"][1] - adam[1]) / abs(adam[1])
+    if ob["losses"][0] != adam[0] or warm > 1e-6:
+        raise AssertionError(f"OneBitAdam losses {ob['losses'][:2]} vs Adam's {adam[:2]}")
+    checks = [r["wire-onebit"].get("cpu_check") for r in (r0, r1)]
+    for c in checks:
+        if (not c or not c["on_cuda"] or not c["finite"] or c["mean_rel"] > 1e-5
+                or c["error_rel"] > 1e-5):
+            raise AssertionError(f"OneBitAdam compressed reduction vs CPU copies: {checks}")
+    c = checks[0]
+    print(f"[wire] {card}: OneBitAdam freeze_step 1, 3 steps at world {DP_WORLD}: losses "
+          f"{', '.join(f'{x:.6f}' for x in ob['losses'])} on both ranks (Adam "
+          f"{', '.join(f'{x:.6f}' for x in adam)}; after the warm-up step relative "
+          f"{warm:.2e}); first compressed reduction of a {c['numel']}-element parameter "
+          f"against CPU copies: mean {max(x['mean_rel'] for x in checks):.2e}, error "
+          f"{max(x['error_rel'] for x in checks):.2e} of their largest value; last "
+          f"step's record {ob['footprint'][0]['op']} "
+          f"{ob['footprint'][0]['bytes'] / 1e6:.3f} MB analytic", flush=True)
+    q, s3 = r0["wire-qwz-s3"], r0["wire-pmb-s3"]
+    if max(abs(x - y) for x, y in zip(q["losses"], s3["losses"])) > 0.05:
+        raise AssertionError(f"qwZ losses {q['losses']} vs stage 3 {s3['losses']}")
+    gq, gp = (q["staged"][-1].get("stage3_gather_qwz", 0),
+              s3["staged"][-1].get("stage3_gather", 0))
+    if not 0 < gq < gp:
+        raise AssertionError(f"qwZ gathers staged {gq} bytes a step, stage 3 {gp}")
+    print(f"[wire] {card}: stage 3 with qwZ: losses {', '.join(f'{x:.6f}' for x in q['losses'])}"
+          f" (without {', '.join(f'{x:.6f}' for x in s3['losses'])}); parameter gathers "
+          f"staged through host {gq / 1e6:.3f} MB a step against {gp / 1e6:.3f} MB "
+          f"({gq / gp:.3f}x)", flush=True)
+    print(f"[wire] comm.log_summary(show_straggler=True), rank 0, {WIRE_LOGGED}:", flush=True)
+    print(f"[wire] {'Comm Op':<20}{'Msg Size':<12}{'Count':<8}{'Avg Lat(ms)':<14}"
+          f"{'algbw GB/s':<12}{'busbw GB/s':<12}{'Min(ms)':<10}{'Max(ms)':<10}"
+          f"{'Straggler(ms)':<14}", flush=True)
+    for r in r0[f"wire-{WIRE_LOGGED}"]["comms_rows"]:
+        print(f"[wire] {r[0]:<20}{r[1]:<12}{r[2]:<8}{r[3]:<14.3f}{r[4]:<12.3f}{r[5]:<12.3f}"
+              f"{r[6]:<10.3f}{r[7]:<10.3f}{r[8]:<14.3f}", flush=True)
+
+    # ---- (c) phase 14's step at gas 2, per microbatch and deferred
+    for name in WIRE_FULL_RUNS:
+        a, b = r0[f"wire-full-{name}"], r1[f"wire-full-{name}"]
+        if a["losses"] != b["losses"] or not all(map(math.isfinite, a["losses"])):
+            raise AssertionError(f"wire full {name}: losses {a['losses']} / {b['losses']}")
+        for kernel in ("layer_norm", "layer_norm_bwd", "flash_fwd", "flash_bwd_dq",
+                       "flash_bwd_dkv"):
+            if a["launches"].get(kernel, 0) < 1:
+                raise AssertionError(f"wire full {name}: {kernel} never launched")
+        foot, = a["footprint"]
+        print(f"[wire-full] {card}: Pythia-160M bf16, global B {TRAIN_BATCH} x S "
+              f"{TRAIN_SEQ}, gas {WIRE_GAS}, world {DP_WORLD}, stage 2, {name}: "
+              f"{a['ms_per_step']:.2f} / {b['ms_per_step']:.2f} ms/step (rank 0 / 1) over "
+              f"{DP_FULL_STEPS} steps; losses {', '.join(f'{x:.4f}' for x in a['losses'])} "
+              f"on both ranks; staged through host {a['staged_bytes_per_step'] / 1e9:.3f} GB "
+              f"a step, of it the gradient reduction {a['grad_bytes_per_step'] / 1e9:.3f} GB "
+              f"in {a['grad_ms_per_step']:.2f} ms; analytic wire bytes "
+              f"{foot['bytes'] / 1e9:.3f} GB in {foot['count']} collectives", flush=True)
+    pmb, dfr = r0["wire-full-per-microbatch"], r0["wire-full-deferred"]
+    if pmb["losses"][0] != dfr["losses"][0]:
+        raise AssertionError(f"wire full: first losses {pmb['losses'][0]} / "
+                             f"{dfr['losses'][0]}")
+    print(f"[wire-full] deferred / per microbatch: {dfr['ms_per_step'] / pmb['ms_per_step']:.3f}x "
+          f"ms/step, {dfr['grad_bytes_per_step'] / pmb['grad_bytes_per_step']:.3f}x gradient "
+          f"bytes staged", flush=True)
+
+    # ---- (a) the two-level qgZ schedule at world 4
+    build = ROOT / ".build"
+    build.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    world = WIRE_INTER * WIRE_INTRA
+    ranks = _join_dp_workers(_spawn_dp_workers(Path(tempfile.mkdtemp(dir=build)),
+                                               "--wire-worker", world))
+    print(f"[wire-2level] four workers on the card over gloo: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    n_elems = math.prod(WIRE_SHAPE)
+    for key in ranks[0]:
+        op, wire_dtype = key.split("-")
+        for r, rec in enumerate(ranks):
+            rec = rec[key]
+            # four roundings (two hops, two gathers) of at most half a grid
+            # step of a group's largest value: 1/254 in int8, 1/8 in e5m2
+            tol = 0.5 if wire_dtype == "fp8" else 0.05
+            if not rec["bit_equal"] or rec["launches"].get("dequant_reduce") != 2 \
+                    or rec["rel_to_exact"] > tol:
+                raise AssertionError(f"two-level {key} rank {r}: {rec}")
+        rec = ranks[0][key]
+        variant = wire.quantized_variant(WIRE_INTRA, WIRE_INTER, wire_dtype)
+        want = wire.wire_bytes(op, variant, n_elems, WIRE_INTRA, WIRE_INTER, 128)
+        foot, = rec["footprint"]
+        if foot["bytes"] != want:
+            raise AssertionError(f"two-level {key}: recorded {foot['bytes']} bytes, "
+                                 f"wire_bytes {want}")
+        print(f"[wire-2level] {card}: {op} {wire_dtype} of [{WIRE_SHAPE[0]}, "
+              f"{WIRE_SHAPE[1]}] fp32 over {WIRE_INTER} x {WIRE_INTRA}: bit for bit the "
+              f"plain schedule on the CPU on all {world} ranks, B5 twice (once a hop), "
+              f"{rec['rel_to_exact']:.2e} of the exact sum's largest magnitude; "
+              f"{rec['ms']:.2f} ms on rank 0 (host clock, gloo via host); analytic wire "
+              f"bytes {foot['bytes'] / 1e6:.3f} MB a rank ({variant}; the flat schedule's "
+              f"{wire.wire_bytes(op, variant.replace('two_level', 'flat'), n_elems, world, 1, 128) / 1e6:.3f} MB,"
+              f" fp32 {wire.wire_bytes(op, 'fp32', n_elems, world, 1, 128) / 1e6:.3f} MB); "
+              f"staged through host {rec['staged_bytes'] / 1e6:.3f} MB", flush=True)
+    two_level = {"dequant_reduce": sum(rec["launches"].get("dequant_reduce", 0)
+                                       for rec in ranks[0].values())}
+    return two_level, dfr["launches"]
+
+
 def main():
     try:
         import torch
@@ -2555,6 +2884,8 @@ def main():
     sys.path.insert(0, str(ROOT))
     if sys.argv[1:2] == ["--dp-worker"]:
         return dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if sys.argv[1:2] == ["--wire-worker"]:
+        return wire_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     import numpy as np
 
     from deeperspeed_tpu_torch.ops import cuda_utils
@@ -2593,7 +2924,7 @@ def main():
     paths["training_fused"], paths["training_fused_lion"] = phase_fused_trained(
         torch, np, cuda_utils.LAUNCHES)
     phase_dropout(torch, np, cuda_utils.LAUNCHES)
-    dp, dp_ckpt = phase_dp(torch, np)
+    dp, dp_ckpt, dp_ranks = phase_dp(torch, np)
     paths["dp_stage2"], paths["dp_qgz"] = dp["stage2"], dp["qgz-int8"]
     phase_legacy_checked(torch, np)
     paths["legacy_layer"] = phase_legacy(torch, np, cuda_utils.LAUNCHES)
@@ -2601,6 +2932,7 @@ def main():
     paths["softmax"] = phase_softmax(torch, cuda_utils.LAUNCHES)
     paths["training_resumed"] = phase_checkpointed(torch, np, cuda_utils.LAUNCHES, card,
                                                    dp_ckpt)
+    paths["wire_two_level"], paths["wire_deferred"] = phase_wire(card, *dp_ranks)
 
     sources = {
         "layer_norm": ("deeperspeed_tpu_torch/csrc/layer_norm.cu",

@@ -27,13 +27,27 @@ not every one knows the fp8 types.  ``ReduceOp.AVG`` is a sum divided by
 the group size, on every backend (gloo has no AVG).
 
 The quantized collectives (:func:`all_reduce_quantized`,
-:func:`reduce_scatter_quantized`) run the flat qgZ schedule of
-``comm/compressed.py``.  The two-level schedule (``intra_group`` /
-``inter_group``) raises ``NotImplementedError``: it needs a mesh of more
-than one data-parallel axis.
+:func:`reduce_scatter_quantized`) run the qgZ schedules of
+``comm/compressed.py``: flat over one group, or two-level over an
+``intra_group`` and an ``inter_group`` (:func:`new_two_level_groups`
+builds them for a world of ``n_inter x n_intra`` processes in the JAX
+package's mesh order).  In the engine the two-level schedule needs the
+mesh's ``zshard`` axis, which waits for ROADMAP Queue A, 'Multi-process
+training, part 2'; the facade runs it on any pair of groups.
+
+Comms logging (``comms_logger`` config block, :func:`configure`,
+:func:`log_summary`): every eager collective is timed on the host clock,
+ending in ``torch.cuda.synchronize()`` for CUDA tensors, and logged by
+:data:`comms_logger` when it is enabled; a collective called inside
+another is timed as part of the outer one.  ``async_op=True`` on
+:func:`all_reduce`, :func:`all_gather` and :func:`reduce_scatter` returns
+an ``overlap.AsyncOpHandle`` under ``comm.overlap.eager_async`` (and the
+value otherwise, as in the JAX package); an async op is not timed.
 """
 
 import datetime
+import functools
+import inspect
 import os
 import time
 from collections import Counter
@@ -43,6 +57,8 @@ import torch.distributed as dist
 
 from ..accelerator.real_accelerator import local_cuda_index
 from ..parallel import topology as topo
+from .comms_logging import CommsLogger
+from .overlap import AsyncOpHandle
 
 # bytes copied between the card and host memory to run a gloo collective,
 # per op (device to host plus host to device), and the seconds those ops
@@ -50,7 +66,12 @@ from ..parallel import topology as topo
 STAGED = Counter()
 STAGED_SECONDS = Counter()
 
-_PART2 = "(ROADMAP Queue A, 'Multi-process training, part 2')"
+comms_logger = CommsLogger()
+
+# comm.overlap.eager_async: async_op=True returns an AsyncOpHandle
+_eager_async = False
+# depth of timed collectives in progress (an inner one is not logged)
+_timed_depth = 0
 
 
 class ReduceOp:
@@ -70,12 +91,14 @@ class CommGroup:
     """A communicator: the mesh ``axes`` it spans and the torch process
     group behind them (``None``: the default group, the world)."""
 
-    def __init__(self, axes=(topo.DP_AXIS,), name=None, pg=None):
+    def __init__(self, axes=(topo.DP_AXIS,), name=None, pg=None, complement=None):
         if isinstance(axes, str):
             axes = (axes,)
         self.axes = tuple(axes)
         self.name = name or "+".join(self.axes)
         self.pg = pg
+        # the other hop of a two-level split (new_two_level_groups)
+        self.complement = complement
 
     def size(self):
         return dist.get_world_size(self.pg) if dist.is_initialized() else 1
@@ -106,6 +129,62 @@ def _resolve_group(group):
     if isinstance(group, CommGroup):
         return group
     return CommGroup(group)
+
+
+def new_two_level_groups(n_inter, n_intra):
+    """This rank's ``(intra_group, inter_group)`` of a world of ``n_inter x
+    n_intra`` processes in the JAX package's mesh order (dp major, zshard
+    minor): rank ``r = i_inter * n_intra + i_intra``; the intra group holds
+    the ranks of one ``i_inter``, the inter group those of one ``i_intra``,
+    each ranked by its index along its axis.  Every rank calls it, in the
+    same order (``torch.distributed.new_group`` is collective)."""
+    world = get_world_size()
+    if n_inter * n_intra != world:
+        raise ValueError(f"{n_inter} x {n_intra} groups for a world of {world}")
+    rank = get_rank()
+    intra = inter = None
+    for i in range(n_inter):
+        ranks = [i * n_intra + j for j in range(n_intra)]
+        pg = dist.new_group(ranks)
+        if rank in ranks:
+            intra = pg
+    for j in range(n_intra):
+        ranks = [i * n_intra + j for i in range(n_inter)]
+        pg = dist.new_group(ranks)
+        if rank in ranks:
+            inter = pg
+    intra = CommGroup((topo.ZSHARD_AXIS,), name="intra", pg=intra)
+    inter = CommGroup((topo.DP_AXIS,), name="inter", pg=inter, complement=intra)
+    intra.complement = inter
+    return intra, inter
+
+
+def configure(config=None, verbose=None, prof_all=None, debug=None, prof_ops=None):
+    """Comms logging and ``eager_async`` from a ``DeeperSpeedConfig`` (its
+    ``comms_logger`` and ``comm.overlap`` blocks), and the logger's knobs
+    one by one (the JAX package's ``configure``)."""
+    global _eager_async
+    cl = getattr(config, "comms_config", None)
+    if cl is not None and cl.enabled:
+        comms_logger.configure(enabled=cl.enabled, verbose=cl.verbose,
+                               prof_all=cl.prof_all, prof_ops=cl.prof_ops,
+                               debug=cl.debug)
+    ov = getattr(config, "comm_overlap", None)
+    if ov is not None:
+        _eager_async = bool(ov.enabled and ov.eager_async)
+    if verbose is not None:
+        comms_logger.verbose = verbose
+    if prof_all is not None:
+        comms_logger.prof_all = prof_all
+    if prof_ops is not None:
+        comms_logger.prof_ops = prof_ops
+    if debug is not None:
+        comms_logger.debug = debug
+
+
+def log_summary(show_straggler=False):
+    """The comms logger's table (logged) and its rows (returned)."""
+    return comms_logger.log_all(show_straggler=show_straggler)
 
 
 # ---------------------------------------------------------------- lifecycle
@@ -161,21 +240,75 @@ def _wire(t):
     return t.view(torch.uint8) if t.is_floating_point() and t.element_size() == 1 else t
 
 
-def _run(name, group, fn, out, *inputs):
-    """``fn(out, *inputs)``, a torch collective writing ``out``, staged
-    through host memory for gloo on CUDA tensors; returns ``out``."""
-    if out.is_cuda and group.backend() == "gloo":
-        t0 = time.perf_counter()
+def _run(name, group, fn, out, *inputs, async_op=False, then=None):
+    """``fn(out, *inputs, async_op=...)``, a torch collective writing
+    ``out``, staged through host memory for gloo on CUDA tensors.  Returns
+    ``then()`` (``out`` by default) once it is done, or with ``async_op``
+    an :class:`AsyncOpHandle` that finishes it."""
+    staged = out.is_cuda and group.backend() == "gloo"
+    t0 = time.perf_counter()
+    if staged:
         host_out = torch.empty(out.shape, dtype=out.dtype)
-        host_in = [t.cpu() for t in inputs]
-        fn(host_out, *host_in)
-        out.copy_(host_out)
-        STAGED_SECONDS[name] += time.perf_counter() - t0
-        STAGED[name] += sum(t.numel() * t.element_size() for t in inputs) \
-            + out.numel() * out.element_size()
+        work = fn(host_out, *[t.cpu() for t in inputs], async_op=async_op)
     else:
-        fn(out, *inputs)
-    return out
+        work = fn(out, *inputs, async_op=async_op)
+
+    def finish():
+        if work is not None and async_op:
+            work.wait()
+        if staged:
+            out.copy_(host_out)
+            STAGED_SECONDS[name] += time.perf_counter() - t0
+            STAGED[name] += sum(t.numel() * t.element_size() for t in inputs) \
+                + out.numel() * out.element_size()
+        return then() if then is not None else out
+
+    if async_op:
+        return AsyncOpHandle(work, finish)
+    return finish()
+
+
+def _done(value, async_op):
+    """A collective's result as its caller asked for it: a finished handle
+    under ``async_op`` (a group of one moves nothing)."""
+    return AsyncOpHandle(None, lambda: value) if async_op else value
+
+
+def timed_op(fn=None, *, payload=0):
+    """Time each eager call of the collective ``fn`` on the host clock (a
+    CUDA payload ends in ``torch.cuda.synchronize()``) and log it with
+    :data:`comms_logger` when that is enabled; ``payload`` is the position
+    of the argument whose bytes are the message.  A call made inside
+    another timed call, and an async one, is not logged."""
+    if fn is None:
+        return functools.partial(timed_op, payload=payload)
+
+    sig = inspect.signature(fn)
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        global _timed_depth
+        if not comms_logger.enabled or _timed_depth or (
+                kwargs.get("async_op") and _eager_async):
+            return fn(*args, **kwargs)
+        call = sig.bind(*args, **kwargs)
+        call.apply_defaults()
+        tensor = args[payload]
+        _timed_depth += 1
+        try:
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            if tensor.is_cuda:
+                torch.cuda.synchronize(tensor.device)
+            latency = time.perf_counter() - t0
+        finally:
+            _timed_depth -= 1
+        comms_logger.append(fn.__name__, call.arguments["log_name"], latency,
+                            tensor.numel() * tensor.element_size(),
+                            _resolve_group(call.arguments["group"]).size())
+        return result
+
+    return wrapper
 
 
 def _finish(out, op, n):
@@ -183,45 +316,59 @@ def _finish(out, op, n):
 
 
 # -------------------------------------------------------------- collectives
-def all_reduce(tensor, op=ReduceOp.SUM, group=None,
+@timed_op
+def all_reduce(tensor, op=ReduceOp.SUM, group=None, async_op=False,
                log_name="all_reduce"):
-    """The group's reduction of ``tensor``, written into it and returned."""
+    """The group's reduction of ``tensor``, written into it and returned
+    (a handle under ``async_op`` and ``comm.overlap.eager_async``)."""
     if op not in _TORCH_OPS:
         raise ValueError(f"unsupported reduce op {op}")
     group = _resolve_group(group)
     n = group.size()
+    async_op = bool(async_op and _eager_async)
     if n == 1:
-        return tensor
+        return _done(tensor, async_op)
     buf = tensor if tensor.is_contiguous() else tensor.contiguous()
 
-    def reduce(out, x):
+    def reduce(out, x, async_op=False):
         if out is not x:
             out.copy_(x)
-        dist.all_reduce(out, op=_TORCH_OPS[op], group=group.pg)
+        return dist.all_reduce(out, op=_TORCH_OPS[op], group=group.pg, async_op=async_op)
 
-    _run(log_name, group, reduce, buf, buf)
-    _finish(buf, op, n)
-    if buf is not tensor:
-        tensor.copy_(buf)
-    return tensor
+    def then():
+        _finish(buf, op, n)
+        if buf is not tensor:
+            tensor.copy_(buf)
+        return tensor
+
+    return _run(log_name, group, reduce, buf, buf, async_op=async_op, then=then)
 
 
-def all_gather(tensor, group=None, axis=0, tiled=True, log_name="all_gather"):
+@timed_op
+def all_gather(tensor, group=None, axis=0, tiled=True, async_op=False,
+               log_name="all_gather"):
     """Every rank's ``tensor`` concatenated along ``axis`` in rank order
     (``tiled``), or stacked on a new leading axis (not tiled)."""
     group = _resolve_group(group)
     n = group.size()
+    async_op = bool(async_op and _eager_async)
     if n == 1:
-        return tensor if tiled else tensor[None]
+        return _done(tensor if tiled else tensor[None], async_op)
     x = _wire((tensor.movedim(axis, 0) if tiled else tensor[None]).contiguous())
     out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
-    _run(log_name, group,
-         lambda o, i: dist.all_gather_into_tensor(o, i, group=group.pg), out, x)
-    out = out.view(tensor.dtype)
-    return out.movedim(0, axis) if tiled else out
+
+    def then():
+        y = out.view(tensor.dtype)
+        return y.movedim(0, axis) if tiled else y
+
+    return _run(log_name, group,
+                lambda o, i, async_op=False: dist.all_gather_into_tensor(
+                    o, i, group=group.pg, async_op=async_op),
+                out, x, async_op=async_op, then=then)
 
 
+@timed_op(payload=1)
 def all_gather_into(out, tensor, group=None, log_name="all_gather"):
     """:func:`all_gather` (tiled along dim 0) into the preallocated ``out``
     of ``group.size() * tensor.numel()`` elements."""
@@ -229,19 +376,21 @@ def all_gather_into(out, tensor, group=None, log_name="all_gather"):
     if group.size() == 1:
         return out.copy_(tensor.reshape(out.shape))
     _run(log_name, group,
-         lambda o, i: dist.all_gather_into_tensor(o, i, group=group.pg),
+         lambda o, i, async_op=False: dist.all_gather_into_tensor(o, i, group=group.pg),
          _wire(out), _wire(tensor.contiguous()))
     return out
 
 
-def reduce_scatter(tensor, group=None, axis=0, op=ReduceOp.SUM,
+@timed_op
+def reduce_scatter(tensor, group=None, axis=0, op=ReduceOp.SUM, async_op=False,
                    log_name="reduce_scatter"):
     """The group's sum of ``tensor``; each rank keeps its chunk along
     ``axis`` (``tensor.shape[axis]`` divisible by the group size)."""
     group = _resolve_group(group)
     n = group.size()
+    async_op = bool(async_op and _eager_async)
     if n == 1:
-        return tensor
+        return _done(tensor, async_op)
     if op not in (ReduceOp.SUM, ReduceOp.AVG):
         raise ValueError(f"reduce_scatter supports sum and avg, not {op}")
     x = tensor.movedim(axis, 0).contiguous()
@@ -249,32 +398,44 @@ def reduce_scatter(tensor, group=None, axis=0, op=ReduceOp.SUM,
         raise ValueError(f"dim {axis} ({x.shape[0]}) not divisible by {n}")
     out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
-    _run(log_name, group,
-         lambda o, i: dist.reduce_scatter_tensor(o, i, group=group.pg), out, x)
-    return _finish(out, op, n).movedim(0, axis)
+    return _run(log_name, group,
+                lambda o, i, async_op=False: dist.reduce_scatter_tensor(
+                    o, i, group=group.pg, async_op=async_op),
+                out, x, async_op=async_op,
+                then=lambda: _finish(out, op, n).movedim(0, axis))
 
 
+@timed_op
 def all_to_all(tensor, group=None, split_axis=0, concat_axis=0, tiled=True,
                log_name="all_to_all"):
-    """Split ``tensor`` along ``split_axis`` into one chunk per rank, send
-    chunk j to rank j, and concatenate what arrives along ``concat_axis``
-    in rank order (the reference's ``all_to_all_single``)."""
-    if not tiled:
-        raise NotImplementedError(f"all_to_all with tiled=False is not ported yet {_PART2}")
+    """Split ``tensor`` along ``split_axis`` into one chunk per rank and send
+    chunk j to rank j (the reference's ``all_to_all_single``).  ``tiled``:
+    what arrives is concatenated along ``concat_axis`` in rank order.  Not
+    tiled (``jax.lax.all_to_all``'s ``tiled=False``): ``split_axis`` has
+    the group's size and is removed, and what arrives is stacked along a
+    new axis at ``concat_axis`` of the result, in rank order."""
     group = _resolve_group(group)
     n = group.size()
+    if not tiled and tensor.shape[split_axis] != n:
+        raise ValueError(f"tiled=False: dim {split_axis} ({tensor.shape[split_axis]}) "
+                         f"must equal the group size {n}")
     if n == 1:
-        return tensor
+        return tensor if tiled else tensor.movedim(split_axis, concat_axis)
     x = _wire(tensor.movedim(split_axis, 0).contiguous())
     if x.shape[0] % n:
         raise ValueError(f"dim {split_axis} ({x.shape[0]}) not divisible by {n}")
     out = torch.empty_like(x)
     _run(log_name, group,
-         lambda o, i: dist.all_to_all_single(o, i, group=group.pg), out, x)
-    chunks = out.view(tensor.dtype).chunk(n, 0)
+         lambda o, i, async_op=False: dist.all_to_all_single(o, i, group=group.pg),
+         out, x)
+    out = out.view(tensor.dtype)
+    if not tiled:
+        return out.movedim(0, concat_axis)
+    chunks = out.chunk(n, 0)
     return torch.cat([c.movedim(0, split_axis) for c in chunks], dim=concat_axis)
 
 
+@timed_op
 def broadcast(tensor, src=0, group=None, log_name="broadcast"):
     """Rank ``src``'s ``tensor`` on every rank, written into it and returned."""
     group = _resolve_group(group)
@@ -282,7 +443,7 @@ def broadcast(tensor, src=0, group=None, log_name="broadcast"):
         return tensor
     buf = _wire(tensor if tensor.is_contiguous() else tensor.contiguous())
 
-    def bcast(out, x):
+    def bcast(out, x, async_op=False):
         if out is not x:
             out.copy_(x)
         dist.broadcast(out, src=src, group=group.pg)
@@ -308,48 +469,89 @@ def _gradient_wire_dtype(wire_dtype):
     return "fp8_e5m2" if str(wire_dtype).lower() == "fp8" else wire_dtype
 
 
-def _flat_only(intra_group, inter_group):
-    if intra_group is not None or inter_group is not None:
-        raise NotImplementedError(
-            f"the two-level (hierarchical) qgZ schedule is not ported yet {_PART2}")
+def _hier_groups(intra_group, inter_group):
+    """The ``(intra, inter)`` hops of a quantized collective (JAX
+    ``_hier_axes``): the explicit groups; given only an intra hop, the
+    inter hop is the rest of the group (the intra group's complement from
+    :func:`new_two_level_groups`).  ``(None, None)``: the flat schedule
+    over the group."""
+    if intra_group is None and inter_group is None:
+        return None, None
+    if intra_group is None:
+        raise ValueError("a two-level quantized collective needs its intra_group")
+    intra = _resolve_group(intra_group)
+    inter = inter_group if inter_group is not None else intra.complement
+    if inter is None:
+        # the intra hop spans the whole group: flat over it
+        return intra, None
+    return intra, _resolve_group(inter)
 
 
+def _run_quantized(collective, x, n_elems, intra, inter, group_size, impl, wire_dtype):
+    """Run a quantized ``all_reduce`` or ``reduce_scatter`` of ``x``: two-level
+    over ``intra`` then ``inter`` where ``inter`` is given, else flat over
+    ``intra``; its analytic wire bytes over ``n_elems`` elements go to the
+    step the engine records (``comms_logger.record``; no-op outside one).
+    The facade and ZeRO++'s ``qgz_*`` wrappers each pick the hops, as in
+    the JAX package, and run them here."""
+    from . import compressed
+    from ..telemetry import wire
+
+    n1, n2 = intra.size(), (inter.size() if inter is not None else 1)
+    if comms_logger._capturing and n1 * n2 > 1:
+        variant = wire.quantized_variant(n1, n2, wire_dtype)
+        comms_logger.record(collective,
+                            wire.wire_bytes(collective, variant, n_elems, n1, n2, group_size),
+                            n1 * n2, variant=variant)
+    if inter is not None:
+        fn = getattr(compressed, f"hierarchical_quantized_{collective}")
+        return fn(x, intra, inter, group_size, impl=impl, wire_dtype=wire_dtype)
+    fn = getattr(compressed, f"quantized_{collective}")
+    return fn(x, intra, group_size, impl=impl, wire_dtype=wire_dtype)
+
+
+@timed_op
 def all_reduce_quantized(tensor, op=ReduceOp.SUM, group=None, intra_group=None,
                          inter_group=None, group_size=128, impl="auto",
                          wire_dtype="int8", log_name="all_reduce_quantized"):
-    """All-reduce with a block-scaled wire format (the flat qgZ schedule):
-    ``tensor`` flattened, zero-padded to a multiple of ``group size x
-    group_size`` and seen as rows of ``group_size``; quantize, all-to-all,
-    B5 dequant-reduce, requantize, all-gather, dequantize.  Returns a new
-    tensor of ``tensor``'s shape and dtype."""
-    from .compressed import quantized_all_reduce
-
-    _flat_only(intra_group, inter_group)
+    """All-reduce with a block-scaled wire format (qgZ): ``tensor``
+    flattened, zero-padded to a multiple of ``group size x group_size`` and
+    seen as rows of ``group_size``.  Flat over ``group``: quantize,
+    all-to-all, B5 dequant-reduce, requantize, all-gather, dequantize.
+    Two-level over ``intra_group`` and ``inter_group`` (the intra hop
+    first): ``comm/compressed.py`` ``hierarchical_quantized_all_reduce``.
+    Returns a new tensor of ``tensor``'s shape and dtype."""
     wire_dtype = _gradient_wire_dtype(wire_dtype)
-    group = _resolve_group(group or get_data_parallel_group())
+    intra, inter = _hier_groups(intra_group, inter_group)
+    group = _resolve_group(group or (intra if inter is None and intra is not None
+                                     else get_data_parallel_group()))
     n = group.size()
     if n == 1:
         return tensor
     flat = tensor.reshape(-1)
     pad = (-flat.numel()) % (n * group_size)
     rows = torch.nn.functional.pad(flat, (0, pad)).reshape(-1, group_size)
-    y = quantized_all_reduce(rows, group, group_size, impl=impl, wire_dtype=wire_dtype)
+    y = _run_quantized("all_reduce", rows, flat.numel() + pad, intra or group, inter,
+                       group_size, impl, wire_dtype)
     y = y.reshape(-1)[:flat.numel()].reshape(tensor.shape).to(tensor.dtype)
     return y / n if op == ReduceOp.AVG else y
 
 
+@timed_op
 def reduce_scatter_quantized(tensor, group=None, intra_group=None, inter_group=None,
                              group_size=128, impl="auto", wire_dtype="int8",
                              log_name="reduce_scatter_quantized"):
     """Reduce-scatter along dim 0 with a block-scaled wire format: each rank
     receives its fp32 chunk of the group sum (``tensor.shape[0]`` divisible
-    by the group size)."""
-    from .compressed import quantized_reduce_scatter
-
-    _flat_only(intra_group, inter_group)
+    by the group size).  Two-level over ``intra_group`` and
+    ``inter_group``: participant ``(i_intra, i_inter)`` receives chunk
+    ``i_intra * n_inter + i_inter`` (the matching quantized all-gathers of
+    :func:`all_reduce_quantized` invert it)."""
     wire_dtype = _gradient_wire_dtype(wire_dtype)
-    group = _resolve_group(group or get_data_parallel_group())
+    intra, inter = _hier_groups(intra_group, inter_group)
+    group = _resolve_group(group or (intra if inter is None and intra is not None
+                                     else get_data_parallel_group()))
     if group.size() == 1:
         return tensor
-    return quantized_reduce_scatter(tensor, group, group_size, impl=impl,
-                                    wire_dtype=wire_dtype)
+    return _run_quantized("reduce_scatter", tensor, tensor.numel(), intra or group, inter,
+                          group_size, impl, wire_dtype)

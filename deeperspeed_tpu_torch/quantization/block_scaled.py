@@ -32,6 +32,11 @@ WIRE_DTYPES = {
 #: uses +-127, fp8 the format's finfo max -- 448 for e4m3fn, 57344 for e5m2)
 _QMAX = {"int8": 127.0, "fp8_e4m3": 448.0, "fp8_e5m2": 57344.0}
 
+# 1 / qmax and the scale's epsilon as the fp32 constants the JAX
+# package's compiled quantize multiplies and adds (see ``quantize``)
+_RECIP = {k: float(np.float32(1.0 / v)) for k, v in _QMAX.items()}
+_EPS = float(np.float32(1e-12))
+
 _ALIASES = {
     "int8": "int8",
     "uint8": "int8",
@@ -151,14 +156,23 @@ class BlockScaledTensor:
         every ``q * scale`` dequant product then fits fp32 exactly (<=8
         mantissa bits from q, <=8 from the scale), whatever the order or
         fusion of the sums that follow.
+
+        The scale is rounded as the JAX package's compiled ``quantize``
+        rounds ``amax / qmax + 1e-12``: XLA turns the division by the
+        constant into a product with its fp32 reciprocal and contracts the
+        product and the sum into one fused multiply-add, rounded once to
+        fp32 and then to bf16.  Here that one rounding is taken from the
+        exact fp64 product.  Requantizing a sum of dequantized values (the
+        second hop of the two-level schedule) lands near a bf16 rounding
+        edge often enough that a true division would give other scales.
         """
         name = canonical_dtype(dtype)
         d = x.shape[-1]
         g = group_shape(d, group_size)
         grouped = x.to(torch.float32).reshape(*x.shape[:-1], d // g, g)
         amax = grouped.abs().amax(dim=-1, keepdim=True)
-        scale = (amax / _QMAX[name] + 1e-12).to(torch.bfloat16).to(
-            torch.float32)
+        scale = (amax.to(torch.float64) * _RECIP[name] + _EPS).to(torch.float32).to(
+            torch.bfloat16).to(torch.float32)
         q = _narrow(grouped / scale, name)
         return cls(q.reshape(x.shape), scale, group_size)
 

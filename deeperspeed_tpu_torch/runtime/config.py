@@ -5,9 +5,11 @@ The subset the training slices read: the batch triangle
 the data-parallel world), ``optimizer``, ``scheduler``, ``fp16`` /
 ``bf16``, ``gradient_clipping``, ``seed``, ``steps_per_print``,
 ``zero_optimization`` (stages 0-3, ``param_persistence_threshold``,
-``zero_quantized_gradients``, and the bucket, overlap and checkpoint knobs
-the JAX package accepts and ignores), ``communication_data_type``,
-``comm.quantized`` (qgZ), ``mesh.data_parallel_size``,
+``zero_quantized_gradients``, ``zero_quantized_weights`` (qwZ, stage 3),
+and the bucket, overlap and checkpoint knobs the JAX package accepts and
+ignores), ``communication_data_type``, ``comm.quantized`` (qgZ),
+``comm.overlap`` (the deferred and bucketed gradient reduction),
+``comms_logger``, ``mesh.data_parallel_size``,
 ``activation_checkpointing``, ``data_types.grad_accum_dtype``,
 ``progressive_layer_drop``, ``curriculum_learning``, ``data_efficiency``
 and ``checkpoint``.  Any other key raises ``NotImplementedError`` naming
@@ -16,11 +18,13 @@ from the JAX package is refused, not ignored.
 """
 
 import json
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Literal, Optional, Union
 
 import torch
 from pydantic import Field
 
+from ..parallel import topology as topo
+from ..utils.logging import logger
 from .config_utils import DeeperSpeedConfigModel
 from .precision import ACCUM_DTYPES
 from .constants import (
@@ -46,7 +50,7 @@ SUPPORTED_KEYS = {
     "bfloat16", GRADIENT_CLIPPING, SEED, STEPS_PER_PRINT, ZERO_OPTIMIZATION,
     "activation_checkpointing", "data_types", "progressive_layer_drop",
     "curriculum_learning", "data_efficiency", "comm", "mesh",
-    "communication_data_type", "checkpoint",
+    "communication_data_type", "checkpoint", "comms_logger",
 }
 
 # where the keys that the slice refuses will be ported
@@ -58,10 +62,12 @@ _ROADMAP = {
 
 
 PART2 = "Multi-process training, part 2"
+OFFLOAD = "Offload"
 
-# zero_optimization knobs that tune eager bucketing and overlap; the JAX
-# package accepts and ignores them (XLA schedules its collectives), and so
-# does the port (each reduction is one collective over a flat buffer)
+# upstream's zero_optimization knobs for its eager bucketing and overlap;
+# the JAX package accepts and ignores them (XLA schedules its collectives),
+# and so does the port, whose gradient reduction is bucketed and deferred by
+# comm.overlap (bucket_mb, deferred_reduction) instead
 IGNORED_ZERO_KEYS = {
     "contiguous_gradients", "reduce_scatter", "reduce_bucket_size",
     "allgather_partitions", "allgather_bucket_size", "overlap_comm",
@@ -69,8 +75,7 @@ IGNORED_ZERO_KEYS = {
     "max_reuse_distance", "round_robin_gradients", "ignore_unused_parameters",
 }
 # knobs whose default turns the feature off, accepted at that value
-_NO_OP_ZERO_KEYS = {"zero_hpz_partition_size": (1, -1, 0), "mics_shard_size": (1, -1, 0),
-                    "zero_quantized_weights": (False,)}
+_NO_OP_ZERO_KEYS = {"zero_hpz_partition_size": (1, -1, 0), "mics_shard_size": (1, -1, 0)}
 # checkpoint knobs the JAX package accepts as fields and does not act on:
 # its checkpoints always hold whole fp32 masters
 _CHECKPOINT_ZERO_KEYS = {"load_from_fp32_weights": True, "elastic_checkpoint": False,
@@ -90,6 +95,8 @@ class OptimizerParams(DeeperSpeedConfigModel):
     eps: float = 1e-8
     weight_decay: float = 0.0
     momentum: float = 0.0  # sgd/musgd
+    # 1-bit Adam: exact-Adam warm-up steps before the compressed reduction
+    freeze_step: int = 100
 
 
 class OptimizerConfig(DeeperSpeedConfigModel):
@@ -185,7 +192,9 @@ class CheckpointConfig(DeeperSpeedConfigModel):
 
 
 class CommQuantizedConfig(DeeperSpeedConfigModel):
-    """``comm.quantized``: the qgZ gradient reduction (flat schedule).
+    """``comm.quantized``: the qgZ gradient reduction, on the flat schedule
+    over the data-parallel group (``intra_axis`` null or ``dp``; the
+    two-hop engine path needs the mesh's ``zshard`` axis).
     ``wire_dtype`` is ``int8`` or ``fp8`` (e5m2 on the gradient wire);
     ``impl`` names the JAX package's B5 backend (``auto`` / ``pallas`` /
     ``xla``, bit-equal there): the port takes B5 on the card and its plain
@@ -195,6 +204,53 @@ class CommQuantizedConfig(DeeperSpeedConfigModel):
     group_size: int = 128
     impl: str = "auto"
     wire_dtype: str = "int8"
+
+
+class CommScheduleConfig(DeeperSpeedConfigModel):
+    """``comm.overlap.schedule`` (the JAX package's fields and defaults).
+    ``mode``: ``manual`` places the deferred reduction where it is
+    eligible, ``off`` reduces every microbatch at every stage; ``auto`` (the
+    cost-model pass of ``comm/schedule.py``) is refused, as are memory
+    planning (``memory: auto``) and a budget (``hbm_budget_bytes``): they
+    wait for ROADMAP Queue A, 'Offload'."""
+
+    mode: Literal["auto", "manual", "off"] = "manual"
+    memory: Literal["auto", "static", "off"] = "static"
+    hbm_budget_bytes: Optional[int] = Field(None, ge=0)
+
+
+class CommOverlapConfig(DeeperSpeedConfigModel):
+    """``comm.overlap`` (the JAX package's fields and defaults):
+
+    * ``deferred_reduction``: stages 2-3 (and 0-1, which already reduce
+      once a batch) accumulate local gradients across the microbatches and
+      reduce once a batch; ``bucket_mb`` splits that reduction into
+      collectives of at most that many MiB, issued in order (0: one);
+    * ``xla_latency_hiding``: TPU compiler flags; one warning on the card;
+    * ``prefetch_depth``: accepted; the prefetching loader waits for
+      ROADMAP Queue A, 'Multi-process training, part 2' (said in one log
+      line);
+    * ``eager_async``: ``async_op=True`` on the facade's collectives
+      returns a handle."""
+
+    enabled: bool = False
+    deferred_reduction: bool = True
+    bucket_mb: float = 0.0
+    xla_latency_hiding: bool = False
+    prefetch_depth: int = 1
+    eager_async: bool = False
+    schedule: CommScheduleConfig = Field(default_factory=CommScheduleConfig)
+
+
+class CommsConfig(DeeperSpeedConfigModel):
+    """``comms_logger``: time and log every eager collective
+    (``comm.log_summary`` prints the table)."""
+
+    enabled: bool = False
+    verbose: bool = False
+    prof_all: bool = True
+    debug: bool = False
+    prof_ops: List[str] = []
 
 
 class MeshConfig(DeeperSpeedConfigModel):
@@ -270,6 +326,9 @@ class DeeperSpeedConfig:
 
         self._zero(dict(pd.get(ZERO_OPTIMIZATION, {})))
         self._comm(dict(pd.get("comm", {})))
+        comms = dict(pd.get("comms_logger", {}))
+        _known(comms, CommsConfig, "comms_logger")
+        self.comms_config = CommsConfig(**comms)
         self.communication_data_type = pd.get("communication_data_type")
         if self.communication_data_type not in COMM_DTYPES:
             raise ValueError(f"communication_data_type {self.communication_data_type!r}: "
@@ -314,6 +373,12 @@ class DeeperSpeedConfig:
         self.param_persistence_threshold = zero.pop("param_persistence_threshold",
                                                     100_000)
         self.zero_quantized_gradients = bool(zero.pop("zero_quantized_gradients", False))
+        self.zero_quantized_weights = bool(zero.pop("zero_quantized_weights", False))
+        if self.zero_quantized_weights and self.zero_stage < 3:
+            # the JAX engine quantizes only stage 3's gathers
+            logger.warning("zero_quantized_weights: qwZ quantizes stage 3's parameter "
+                           "gathers; stage %d gathers none, ignoring", self.zero_stage)
+            self.zero_quantized_weights = False
         for key, default in _CHECKPOINT_ZERO_KEYS.items():
             setattr(self, key, bool(zero.pop(key, default)))
         for key in IGNORED_ZERO_KEYS:
@@ -328,11 +393,20 @@ class DeeperSpeedConfig:
             raise _not_ported(f"zero_optimization keys {keys}", item)
 
     def _comm(self, comm):
-        """``comm``: the flat qgZ block; overlap and scheduling are part 2."""
+        """``comm``: ``quantized`` (qgZ) and ``overlap`` (with its
+        ``schedule``).  Refused: the ``Offload`` planners, and an
+        ``intra_axis`` the JAX engine would run as the two-hop schedule
+        (every axis but ``dp`` has size 1 until the mesh's ``zshard`` axis
+        is ported)."""
         quantized = dict(comm.pop("quantized", {}))
-        if quantized.pop("intra_axis", None) is not None:
-            raise _not_ported("comm.quantized.intra_axis (the two-level qgZ schedule)",
-                              PART2)
+        overlap = dict(comm.pop("overlap", {}))
+        intra = quantized.pop("intra_axis", None)
+        if intra is not None and intra not in topo.ALL_AXES:
+            raise ValueError(f"comm.quantized.intra_axis {intra!r}: expected one of "
+                             f"{list(topo.ALL_AXES)}")
+        if intra not in (None, topo.DP_AXIS):
+            raise _not_ported(f"comm.quantized.intra_axis {intra!r} (the two-hop qgZ "
+                              f"engine path over the mesh's zshard axis)", PART2)
         if quantized.pop("moe_alltoall", False):
             raise _not_ported("comm.quantized.moe_alltoall",
                               "Llama/Mistral, v1 inference and MoE")
@@ -347,6 +421,21 @@ class DeeperSpeedConfig:
         if cq.wire_dtype not in ("int8", "fp8", "fp8_e5m2"):
             raise ValueError(f"comm.quantized.wire_dtype {cq.wire_dtype!r}: expected "
                              f"int8 or fp8")
+        _known(overlap, CommOverlapConfig, "comm.overlap")
+        _known(dict(overlap.get("schedule", {})), CommScheduleConfig,
+               "comm.overlap.schedule")
+        self.comm_overlap = ov = CommOverlapConfig(**overlap)
+        if ov.schedule.mode == "auto":
+            raise _not_ported("comm.overlap.schedule.mode 'auto' (the cost-model "
+                              "schedule of comm/schedule.py)", OFFLOAD)
+        if ov.schedule.memory == "auto":
+            raise _not_ported("comm.overlap.schedule.memory 'auto' (the memory "
+                              "planner of comm/memplan.py)", OFFLOAD)
+        if ov.schedule.hbm_budget_bytes is not None:
+            raise _not_ported("comm.overlap.schedule.hbm_budget_bytes (the memory "
+                              "planner's budget)", OFFLOAD)
+        if ov.bucket_mb < 0:
+            raise ValueError(f"comm.overlap.bucket_mb {ov.bucket_mb}: expected >= 0")
 
     # -- batch triangle (reference ``config.py:914-957`` semantics):
     # train_batch_size = micro batch x gradient_accumulation_steps x world

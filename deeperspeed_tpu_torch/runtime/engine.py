@@ -34,8 +34,25 @@ parameters, views that keep each parameter's number of dimensions), and
 all-gather the compute copy after the update; stage 1 reduce-scatters the
 accumulated gradients once a step, stages 2-3 each microbatch's; stage 3
 also partitions the compute parameters and gathers them at their module's
-call (``zero/stage3.py``).  The global norm and the fp16 overflow flag are
-taken across ranks, and the reported loss is the mean of the ranks'.
+call (``zero/stage3.py``; through int8 under qwZ,
+``zero_quantized_weights``).  The global norm and the fp16 overflow flag
+are taken across ranks, and the reported loss is the mean of the ranks'.
+
+``comm.overlap`` (the JAX engine's ``engine.py:474-600``) picks the
+reduction's schedule: ``deferred_reduction`` (the default once enabled)
+accumulates local gradients across the microbatches at every stage and
+reduces once a batch, each sum divided by gas x world before its
+collective (JAX ``_grads_for_batch_deferred``); ``bucket_mb`` splits that
+reduction into collectives of whole leaves at stage 0, and at stages 1-3
+into ranges of columns of every rank's partition cut at parameter edges,
+of at most ``bucket_mb`` MiB unless one leaf is larger, issued in order
+after the last backward and finished before the norm; ``schedule.mode:
+off`` (or ``deferred_reduction: false``) reduces every microbatch at every
+stage.  Stages 0-1 without ``comm.overlap`` take the same once-a-batch
+path, one collective a region.  qwZ keeps the per-microbatch schedule, as in the JAX engine.  Each
+step's reduction is recorded in the comms logger's step record
+(:attr:`comm_footprint`: the schedule, the collectives and their analytic
+wire bytes, ``telemetry/wire.py``).
 Where microbatches carry ``loss_mask``, each rank's masked mean is first
 weighted by its share of the microbatch's mask over all ranks
 (:meth:`_mask_weights`), so that the mean over ranks, of the losses and of
@@ -44,7 +61,12 @@ dp-sharded rows (train, eval and the legacy API alike).  qgZ
 (``comm.quantized`` or ``zero_quantized_gradients`` at stage 0) reduces
 each parameter's mean gradient of at least ``group_size x world`` elements
 through ``comm.all_reduce_quantized`` (B5 on the card), the smaller ones
-exactly, as the JAX engine does.
+exactly, as the JAX engine does; under ``comm.overlap`` the large ones go
+through one quantized collective a ``bucket_mb`` bucket.  1-bit Adam
+(``onebitadam``, stage 0): exact Adam on the mean gradient, which is the
+exact mean for the first ``freeze_step`` optimizer steps and then
+``comm/compressed.py`` ``onebit_all_reduce`` per parameter, with this
+rank's error feedback (volatile: not in checkpoints, zero after a load).
 
 Two ways to drive it share that code: ``train_batch`` (a whole step over
 gas microbatches, from ``batch=``, ``data_iter=`` or, without arguments,
@@ -72,12 +94,17 @@ any other, each rank copying its own pieces in place
 (:meth:`gather_whole`, :meth:`load_whole`).  ``checkpoint.load_universal``
 loads a universal export (``checkpoint/universal.py``) instead.
 
-Not ported yet (raising ``NotImplementedError``): the prefetching loader,
-eigenvalue, compression, the step telemetry and the host-update
-(optimizer offload) checkpoint branch; over several processes, progressive
-layer drop (its draws must agree across ranks), LAMB at stage 1-3 (its
-trust ratio needs whole parameters) and the chunked loss at stage 3 (it
-reads the head's weight outside the head).
+Not ported yet (raising ``NotImplementedError``, each naming its ROADMAP
+Queue A item, except the prefetching loader: ``comm.overlap.prefetch_depth``
+is accepted and said in one log line): progressive layer drop over several
+processes (its draws must agree across ranks), LAMB at stages 1-3 over
+several processes (its trust ratio needs whole parameters), the chunked
+loss at stage 3 (it reads the head's weight outside the head) and the
+mesh's ``zshard`` axis that the two-hop qgZ engine path runs on
+('Multi-process training, part 2'); the ``auto`` schedule and memory
+planner and the host-update (optimizer offload) checkpoint branch
+('Offload'); eigenvalue, compression and the step telemetry ('The rest of
+the surface').
 """
 
 import math
@@ -90,6 +117,7 @@ from .. import comm
 from ..accelerator import resolve_device
 from ..utils.logging import log_dist, logger
 from ..utils.tree import tree_global_norm
+from ..comm.overlap import apply_xla_latency_hiding, bucketize
 from .config import COMM_DTYPES, PART2, DeeperSpeedConfig, _not_ported
 from .lr_schedules import get_lr_schedule_fn
 from .optimizers import build_optimizer, identity
@@ -133,6 +161,7 @@ class DeeperSpeedEngine:
 
         self.precision = MixedPrecisionPolicy(config)
         self._init_qgz()
+        self._init_schedule()
         # the type the data-parallel reduction runs in (the JAX engine's
         # ``reduce_dtype or accum_dtype``)
         self._comm_dtype = (COMM_DTYPES[config.communication_data_type]
@@ -191,6 +220,7 @@ class DeeperSpeedEngine:
         self._acc_count = 0          # microbatches in the accumulation buffer
         self._reduced = False        # allreduce_gradients() ran for this step
         self._cached_loss = None
+        self.comm_footprint = []     # the last step's gradient-reduction record
 
         # the data-efficiency schedulers precede the loader: deepspeed_io's
         # curriculum-sampling branch reads them
@@ -224,10 +254,22 @@ class DeeperSpeedEngine:
                 model.replace_config(remat=False)
 
     def _init_qgz(self):
-        """qgZ (the JAX engine's ``engine.py:322-362``): the quantized
-        data-parallel reduction, at stage 0 only."""
+        """qgZ and 1-bit Adam (the JAX engine's ``engine.py:287-362``): the
+        compressed data-parallel reductions, at stage 0 only."""
         cfg = self.config
         cq = cfg.comm_quantized
+        self._onebit = (cfg.optimizer is not None
+                        and cfg.optimizer.type.lower() == "onebitadam")
+        if self._onebit:
+            if cfg.zero_stage > 0:
+                raise ValueError("onebitadam requires zero stage 0 (1-bit Adam does "
+                                 "not compose with ZeRO partitioning)")
+            if self.precision.is_fp16:
+                raise ValueError("onebitadam supports fp32/bf16 only")
+            if self.world == 1:
+                logger.warning("onebitadam: one process, nothing to compress; "
+                               "running plain Adam")
+                self._onebit = False
         self._qgz = bool(cq.enabled)
         if cfg.zero_quantized_gradients and not self._qgz:
             if cfg.zero_stage == 0:
@@ -237,6 +279,9 @@ class DeeperSpeedEngine:
                                "stage 0 (stage %d keeps the plain reduction); ignoring",
                                cfg.zero_stage)
         if self._qgz:
+            if self._onebit:
+                raise ValueError("comm.quantized and onebitadam are mutually exclusive "
+                                 "gradient compressions")
             if cq.enabled and cfg.zero_stage > 0:
                 raise ValueError("comm.quantized requires zero stage 0: the qgZ "
                                  "reduction needs replicated masters")
@@ -246,9 +291,52 @@ class DeeperSpeedEngine:
                 logger.warning("comm.quantized: one process, nothing to quantize; "
                                "running plain reduction")
                 self._qgz = False
-        # the qgZ loop sums microbatch gradients in fp32, whatever
-        # grad_accum_dtype says (JAX ``_grads_for_batch_qgz``)
-        self._accum_dtype = torch.float32 if self._qgz else self.precision.accum_dtype
+        de = cfg.data_efficiency
+        if ((self._onebit or self._qgz) and de.enabled
+                and dict(de.data_routing.get("random_ltd", {})).get("enabled")):
+            raise NotImplementedError(
+                f"{'onebitadam' if self._onebit else 'comm.quantized'} + random-LTD is "
+                f"not supported (the compressed reduction takes per-rank means)")
+        # the compressed loops sum microbatch gradients in fp32, whatever
+        # grad_accum_dtype says (JAX ``_grads_for_batch_qgz`` / ``_onebit``)
+        self._accum_dtype = (torch.float32 if self._qgz or self._onebit
+                             else self.precision.accum_dtype)
+
+    def _init_schedule(self):
+        """``comm.overlap`` and ``comms_logger`` (the JAX engine's
+        ``engine.py:474-600``): which microbatches the reduction waits for,
+        its buckets, qwZ."""
+        cfg = self.config
+        ov = cfg.comm_overlap
+        comm.configure(cfg)
+        self._qwz = cfg.zero_stage == 3 and cfg.zero_quantized_weights
+        mode = ov.schedule.mode if ov.enabled else "off"
+        deferrable = (ov.enabled and ov.deferred_reduction
+                      and not self._onebit and not self._qgz)
+        if mode == "manual" and deferrable and self._qwz:
+            logger.warning("comm.overlap.deferred_reduction disabled: "
+                           "zero_quantized_weights (the quantized gather keeps the "
+                           "per-microbatch reduction, as in the JAX engine)")
+        defer = mode == "manual" and deferrable and not self._qwz and self.world > 1
+        # stages 2-3 reduce each microbatch's gradients unless deferred;
+        # under comm.overlap without the deferred schedule, so do stages 0-1
+        self._per_micro = (not (self._qgz or self._onebit or defer)
+                           and (cfg.zero_stage >= 2 or (ov.enabled and self.world > 1)))
+        # every other plain reduction is the once-a-batch one, in buckets
+        self._deferred = not (self._qgz or self._onebit or self._per_micro)
+        # the accumulation buffer holds whole local gradients (every
+        # region's padded length) unless stages 1-3 reduce-scatter them as
+        # they are made
+        self._acc_whole = cfg.zero_stage == 0 or not self._per_micro
+        self._bucket_mb = ov.bucket_mb if ov.enabled else 0.0
+        if ov.enabled and ov.xla_latency_hiding:
+            apply_xla_latency_hiding()
+        if ov.enabled and ov.prefetch_depth > 0:
+            log_dist(f"comm.overlap.prefetch_depth {ov.prefetch_depth}: the prefetching "
+                     f"loader is not ported yet (ROADMAP Queue A, '{PART2}'); each "
+                     f"step's batches go to the device when the step takes them. The "
+                     f"values cannot change: prefetching moves only when a batch is "
+                     f"placed", ranks=[0])
 
     # ------------------------------------------------------------------ state
     def _build_state(self):
@@ -271,17 +359,21 @@ class DeeperSpeedEngine:
             {n: unit_of(n, self.module) for n in named} if stage == 3 else None)
         self._order = plan.order
         dev, f32, accum = self.device, torch.float32, self._accum_dtype
-        local = plan.local_numel
+        local, whole = plan.local_numel, self._acc_whole
         self._master_flat = torch.empty(local, dtype=f32, device=dev)
         self._grad_flat = torch.zeros(local, dtype=f32, device=dev)
-        acc_numel = sum(r.padded for r in plan.regions) if stage == 1 else local
+        acc_numel = sum(r.padded for r in plan.regions) if whole else local
         self._acc_flat = (self._grad_flat if accum == f32 and acc_numel == local else
                           torch.zeros(acc_numel, dtype=accum, device=dev))
+        # 1-bit Adam's error feedback, laid out like the accumulation buffer
+        self._onebit_error = (torch.zeros(acc_numel, dtype=f32, device=dev)
+                              if self._onebit else None)
         self.master_params, self.grads = {}, {}
         self._params, self._acc_views = [], []   # whole-gradient accumulation
-        self._scatter = []      # stages 2-3: (region, its parameters, acc partition)
+        self._error_views = []
+        self._scatter = []      # per microbatch: (region, its parameters, acc region)
         self._compute = []      # (region, master partition, compute buffer, gathered)
-        self._gathered_acc = []  # stage 3: accumulation partitions the gathers feed
+        self._gathered_acc = []  # stage 3: accumulation regions the gathers feed
         units = {}
         acc_off = 0
         with torch.no_grad():
@@ -301,29 +393,34 @@ class DeeperSpeedEngine:
                     span = slice(base + at, base + at + b - a)
                     self.master_params[n] = self._master_flat[span].view(keep)
                     self.grads[n] = self._grad_flat[span].view(keep)
-                acc = base if stage != 1 else acc_off
+                acc = acc_off if whole else base
                 acc_off += region.padded
-                if stage <= 1:
-                    for p, off in zip(params, region.offsets):
-                        self._params.append(p)
-                        self._acc_views.append(
-                            self._acc_flat[acc + off:acc + off + p.numel()].view(p.shape))
-                acc_part = self._acc_flat[base:base + region.part]
+                acc_region = self._acc_flat[acc:acc + (region.padded if whole else
+                                                       region.part)]
                 if region.gathered:
+                    # the gather's backward adds the whole local gradient
+                    # (deferred) or this rank's reduce-scattered part
                     shard = full[i0:i0 + region.part].to(region.dtype, copy=True)
                     shard.requires_grad_(True)
                     gathered = stage3.GatheredRegion(
                         region, shard, self.group, self._comm_dtype,
-                        lambda part, acc=acc_part: acc.add_(part.to(acc.dtype)))
+                        lambda g, acc=acc_region: acc.add_(g.to(acc.dtype)),
+                        deferred=whole, quantized=self._qwz)
                     units.setdefault(region.unit, []).append(gathered)
-                    self._gathered_acc.append(acc_part)
+                    self._gathered_acc.append(acc_region)
                     for p in params:
                         p.data = torch.empty(0, dtype=region.dtype, device=dev)
                     self._compute.append((region, master, None, gathered))
                     continue
-                if stage >= 2:
-                    self._params.extend(params)
-                    self._scatter.append((region, params, acc_part))
+                self._params.extend(params)
+                if self._per_micro:
+                    self._scatter.append((region, params, acc_region))
+                else:
+                    for p, off in zip(params, region.offsets):
+                        self._acc_views.append(acc_region[off:off + p.numel()].view(p.shape))
+                        if self._onebit:
+                            self._error_views.append(
+                                self._onebit_error[acc + off:acc + off + p.numel()])
                 if stage == 0 and region.dtype == f32:
                     buf = None          # the parameters are the master views
                     for p, off in zip(params, region.offsets):
@@ -336,6 +433,44 @@ class DeeperSpeedEngine:
         for unit, gathered in units.items():
             stage3.install(self.module.get_submodule(unit) if unit else self.module,
                            unit + "." if unit else "", gathered)
+        self._plan_buckets()
+
+    def _plan_buckets(self):
+        """The once-a-batch reduction's collectives, in issue order: at stage 0
+        ``("all_reduce", lo, hi)``, contiguous ranges of the flat buffer
+        along :func:`bucketize` of the leaves; at stages 1-3
+        ``("reduce_scatter", off, part, c0, c1, base)``, columns
+        ``[c0, c1)`` of every rank's partition of the region at ``off`` of
+        the whole buffer (``base`` in this rank's), cut where any rank's
+        piece of a parameter starts or ends and grouped by
+        :func:`bucketize`.  Without ``bucket_mb``: one collective over the
+        whole buffer (stage 0) or a region."""
+        self._buckets = []
+        if not self._deferred:
+            return
+        n = self.world
+        itemsize = torch.empty(0, dtype=self._comm_dtype).element_size()
+        if self.plan.stage == 0:
+            sizes = [v.numel() for v in self._acc_views]
+            starts = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+            for b in bucketize([s * itemsize for s in sizes], self._bucket_mb):
+                self._buckets.append(("all_reduce", starts[b[0]], starts[b[-1] + 1]))
+            return
+        off = 0
+        for region, base in zip(self.plan.regions, self.plan.bases()):
+            part = region.part
+            cuts = {0, part}
+            for start in list(region.offsets) + [region.numel]:
+                for r in range(n):
+                    if 0 < start - r * part < part:
+                        cuts.add(start - r * part)
+            cuts = sorted(cuts)
+            units = list(zip(cuts[:-1], cuts[1:]))
+            for b in bucketize([(hi - lo) * n * itemsize for lo, hi in units],
+                               self._bucket_mb):
+                self._buckets.append(("reduce_scatter", off, part, units[b[0]][0],
+                                      units[b[-1]][1], base))
+            off += region.padded
 
     @torch.no_grad()
     def _refresh_compute(self):
@@ -552,15 +687,18 @@ class DeeperSpeedEngine:
             p.grad = None
 
     def _scatter_micro(self):
-        """Stages 2-3: each region's microbatch gradients, in the
-        communication type, reduce-scattered into this rank's partition
-        (the sum over ranks) and added to its accumulation."""
+        """The per-microbatch schedule: each region's microbatch gradients,
+        in the communication type, reduce-scattered into this rank's
+        partition (all-reduced where the region is whole) and added to its
+        accumulation."""
         for region, params, acc_part in self._scatter:
             buf = torch.zeros(region.padded, dtype=self._comm_dtype, device=self.device)
             for p, off in zip(params, region.offsets):
                 if p.grad is not None:      # a block PLD or random-LTD skipped
                     buf[off:off + p.numel()].copy_(p.grad.reshape(-1))
-            part = comm.reduce_scatter(buf, self.group)
+            part = (comm.all_reduce(buf, group=self.group, log_name="grad_reduce")
+                    if region.parts == 1 else
+                    comm.reduce_scatter(buf, self.group, log_name="grad_reduce"))
             if self._acc_count == 0:
                 acc_part.copy_(part)
             else:
@@ -570,9 +708,11 @@ class DeeperSpeedEngine:
         """Per microbatch, this rank's weight ``world * count_r / max(count,
         1)``: ``count_r`` the sum of the rank's ``loss_mask``, ``count`` its
         sum over ranks, all microbatches' counts in one all-reduce.  None on
-        one process, under qgZ (the JAX qgZ path takes per-rank means, too)
+        one process, under qgZ and 1-bit Adam (the JAX engine's compressed
+        paths take per-rank means, too)
         and without a mask, where nothing changes."""
-        if self.world == 1 or self._qgz or not all("loss_mask" in mb for mb in micro):
+        if (self.world == 1 or self._qgz or self._onebit
+                or not all("loss_mask" in mb for mb in micro)):
             return None
         counts = torch.stack([mb["loss_mask"].to(torch.float32).sum() for mb in micro])
         total = comm.all_reduce(counts.clone(), group=self.group)
@@ -625,45 +765,134 @@ class DeeperSpeedEngine:
     def _reduce_gradients(self, divisor):
         """The mean gradient over ``divisor`` microbatches and the ranks,
         into the fp32 gradient buffer (this rank's partitions at stages
-        1-3)."""
-        acc, g, n = self._acc_flat, self._grad_flat, self.world
+        1-3); the step's record of it goes to :attr:`comm_footprint`."""
+        comm.comms_logger.begin_step()
+        try:
+            self._record_grad_reduce_wire(divisor)
+            self._reduce(divisor)
+        finally:
+            self.comm_footprint = comm.comms_logger.end_step()
+
+    def _reduce(self, divisor):
         if self._qgz:
             self._reduce_qgz(divisor)
-        elif self.plan.stage == 1:
-            off = 0
-            for region, base in zip(self.plan.regions, self.plan.bases()):
-                whole = acc[off:off + region.padded].to(self._comm_dtype)
-                off += region.padded
-                part = comm.reduce_scatter(whole, self.group).to(acc.dtype)
-                g[base:base + region.part].copy_(part.div_(divisor * n))
-        else:
-            if self.plan.stage == 0 and n > 1:
-                if acc.dtype == self._comm_dtype:
-                    comm.all_reduce(acc, group=self.group)
-                else:
-                    acc.copy_(comm.all_reduce(acc.to(self._comm_dtype), group=self.group))
-            acc.div_(divisor * n)
+        elif self._onebit:
+            self._reduce_onebit(divisor)
+        elif self._deferred:
+            self._reduce_deferred(divisor)
+        else:                       # reduced each microbatch: the mean is left
+            acc, g = self._acc_flat, self._grad_flat
+            acc.div_(divisor * self.world)
             if acc is not g:
                 g.copy_(acc)
+
+    def _reduce_deferred(self, divisor):
+        """The once-a-batch schedule (JAX ``_grads_for_batch_deferred``):
+        the local sums over the microbatches, divided by ``divisor x world``
+        in the accumulation type and cast to the communication type, reduced
+        bucket by bucket (:meth:`_plan_buckets`) into the fp32 gradient
+        buffer.  A stage-0 bucket is reduced in place where the two types
+        agree."""
+        acc, g, n = self._acc_flat, self._grad_flat, self.world
+        cd = self._comm_dtype if n > 1 else acc.dtype
+        d = divisor * n
+        for bucket in self._buckets:
+            if bucket[0] == "all_reduce":
+                _, lo, hi = bucket
+                x = acc[lo:hi].div_(d).to(cd)
+                if n > 1:
+                    comm.all_reduce(x, group=self.group, log_name="grad_reduce")
+                if not (acc is g and x.dtype == acc.dtype):
+                    g[lo:hi].copy_(x.to(acc.dtype))
+            else:
+                _, off, part, c0, c1, base = bucket
+                x = acc[off:off + n * part].view(n, part)[:, c0:c1].div_(d)
+                y = x.to(cd).reshape(-1)
+                if n > 1:
+                    y = comm.reduce_scatter(y, self.group, log_name="grad_reduce")
+                g[base + c0:base + c1].copy_(y.to(acc.dtype))
+
+    def _reduce_onebit(self, divisor):
+        """1-bit Adam (JAX ``_grads_for_batch_onebit``): each parameter's
+        mean over the microbatches; below ``freeze_step`` optimizer steps
+        its exact mean over the ranks, from then on ``onebit_all_reduce``
+        with this rank's error feedback."""
+        from ..comm.compressed import onebit_all_reduce
+
+        acc = self._acc_flat                 # fp32, the gradient buffer itself
+        acc.div_(divisor)
+        if self.step_count < self.config.optimizer.params.freeze_step:
+            comm.all_reduce(acc, comm.ReduceOp.AVG, self.group, log_name="grad_reduce")
+            return
+        for v, e in zip(self._acc_views, self._error_views):
+            mean, err = onebit_all_reduce(v, self.group, e)
+            v.copy_(mean)
+            e.copy_(err.reshape(-1))
+
+    def _record_grad_reduce_wire(self, divisor):
+        """The step's gradient reduction in the comms logger's step record
+        (JAX ``_record_grad_reduce_wire``): the analytic wire bytes of the
+        collectives this schedule issues (``telemetry/wire.py``), their
+        count and the schedule, ``per_microbatch`` or ``deferred``.  qgZ's
+        quantized collectives record themselves."""
+        from ..telemetry.wire import plain_wire_bytes
+
+        n = self.world
+        if n <= 1 or self._qgz:
+            return
+        if self._onebit:
+            if self.step_count < self.config.optimizer.params.freeze_step:
+                nbytes = plain_wire_bytes("all_reduce", 4 * self._acc_flat.numel(), n)
+                comm.comms_logger.record("grad_reduce_dp", nbytes, n, variant="float32",
+                                         schedule="deferred")
+            else:
+                nbytes = sum(plain_wire_bytes("all_gather", -(-v.numel() // 8) + 4, n)
+                             for v in self._acc_views)
+                comm.comms_logger.record("onebit_all_reduce", nbytes, n, variant="onebit",
+                                         count=2 * len(self._acc_views),
+                                         schedule="deferred")
+            return
+        dtype = self._comm_dtype
+        payload = sum(r.padded for r in self.plan.regions) * \
+            torch.empty(0, dtype=dtype).element_size()
+        op = "all_reduce" if self.plan.stage == 0 else "reduce_scatter"
+        issues = divisor if self._per_micro else 1
+        per_issue = len(self.plan.regions) if self._per_micro else len(self._buckets)
+        comm.comms_logger.record(
+            "grad_reduce_dp", plain_wire_bytes(op, payload, n) * issues, n,
+            variant=str(dtype).split(".")[-1], count=issues * per_issue,
+            schedule="per_microbatch" if self._per_micro else "deferred")
 
     def _reduce_qgz(self, divisor):
         """qgZ (JAX ``_grads_for_batch_qgz``): each parameter's mean over
         microbatches, then its mean over ranks, through the quantized
         all-reduce for parameters of at least ``group_size x world``
-        elements and one exact all-reduce for the smaller ones together."""
+        elements and one exact all-reduce for the smaller ones together;
+        under ``comm.overlap`` the large ones go through one quantized
+        all-reduce a :func:`bucketize` group."""
         cq = self.config.comm_quantized
         acc = self._acc_flat                 # fp32, the gradient buffer itself
         acc.div_(divisor)
         small = [v for v in self._acc_views if v.numel() < cq.group_size * self.world]
         large = [v for v in self._acc_views if v.numel() >= cq.group_size * self.world]
         if small:
-            for v, r in zip(small, fused_flat_reduce(
-                    small, lambda t: comm.all_reduce(t, comm.ReduceOp.AVG, self.group))):
+            for v, r in zip(small, fused_flat_reduce(small, lambda t: comm.all_reduce(
+                    t, comm.ReduceOp.AVG, self.group, log_name="grad_reduce"))):
                 v.copy_(r)
-        for v in large:
-            v.copy_(comm.all_reduce_quantized(
-                v, op=comm.ReduceOp.AVG, group=self.group, group_size=cq.group_size,
-                impl=cq.impl, wire_dtype=cq.wire_dtype))
+
+        def quantized(t):
+            return comm.all_reduce_quantized(
+                t, op=comm.ReduceOp.AVG, group=self.group, group_size=cq.group_size,
+                impl=cq.impl, wire_dtype=cq.wire_dtype)
+
+        if not self.config.comm_overlap.enabled:
+            for v in large:
+                v.copy_(quantized(v))
+            return
+        for b in bucketize([v.numel() * 4 for v in large], self._bucket_mb):
+            leaves = [large[i] for i in b]
+            for v, r in zip(leaves, fused_flat_reduce(leaves, quantized)):
+                v.copy_(r)
 
     def _partitioned(self):
         return self.plan.stage >= 1 and self.world > 1
@@ -826,13 +1055,22 @@ class DeeperSpeedEngine:
             meta = load_universal_into_engine(
                 self, load_dir,
                 load_optimizer_states=load_optimizer_states and not load_module_only)
+            self._reset_volatile()
             return load_dir, meta.get("client_state", {})
         from .checkpointing import load_checkpoint
 
-        return load_checkpoint(self, load_dir, tag=tag,
-                               load_optimizer_states=load_optimizer_states,
-                               load_module_only=load_module_only,
-                               load_module_strict=load_module_strict)
+        out = load_checkpoint(self, load_dir, tag=tag,
+                              load_optimizer_states=load_optimizer_states,
+                              load_module_only=load_module_only,
+                              load_module_strict=load_module_strict)
+        self._reset_volatile()
+        return out
+
+    def _reset_volatile(self):
+        """What a checkpoint does not hold starts again from zero after a
+        load: 1-bit Adam's error feedback (as in the JAX engine)."""
+        if self._onebit_error is not None:
+            self._onebit_error.zero_()
 
     # ------------------------------------------------------------ properties
     def train_batch_size(self):

@@ -279,11 +279,11 @@ def build_optimizer(name, params_cfg, mup_multipliers=None):
     """name + ``OptimizerParams`` -> transformation (lr excluded: the
     engine applies it from the schedule)."""
     name = name.lower()
-    if name == ONEBIT_ADAM_OPTIMIZER:
-        raise NotImplementedError(
-            "optimizer 'onebitadam' is not ported yet (ROADMAP Queue A, "
-            "'Multi-process training')")
-    if name in (ADAM_OPTIMIZER, CPU_ADAM_OPTIMIZER, FUSED_ADAM_OPTIMIZER):
+    if name in (ADAM_OPTIMIZER, CPU_ADAM_OPTIMIZER, FUSED_ADAM_OPTIMIZER,
+                ONEBIT_ADAM_OPTIMIZER):
+        # onebitadam: the local update is exact Adam; the 1-bit part is the
+        # engine's gradient reduction (error-feedback sign compression over
+        # the ranks after freeze_step, comm/compressed.py)
         return _adam_like(params_cfg, adamw=False, mup_multipliers=mup_multipliers,
                           use_fused=name == FUSED_ADAM_OPTIMIZER)
     if name == ADAMW_OPTIMIZER:

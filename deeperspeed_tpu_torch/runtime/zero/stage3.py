@@ -13,7 +13,13 @@ head) that owns partitioned regions gets its ``forward`` wrapped:
   parameters are swapped for views of it for the duration of the call;
 * the recompute in the backward pass gathers again; the gather's backward
   reduce-scatters the buffer's gradient (cast to the communication dtype)
-  and adds this rank's part to the engine's accumulation buffer (``sink``).
+  and adds this rank's part to the engine's accumulation buffer (``sink``),
+  or, under the engine's deferred reduction, adds the whole local gradient
+  to its whole-gradient buffer, to be reduced once a batch.
+
+Under qwZ (``zero_quantized_weights``) the gather moves int8 values and
+fp32 scales (``zero/quantized.py`` ``quantized_all_gather_partition``);
+its backward is the plain gather's.
 
 Outside a call the unit's partitioned parameters hold no data.
 """
@@ -24,33 +30,45 @@ import torch
 
 from ...comm import all_gather_into, reduce_scatter
 from ...utils.recompute import checkpoint_replaying
+from .quantized import quantized_all_gather_partition
 
 
 class _GatherRegion(torch.autograd.Function):
-    """shard [part] -> the whole region [padded]; backward reduce-scatters
-    the gradient into the region's sink and gives the shard none."""
+    """shard [part] -> the whole region [padded] (through int8 under qwZ);
+    backward hands the gradient to the region's sink (reduce-scattered, or
+    whole under the deferred reduction) and gives the shard none."""
 
     @staticmethod
     def forward(ctx, shard, gathered):
         ctx.gathered = gathered
+        if gathered.quantized:
+            return quantized_all_gather_partition(shard, gathered.group)
         full = torch.empty(gathered.region.padded, dtype=shard.dtype, device=shard.device)
-        return all_gather_into(full, shard, gathered.group)
+        return all_gather_into(full, shard, gathered.group, log_name="stage3_gather")
 
     @staticmethod
     def backward(ctx, grad_full):
         g = ctx.gathered
-        g.sink(reduce_scatter(grad_full.to(g.comm_dtype).contiguous(), g.group))
+        if g.deferred:
+            g.sink(grad_full)
+        else:
+            g.sink(reduce_scatter(grad_full.to(g.comm_dtype).contiguous(), g.group,
+                                  log_name="grad_reduce"))
         return None, None
 
 
 class GatheredRegion:
     """A partitioned region of compute parameters: its ``shard`` (this
     rank's partition, a leaf the recompute tracks) and where its gradient
-    goes (``sink``: a callable taking this rank's reduce-scattered sum)."""
+    goes (``sink``: a callable taking this rank's reduce-scattered sum, or
+    with ``deferred`` the whole local gradient).  ``quantized``: the
+    gather moves int8 (qwZ)."""
 
-    def __init__(self, region, shard, group, comm_dtype, sink):
+    def __init__(self, region, shard, group, comm_dtype, sink, deferred=False,
+                 quantized=False):
         self.region, self.shard, self.group = region, shard, group
         self.comm_dtype, self.sink = comm_dtype, sink
+        self.deferred, self.quantized = deferred, quantized
 
     def views(self, full, prefix):
         """The region's parameters as views of the gathered buffer, by

@@ -58,6 +58,8 @@ def test_port_imports_no_jax():
         "import deeperspeed_tpu_torch.runtime.data_pipeline.data_sampling\n"
         "import deeperspeed_tpu_torch.runtime.data_pipeline.data_sampling.data_analyzer\n"
         "import deeperspeed_tpu_torch.comm, deeperspeed_tpu_torch.comm.compressed\n"
+        "import deeperspeed_tpu_torch.comm.comms_logging, deeperspeed_tpu_torch.comm.overlap\n"
+        "import deeperspeed_tpu_torch.telemetry.wire\n"
         "import deeperspeed_tpu_torch.parallel, deeperspeed_tpu_torch.ops.quantizer.fused\n"
         "import deeperspeed_tpu_torch.runtime.zero.sharding\n"
         "import deeperspeed_tpu_torch.runtime.zero.stage3\n"

@@ -240,11 +240,11 @@ def test_fused_adam_steps_over_each_ranks_pieces(runs):
      ValueError),
     ({"zero_optimization": {"stage": 1, "zero_hpz_partition_size": 2}}, NotImplementedError),
     ({"zero_optimization": {"stage": 3, "mics_shard_size": 2}}, NotImplementedError),
-    ({"zero_optimization": {"stage": 3, "zero_quantized_weights": True}},
+    ({"zero_optimization": {"stage": 3, "zero_hpz_partition_size": 2}},
      NotImplementedError),
     ({"comm": {"quantized": {"enabled": True, "intra_axis": "zshard"}}},
      NotImplementedError),
-    ({"comm": {"overlap": {"enabled": True}}}, NotImplementedError),
+    ({"comm": {"quantized": {"enabled": True, "intra_axis": "tp"}}}, NotImplementedError),
     ({"mesh": {"model_parallel_size": 2}}, NotImplementedError),
     ({"comm": {"quantized": {"enabled": True, "bucket_mb": 8}}}, NotImplementedError),
 ])

@@ -1,12 +1,14 @@
 """One process of a data-parallel run of the PyTorch port on the CPU, for
 the tests that hold it against the JAX package (``test_torch_zero.py``,
-``test_torch_comm.py``).  It imports only the port.
+``test_torch_comm.py``, ``test_torch_wire_*.py``).  It imports only the
+port.
 
     python tests/torch_dp_worker.py RANK WORLD RENDEZVOUS_FILE JOB.npz OUT.npz
 
 ``JOB.npz`` holds ``spec`` (JSON) and the arrays it names; the worker joins
 a ``gloo`` group through ``file://RENDEZVOUS_FILE`` and writes its results
-to ``OUT.npz``.  Job kinds:
+to ``OUT.npz``.  ``spec["kind"]`` names a job kind, or lists several to
+run in turn.  Job kinds:
 
 * ``train``: for each run, a GPT-NeoX ``tiny()`` engine from the weights
   ``w/<param>`` trains on the global batches ``b<i>/<key>`` (or, with
@@ -17,9 +19,14 @@ to ``OUT.npz``.  Job kinds:
   the card), the warnings, and on rank 0 the final fp32 masters; a run
   with ``legacy`` steps through ``forward``/``backward``/``step`` (its
   losses are this rank's), one with ``eval`` also records ``eval_batch``
-  of the first batch after training;
-* ``comm``: each case runs one quantized collective on this rank's input
-  ``x/<case>/<rank>``;
+  of the first batch after training; every run records each step's
+  ``comm_footprint`` and the comms logger's rows (JSON), and one with
+  ``reload`` saves a checkpoint after training and records 1-bit Adam's
+  error feedback before the save and after a fresh engine loads it;
+* ``comm``: each case runs one collective on this rank's input
+  ``x/<case>/<rank>`` (with ``two_level`` ``[n_inter, n_intra]``, over the
+  groups of ``comm.new_two_level_groups``; ``onebit`` cases chain
+  ``steps`` calls of ``onebit_all_reduce``, carrying the error);
 * ``ckpt``: for each run, an engine as ``train`` makes it (``model`` holds
   extra ``GPTNeoXConfig`` fields) first loads the checkpoint directory
   ``load`` if it names one, then trains on the batches ``steps`` lists
@@ -81,11 +88,12 @@ def _train(spec, job, rank, out):
         if run.get("training_data"):
             data = {k[2:]: job[k] for k in job.files if k.startswith("d/")}
         warnings.clear()
+        comm.comms_logger.comms_dict.clear()
         eng, *_ = tdst.initialize(model=model, config=run["config"], model_parameters=start,
                                   training_data=data, device=device)
         calls[0] = 0
         LAUNCHES.clear()
-        losses, norms, b5 = [], [], []
+        losses, norms, b5, footprints = [], [], [], []
         for step in range(run["steps"]):
             if run.get("legacy"):
                 loss = _legacy_step(eng, batches[step])
@@ -94,6 +102,7 @@ def _train(spec, job, rank, out):
                     batch=batches[step])
             losses.append(float(loss))
             norms.append(eng.get_global_grad_norm())
+            footprints.append(eng.comm_footprint)
             b5.append(calls[0] + LAUNCHES["dequant_reduce"])
             calls[0] = 0
             LAUNCHES.clear()
@@ -108,10 +117,31 @@ def _train(spec, job, rank, out):
         out[f"{name}/shard_numel"] = sum(
             g.shard.numel() for _, _, _, g in eng._compute if g is not None)
         out[f"{name}/warnings"] = np.array(json.dumps(list(warnings)))
+        out[f"{name}/footprints"] = np.array(json.dumps(footprints))
+        out[f"{name}/comms_rows"] = np.array(json.dumps(comm.log_summary(show_straggler=True)))
         final = eng.full_master_params()
         if rank == 0:
             for param, t in final.items():
                 out[f"{name}/final/{param}"] = t.cpu().numpy()
+        if run.get("reload"):
+            _reload(eng, run, name, model, start, device, out)
+
+
+def _reload(eng, run, name, model, start, device, out):
+    """Save ``eng``, load the checkpoint into a fresh engine: 1-bit Adam's
+    error feedback before the save and after the load, and whether the
+    loaded masters equal the saved ones."""
+    ckpt = run["reload"]
+    out[f"{name}/error_before"] = np.array(float(eng._onebit_error.abs().max()))
+    eng.save_checkpoint(ckpt)
+    fresh = GPTNeoX(GPTNeoXConfig.tiny(dtype=DTYPES[run["dtype"]]), device=device, seed=9)
+    eng2, *_ = tdst.initialize(model=fresh, config=run["config"], device=device)
+    eng2._onebit_error.fill_(1.0)
+    eng2.load_checkpoint(ckpt)
+    out[f"{name}/error_after"] = np.array(float(eng2._onebit_error.abs().max()))
+    out[f"{name}/reload_equal"] = np.array(all(
+        torch.equal(a, b) for a, b in zip(eng.master_params.values(),
+                                          eng2.master_params.values())))
 
 
 def _legacy_step(eng, batch):
@@ -187,10 +217,40 @@ def _ckpt(spec, job, rank, out):
 
 def _comm(spec, job, rank, out):
     group = comm.get_data_parallel_group()
+    intra = inter = None
+    if spec.get("two_level"):
+        intra, inter = comm.new_two_level_groups(*spec["two_level"])
     for case in spec["cases"]:
         x = torch.from_numpy(job[f"x/{case['name']}/{rank}"])
-        kw = {"group_size": case.get("group_size", 128), "wire_dtype": case["wire"]}
-        if case["op"] == "all_reduce_quantized":
+        kw = {"group_size": case.get("group_size", 128), "wire_dtype": case.get("wire")}
+        groups = {"intra_group": intra, "inter_group": None if case.get("intra_only")
+                  else inter}
+        if case["op"] == "all_to_all_untiled":
+            y = comm.all_to_all(x, group, split_axis=case["split"],
+                                concat_axis=case["concat"], tiled=False)
+        elif case["op"] == "onebit":
+            err = None
+            for i in range(case["steps"]):
+                c = x[i].reshape(-1) if err is None else x[i].reshape(-1) + err.reshape(-1)
+                out[f"{case['name']}/{i}/packed"] = compressed._pack_signs(
+                    torch.nn.functional.pad(c >= 0, (0, (-c.numel()) % 8))).numpy()
+                y, err = compressed.onebit_all_reduce(x[i], group, err)
+                out[f"{case['name']}/{i}/y"] = y.numpy()
+                out[f"{case['name']}/{i}/err"] = err.numpy()
+            continue
+        elif case["op"].startswith("two_level_"):
+            op = case["op"][len("two_level_"):]
+            comm.comms_logger.begin_step()
+            if op == "all_reduce_quantized":
+                y = comm.all_reduce_quantized(x, op=case.get("reduce", "sum"), **groups, **kw)
+            elif op == "reduce_scatter_quantized":
+                y = comm.reduce_scatter_quantized(x, **groups, **kw)
+            elif op.startswith("hierarchical_"):
+                y = getattr(compressed, op)(x, intra, inter, **kw)
+            else:
+                y = getattr(quantized, op)(x, intra_group=intra, inter_group=inter, **kw)
+            out[f"{case['name']}/footprint"] = np.array(json.dumps(comm.comms_logger.end_step()))
+        elif case["op"] == "all_reduce_quantized":
             y = comm.all_reduce_quantized(x, op=case.get("reduce", "sum"), group=group, **kw)
         elif case["op"] == "reduce_scatter_quantized":
             y = comm.reduce_scatter_quantized(x, group=group, **kw)
@@ -210,7 +270,9 @@ def main():
     job = np.load(job_path)
     spec = json.loads(str(job["spec"]))
     out = {}
-    {"train": _train, "comm": _comm, "ckpt": _ckpt}[spec["kind"]](spec, job, rank, out)
+    kinds = spec["kind"] if isinstance(spec["kind"], list) else [spec["kind"]]
+    for kind in kinds:
+        {"train": _train, "comm": _comm, "ckpt": _ckpt}[kind](spec, job, rank, out)
     np.savez(out_path, **out)
     comm.destroy()
 
