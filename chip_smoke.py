@@ -166,6 +166,27 @@ package, and goes through these phases, each printing its lines:
     and one ``comm.log_summary(show_straggler=True)`` table.  (c) phase 14's
     step with gas 2 at world 2, stage 2, per microbatch and then deferred:
     1 warm-up and 3 timed steps, ms/step and bytes staged a step.
+21. the layout: four ``--layout-worker`` processes share the card over
+    gloo.  (a) phase 9's step (Pythia-160M at full width and depth, bf16,
+    global batch 16 x 1024, Adam, clip 1.0, stage 2) at tp 2 x dp 2, 1
+    warm-up and 3 timed steps, held against phase 14's run of the same
+    seed at tp 1 x dp 2: losses within 1e-2 relative (bf16: the row-
+    parallel products sum two bf16 halves), grad norms within 1e-2; K1,
+    K5-K8 must launch (K5-K7 on 6 heads a rank); (b) MiCS (dp 2 x zshard 2,
+    stage 2) and hpZ (stage 3) and (a)'s layout, each at phase 13's 2
+    full-width fp32 layers for 2 of its steps, card against the same run
+    on the CPU inside the workers (losses within 1e-4 relative, phase 13's
+    tolerance); hpZ's gathers over the zshard group alone; (c) the engine's two-hop qgZ
+    (``intra_axis: zshard``), int8 and fp8, at phase 13's model: each
+    parameter's reduced gradient of the first step equal bit for bit to the
+    same two-hop schedule on CPU copies of the card's per-rank gradients
+    (as phase 20 (a)), B5 once a hop, losses against the CPU run within
+    phase 13's qgZ tolerance; (d) in phase 13's two workers, (a)'s tp 1
+    step from ``training_data=`` with ``prefetch_depth`` 2 and without:
+    losses bit-equal.  Each part prints ms/step on the host clock (ending
+    in a sync), the bytes staged through host a step by op (``tp_reduce``,
+    ``grad_reduce``, ``stage3_gather``, ``hpz_refresh``), the analytic
+    wire bytes and the elements each rank holds.
 
 The second-to-last line is the JSON summary of the kernels (a kernel's
 ``launches`` sums its counts on the main paths, serving in phase 5,
@@ -175,7 +196,8 @@ phase 14 (rank 0's counts, stage 2, then qgZ), the legacy layer in phase
 16 (fp32, then fp16), sparse attention in phase 17, the fused softmax in
 phase 18, the resumed steps of phase 19, and in phase 20 the two-level
 schedule's B5 launches (rank 0) and the deferred full-size steps (rank 0),
-each read right after its own run and listed in ``launches_by_path``), the
+and in phase 21 the tp 2 x dp 2 full-size steps (rank 0), each read right
+after its own run and listed in ``launches_by_path``), the
 last ``{"ok": true,
 "device": {...}}``.  Any
 failure, of a phase or of a worker, raises and exits non-zero; without a
@@ -343,6 +365,31 @@ WIRE_FULL_RUNS = {
                  "zero_optimization": {"stage": 2}, "comm": {"overlap": {"enabled": True}}}}
 WIRE_INTER, WIRE_INTRA = 2, 2
 WIRE_SHAPE = (50304, 768)
+
+
+# The layout (phase 21): four processes as tp 2 x dp 2 or dp 2 x zshard 2
+# (rank r = (i_dp * 2 + i_zshard) * tp + i_tp); phase 13's model, card
+# against the CPU, and phase 14's step at tp 2; in phase 13's workers,
+# phase 14's step from training_data= with and without the prefetcher.
+LAYOUT_WORLD = 4
+LAYOUT_BF16_TOL = 1e-2
+LAYOUT_DEVICES = ("cuda", "cpu")      # (b), (c): each run on the card, then the CPU
+LAYOUT_CHECK_STEPS = 2                # of phase 13's batches, for (b) and (c)
+LAYOUT_CHECK_RUNS = {
+    "tp-s2": ({**DP_CHECK_CONFIG, "zero_optimization": {"stage": 2}}, {"tp": 2}),
+    "mics-s2": ({**DP_CHECK_CONFIG, "zero_optimization": {"stage": 2, "mics_shard_size": 2}},
+                {"zshard": 2}),
+    "hpz-s3": ({**DP_CHECK_CONFIG,
+                "zero_optimization": {"stage": 3, "zero_hpz_partition_size": 2}},
+               {"zshard": 2}),
+    **{f"qgz-{w}": ({**DP_CHECK_CONFIG, "comm": {"quantized": {
+        "enabled": True, "wire_dtype": w, "intra_axis": "zshard"}}}, {"zshard": 2})
+       for w in ("int8", "fp8")}}
+LAYOUT_FULL_CONFIG = {**TRAIN_CONFIG, "zero_optimization": {"stage": 2}}
+LAYOUT_PREFETCH_RUNS = {
+    f"prefetch-{d}": {**LAYOUT_FULL_CONFIG, **({"comm": {"overlap": {
+        "enabled": True, "prefetch_depth": d, "deferred_reduction": False}}} if d else {})}
+    for d in (0, 2)}
 
 
 def dp_check_model(device=None):
@@ -1876,17 +1923,22 @@ def dp_worker(rank, rendezvous, out_path):
         eng = dst.initialize(model=model, config=cfg)[0]
         batch = {k: v.cuda() for k, v in trained_batch(model).items()}
         first = float(eng.train_batch(batch=batch))      # warm-up
+        norms = [eng.get_global_grad_norm()]
         torch.cuda.reset_peak_memory_stats()
         comm.STAGED.clear()
         comm.STAGED_SECONDS.clear()
         LAUNCHES.clear()                                  # main path starts here
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        losses = [float(eng.train_batch(batch=batch)) for _ in range(DP_FULL_STEPS)]
+        losses = []
+        for _ in range(DP_FULL_STEPS):
+            losses.append(float(eng.train_batch(batch=batch)))
+            norms.append(eng.get_global_grad_norm())
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         rec = _engine_record(torch, eng, [first] + losses,
                              LAUNCHES["dequant_reduce"] / DP_FULL_STEPS)
+        rec.update(grad_norms=norms)
         rec.update(ms_per_step=dt / DP_FULL_STEPS * 1e3, launches=dict(LAUNCHES),
                    staged_bytes_per_step=sum(comm.STAGED.values()) / DP_FULL_STEPS,
                    staged_ms_per_step={op: t / DP_FULL_STEPS * 1e3
@@ -1936,6 +1988,20 @@ def dp_worker(rank, rendezvous, out_path):
             "staged_bytes_per_step": sum(comm.STAGED.values()) / DP_FULL_STEPS,
             "grad_bytes_per_step": comm.STAGED["grad_reduce"] / DP_FULL_STEPS,
             "grad_ms_per_step": comm.STAGED_SECONDS["grad_reduce"] / DP_FULL_STEPS * 1e3}
+        del eng, model
+        torch.cuda.empty_cache()
+    for name, cfg in LAYOUT_PREFETCH_RUNS.items():      # phase 21 (d)
+        model = trained_model()
+        eng = dst.initialize(model=model, config=cfg,
+                             training_data=fused_training_data(np, model.config.vocab_size))[0]
+        first = float(eng.train_batch())                 # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [float(eng.train_batch()) for _ in range(DP_FULL_STEPS)]
+        torch.cuda.synchronize()
+        results[name] = {"losses": [first] + losses,
+                         "ms_per_step": (time.perf_counter() - t0) / DP_FULL_STEPS * 1e3,
+                         "prefetcher": type(eng._prefetcher).__name__}
         del eng, model
         torch.cuda.empty_cache()
     # phase 19: phase 13's stage-2 run saved at world 2, for the parent to
@@ -2868,6 +2934,246 @@ def phase_wire(card, r0, r1):
     return two_level, dfr["launches"]
 
 
+def _layout_record(torch, eng, comm, losses, norms, steps, dt):
+    """What a phase-21 run reports: losses and grad norms, ms/step, the
+    bytes staged through host a step by op, the elements held."""
+    from deeperspeed_tpu_torch.utils.tree import tree_leaves
+
+    return {"losses": losses, "grad_norms": norms, "ms_per_step": dt / steps * 1e3,
+            "staged": {op: b / steps for op, b in comm.STAGED.items()},
+            "staged_ms": {op: t / steps * 1e3 for op, t in comm.STAGED_SECONDS.items()},
+            "footprint": eng.comm_footprint,
+            "master_numel": sum(t.numel() for t in eng.master_params.values()),
+            "opt_numel": sum(t.numel() for t in tree_leaves(eng.opt_state)
+                             if isinstance(t, torch.Tensor)),
+            "shard_numel": sum(g.shard.numel() for *_, g in eng._compute if g is not None),
+            "tp_numel": sum(math.prod(shape) for r in eng.plan.regions for shape in r.shapes),
+            "group_sizes": {op: sorted(n) for op, n in comm.comms_logger.group_sizes.items()}}
+
+
+def layout_worker(rank, rendezvous, out_path):
+    """One of the four processes of phase 21 (``--layout-worker``): (b) and
+    (c) on the card and on the CPU, then (a) at full size on the card;
+    writes what it saw to ``out_path`` as JSON."""
+    import numpy as np
+    import torch
+
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch import comm
+    from deeperspeed_tpu_torch.ops.cuda_utils import LAUNCHES
+    from deeperspeed_tpu_torch.parallel import MeshTopology
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    dst.init_distributed("gloo", init_method=f"file://{rendezvous}", rank=rank,
+                         world_size=LAYOUT_WORLD, timeout=600)
+    results = {}
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    for name, (cfg, mesh) in LAYOUT_CHECK_RUNS.items():          # (b), (c)
+        for device in LAYOUT_DEVICES:
+            comm.comms_logger.configure(enabled=True)
+            comm.comms_logger.comms_dict.clear()
+            comm.comms_logger.group_sizes.clear()
+            eng = dst.initialize(model=dp_check_model(device), config=cfg, device=device,
+                                 mesh=MeshTopology(**mesh))[0]
+            batches = dp_check_batches(np, eng.module.config.vocab_size)[:LAYOUT_CHECK_STEPS]
+            captured = {}
+            if name.startswith("qgz") and device != "cpu":
+                reduce = eng._reduce
+
+                def capture(divisor, eng=eng, reduce=reduce, captured=captured):
+                    names = [n for r in eng.plan.regions for n in r.names]
+                    views = dict(zip(names, eng._acc_views))
+                    if not captured:
+                        captured.update(pre={n: (v / divisor).clone()
+                                             for n, v in views.items()})
+                    reduce(divisor)
+                    if "post" not in captured:
+                        captured["post"] = {n: v.clone() for n, v in views.items()}
+
+                eng._reduce = capture
+            comm.STAGED.clear()
+            comm.STAGED_SECONDS.clear()
+            LAUNCHES.clear()
+            sync()
+            t0 = time.perf_counter()
+            losses, norms, b5 = [], [], []
+            for b in batches:
+                LAUNCHES.clear()
+                losses.append(float(eng.train_batch(batch=b)))
+                norms.append(eng.get_global_grad_norm())
+                b5.append(LAUNCHES["dequant_reduce"])
+            rec = _layout_record(torch, eng, comm, losses, norms, len(batches),
+                                 time.perf_counter() - t0)
+            rec["b5"] = b5
+            if captured:
+                # the same two-hop schedule on CPU copies of the card's
+                # per-rank gradients (every rank makes the same calls)
+                wire = cfg["comm"]["quantized"]["wire_dtype"]
+                big = [n for n, t in captured["pre"].items() if t.numel() >= 128 * eng.world]
+                equal = []
+                for n in big:
+                    want = comm.all_reduce_quantized(
+                        captured["pre"][n].cpu(), op=comm.ReduceOp.AVG, group=eng.group,
+                        intra_group=eng._qgz_intra, wire_dtype=wire)
+                    got = captured["post"][n].cpu()
+                    equal.append(bool(torch.equal(got.view(torch.int32),
+                                                  want.view(torch.int32))))
+                rec.update(n_big=len(big), bit_equal=equal)
+            results[f"{name}-{'cpu' if device == 'cpu' else 'cuda'}"] = rec
+            comm.comms_logger.enabled = False
+            del eng
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+    # (a): phase 9's step at tp 2 x dp 2
+    model = trained_model()
+    eng = dst.initialize(model=model, config=LAYOUT_FULL_CONFIG,
+                         mesh=MeshTopology(tp=2))[0]
+    batch = {k: v.to(eng.device) for k, v in trained_batch(model).items()}
+    first = float(eng.train_batch(batch=batch))                 # warm-up
+    norms = [eng.get_global_grad_norm()]
+    comm.STAGED.clear()
+    comm.STAGED_SECONDS.clear()
+    LAUNCHES.clear()                                              # main path starts here
+    sync()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(DP_FULL_STEPS):
+        losses.append(float(eng.train_batch(batch=batch)))
+        norms.append(eng.get_global_grad_norm())
+    sync()
+    rec = _layout_record(torch, eng, comm, [first] + losses, norms, DP_FULL_STEPS,
+                         time.perf_counter() - t0)
+    rec.update(launches=dict(LAUNCHES), heads=eng.module.layers[0].attention
+               .query_key_value.weight.shape[0] // (3 * eng.module.config.head_dim),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9
+               if torch.cuda.is_available() else 0.0)
+    results["full-tp2-dp2"] = rec
+    del eng, model
+    with open(out_path, "w") as f:
+        json.dump(results, f)
+    comm.destroy()
+    return 0
+
+
+def _staged_line(rec):
+    return ", ".join(f"{op} {b / 1e6:.3f} MB" for op, b in sorted(rec["staged"].items()))
+
+
+def phase_layout(card, r0, r1):
+    """Phase 21, the layout: (d) from phase 13's two workers' results, then
+    the four layout workers' (b), (c) and (a).  Returns rank 0's launch
+    counts of (a)'s timed steps."""
+    from deeperspeed_tpu_torch.models import GPTNeoXConfig
+    from deeperspeed_tpu_torch.telemetry.wire import plain_wire_bytes
+
+    # ---- (d) the prefetching loader at phase 14's step, world 2
+    plain, ahead = r0["prefetch-0"], r0["prefetch-2"]
+    if plain["losses"] != ahead["losses"] or r1["prefetch-0"]["losses"] != \
+            r1["prefetch-2"]["losses"] or ahead["prefetcher"] != "DevicePrefetchingLoader":
+        raise AssertionError(f"prefetch: losses {plain['losses']} / {ahead['losses']} "
+                             f"({ahead['prefetcher']})")
+    print(f"[layout-d] {card}: phase 14's step from training_data= at world 2, stage 2: "
+          f"prefetch_depth 2 {ahead['ms_per_step']:.2f} ms/step, without "
+          f"{plain['ms_per_step']:.2f} ms/step (rank 0, host clock, {DP_FULL_STEPS} steps); "
+          f"losses {', '.join(f'{x:.4f}' for x in ahead['losses'])} bit-equal on both ranks",
+          flush=True)
+
+    build = ROOT / ".build"
+    build.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    ranks = _join_dp_workers(_spawn_dp_workers(Path(tempfile.mkdtemp(dir=build)),
+                                               "--layout-worker", LAYOUT_WORLD))
+    print(f"[layout] four workers on the card over gloo: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # ---- (b), (c): phase 13's model, card against the CPU
+    total = sum(math.prod(s) for s in param_shapes(
+        dataclasses.replace(GPTNeoXConfig.pythia_160m(), num_layers=2)))
+    for name in LAYOUT_CHECK_RUNS:
+        cards = [r[f"{name}-cuda"] for r in ranks]
+        cpus = [r[f"{name}-cpu"] for r in ranks]
+        a, c = cards[0], cpus[0]
+        if any(r["losses"] != a["losses"] for r in cards) or \
+                not all(map(math.isfinite, a["losses"])):
+            raise AssertionError(f"layout {name}: ranks' losses {[r['losses'] for r in cards]}")
+        rels = [abs(x - y) / abs(y) for x, y in zip(a["losses"], c["losses"])]
+        qgz = name.startswith("qgz")
+        limit = [1e-4] + [DP_QGZ_TOL if qgz else 1e-4] * (len(rels) - 1)
+        if any(r > lim for r, lim in zip(rels, limit)):
+            raise AssertionError(f"layout {name}: card {a['losses']} vs CPU {c['losses']}")
+        held = [r["master_numel"] for r in cards]
+        extra = ""
+        if name.startswith("mics") and not all(abs(h - total / 2) <= 4 for h in held):
+            raise AssertionError(f"MiCS: masters held {held} of {total}")
+        if name.startswith("hpz"):
+            if not all(abs(h - total / 4) <= 16 for h in held):
+                raise AssertionError(f"hpZ: masters held {held} of {total}")
+            sizes = a["group_sizes"]
+            if sizes.get("stage3_gather") != [2] or sizes.get("hpz_refresh") != [4]:
+                raise AssertionError(f"hpZ: gathers over {sizes}")
+            extra = f"; stage-3 gathers over {sizes['stage3_gather']} ranks"
+        if name.startswith("tp"):
+            tp = [r["tp_numel"] for r in cards]
+            if not all(abs(t - total / 2) <= total * 0.01 for t in tp):
+                raise AssertionError(f"tp: slices of {tp} elements of {total}")
+            extra = f"; tp slice {tp[0]} elements"
+        if qgz:
+            for r in cards:
+                if not r["bit_equal"] or not all(r["bit_equal"]) \
+                        or r["b5"] != [2 * r["n_big"]] * LAYOUT_CHECK_STEPS:
+                    raise AssertionError(f"layout {name}: {r['n_big']} parameters, bit-equal "
+                                         f"{r['bit_equal']}, B5 a step {r['b5']}")
+            extra = (f"; {a['n_big']} reduced gradients bit for bit the CPU schedule's on "
+                     f"all {LAYOUT_WORLD} ranks, B5 {a['b5'][0]} a step (twice a parameter)")
+        foot = sum(f["bytes"] for f in a["footprint"])
+        print(f"[layout-{'c' if qgz else 'b'}] {card}: {name}, 2 full-width layers fp32, "
+              f"{DP_CHECK_ROWS} x {DP_CHECK_SEQ}: losses "
+              f"{', '.join(f'{x:.6f}' for x in a['losses'])} on all ranks (CPU "
+              f"{', '.join(f'{x:.6f}' for x in c['losses'])}; max relative {max(rels):.2e}); "
+              f"{a['ms_per_step']:.2f} ms/step (rank 0, host clock); staged a step: "
+              f"{_staged_line(a)}; analytic wire bytes {foot / 1e6:.3f} MB a rank; masters "
+              f"held {held} of {total}{extra}", flush=True)
+
+    # ---- (a) phase 9's step at tp 2 x dp 2 against phase 14's tp 1 x dp 2
+    full = [r["full-tp2-dp2"] for r in ranks]
+    a, ref = full[0], r0["full-stage2"]
+    if any(r["losses"] != a["losses"] for r in full) or \
+            not all(map(math.isfinite, a["losses"])):
+        raise AssertionError(f"layout (a): losses {[r['losses'] for r in full]}")
+    rels = [abs(x - y) / abs(y) for x, y in zip(a["losses"], ref["losses"])]
+    nrels = [abs(x - y) / abs(y) for x, y in zip(a["grad_norms"], ref["grad_norms"])]
+    if max(rels) > LAYOUT_BF16_TOL or max(nrels) > LAYOUT_BF16_TOL:
+        raise AssertionError(f"layout (a): losses {a['losses']} / grad norms "
+                             f"{a['grad_norms']} vs tp 1 {ref['losses']} / "
+                             f"{ref['grad_norms']}")
+    for kernel in ("layer_norm", "layer_norm_bwd", "flash_fwd", "flash_bwd_dq",
+                   "flash_bwd_dkv"):
+        if a["launches"].get(kernel, 0) < 1:
+            raise AssertionError(f"layout (a): {kernel} never launched")
+    if a["heads"] != 6:
+        raise AssertionError(f"layout (a): {a['heads']} heads a rank")
+    tp_wire = plain_wire_bytes("all_reduce", a["staged"].get("tp_reduce", 0) / 2, 2)
+    grad_wire = sum(f["bytes"] for f in a["footprint"])
+    print(f"[layout-a] {card}: Pythia-160M bf16, global B {TRAIN_BATCH} x S {TRAIN_SEQ}, "
+          f"stage 2, tp 2 x dp 2: {', '.join(f'{r['ms_per_step']:.2f}' for r in full)} "
+          f"ms/step (ranks 0-3, host clock, {DP_FULL_STEPS} steps; tp 1 x dp 2 "
+          f"{ref['ms_per_step']:.2f}); losses {', '.join(f'{x:.4f}' for x in a['losses'])} "
+          f"(tp 1 {', '.join(f'{x:.4f}' for x in ref['losses'])}; max relative "
+          f"{max(rels):.2e}); grad norms {', '.join(f'{x:.4f}' for x in a['grad_norms'])} "
+          f"(max relative {max(nrels):.2e}); {a['heads']} heads a rank; staged a step: "
+          f"{_staged_line(a)} (in {', '.join(f'{op} {t:.1f} ms' for op, t in sorted(a['staged_ms'].items()))}); "
+          f"analytic wire bytes a rank: tp_reduce {tp_wire / 1e9:.3f} GB, gradient "
+          f"reduction {grad_wire / 1e9:.3f} GB; held: tp slice {a['tp_numel']} elements, "
+          f"masters {a['master_numel']}, moments {a['opt_numel']} (tp 1 x dp 2: masters "
+          f"{ref['master_numel']}); peak {a['peak_gb']:.2f} GB", flush=True)
+    return a["launches"]
+
+
 def main():
     try:
         import torch
@@ -2886,6 +3192,8 @@ def main():
         return dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     if sys.argv[1:2] == ["--wire-worker"]:
         return wire_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if sys.argv[1:2] == ["--layout-worker"]:
+        return layout_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     import numpy as np
 
     from deeperspeed_tpu_torch.ops import cuda_utils
@@ -2933,6 +3241,7 @@ def main():
     paths["training_resumed"] = phase_checkpointed(torch, np, cuda_utils.LAUNCHES, card,
                                                    dp_ckpt)
     paths["wire_two_level"], paths["wire_deferred"] = phase_wire(card, *dp_ranks)
+    paths["layout_tp"] = phase_layout(card, *dp_ranks)
 
     sources = {
         "layer_norm": ("deeperspeed_tpu_torch/csrc/layer_norm.cu",

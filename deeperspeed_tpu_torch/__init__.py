@@ -12,9 +12,10 @@ in ``csrc/``:
   ``engine.train_batch(batch=...)`` / ``engine.eval_batch(...)``, on flash
   attention forward (K5) and backward (K6 dk/dv, K7 dq), the LayerNorm
   backward (K8) besides K1, and the fused optimizers (B6, B7); over several
-  processes (``init_distributed``, ``torch.distributed``) with ZeRO stages
-  0-3 and the qgZ quantized gradient reduction on the fused
-  dequant-reduce (B5).
+  processes (``init_distributed``, ``torch.distributed``) laid out as the
+  JAX mesh (``dp``, ``zshard``, ``tp``): ZeRO stages 0-3 with MiCS and hpZ,
+  tensor parallelism, and the qgZ quantized gradient reduction, flat or
+  two-hop, on the fused dequant-reduce (B5).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

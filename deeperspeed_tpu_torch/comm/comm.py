@@ -2,8 +2,14 @@
 ``deeperspeed_tpu/comm/comm.py``).
 
 The JAX package's collectives are XLA ops over named mesh axes; here a
-group is a ``torch.distributed`` process group (the world, for the one
-axis ported: dp) and each collective is one eager call on it.  The
+group is a ``torch.distributed`` process group over the ranks that differ
+only along those axes of the mesh (``parallel/topology.py``), and each
+collective is one eager call on it.  :func:`get_data_parallel_group` is
+the ZeRO group (``dp x zshard``) of this rank's tensor-parallel slice,
+:func:`get_zero_param_parallel_group` the MiCS / hpZ subgroup
+(``zshard``), :func:`get_model_parallel_group` the tensor-parallel group
+(``tp``); every process builds all of them together, in one order, the
+first time one is asked for under a mesh.  The
 functions return their result, as the JAX ones do; ``all_reduce`` and
 ``broadcast`` also write it into their argument, as torch's do.
 
@@ -30,10 +36,11 @@ The quantized collectives (:func:`all_reduce_quantized`,
 :func:`reduce_scatter_quantized`) run the qgZ schedules of
 ``comm/compressed.py``: flat over one group, or two-level over an
 ``intra_group`` and an ``inter_group`` (:func:`new_two_level_groups`
-builds them for a world of ``n_inter x n_intra`` processes in the JAX
-package's mesh order).  In the engine the two-level schedule needs the
-mesh's ``zshard`` axis, which waits for ROADMAP Queue A, 'Multi-process
-training, part 2'; the facade runs it on any pair of groups.
+gives the ``zshard`` and ``dp`` groups of a world of ``n_inter x n_intra``
+processes in the JAX package's mesh order).  :func:`_hier_groups` makes
+the one decision of flat or two-level for the facade and for ZeRO++'s
+``qgz_*``, and :func:`_run_quantized` records the analytic wire bytes of
+both.
 
 Comms logging (``comms_logger`` config block, :func:`configure`,
 :func:`log_summary`): every eager collective is timed on the host clock,
@@ -61,8 +68,9 @@ from .comms_logging import CommsLogger
 from .overlap import AsyncOpHandle
 
 # bytes copied between the card and host memory to run a gloo collective,
-# per op (device to host plus host to device), and the seconds those ops
-# took; a caller resets them with clear()
+# per op name (device to host plus host to device: ``grad_reduce``,
+# ``all_gather``, ``stage3_gather``, ``hpz_refresh``, ``tp_reduce``, ...),
+# and the seconds those ops took; a caller resets them with clear()
 STAGED = Counter()
 STAGED_SECONDS = Counter()
 
@@ -88,23 +96,35 @@ _TORCH_OPS = {ReduceOp.SUM: dist.ReduceOp.SUM, ReduceOp.AVG: dist.ReduceOp.SUM,
 
 
 class CommGroup:
-    """A communicator: the mesh ``axes`` it spans and the torch process
-    group behind them (``None``: the default group, the world)."""
+    """A communicator: the mesh ``axes`` it spans, its global ``ranks`` in
+    group order (``None``: the world) and the torch process group behind
+    them (``None``: the default group, or no group for one process)."""
 
-    def __init__(self, axes=(topo.DP_AXIS,), name=None, pg=None, complement=None):
+    def __init__(self, axes=(topo.DP_AXIS,), name=None, pg=None, complement=None,
+                 ranks=None):
         if isinstance(axes, str):
             axes = (axes,)
         self.axes = tuple(axes)
         self.name = name or "+".join(self.axes)
         self.pg = pg
-        # the other hop of a two-level split (new_two_level_groups)
+        self.ranks = ranks
+        # the other hop of a two-level split (the rest of the ZeRO group's
+        # axes, where they span more than one process)
         self.complement = complement
 
     def size(self):
+        if self.ranks is not None:
+            return len(self.ranks)
         return dist.get_world_size(self.pg) if dist.is_initialized() else 1
 
     def rank(self):
+        if self.ranks is not None:
+            return self.ranks.index(dist.get_rank() if dist.is_initialized() else 0)
         return dist.get_rank(self.pg) if dist.is_initialized() else 0
+
+    def global_rank(self, index):
+        """The world rank of the group's ``index``-th member."""
+        return self.ranks[index] if self.ranks is not None else index
 
     def backend(self):
         return dist.get_backend(self.pg)
@@ -117,10 +137,71 @@ def get_world_group():
     return CommGroup(topo.ALL_AXES, name="world")
 
 
+# every process's groups, by mesh sizes and axes (built together, once)
+_MESH_GROUPS = {}
+# the groups every process builds, in this order
+_GROUP_AXES = {"dp": topo.ZERO_AXES, "zshard": (topo.ZSHARD_AXIS,),
+               "dp_replica": (topo.DP_AXIS,), "tp": (topo.TP_AXIS,)}
+
+
+def _mesh_groups(mesh=None):
+    """This rank's group for each entry of :data:`_GROUP_AXES` under
+    ``mesh`` (the global mesh by default).  The first call for a mesh
+    creates every group of every axis set on every process, in one order
+    (``torch.distributed.new_group`` is collective); a group that is the
+    whole world is the default group, and one of a single process has
+    none."""
+    mesh = mesh or topo.get_mesh()
+    key = tuple(mesh.sizes[a] for a in topo.ALL_AXES)
+    if key in _MESH_GROUPS:
+        return _MESH_GROUPS[key]
+    me = dist.get_rank() if dist.is_initialized() else 0
+    mine = {}
+    for name, axes in _GROUP_AXES.items():
+        for ranks in mesh.groups(axes):
+            pg = None
+            if 1 < len(ranks) < mesh.world:
+                pg = dist.new_group(ranks)
+            if me in ranks:
+                mine[name] = CommGroup(axes, name=name, pg=pg, ranks=ranks)
+    # a two-level split of the ZeRO group: each hop's other hop, where it
+    # spans more than one process (the JAX package's ``_hier_axes``)
+    z, d = mine["zshard"], mine["dp_replica"]
+    z.complement = d if d.size() > 1 else None
+    d.complement = z if z.size() > 1 else None
+    _MESH_GROUPS[key] = mine
+    return mine
+
+
 def get_data_parallel_group():
-    # ZeRO shards over dp x zshard x ep x sp; only dp is above 1 here
-    return CommGroup((topo.DP_AXIS, topo.ZSHARD_AXIS, topo.EP_AXIS, topo.SP_AXIS),
-                     name="dp")
+    """The ZeRO group: ``dp x zshard x ep x sp`` of this rank's
+    tensor-parallel slice, ranked by the data-parallel index."""
+    return _mesh_groups()["dp"]
+
+
+def get_zero_param_parallel_group():
+    """The MiCS / hpZ subgroup (``zshard``)."""
+    return _mesh_groups()["zshard"]
+
+
+def get_data_parallel_replica_group():
+    """The ``dp`` axis alone: the replicas of a MiCS partition."""
+    return _mesh_groups()["dp_replica"]
+
+
+def get_model_parallel_group():
+    """The tensor-parallel group (``tp``)."""
+    return _mesh_groups()["tp"]
+
+
+def get_axis_group(axis):
+    """This rank's group along one ZeRO axis (``dp`` or ``zshard``)."""
+    if axis == topo.ZSHARD_AXIS:
+        return get_zero_param_parallel_group()
+    if axis == topo.DP_AXIS:
+        return get_data_parallel_replica_group()
+    raise ValueError(f"no group for mesh axis {axis!r} here: the quantized hops run "
+                     f"over dp and zshard")
 
 
 def _resolve_group(group):
@@ -133,30 +214,16 @@ def _resolve_group(group):
 
 def new_two_level_groups(n_inter, n_intra):
     """This rank's ``(intra_group, inter_group)`` of a world of ``n_inter x
-    n_intra`` processes in the JAX package's mesh order (dp major, zshard
-    minor): rank ``r = i_inter * n_intra + i_intra``; the intra group holds
-    the ranks of one ``i_inter``, the inter group those of one ``i_intra``,
-    each ranked by its index along its axis.  Every rank calls it, in the
-    same order (``torch.distributed.new_group`` is collective)."""
+    n_intra`` processes: the ``zshard`` and ``dp`` groups of the mesh
+    ``dp=n_inter, zshard=n_intra`` (the JAX package's order: rank ``r =
+    i_inter * n_intra + i_intra``), each ranked by its index along its
+    axis.  Every rank calls it, in the same order (the groups are built
+    collectively the first time)."""
     world = get_world_size()
     if n_inter * n_intra != world:
         raise ValueError(f"{n_inter} x {n_intra} groups for a world of {world}")
-    rank = get_rank()
-    intra = inter = None
-    for i in range(n_inter):
-        ranks = [i * n_intra + j for j in range(n_intra)]
-        pg = dist.new_group(ranks)
-        if rank in ranks:
-            intra = pg
-    for j in range(n_intra):
-        ranks = [i * n_intra + j for i in range(n_inter)]
-        pg = dist.new_group(ranks)
-        if rank in ranks:
-            inter = pg
-    intra = CommGroup((topo.ZSHARD_AXIS,), name="intra", pg=intra)
-    inter = CommGroup((topo.DP_AXIS,), name="inter", pg=inter, complement=intra)
-    intra.complement = inter
-    return intra, inter
+    groups = _mesh_groups(topo.MeshTopology(dp=n_inter, zshard=n_intra))
+    return groups["zshard"], groups["dp_replica"]
 
 
 def configure(config=None, verbose=None, prof_all=None, debug=None, prof_ops=None):
@@ -437,7 +504,8 @@ def all_to_all(tensor, group=None, split_axis=0, concat_axis=0, tiled=True,
 
 @timed_op
 def broadcast(tensor, src=0, group=None, log_name="broadcast"):
-    """Rank ``src``'s ``tensor`` on every rank, written into it and returned."""
+    """The group's ``src``-th rank's ``tensor`` on every rank, written into
+    it and returned."""
     group = _resolve_group(group)
     if group.size() == 1:
         return tensor
@@ -446,7 +514,7 @@ def broadcast(tensor, src=0, group=None, log_name="broadcast"):
     def bcast(out, x, async_op=False):
         if out is not x:
             out.copy_(x)
-        dist.broadcast(out, src=src, group=group.pg)
+        dist.broadcast(out, src=group.global_rank(src), group=group.pg)
 
     _run(log_name, group, bcast, buf, buf)
     if buf.data_ptr() != tensor.data_ptr():
@@ -469,22 +537,30 @@ def _gradient_wire_dtype(wire_dtype):
     return "fp8_e5m2" if str(wire_dtype).lower() == "fp8" else wire_dtype
 
 
-def _hier_groups(intra_group, inter_group):
-    """The ``(intra, inter)`` hops of a quantized collective (JAX
-    ``_hier_axes``): the explicit groups; given only an intra hop, the
-    inter hop is the rest of the group (the intra group's complement from
-    :func:`new_two_level_groups`).  ``(None, None)``: the flat schedule
-    over the group."""
+def _hier_groups(intra_group, inter_group, collapse=False):
+    """The one decision of flat or two-level for a quantized collective:
+    ``(intra, inter)``, two-level over both, or ``(group, None)``, flat over
+    one.  Given only an intra hop, the inter hop is the rest of the ZeRO
+    group (the intra group's ``complement``; none where that is one
+    process), as the JAX package's ``_hier_axes`` takes the group's other
+    active axes: an intra hop of one process still runs the two-level
+    schedule, with a trivial hop.  ``collapse`` (ZeRO++'s ``qgz_*``, JAX
+    ``qgz_reduce_scatter``): a hop of one process is dropped, so the
+    schedule is flat over the other hop, ``(None, None)`` where neither
+    spans more than one.  ``(None, None)`` without groups."""
     if intra_group is None and inter_group is None:
         return None, None
+    if collapse:
+        wide = [_resolve_group(g) for g in (intra_group, inter_group)
+                if g is not None and _resolve_group(g).size() > 1]
+        if len(wide) == 2:
+            return tuple(wide)
+        return (wide[0] if wide else None), None
     if intra_group is None:
         raise ValueError("a two-level quantized collective needs its intra_group")
     intra = _resolve_group(intra_group)
     inter = inter_group if inter_group is not None else intra.complement
-    if inter is None:
-        # the intra hop spans the whole group: flat over it
-        return intra, None
-    return intra, _resolve_group(inter)
+    return intra, (_resolve_group(inter) if inter is not None else None)
 
 
 def _run_quantized(collective, x, n_elems, intra, inter, group_size, impl, wire_dtype):
@@ -492,8 +568,8 @@ def _run_quantized(collective, x, n_elems, intra, inter, group_size, impl, wire_
     over ``intra`` then ``inter`` where ``inter`` is given, else flat over
     ``intra``; its analytic wire bytes over ``n_elems`` elements go to the
     step the engine records (``comms_logger.record``; no-op outside one).
-    The facade and ZeRO++'s ``qgz_*`` wrappers each pick the hops, as in
-    the JAX package, and run them here."""
+    The facade and ZeRO++'s ``qgz_*`` wrappers pick the hops with
+    :func:`_hier_groups` and run them here."""
     from . import compressed
     from ..telemetry import wire
 

@@ -58,6 +58,8 @@ def calc_bw_log(name, size_bytes, duration, n):
 class CommsLogger:
     def __init__(self):
         self.comms_dict = defaultdict(lambda: defaultdict(lambda: [0, [], [], []]))
+        # the group sizes each logged op ran over (hpZ's gathers: zshard's)
+        self.group_sizes = defaultdict(set)
         self.verbose = False
         self.debug = False
         self.prof_ops = []
@@ -117,6 +119,7 @@ class CommsLogger:
         if self.prof_ops and raw_name not in self.prof_ops and not self.prof_all:
             return
         msg_size, alg_bw, bus_bw = calc_bw_log(raw_name, msg_size, latency, max(n_ranks, 1))
+        self.group_sizes[record_name].add(int(n_ranks))
         entry = self.comms_dict[record_name][msg_size]
         entry[0] += 1
         entry[1].append(latency * 1000.0)

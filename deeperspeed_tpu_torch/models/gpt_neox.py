@@ -33,6 +33,15 @@ block-level recompute (``remat``, ``torch.utils.checkpoint``), progressive
 layer drop, random-LTD on the middle blocks, and the chunked cross entropy
 (``ce_chunk_tokens``).
 
+Tensor parallelism (the training engine at ``tp`` > 1): the engine makes
+the whole model tensor-parallel in place by :meth:`GPTNeoX.param_partition_rules`
+(the JAX package's Megatron rules in torch's ``[out, in]`` layout,
+``parallel/tensor_parallel.py``).  The fused ``query_key_value`` is laid
+out per head (``[q | k | v]`` a head), so its column split gives each rank
+whole heads and attention runs on ``num_heads / tp`` of them; the output
+head is column-parallel over the vocabulary and both losses take the
+vocabulary-parallel cross entropy.
+
 Not ported yet (construction raises, naming the ROADMAP item): MoE layers,
 sequence parallelism.
 """
@@ -53,6 +62,8 @@ from ..ops.attention import (dot_product_attention, paged_decode_attention,
 from ..ops.attention.core import keep_mask
 from ..ops.quantizer import byte_view, dequantize_kv, quantize_kv
 from ..ops.transformer import apply_rotary_pos_emb, layer_norm, rotary_tables
+from ..parallel.tensor_parallel import (ColumnParallelLinear, RowParallelLinear,
+                                        partition_dims, vocab_parallel_log_likelihood)
 from ..quantization import canonical_dtype
 from ..runtime.data_pipeline.data_routing.basic_layer import (
     random_ltd_gather, random_ltd_scatter, take_tokens)
@@ -142,8 +153,24 @@ class PagedState:
     src_rows: torch.Tensor         # [T] int64
 
 
+# the JAX package's tensor-parallel rules (``param_partition_rules``) in
+# torch's names and ``[out, in]`` layout: the dim of each parameter split
+# over ``tp`` (a flax ``P(None, "tp")`` on a Dense kernel [in, out] is dim 0
+# of the torch weight); every other parameter is whole on every rank
+TP_RULES = [
+    (r"embed_in\.weight$", 0),
+    (r"query_key_value\.(weight|bias)$", 0),
+    (r"attention\.dense\.weight$", 1),
+    (r"dense_h_to_4h\.(weight|bias)$", 0),
+    (r"dense_4h_to_h\.weight$", 1),
+    (r"embed_out\.weight$", 0),
+]
+
+
 def _dense(lin, x, dtype):
     """``lin`` applied in ``dtype`` (flax ``Dense(dtype=...)`` promotion)."""
+    if isinstance(lin, (ColumnParallelLinear, RowParallelLinear)):
+        return lin(x, dtype)
     b = None if lin.bias is None else lin.bias.to(dtype)
     return F.linear(x.to(dtype), lin.weight.to(dtype), b)
 
@@ -157,7 +184,13 @@ class ModelLinear(nn.Linear):
         super().__init__(in_features, out_features, bias=bias)
         self.config = config
 
-    def forward(self, x):
+    def forward(self, x, with_weight=None):
+        """The head in ``config.dtype``; ``with_weight(x, weight)`` instead,
+        for a loss that owns the product (the chunked cross entropy), so
+        that an engine gathering the head's weight at this call (stage 3)
+        gathers it around the loss."""
+        if with_weight is not None:
+            return with_weight(x, self.weight)
         return _dense(self, x, self.config.dtype)
 
 
@@ -190,8 +223,9 @@ class GPTNeoXAttention(nn.Module):
         cfg = self.config
         B, S, H = x.shape
         # per-head [q | k | v] layout, as the flax Dense output is reshaped
+        # (num_heads / tp of them under tensor parallelism)
         qkv = _dense(self.query_key_value, x, cfg.dtype).view(
-            B, S, cfg.num_heads, 3 * cfg.head_dim)
+            B, S, -1, 3 * cfg.head_dim)
         q, k, v = qkv.split(cfg.head_dim, dim=-1)
         rot_dim = int(cfg.head_dim * cfg.rotary_pct)
         if rot_dim > 0:
@@ -207,7 +241,7 @@ class GPTNeoXAttention(nn.Module):
             rate = cfg.attention_dropout if rng is not None else 0.0
             out = dot_product_attention(q, k, v, causal=True, dropout_rate=rate,
                                         generator=rng)
-        return _dense(self.dense, out.reshape(B, S, H), cfg.dtype)
+        return _dense(self.dense, out.reshape(B, S, -1), cfg.dtype)
 
     def _paged_attention(self, q, k, v, positions, kv, paged):
         """Blocked KV-pool attention.  Writes happen before reads, so a token
@@ -386,7 +420,7 @@ class GPTNeoX(nn.Module):
 
     def forward(self, input_ids, positions=None, paged_state=None,
                 logits_positions=None, rng=None, pld_theta=None,
-                random_ltd_tokens=None, return_hidden=False):
+                random_ltd_tokens=None, return_hidden=False, pld_rng=None):
         """``paged_state`` (serving) carries ``kv_cache`` (per layer (pool_k,
         pool_v), or (pool_k, pool_v, k_scale, v_scale) for quantized pools,
         updated in place), ``block_tables`` [B, M]
@@ -396,9 +430,11 @@ class GPTNeoX(nn.Module):
         Training passes ``rng``, a ``torch.Generator`` on the model's
         device: it draws the dropout masks, and with ``pld_theta`` (progressive
         layer drop: block i > 0 survives with probability
-        1 - (i+1)/L (1 - theta)) and ``random_ltd_tokens`` k (random-LTD: the
-        middle blocks see a sorted random k-subset of each row, at its own
-        positions) their draws too.  Without ``rng`` the forward is
+        1 - (i+1)/L (1 - theta), one draw a block from ``pld_rng`` -- a
+        generator seeded alike on every rank, so that every rank drops the
+        same blocks -- or from ``rng`` without it) and ``random_ltd_tokens``
+        k (random-LTD: the middle blocks see a sorted random k-subset of
+        each row, at its own positions) their draws too.  Without ``rng`` the forward is
         deterministic and those arguments are ignored.  ``return_hidden``
         returns the final LayerNorm's output (the chunked loss owns the
         head)."""
@@ -429,7 +465,8 @@ class GPTNeoX(nn.Module):
                 y = random_ltd_scatter(x, y, idx)
             if rng is not None and pld_theta is not None and i > 0:
                 keep_p = 1.0 - ((i + 1) / L) * (1.0 - pld_theta)
-                keep = torch.rand((), generator=rng, device=x.device) < keep_p
+                coin = pld_rng if pld_rng is not None else rng
+                keep = torch.rand((), generator=coin, device=coin.device).to(x.device) < keep_p
                 y = torch.where(keep, y, x)
             x = y
         x = self.final_layer_norm(x)
@@ -477,14 +514,20 @@ class GPTNeoX(nn.Module):
                 deterministic = rng is None
             return {"rng": None if deterministic else rng,
                     "pld_theta": batch.get("pld_theta"),
+                    "pld_rng": batch.get("pld_rng"),
                     "random_ltd_tokens": random_ltd_tokens}
 
         def loss(model, batch, rng=None, deterministic=None, random_ltd_tokens=None):
             kwargs = setup(batch, rng, deterministic, random_ltd_tokens)
             logits = model(batch["input_ids"], **kwargs).to(torch.float32)
-            lse = torch.logsumexp(logits, dim=-1)
-            gold = torch.gather(logits, -1, batch["labels"][..., None])[..., 0]
-            token_ll = gold - lse
+            head = model.embed_out
+            if isinstance(head, ColumnParallelLinear):
+                token_ll = vocab_parallel_log_likelihood(logits, batch["labels"],
+                                                         head.group, head.out_start)
+            else:
+                lse = torch.logsumexp(logits, dim=-1)
+                gold = torch.gather(logits, -1, batch["labels"][..., None])[..., 0]
+                token_ll = gold - lse
             mask = batch.get("loss_mask")
             mask = torch.ones_like(token_ll) if mask is None else mask.to(token_ll.dtype)
             return -(token_ll * mask).sum() / mask.sum().clamp(min=1.0)
@@ -493,9 +536,13 @@ class GPTNeoX(nn.Module):
                          random_ltd_tokens=None):
             kwargs = setup(batch, rng, deterministic, random_ltd_tokens)
             hidden = model(batch["input_ids"], return_hidden=True, **kwargs)
-            return _chunked_ce(hidden, model.embed_out.weight, batch["labels"],
-                               batch.get("loss_mask"), model.config.ce_chunk_tokens,
-                               model.config.dtype)
+            head, cfg = model.embed_out, model.config
+            tp = ((head.group, head.out_start) if isinstance(head, ColumnParallelLinear)
+                  else None)
+            # through the head's call, so that stage 3 gathers its weight
+            return head(hidden, with_weight=lambda h, w: _chunked_ce(
+                h, w, batch["labels"], batch.get("loss_mask"), cfg.ce_chunk_tokens,
+                cfg.dtype, tp))
 
         return loss_chunked if cfg.ce_chunk_tokens > 0 else loss
 
@@ -507,6 +554,12 @@ class GPTNeoX(nn.Module):
     def from_reference_tree(self, tree):
         """Checkpoints: the inverse of :meth:`to_reference_tree`."""
         return params_from_jax(tree)
+
+    def param_partition_rules(self):
+        """The tensor-parallel split of each parameter: ``(regex over the
+        parameter's name, dim of the torch weight)`` pairs (:data:`TP_RULES`);
+        a parameter no rule names is whole on every rank."""
+        return list(TP_RULES)
 
     def no_cast_paths(self):
         """Parameter names (regexes) that stay fp32 under mixed precision:
@@ -542,15 +595,18 @@ class GPTNeoX(nn.Module):
         return v * h + L * (attn + mlp + lns) + 2 * h + v * h
 
 
-def _ce_chunk(xc, w, labels, mask, dtype):
-    """Sum over one chunk of (gold - logsumexp) * mask, logits in fp32."""
+def _ce_chunk(xc, w, labels, mask, dtype, tp=None):
+    """Sum over one chunk of (gold - logsumexp) * mask, logits in fp32
+    (over the vocabulary split ``tp = (group, start)``: the rank's slice)."""
     logits = F.linear(xc.to(dtype), w.to(dtype)).to(torch.float32)
+    if tp is not None:
+        return (vocab_parallel_log_likelihood(logits, labels, *tp) * mask).sum()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[:, None])[:, 0]
     return ((gold - lse) * mask).sum()
 
 
-def _chunked_ce(hidden, w, labels, mask, chunk_tokens, dtype):
+def _chunked_ce(hidden, w, labels, mask, chunk_tokens, dtype, tp=None):
     """The chunked fused-linear cross entropy (``loss_chunked`` of the JAX
     package): the [T, H] hidden states (T = B S, padded with zero rows to a
     multiple of C = min(``chunk_tokens``, T), labels and mask padded with
@@ -558,7 +614,10 @@ def _chunked_ce(hidden, w, labels, mask, chunk_tokens, dtype):
     logits in fp32; the loss is -(sum of the chunks' sums) / max(mask sum,
     1), both sums in fp32.  Each chunk runs under ``torch.utils.checkpoint``,
     which keeps only its inputs ([C, H]) for the backward and recomputes its
-    logits there, so no [T, V] logits are ever live."""
+    logits there, so no [T, V] logits are ever live.  ``tp = (group,
+    start)``: ``w`` is the rank's rows of a vocabulary-parallel head and
+    each chunk takes the vocabulary-parallel cross entropy (the hidden
+    states arrive through the head's input copy)."""
     B, S, H = hidden.shape
     T = B * S
     C = min(chunk_tokens, T)
@@ -575,20 +634,22 @@ def _chunked_ce(hidden, w, labels, mask, chunk_tokens, dtype):
     num = den = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c in range(n_chunks):
         sl = slice(c * C, (c + 1) * C)
-        num = num + checkpoint(_ce_chunk, x[sl], w, labels[sl], mask[sl], dtype,
+        num = num + checkpoint(_ce_chunk, x[sl], w, labels[sl], mask[sl], dtype, tp,
                                use_reentrant=False, preserve_rng_state=False)
         den = den + mask[sl].sum()
     return -num / den.clamp(min=1.0)
 
 
-def params_from_jax(tree) -> dict:
+def params_from_jax(tree, tp_rank=0, tp_size=1) -> dict:
     """A state dict for :class:`GPTNeoX` from a flax parameter tree given as
     nested dicts of numpy arrays (``jax.device_get(params)``); needs no JAX.
 
     Names follow ``checkpoint/reference_universal.py`` ``gpt_neox_param_map``
     of the JAX package; each ``Dense`` kernel [in, out] is transposed into
     ``nn.Linear.weight`` [out, in].  Raises if a leaf of ``tree`` is left
-    unmapped (MoE experts, for one, are not ported)."""
+    unmapped (MoE experts, for one, are not ported).  With ``tp_size`` > 1
+    each parameter :data:`TP_RULES` splits is rank ``tp_rank``'s slice of
+    it, as the engine shards the model over ``tp``."""
     used = set()
 
     def leaf(path, transpose=False):
@@ -626,7 +687,19 @@ def params_from_jax(tree) -> dict:
     unmapped = sorted(set(walk(tree, "")) - used)
     if unmapped:
         raise ValueError(f"params_from_jax: unmapped leaves {unmapped[:8]}")
+    if tp_size > 1:
+        for name, dim in partition_dims(list(sd), TP_RULES).items():
+            sd[name] = sd[name].chunk(tp_size, dim)[tp_rank].contiguous()
     return sd
+
+
+def join_tensor_parallel(shards) -> dict:
+    """The whole state dict (or per-parameter tree) from the ``tp`` ranks'
+    dicts in rank order: each parameter :data:`TP_RULES` splits
+    concatenated along its dim, the others taken from rank 0."""
+    dims = partition_dims(list(shards[0]), TP_RULES)
+    return {name: (torch.cat([s[name] for s in shards], dims[name]) if name in dims
+                   else value) for name, value in shards[0].items()}
 
 
 _LINEARS = ("attention.query_key_value", "attention.dense", "mlp.dense_h_to_4h",
@@ -638,7 +711,10 @@ def params_to_jax(state_dict) -> dict:
     inverse of :func:`params_from_jax`, each ``nn.Linear.weight`` [out, in]
     transposed back to a ``Dense`` kernel [in, out] (a view), keys sorted.
     Works on any dict keyed by parameter name (an optimizer's moments too).
-    Raises on a name it does not map."""
+    A list of dicts is the ``tp`` ranks' slices, in rank order
+    (:func:`join_tensor_parallel`).  Raises on a name it does not map."""
+    if isinstance(state_dict, (list, tuple)):
+        state_dict = join_tensor_parallel(state_dict)
     tree = {}
 
     def put(path, value):

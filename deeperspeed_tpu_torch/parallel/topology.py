@@ -5,10 +5,13 @@
   package's: no devices needed.
 * :class:`MeshTopology` -- the process grid over the canonical axes
   ``('pp', 'dp', 'zshard', 'ep', 'sp', 'tp')``.  The JAX package binds them
-  to a ``jax.sharding.Mesh``; here one process drives one device, and the
-  data-parallel axis is the ``torch.distributed`` world: ``dp`` must equal
-  the world size.  Every other axis above 1 raises ``NotImplementedError``
-  naming the ROADMAP item that ports it.
+  to a ``jax.sharding.Mesh`` over its devices reshaped
+  ``(pp, dp, zshard, ep, sp, tp)`` row-major; here one process drives one
+  device and the ``torch.distributed`` world takes the same order, so rank
+  ``r`` is JAX device ``r``: ``r = (i_dp * zshard + i_zshard) * tp + i_tp``.
+  ``dp``, ``zshard`` (the MiCS / hpZ subgroup) and ``tp`` (tensor
+  parallelism) run; ``pp``, ``ep`` and ``sp`` above 1 raise
+  ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from collections import namedtuple
@@ -26,11 +29,11 @@ ALL_AXES = (PP_AXIS, DP_AXIS, ZSHARD_AXIS, EP_AXIS, SP_AXIS, TP_AXIS)
 # where the axes the port does not run yet will be ported (ROADMAP Queue A)
 _AXIS_ITEMS = {
     PP_AXIS: "Pipelines",
-    ZSHARD_AXIS: "Multi-process training, part 2",
     EP_AXIS: "Llama/Mistral, v1 inference and MoE",
     SP_AXIS: "Sequence parallelism",
-    TP_AXIS: "Multi-process training, part 2",
 }
+# the axes ZeRO shards over (the JAX package's ``sharding.ZERO_AXES``)
+ZERO_AXES = (DP_AXIS, ZSHARD_AXIS, EP_AXIS, SP_AXIS)
 
 
 class ProcessTopology:
@@ -119,8 +122,9 @@ def _world_size():
 
 
 class MeshTopology:
-    """The process grid: ``dp`` data-parallel processes (the
-    ``torch.distributed`` world, or 1 without one), every other axis 1."""
+    """The process grid: ``pp * dp * zshard * ep * sp * tp`` processes, the
+    ``torch.distributed`` world (1 without one).  ``dp`` defaults to what
+    the world leaves after the other axes."""
 
     def __init__(self, pp=1, dp=None, zshard=1, ep=1, sp=1, tp=1):
         sizes = dict(zip(ALL_AXES, (pp, dp, zshard, ep, sp, tp)))
@@ -130,13 +134,34 @@ class MeshTopology:
                     f"mesh axis {axis}={sizes[axis]} is not ported yet "
                     f"(ROADMAP Queue A, '{item}')")
         world = _world_size()
+        rest = pp * zshard * ep * sp * tp
         if dp is None:
-            dp = world
-        if dp != world:
-            raise ValueError(f"mesh dp={dp} must equal the torch.distributed "
+            dp = world // rest if world % rest == 0 else 0
+        if dp * rest != world:
+            raise ValueError(f"mesh pp={pp} x dp={dp} x zshard={zshard} x ep={ep} x "
+                             f"sp={sp} x tp={tp} must equal the torch.distributed "
                              f"world size {world}: one process drives one device")
         sizes[DP_AXIS] = dp
         self.sizes = sizes
+        self.world = world
+
+    def coords(self, rank):
+        """Rank ``rank``'s index along each axis (row-major, ``pp`` outermost)."""
+        out = {}
+        for axis in reversed(ALL_AXES):
+            rank, out[axis] = divmod(rank, self.sizes[axis])
+        return {axis: out[axis] for axis in ALL_AXES}
+
+    def groups(self, axes):
+        """Every group of ranks that differ only along ``axes``, each in
+        rank order (the group's ranks are numbered row-major over
+        ``axes``), in an order every process computes alike."""
+        out = {}
+        for r in range(self.world):
+            c = self.coords(r)
+            key = tuple(c[a] for a in ALL_AXES if a not in axes)
+            out.setdefault(key, []).append(r)
+        return list(out.values())
 
     @property
     def pp(self):
@@ -164,8 +189,9 @@ class MeshTopology:
 
     @property
     def data_parallel_size(self):
-        """Replication degree seen by the optimizer: dp (the other
-        data-parallel axes are 1 here)."""
+        """Replication degree seen by the optimizer = dp * zshard * ep * sp
+        (as in the JAX package: MiCS shards state within a zshard group
+        and replicates it across dp)."""
         return self.dp * self.zshard * self.ep * self.sp
 
 
@@ -179,7 +205,7 @@ def get_mesh():
     """The process-global MeshTopology (a pure data-parallel one over the
     world by default, rebuilt if the world changed since)."""
     global _GLOBAL_MESH
-    if _GLOBAL_MESH is None or _GLOBAL_MESH.dp != _world_size():
+    if _GLOBAL_MESH is None or _GLOBAL_MESH.world != _world_size():
         _GLOBAL_MESH = MeshTopology()
     return _GLOBAL_MESH
 

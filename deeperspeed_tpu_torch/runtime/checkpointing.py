@@ -87,22 +87,25 @@ def _decode(data):
 
 
 def _world(engine):
+    """The data-parallel processes: one generator state each."""
     return getattr(engine, "world", 1)
 
 
 def _is_writer(engine):
-    return getattr(engine, "rank", 0) == 0
+    """The one process that writes: world rank 0 (under tensor parallelism
+    every tp slice has a data-parallel rank 0)."""
+    return comm.get_rank() == 0
 
 
 def _validate_tag(engine, tag):
     """Every rank saves under rank 0's tag (``tag_validation``: Ignore, Warn
     or Fail when a rank's own tag differs)."""
     mode = engine.config.checkpoint_config.tag_validation.lower()
-    if mode == "ignore" or _world(engine) == 1:
+    if mode == "ignore" or comm.get_world_size() == 1:
         return
     mine = str(tag).encode()[:128].ljust(128, b"\0")
     buf = torch.frombuffer(bytearray(mine), dtype=torch.uint8).to(engine.device)
-    comm.broadcast(buf, 0, engine.group)
+    comm.broadcast(buf, 0)
     if bytes(buf.cpu().numpy()) != mine:
         msg = f"checkpoint tag '{tag}' differs across processes"
         if mode == "fail":
@@ -326,11 +329,11 @@ def write_checkpoint(engine, save_dir, tag, model_bytes, optim_bytes, meta,
             reg.scalar("ckpt/verify_seconds").record(info.get("verify_seconds", 0.0))
             reg.scalar("ckpt/bytes").record(info.get("bytes", 0))
     finally:
-        if _world(engine) > 1:
+        if comm.get_world_size() > 1:
             # no rank reads 'latest' before the writer is done; runs when
             # the writer raises too, so the others do not hang (the
             # writer's exception still propagates after the barrier)
-            comm.barrier(engine.group)
+            comm.barrier()
     log_dist(f"saved checkpoint {ckpt_dir}", ranks=[0])
     return ckpt_dir
 
@@ -431,7 +434,13 @@ def _restore_generator(engine, states):
 
 
 def _dataloader_state(engine):
-    """The loader's position, so a resume neither replays nor skips samples."""
+    """The loader's position, so a resume neither replays nor skips samples:
+    with the prefetching loader running, its ``position()``, from before
+    the oldest step it holds (the source runs ``prefetch_depth`` steps
+    ahead of what trained)."""
+    pf = getattr(engine, "_prefetcher", None)
+    if pf is not None and pf.position() is not None:
+        return pf.position()
     dl = getattr(engine, "training_dataloader", None)
     if dl is not None and hasattr(dl, "state_dict"):
         try:
@@ -457,6 +466,9 @@ def _restore_dataloader(engine, meta):
         from .dataloader import RepeatingLoader
 
         engine._data_iterator = iter(RepeatingLoader(dl))
+    # the buffered steps belong to the old position: the prefetcher is
+    # built again around the new iterator at the next step
+    engine._prefetcher = None
 
 
 def save_checkpoint(engine, save_dir, tag=None, client_state=None, save_latest=True):

@@ -9,7 +9,9 @@ the data-parallel world), ``optimizer``, ``scheduler``, ``fp16`` /
 and the bucket, overlap and checkpoint knobs the JAX package accepts and
 ignores), ``communication_data_type``, ``comm.quantized`` (qgZ),
 ``comm.overlap`` (the deferred and bucketed gradient reduction),
-``comms_logger``, ``mesh.data_parallel_size``,
+``comms_logger``, ``mesh.data_parallel_size`` and ``model_parallel_size``,
+MiCS and hpZ (``mics_shard_size``, ``zero_hpz_partition_size``: the
+mesh's ``zshard`` axis),
 ``activation_checkpointing``, ``data_types.grad_accum_dtype``,
 ``progressive_layer_drop``, ``curriculum_learning``, ``data_efficiency``
 and ``checkpoint``.  Any other key raises ``NotImplementedError`` naming
@@ -61,8 +63,8 @@ _ROADMAP = {
 }
 
 
-PART2 = "Multi-process training, part 2"
 OFFLOAD = "Offload"
+REST = "The rest of the surface"
 
 # upstream's zero_optimization knobs for its eager bucketing and overlap;
 # the JAX package accepts and ignores them (XLA schedules its collectives),
@@ -73,9 +75,12 @@ IGNORED_ZERO_KEYS = {
     "allgather_partitions", "allgather_bucket_size", "overlap_comm",
     "sub_group_size", "prefetch_bucket_size", "max_live_parameters",
     "max_reuse_distance", "round_robin_gradients", "ignore_unused_parameters",
+    # the JAX package's field, read by nothing there either: MiCS's gathers
+    # already stay within the zshard group
+    "mics_hierarchical_params_gather",
 }
-# knobs whose default turns the feature off, accepted at that value
-_NO_OP_ZERO_KEYS = {"zero_hpz_partition_size": (1, -1, 0), "mics_shard_size": (1, -1, 0)}
+# the MiCS / hpZ subgroup sizes: at or below 1 the feature is off
+_ZSHARD_KEYS = ("mics_shard_size", "zero_hpz_partition_size")
 # checkpoint knobs the JAX package accepts as fields and does not act on:
 # its checkpoints always hold whole fp32 masters
 _CHECKPOINT_ZERO_KEYS = {"load_from_fp32_weights": True, "elastic_checkpoint": False,
@@ -192,9 +197,12 @@ class CheckpointConfig(DeeperSpeedConfigModel):
 
 
 class CommQuantizedConfig(DeeperSpeedConfigModel):
-    """``comm.quantized``: the qgZ gradient reduction, on the flat schedule
-    over the data-parallel group (``intra_axis`` null or ``dp``; the
-    two-hop engine path needs the mesh's ``zshard`` axis).
+    """``comm.quantized``: the qgZ gradient reduction over the ZeRO group.
+    ``intra_axis`` (``dp`` or ``zshard``) names the first hop of the
+    two-hop schedule, the rest of the group the second (the JAX engine's
+    rule: ``dp`` alone with ``zshard`` 1 is the flat schedule; an axis of
+    one process is a trivial hop); unset, the schedule is two-hop over
+    ``zshard`` then ``dp`` where both span more than one process.
     ``wire_dtype`` is ``int8`` or ``fp8`` (e5m2 on the gradient wire);
     ``impl`` names the JAX package's B5 backend (``auto`` / ``pallas`` /
     ``xla``, bit-equal there): the port takes B5 on the card and its plain
@@ -204,6 +212,7 @@ class CommQuantizedConfig(DeeperSpeedConfigModel):
     group_size: int = 128
     impl: str = "auto"
     wire_dtype: str = "int8"
+    intra_axis: Optional[str] = None
 
 
 class CommScheduleConfig(DeeperSpeedConfigModel):
@@ -227,9 +236,9 @@ class CommOverlapConfig(DeeperSpeedConfigModel):
       reduce once a batch; ``bucket_mb`` splits that reduction into
       collectives of at most that many MiB, issued in order (0: one);
     * ``xla_latency_hiding``: TPU compiler flags; one warning on the card;
-    * ``prefetch_depth``: accepted; the prefetching loader waits for
-      ROADMAP Queue A, 'Multi-process training, part 2' (said in one log
-      line);
+    * ``prefetch_depth``: the engine's loader runs that many steps' batches
+      ahead, copied to the card on a side stream
+      (``dataloader.DevicePrefetchingLoader``);
     * ``eager_async``: ``async_op=True`` on the facade's collectives
       returns a handle."""
 
@@ -254,8 +263,10 @@ class CommsConfig(DeeperSpeedConfigModel):
 
 
 class MeshConfig(DeeperSpeedConfigModel):
-    """``mesh``: the data-parallel degree is the process count; every other
-    axis is 1 until its ROADMAP item lands."""
+    """``mesh``: ``model_parallel_size`` is the ``tp`` axis and
+    ``data_parallel_size`` the ``dp`` axis (by default what the world
+    leaves); pipeline, sequence and expert parallelism stay 1 until their
+    ROADMAP items land."""
 
     pipe_parallel_size: int = 1
     model_parallel_size: int = 1
@@ -265,7 +276,6 @@ class MeshConfig(DeeperSpeedConfigModel):
 
 
 _MESH_ITEMS = {"pipe_parallel_size": "Pipelines",
-               "model_parallel_size": PART2,
                "sequence_parallel_size": "Sequence parallelism",
                "expert_parallel_size": "Llama/Mistral, v1 inference and MoE"}
 
@@ -274,7 +284,7 @@ def _known(block, model, where):
     """Refuse keys of ``block`` that ``model`` does not declare."""
     unknown = sorted(set(block) - set(model.model_fields))
     if unknown:
-        raise _not_ported(f"{where} keys {unknown}", PART2)
+        raise _not_ported(f"{where} keys {unknown}", REST)
 
 
 def _world_size():
@@ -285,8 +295,9 @@ def _world_size():
 
 class DeeperSpeedConfig:
     """Top-level config from a dict or a path to a JSON file.  ``world_size``
-    (the data-parallel process count) defaults to the ``torch.distributed``
-    world, 1 without one."""
+    (the data-parallel degree, ``dp x zshard``) defaults to the
+    ``torch.distributed`` world (1 without one) over
+    ``mesh.model_parallel_size``."""
 
     def __init__(self, config: Union[str, dict], world_size=None):
         if isinstance(config, str):
@@ -302,12 +313,18 @@ class DeeperSpeedConfig:
                                   _ROADMAP.get(key, "The rest of the surface"))
 
         self.mesh_config = self._mesh(pd.get("mesh", {}))
+        self._zero(dict(pd.get(ZERO_OPTIMIZATION, {})))
         if world_size is None:
-            world_size = _world_size()
+            world, tp = _world_size(), self.mesh_config.model_parallel_size
+            if world % tp:
+                raise ValueError(f"mesh.model_parallel_size {tp} does not divide the "
+                                 f"process count {world}")
+            world_size = world // tp
         dp = self.mesh_config.data_parallel_size
-        if dp is not None and dp != world_size:
-            raise ValueError(f"mesh.data_parallel_size {dp} must equal the process "
-                             f"count {world_size}: one process drives one device")
+        if dp is not None and dp * self.zshard_size != world_size:
+            raise ValueError(f"mesh.data_parallel_size {dp} x zshard {self.zshard_size} "
+                             f"must equal the data-parallel process count {world_size}: "
+                             f"one process drives one device")
         self.world_size = world_size
         self.train_batch_size = pd.get(TRAIN_BATCH_SIZE)
         self.train_micro_batch_size_per_gpu = pd.get(TRAIN_MICRO_BATCH_SIZE_PER_GPU)
@@ -324,7 +341,6 @@ class DeeperSpeedConfig:
         if self.fp16.enabled and self.bf16.enabled:
             raise ValueError("fp16 and bf16 are mutually exclusive")
 
-        self._zero(dict(pd.get(ZERO_OPTIMIZATION, {})))
         self._comm(dict(pd.get("comm", {})))
         comms = dict(pd.get("comms_logger", {}))
         _known(comms, CommsConfig, "comms_logger")
@@ -383,36 +399,45 @@ class DeeperSpeedConfig:
             setattr(self, key, bool(zero.pop(key, default)))
         for key in IGNORED_ZERO_KEYS:
             zero.pop(key, None)
-        for key, no_op in _NO_OP_ZERO_KEYS.items():
-            if key in zero and zero[key] in no_op:
-                zero.pop(key)
+        # MiCS and hpZ: both become the mesh's zshard axis, so conflicting
+        # sizes are refused (the JAX engine's ``engine.py:100-116``); hpZ
+        # below stage 3 partitions as stage 1-2 do (no compute shards)
+        for key in _ZSHARD_KEYS:
+            setattr(self, key, max(1, int(zero.pop(key, 1))))
+        mics, hpz = self.mics_shard_size, self.zero_hpz_partition_size
+        if mics > 1 and hpz > 1 and mics != hpz:
+            raise ValueError(
+                f"mics_shard_size={mics} conflicts with zero_hpz_partition_size={hpz}: "
+                f"both map to the zshard mesh axis and must agree")
+        self.zshard_size = max(mics, hpz)
         if zero:
             keys = sorted(zero)
             item = ("Offload" if any(k.startswith(("offload", "cpu_offload")) for k in keys)
-                    else PART2)
+                    else REST)
             raise _not_ported(f"zero_optimization keys {keys}", item)
 
     def _comm(self, comm):
         """``comm``: ``quantized`` (qgZ) and ``overlap`` (with its
-        ``schedule``).  Refused: the ``Offload`` planners, and an
-        ``intra_axis`` the JAX engine would run as the two-hop schedule
-        (every axis but ``dp`` has size 1 until the mesh's ``zshard`` axis
-        is ported)."""
+        ``schedule``).  Refused: the ``Offload`` planners, an
+        ``intra_axis`` on an axis not ported (``pp``, ``ep``, ``sp``), and
+        ``tp``, whose ranks hold different slices of the parameters."""
         quantized = dict(comm.pop("quantized", {}))
         overlap = dict(comm.pop("overlap", {}))
-        intra = quantized.pop("intra_axis", None)
+        intra = quantized.get("intra_axis")
         if intra is not None and intra not in topo.ALL_AXES:
             raise ValueError(f"comm.quantized.intra_axis {intra!r}: expected one of "
                              f"{list(topo.ALL_AXES)}")
-        if intra not in (None, topo.DP_AXIS):
-            raise _not_ported(f"comm.quantized.intra_axis {intra!r} (the two-hop qgZ "
-                              f"engine path over the mesh's zshard axis)", PART2)
+        if intra in topo._AXIS_ITEMS:
+            raise _not_ported(f"comm.quantized.intra_axis {intra!r}", topo._AXIS_ITEMS[intra])
+        if intra == topo.TP_AXIS:
+            raise ValueError("comm.quantized.intra_axis 'tp': the qgZ hops run over the "
+                             "data-parallel axes dp and zshard")
         if quantized.pop("moe_alltoall", False):
             raise _not_ported("comm.quantized.moe_alltoall",
                               "Llama/Mistral, v1 inference and MoE")
         quantized.pop("moe_alltoall_dtype", None)
         if comm:
-            raise _not_ported(f"comm keys {sorted(comm)}", PART2)
+            raise _not_ported(f"comm keys {sorted(comm)}", REST)
         _known(quantized, CommQuantizedConfig, "comm.quantized")
         self.comm_quantized = CommQuantizedConfig(**quantized)
         cq = self.comm_quantized

@@ -7,13 +7,92 @@ batches equal the JAX package's loader's for the same dataset and seed on
 one process; with ``num_shards`` processes each takes its contiguous slice
 of every global batch (``shard_index``), as the JAX loader does.
 ``RepeatingLoader`` wraps any loader into an infinite iterator (reference
-``dataloader.py:17``).
-
-Not ported yet (ROADMAP Queue A, 'Multi-process training, part 2'):
-``DevicePrefetchingLoader`` (the ``comm.overlap`` prefetch).
+``dataloader.py:17``).  ``DevicePrefetchingLoader`` runs the engine's
+loader ``comm.overlap.prefetch_depth`` steps ahead, each step's batches
+copied to the card on a side stream while the step before runs.
 """
 
+import collections
+
 import numpy as np
+import torch
+
+
+class DevicePrefetchingLoader:
+    """Copies the batches of the next ``depth`` steps to ``device`` ahead
+    of their use (JAX ``DevicePrefetchingLoader``: there the asynchronous
+    ``device_put`` of the steps ahead overlaps the current step).
+
+    Each delivered item is one step: ``pulls_per_batch`` items of
+    ``iterator`` (the engine's microbatches, each a dict of arrays), as a
+    list of dicts of tensors on ``device``.  On a CUDA device the host
+    arrays are pinned and copied ``non_blocking`` on a side stream; an
+    event recorded there orders each step's copies before the compute
+    stream uses them, and ``record_stream`` keeps the caching allocator
+    from reusing their memory while the compute stream may still read it.
+    On the CPU the arrays become tensors in place, with no stream.
+
+    Checkpointing: ``position()`` is the source loader's state
+    (``position_fn``) from before the oldest step still buffered was
+    pulled, so a resume re-delivers the batches a save threw away (None
+    without ``position_fn``)."""
+
+    def __init__(self, iterator, device, depth=1, position_fn=None, pulls_per_batch=1):
+        self.iterator = iterator
+        self.device = torch.device(device)
+        self.depth = max(1, int(depth))
+        self.position_fn = position_fn
+        self.pulls_per_batch = max(1, int(pulls_per_batch))
+        self.stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
+                       else None)
+        self._buf = collections.deque()
+        self._exhausted = False
+
+    def _put(self, micro):
+        if self.stream is None:
+            return [{k: torch.as_tensor(v).to(self.device) for k, v in mb.items()}
+                    for mb in micro], None
+        pinned = [{k: torch.as_tensor(v).pin_memory() for k, v in mb.items()}
+                  for mb in micro]
+        with torch.cuda.stream(self.stream):
+            out = [{k: v.to(self.device, non_blocking=True) for k, v in mb.items()}
+                   for mb in pinned]
+            ready = torch.cuda.Event()
+            ready.record(self.stream)
+        return out, ready
+
+    def _fill(self):
+        while not self._exhausted and len(self._buf) < self.depth:
+            pos = self.position_fn() if self.position_fn is not None else None
+            try:
+                micro = [next(self.iterator) for _ in range(self.pulls_per_batch)]
+            except StopIteration:
+                self._exhausted = True
+                return
+            self._buf.append((*self._put(micro), pos))
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        self._fill()
+        if not self._buf:
+            raise StopIteration
+        micro, ready, _ = self._buf.popleft()
+        if ready is not None:
+            current = torch.cuda.current_stream(self.device)
+            current.wait_event(ready)
+            for mb in micro:
+                for t in mb.values():
+                    t.record_stream(current)
+        # refill at once: the next steps' copies overlap this step
+        self._fill()
+        return micro
+
+    def position(self):
+        if self._buf:
+            return self._buf[0][2]
+        return self.position_fn() if self.position_fn is not None else None
 
 
 class RepeatingLoader:

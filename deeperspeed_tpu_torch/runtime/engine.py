@@ -21,14 +21,18 @@ the same step runs eagerly, in the same order and precision:
 * fp16 skips the update of a step whose gradients overflow and backs the
   loss scale off (``precision.py``).
 
-Several processes (``torch.distributed``, one device each; the world is
-the data-parallel axis): every rank takes its contiguous slice of each
-global microbatch (``batch=`` and ``data_iter=`` carry global
-microbatches; the engine's loader yields each rank its slice), and the
-gradient is the mean over ranks, reduced in ``communication_data_type``
-(else the accumulation type).  ZeRO (``zero/sharding.py``): at stage 0
-every rank keeps everything and all-reduces the accumulated gradients once
-a step; stages 1-3 keep only the rank's partition of the masters and the
+Several processes (``torch.distributed``, one device each, laid out by
+the mesh, ``parallel/topology.py``): the ZeRO group is the ``dp x zshard``
+ranks of this rank's tensor-parallel slice (:attr:`group`, :attr:`world`,
+:attr:`rank`, the data-parallel index); every rank takes the contiguous
+slice of each global microbatch its data-parallel index names (``batch=``
+and ``data_iter=`` carry global microbatches; the engine's loader yields
+each rank its slice), so the ``tp`` ranks of one slice see the same rows,
+and the gradient is the mean over the ZeRO group, reduced in
+``communication_data_type`` (else the accumulation type).  ZeRO
+(``zero/sharding.py``): at stage 0 every rank keeps everything and
+all-reduces the accumulated gradients once a step; stages 1-3 keep only
+the rank's partition of the masters and the
 optimizer state (the optimizer steps over the rank's *pieces* of the
 parameters, views that keep each parameter's number of dimensions), and
 all-gather the compute copy after the update; stage 1 reduce-scatters the
@@ -37,6 +41,19 @@ also partitions the compute parameters and gathers them at their module's
 call (``zero/stage3.py``; through int8 under qwZ,
 ``zero_quantized_weights``).  The global norm and the fp16 overflow flag
 are taken across ranks, and the reported loss is the mean of the ranks'.
+
+MiCS (``mics_shard_size`` > 1): every partition is cut over the ``zshard``
+group and replicated across ``dp``; a reduction is a reduce-scatter over
+``zshard`` then an all-reduce over ``dp``.  hpZ (``zero_hpz_partition_size``
+> 1 at stage 3): the masters and moments are cut over the whole ZeRO group
+while each gathered region's compute shard is cut over ``zshard`` only, a
+secondary shard refreshed after each update, so the gathers stay within
+``zshard``.  Tensor parallelism (``mesh.model_parallel_size``, the ``tp``
+axis): the engine makes the whole model it is given tensor-parallel in
+place by its ``param_partition_rules()``
+(``parallel/tensor_parallel.py``), and ZeRO partitions each rank's slices;
+the norms sum the squares of split parameters over ``tp`` and count the
+whole ones (LayerNorms, row-parallel biases) once.
 
 ``comm.overlap`` (the JAX engine's ``engine.py:474-600``) picks the
 reduction's schedule: ``deferred_reduction`` (the default once enabled)
@@ -94,17 +111,18 @@ any other, each rank copying its own pieces in place
 (:meth:`gather_whole`, :meth:`load_whole`).  ``checkpoint.load_universal``
 loads a universal export (``checkpoint/universal.py``) instead.
 
+Progressive layer drop draws its coins from a generator seeded alike on
+every rank (from ``config.seed`` and the step), so every rank drops the
+same blocks; LAMB's trust ratio takes each parameter's whole norm, its
+pieces' squares summed over the ranks in one collective; the chunked loss
+runs inside the head's call, so stage 3 gathers the head's weight around
+it.  ``comm.overlap.prefetch_depth`` runs the engine's loader that many
+steps ahead (``dataloader.DevicePrefetchingLoader``).
+
 Not ported yet (raising ``NotImplementedError``, each naming its ROADMAP
-Queue A item, except the prefetching loader: ``comm.overlap.prefetch_depth``
-is accepted and said in one log line): progressive layer drop over several
-processes (its draws must agree across ranks), LAMB at stages 1-3 over
-several processes (its trust ratio needs whole parameters), the chunked
-loss at stage 3 (it reads the head's weight outside the head) and the
-mesh's ``zshard`` axis that the two-hop qgZ engine path runs on
-('Multi-process training, part 2'); the ``auto`` schedule and memory
-planner and the host-update (optimizer offload) checkpoint branch
-('Offload'); eigenvalue, compression and the step telemetry ('The rest of
-the surface').
+Queue A item): the ``auto`` schedule and memory planner and the
+host-update (optimizer offload) checkpoint branch ('Offload'); eigenvalue,
+compression and the step telemetry ('The rest of the surface').
 """
 
 import math
@@ -115,10 +133,11 @@ import torch
 
 from .. import comm
 from ..accelerator import resolve_device
+from ..parallel import topology as topo
 from ..utils.logging import log_dist, logger
 from ..utils.tree import tree_global_norm
 from ..comm.overlap import apply_xla_latency_hiding, bucketize
-from .config import COMM_DTYPES, PART2, DeeperSpeedConfig, _not_ported
+from .config import COMM_DTYPES, DeeperSpeedConfig
 from .lr_schedules import get_lr_schedule_fn
 from .optimizers import build_optimizer, identity
 from .precision import (
@@ -137,14 +156,19 @@ class DeeperSpeedEngine:
                  loss_fn=None, training_data=None, collate_fn=None,
                  lr_scheduler=None, device=None):
         if not isinstance(config, DeeperSpeedConfig):
-            config = DeeperSpeedConfig(config)
+            config = DeeperSpeedConfig(config,
+                                       world_size=topo.get_mesh().data_parallel_size)
         self.config = config
         self.device = resolve_device(device)
+        self.mesh = topo.get_mesh()
+        # the ZeRO group of this rank's tensor-parallel slice; rank is the
+        # data-parallel index
         self.group = comm.get_data_parallel_group()
         self.world, self.rank = self.group.size(), self.group.rank()
         if config.world_size != self.world:
-            raise ValueError(f"config built for {config.world_size} processes, "
-                             f"the world has {self.world}")
+            raise ValueError(f"config built for {config.world_size} data-parallel "
+                             f"processes, the mesh has {self.world}")
+        self._init_layout()
 
         # ---- activation checkpointing: any requested option turns on
         # block-level recompute (JAX engine ``engine.py:127-145``)
@@ -157,7 +181,7 @@ class DeeperSpeedEngine:
                                "mapped to on-device rematerialization")
             model.replace_config(remat=True)
             log_dist("activation checkpointing: block remat enabled", ranks=[0])
-        self._check_multi_process(model)
+        self._stage3_model(model)
 
         self.precision = MixedPrecisionPolicy(config)
         self._init_qgz()
@@ -175,6 +199,15 @@ class DeeperSpeedEngine:
         self.module = model.to(self.device)
         if model_parameters is not None:
             self.module.load_state_dict(model_parameters)
+        self._tp_dims = {}          # tp-split parameter -> its split dim
+        if self.mesh.tp > 1:
+            if not hasattr(self.module, "param_partition_rules"):
+                raise ValueError("tensor parallelism (tp > 1) needs a model with "
+                                 "param_partition_rules()")
+            from ..parallel.tensor_parallel import shard_module
+
+            self._tp_dims = shard_module(self.module, self.module.param_partition_rules(),
+                                         self.tp_group)
         self._build_state()
 
         # ---- optimizer: lr is applied by the engine unless a client
@@ -188,7 +221,10 @@ class DeeperSpeedEngine:
                    else None)
             self.tx = build_optimizer(config.optimizer.type,
                                       config.optimizer.params,
-                                      mup_multipliers=mup)
+                                      mup_multipliers=mup,
+                                      whole_sq=self._whole_sq if (
+                                          self._partitioned() or self.mesh.tp > 1)
+                                      else None)
             base_lr = config.optimizer.params.lr
         else:
             self.tx = identity()
@@ -208,9 +244,12 @@ class DeeperSpeedEngine:
 
         self.loss_scale_state = init_loss_scale(
             config.fp16 if self.precision.is_fp16 else None, self.device)
-        # the training randomness: dropout, layer drop, token subsets
+        # the training randomness: dropout and token subsets, seeded by the
+        # data-parallel index (the tp ranks of a slice draw alike); the
+        # layer-drop coins, alike on every rank (reseeded each step)
         self._rng = torch.Generator(device=self.device)
         self._rng.manual_seed(config.seed + self.rank)
+        self._pld_rng = torch.Generator(device=self.device)
         self.step_count = 0          # optimizer steps taken (skips excluded)
         self.global_steps = 0
         self.global_samples = 0
@@ -227,6 +266,7 @@ class DeeperSpeedEngine:
         self._init_data_efficiency()
         self.training_dataloader = None
         self._data_iterator = None
+        self._prefetcher = None
         if training_data is not None:
             from .dataloader import RepeatingLoader
 
@@ -235,23 +275,34 @@ class DeeperSpeedEngine:
             self._data_iterator = iter(RepeatingLoader(self.training_dataloader))
 
     # ------------------------------------------------------- process checks
-    def _check_multi_process(self, model):
-        """What the port refuses over several processes or at ZeRO stages,
-        and stage 3's one change to the model (it recomputes each unit)."""
-        cfg = self.config
-        if self.world > 1 and cfg.progressive_layer_drop.enabled:
-            raise _not_ported("progressive_layer_drop over several processes", PART2)
-        if (cfg.zero_stage >= 1 and self.world > 1 and cfg.optimizer is not None
-                and cfg.optimizer.type.lower() == "lamb"):
-            raise _not_ported("LAMB at ZeRO stages 1-3 over several processes", PART2)
+    def _init_layout(self):
+        """The groups of the mesh the engine reduces and gathers over:
+        ``tp_group``; ``_part_group``, over which a ZeRO partition is cut
+        (``zshard`` under MiCS, else the ZeRO group), ``_replica_group``,
+        over which MiCS's partitions are replicated (``dp``), and whether
+        hpZ cuts the stage-3 compute shards over ``zshard``."""
+        cfg, mesh = self.config, self.mesh
+        self.tp_group = comm.get_model_parallel_group()
+        self.zshard_group = comm.get_zero_param_parallel_group()
+        if cfg.zshard_size > 1 and mesh.zshard != cfg.zshard_size:
+            raise ValueError(f"the mesh's zshard={mesh.zshard} differs from the config's "
+                             f"MiCS / hpZ size {cfg.zshard_size}")
+        self._mics = cfg.mics_shard_size > 1
+        # hpZ below stage 3 partitions nothing more (as in the JAX package)
+        self._hpz = cfg.zero_hpz_partition_size > 1 and cfg.zero_stage == 3
+        self._part_group = self.zshard_group if self._mics else self.group
+        self._replica_group = (comm.get_data_parallel_replica_group()
+                               if self._mics and mesh.dp > 1 else None)
+        # stage 1-3 partitions: their number and this rank's
+        self._parts, self._part_index = self._part_group.size(), self._part_group.rank()
+
+    def _stage3_model(self, model):
+        """Stage 3's one change to the model: it recomputes each unit."""
         mcfg = getattr(model, "config", None)
-        if cfg.zero_stage == 3:
-            if getattr(mcfg, "ce_chunk_tokens", 0) > 0:
-                raise _not_ported("ce_chunk_tokens at ZeRO stage 3", PART2)
-            if getattr(mcfg, "remat", False):
-                # the stage-3 wrapper recomputes every unit (it gathers
-                # inside the recompute), so block recompute would run twice
-                model.replace_config(remat=False)
+        if self.config.zero_stage == 3 and getattr(mcfg, "remat", False):
+            # the stage-3 wrapper recomputes every unit (it gathers inside
+            # the recompute), so block recompute would run twice
+            model.replace_config(remat=False)
 
     def _init_qgz(self):
         """qgZ and 1-bit Adam (the JAX engine's ``engine.py:287-362``): the
@@ -266,6 +317,9 @@ class DeeperSpeedEngine:
                                  "not compose with ZeRO partitioning)")
             if self.precision.is_fp16:
                 raise ValueError("onebitadam supports fp32/bf16 only")
+            if self.mesh.zshard > 1:
+                raise ValueError("onebitadam compresses over the dp axis; ep/zshard must "
+                                 "be 1 (sp or tp compose)")
             if self.world == 1:
                 logger.warning("onebitadam: one process, nothing to compress; "
                                "running plain Adam")
@@ -297,6 +351,13 @@ class DeeperSpeedEngine:
             raise NotImplementedError(
                 f"{'onebitadam' if self._onebit else 'comm.quantized'} + random-LTD is "
                 f"not supported (the compressed reduction takes per-rank means)")
+        # the two-hop schedule's first hop (JAX ``_hier_axes``): the named
+        # axis, else zshard where both zshard and dp span several processes
+        self._qgz_intra = None
+        if cq.intra_axis is not None:
+            self._qgz_intra = comm.get_axis_group(cq.intra_axis)
+        elif self.mesh.zshard > 1 and self.mesh.dp > 1:
+            self._qgz_intra = self.zshard_group
         # the compressed loops sum microbatch gradients in fp32, whatever
         # grad_accum_dtype says (JAX ``_grads_for_batch_qgz`` / ``_onebit``)
         self._accum_dtype = (torch.float32 if self._qgz or self._onebit
@@ -331,12 +392,8 @@ class DeeperSpeedEngine:
         self._bucket_mb = ov.bucket_mb if ov.enabled else 0.0
         if ov.enabled and ov.xla_latency_hiding:
             apply_xla_latency_hiding()
-        if ov.enabled and ov.prefetch_depth > 0:
-            log_dist(f"comm.overlap.prefetch_depth {ov.prefetch_depth}: the prefetching "
-                     f"loader is not ported yet (ROADMAP Queue A, '{PART2}'); each "
-                     f"step's batches go to the device when the step takes them. The "
-                     f"values cannot change: prefetching moves only when a batch is "
-                     f"placed", ranks=[0])
+        # steps of batches the engine's loader runs ahead (JAX ``engine.py:478-496``)
+        self._prefetch_depth = ov.prefetch_depth if ov.enabled else 0
 
     # ------------------------------------------------------------------ state
     def _build_state(self):
@@ -345,8 +402,9 @@ class DeeperSpeedEngine:
         (the whole region at stage 0), the accumulation buffer whole local
         gradients (stages 0-1) or the partitions (stages 2-3), and the
         compute copy each region's whole buffer in its compute type (a
-        partition of it for the regions stage 3 gathers).  Every rank starts
-        from rank 0's weights."""
+        partition of it for the regions stage 3 gathers; under hpZ its
+        ``zshard`` part).  Every rank starts from its ZeRO group's first
+        rank's weights."""
         named = dict(self.module.named_parameters())
         patterns = (self.module.no_cast_paths()
                     if hasattr(self.module, "no_cast_paths")
@@ -355,7 +413,8 @@ class DeeperSpeedEngine:
             p, any(re.search(pat, n) for pat in patterns))) for n, p in named.items()}
         stage = self.config.zero_stage
         self.plan = plan = build_partition_plan(
-            specs, stage, self.world, self.rank, self.config.param_persistence_threshold,
+            specs, stage, self._parts, self._part_index,
+            self.config.param_persistence_threshold,
             {n: unit_of(n, self.module) for n in named} if stage == 3 else None)
         self._order = plan.order
         dev, f32, accum = self.device, torch.float32, self._accum_dtype
@@ -399,13 +458,15 @@ class DeeperSpeedEngine:
                                                        region.part)]
                 if region.gathered:
                     # the gather's backward adds the whole local gradient
-                    # (deferred) or this rank's reduce-scattered part
-                    shard = full[i0:i0 + region.part].to(region.dtype, copy=True)
+                    # (deferred) or this rank's reduced partition
+                    lo, hi, gather = self._compute_shard(region)
+                    shard = full[lo:hi].to(region.dtype, copy=True)
                     shard.requires_grad_(True)
                     gathered = stage3.GatheredRegion(
-                        region, shard, self.group, self._comm_dtype,
+                        region, shard, gather, self._comm_dtype,
                         lambda g, acc=acc_region: acc.add_(g.to(acc.dtype)),
-                        deferred=whole, quantized=self._qwz)
+                        deferred=whole, quantized=self._qwz,
+                        reduce=self._reduce_partition)
                     units.setdefault(region.unit, []).append(gathered)
                     self._gathered_acc.append(acc_region)
                     for p in params:
@@ -435,6 +496,27 @@ class DeeperSpeedEngine:
                            unit + "." if unit else "", gathered)
         self._plan_buckets()
 
+    def _compute_shard(self, region):
+        """``(lo, hi, group)``: the stretch of a gathered region this rank's
+        compute shard holds and the group that gathers it -- the master
+        partition over ``_part_group``, or under hpZ the ``zshard`` part."""
+        if self._hpz:
+            n = self.zshard_group.size()
+            sec = region.padded // n
+            lo = self.zshard_group.rank() * sec
+            return lo, lo + sec, self.zshard_group
+        lo = self._part_index * region.part
+        return lo, lo + region.part, self._part_group
+
+    def _reduce_partition(self, x):
+        """This rank's partition of the ZeRO group's sum of ``x`` (a whole
+        region's buffer in the communication type): a reduce-scatter over
+        ``_part_group``, then under MiCS an all-reduce over the replicas."""
+        y = comm.reduce_scatter(x, self._part_group, log_name="grad_reduce")
+        if self._replica_group is not None:
+            comm.all_reduce(y, group=self._replica_group, log_name="grad_reduce")
+        return y
+
     def _plan_buckets(self):
         """The once-a-batch reduction's collectives, in issue order: at stage 0
         ``("all_reduce", lo, hi)``, contiguous ranges of the flat buffer
@@ -448,7 +530,7 @@ class DeeperSpeedEngine:
         self._buckets = []
         if not self._deferred:
             return
-        n = self.world
+        n = self._parts
         itemsize = torch.empty(0, dtype=self._comm_dtype).element_size()
         if self.plan.stage == 0:
             sizes = [v.numel() for v in self._acc_views]
@@ -479,18 +561,26 @@ class DeeperSpeedEngine:
         all-gather of the cast partitions over several, and at stage 3 the
         cast partition alone for the regions gathered at use."""
         for region, master, buf, gathered in self._compute:
-            if gathered is not None:
+            if gathered is not None and self._hpz:
+                # hpZ's secondary shard: this rank's zshard part of the
+                # region, gathered once from the primary partitions
+                full = comm.all_gather_into(
+                    torch.empty(region.padded, dtype=region.dtype, device=self.device),
+                    master.to(region.dtype), self.group, log_name="hpz_refresh")
+                lo, hi, _ = self._compute_shard(region)
+                gathered.shard.copy_(full[lo:hi])
+            elif gathered is not None:
                 gathered.shard.copy_(master)
             elif buf is None:
                 continue
             elif region.parts == 1:
                 buf.copy_(master)
             else:
-                comm.all_gather_into(buf, master.to(region.dtype), self.group)
+                comm.all_gather_into(buf, master.to(region.dtype), self._part_group)
 
     def full_master_params(self):
         """Every fp32 master whole, by name, a copy (gathered from the
-        ranks' partitions at stages 1-3)."""
+        ranks' partitions at stages 1-3 and the ``tp`` ranks' slices)."""
         return {n: t.clone() for n, t in self.gather_whole(self.master_params).items()}
 
     @torch.no_grad()
@@ -498,7 +588,8 @@ class DeeperSpeedEngine:
         """Whole tensors by name from ``local``, a dict laid out like
         :attr:`master_params` (this rank's pieces: the masters or a
         per-parameter optimizer tree): views of ``local`` where a region is
-        not partitioned, else gathered from the ranks' partitions (a
+        not partitioned, else gathered from the ranks' partitions, and each
+        tp-split parameter's slices joined along its split dim (a
         collective every rank calls)."""
         out = {}
         for region, base in zip(self.plan.regions, self.plan.bases()):
@@ -510,9 +601,12 @@ class DeeperSpeedEngine:
                 part[at:at + b - a].copy_(local[n].reshape(-1))
             full = comm.all_gather_into(
                 torch.empty(region.padded, dtype=torch.float32, device=self.device),
-                part, self.group)
+                part, self._part_group)
             for n, shape, off in zip(region.names, region.shapes, region.offsets):
                 out[n] = full[off:off + math.prod(shape)].view(shape)
+        for n, dim in self._tp_dims.items():
+            out[n] = comm.all_gather(out[n].contiguous(), self.tp_group, axis=dim,
+                                     log_name="tp_gather")
         return out
 
     @torch.no_grad()
@@ -526,11 +620,18 @@ class DeeperSpeedEngine:
         if strict and (missing or extra):
             raise KeyError(f"checkpoint parameters differ from the model's: missing "
                            f"{missing[:5]}, unexpected {extra[:5]}")
+        tp, i_tp = self.tp_group.size(), self.tp_group.rank()
         for region in self.plan.regions:
             for n, shape, a, b, _ in region.pieces(self.plan.index):
                 if n not in whole:
                     continue
                 src = whole[n]
+                if n in self._tp_dims:
+                    dim = self._tp_dims[n]
+                    if src.dim() <= dim or src.shape[dim] != shape[dim] * tp:
+                        raise ValueError(f"checkpoint {n}: shape {tuple(src.shape)}, the "
+                                         f"model's {tuple(shape)} on each of {tp} tp ranks")
+                    src = src.chunk(tp, dim)[i_tp]
                 if tuple(src.shape) != tuple(shape):
                     raise ValueError(f"checkpoint {n}: shape {tuple(src.shape)}, "
                                      f"the model's {tuple(shape)}")
@@ -542,7 +643,8 @@ class DeeperSpeedEngine:
 
     def _local(self, mb):
         """This rank's contiguous slice of the rows of a global microbatch
-        (the rows the JAX batch sharding over dp gives it)."""
+        (the rows the JAX batch sharding over dp x zshard gives it), by its
+        data-parallel index: the tp ranks of a slice take the same rows."""
         if self.world == 1:
             return mb
         rows = {len(v) for v in mb.values()}
@@ -647,7 +749,10 @@ class DeeperSpeedEngine:
                       for k, v in mb.items()} for mb in micro]
         if self.progressive_layer_drop is not None:
             theta = self.progressive_layer_drop.update_state(step)
-            micro = [{**mb, "pld_theta": theta} for mb in micro]
+            # the coins: one generator, seeded alike on every rank from the
+            # seed and the step (so a resumed run draws what it would have)
+            self._pld_rng.manual_seed((self.config.seed * 1_000_003 + step) % (1 << 62))
+            micro = [{**mb, "pld_theta": theta, "pld_rng": self._pld_rng} for mb in micro]
         ltd = None
         if self.random_ltd_scheduler is not None:
             ltd = int(self.random_ltd_scheduler.update(step))
@@ -697,8 +802,7 @@ class DeeperSpeedEngine:
                 if p.grad is not None:      # a block PLD or random-LTD skipped
                     buf[off:off + p.numel()].copy_(p.grad.reshape(-1))
             part = (comm.all_reduce(buf, group=self.group, log_name="grad_reduce")
-                    if region.parts == 1 else
-                    comm.reduce_scatter(buf, self.group, log_name="grad_reduce"))
+                    if region.parts == 1 else self._reduce_partition(buf))
             if self._acc_count == 0:
                 acc_part.copy_(part)
             else:
@@ -793,7 +897,7 @@ class DeeperSpeedEngine:
         bucket by bucket (:meth:`_plan_buckets`) into the fp32 gradient
         buffer.  A stage-0 bucket is reduced in place where the two types
         agree."""
-        acc, g, n = self._acc_flat, self._grad_flat, self.world
+        acc, g, n, p = self._acc_flat, self._grad_flat, self.world, self._parts
         cd = self._comm_dtype if n > 1 else acc.dtype
         d = divisor * n
         for bucket in self._buckets:
@@ -806,10 +910,10 @@ class DeeperSpeedEngine:
                     g[lo:hi].copy_(x.to(acc.dtype))
             else:
                 _, off, part, c0, c1, base = bucket
-                x = acc[off:off + n * part].view(n, part)[:, c0:c1].div_(d)
+                x = acc[off:off + p * part].view(p, part)[:, c0:c1].div_(d)
                 y = x.to(cd).reshape(-1)
                 if n > 1:
-                    y = comm.reduce_scatter(y, self.group, log_name="grad_reduce")
+                    y = self._reduce_partition(y)
                 g[base + c0:base + c1].copy_(y.to(acc.dtype))
 
     def _reduce_onebit(self, divisor):
@@ -855,11 +959,19 @@ class DeeperSpeedEngine:
         dtype = self._comm_dtype
         payload = sum(r.padded for r in self.plan.regions) * \
             torch.empty(0, dtype=dtype).element_size()
-        op = "all_reduce" if self.plan.stage == 0 else "reduce_scatter"
         issues = divisor if self._per_micro else 1
         per_issue = len(self.plan.regions) if self._per_micro else len(self._buckets)
+        if self.plan.stage == 0:
+            nbytes = plain_wire_bytes("all_reduce", payload, n)
+        else:
+            # MiCS: the reduce-scatter over zshard, then the replicas'
+            # all-reduce of its 1/zshard over dp
+            nbytes = plain_wire_bytes("reduce_scatter", payload, self._parts)
+            if self._replica_group is not None:
+                nbytes += plain_wire_bytes("all_reduce", payload // self._parts,
+                                           self._replica_group.size())
         comm.comms_logger.record(
-            "grad_reduce_dp", plain_wire_bytes(op, payload, n) * issues, n,
+            "grad_reduce_dp", nbytes * issues, n,
             variant=str(dtype).split(".")[-1], count=issues * per_issue,
             schedule="per_microbatch" if self._per_micro else "deferred")
 
@@ -869,7 +981,10 @@ class DeeperSpeedEngine:
         all-reduce for parameters of at least ``group_size x world``
         elements and one exact all-reduce for the smaller ones together;
         under ``comm.overlap`` the large ones go through one quantized
-        all-reduce a :func:`bucketize` group."""
+        all-reduce a :func:`bucketize` group.  The quantized all-reduce
+        runs the two-hop schedule where :attr:`_qgz_intra` names a first
+        hop (``comm.quantized.intra_axis``, or ``zshard``), else the flat
+        one over the ZeRO group."""
         cq = self.config.comm_quantized
         acc = self._acc_flat                 # fp32, the gradient buffer itself
         acc.div_(divisor)
@@ -882,8 +997,8 @@ class DeeperSpeedEngine:
 
         def quantized(t):
             return comm.all_reduce_quantized(
-                t, op=comm.ReduceOp.AVG, group=self.group, group_size=cq.group_size,
-                impl=cq.impl, wire_dtype=cq.wire_dtype)
+                t, op=comm.ReduceOp.AVG, group=self.group, intra_group=self._qgz_intra,
+                group_size=cq.group_size, impl=cq.impl, wire_dtype=cq.wire_dtype)
 
         if not self.config.comm_overlap.enabled:
             for v in large:
@@ -895,22 +1010,60 @@ class DeeperSpeedEngine:
                 v.copy_(r)
 
     def _partitioned(self):
-        return self.plan.stage >= 1 and self.world > 1
+        return self.plan.stage >= 1 and self._parts > 1
+
+    def _sum_whole(self, sq, split):
+        """Squares summed into whole parameters: ``sq`` [k, ...] holds this
+        rank's pieces' sums; the partitions' pieces are summed over
+        ``_part_group``, then the rows of tp-split parameters (``split``, a
+        bool [k]) over ``tp``, the whole ones taken once (from tp rank 0)."""
+        if self._partitioned():
+            comm.all_reduce(sq, group=self._part_group)
+        if self.tp_group.size() > 1:
+            keep = split | (self.tp_group.rank() == 0)
+            sq = sq * keep.reshape((-1,) + (1,) * (sq.dim() - 1)).to(sq.dtype)
+            comm.all_reduce(sq, group=self.tp_group)
+        return sq
 
     def _global_norm(self, g):
         """The L2 norm of the whole gradient: of the local buffer where it
-        is whole, else the root of the ranks' summed squares."""
+        is whole, else the root of the ranks' summed squares (split and
+        whole tp parameters apart)."""
+        if self.tp_group.size() > 1:
+            split = [t for n, t in self.grads.items() if n in self._tp_dims]
+            whole = [t for n, t in self.grads.items() if n not in self._tp_dims]
+            sq = torch.stack([torch.stack(torch._foreach_norm(ts)).square().sum()
+                              if ts else g.new_zeros(()) for ts in (split, whole)])
+            sq = self._sum_whole(sq, torch.tensor([True, False], device=sq.device))
+            return torch.sqrt(sq.sum())
         if not self._partitioned():
             return tree_global_norm([g])
         sq = torch.dot(g, g).reshape(1)
-        return torch.sqrt(comm.all_reduce(sq, group=self.group))[0]
+        return torch.sqrt(comm.all_reduce(sq, group=self._part_group))[0]
+
+    def _whole_sq(self, names, sq):
+        """LAMB's whole-parameter squares: ``sq`` [k, 2] holds, for the
+        parameters ``names`` this rank has pieces of, its pieces' squared
+        norms (of the parameter and its update); returns them summed over
+        the pieces and slices of each parameter, in one collective a
+        group."""
+        row = {n: i for i, n in enumerate(self._order)}
+        idx = torch.tensor([row[n] for n in names], device=sq.device)
+        full = sq.new_zeros((len(self._order), 2)).index_copy_(0, idx, sq)
+        split = torch.tensor([n in self._tp_dims for n in self._order], device=sq.device)
+        return self._sum_whole(full, split).index_select(0, idx)
 
     def _any_rank(self, flag):
-        """A bool scalar, true if it is on any rank holding a partition."""
-        if not self._partitioned():
+        """A bool scalar, true if it is on any rank holding a partition or
+        a tp slice."""
+        groups = [g for g, on in ((self._part_group, self._partitioned()),
+                                  (self.tp_group, self.tp_group.size() > 1)) if on]
+        if not groups:
             return flag
-        return comm.all_reduce(flag.to(torch.float32).reshape(1), comm.ReduceOp.MAX,
-                               self.group)[0] > 0
+        x = flag.to(torch.float32).reshape(1)
+        for group in groups:
+            comm.all_reduce(x, comm.ReduceOp.MAX, group)
+        return x[0] > 0
 
     @torch.no_grad()
     def _apply(self, lr):
@@ -940,7 +1093,21 @@ class DeeperSpeedEngine:
             data_iter = self._data_iterator   # persistent: keeps advancing epochs
         local = data_iter is self._data_iterator and data_iter is not None
         data = batch if batch is not None else data_iter
-        micro, ltd = self._apply_data_efficiency(self._stack_microbatches(data, local))
+        if local and batch is None and self._prefetch_depth > 0:
+            # the persistent loader, wrapped once: the next steps' batches
+            # go to the device while this one runs
+            if self._prefetcher is None:
+                from .dataloader import DevicePrefetchingLoader
+
+                dl = self.training_dataloader
+                self._prefetcher = DevicePrefetchingLoader(
+                    data_iter, self.device, depth=self._prefetch_depth,
+                    position_fn=getattr(dl, "state_dict", None),
+                    pulls_per_batch=self.gradient_accumulation_steps())
+            micro = next(self._prefetcher)
+        else:
+            micro = self._stack_microbatches(data, local)
+        micro, ltd = self._apply_data_efficiency(micro)
         scale = self._scale()
         self._acc_count = 0
         weights = self._mask_weights(micro)

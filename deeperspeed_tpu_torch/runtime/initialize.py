@@ -4,16 +4,21 @@
 Returns the reference's 4-tuple ``(engine, optimizer, dataloader,
 lr_scheduler)``.  Over several processes it joins the process group first
 (``comm.init_distributed``, from the ``RANK``/``WORLD_SIZE`` environment)
-unless the caller already has; ``mesh=`` is a ``parallel.MeshTopology``
-whose ``dp`` is the process count.  A pipeline model or an ``mpu`` raise
-``NotImplementedError`` (the hybrid engine's config block is refused by the
-config).
+unless the caller already has.  ``mesh=`` is a ``parallel.MeshTopology``
+over the processes; without it the mesh is built from the config as the
+JAX engine builds it (``engine.py:100-125``): ``tp`` from
+``mesh.model_parallel_size``, ``zshard`` from ``mics_shard_size`` /
+``zero_hpz_partition_size``, ``dp`` what the world leaves.  An ``mpu`` is
+accepted and superseded by the mesh, as in the JAX engine, unless it asks
+for pipeline stages; a pipeline model raises ``NotImplementedError`` (the
+hybrid engine's config block is refused by the config).
 """
 
 import os
 
 from .. import comm
 from ..parallel import MeshTopology, set_mesh
+from .config import DeeperSpeedConfig, _not_ported
 from .engine import DeeperSpeedEngine
 from ..utils.logging import log_dist
 
@@ -34,17 +39,24 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         config = args.deepspeed_config
     if config is None:
         raise ValueError("no config: pass config= or args.deepspeed_config")
-    if mpu is not None:
-        raise NotImplementedError(
-            "mpu (tensor-parallel groups) is not ported yet (ROADMAP Queue A, "
-            "'Multi-process training, part 2')")
+    if mpu is not None and getattr(mpu, "get_pipe_parallel_world_size", lambda: 1)() > 1:
+        raise _not_ported("an mpu with pipeline stages", "Pipelines")
     if hasattr(model, "stage_forward"):
         raise NotImplementedError(
             "pipeline modules are not ported yet (ROADMAP Queue A, 'Pipelines')")
     if int(os.environ.get("WORLD_SIZE", 1)) > 1 and dist_init_required is not False:
         comm.init_distributed(
             dist_backend="gloo" if str(device).startswith("cpu") else "nccl")
-    set_mesh(MeshTopology(**mesh.sizes) if mesh is not None else MeshTopology())
+    if mesh is not None:
+        mesh = set_mesh(MeshTopology(**mesh.sizes))
+        if not isinstance(config, DeeperSpeedConfig):
+            config = DeeperSpeedConfig(config, world_size=mesh.data_parallel_size)
+    else:
+        if not isinstance(config, DeeperSpeedConfig):
+            config = DeeperSpeedConfig(config)
+        mc = config.mesh_config
+        set_mesh(MeshTopology(tp=mc.model_parallel_size, dp=mc.data_parallel_size,
+                              zshard=config.zshard_size))
     engine = DeeperSpeedEngine(
         model=model, config=config, optimizer=optimizer,
         model_parameters=model_parameters, loss_fn=loss_fn,

@@ -242,15 +242,31 @@ def scale_by_rss(initial_accumulator_value=0.1, eps=1e-7):
         init, update, lambda state, tree: {"sum_of_squares": tree(state)}, restore)
 
 
-def scale_by_trust_ratio():
+def scale_by_trust_ratio(whole_sq=None):
     """optax ``scale_by_trust_ratio(min_norm=0)``: u * ||p|| / ||u|| per
-    leaf, 1 where either norm is 0."""
+    leaf, 1 where either norm is 0.  Where the tensors are pieces of the
+    parameters (ZeRO partitions, tp slices), ``whole_sq(names, sq)`` sums
+    the pieces' squared norms ``sq`` [k, 2] (parameter, update) into the
+    whole parameters' (the engine's, one collective for all of them)."""
     def update(updates, state, params=None):
-        for n, u in updates.items():
-            pn = torch.linalg.vector_norm(params[n])
-            un = torch.linalg.vector_norm(u)
-            ratio = torch.where((pn == 0) | (un == 0), torch.ones_like(pn), pn / un)
-            u.mul_(ratio)
+        if whole_sq is None:
+            for n, u in updates.items():
+                pn = torch.linalg.vector_norm(params[n])
+                un = torch.linalg.vector_norm(u)
+                ratio = torch.where((pn == 0) | (un == 0), torch.ones_like(pn), pn / un)
+                u.mul_(ratio)
+            return updates, state
+        names = list(updates)
+        if not names:
+            return updates, state
+        sq = torch.stack([torch.stack(torch._foreach_norm([params[n] for n in names])),
+                          torch.stack(torch._foreach_norm([updates[n] for n in names]))],
+                         1).square()
+        norms = whole_sq(names, sq).sqrt()
+        pn, un = norms[:, 0], norms[:, 1]
+        ratio = torch.where((pn == 0) | (un == 0), torch.ones_like(pn), pn / un)
+        for n, r in zip(names, ratio):
+            updates[n].mul_(r)
         return updates, state
 
     return GradientTransformation(lambda params: None, update)
@@ -275,9 +291,10 @@ def _adam_like(cfg, adamw=False, mup_multipliers=None, use_fused=False):
     return chain(*parts)
 
 
-def build_optimizer(name, params_cfg, mup_multipliers=None):
+def build_optimizer(name, params_cfg, mup_multipliers=None, whole_sq=None):
     """name + ``OptimizerParams`` -> transformation (lr excluded: the
-    engine applies it from the schedule)."""
+    engine applies it from the schedule).  ``whole_sq``: LAMB's sum of
+    parameter pieces into whole parameters (:func:`scale_by_trust_ratio`)."""
     name = name.lower()
     if name in (ADAM_OPTIMIZER, CPU_ADAM_OPTIMIZER, FUSED_ADAM_OPTIMIZER,
                 ONEBIT_ADAM_OPTIMIZER):
@@ -303,7 +320,7 @@ def build_optimizer(name, params_cfg, mup_multipliers=None):
         return chain(scale_by_adam(b1=params_cfg.betas[0], b2=params_cfg.betas[1],
                                    eps=params_cfg.eps),
                      add_decayed_weights(params_cfg.weight_decay),
-                     scale_by_trust_ratio())
+                     scale_by_trust_ratio(whole_sq))
     if name in (LION_OPTIMIZER, FUSED_LION_OPTIMIZER):
         if name == FUSED_LION_OPTIMIZER:
             # B7 (ops/lion): one launch a step over the flat moment buffer

@@ -39,25 +39,15 @@ def dequantize_int8(q, scale, dtype=torch.bfloat16, group_size=128):
     return BlockScaledTensor(q, scale, group_size).dequantize(dtype)
 
 
-def _hops(intra_group, inter_group):
-    """qgZ's schedule (JAX ``qgz_reduce_scatter``): two-level where both
-    groups span more than one process, else flat over the one that does;
-    ``(None, None)`` where neither does."""
-    wide = [g for g in (intra_group, inter_group) if g is not None and g.size() > 1]
-    if len(wide) == 2:
-        return intra_group, inter_group
-    return (wide[0] if wide else None), None
-
-
 def qgz_reduce_scatter(x, intra_group=None, inter_group=None, group_size=128,
                        impl="auto", wire_dtype="int8"):
     """ZeRO++ qgZ gradient reduce-scatter: the two-hop schedule (quantize,
     intra reduce-scatter, requantize, inter reduce-scatter) when both groups
     span more than one process; the flat one over the group that does
     otherwise (``x`` itself when neither does)."""
-    from ...comm.comm import _run_quantized
+    from ...comm.comm import _hier_groups, _run_quantized
 
-    intra, inter = _hops(intra_group, inter_group)
+    intra, inter = _hier_groups(intra_group, inter_group, collapse=True)
     if intra is None:
         return x
     return _run_quantized("reduce_scatter", x, x.numel(), intra, inter, group_size, impl,
@@ -69,9 +59,9 @@ def qgz_all_reduce(x, intra_group=None, inter_group=None, group_size=128,
     """ZeRO++ qgZ gradient all-reduce: the reduce-scatter of
     :func:`qgz_reduce_scatter`, then quantized all-gathers back (inter
     first); the same rule picks the two-hop or the flat schedule."""
-    from ...comm.comm import _run_quantized
+    from ...comm.comm import _hier_groups, _run_quantized
 
-    intra, inter = _hops(intra_group, inter_group)
+    intra, inter = _hier_groups(intra_group, inter_group, collapse=True)
     if intra is None:
         return x
     return _run_quantized("all_reduce", x, x.numel(), intra, inter, group_size, impl,

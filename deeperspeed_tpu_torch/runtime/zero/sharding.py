@@ -26,7 +26,13 @@ part r.  A parameter may straddle two parts, so a rank's optimizer sees
 Regions: at stages 0-2, one per compute dtype (the cast parameters, then
 those kept in fp32); at stage 3, one per (unit, compute dtype, persistent
 or not), where a unit is the module whose forward gathers the parameters
-(an element of a top-level ``ModuleList``, or a top-level child).
+(an element of a top-level ``ModuleList``, or a top-level child, or a
+module that asks to be one: a ``TiledLinear`` tile).
+
+The partitions are cut over the engine's partition group: the ZeRO group
+(``dp x zshard`` of the rank's tensor-parallel slice), or under MiCS the
+``zshard`` group alone (``world`` and ``rank`` here are that group's size
+and this rank's place in it).
 """
 
 import dataclasses
@@ -111,9 +117,16 @@ class ZeroPartitionPlan:
 
 def unit_of(name, module):
     """The module path whose forward gathers parameter ``name`` at stage 3:
-    ``layers.3`` for an element of a top-level ``ModuleList``, else the
-    top-level child (``embed_in``), or ``""`` for the root's own."""
+    the first module on its path that sets ``zero3_unit`` (a
+    ``TiledLinear`` tile), else ``layers.3`` for an element of a top-level
+    ``ModuleList``, else the top-level child (``embed_in``), or ``""`` for
+    the root's own."""
     parts = name.split(".")
+    mod = module
+    for k in range(len(parts) - 1):
+        mod = getattr(mod, parts[k])
+        if getattr(mod, "zero3_unit", False):
+            return ".".join(parts[:k + 1])
     if len(parts) == 1:
         return ""
     child = getattr(module, parts[0])

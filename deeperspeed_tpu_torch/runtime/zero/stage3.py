@@ -21,6 +21,15 @@ Under qwZ (``zero_quantized_weights``) the gather moves int8 values and
 fp32 scales (``zero/quantized.py`` ``quantized_all_gather_partition``);
 its backward is the plain gather's.
 
+The gather runs over the region's ``group`` and its gradient goes through
+the region's ``reduce``: over the ZeRO group by default; under MiCS the
+gather runs over the ``zshard`` group from the subgroup partition and the
+gradient is reduce-scattered over ``zshard`` then all-reduced over ``dp``;
+under hpZ (ZeRO++) the gather runs over ``zshard`` from a secondary shard
+(``1/zshard`` of the region, refreshed by the engine once a step after the
+update) while the gradient is reduce-scattered over the whole ZeRO group
+into the primary partition.  qwZ composes with both.
+
 Outside a call the unit's partitioned parameters hold no data.
 """
 
@@ -52,23 +61,25 @@ class _GatherRegion(torch.autograd.Function):
         if g.deferred:
             g.sink(grad_full)
         else:
-            g.sink(reduce_scatter(grad_full.to(g.comm_dtype).contiguous(), g.group,
-                                  log_name="grad_reduce"))
+            g.sink(g.reduce(grad_full.to(g.comm_dtype).contiguous()))
         return None, None
 
 
 class GatheredRegion:
     """A partitioned region of compute parameters: its ``shard`` (this
-    rank's partition, a leaf the recompute tracks) and where its gradient
-    goes (``sink``: a callable taking this rank's reduce-scattered sum, or
-    with ``deferred`` the whole local gradient).  ``quantized``: the
-    gather moves int8 (qwZ)."""
+    rank's part of the region in the gather ``group``, a leaf the
+    recompute tracks) and where its gradient goes (``sink``: a callable
+    taking this rank's reduced partition, made by ``reduce`` from the
+    whole region's local gradient -- a reduce-scatter over ``group`` by
+    default -- or with ``deferred`` the whole local gradient).
+    ``quantized``: the gather moves int8 (qwZ)."""
 
     def __init__(self, region, shard, group, comm_dtype, sink, deferred=False,
-                 quantized=False):
+                 quantized=False, reduce=None):
         self.region, self.shard, self.group = region, shard, group
         self.comm_dtype, self.sink = comm_dtype, sink
         self.deferred, self.quantized = deferred, quantized
+        self.reduce = reduce or (lambda g: reduce_scatter(g, group, log_name="grad_reduce"))
 
     def views(self, full, prefix):
         """The region's parameters as views of the gathered buffer, by

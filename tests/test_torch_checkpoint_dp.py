@@ -11,6 +11,11 @@
 * across world sizes: a save at world 2 / stage 2 loads at world 1 (this
   process) into the masters and moments the workers held, bit for bit; a
   save at world 1 loads at world 2 / stage 3 likewise.
+* across layouts (four workers, tp 2 x dp 2, stage 2; the JAX test
+  ``test_checkpoint_reshape_across_topology``): the save holds whole
+  arrays and loads at world 1 into the port and into the JAX engine bit
+  for bit; a world-1 save loads at tp 2 x dp 2 likewise; a resume at
+  tp 2 x dp 2 is bit for bit.
 """
 
 import json
@@ -154,6 +159,89 @@ def test_world2_stage2_save_loads_at_world1(runs):
     eng.load_checkpoint(str(runs["tmp"] / "world2"))
     _assert_equal(_state(eng), _whole(r0, "to_world1/saved"))
     assert [eng.step_count, eng.global_steps] == list(r0["to_world1/saved/counters"][:2])
+
+
+TP_CFG = {**BASE, **_zero(2), "mesh": {"model_parallel_size": 2}}
+
+
+@pytest.fixture(scope="module")
+def layout_runs(tmp_path_factory):
+    """Four workers at tp 2 x dp 2 (stage 2): a save after 2 steps, a
+    resume from it, and a load of a world-1 save."""
+    tmp = tmp_path_factory.mktemp("ckpt_tp")
+    batches = _batches(np.random.default_rng(23))[:4]
+    start = {n: p.detach().clone() for n, p in
+             GPTNeoX(GPTNeoXConfig.tiny(), device="cpu", seed=9).named_parameters()}
+    one, *_ = tdst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(), device="cpu"),
+                              config={**BASE, **_zero(1)}, model_parameters=start,
+                              device="cpu")
+    for b in batches[:2]:
+        one.train_batch(batch=b)
+    one.save_checkpoint(str(tmp / "world1"))
+    common = {"config": TP_CFG, "dtype": "fp32", "mesh": {"tp": 2}}
+    spec_runs = [
+        {"name": "tp/first", **common, "steps": [0, 1, 2, 3], "save": str(tmp / "tp"),
+         "save_after": 2},
+        {"name": "tp/second", **common, "load": str(tmp / "tp"), "steps": [2, 3]},
+        {"name": "tp/from_world1", **common, "load": str(tmp / "world1"), "steps": []},
+    ]
+    arrays = {f"w/{n}": t.numpy() for n, t in start.items()}
+    arrays.update({f"b{i}/{k}": v for i, b in enumerate(batches) for k, v in b.items()})
+    ranks = spawn({"kind": "ckpt", "n_batches": len(batches), "runs": spec_runs}, arrays,
+                  tmp, world=4)
+    return {"ranks": ranks, "tmp": tmp, "one": one}
+
+
+def test_tensor_parallel_resume_is_bit_exact(layout_runs):
+    for out in layout_runs["ranks"]:
+        np.testing.assert_array_equal(out["tp/second/losses"], out["tp/first/losses"][2:])
+        np.testing.assert_array_equal(out["tp/second/loaded/rng"], out["tp/first/saved/rng"])
+    r0 = layout_runs["ranks"][0]
+    _assert_equal(_whole(r0, "tp/second/loaded"), _whole(r0, "tp/first/saved"))
+    _assert_equal(_whole(r0, "tp/second/final"), _whole(r0, "tp/first/final"))
+
+
+def test_tensor_parallel_save_loads_at_world1_in_both_packages(layout_runs):
+    """The tp 2 x dp 2 save is the JAX package's whole-array format: the
+    port at world 1 and the JAX engine (its 8 CPU devices) load the
+    masters the workers held, bit for bit."""
+    import jax
+
+    import deeperspeed_tpu as jdst
+    from deeperspeed_tpu.models.gpt_neox import GPTNeoX as JaxGPTNeoX
+    from deeperspeed_tpu.models.gpt_neox import GPTNeoXConfig as JaxConfig
+    from deeperspeed_tpu.parallel import topology as jtopo
+
+    r0 = layout_runs["ranks"][0]
+    want = _whole(r0, "tp/first/saved")
+    eng, *_ = tdst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(), device="cpu", seed=2),
+                              config={**BASE, **_zero(2)}, device="cpu")
+    eng.load_checkpoint(str(layout_runs["tmp"] / "tp"))
+    _assert_equal(_state(eng), want)
+    saved = jtopo._GLOBAL_MESH
+    try:
+        jeng, *_ = jdst.initialize(model=JaxGPTNeoX(JaxConfig.tiny()),
+                                   config={**BASE, **_zero(1)})
+        jeng.load_checkpoint(str(layout_runs["tmp"] / "tp"))
+        masters = jax.device_get(jeng.state["master_params"])
+    finally:
+        jtopo.set_mesh(saved)
+    got = {}
+
+    def walk(node, name):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{name}/{k}")
+            else:
+                got[f"{name}/{k}"] = np.asarray(v)
+
+    walk(masters, "m")
+    _assert_equal(got, {k: v for k, v in want.items() if k.startswith("m/")})
+
+
+def test_world1_save_loads_at_tensor_parallel(layout_runs):
+    want = _state(layout_runs["one"])
+    _assert_equal(_whole(layout_runs["ranks"][0], "tp/from_world1/loaded"), want)
 
 
 def test_world1_save_loads_at_world2_stage3(runs):

@@ -74,6 +74,9 @@ def test_port_imports_no_jax():
         "import deeperspeed_tpu_torch.checkpoint.zero_to_fp32\n"
         "import deeperspeed_tpu_torch.runtime.checkpointing\n"
         "import deeperspeed_tpu_torch.runtime.checkpoint_engine\n"
+        "import deeperspeed_tpu_torch.parallel.tensor_parallel\n"
+        "import deeperspeed_tpu_torch.runtime.zero.tiling\n"
+        "import deeperspeed_tpu_torch.runtime.initialize\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'msgpack',\n"
         "                                                   'deeperspeed_tpu')]\n"
         "print('LOADED', bad)")

@@ -222,19 +222,26 @@ def test_optimizer_trajectory_matches_jax(name, params, model_kw):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("zero_optimization", {"stage": 2, "zero_hpz_partition_size": 2}),
+    ("zero_optimization", {"stage": 2, "offload_param": {"device": "nvme"}}),
     ("zero_optimization", {"stage": 0, "offload_optimizer": {"device": "cpu"}}),
     ("comm", {"overlap": {"enabled": True, "schedule": {"mode": "auto"}}}),
     ("pipeline", {"stages": 2}),
     ("hybrid_engine", {"enabled": True}),
     ("comm", {"overlap": {"enabled": True, "schedule": {"memory": "auto"}}}),
-    ("comm", {"quantized": {"enabled": True, "intra_axis": "zshard"}}),
+    ("comm", {"quantized": {"enabled": True, "intra_axis": "sp"}}),
     ("compression_training", {"weight_quantization": {}}),
 ])
 def test_unported_config_raises(key, value):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tdst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(), device="cpu"),
                         config={**BASE, key: value}, device="cpu")
+
+
+class _PipeMpu:
+    """A Megatron mpu that describes two pipeline stages."""
+
+    def get_pipe_parallel_world_size(self):
+        return 2
 
 
 class _StageModel(torch.nn.Module):
@@ -253,19 +260,21 @@ def test_unported_model_features_raise(case):
             tdst.initialize(model=_StageModel(), config=BASE, device="cpu")
         elif case == "mesh":
             tdst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(), device="cpu"),
-                            config={**BASE, "mesh": {"model_parallel_size": 2}},
+                            config={**BASE, "mesh": {"pipe_parallel_size": 2}},
                             device="cpu")
         else:
+            # an mpu is superseded by the mesh, unless it asks for stages
             tdst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(), device="cpu"),
-                            config=BASE, device="cpu", **{case: object()})
+                            config=BASE, device="cpu", mpu=_PipeMpu())
 
 
 def test_chunked_loss_and_dataloader_raise(monkeypatch):
     """The chunked loss refuses MoE (the JAX package's rule).  The loader
-    does not prefetch what comm.overlap asks for (its prefetching loader is
-    not ported yet): it says so in one log line, and the batches it yields
-    are the loader's without the prefetch."""
+    prefetches what comm.overlap asks for, without a log line, and the
+    batches it yields are the loader's without the prefetch; an mpu is
+    accepted, superseded by the mesh."""
     from deeperspeed_tpu_torch.runtime import engine as engine_module
+    from deeperspeed_tpu_torch.runtime.dataloader import DevicePrefetchingLoader
 
     model = GPTNeoX(GPTNeoXConfig.tiny(ce_chunk_tokens=64), device="cpu")
     model.replace_config(moe_num_experts=4)
@@ -279,10 +288,10 @@ def test_chunked_loss_and_dataloader_raise(monkeypatch):
     for comm_cfg in ({}, {"comm": {"overlap": {"enabled": True, "prefetch_depth": 2}}}):
         eng, *_ = tdst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(), device="cpu"),
                                   config={**BASE, **comm_cfg}, training_data=data,
-                                  device="cpu")
+                                  device="cpu", mpu=object())
         losses.append([float(eng.train_batch()) for _ in range(2)])
-    said = [m for m in lines if "prefetch_depth 2" in m]
-    assert len(said) == 1 and "not ported yet" in said[0]
+    assert not [m for m in lines if "prefetch_depth" in m]
+    assert isinstance(eng._prefetcher, DevicePrefetchingLoader)
     assert losses[0] == losses[1]
 
 

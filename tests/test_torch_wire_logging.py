@@ -241,13 +241,6 @@ def test_wire_config_fields():
     ({"comm": {"overlap": {"enabled": True, "schedule": {"mode": "auto"}}}}, "Offload"),
     ({"comm": {"overlap": {"schedule": {"memory": "auto"}}}}, "Offload"),
     ({"comm": {"overlap": {"schedule": {"hbm_budget_bytes": 1 << 30}}}}, "Offload"),
-    ({"comm": {"quantized": {"enabled": True, "intra_axis": "zshard"}}},
-     "Multi-process training, part 2"),
-    ({"zero_optimization": {"stage": 3, "mics_shard_size": 2}},
-     "Multi-process training, part 2"),
-    ({"zero_optimization": {"stage": 2, "zero_hpz_partition_size": 2}},
-     "Multi-process training, part 2"),
-    ({"mesh": {"model_parallel_size": 2}}, "Multi-process training, part 2"),
 ])
 def test_refused_wire_configs_name_their_item(extra, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -238,20 +238,21 @@ def test_fused_adam_steps_over_each_ranks_pieces(runs):
     ({"fp16": {"enabled": True}, "comm": {"quantized": {"enabled": True}}}, ValueError),
     ({"zero_optimization": {"stage": 2}, "comm": {"quantized": {"enabled": True}}},
      ValueError),
-    ({"zero_optimization": {"stage": 1, "zero_hpz_partition_size": 2}}, NotImplementedError),
-    ({"zero_optimization": {"stage": 3, "mics_shard_size": 2}}, NotImplementedError),
-    ({"zero_optimization": {"stage": 3, "zero_hpz_partition_size": 2}},
+    ({"zero_optimization": {"stage": 1, "offload_optimizer": {"device": "cpu"}}},
      NotImplementedError),
-    ({"comm": {"quantized": {"enabled": True, "intra_axis": "zshard"}}},
+    ({"mesh": {"pipe_parallel_size": 2}}, NotImplementedError),
+    ({"mesh": {"sequence_parallel_size": 2}}, NotImplementedError),
+    ({"mesh": {"expert_parallel_size": 2}}, NotImplementedError),
+    ({"comm": {"quantized": {"enabled": True, "intra_axis": "ep"}}}, NotImplementedError),
+    ({"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}}},
      NotImplementedError),
-    ({"comm": {"quantized": {"enabled": True, "intra_axis": "tp"}}}, NotImplementedError),
-    ({"mesh": {"model_parallel_size": 2}}, NotImplementedError),
     ({"comm": {"quantized": {"enabled": True, "bucket_mb": 8}}}, NotImplementedError),
 ])
 def test_refused_configurations(extra, error):
     """qgZ refuses fp16 and stages above 0, as the JAX engine does; the
-    parts of multi-process training not ported yet name their ROADMAP item."""
-    match = "Multi-process training, part 2" if error is NotImplementedError else "comm"
+    layouts not ported yet (offload, pipelines, sequence and expert
+    parallelism) name their ROADMAP item."""
+    match = "ROADMAP Queue A" if error is NotImplementedError else "comm"
     with pytest.raises(error, match=match):
         tdst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(), device="cpu"),
                         config={**BASE, **extra}, device="cpu")

@@ -22,13 +22,19 @@ run in turn.  Job kinds:
   of the first batch after training; every run records each step's
   ``comm_footprint`` and the comms logger's rows (JSON), and one with
   ``reload`` saves a checkpoint after training and records 1-bit Adam's
-  error feedback before the save and after a fresh engine loads it;
+  error feedback before the save and after a fresh engine loads it; a run
+  may name its ``mesh`` (``MeshTopology`` sizes: ``tp``, ``zshard``; the
+  default is data-parallel over the world), extra ``GPTNeoXConfig``
+  fields (``model``), ``reuse_model`` (the previous run's model object,
+  as the JAX tests pass one model to two engines) and ``capture_grads``
+  (each parameter's mean gradient before and after the first step's
+  reduction, ``pre/<param>`` and ``post/<param>``);
 * ``comm``: each case runs one collective on this rank's input
   ``x/<case>/<rank>`` (with ``two_level`` ``[n_inter, n_intra]``, over the
   groups of ``comm.new_two_level_groups``; ``onebit`` cases chain
   ``steps`` calls of ``onebit_all_reduce``, carrying the error);
 * ``ckpt``: for each run, an engine as ``train`` makes it (``model`` holds
-  extra ``GPTNeoXConfig`` fields) first loads the checkpoint directory
+  extra ``GPTNeoXConfig`` fields, ``mesh`` the mesh) first loads the checkpoint directory
   ``load`` if it names one, then trains on the batches ``steps`` lists
   (their indices), saving into ``save`` after ``save_after`` of them; at
   ``loaded``, ``saved`` and ``final`` it records the state: on rank 0 the
@@ -38,6 +44,7 @@ run in turn.  Job kinds:
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -52,6 +59,7 @@ from deeperspeed_tpu_torch.comm import compressed
 from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
 from deeperspeed_tpu_torch.ops.cuda_utils import LAUNCHES
 from deeperspeed_tpu_torch.ops.quantizer import fused
+from deeperspeed_tpu_torch.parallel import MeshTopology
 from deeperspeed_tpu_torch.runtime import checkpointing as ck
 from deeperspeed_tpu_torch.runtime import engine as engine_module
 from deeperspeed_tpu_torch.runtime.zero import quantized
@@ -81,16 +89,23 @@ def _train(spec, job, rank, out):
     keys = sorted({k.split("/", 1)[1] for k in job.files if k.startswith("b0/")})
     batches = [{key: job[f"b{i}/{key}"] for key in keys}
                for i in range(spec["n_batches"])]
+    model = None
     for run in spec["runs"]:
         name = run["name"]
-        model = GPTNeoX(GPTNeoXConfig.tiny(dtype=DTYPES[run["dtype"]]), device=device)
+        if not run.get("reuse_model"):
+            model = GPTNeoX(GPTNeoXConfig.tiny(dtype=DTYPES[run["dtype"]],
+                                               **run.get("model", {})), device=device)
         data = None
         if run.get("training_data"):
             data = {k[2:]: job[k] for k in job.files if k.startswith("d/")}
         warnings.clear()
         comm.comms_logger.comms_dict.clear()
+        comm.comms_logger.group_sizes.clear()
+        comm.STAGED.clear()
         eng, *_ = tdst.initialize(model=model, config=run["config"], model_parameters=start,
-                                  training_data=data, device=device)
+                                  training_data=data, device=device, mesh=_mesh(run))
+        if run.get("capture_grads"):
+            _capture_grads(eng, name, out)
         calls[0] = 0
         LAUNCHES.clear()
         losses, norms, b5, footprints = [], [], [], []
@@ -116,15 +131,44 @@ def _train(spec, job, rank, out):
                                        if isinstance(t, torch.Tensor))
         out[f"{name}/shard_numel"] = sum(
             g.shard.numel() for _, _, _, g in eng._compute if g is not None)
+        out[f"{name}/tp_numel"] = sum(math.prod(shape) for r in eng.plan.regions
+                                      for shape in r.shapes)
+        out[f"{name}/staged"] = np.array(json.dumps(dict(comm.STAGED)))
         out[f"{name}/warnings"] = np.array(json.dumps(list(warnings)))
         out[f"{name}/footprints"] = np.array(json.dumps(footprints))
         out[f"{name}/comms_rows"] = np.array(json.dumps(comm.log_summary(show_straggler=True)))
+        out[f"{name}/group_sizes"] = np.array(json.dumps(
+            {op: sorted(n) for op, n in comm.comms_logger.group_sizes.items()}))
         final = eng.full_master_params()
         if rank == 0:
             for param, t in final.items():
                 out[f"{name}/final/{param}"] = t.cpu().numpy()
         if run.get("reload"):
             _reload(eng, run, name, model, start, device, out)
+
+
+def _mesh(run):
+    return MeshTopology(**run["mesh"]) if run.get("mesh") else None
+
+
+def _capture_grads(eng, name, out):
+    """Each stage-0 parameter's mean gradient over the microbatches before
+    the first step's reduction and its mean over the ranks after it."""
+    reduce = eng._reduce
+
+    def capture(divisor):
+        names = [n for r in eng.plan.regions for n in r.names]
+        views = dict(zip(names, eng._acc_views))
+        if not any(k.startswith(f"{name}/pre/") for k in out):
+            for n, v in views.items():
+                out[f"{name}/pre/{n}"] = (v / divisor).numpy().copy()
+            reduce(divisor)
+            for n, v in views.items():
+                out[f"{name}/post/{n}"] = v.numpy().copy()
+            return
+        reduce(divisor)
+
+    eng._reduce = capture
 
 
 def _reload(eng, run, name, model, start, device, out):
@@ -197,7 +241,7 @@ def _ckpt(spec, job, rank, out):
         data = ({k[2:]: job[k] for k in job.files if k.startswith("d/")}
                 if run.get("training_data") else None)
         eng, *_ = tdst.initialize(model=model, config=run["config"], model_parameters=start,
-                                  training_data=data, device="cpu")
+                                  training_data=data, device="cpu", mesh=_mesh(run))
         if run.get("load"):
             eng.load_checkpoint(run["load"])
             _record(eng, rank, out, f"{name}/loaded")
