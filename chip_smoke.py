@@ -187,6 +187,30 @@ package, and goes through these phases, each printing its lines:
     in a sync), the bytes staged through host a step by op (``tp_reduce``,
     ``grad_reduce``, ``stage3_gather``, ``hpz_refresh``), the analytic
     wire bytes and the elements each rank holds.
+22. the Llama family: phase 3's kernel rows at its shapes (K1 and K8 as
+    RMSNorm at H 4096; K2, K2q and K3q with GQA's query groups folded into
+    the batch, 32 sequences x 4 query heads over 8 KV heads at D 128,
+    beside SDPA at the KV heads; K5-K7 at N 32, D 128); (a) Mistral-7B-v0.2's
+    shape (``LlamaConfig.mistral_7b(sliding_window=None, rope_theta=1e6)``,
+    7.24 B parameters drawn on the card) in bf16 through
+    ``InferenceEngineV2`` with a 4096 x 16 bf16 pool: 32 prompts of 512
+    tokens prefilled, 32 decode rounds, 4 speculative rounds, a sampled
+    run (top-k 50), then ``DSScheduler.generate`` with n-gram k 4 over an
+    fp8 pool of the same bytes and plain decode rounds over it; K1, K2,
+    K3, K2q, K3q and K4 must launch; (b) ``mistral_7b()`` (window 4096) at
+    full width and 2 layers in fp32, one 5,000-token sequence: each
+    round's last logits within 2e-3 of the dense forward, no K2 or K3
+    launched; (c) ``init_inference`` on (a)'s model in bf16, int8 and int4
+    weights, 8 left-padded prompts x 32 greedy tokens: ms a token, weight
+    bytes, peak memory, and bf16's tokens against the v2 engine's on the
+    unpadded rows (parting only at a top-2 margin below 0.125); (d)
+    Llama-2-7B's width at 2 layers (4 x 1024) and OPT-125M (16 x 1024)
+    trained 3 Adam steps in bf16 (K1/K8, K5-K7), then their tiny configs in
+    fp32 card against CPU (losses within 1e-4 relative); (e) two
+    ``--llama-worker`` processes run the v1 engine at tp 2 over gloo on
+    (a)'s model at 2 layers in fp32: their tokens must equal this
+    process's tp 1 run, which is held against the v2 engine's fp32 greedy
+    tokens.
 
 The second-to-last line is the JSON summary of the kernels (a kernel's
 ``launches`` sums its counts on the main paths, serving in phase 5,
@@ -196,8 +220,10 @@ phase 14 (rank 0's counts, stage 2, then qgZ), the legacy layer in phase
 16 (fp32, then fp16), sparse attention in phase 17, the fused softmax in
 phase 18, the resumed steps of phase 19, and in phase 20 the two-level
 schedule's B5 launches (rank 0) and the deferred full-size steps (rank 0),
-and in phase 21 the tp 2 x dp 2 full-size steps (rank 0), each read right
-after its own run and listed in ``launches_by_path``), the
+in phase 21 the tp 2 x dp 2 full-size steps (rank 0), and in phase 22
+(a)'s serving, (c)'s three v1 runs, (b)'s windowed rounds, (d)'s two
+full-width trainings and (e)'s tp 2 run (rank 0), each read right after
+its own run and listed in ``launches_by_path``), the
 last ``{"ok": true,
 "device": {...}}``.  Any
 failure, of a phase or of a worker, raises and exits non-zero; without a
@@ -814,6 +840,97 @@ def phase_kernels(torch):
     return rows_out
 
 
+def _flash_case(torch, gen, report, B, S, N, D, causal):
+    """K5, K7 and K6 at one bf16 shape against their plain versions, each
+    timed beside its bound and the library's attention (phase 3 and phase
+    22's Llama shape)."""
+    import torch.nn.functional as F
+
+    from deeperspeed_tpu_torch.ops.attention import flash
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    q, k, v, do = (torch.randn(B, S, N, D, generator=gen, device=dev).to(bf16)
+                   for _ in range(4))
+    what = f"B={B} S={S} N={N} D={D} {'causal' if causal else 'full'} bf16"
+    o, lse = flash._fwd_cuda(q, k, v, causal)
+    ro, rlse = flash._fwd_reference(q, k, v, causal)
+    err_fwd, use_o = flash_close(torch, o, ro, f"flash_fwd {what}")
+    _close(torch, lse, rlse, 1e-4, 1e-5, f"flash_fwd LSE {what}")
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(B * N, S).contiguous()
+    rdq, rdk, rdv = flash._bwd_reference(q, k, v, do, lse, delta, causal)
+    dq = flash._dq_cuda(q, k, v, do, lse, delta, causal)
+    err_dq, use_dq = flash_close(torch, dq, rdq, f"flash_bwd_dq {what}")
+    if not torch.equal(dq, flash._dq_cuda(q, k, v, do, lse, delta, causal)):
+        raise AssertionError(f"flash_bwd_dq {what}: two launches differ")
+    dk, dv = flash._dkv_cuda(q, k, v, do, lse, delta, causal)
+    (err_dk, use_dk), (err_dv, use_dv) = (
+        flash_close(torch, dk, rdk, f"flash_bwd_dkv dk {what}"),
+        flash_close(torch, dv, rdv, f"flash_bwd_dkv dv {what}"))
+    err_dkv = max(err_dk, err_dv)
+    dk2, dv2 = flash._dkv_cuda(q, k, v, do, lse, delta, causal)
+    if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+        raise AssertionError(f"flash_bwd_dkv {what}: two launches differ")
+    print(f"[kernels] flash {what}: share of the limit used (largest of per "
+          f"element and per head) O {use_o:.3f}, dq {use_dq:.3f}, dk {use_dk:.3f}, "
+          f"dv {use_dv:.3f}; dq and dk/dv repeat bit for bit", flush=True)
+    del rdq, rdk, rdv, dq, dk, dv, dk2, dv2
+    # live (query, key) pairs: the products' work on these inputs
+    live = S * (S + 1) // 2 if causal else S * S
+    mac, io, vec = B * N * D * live, B * S * N * D * 2, B * N * S * 4
+    q4, k4, v4, do4 = (t.transpose(1, 2) for t in (q, k, v, do))
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        torch.autograd.grad(out, (qg, kg, vg), do4)
+
+    lib_fwd_bwd = _time_ms(torch, sdpa_fwd_bwd, iters=10)
+    # the library's backward alone, from the saved forward outputs
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+    lib_bwd_ops = _backward_ops(torch, out, (qg, kg, vg), do4)
+    lib_bwd = _time_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do4, retain_graph=True), iters=10)
+    t, by = _bound(4 * io + vec, 2 * 2 * mac, bf16)
+    report("flash_fwd", f"K5 flash_fwd {what}", dict(
+        max_abs_err=err_fwd,
+        ms=_time_ms(torch, lambda: flash._fwd_cuda(q, k, v, causal)),
+        plain_ms=_time_ms(torch, lambda: flash._fwd_reference(q, k, v, causal), iters=3),
+        library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal)),
+        bound_ms=t, bound_by=by))
+    t, by = _bound(5 * io + 2 * vec, 3 * 2 * mac, bf16)
+    bwd_plain = _time_ms(torch, lambda: flash._bwd_reference(
+        q, k, v, do, lse, delta, causal), iters=3)
+    # device_ms: the kernel alone from a CUDA graph (at B 4 a launch takes
+    # about as long on the host as on the card, so events time the host)
+    def dq_call():
+        return flash._dq_cuda(q, k, v, do, lse, delta, causal)
+
+    def dkv_call():
+        return flash._dkv_cuda(q, k, v, do, lse, delta, causal)
+
+    ms_dq, dev_dq = _time_ms(torch, dq_call), _graph_ms(torch, dq_call)
+    report("flash_bwd_dq", f"K7 flash_bwd_dq {what}", dict(
+        max_abs_err=err_dq, ms=ms_dq, plain_ms=bwd_plain, library_ms=None,
+        bound_ms=t, bound_by=by, device_ms=dev_dq))
+    t, by = _bound(6 * io + 2 * vec, 4 * 2 * mac, bf16)
+    ms_dkv, dev_dkv = _time_ms(torch, dkv_call), _graph_ms(torch, dkv_call)
+    report("flash_bwd_dkv", f"K6 flash_bwd_dkv {what}", dict(
+        max_abs_err=err_dkv, ms=ms_dkv, plain_ms=bwd_plain, library_ms=None,
+        bound_ms=t, bound_by=by, device_ms=dev_dkv))
+    print(f"[kernels] library yardstick {what}: SDPA backward alone "
+          f"({out.grad_fn.name()}: {', '.join(lib_bwd_ops)}) {lib_bwd:.4f} ms from the "
+          f"saved forward outputs; K7 + K6 together {ms_dq + ms_dkv:.4f} ms = "
+          f"{(ms_dq + ms_dkv) / lib_bwd:.3f}x it (alone, from CUDA graphs, "
+          f"{dev_dq + dev_dkv:.4f} ms = {(dev_dq + dev_dkv) / lib_bwd:.3f}x); SDPA "
+          f"forward + backward {lib_fwd_bwd:.4f} ms (no one library call computes dq "
+          f"alone or dk/dv alone, so library_ms of K6 and K7 is none; plain_ms of both "
+          f"is the whole plain backward)", flush=True)
+    del q, k, v, do, o, lse, ro, rlse, qg, kg, vg, out
+    torch.cuda.empty_cache()
+
+
 def phase_training_kernels(torch, rows_out):
     """Phase 3, training: K5-K8 against their plain versions."""
     import torch.nn.functional as F
@@ -831,85 +948,7 @@ def phase_training_kernels(torch, rows_out):
     for B, S, N, D, causal in ((16, 1024, 12, 64, True), (4, 1000, 12, 64, True),
                                (4, 1024, 16, 128, True), (4, 1024, 12, 64, False),
                                (1, 4096, 12, 64, True)):
-        q, k, v, do = (torch.randn(B, S, N, D, generator=gen, device=dev).to(bf16)
-                       for _ in range(4))
-        what = f"B={B} S={S} N={N} D={D} {'causal' if causal else 'full'} bf16"
-        o, lse = flash._fwd_cuda(q, k, v, causal)
-        ro, rlse = flash._fwd_reference(q, k, v, causal)
-        err_fwd, use_o = flash_close(torch, o, ro, f"flash_fwd {what}")
-        _close(torch, lse, rlse, 1e-4, 1e-5, f"flash_fwd LSE {what}")
-        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(B * N, S).contiguous()
-        rdq, rdk, rdv = flash._bwd_reference(q, k, v, do, lse, delta, causal)
-        dq = flash._dq_cuda(q, k, v, do, lse, delta, causal)
-        err_dq, use_dq = flash_close(torch, dq, rdq, f"flash_bwd_dq {what}")
-        if not torch.equal(dq, flash._dq_cuda(q, k, v, do, lse, delta, causal)):
-            raise AssertionError(f"flash_bwd_dq {what}: two launches differ")
-        dk, dv = flash._dkv_cuda(q, k, v, do, lse, delta, causal)
-        (err_dk, use_dk), (err_dv, use_dv) = (
-            flash_close(torch, dk, rdk, f"flash_bwd_dkv dk {what}"),
-            flash_close(torch, dv, rdv, f"flash_bwd_dkv dv {what}"))
-        err_dkv = max(err_dk, err_dv)
-        dk2, dv2 = flash._dkv_cuda(q, k, v, do, lse, delta, causal)
-        if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
-            raise AssertionError(f"flash_bwd_dkv {what}: two launches differ")
-        print(f"[kernels] flash {what}: share of the limit used (largest of per "
-              f"element and per head) O {use_o:.3f}, dq {use_dq:.3f}, dk {use_dk:.3f}, "
-              f"dv {use_dv:.3f}; dq and dk/dv repeat bit for bit", flush=True)
-        del rdq, rdk, rdv, dq, dk, dv, dk2, dv2
-        # live (query, key) pairs: the products' work on these inputs
-        live = S * (S + 1) // 2 if causal else S * S
-        mac, io, vec = B * N * D * live, B * S * N * D * 2, B * N * S * 4
-        q4, k4, v4, do4 = (t.transpose(1, 2) for t in (q, k, v, do))
-        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
-
-        def sdpa_fwd_bwd():
-            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
-            torch.autograd.grad(out, (qg, kg, vg), do4)
-
-        lib_fwd_bwd = _time_ms(torch, sdpa_fwd_bwd, iters=10)
-        # the library's backward alone, from the saved forward outputs
-        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
-        lib_bwd_ops = _backward_ops(torch, out, (qg, kg, vg), do4)
-        lib_bwd = _time_ms(torch, lambda: torch.autograd.grad(
-            out, (qg, kg, vg), do4, retain_graph=True), iters=10)
-        t, by = _bound(4 * io + vec, 2 * 2 * mac, bf16)
-        report("flash_fwd", f"K5 flash_fwd {what}", dict(
-            max_abs_err=err_fwd,
-            ms=_time_ms(torch, lambda: flash._fwd_cuda(q, k, v, causal)),
-            plain_ms=_time_ms(torch, lambda: flash._fwd_reference(q, k, v, causal), iters=3),
-            library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=causal)),
-            bound_ms=t, bound_by=by))
-        t, by = _bound(5 * io + 2 * vec, 3 * 2 * mac, bf16)
-        bwd_plain = _time_ms(torch, lambda: flash._bwd_reference(
-            q, k, v, do, lse, delta, causal), iters=3)
-        # device_ms: the kernel alone from a CUDA graph (at B 4 a launch takes
-        # about as long on the host as on the card, so events time the host)
-        def dq_call():
-            return flash._dq_cuda(q, k, v, do, lse, delta, causal)
-
-        def dkv_call():
-            return flash._dkv_cuda(q, k, v, do, lse, delta, causal)
-
-        ms_dq, dev_dq = _time_ms(torch, dq_call), _graph_ms(torch, dq_call)
-        report("flash_bwd_dq", f"K7 flash_bwd_dq {what}", dict(
-            max_abs_err=err_dq, ms=ms_dq, plain_ms=bwd_plain, library_ms=None,
-            bound_ms=t, bound_by=by, device_ms=dev_dq))
-        t, by = _bound(6 * io + 2 * vec, 4 * 2 * mac, bf16)
-        ms_dkv, dev_dkv = _time_ms(torch, dkv_call), _graph_ms(torch, dkv_call)
-        report("flash_bwd_dkv", f"K6 flash_bwd_dkv {what}", dict(
-            max_abs_err=err_dkv, ms=ms_dkv, plain_ms=bwd_plain, library_ms=None,
-            bound_ms=t, bound_by=by, device_ms=dev_dkv))
-        print(f"[kernels] library yardstick {what}: SDPA backward alone "
-              f"({out.grad_fn.name()}: {', '.join(lib_bwd_ops)}) {lib_bwd:.4f} ms from the "
-              f"saved forward outputs; K7 + K6 together {ms_dq + ms_dkv:.4f} ms = "
-              f"{(ms_dq + ms_dkv) / lib_bwd:.3f}x it (alone, from CUDA graphs, "
-              f"{dev_dq + dev_dkv:.4f} ms = {(dev_dq + dev_dkv) / lib_bwd:.3f}x); SDPA "
-              f"forward + backward {lib_fwd_bwd:.4f} ms (no one library call computes dq "
-              f"alone or dk/dv alone, so library_ms of K6 and K7 is none; plain_ms of both "
-              f"is the whole plain backward)", flush=True)
-        del q, k, v, do, o, lse, ro, rlse, qg, kg, vg, out
-        torch.cuda.empty_cache()
+        _flash_case(torch, gen, report, B, S, N, D, causal)
 
     # ---- K8: LayerNorm backward at the training rows (B 16 x S 1024)
     rows, H = TRAIN_BATCH * TRAIN_SEQ, 768
@@ -3174,6 +3213,618 @@ def phase_layout(card, r0, r1):
     return a["launches"]
 
 
+# ---------------------------------------------------------------- phase 22
+# The Llama family: Mistral-7B-v0.2's published shape, served and
+# generated, Llama-2-7B's width and OPT-125M trained.
+LLAMA_PROMPTS, LLAMA_PROMPT_LEN, LLAMA_DECODE_ROUNDS, LLAMA_SPEC_ROUNDS = 32, 512, 32, 4
+LLAMA_ECFG = {"dtype": "bfloat16", "kv_cache": {"num_blocks": 4096, "block_size": 16},
+              "state_manager": {"max_context": 1024, "max_ragged_batch_size": 4096,
+                                "max_ragged_sequence_count": 64,
+                                "max_decode_batch": LLAMA_PROMPTS}}
+LLAMA_WINDOW_SEQ = 5000
+V1_PROMPTS, V1_NEW, V1_PROMPT_LEN = 8, 32, 128
+LLAMA_TP_WORLD, LLAMA_TP_NEW = 2, 16
+# bf16 greedy tokens of two paths may part only where the reference's top-2
+# logit margin is below this (one path's rounding decides a near tie)
+BF16_MARGIN = 0.125
+FP32_MARGIN = 1e-3
+LLAMA_TRAIN_STEPS = 3
+LLAMA_TRAIN = {"optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+               "bf16": {"enabled": True}, "gradient_clipping": 1.0,
+               "steps_per_print": 1000000}
+TRAIN_TOL = 1e-4                      # card vs CPU losses, relative (phase 8's)
+
+
+def llama_served_config(**kw):
+    """Mistral-7B-v0.2's shape: no window, rope theta 1e6, 8 KV heads."""
+    from deeperspeed_tpu_torch.models import LlamaConfig
+
+    return LlamaConfig.mistral_7b(sliding_window=None, rope_theta=1e6, **kw)
+
+
+def v1_prompts(np, vocab):
+    """``V1_PROMPTS`` prompts of 64-128 tokens left-padded to
+    ``V1_PROMPT_LEN`` (every other row unpadded): ids and mask."""
+    rng = np.random.default_rng(SEED + 22)
+    ids = rng.integers(1, vocab, (V1_PROMPTS, V1_PROMPT_LEN)).astype(np.int64)
+    mask = np.ones_like(ids)
+    for row in range(1, V1_PROMPTS, 2):
+        mask[row, :int(rng.integers(1, V1_PROMPT_LEN - 63))] = 0
+    return ids * mask, mask
+
+
+def _greedy_agree(np, got, want, margins, tol):
+    """Rows of greedy tokens ``got`` against ``want`` [rows, new] whose
+    reference top-2 margins are ``margins``: each row must agree up to its
+    end or up to a step whose margin is below ``tol`` (where the two paths'
+    roundings may pick apart, and the rows go on from different tokens).
+    Returns the steps agreed a row."""
+    agreed = []
+    for r in range(want.shape[0]):
+        diff = np.nonzero(got[r] != want[r])[0]
+        if diff.size:
+            first = int(diff[0])
+            if margins[r, first] >= tol:
+                raise AssertionError(f"row {r}: token {first} differs ({got[r, first]} vs "
+                                     f"{want[r, first]}) at a top-2 margin of "
+                                     f"{margins[r, first]:.4f} >= {tol}")
+            agreed.append(first)
+        else:
+            agreed.append(want.shape[1])
+    return agreed
+
+
+def _v2_greedy(torch, np, eng, prompts, new):
+    """``new`` greedy tokens a prompt through ``put_round`` (one prefill
+    round, then decode rounds) and each step's top-2 margin."""
+    uids = list(range(len(prompts)))
+    toks, margins = [], []
+    feed = [list(map(int, p)) for p in prompts]
+    for _ in range(new):
+        out = eng.put_round(uids, feed)
+        top2 = torch.topk(out.logits[:len(uids)], 2, dim=-1).values
+        margins.append((top2[:, 0] - top2[:, 1]).cpu().numpy())
+        toks.append(out.tokens[:, -1].copy())
+        feed = [[int(t)] for t in out.tokens[:, -1]]
+    for u in uids:
+        eng.flush(u)
+    return np.stack(toks, 1), np.stack(margins, 1)
+
+
+def phase_llama_kernels(torch, rows_out):
+    """Phase 22's kernel rows at the Llama family's shapes: K1 and K8 as
+    RMSNorm at H 4096, K2 / K2q / K3q with GQA's query groups folded into
+    the batch (Mistral-7B: 32 sequences x 4 query heads over 8 KV heads,
+    D 128), beside SDPA at the KV heads (``enable_gqa``), and K5-K7 at
+    N 32, D 128 (Llama-2-7B's width)."""
+    import torch.nn.functional as F
+
+    from deeperspeed_tpu_torch.ops.attention import paged
+    from deeperspeed_tpu_torch.ops.quantizer import byte_view, dequantize_kv, quantize_kv
+    from deeperspeed_tpu_torch.ops.transformer import normalize
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    bf16 = torch.bfloat16
+    report = _reporter(rows_out)
+
+    # ---- K1 rms: a decode round's 64 rows at H 4096, the scale fp32 (the
+    # served model keeps its norms fp32); the library's F.rms_norm takes a
+    # weight of the input's type
+    H, rows = 4096, 64
+    x = torch.randn(rows, H, generator=gen, device=dev).to(bf16)
+    g = 1 + 0.1 * torch.randn(H, generator=gen, device=dev)
+    y = normalize.rms_norm(x, g)
+    err = _close(torch, y, normalize._ln_ref(x, g, None, 1e-5, True), 1e-2, 1e-2,
+                 "rms_norm rows=64")
+    t, by = _bound(2 * rows * H * 2 + H * 4, 5 * rows * H, bf16)
+    gb = g.to(bf16)
+    report("layer_norm", f"K1 rms_norm rows={rows} H={H} bf16 (fp32 scale)", dict(
+        max_abs_err=err,
+        ms=_time_ms(torch, lambda: normalize.rms_norm(x, g), iters=200),
+        plain_ms=_time_ms(torch, lambda: normalize._ln_ref(x, g, None, 1e-5, True)),
+        library_ms=_time_ms(torch, lambda: F.rms_norm(x, (H,), gb, 1e-5), iters=200),
+        bound_ms=t, bound_by=by,
+        device_ms=_graph_ms(torch, lambda: normalize._ln_cuda(x, g, None, 1e-5, True)),
+        library_device_ms=_graph_ms(torch, lambda: F.rms_norm(x, (H,), gb, 1e-5))))
+
+    # ---- K8 rms at Llama-2's training rows (4 x 1024), bf16 scale
+    rows = 4 * 1024
+    x = (2 * torch.randn(rows, H, generator=gen, device=dev) + 0.5).to(bf16)
+    dy = torch.randn(rows, H, generator=gen, device=dev).to(bf16)
+    g = (1 + 0.1 * torch.randn(H, generator=gen, device=dev)).to(bf16)
+    dx, dg, _ = normalize._ln_bwd_cuda(x, g, dy, 1e-5, True)
+    rdx, rdg, _ = normalize._ln_bwd_ref(x, g, dy, 1e-5, True)
+    err = max(_close(torch, dx, rdx, 1e-2, 1e-2, "rms_norm_bwd dx"),
+              _close(torch, dg, rdg, 1e-5 * rdg.abs().max().item(), 1e-4,
+                     "rms_norm_bwd dgamma"))
+    xl, gl = (a.clone().requires_grad_() for a in (x, g))
+    yl = F.rms_norm(xl, (H,), gl, 1e-5)
+    t, by = _bound(3 * rows * H * 2 + 2 * H * 4, 15 * rows * H, torch.float32)
+    report("layer_norm_bwd", f"K8 rms_norm_bwd rows={rows} H={H} bf16", dict(
+        max_abs_err=err,
+        ms=_time_ms(torch, lambda: normalize._ln_bwd_cuda(x, g, dy, 1e-5, True)),
+        plain_ms=_time_ms(torch, lambda: normalize._ln_bwd_ref(x, g, dy, 1e-5, True)),
+        library_ms=_time_ms(torch, lambda: torch.autograd.grad(
+            yl, (xl, gl), dy, retain_graph=True)),
+        bound_ms=t, bound_by=by,
+        device_ms=_graph_ms(torch, lambda: normalize._ln_bwd_cuda(x, g, dy, 1e-5, True))))
+    del x, dy, dx, rdx, xl, yl
+
+    # ---- K2 / K2q / K3q, GQA folded: 32 sequences at (a)'s context, each
+    # KV head's 4 query heads in the batch (128 rows), the tables repeated
+    B, rep, KV, D, ctx, bs = LLAMA_PROMPTS, 4, 8, 128, 512, 16
+    P = B * ctx // bs
+    pk = torch.randn(P, bs, KV, D, generator=gen, device=dev).to(bf16)
+    pv = torch.randn(P, bs, KV, D, generator=gen, device=dev).to(bf16)
+    base = torch.randperm(P, generator=gen, device=dev).view(B, ctx // bs).to(torch.int32)
+    tables = base.repeat_interleave(rep, 0).contiguous()
+    lens = torch.full((B * rep,), ctx, dtype=torch.int32, device=dev)
+    q = torch.randn(B, KV * rep, D, generator=gen, device=dev).to(bf16)
+    # the fold: [B, KV, rep, D] -> [B * rep, KV, D]
+    qf = q.view(B, KV, rep, D).transpose(1, 2).reshape(B * rep, KV, D).contiguous()
+    idx = base.long()
+
+    def gathered(pool, scales=None):
+        """A pool's blocks by the (unrepeated) tables, at the KV heads:
+        [B, KV, ctx, D] in bf16, dequantized from a quantized pool."""
+        t = byte_view(pool)[idx].view(pool.dtype).reshape(B, ctx, KV, D)
+        if scales is not None:
+            t = dequantize_kv(t, scales[idx].reshape(B, ctx, KV), bf16)
+        return t.transpose(1, 2)
+
+    K, V = gathered(pk), gathered(pv)
+    sdpa = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], K, V, enable_gqa=True))
+    scale = D ** -0.5
+    for kv_dtype in (None, "fp8", "int8"):
+        sk = sv = None
+        qk, qv = pk, pv
+        if kv_dtype is not None:
+            (qk, sk), (qv, sv) = quantize_kv(pk, kv_dtype), quantize_kv(pv, kv_dtype)
+        scales = {} if sk is None else {"k_scale": sk, "v_scale": sv}
+        tag = "" if sk is None else "q"
+        pool = "" if sk is None else f"{kv_dtype} pool "
+
+        def decode():
+            return paged.paged_decode_attention(qf, qk, qv, tables, lens, **scales)
+
+        def plain():
+            return paged._decode_reference(qf, qk, qv, tables, lens, scale, sk, sv)
+
+        err = _close(torch, decode(), plain(), ATTN_ATOL, ATTN_RTOL,
+                     f"paged_decode{tag} GQA-folded {pool}")
+        # the work: each sequence's K and V once a KV head (the fold reads
+        # them rep times), q and the output
+        per = 2 * D if sk is None else D + 4
+        nbytes = 2 * B * ctx * KV * per + 2 * B * KV * rep * D * 2 + base.numel() * 4
+        t, by = _bound(nbytes, 4 * B * KV * rep * ctx * D, bf16)
+        # the library: one SDPA call at the KV heads on the gathered K/V, a
+        # quantized pool's gathered and dequantized inside the timed call
+        lib = sdpa if sk is None else _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], gathered(qk, sk), gathered(qv, sv), enable_gqa=True))
+        ms = _time_ms(torch, decode)
+        report(f"paged_decode{'_q' if tag else ''}",
+               f"K2{tag} paged_decode {pool}GQA-folded B*rep={B * rep} (B={B} x rep={rep}) "
+               f"N_kv={KV} D={D} bs={bs} ctx={ctx} bf16",
+               dict(max_abs_err=err, ms=ms,
+                    plain_ms=_time_ms(torch, plain, iters=5), library_ms=lib,
+                    bound_ms=t, bound_by=by, device_ms=_graph_ms(torch, decode)))
+        if sk is None:
+            print(f"[kernels] GQA gap: K2 folded {ms:.4f} ms vs SDPA at the KV heads "
+                  f"(enable_gqa, on the gathered K/V) {sdpa:.4f} ms = {ms / sdpa:.3f}x; the "
+                  f"fold reads each KV block {rep} times", flush=True)
+            continue
+        S = 8                                  # (a)'s speculative rounds: 1 + 4 drafts, s_pad 8
+        qs = torch.randn(B, S, KV * rep, D, generator=gen, device=dev).to(bf16)
+        qsf = qs.view(B, S, KV, rep, D).permute(0, 3, 1, 2, 4).reshape(
+            B * rep, S, KV, D).contiguous()
+        pos = (ctx - S + torch.arange(S, device=dev, dtype=torch.int32))[None] \
+            .repeat(B * rep, 1).contiguous()
+
+        def spec():
+            return paged.paged_spec_decode_attention(qsf, qk, qv, tables, pos, **scales)
+
+        err = _close(torch, spec(), paged._spec_decode_reference(
+            qsf, qk, qv, tables, pos, scale, sk, sv), ATTN_ATOL, ATTN_RTOL,
+            f"paged_spec_decode_q GQA-folded {pool}")
+        t, by = _bound(nbytes + (S - 1) * 2 * B * KV * rep * D * 2,
+                       4 * B * KV * rep * S * ctx * D + 2 * B * KV * ctx * D, bf16)
+        mask = (torch.arange(ctx, device=dev)[None, :] <= pos[:B, :, None])[:, None]
+        report("paged_spec_decode_q",
+               f"K3q paged_spec_decode {pool}GQA-folded B*rep={B * rep} S={S} N_kv={KV} "
+               f"D={D} bs={bs} ctx={ctx} bf16",
+               dict(max_abs_err=err, ms=_time_ms(torch, spec),
+                    plain_ms=_time_ms(torch, lambda: paged._spec_decode_reference(
+                        qsf, qk, qv, tables, pos, scale, sk, sv), iters=5),
+                    library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
+                        qs.transpose(1, 2), gathered(qk, sk), gathered(qv, sv),
+                        attn_mask=mask, enable_gqa=True)),
+                    bound_ms=t, bound_by=by, device_ms=_graph_ms(torch, spec)))
+    del pk, pv, K, V
+    torch.cuda.empty_cache()
+
+    # ---- K5-K7 at Llama-2-7B's width (training: 4 x 1024 tokens)
+    _flash_case(torch, gen, report, 4, 1024, 32, 128, True)
+    return rows_out
+
+
+def phase_llama_served(torch, np, launches, card):
+    """Phase 22 (a) and (c): Mistral-7B-v0.2's shape at full depth in bf16,
+    served by ``InferenceEngineV2`` (a bf16 pool: prefill, decode, a few
+    speculative rounds, a sampled run), by ``DSScheduler.generate`` over an
+    fp8 pool of the same bytes with n-gram k 4, and generated by the v1
+    engine (``init_inference``) in bf16, int8 and int4.  Returns the launch
+    counts of (a) and of (c)."""
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.inference.v2 import DSScheduler, InferenceEngineV2
+    from deeperspeed_tpu_torch.models import Llama
+
+    cfg = llama_served_config()
+    t0 = time.perf_counter()
+    model = Llama(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != model.num_params():
+        raise AssertionError(f"Mistral-7B: {n_params} parameters, {model.num_params()} counted")
+    V = cfg.vocab_size
+    rng = np.random.default_rng(SEED + 23)
+    prompts = [rng.integers(0, V, LLAMA_PROMPT_LEN).astype(np.int32)
+               for _ in range(LLAMA_PROMPTS)]
+    eng = InferenceEngineV2(model, LLAMA_ECFG)
+    print(f"[llama-a] {card}: Mistral-7B-v0.2 shape (H {cfg.hidden_size}, {cfg.num_layers} "
+          f"layers, {cfg.num_heads} q / {cfg.num_kv_heads} KV heads, D {cfg.head_dim}, F "
+          f"{cfg.intermediate_size}, V {V}): {n_params / 1e9:.3f} B parameters drawn on the card "
+          f"in {build_s:.1f} s, {sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f} "
+          f"GB in bf16; KV pools {eng.kv_pool_bytes / 1e9:.2f} GB", flush=True)
+    uids = list(range(LLAMA_PROMPTS))
+    torch.cuda.reset_peak_memory_stats()
+
+    launches.clear()                                  # (a)'s main path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ttft, nxt = [], {}
+    for lo in range(0, LLAMA_PROMPTS, 8):
+        out = eng.put_round(uids[lo:lo + 8], prompts[lo:lo + 8])
+        ttft.extend([time.perf_counter() - t0] * 8)
+        if not out.finite.all():
+            raise AssertionError("llama (a): non-finite logits in a prefill round")
+        for i, u in enumerate(uids[lo:lo + 8]):
+            nxt[u] = int(out.tokens[i, -1])
+    t_dec = time.perf_counter()
+    for _ in range(LLAMA_DECODE_ROUNDS):
+        out = eng.put_round(uids, [[nxt[u]] for u in uids])
+        if not out.finite.all():
+            raise AssertionError("llama (a): non-finite logits in a decode round")
+        nxt = {u: int(out.tokens[i, -1]) for i, u in enumerate(uids)}
+    dec = time.perf_counter() - t_dec
+    t_spec = time.perf_counter()
+    accepted = 0
+    for _ in range(LLAMA_SPEC_ROUNDS):
+        drafts = [rng.integers(0, V, SCHEDULED_SPEC_K).tolist() for _ in uids]
+        out = eng.put_round(uids, [[nxt[u]] for u in uids], drafts)
+        if not out.finite.all():
+            raise AssertionError("llama (a): non-finite logits in a speculative round")
+        accepted += int(out.accepted.sum())
+        nxt = {u: int(out.emitted(i)[-1]) for i, u in enumerate(uids)}
+    spec = time.perf_counter() - t_spec
+    for u in uids:
+        eng.flush(u)
+    del eng
+    torch.cuda.empty_cache()
+    sampled = InferenceEngineV2(model, {**LLAMA_ECFG, "kv_cache": {"num_blocks": 512,
+                                                                  "block_size": 16},
+                                        "sampling": {"temperature": 0.8, "top_k": 50,
+                                                     "seed": SEED}})
+    outs = sampled.generate([p[:128] for p in prompts[:8]], max_new_tokens=8)
+    if any(len(o) != 136 or o.min() < 0 or o.max() >= V for o in outs):
+        raise AssertionError("llama (a): the sampled run gave bad tokens")
+    del sampled
+    torch.cuda.empty_cache()
+
+    # n-gram k 4 over an fp8 pool of the bf16 pool's bytes, then plain
+    # decode rounds over it (K2q)
+    fp8_cfg = scheduled_ecfg(cfg.head_dim, "fp8", True)
+    fp8_cfg["state_manager"]["max_decode_batch"] = LLAMA_PROMPTS
+    eng = InferenceEngineV2(model, fp8_cfg)
+    sched_prompts = scheduled_prompts(np, V, LLAMA_PROMPTS)
+    t1 = time.perf_counter()
+    outs = DSScheduler(eng).generate(sched_prompts, max_new_tokens=LLAMA_DECODE_ROUNDS)
+    sched_s = time.perf_counter() - t1
+    if any(len(o) != len(p) + LLAMA_DECODE_ROUNDS for o, p in zip(outs, sched_prompts)):
+        raise AssertionError("llama (a): the scheduler returned short sequences")
+    _pool_clean(eng)
+    eng.generate([p[:64] for p in sched_prompts[:8]], max_new_tokens=4)
+    fp8_bytes = eng.kv_pool_bytes
+    del eng
+    torch.cuda.empty_cache()
+    counts = dict(launches)
+    for name in ("layer_norm", "paged_decode", "paged_spec_decode", "paged_decode_q",
+                 "paged_spec_decode_q", "sorted_topk"):
+        if counts.get(name, 0) < 1:
+            raise AssertionError(f"llama (a) never launched {name}: {counts}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[llama-a] {card}: InferenceEngineV2, bf16 pool 4096 x 16: decode "
+          f"{dec / LLAMA_DECODE_ROUNDS * 1e3:.2f} ms/round at batch {LLAMA_PROMPTS} "
+          f"({LLAMA_PROMPTS * LLAMA_DECODE_ROUNDS / dec:.1f} tokens/s); TTFT median "
+          f"{np.median(ttft) * 1e3:.1f} ms, max {max(ttft) * 1e3:.1f} ms (4 prefill rounds of "
+          f"8 x {LLAMA_PROMPT_LEN} tokens); {LLAMA_SPEC_ROUNDS} speculative rounds of "
+          f"{SCHEDULED_SPEC_K} random drafts {spec / LLAMA_SPEC_ROUNDS * 1e3:.2f} ms/round "
+          f"({accepted} accepted); DSScheduler.generate over an fp8 pool of "
+          f"{fp8_bytes / 1e9:.2f} GB with n-gram k {SCHEDULED_SPEC_K}: "
+          f"{LLAMA_PROMPTS} x {LLAMA_DECODE_ROUNDS} tokens in {sched_s:.2f} s "
+          f"({LLAMA_PROMPTS * LLAMA_DECODE_ROUNDS / sched_s:.1f} tokens/s); peak "
+          f"{peak:.2f} GB; launches {counts}", flush=True)
+
+    # ---- (c) the v1 engine: bf16, int8, int4 weights
+    ids, mask = v1_prompts(np, V)
+    full_rows = [r for r in range(V1_PROMPTS) if mask[r].all()]
+    ref = InferenceEngineV2(model, {**LLAMA_ECFG, "kv_cache": {"num_blocks": 512,
+                                                              "block_size": 16}})
+    want, margins = _v2_greedy(torch, np, ref, ids[full_rows], V1_NEW)
+    del ref
+    torch.cuda.empty_cache()
+    results, v1_counts = {}, {}
+    for bits in (None, 8, 4):
+        m = model if bits != 8 else copy.deepcopy(model)
+        conf = {"dtype": "bf16", "max_tokens": V1_NEW}
+        if bits:
+            conf["quant"] = {"enabled": True, "bits": bits, "group_size": 64}
+        torch.cuda.reset_peak_memory_stats()
+        eng = dst.init_inference(m, conf)
+        launches.clear()                              # (c)'s path, one config
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.generate(ids, attention_mask=mask, max_new_tokens=1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = eng.generate(ids, attention_mask=mask).cpu().numpy()
+        t2 = time.perf_counter()
+        run = dict(launches)
+        for k, v in run.items():
+            v1_counts[k] = v1_counts.get(k, 0) + v
+        new = got[:, V1_PROMPT_LEN:]
+        if new.shape != (V1_PROMPTS, V1_NEW) or new.min() < 0 or new.max() >= V:
+            raise AssertionError(f"llama (c) wq {bits}: bad tokens")
+        name = "bf16" if bits is None else f"int{bits}"
+        results[name] = dict(tokens=new, bytes=eng.weight_bytes,
+                             ms=((t2 - t1) - (t1 - t0)) / (V1_NEW - 1) * 1e3,
+                             prefill_ms=(t1 - t0) * 1e3, launches=run,
+                             peak=torch.cuda.max_memory_allocated() / 1e9)
+        if bits is None:
+            agreed = _greedy_agree(np, new[full_rows], want, margins, BF16_MARGIN)
+            results[name]["agreed"] = agreed
+        del eng
+        if bits == 8:
+            del m
+        torch.cuda.empty_cache()
+    if v1_counts.get("layer_norm", 0) < 1:
+        raise AssertionError(f"llama (c): RMSNorm never launched K1: {v1_counts}")
+    bf = results["bf16"]
+    for name, r in results.items():
+        same = (r["tokens"] == bf["tokens"]).mean()
+        extra = (f"; greedy tokens equal the v2 engine's on the {len(full_rows)} unpadded "
+                 f"rows for {r['agreed']} of {V1_NEW} steps (a row may part only at a "
+                 f"top-2 margin below {BF16_MARGIN})" if name == "bf16" else
+                 f"; {same:.3f} of its tokens equal bf16's")
+        print(f"[llama-c] {card}: init_inference {name}, {V1_PROMPTS} left-padded prompts of "
+              f"{V1_PROMPT_LEN} x {V1_NEW} new tokens: {r['ms']:.2f} ms/token, prefill "
+              f"{r['prefill_ms']:.1f} ms; weights {r['bytes'] / 1e9:.3f} GB "
+              f"({r['bytes'] / bf['bytes']:.3f} of bf16); peak {r['peak']:.2f} GB{extra}; "
+              f"launches (both generate calls) {r['launches']}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return counts, v1_counts
+
+
+def phase_llama_window(torch, np, launches, card):
+    """Phase 22 (b): ``mistral_7b()`` with its window of 4096 at full width
+    and 2 layers in fp32, one 5,000-token sequence served by the paged
+    engine (two 2,500-token prefill rounds, decode rounds and a 4-token
+    extend): the last logits of each round against the dense forward over
+    the whole sequence, and no K2 or K3 launched (the JAX routing sends
+    every windowed row to the dense path).  Returns the launch counts."""
+    from deeperspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deeperspeed_tpu_torch.models import Llama, LlamaConfig
+
+    cfg = LlamaConfig.mistral_7b(num_layers=2)
+    model = Llama(cfg, seed=SEED)
+    dense = copy.deepcopy(model)
+    eng = InferenceEngineV2(model, {"dtype": "float32",
+                                    "kv_cache": {"num_blocks": 384, "block_size": 16},
+                                    "state_manager": {"max_context": 6144,
+                                                      "max_ragged_batch_size": 2600}})
+    rng = np.random.default_rng(SEED + 24)
+    seq = rng.integers(0, cfg.vocab_size, LLAMA_WINDOW_SEQ).astype(np.int32)
+    feeds = [seq[:2500], seq[2500:]]
+    launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    worst, checked = 0.0, []
+    fed = np.zeros(0, np.int32)
+    for step in range(6):
+        feed = feeds[step] if step < 2 else (
+            np.array([nxt], np.int32) if step < 5
+            else np.concatenate([[nxt], rng.integers(0, cfg.vocab_size, 3)]).astype(np.int32))
+        out = eng.put_round([0], [feed])
+        fed = np.concatenate([fed, feed])
+        nxt = int(out.tokens[0, -1])
+        if step in (1, 3, 5):
+            with torch.no_grad():
+                want = dense(torch.from_numpy(fed[None]).long().cuda())[0, -1].float()
+            got = out.logits[0]
+            worst = max(worst, _close(torch, got, want, 2e-3, 2e-3,
+                                      f"llama (b) round {step} vs the dense forward"))
+            checked.append(len(fed))
+    dt = time.perf_counter() - t0
+    counts = dict(launches)
+    if counts.get("paged_decode", 0) or counts.get("paged_spec_decode", 0):
+        raise AssertionError(f"llama (b): windowed rounds launched K2/K3: {counts}")
+    if counts.get("layer_norm", 0) < 1:
+        raise AssertionError(f"llama (b): RMSNorm never launched K1: {counts}")
+    print(f"[llama-b] {card}: mistral_7b() window 4096, full width, 2 layers, fp32: one "
+          f"{LLAMA_WINDOW_SEQ}-token sequence (2 prefill rounds of 2500, 3 decode rounds, a "
+          f"4-token extend) in {dt:.2f} s; last logits at {checked} tokens within "
+          f"{worst:.3e} of the dense forward (limit 2e-3 + 2e-3 |ref|); K2/K3 launches 0 "
+          f"(the dense path, as the JAX routing); launches {counts}", flush=True)
+    del eng, model, dense
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_llama_trained(torch, np, launches, card):
+    """Phase 22 (d): Llama-2-7B's width at 2 layers (4 x 1024 tokens) and
+    OPT-125M whole (16 x 1024), bf16, Adam, clip 1.0, 3 steps each; then
+    their tiny configs in fp32, card against CPU.  Returns the launch
+    counts of the full-width steps."""
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.models import Llama, LlamaConfig
+
+    counts = {}
+    for name, cfg, rows, heads in (
+            ("Llama-2-7B width, 2 layers", LlamaConfig.llama2_7b(
+                num_layers=2, dtype=torch.bfloat16), 4, "N 32 / D 128"),
+            ("OPT-125M", LlamaConfig.opt_125m(dtype=torch.bfloat16), 16, "N 12 / D 64")):
+        torch.cuda.reset_peak_memory_stats()
+        model = Llama(cfg, seed=SEED)
+        eng, *_ = dst.initialize(model=model, config={**LLAMA_TRAIN, "train_batch_size": rows})
+        batch = model.example_batch(batch_size=rows, seq_len=1024, seed=SEED)
+        launches.clear()
+        losses, times = [], []
+        for _ in range(LLAMA_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(float(eng.train_batch(batch=batch)))
+            times.append(time.perf_counter() - t)
+        run = dict(launches)
+        for k in ("layer_norm", "layer_norm_bwd", "flash_fwd", "flash_bwd_dq",
+                  "flash_bwd_dkv"):
+            if run.get(k, 0) < 1:
+                raise AssertionError(f"llama (d) {name}: {k} never launched: {run}")
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"llama (d) {name}: losses {losses}")
+        for k, v in run.items():
+            counts[k] = counts.get(k, 0) + v
+        print(f"[llama-d] {card}: {name} bf16 ({sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
+              f"parameters), {rows} x 1024 tokens, Adam, clip 1.0: losses "
+              f"{', '.join(f'{x:.4f}' for x in losses)}; {np.mean(times[1:]) * 1e3:.1f} ms/step "
+              f"(steps 2-{LLAMA_TRAIN_STEPS}, host clock, ending in the loss's sync); K5-K7 at "
+              f"{heads}; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {run}",
+              flush=True)
+        del eng, model
+        torch.cuda.empty_cache()
+
+    # tiny widths in fp32, card against CPU from the same CPU-drawn weights
+    for preset in ("tiny", "tiny_opt"):
+        cfg = getattr(LlamaConfig, preset)()
+        start = Llama(cfg, device="cpu", seed=SEED).state_dict()
+        got = {}
+        for device in ("cuda", "cpu"):
+            m = Llama(cfg, device="cpu" if device == "cpu" else None, seed=SEED + 1)
+            eng, *_ = dst.initialize(model=m, config={
+                "train_batch_size": 8, "gradient_clipping": 1.0,
+                "optimizer": {"type": "Adam", "params": {"lr": 1e-3}}},
+                model_parameters=start, device=device)
+            batch = m.example_batch(batch_size=8, seq_len=32, seed=SEED)
+            got[device] = [float(eng.train_batch(batch=batch)) for _ in range(3)]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got["cuda"], got["cpu"]))
+        if rel > TRAIN_TOL:
+            raise AssertionError(f"llama (d) {preset}: card {got['cuda']} vs CPU {got['cpu']}")
+        print(f"[llama-d] {preset} fp32, 8 x 32 tokens, 3 Adam steps: card "
+              f"{', '.join(f'{x:.6f}' for x in got['cuda'])} vs CPU (max relative "
+              f"{rel:.2e}, limit {TRAIN_TOL})", flush=True)
+    return counts
+
+
+def llama_tp_config(**kw):
+    """(e)'s model: (a)'s at 2 layers, fp32."""
+    return llama_served_config(num_layers=2, **kw)
+
+
+def llama_worker(rank, rendezvous, out_path):
+    """One of the two processes of phase 22 (e) (``--llama-worker``): the
+    v1 engine at tp 2 over gloo on (a)'s model at 2 layers in fp32, greedy
+    on (c)'s prompts; writes its tokens, time and launches as JSON."""
+    import numpy as np
+    import torch
+
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch import comm
+    from deeperspeed_tpu_torch.models import Llama
+    from deeperspeed_tpu_torch.ops.cuda_utils import LAUNCHES
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(2)
+    dst.init_distributed("gloo", init_method=f"file://{rendezvous}", rank=rank,
+                         world_size=LLAMA_TP_WORLD, timeout=600)
+    model = Llama(llama_tp_config(), seed=SEED)
+    eng = dst.init_inference(model, {"dtype": "fp32", "tensor_parallel": {"tp_size": 2}})
+    ids, mask = v1_prompts(np, model.config.vocab_size)
+    eng.generate(ids, attention_mask=mask, max_new_tokens=2)
+    LAUNCHES.clear()
+    comm.STAGED.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = eng.generate(ids, attention_mask=mask, max_new_tokens=LLAMA_TP_NEW).cpu().numpy()
+    dt = time.perf_counter() - t0
+    out = {"tokens": toks[:, V1_PROMPT_LEN:].tolist(), "ms": dt / LLAMA_TP_NEW * 1e3,
+           "launches": dict(LAUNCHES), "staged": dict(comm.STAGED),
+           "heads": model.layers[0].attention.q_proj.weight.shape[0] // model.config.head_dim,
+           "bytes": eng.weight_bytes}
+    Path(out_path).write_text(json.dumps(out))
+    comm.destroy()
+    return 0
+
+
+def phase_llama_tp(torch, np, card):
+    """Phase 22 (e): two ``--llama-worker`` processes at tp 2 against the
+    same model's tp 1 run in this process, and that run against the v2
+    engine's greedy tokens in fp32.  Returns rank 0's launches."""
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deeperspeed_tpu_torch.models import Llama
+
+    build = ROOT / ".build"
+    build.mkdir(exist_ok=True)
+    procs = _spawn_dp_workers(Path(tempfile.mkdtemp(dir=build)), "--llama-worker",
+                              LLAMA_TP_WORLD)
+    ranks = _join_dp_workers(procs)
+    model = Llama(llama_tp_config(), seed=SEED)
+    eng = dst.init_inference(model, {"dtype": "fp32"})
+    ids, mask = v1_prompts(np, model.config.vocab_size)
+    t0 = time.perf_counter()
+    want = eng.generate(ids, attention_mask=mask,
+                        max_new_tokens=LLAMA_TP_NEW).cpu().numpy()[:, V1_PROMPT_LEN:]
+    dt = time.perf_counter() - t0
+    for r, rec in enumerate(ranks):
+        if not np.array_equal(np.array(rec["tokens"]), want):
+            raise AssertionError(f"llama (e): rank {r}'s tp 2 tokens differ from tp 1's")
+    # the v1 engine against the v2 engine in fp32 on the unpadded rows (the
+    # bf16 comparison of (c) parts at near ties)
+    rows = [r for r in range(V1_PROMPTS) if mask[r].all()]
+    v2 = InferenceEngineV2(model, {**LLAMA_ECFG, "dtype": "float32",
+                                   "kv_cache": {"num_blocks": 512, "block_size": 16}})
+    v2_toks, margins = _v2_greedy(torch, np, v2, ids[rows], LLAMA_TP_NEW)
+    agreed = _greedy_agree(np, want[rows], v2_toks, margins, FP32_MARGIN)
+    del v2
+    a = ranks[0]
+    if a["heads"] != 16 or a["launches"].get("layer_norm", 0) < 1:
+        raise AssertionError(f"llama (e): {a['heads']} heads a rank, launches {a['launches']}")
+    print(f"[llama-e] {card}: init_inference at tp 2 (two processes, gloo via host), (a)'s "
+          f"model at 2 layers fp32, {V1_PROMPTS} left-padded prompts x {LLAMA_TP_NEW} greedy "
+          f"tokens: equal to tp 1's on both ranks; tp 1's equal the v2 engine's (fp32) on the "
+          f"{len(rows)} unpadded rows for {agreed} of {LLAMA_TP_NEW} steps (parting only at a "
+          f"top-2 margin below {FP32_MARGIN}); {a['ms']:.2f} ms/token at tp 2 vs "
+          f"{dt / LLAMA_TP_NEW * 1e3:.2f} at tp 1 (host clock); {a['heads']} heads and "
+          f"{a['bytes'] / 1e9:.3f} GB of weights a rank; staged a run: "
+          f"{', '.join(f'{k} {v / 1e6:.3f} MB' for k, v in sorted(a['staged'].items()))}; "
+          f"launches (rank 0) {a['launches']}", flush=True)
+    del eng, model
+    torch.cuda.empty_cache()
+    return a["launches"]
+
+
 def main():
     try:
         import torch
@@ -3194,6 +3845,8 @@ def main():
         return wire_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     if sys.argv[1:2] == ["--layout-worker"]:
         return layout_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if sys.argv[1:2] == ["--llama-worker"]:
+        return llama_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     import numpy as np
 
     from deeperspeed_tpu_torch.ops import cuda_utils
@@ -3221,6 +3874,7 @@ def main():
 
     rows = phase_legacy_kernels(torch, np, phase_quantizer_kernel(torch, phase_optimizer_kernels(
         torch, phase_training_kernels(torch, phase_kernels(torch)))))
+    phase_llama_kernels(torch, rows)
     phase_checked(torch, np)
     # each main path's counts, read right after its own run
     paths = {"serving": phase_served(torch, np, cuda_utils.LAUNCHES)}
@@ -3242,6 +3896,11 @@ def main():
                                                    dp_ckpt)
     paths["wire_two_level"], paths["wire_deferred"] = phase_wire(card, *dp_ranks)
     paths["layout_tp"] = phase_layout(card, *dp_ranks)
+    paths["llama_serving"], paths["llama_v1"] = phase_llama_served(
+        torch, np, cuda_utils.LAUNCHES, card)
+    paths["llama_window"] = phase_llama_window(torch, np, cuda_utils.LAUNCHES, card)
+    paths["llama_training"] = phase_llama_trained(torch, np, cuda_utils.LAUNCHES, card)
+    paths["llama_v1_tp"] = phase_llama_tp(torch, np, card)
 
     sources = {
         "layer_norm": ("deeperspeed_tpu_torch/csrc/layer_norm.cu",

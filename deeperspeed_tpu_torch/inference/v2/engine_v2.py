@@ -3,11 +3,13 @@ of ``deeperspeed_tpu/inference/v2/engine_v2.py``).
 
 ``put_round(uids, tokens)`` runs one scheduling round: new sequences
 prefill, live ones decode, all as rows of one ragged ``[n_pad, s_pad]``
-batch through the paged GPT-NeoX forward, and the next token of every row
-is chosen on the device.  The host computes only block tables
+batch through the model's paged forward (any model with the paged
+protocol: ``models.GPTNeoX``, ``models.Llama`` and its Mistral and OPT
+presets), and the next token of every row is chosen on the device.  The host computes only block tables
 (``DSStateManager`` + ``BlockedAllocator``).
 
-* The KV pools are one [num_blocks, block_size, N, D] pair per layer,
+* The KV pools are one [num_blocks, block_size, N_kv, D] pair per layer
+  (N_kv the model's ``num_kv_heads``, its ``num_heads`` without one),
   owned by the engine and updated in place by the model; with
   ``kv_cache.dtype`` "int8" or "fp8" they hold 1-byte payload and each has
   an fp32 scale pool [num_blocks, block_size, N] beside it.
@@ -87,11 +89,15 @@ def _round_seam(batch_uids, outputs):
 
 
 class InferenceEngineV2:
-    """Paged continuous-batching engine over a :class:`GPTNeoX` module.
+    """Paged continuous-batching engine over a model with the paged
+    protocol (:class:`GPTNeoX`, :class:`Llama`): ``forward(input_ids,
+    positions=, paged_state=, logits_positions=)``, ``set_dtype`` and a
+    ``config`` with ``num_layers``, ``num_heads`` (``num_kv_heads``) and
+    ``head_dim``.
 
     ``model`` is taken over: moved to ``device`` (CUDA unless the caller
     passes ``device="cpu"``) and cast to the config's dtype.  ``params``, a
-    state dict such as :func:`models.gpt_neox.params_from_jax` returns,
+    state dict such as the model family's ``params_from_jax`` returns,
     replaces its weights when given.  Sampling noise comes from a
     ``torch.Generator`` seeded with ``config.sampling.seed``.
     """
@@ -137,8 +143,9 @@ class InferenceEngineV2:
 
     def _init_cache(self):
         mc = self.module.config
-        shape = (self.config.kv_cache.num_blocks,
-                 self.config.kv_cache.block_size, mc.num_heads, mc.head_dim)
+        # pools at the KV heads: grouped-query attention stores num_kv_heads
+        shape = (self.config.kv_cache.num_blocks, self.config.kv_cache.block_size,
+                 getattr(mc, "num_kv_heads", mc.num_heads), mc.head_dim)
         kvc = self.config.kv_cache
 
         def zeros(shape, dtype):

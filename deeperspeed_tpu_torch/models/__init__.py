@@ -1,1 +1,3 @@
-from .gpt_neox import GPTNeoX, GPTNeoXConfig, params_from_jax, params_to_jax  # noqa: F401
+from .gpt_neox import (DecodeCache, GPTNeoX, GPTNeoXConfig, params_from_jax,  # noqa: F401
+                       params_to_jax)
+from .llama import Llama, LlamaConfig, Mistral, OPT  # noqa: F401

@@ -27,6 +27,14 @@ the gathered blocks.  A quantized pool (int8 / fp8) is written through
 kernels dequantize inside their token walk, the prefill path after its
 gather.
 
+The v1 engine's cached decode (``inference/engine.py``; the JAX model's
+``decode`` mode): ``forward(..., cache=DecodeCache)`` writes each layer's
+keys and values into the engine's dense [B, max_seq_len, N, D] buffers at
+the cache's write index and attends under the buffer-index causal mask and
+the caller's key-validity ``attention_mask`` over the buffer
+(:func:`cached_attention`); the prefill and every single-token step go
+through it alike.
+
 Training (``loss_fn``) adds what the JAX package's training forward has:
 hidden and attention dropout from an explicit ``torch.Generator``,
 block-level recompute (``remat``, ``torch.utils.checkpoint``), progressive
@@ -140,6 +148,106 @@ class GPTNeoXConfig:
 
 
 @dataclasses.dataclass
+class DecodeCache:
+    """The v1 engine's dense KV cache, owned by the engine and passed to
+    the model's forward (the JAX models' ``cache`` collection): per layer a
+    (key, value) pair of [B, L, heads, D] buffers, at the KV heads the rank
+    holds, and ``index``, the buffer column the next token lands in.  The
+    model writes the buffers in place and advances ``index``."""
+
+    layers: list
+    index: int = 0
+
+    @staticmethod
+    def allocate(num_layers, batch, length, heads, head_dim, dtype, device):
+        shape = (batch, length, heads, head_dim)
+        return DecodeCache([(torch.zeros(shape, dtype=dtype, device=device),
+                             torch.zeros(shape, dtype=dtype, device=device))
+                            for _ in range(num_layers)])
+
+
+def repeat_kv(t, rep):
+    """[B, S, KV, D] -> [B, S, KV * rep, D], each KV head repeated for its
+    ``rep`` query heads in turn (``jnp.repeat(t, rep, axis=2)``)."""
+    return t if rep == 1 else t.repeat_interleave(rep, dim=2)
+
+
+def cached_attention(q, k, v, cached, attention_mask=None, window=None):
+    """The v1 cached decode of one layer: ``k`` and ``v`` [B, S, KV, D] land
+    in ``cached = (key, value, index)``'s buffers at columns [index,
+    index + S), then ``q`` attends over the buffer: column c is seen by the
+    query at buffer column i when c <= i (and c > i - ``window``) and
+    ``attention_mask`` [B, L] (key validity over the whole buffer) holds at
+    c.  Columns from index + S on are masked for every query, so the
+    attention runs over the written ones, [0, index + S), alone: the
+    masked columns would take exactly zero weight."""
+    ck, cv, index = cached
+    S = q.shape[1]
+    ck[:, index:index + S] = k
+    cv[:, index:index + S] = v
+    L = index + S
+    ck, cv = ck[:, :L], cv[:, :L]
+    if attention_mask is not None:
+        attention_mask = attention_mask[:, :L]
+    cols = torch.arange(L, device=q.device)
+    q_pos = index + torch.arange(S, device=q.device)
+    mask = cols[None, :] <= q_pos[:, None]
+    if window is not None:
+        mask = mask & (cols[None, :] > q_pos[:, None] - window)
+    mask = mask[None, None]
+    if attention_mask is not None:
+        mask = mask & attention_mask[:, None, None, :].to(torch.bool)
+    rep = q.shape[2] // ck.shape[2]
+    return dot_product_attention(q, repeat_kv(ck, rep), repeat_kv(cv, rep), mask=mask,
+                                 causal=False)
+
+
+def paged_writes(paged_state, positions, block_size):
+    """The :class:`PagedState` of one forward: each real token's flat pool
+    row from its block table and position."""
+    tables = paged_state["block_tables"]
+    slot = tables.long().gather(
+        1, (positions // block_size).long().clamp(max=tables.shape[1] - 1))
+    flat = (slot * block_size + positions % block_size).reshape(-1)
+    src = paged_state["write_mask"].reshape(-1).nonzero().squeeze(1)
+    return PagedState(tables, flat.index_select(0, src), src)
+
+
+def write_pools(kv, k, v, paged):
+    """Write the real tokens' ``k`` and ``v`` [B, S, H, D] into the pools of
+    ``kv`` (quantize-on-write for a quantized pool); returns (pool_k,
+    pool_v, k_scale, v_scale), the scales None for fp pools."""
+    pool_k, pool_v, *scale_pools = kv
+    k_scale, v_scale = scale_pools if scale_pools else (None, None)
+    H, D = k.shape[2:]
+    # in place: the JAX package donated the pools to the step and got
+    # new ones back; here the engine's pools are mutated.  Padded tokens
+    # are left out of src_rows, so neither payload nor scale of a padded
+    # row ever lands in a live slot.
+    for pool, scales, new in ((pool_k, k_scale, k), (pool_v, v_scale, v)):
+        new = new.reshape(-1, H, D).index_select(0, paged.src_rows)
+        if scales is not None:
+            # quantize-on-write: the pool never holds fp values
+            new, new_scale = quantize_kv(new, canonical_dtype(pool.dtype))
+            scales.view(-1, H).index_copy_(0, paged.write_rows, new_scale)
+        byte_view(pool).view(-1, H, D).index_copy_(0, paged.write_rows, byte_view(new))
+    return pool_k, pool_v, k_scale, v_scale
+
+
+def gathered_kv(pool_k, pool_v, k_scale, v_scale, tables, dtype):
+    """K and V [B, M * bs, H, D] gathered from the pools by block table,
+    dequantized to ``dtype`` from a quantized pool (the prefill path)."""
+    B, H, D = tables.shape[0], pool_k.shape[2], pool_k.shape[3]
+    idx = tables.long()
+    K = byte_view(pool_k)[idx].view(pool_k.dtype).reshape(B, -1, H, D)
+    V = byte_view(pool_v)[idx].view(pool_v.dtype).reshape(B, -1, H, D)
+    if k_scale is not None:
+        K = dequantize_kv(K, k_scale[idx].reshape(B, -1, H), dtype)
+        V = dequantize_kv(V, v_scale[idx].reshape(B, -1, H), dtype)
+    return K, V
+
+
+@dataclasses.dataclass
 class PagedState:
     """What the paged path needs for one forward, built once per forward by
     :meth:`GPTNeoX.forward` from the engine's ``paged_state``.
@@ -219,7 +327,10 @@ class GPTNeoXAttention(nn.Module):
         self.dense = nn.Linear(H, H)
 
     def forward(self, x, positions, kv=None, paged: Optional[PagedState] = None,
-                rng=None):
+                rng=None, cached=None, attention_mask=None):
+        """``cached`` (key, value, index): the v1 cached decode;
+        ``attention_mask`` [B, S] (or [B, L] over the cache buffer) marks
+        the valid keys."""
         cfg = self.config
         B, S, H = x.shape
         # per-head [q | k | v] layout, as the flax Dense output is reshaped
@@ -235,12 +346,16 @@ class GPTNeoXAttention(nn.Module):
         if paged is not None:
             out = self._paged_attention(q, k, v.contiguous(), positions, kv,
                                         paged)
+        elif cached is not None:
+            out = cached_attention(q, k, v, cached, attention_mask)
         else:
             # training (an rng) with attention_dropout > 0 takes the dense
             # path with dropout on the probabilities, as in the JAX package
             rate = cfg.attention_dropout if rng is not None else 0.0
-            out = dot_product_attention(q, k, v, causal=True, dropout_rate=rate,
-                                        generator=rng)
+            mask = (None if attention_mask is None
+                    else attention_mask[:, None, None, :].to(torch.bool))
+            out = dot_product_attention(q, k, v, mask=mask, causal=True,
+                                        dropout_rate=rate, generator=rng)
         return _dense(self.dense, out.reshape(B, S, -1), cfg.dtype)
 
     def _paged_attention(self, q, k, v, positions, kv, paged):
@@ -248,21 +363,8 @@ class GPTNeoXAttention(nn.Module):
         attends to itself; stale data in reallocated blocks is excluded by
         the position mask.  ``kv`` is (pool_k, pool_v), plus (k_scale,
         v_scale) [P, bs, N] fp32 when the pools are quantized."""
-        pool_k, pool_v, *scale_pools = kv
-        k_scale, v_scale = scale_pools if scale_pools else (None, None)
-        B, S, N, D = q.shape
-        # in place: the JAX package donated the pools to the step and got
-        # new ones back; here the engine's pools are mutated.  Padded tokens
-        # are left out of src_rows, so neither payload nor scale of a padded
-        # row ever lands in a live slot.
-        for pool, scales, new in ((pool_k, k_scale, k), (pool_v, v_scale, v)):
-            new = new.reshape(-1, N, D).index_select(0, paged.src_rows)
-            if scales is not None:
-                # quantize-on-write: the pool never holds fp values
-                new, new_scale = quantize_kv(new, canonical_dtype(pool.dtype))
-                scales.view(-1, N).index_copy_(0, paged.write_rows, new_scale)
-            byte_view(pool).view(-1, N, D).index_copy_(
-                0, paged.write_rows, byte_view(new))
+        pool_k, pool_v, k_scale, v_scale = write_pools(kv, k, v, paged)
+        S = q.shape[1]
         tables = paged.block_tables
         if S == 1:
             out = paged_decode_attention(q[:, 0].contiguous(), pool_k, pool_v,
@@ -274,12 +376,7 @@ class GPTNeoXAttention(nn.Module):
                                                tables, positions,
                                                k_scale=k_scale, v_scale=v_scale)
         # prefill: plain masked attention over the gathered blocks
-        idx = tables.long()
-        K = byte_view(pool_k)[idx].view(pool_k.dtype).reshape(B, -1, N, D)
-        V = byte_view(pool_v)[idx].view(pool_v.dtype).reshape(B, -1, N, D)
-        if k_scale is not None:
-            K = dequantize_kv(K, k_scale[idx].reshape(B, -1, N), q.dtype)
-            V = dequantize_kv(V, v_scale[idx].reshape(B, -1, N), q.dtype)
+        K, V = gathered_kv(pool_k, pool_v, k_scale, v_scale, tables, q.dtype)
         kv_pos = torch.arange(K.shape[1], device=q.device)
         mask = kv_pos[None, None, None, :] <= positions[:, None, :, None]
         return dot_product_attention(q, K, V, mask=mask, causal=False)
@@ -312,12 +409,13 @@ class GPTNeoXBlock(nn.Module):
         self.attention = GPTNeoXAttention(config)
         self.mlp = GPTNeoXMLP(config)
 
-    def forward(self, x, positions, kv=None, paged=None, rng=None):
+    def forward(self, x, positions, kv=None, paged=None, rng=None, cached=None,
+                attention_mask=None):
         """``rng`` (a ``torch.Generator``, training only) draws the
         attention and hidden dropout masks; None is deterministic."""
         cfg = self.config
         attn_out = self.attention(self.input_layernorm(x), positions, kv, paged,
-                                  rng)
+                                  rng, cached, attention_mask)
         if cfg.use_parallel_residual:
             mlp_out = self.mlp(self.post_attention_layernorm(x))
             x = x + attn_out + mlp_out
@@ -343,7 +441,7 @@ def _remat_block(blk, x, positions, rng):
 def _not_ported(config):
     """The first configuration feature the port does not run yet, or None."""
     if config.moe_num_experts > 1:
-        return "MoE layers (ROADMAP Queue A, 'Llama/Mistral, v1 inference and MoE')"
+        return "MoE layers (ROADMAP Queue A, 'MoE')"
     return None
 
 
@@ -410,17 +508,10 @@ class GPTNeoX(nn.Module):
                 mod.config = self.config
         return self
 
-    def _paged_writes(self, paged_state, positions, block_size):
-        tables = paged_state["block_tables"]
-        slot = tables.long().gather(
-            1, (positions // block_size).long().clamp(max=tables.shape[1] - 1))
-        flat = (slot * block_size + positions % block_size).reshape(-1)
-        src = paged_state["write_mask"].reshape(-1).nonzero().squeeze(1)
-        return PagedState(tables, flat.index_select(0, src), src)
-
     def forward(self, input_ids, positions=None, paged_state=None,
                 logits_positions=None, rng=None, pld_theta=None,
-                random_ltd_tokens=None, return_hidden=False, pld_rng=None):
+                random_ltd_tokens=None, return_hidden=False, pld_rng=None,
+                attention_mask=None, cache=None):
         """``paged_state`` (serving) carries ``kv_cache`` (per layer (pool_k,
         pool_v), or (pool_k, pool_v, k_scale, v_scale) for quantized pools,
         updated in place), ``block_tables`` [B, M]
@@ -437,7 +528,12 @@ class GPTNeoX(nn.Module):
         each row, at its own positions) their draws too.  Without ``rng`` the forward is
         deterministic and those arguments are ignored.  ``return_hidden``
         returns the final LayerNorm's output (the chunked loss owns the
-        head)."""
+        head).
+
+        ``attention_mask`` [B, S] (0/1) masks keys as well as the causal
+        mask; with ``cache`` (a :class:`DecodeCache`, the v1 engine) it is
+        [B, L] over the cache buffer and the forward is the cached decode
+        of ``input_ids`` at the cache's write index, which it advances."""
         B, S = input_ids.shape
         if positions is None:
             positions = torch.arange(S, device=input_ids.device).expand(B, S)
@@ -446,13 +542,16 @@ class GPTNeoX(nn.Module):
         paged, kv_cache = None, [None] * len(self.layers)
         if paged_state is not None:
             kv_cache = paged_state["kv_cache"]
-            paged = self._paged_writes(paged_state, positions,
-                                       kv_cache[0][0].shape[1])
+            paged = paged_writes(paged_state, positions, kv_cache[0][0].shape[1])
         L = len(self.layers)
         remat = self.config.remat and paged is None and torch.is_grad_enabled()
         for i, (blk, kv) in enumerate(zip(self.layers, kv_cache)):
             if paged is not None:
                 x = blk(x, positions, kv, paged)
+                continue
+            if cache is not None:
+                x = blk(x, positions, cached=(*cache.layers[i], cache.index),
+                        attention_mask=attention_mask)
                 continue
             x_in, pos_in, idx = x, positions, None
             if (rng is not None and random_ltd_tokens is not None
@@ -460,7 +559,7 @@ class GPTNeoX(nn.Module):
                 x_in, idx = random_ltd_gather(x, random_ltd_tokens, rng)
                 pos_in = take_tokens(positions, idx)
             y = (_remat_block(blk, x_in, pos_in, rng) if remat
-                 else blk(x_in, pos_in, rng=rng))
+                 else blk(x_in, pos_in, rng=rng, attention_mask=attention_mask))
             if idx is not None:
                 y = random_ltd_scatter(x, y, idx)
             if rng is not None and pld_theta is not None and i > 0:
@@ -469,6 +568,8 @@ class GPTNeoX(nn.Module):
                 keep = torch.rand((), generator=coin, device=coin.device).to(x.device) < keep_p
                 y = torch.where(keep, y, x)
             x = y
+        if cache is not None:
+            cache.index += S
         x = self.final_layer_norm(x)
         if return_hidden:
             return x
@@ -506,8 +607,7 @@ class GPTNeoX(nn.Module):
         if cfg.ce_chunk_tokens > 0 and cfg.moe_num_experts > 1:
             raise NotImplementedError(
                 "ce_chunk_tokens with MoE is not ported yet: the chunked path "
-                "bypasses the aux-loss collection (ROADMAP Queue A, "
-                "'Llama/Mistral, v1 inference and MoE')")
+                "bypasses the aux-loss collection (ROADMAP Queue A, 'MoE')")
 
         def setup(batch, rng, deterministic, random_ltd_tokens):
             if deterministic is None:

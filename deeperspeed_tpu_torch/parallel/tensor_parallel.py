@@ -20,7 +20,10 @@ computation:
   all-reduced;
 * :func:`vocab_parallel_log_likelihood` -- the cross entropy over logits
   whose vocabulary is split: the max, the sum of exponentials and the gold
-  logit are each all-reduced over ``tp`` in fp32.
+  logit are each all-reduced over ``tp`` in fp32;
+* :func:`gather_from_tensor_parallel` -- the whole last dim from the ranks'
+  slices (the v1 engine's logits before sampling; training never gathers
+  them).
 
 :func:`shard_module` turns a whole model into its tensor-parallel form in
 place, by the model's rules: each ``nn.Linear`` or ``nn.Embedding`` whose
@@ -175,6 +178,14 @@ def vocab_parallel_log_likelihood(logits, labels, group, start):
     return gold - (m + torch.log(s))
 
 
+def gather_from_tensor_parallel(x, group):
+    """``x`` [..., n] from every rank of ``group``, concatenated along the
+    last dim in rank order: [..., n * tp] (no gradient)."""
+    if group.size() == 1:
+        return x
+    return comm.all_gather(x.contiguous(), group=group, axis=x.dim() - 1, log_name=TP_OP)
+
+
 def partition_dims(names, rules):
     """``{name: dim}`` for each parameter name a rule splits over ``tp``
     (``rules``: ``(regex, dim)`` pairs, the first match wins)."""
@@ -193,8 +204,12 @@ def shard_module(model, rules, group):
     ``nn.Embedding`` / ``nn.Linear`` whose weight ``rules`` split becomes
     its :class:`VocabParallelEmbedding` / :class:`ColumnParallelLinear`
     (dim 0) / :class:`RowParallelLinear` (dim 1), on the same parameter
-    objects, now this rank's slices.  Returns :func:`partition_dims` of the
-    model's parameters."""
+    objects, now this rank's slices.  A model with
+    ``check_tensor_parallel(tp)`` checks first that ``tp`` splits it whole
+    (Llama's KV heads).  Returns :func:`partition_dims` of the model's
+    parameters."""
+    if hasattr(model, "check_tensor_parallel"):
+        model.check_tensor_parallel(group.size())
     dims = partition_dims([n for n, _ in model.named_parameters()], rules)
     for name, mod in list(model.named_modules()):
         dim = dims.get(f"{name}.weight")

@@ -29,7 +29,7 @@ ALL_AXES = (PP_AXIS, DP_AXIS, ZSHARD_AXIS, EP_AXIS, SP_AXIS, TP_AXIS)
 # where the axes the port does not run yet will be ported (ROADMAP Queue A)
 _AXIS_ITEMS = {
     PP_AXIS: "Pipelines",
-    EP_AXIS: "Llama/Mistral, v1 inference and MoE",
+    EP_AXIS: "MoE",
     SP_AXIS: "Sequence parallelism",
 }
 # the axes ZeRO shards over (the JAX package's ``sharding.ZERO_AXES``)

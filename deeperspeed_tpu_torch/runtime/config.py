@@ -58,7 +58,7 @@ SUPPORTED_KEYS = {
 # where the keys that the slice refuses will be ported
 _ROADMAP = {
     "pipeline": "Pipelines",
-    "moe": "Llama/Mistral, v1 inference and MoE",
+    "moe": "MoE",
     "hybrid_engine": "The rest of the surface",
 }
 
@@ -277,7 +277,7 @@ class MeshConfig(DeeperSpeedConfigModel):
 
 _MESH_ITEMS = {"pipe_parallel_size": "Pipelines",
                "sequence_parallel_size": "Sequence parallelism",
-               "expert_parallel_size": "Llama/Mistral, v1 inference and MoE"}
+               "expert_parallel_size": "MoE"}
 
 
 def _known(block, model, where):
@@ -433,8 +433,7 @@ class DeeperSpeedConfig:
             raise ValueError("comm.quantized.intra_axis 'tp': the qgZ hops run over the "
                              "data-parallel axes dp and zshard")
         if quantized.pop("moe_alltoall", False):
-            raise _not_ported("comm.quantized.moe_alltoall",
-                              "Llama/Mistral, v1 inference and MoE")
+            raise _not_ported("comm.quantized.moe_alltoall", "MoE")
         quantized.pop("moe_alltoall_dtype", None)
         if comm:
             raise _not_ported(f"comm keys {sorted(comm)}", REST)

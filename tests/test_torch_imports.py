@@ -77,6 +77,10 @@ def test_port_imports_no_jax():
         "import deeperspeed_tpu_torch.parallel.tensor_parallel\n"
         "import deeperspeed_tpu_torch.runtime.zero.tiling\n"
         "import deeperspeed_tpu_torch.runtime.initialize\n"
+        "import deeperspeed_tpu_torch.models.llama, deeperspeed_tpu_torch.inference\n"
+        "import deeperspeed_tpu_torch.inference.engine, deeperspeed_tpu_torch.inference.config\n"
+        "import deeperspeed_tpu_torch.inference.params\n"
+        "import deeperspeed_tpu_torch.inference.quantization\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'msgpack',\n"
         "                                                   'deeperspeed_tpu')]\n"
         "print('LOADED', bad)")

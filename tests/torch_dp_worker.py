@@ -40,7 +40,13 @@ run in turn.  Job kinds:
   ``loaded``, ``saved`` and ``final`` it records the state: on rank 0 the
   whole masters and optimizer state under the checkpoint's names
   (``m/<name>``, ``o/<name>``), on every rank its generator state, loss
-  scale, counters and loader position.
+  scale, counters and loader position;
+* ``llama``: a Llama ``tiny()`` engine from the weights ``w/<param>``
+  trains at ``spec["train"]["config"]`` (its ``mesh`` block sets ``tp``) on
+  the batches ``b<i>/<key>`` and records its losses; then the v1 engine
+  (``init_inference`` at ``spec["generate"]["config"]``) on the weights
+  ``g/<param>`` generates greedily from the prompts ``p`` (mask ``pm``) and
+  records the tokens, and the logits of ``engine(p)``.
 """
 
 import json
@@ -305,6 +311,30 @@ def _comm(spec, job, rank, out):
         out[case["name"]] = y.numpy()
 
 
+def _llama(spec, job, rank, out):
+    from deeperspeed_tpu_torch.models import Llama, LlamaConfig
+
+    train = spec["train"]
+    start = {k[2:]: torch.from_numpy(job[k]) for k in job.files if k.startswith("w/")}
+    eng, *_ = tdst.initialize(model=Llama(LlamaConfig.tiny(), device="cpu"),
+                              config=train["config"], model_parameters=start, device="cpu")
+    out["train/losses"] = np.array([
+        float(eng.train_batch(batch={"input_ids": torch.from_numpy(job[f"b{i}/input_ids"]),
+                                     "labels": torch.from_numpy(job[f"b{i}/labels"])}))
+        for i in range(train["steps"])])
+    out["train/heads"] = np.array(eng.module.layers[0].attention.q_proj.weight.shape[0]
+                                  // LlamaConfig.tiny().head_dim)
+    gen = spec["generate"]
+    weights = {k[2:]: torch.from_numpy(job[k]) for k in job.files if k.startswith("g/")}
+    model = Llama(LlamaConfig.tiny(), device="cpu")
+    model.load_state_dict(weights)
+    inf = tdst.init_inference(model, gen["config"], device="cpu")
+    out["generate/tokens"] = inf.generate(job["p"], attention_mask=job["pm"],
+                                          max_new_tokens=gen["new"]).numpy()
+    out["generate/logits"] = inf(job["p"]).numpy()
+    out["generate/cache_heads"] = np.array(inf._new_cache(1, 8).layers[0][0].shape[2])
+
+
 def main():
     rank, world, rendezvous, job_path, out_path = sys.argv[1:6]
     rank, world = int(rank), int(world)
@@ -316,7 +346,8 @@ def main():
     out = {}
     kinds = spec["kind"] if isinstance(spec["kind"], list) else [spec["kind"]]
     for kind in kinds:
-        {"train": _train, "comm": _comm, "ckpt": _ckpt}[kind](spec, job, rank, out)
+        {"train": _train, "comm": _comm, "ckpt": _ckpt, "llama": _llama}[kind](
+            spec, job, rank, out)
     np.savez(out_path, **out)
     comm.destroy()
 
