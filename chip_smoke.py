@@ -210,7 +210,27 @@ package, and goes through these phases, each printing its lines:
     ``--llama-worker`` processes run the v1 engine at tp 2 over gloo on
     (a)'s model at 2 layers in fp32: their tokens must equal this
     process's tp 1 run, which is held against the v2 engine's fp32 greedy
-    tokens.
+    tokens;
+23. MoE, on Pythia-160M-MoE-8 (Pythia-160M at full width, 8 experts on
+    every second block, top-1, capacity factor 1.0, min capacity 4, RTS,
+    aux coefficient 0.01; 360,701,952 parameters): (a) ``tiny()`` with 4
+    experts on both blocks in fp32, card against CPU from the same weights
+    and batches, 3 Adam steps with losses within 1e-5 relative, for top-1,
+    Residual-MoE and the int8 and fp8 transport, and top-2's evaluation
+    losses (its training draws come from each device's generator); (b)
+    phase 9's step on Pythia-160M-MoE-8 (bf16, B 16 x S 1024, Adam, clip
+    1.0, ZeRO-0): ms/step, tokens/s, peak memory, each MoE layer's
+    ``exp_counts``, dropped share and ``l_aux``; K1, K8 and K5-K7 must
+    launch; then top-2 for 3 steps; (c) two ``--moe-worker`` processes at
+    ep 2 over gloo on the card (2 full-width blocks, both MoE, fp32, phase
+    13's batches) at stages 0 and 2 against one process at ep 1 (losses
+    within 1e-5 relative), with the int8 and fp8 transport (within 1e-4),
+    and at tp 2 with the experts split by their feature dims (within
+    1e-4), the bytes the all-to-all and the routing records stage a step,
+    and the ep-2 checkpoint loaded at ep 1 (digest equal); (d) the model in bf16
+    with no-drop gating through ``InferenceEngineV2`` at phase 5's batch
+    and pool: ms/round and TTFT (K1, K2, K3, K4 must launch), then the v1
+    engine's greedy tokens against the v2 engine's in fp32 at 2 layers.
 
 The second-to-last line is the JSON summary of the kernels (a kernel's
 ``launches`` sums its counts on the main paths, serving in phase 5,
@@ -222,8 +242,9 @@ phase 18, the resumed steps of phase 19, and in phase 20 the two-level
 schedule's B5 launches (rank 0) and the deferred full-size steps (rank 0),
 in phase 21 the tp 2 x dp 2 full-size steps (rank 0), and in phase 22
 (a)'s serving, (c)'s three v1 runs, (b)'s windowed rounds, (d)'s two
-full-width trainings and (e)'s tp 2 run (rank 0), each read right after
-its own run and listed in ``launches_by_path``), the
+full-width trainings and (e)'s tp 2 run (rank 0), in phase 23 (b)'s top-1
+training, (c)'s stage-0 run (rank 0) and (d)'s bf16 serving, each read
+right after its own run and listed in ``launches_by_path``), the
 last ``{"ok": true,
 "device": {...}}``.  Any
 failure, of a phase or of a worker, raises and exits non-zero; without a
@@ -235,6 +256,7 @@ import dataclasses
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3825,6 +3847,373 @@ def phase_llama_tp(torch, np, card):
     return a["launches"]
 
 
+# MoE (phase 23): Pythia-160M-MoE-8, Pythia-160M at full width with 8
+# experts on every second block (6 MoE layers), top-1, capacity factor 1.0,
+# min capacity 4, Random Token Selection, aux coefficient 0.01, weights
+# from SEED; 360,701,952 parameters (the JAX package's count).
+MOE_KW = {"moe_num_experts": 8, "moe_expert_interval": 2, "moe_top_k": 1,
+          "moe_capacity_factor": 1.0, "moe_min_capacity": 4, "moe_use_rts": True,
+          "moe_aux_loss_coef": 0.01}
+MOE_PARAMS = 360_701_952
+MOE_STEPS, MOE_TOP2_STEPS = 5, 3
+# (a): tiny() with 4 experts on both blocks, card against CPU; no draws
+# (each device's generator draws its own), so top-2 is held in evaluation
+MOE_TINY_KW = {"moe_num_experts": 4, "moe_expert_interval": 1, "moe_use_rts": False,
+               "moe_capacity_factor": 0.75, "moe_aux_loss_coef": 0.5}
+MOE_TINY_CONFIG = {"train_batch_size": 8, "gradient_clipping": 1.0,
+                   "optimizer": {"type": "Adam", "params": {"lr": 1e-3}}}
+MOE_CHECK_TOL = 1e-5
+
+
+def _moe_transport(cfg, dtype):
+    return {**cfg, "comm": {"quantized": {"moe_alltoall": True, "moe_alltoall_dtype": dtype}}}
+
+
+MOE_TINY_RUNS = {"top1": ({}, MOE_TINY_CONFIG),
+                 "top1-residual": ({"moe_use_residual": True}, MOE_TINY_CONFIG),
+                 "int8": ({}, _moe_transport(MOE_TINY_CONFIG, "int8")),
+                 "fp8": ({}, _moe_transport(MOE_TINY_CONFIG, "fp8")),
+                 "top2": ({"moe_top_k": 2}, MOE_TINY_CONFIG)}
+# (c): two processes at ep 2 on the card, 2 full-width blocks, both MoE,
+# phase 13's batch shape, no draws (the one process draws its own); each
+# run: config, mesh, tolerance against one process, the config that one
+# process runs.  tp 2 splits the experts P("ep", None, "tp") and sums
+# row-parallel halves: phase 21's card-against-CPU tolerance.
+MOE_EP_WORLD = 2
+MOE_EP_KW = {**MOE_KW, "moe_expert_interval": 1, "moe_use_rts": False}
+_MOE_S0 = {**DP_CHECK_CONFIG, "zero_optimization": {"stage": 0}}
+MOE_EP_RUNS = {"s0": (_MOE_S0, {"ep": 2}, MOE_CHECK_TOL),
+               "s2": ({**DP_CHECK_CONFIG, "zero_optimization": {"stage": 2}}, {"ep": 2},
+                      MOE_CHECK_TOL),
+               "int8": (_moe_transport(DP_CHECK_CONFIG, "int8"), {"ep": 2}, 1e-4),
+               "fp8": (_moe_transport(DP_CHECK_CONFIG, "fp8"), {"ep": 2}, 1e-4),
+               "tp2": (_MOE_S0, {"tp": 2}, 1e-4)}
+MOE_SERVED_ROUNDS = 32
+
+
+def moe_model(device=None, dtype=None, **kw):
+    """Pythia-160M-MoE-8 (``MOE_KW``, then ``kw``) from ``SEED``."""
+    import torch
+
+    from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
+    return GPTNeoX(GPTNeoXConfig.pythia_160m(dtype=dtype or torch.bfloat16,
+                                             max_seq_len=TRAIN_SEQ, **{**MOE_KW, **kw}),
+                   device=device, seed=SEED)
+
+
+def moe_ep_model(device=None):
+    """(c)'s model: 2 full-width blocks, both MoE, fp32."""
+    from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
+    return GPTNeoX(dataclasses.replace(GPTNeoXConfig.pythia_160m(**MOE_EP_KW), num_layers=2),
+                   device=device, seed=SEED)
+
+
+def _moe_routing(model):
+    """Each MoE layer's last routing over its batch group's tokens:
+    exp_counts, the share of the routed choices dropped, l_aux."""
+    out = []
+    for m in model.moe_layers():
+        g = m.last_gate
+        out.append({"exp_counts": g.exp_counts.tolist(),
+                    "dropped": 1.0 - float(g.all_kept.sum()) / float(g.exp_counts.sum()),
+                    "l_aux": float(g.l_aux)})
+    return out
+
+
+def phase_moe_checked(torch, np):
+    """Phase 23 (a): tiny fp32 MoE trained 3 steps on the card and on the
+    CPU from the same weights and batches, losses within 1e-5 relative:
+    top-1, Residual-MoE, the int8 and fp8 transport; top-2's evaluation
+    losses (its training draws come from each device's generator), then
+    3 steps on the card."""
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
+
+    rng = np.random.default_rng(SEED + 23)
+    batches = []
+    for _ in range(3):
+        toks = rng.integers(0, 256, (8, 33))
+        batches.append({"input_ids": toks[:, :-1], "labels": toks[:, 1:]})
+    worst = 0.0
+    for name, (kw, cfg) in MOE_TINY_RUNS.items():
+        engines = [dst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(**{**MOE_TINY_KW, **kw}),
+                                                device=d, seed=SEED),
+                                  config=cfg, device=d)[0] for d in ("cuda", "cpu")]
+        if kw.get("moe_top_k") == 2:
+            pairs = [[float(e.eval_batch(batch=b)) for e in engines] for b in batches]
+            card = [float(engines[0].train_batch(batch=b)) for b in batches]
+            if not all(math.isfinite(v) for v in card):
+                raise AssertionError(f"moe (a) {name}: card losses {card}")
+        else:
+            pairs = [[float(e.train_batch(batch=b)) for e in engines] for b in batches]
+        for step, (lg, lc) in enumerate(pairs):
+            rel = abs(lg - lc) / abs(lc)
+            worst = max(worst, rel)
+            if rel > MOE_CHECK_TOL:
+                raise AssertionError(f"moe (a) {name} step {step}: card {lg} vs CPU {lc}")
+        kept = [int(m.last_gate.kept.sum()) for m in engines[0].module.moe_layers()]
+        print(f"[moe-a] tiny MoE ({name}, 4 experts on both blocks, fp32): 3 "
+              f"{'evaluation' if name == 'top2' else 'Adam'} losses card vs CPU within "
+              f"{max(abs(a - b) / abs(b) for a, b in pairs):.2e} relative; last loss "
+              f"{pairs[-1][0]:.6f}; kept tokens a layer {kept}", flush=True)
+        del engines
+    print(f"[moe-a] worst {worst:.2e} relative (tol {MOE_CHECK_TOL})", flush=True)
+
+
+def _moe_steps(torch, engine, batch, steps):
+    """``steps`` training steps after the warm-up ones: the last loss and
+    the seconds they took (host clock, ending in a sync)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss = engine.train_batch(batch=batch)
+    loss = float(loss)
+    return loss, time.perf_counter() - t0
+
+
+def phase_moe_trained(torch, np, launches, card):
+    """Phase 23 (b): Pythia-160M-MoE-8 in bf16 at phase 9's step (B 16 x S
+    1024, Adam, clip 1.0, ZeRO-0, one process); 2 warm-up and
+    ``MOE_STEPS`` timed steps, then top-2 for ``MOE_TOP2_STEPS``.  Returns
+    the top-1 run's launches."""
+    import deeperspeed_tpu_torch as dst
+
+    model = moe_model()
+    if model.num_params() != MOE_PARAMS or sum(p.numel() for p in model.parameters()) \
+            != MOE_PARAMS:
+        raise AssertionError(f"moe (b): {model.num_params()} parameters")
+    engine = dst.initialize(model=model, config=TRAIN_CONFIG)[0]
+    batch = {k: v.cuda() for k, v in trained_batch(model).items()}
+    for _ in range(2):                                # warm-up
+        first = float(engine.train_batch(batch=batch))
+    torch.cuda.reset_peak_memory_stats()
+    launches.clear()                                  # main path starts here
+    loss, dt = _moe_steps(torch, engine, batch, MOE_STEPS)
+    counts = dict(launches)
+    if not (math.isfinite(first) and math.isfinite(loss)):
+        raise AssertionError(f"moe (b): non-finite loss {first}, {loss}")
+    for name in ("layer_norm", "layer_norm_bwd", "flash_fwd", "flash_bwd_dq",
+                 "flash_bwd_dkv"):
+        if counts.get(name, 0) < 1:
+            raise AssertionError(f"moe training never launched {name}: {counts}")
+    routing = _moe_routing(model)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[moe-b] {card}: Pythia-160M-MoE-8 ({MOE_PARAMS:,} parameters, 6 MoE layers "
+          f"of 8 experts, top-1, capacity factor 1.0, RTS) bf16, B {TRAIN_BATCH} x S "
+          f"{TRAIN_SEQ}, Adam, clip 1.0, ZeRO-0: {dt / MOE_STEPS * 1e3:.2f} ms/step over "
+          f"{MOE_STEPS} steps, {tokens * MOE_STEPS / dt:.1f} tokens/s; loss {first:.4f} -> "
+          f"{loss:.4f}; peak memory {peak:.2f} GB", flush=True)
+    for i, r in enumerate(routing):
+        print(f"[moe-b] MoE layer {i}: exp_counts {r['exp_counts']}, dropped share "
+              f"{r['dropped']:.4f}, l_aux {r['l_aux']:.4f}", flush=True)
+    print(f"[moe-b] launches in the timed steps {counts}", flush=True)
+    del engine, model
+    torch.cuda.empty_cache()
+
+    model = moe_model(moe_top_k=2)
+    engine = dst.initialize(model=model, config=TRAIN_CONFIG)[0]
+    torch.cuda.reset_peak_memory_stats()
+    first = float(engine.train_batch(batch=batch))    # warm-up
+    loss, dt = _moe_steps(torch, engine, batch, MOE_TOP2_STEPS)
+    if not (math.isfinite(first) and math.isfinite(loss)):
+        raise AssertionError(f"moe (b) top-2: non-finite loss {first}, {loss}")
+    dropped = [round(r["dropped"], 4) for r in _moe_routing(model)]
+    print(f"[moe-b] top-2 (capacity factor 1.0 a choice): {dt / MOE_TOP2_STEPS * 1e3:.2f} "
+          f"ms/step over {MOE_TOP2_STEPS} steps, {tokens * MOE_TOP2_STEPS / dt:.1f} tokens/s; "
+          f"loss {first:.4f} -> {loss:.4f}; dropped shares {dropped}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    del engine, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def moe_worker(rank, rendezvous, out_path):
+    """One of the two processes of phase 23 (c) (``--moe-worker``): ep 2
+    over gloo on the card, each run of ``MOE_EP_RUNS`` for 3 steps of phase
+    13's batches; the stage-0 run saves a checkpoint beside the rendezvous
+    file.  Writes losses, bytes staged, launches and the checkpoint's
+    digest as JSON."""
+    import numpy as np
+    import torch
+
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch import comm
+    from deeperspeed_tpu_torch.ops.cuda_utils import LAUNCHES
+    from deeperspeed_tpu_torch.parallel import MeshTopology
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    dst.init_distributed("gloo", init_method=f"file://{rendezvous}", rank=rank,
+                         world_size=MOE_EP_WORLD, timeout=600)
+    out = {}
+    for name, (cfg, mesh, _) in MOE_EP_RUNS.items():
+        model = moe_ep_model()
+        eng = dst.initialize(model=model, config=cfg, mesh=MeshTopology(**mesh))[0]
+        batches = dp_check_batches(np, model.config.vocab_size)
+        LAUNCHES.clear()
+        comm.STAGED.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [float(eng.train_batch(batch=b)) for b in batches]
+        dt = time.perf_counter() - t0
+        out[name] = {"losses": losses, "ms": dt / len(batches) * 1e3,
+                     "staged": {k: v / len(batches) for k, v in comm.STAGED.items()},
+                     "launches": dict(LAUNCHES),
+                     "experts": model.moe_layers()[0].experts.num_local,
+                     "ffn": model.moe_layers()[0].experts.dense_h_to_4h.weight.shape[1],
+                     "routing": _moe_routing(model)}
+        if name == "s0":
+            eng.save_checkpoint(str(Path(rendezvous).parent / "moe_ckpt"))
+            out[name]["digest"] = _ckpt_digest(torch, eng)
+        del eng, model
+        torch.cuda.empty_cache()
+    Path(out_path).write_text(json.dumps(out))
+    comm.destroy()
+    return 0
+
+
+def phase_moe_ep(torch, np, card):
+    """Phase 23 (c): two ``--moe-worker`` processes at ep 2 against one
+    process at ep 1 on the card (same weights and global batches): fp32
+    losses within 1e-5 relative at stages 0 and 2, the int8 and fp8
+    transport within 1e-4 of the same transport at ep 1, tp 2 (the experts
+    split by their feature dims) within 1e-4; the ep-2 checkpoint loaded
+    at ep 1 (digest equal).  Returns rank 0's launches of the stage-0 run."""
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.models import GPTNeoXConfig
+
+    build = ROOT / ".build"
+    build.mkdir(exist_ok=True)
+    workdir = Path(tempfile.mkdtemp(dir=build))
+    procs = _spawn_dp_workers(workdir, "--moe-worker", MOE_EP_WORLD)
+    r0, r1 = _join_dp_workers(procs)
+    wants = {}
+    for name, (cfg, mesh, tol) in MOE_EP_RUNS.items():
+        # the stage moves no number: the stages share one reference run
+        key = json.dumps({k: v for k, v in cfg.items() if k != "zero_optimization"},
+                         sort_keys=True)
+        if key not in wants:
+            eng = dst.initialize(model=moe_ep_model(), config=cfg)[0]
+            wants[key] = [float(eng.train_batch(batch=b))
+                          for b in dp_check_batches(np, eng.module.config.vocab_size)]
+            del eng
+            torch.cuda.empty_cache()
+        want = wants[key]
+        E, F = MOE_EP_KW["moe_num_experts"], 4 * GPTNeoXConfig.pythia_160m().hidden_size
+        held = (E // mesh.get("ep", 1), F // mesh.get("tp", 1))
+        for r, rec in enumerate((r0, r1)):
+            rel = max(abs(a - b) / abs(b) for a, b in zip(rec[name]["losses"], want))
+            if rel > tol or (rec[name]["experts"], rec[name]["ffn"]) != held:
+                raise AssertionError(f"moe (c) {name} rank {r}: losses {rec[name]['losses']} "
+                                     f"vs ep 1 {want} ({rel:.2e} > {tol}), experts x ffn "
+                                     f"{rec[name]['experts']} x {rec[name]['ffn']} a rank")
+        staged = r0[name]["staged"]
+        layout = " x ".join(f"{a} {n}" for a, n in mesh.items())
+        print(f"[moe-c] {card}: {layout} (two processes, gloo via host), 2 full-width blocks "
+              f"of 8 experts, fp32, {name}: losses {r0[name]['losses'][-1]:.6f} within "
+              f"{rel:.2e} of one process (tol {tol}); {held[0]} experts x {held[1]} ffn "
+              f"columns a rank; {r0[name]['ms']:.1f} ms/step; staged a step: all-to-all "
+              f"{staged.get('moe_all_to_all', 0) / 1e6:.3f} MB, routing records "
+              f"{staged.get('moe_routing', 0) / 1e6:.3f} MB, "
+              f"{', '.join(f'{k} {v / 1e6:.3f} MB' for k, v in sorted(staged.items()) if not k.startswith('moe'))}; "
+              f"dropped shares {[round(x['dropped'], 4) for x in r0[name]['routing']]}",
+              flush=True)
+        if name == "s0":
+            fresh = dst.initialize(model=moe_ep_model(), config=cfg)[0]
+            fresh.load_checkpoint(str(workdir / "moe_ckpt"))
+            digest = _ckpt_digest(torch, fresh)
+            if not (digest == r0[name]["digest"] == r1[name]["digest"]):
+                raise AssertionError("moe (c): the ep-2 checkpoint loads at ep 1 with "
+                                     "another digest")
+            print(f"[moe-c] the ep-2 checkpoint loads at ep 1: masters and moments "
+                  f"digest {digest[:16]} equal", flush=True)
+            del fresh
+            torch.cuda.empty_cache()
+            shutil.rmtree(workdir / "moe_ckpt")
+    print(f"[moe-c] launches (rank 0, stage 0) {r0['s0']['launches']}", flush=True)
+    return r0["s0"]["launches"]
+
+
+def phase_moe_served(torch, np, launches, card):
+    """Phase 23 (d): Pythia-160M-MoE-8 in bf16, no-drop gating, through
+    ``InferenceEngineV2`` at phase 5's batch and pool: prefill rounds of 8,
+    ``MOE_SERVED_ROUNDS`` decode rounds, a 4-token extend round and a
+    sampled run (top-k 50); then the v1 engine's greedy tokens against the
+    v2 engine's in fp32 at 2 layers.  Returns the bf16 runs' launches."""
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
+
+    model = moe_model(moe_drop_tokens=False)
+    eng = InferenceEngineV2(model, SERVED_ECFG)
+    V = model.config.vocab_size
+    prompts = served_prompts(np, V, SERVED_BATCH)
+    rng = np.random.default_rng(SEED + 24)
+    uids = list(range(SERVED_BATCH))
+    launches.clear()                                  # main path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ttft, nxt = [], {}
+    for lo in range(0, SERVED_BATCH, 8):
+        out = eng.put_round(uids[lo:lo + 8], prompts[lo:lo + 8])
+        done = time.perf_counter() - t0
+        for i, u in enumerate(uids[lo:lo + 8]):
+            ttft.append(done)
+            nxt[u] = int(out.tokens[i, -1])
+        if not out.finite.all():
+            raise AssertionError("moe (d): non-finite logits in a prefill round")
+    t_dec = time.perf_counter()
+    for _ in range(MOE_SERVED_ROUNDS):
+        out = eng.put_round(uids, [[nxt[u]] for u in uids])
+        if not out.finite.all():
+            raise AssertionError("moe (d): non-finite logits in a decode round")
+        nxt = {u: int(out.tokens[i, -1]) for i, u in enumerate(uids)}
+    dt = time.perf_counter() - t_dec
+    out = eng.put_round(uids, [[nxt[u]] + rng.integers(0, V, 3).tolist() for u in uids])
+    if not out.finite.all():
+        raise AssertionError("moe (d): non-finite logits in the extend round")
+    routing = _moe_routing(model)
+    del eng
+    torch.cuda.empty_cache()
+    sampled = InferenceEngineV2(model, {**SERVED_ECFG, "sampling": {
+        "temperature": 0.8, "top_k": 50, "seed": SEED}})
+    outs = sampled.generate([np.asarray(p) for p in prompts[:8]], max_new_tokens=16)
+    if any(len(o) != len(p) + 16 for p, o in zip(prompts[:8], outs)):
+        raise AssertionError("moe (d): the sampled run gave bad lengths")
+    counts = dict(launches)
+    for name in ("layer_norm", "paged_decode", "paged_spec_decode", "sorted_topk"):
+        if counts.get(name, 0) < 1:
+            raise AssertionError(f"moe serving never launched {name}: {counts}")
+    if any(r["dropped"] != 0.0 for r in routing):
+        raise AssertionError(f"moe (d): no-drop gating dropped tokens: {routing}")
+    print(f"[moe-d] {card}: Pythia-160M-MoE-8 bf16, no-drop gating, "
+          f"InferenceEngineV2 at batch {SERVED_BATCH} (4096 x 16 pool): "
+          f"{dt / MOE_SERVED_ROUNDS * 1e3:.2f} ms/round, "
+          f"{SERVED_BATCH * MOE_SERVED_ROUNDS / dt:.1f} tokens/s; TTFT median "
+          f"{np.median(ttft) * 1e3:.1f} ms, max {max(ttft) * 1e3:.1f} ms (4 prefill rounds "
+          f"of 8 prompts); launches {counts}", flush=True)
+    del sampled, model
+    torch.cuda.empty_cache()
+
+    two = GPTNeoX(dataclasses.replace(GPTNeoXConfig.pythia_160m(
+        **{**MOE_KW, "moe_drop_tokens": False}), num_layers=2), seed=SEED)
+    ids = np.random.default_rng(SEED + 25).integers(1, two.config.vocab_size, (4, 64))
+    v1 = dst.init_inference(two, {"dtype": "fp32"})
+    want = v1.generate(ids, max_new_tokens=16).cpu().numpy()[:, 64:]
+    del v1
+    v2 = InferenceEngineV2(two, {**SERVED_ECFG, "dtype": "float32"})
+    got, margins = _v2_greedy(torch, np, v2, ids, 16)
+    agreed = _greedy_agree(np, want, got, margins, FP32_MARGIN)
+    print(f"[moe-d] fp32 at 2 layers: the v1 engine's greedy tokens equal the v2 engine's "
+          f"for {agreed} of 16 steps a prompt (parting only at a top-2 margin below "
+          f"{FP32_MARGIN})", flush=True)
+    del v2, two
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     try:
         import torch
@@ -3847,6 +4236,8 @@ def main():
         return layout_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     if sys.argv[1:2] == ["--llama-worker"]:
         return llama_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if sys.argv[1:2] == ["--moe-worker"]:
+        return moe_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     import numpy as np
 
     from deeperspeed_tpu_torch.ops import cuda_utils
@@ -3901,6 +4292,12 @@ def main():
     paths["llama_window"] = phase_llama_window(torch, np, cuda_utils.LAUNCHES, card)
     paths["llama_training"] = phase_llama_trained(torch, np, cuda_utils.LAUNCHES, card)
     paths["llama_v1_tp"] = phase_llama_tp(torch, np, card)
+    t23 = time.perf_counter()
+    phase_moe_checked(torch, np)
+    paths["moe_training"] = phase_moe_trained(torch, np, cuda_utils.LAUNCHES, card)
+    paths["moe_ep"] = phase_moe_ep(torch, np, card)
+    paths["moe_serving"] = phase_moe_served(torch, np, cuda_utils.LAUNCHES, card)
+    print(f"[moe] phase 23 in {time.perf_counter() - t23:.1f} s", flush=True)
 
     sources = {
         "layer_norm": ("deeperspeed_tpu_torch/csrc/layer_norm.cu",

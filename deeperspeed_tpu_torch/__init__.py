@@ -19,9 +19,13 @@ in ``csrc/``:
   attention forward (K5) and backward (K6 dk/dv, K7 dq), the LayerNorm
   backward (K8) besides K1, and the fused optimizers (B6, B7); over several
   processes (``init_distributed``, ``torch.distributed``) laid out as the
-  JAX mesh (``dp``, ``zshard``, ``tp``): ZeRO stages 0-3 with MiCS and hpZ,
-  tensor parallelism, and the qgZ quantized gradient reduction, flat or
-  two-hop, on the fused dequant-reduce (B5).
+  JAX mesh (``dp``, ``zshard``, ``ep``, ``tp``): ZeRO stages 0-3 with MiCS
+  and hpZ, tensor parallelism, and the qgZ quantized gradient reduction,
+  flat or two-hop, on the fused dequant-reduce (B5);
+* Mixture-of-Experts (``moe``; GPT-NeoX with ``moe_num_experts`` > 1):
+  top-1 / top-2 gating routed over the whole data-parallel batch, the
+  stacked experts spread over ``ep`` and split over ``tp``, the quantized
+  dispatch, checkpoints across ``ep`` degrees, served by both engines.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

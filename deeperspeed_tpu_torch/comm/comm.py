@@ -5,10 +5,12 @@ The JAX package's collectives are XLA ops over named mesh axes; here a
 group is a ``torch.distributed`` process group over the ranks that differ
 only along those axes of the mesh (``parallel/topology.py``), and each
 collective is one eager call on it.  :func:`get_data_parallel_group` is
-the ZeRO group (``dp x zshard``) of this rank's tensor-parallel slice,
+the ZeRO group (``dp x zshard x ep``) of this rank's tensor-parallel slice,
 :func:`get_zero_param_parallel_group` the MiCS / hpZ subgroup
 (``zshard``), :func:`get_model_parallel_group` the tensor-parallel group
-(``tp``); every process builds all of them together, in one order, the
+(``tp``), :func:`get_expert_parallel_group` the MoE experts' group
+(``ep``) and :func:`get_expert_data_parallel_group` the ZeRO axes less
+``ep``; every process builds all of them together, in one order, the
 first time one is asked for under a mesh.  The
 functions return their result, as the JAX ones do; ``all_reduce`` and
 ``broadcast`` also write it into their argument, as torch's do.
@@ -141,7 +143,9 @@ def get_world_group():
 _MESH_GROUPS = {}
 # the groups every process builds, in this order
 _GROUP_AXES = {"dp": topo.ZERO_AXES, "zshard": (topo.ZSHARD_AXIS,),
-               "dp_replica": (topo.DP_AXIS,), "tp": (topo.TP_AXIS,)}
+               "dp_replica": (topo.DP_AXIS,), "tp": (topo.TP_AXIS,),
+               "ep": (topo.EP_AXIS,),
+               "expert_dp": tuple(a for a in topo.ZERO_AXES if a != topo.EP_AXIS)}
 
 
 def _mesh_groups(mesh=None):
@@ -158,6 +162,9 @@ def _mesh_groups(mesh=None):
     me = dist.get_rank() if dist.is_initialized() else 0
     mine = {}
     for name, axes in _GROUP_AXES.items():
+        if name == "expert_dp" and mesh.ep == 1:
+            mine[name] = mine["dp"]        # the same ranks: no second group
+            continue
         for ranks in mesh.groups(axes):
             pg = None
             if 1 < len(ranks) < mesh.world:
@@ -192,6 +199,19 @@ def get_data_parallel_replica_group():
 def get_model_parallel_group():
     """The tensor-parallel group (``tp``)."""
     return _mesh_groups()["tp"]
+
+
+def get_expert_parallel_group():
+    """The expert-parallel group (``ep``): the ranks that hold one MoE
+    layer's experts between them (the JAX package's ``comm.py:118``)."""
+    return _mesh_groups()["ep"]
+
+
+def get_expert_data_parallel_group():
+    """The expert-data-parallel group: the ZeRO axes less ``ep``, the
+    ranks that hold the same experts, over which their partitions are cut
+    and their gradients reduced."""
+    return _mesh_groups()["expert_dp"]
 
 
 def get_axis_group(axis):
@@ -500,6 +520,26 @@ def all_to_all(tensor, group=None, split_axis=0, concat_axis=0, tiled=True,
         return out.movedim(0, concat_axis)
     chunks = out.chunk(n, 0)
     return torch.cat([c.movedim(0, split_axis) for c in chunks], dim=concat_axis)
+
+
+@timed_op
+def all_to_all_v(tensor, send_counts, recv_counts, group=None, log_name="all_to_all"):
+    """Rows of ``tensor`` (dim 0) in runs of ``send_counts[j]`` rows, the
+    j-th run to the group's j-th rank; returns the ``recv_counts[j]`` rows
+    from each rank j, concatenated in rank order (the reference's
+    ``all_to_all_single`` with split sizes).  Every rank must know what it
+    receives."""
+    group = _resolve_group(group)
+    if group.size() == 1:
+        return tensor
+    x = _wire(tensor.contiguous())
+    out = torch.empty((sum(recv_counts),) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    _run(log_name, group,
+         lambda o, i, async_op=False: dist.all_to_all_single(
+             o, i, list(recv_counts), list(send_counts), group=group.pg),
+         out, x)
+    return out.view(tensor.dtype)
 
 
 @timed_op

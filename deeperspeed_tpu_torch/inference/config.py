@@ -7,13 +7,14 @@ The same keys and aliases as the JAX package: dtype, ``tensor_parallel``
 (``max_tokens`` / ``min_tokens``), checkpoint loading and ``quant``
 (weight-only int8 / int4).  ``enable_cuda_graph``, ``replace_with_kernel_inject``
 and the other injection keys are accepted and not acted on, as in the JAX
-package.  MoE (``moe`` or ``moe_experts`` > 1) is refused until it is
-ported.
+package.  ``moe``, ``moe_experts`` and ``moe_type`` are accepted and not
+acted on, as in the JAX package: MoE is configured on the model, whose
+MoE blocks serve with their evaluation capacity.
 """
 
 from typing import Any, Dict, Optional, Union
 
-from pydantic import Field, model_validator
+from pydantic import Field
 
 from ..runtime.config_utils import DeeperSpeedConfigModel
 
@@ -63,14 +64,6 @@ class DeeperSpeedInferenceConfig(DeeperSpeedConfigModel):
     # generation defaults
     pad_token_id: int = 0
     eos_token_id: Optional[int] = None
-
-    @model_validator(mode="after")
-    def _refuse_moe(self):
-        if self.moe or self.moe_experts > 1:
-            raise NotImplementedError(
-                "inference config: moe / moe_experts > 1 is not ported yet "
-                "(ROADMAP Queue A, 'MoE')")
-        return self
 
     @property
     def tp_size(self) -> int:

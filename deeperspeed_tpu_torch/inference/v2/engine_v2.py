@@ -4,8 +4,12 @@ of ``deeperspeed_tpu/inference/v2/engine_v2.py``).
 ``put_round(uids, tokens)`` runs one scheduling round: new sequences
 prefill, live ones decode, all as rows of one ragged ``[n_pad, s_pad]``
 batch through the model's paged forward (any model with the paged
-protocol: ``models.GPTNeoX``, ``models.Llama`` and its Mistral and OPT
-presets), and the next token of every row is chosen on the device.  The host computes only block tables
+protocol: ``models.GPTNeoX``, with MoE blocks too, ``models.Llama`` and
+its Mistral and OPT presets), and the next token of every row is chosen on
+the device.  An MoE block routes every token of the ragged batch, padding
+included, with its evaluation capacity; serve it with no-drop gating
+(``moe_drop_tokens=False``), as the JAX package's test does, since the
+capacity follows the batch's shape.  The host computes only block tables
 (``DSStateManager`` + ``BlockedAllocator``).
 
 * The KV pools are one [num_blocks, block_size, N_kv, D] pair per layer

@@ -50,8 +50,14 @@ whole heads and attention runs on ``num_heads / tp`` of them; the output
 head is column-parallel over the vocabulary and both losses take the
 vocabulary-parallel cross entropy.
 
-Not ported yet (construction raises, naming the ROADMAP item): MoE layers,
-sequence parallelism.
+Mixture-of-Experts (``moe_num_experts`` > 1): every
+``moe_expert_interval``-th block's MLP is a :class:`~..moe.MoE` (the gate,
+the stacked experts, Residual-MoE), named as the JAX tree nests it under
+the block's ``moe``; training adds ``moe_aux_loss_coef`` times the mean of
+the MoE blocks' ``l_aux`` to the loss.  The training engine keeps each
+``ep`` rank's share of the experts and hands the layers their groups.
+Under tensor parallelism the experts split as the JAX rules split them,
+``P("ep", None, "tp")`` (column ``dense_h_to_4h``, row ``dense_4h_to_h``).
 """
 
 import dataclasses
@@ -65,6 +71,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..accelerator import resolve_device
+from ..moe import MoE
+from ..moe.experts import Experts
 from ..ops.attention import (dot_product_attention, paged_decode_attention,
                              paged_spec_decode_attention)
 from ..ops.attention.core import keep_mask
@@ -103,7 +111,33 @@ class GPTNeoXConfig:
     ce_chunk_tokens: int = 0
     # μP width multiplier relative to a base width (for the mu-optimizers)
     mup_base_width: Optional[int] = None
+    # MoE (0/1 experts = dense). MoE replaces the MLP on every
+    # ``moe_expert_interval``-th block (layers 1, 3, ... for interval 2).
     moe_num_experts: int = 0
+    moe_expert_interval: int = 2
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.0
+    moe_eval_capacity_factor: float = 1.0
+    moe_min_capacity: int = 4
+    moe_use_residual: bool = False
+    moe_noisy_gate_policy: Optional[str] = None
+    moe_drop_tokens: bool = True
+    moe_use_rts: bool = True
+    moe_aux_loss_coef: float = 0.01
+    # 1-byte tokens + per-block scales on the dispatch wire (set from the
+    # runtime ``comm.quantized.moe_alltoall`` config key; dtype: int8 or
+    # fp8 -> e4m3)
+    moe_quantized_alltoall: bool = False
+    moe_quantized_group_size: int = 128
+    moe_quantized_alltoall_dtype: str = "int8"
+
+    @property
+    def has_moe(self):
+        return self.moe_num_experts > 1
+
+    def moe_layer_indices(self):
+        return [i for i in range(self.num_layers)
+                if self.has_moe and (i + 1) % self.moe_expert_interval == 0]
 
     def __post_init__(self):
         if self.hidden_size % self.num_heads:
@@ -269,6 +303,12 @@ TP_RULES = [
     (r"embed_in\.weight$", 0),
     (r"query_key_value\.(weight|bias)$", 0),
     (r"attention\.dense\.weight$", 1),
+    # MoE's stacked experts [E, out, in]: the JAX P("ep", None, "tp") on
+    # [E, in, out] (column dense_h_to_4h, row dense_4h_to_h, whose bias
+    # stays whole); the leading expert dim is ep's
+    (r"experts\.dense_h_to_4h\.(weight|bias)$", 1),
+    (r"experts\.dense_4h_to_h\.weight$", 2),
+    (r"experts\.dense_4h_to_h\.bias$", None),
     (r"dense_h_to_4h\.(weight|bias)$", 0),
     (r"dense_4h_to_h\.weight$", 1),
     (r"embed_out\.weight$", 0),
@@ -397,8 +437,21 @@ class GPTNeoXMLP(nn.Module):
         return _dense(self.dense_4h_to_h, h, dt)
 
 
+def _moe_layer(cfg):
+    return MoE(cfg.hidden_size, num_experts=cfg.moe_num_experts,
+               ffn_dim=cfg.intermediate_size, k=cfg.moe_top_k,
+               capacity_factor=cfg.moe_capacity_factor,
+               eval_capacity_factor=cfg.moe_eval_capacity_factor,
+               min_capacity=cfg.moe_min_capacity, use_residual=cfg.moe_use_residual,
+               noisy_gate_policy=cfg.moe_noisy_gate_policy,
+               drop_tokens=cfg.moe_drop_tokens, use_rts=cfg.moe_use_rts, dtype=cfg.dtype,
+               quantized_alltoall=cfg.moe_quantized_alltoall,
+               quantized_group_size=cfg.moe_quantized_group_size,
+               quantized_alltoall_dtype=cfg.moe_quantized_alltoall_dtype)
+
+
 class GPTNeoXBlock(nn.Module):
-    def __init__(self, config: GPTNeoXConfig):
+    def __init__(self, config: GPTNeoXConfig, use_moe=False):
         super().__init__()
         self.config = config
         eps = config.layernorm_eps
@@ -407,21 +460,43 @@ class GPTNeoXBlock(nn.Module):
         self.post_attention_layernorm = ModelLayerNorm(config.hidden_size, eps,
                                                        config.dtype)
         self.attention = GPTNeoXAttention(config)
-        self.mlp = GPTNeoXMLP(config)
+        if use_moe:
+            self.moe = _moe_layer(config)
+        else:
+            self.mlp = GPTNeoXMLP(config)
+
+    def sync_moe(self):
+        """The MoE layer's transport and compute type from ``config``."""
+        moe, cfg = getattr(self, "moe", None), self.config
+        if moe is not None:
+            moe.quantized_alltoall = cfg.moe_quantized_alltoall
+            moe.quantized_group_size = cfg.moe_quantized_group_size
+            moe.quantized_alltoall_dtype = cfg.moe_quantized_alltoall_dtype
+            moe.set_dtype(cfg.dtype)
+
+    def _mlp(self, h, rng, moe_aux):
+        if not hasattr(self, "moe"):
+            return self.mlp(h)
+        out, l_aux, _ = self.moe(h, train=rng is not None, rng=rng)
+        if moe_aux is not None:
+            moe_aux.append(l_aux.to(torch.float32))
+        return out
 
     def forward(self, x, positions, kv=None, paged=None, rng=None, cached=None,
-                attention_mask=None):
+                attention_mask=None, moe_aux=None):
         """``rng`` (a ``torch.Generator``, training only) draws the
-        attention and hidden dropout masks; None is deterministic."""
+        attention and hidden dropout masks and the MoE gate's draws (and
+        puts the gate in training capacity); None is deterministic.  An MoE
+        block appends its ``l_aux`` to the list ``moe_aux``."""
         cfg = self.config
         attn_out = self.attention(self.input_layernorm(x), positions, kv, paged,
                                   rng, cached, attention_mask)
         if cfg.use_parallel_residual:
-            mlp_out = self.mlp(self.post_attention_layernorm(x))
+            mlp_out = self._mlp(self.post_attention_layernorm(x), rng, moe_aux)
             x = x + attn_out + mlp_out
         else:
             x = x + attn_out
-            x = x + self.mlp(self.post_attention_layernorm(x))
+            x = x + self._mlp(self.post_attention_layernorm(x), rng, moe_aux)
         if cfg.hidden_dropout > 0.0 and rng is not None:
             # on the whole residual stream after the adds (flax nn.Dropout:
             # x / keep where kept, else 0)
@@ -431,18 +506,12 @@ class GPTNeoXBlock(nn.Module):
         return x
 
 
-def _remat_block(blk, x, positions, rng):
+def _remat_block(blk, x, positions, rng, moe_aux=None):
     """``blk(x, positions, rng=rng)`` whose activations are recomputed in
     the backward pass (the JAX package's ``nn.remat`` of the block), the
     dropout masks drawn from ``rng`` replayed exactly."""
-    return checkpoint_replaying(lambda x_in: blk(x_in, positions, rng=rng), x, rng=rng)
-
-
-def _not_ported(config):
-    """The first configuration feature the port does not run yet, or None."""
-    if config.moe_num_experts > 1:
-        return "MoE layers (ROADMAP Queue A, 'MoE')"
-    return None
+    return checkpoint_replaying(lambda x_in: blk(x_in, positions, rng=rng, moe_aux=moe_aux),
+                                x, rng=rng)
 
 
 class GPTNeoX(nn.Module):
@@ -457,14 +526,12 @@ class GPTNeoX(nn.Module):
 
     def __init__(self, config: GPTNeoXConfig, device=None, seed=0):
         super().__init__()
-        missing = _not_ported(config)
-        if missing is not None:
-            raise NotImplementedError(f"GPTNeoX: {missing} is not ported yet")
         device = resolve_device(device)
         self.config = config
         self.embed_in = nn.Embedding(config.vocab_size, config.hidden_size)
-        self.layers = nn.ModuleList(GPTNeoXBlock(config)
-                                    for _ in range(config.num_layers))
+        moe_layers = set(config.moe_layer_indices())
+        self.layers = nn.ModuleList(GPTNeoXBlock(config, use_moe=i in moe_layers)
+                                    for i in range(config.num_layers))
         self.final_layer_norm = ModelLayerNorm(config.hidden_size,
                                                config.layernorm_eps,
                                                config.dtype)
@@ -486,12 +553,15 @@ class GPTNeoX(nn.Module):
                     mod.bias.zero_()
         nn.init.normal_(self.embed_in.weight, 0.0,
                         1.0 / math.sqrt(self.config.hidden_size), generator=gen)
+        for mod in self.modules():
+            if isinstance(mod, Experts):
+                mod.reset_parameters(gen)
 
     def set_dtype(self, dtype):
         """Cast every weight but the LayerNorms' to ``dtype`` and make it
         the compute type of the products and of the KV pools (serving)."""
         for mod in self.modules():
-            if isinstance(mod, (nn.Linear, nn.Embedding)):
+            if isinstance(mod, (nn.Linear, nn.Embedding, Experts)):
                 mod.to(dtype)
         self.replace_config(dtype=dtype)
         for mod in self.modules():
@@ -506,12 +576,14 @@ class GPTNeoX(nn.Module):
         for mod in self.modules():
             if hasattr(mod, "config"):
                 mod.config = self.config
+        for blk in self.layers:
+            blk.sync_moe()
         return self
 
     def forward(self, input_ids, positions=None, paged_state=None,
                 logits_positions=None, rng=None, pld_theta=None,
                 random_ltd_tokens=None, return_hidden=False, pld_rng=None,
-                attention_mask=None, cache=None):
+                attention_mask=None, cache=None, moe_aux=None):
         """``paged_state`` (serving) carries ``kv_cache`` (per layer (pool_k,
         pool_v), or (pool_k, pool_v, k_scale, v_scale) for quantized pools,
         updated in place), ``block_tables`` [B, M]
@@ -533,7 +605,9 @@ class GPTNeoX(nn.Module):
         ``attention_mask`` [B, S] (0/1) masks keys as well as the causal
         mask; with ``cache`` (a :class:`DecodeCache`, the v1 engine) it is
         [B, L] over the cache buffer and the forward is the cached decode
-        of ``input_ids`` at the cache's write index, which it advances."""
+        of ``input_ids`` at the cache's write index, which it advances.
+        ``moe_aux``, a list, receives each MoE block's ``l_aux`` (the
+        training forward's)."""
         B, S = input_ids.shape
         if positions is None:
             positions = torch.arange(S, device=input_ids.device).expand(B, S)
@@ -558,8 +632,9 @@ class GPTNeoX(nn.Module):
                     and 0 < random_ltd_tokens < S and 0 < i < L - 1):
                 x_in, idx = random_ltd_gather(x, random_ltd_tokens, rng)
                 pos_in = take_tokens(positions, idx)
-            y = (_remat_block(blk, x_in, pos_in, rng) if remat
-                 else blk(x_in, pos_in, rng=rng, attention_mask=attention_mask))
+            y = (_remat_block(blk, x_in, pos_in, rng, moe_aux) if remat
+                 else blk(x_in, pos_in, rng=rng, attention_mask=attention_mask,
+                          moe_aux=moe_aux))
             if idx is not None:
                 y = random_ltd_scatter(x, y, idx)
             if rng is not None and pld_theta is not None and i > 0:
@@ -602,12 +677,15 @@ class GPTNeoX(nn.Module):
         ``batch["pld_theta"]`` and ``random_ltd_tokens``.  ``deterministic``
         overrides (the JAX package's ``_apply_setup``).  With
         ``ce_chunk_tokens`` > 0 the loss is the chunked one (see
-        :func:`_chunked_ce`)."""
+        :func:`_chunked_ce`), which refuses MoE as the JAX package does.
+        With MoE the loss adds ``moe_aux_loss_coef`` times the mean of the
+        MoE blocks' ``l_aux``."""
         cfg = self.config
-        if cfg.ce_chunk_tokens > 0 and cfg.moe_num_experts > 1:
+        if cfg.ce_chunk_tokens > 0 and cfg.has_moe:
+            # the JAX package's refusal, in its words
             raise NotImplementedError(
-                "ce_chunk_tokens with MoE is not ported yet: the chunked path "
-                "bypasses the aux-loss collection (ROADMAP Queue A, 'MoE')")
+                "ce_chunk_tokens with MoE is not supported yet: the chunked path "
+                "bypasses the aux-loss collection")
 
         def setup(batch, rng, deterministic, random_ltd_tokens):
             if deterministic is None:
@@ -619,7 +697,8 @@ class GPTNeoX(nn.Module):
 
         def loss(model, batch, rng=None, deterministic=None, random_ltd_tokens=None):
             kwargs = setup(batch, rng, deterministic, random_ltd_tokens)
-            logits = model(batch["input_ids"], **kwargs).to(torch.float32)
+            moe_aux = [] if cfg.has_moe else None
+            logits = model(batch["input_ids"], moe_aux=moe_aux, **kwargs).to(torch.float32)
             head = model.embed_out
             if isinstance(head, ColumnParallelLinear):
                 token_ll = vocab_parallel_log_likelihood(logits, batch["labels"],
@@ -630,7 +709,11 @@ class GPTNeoX(nn.Module):
                 token_ll = gold - lse
             mask = batch.get("loss_mask")
             mask = torch.ones_like(token_ll) if mask is None else mask.to(token_ll.dtype)
-            return -(token_ll * mask).sum() / mask.sum().clamp(min=1.0)
+            ce = -(token_ll * mask).sum() / mask.sum().clamp(min=1.0)
+            if moe_aux:
+                # the MoE blocks' load-balancing losses (the JAX "losses" sow)
+                ce = ce + cfg.moe_aux_loss_coef * sum(moe_aux) / len(moe_aux)
+            return ce
 
         def loss_chunked(model, batch, rng=None, deterministic=None,
                          random_ltd_tokens=None):
@@ -682,17 +765,36 @@ class GPTNeoX(nn.Module):
         the input embedding, a gather, is left out of N_active."""
         cfg = self.config
         n_params = self.num_params() - cfg.vocab_size * cfg.hidden_size
+        if cfg.has_moe:
+            # only top-k experts run per token
+            f = cfg.intermediate_size
+            mlp = 2 * cfg.hidden_size * f + f + cfg.hidden_size
+            inactive = (cfg.moe_num_experts - cfg.moe_top_k) * mlp
+            n_params -= len(cfg.moe_layer_indices()) * inactive
         attn = 12 * cfg.num_layers * cfg.hidden_size * cfg.max_seq_len
         return 6 * n_params + attn
 
     def num_params(self):
+        """The JAX model's count: every expert, the gates and the residual
+        branches included."""
         cfg = self.config
         h, L, v = cfg.hidden_size, cfg.num_layers, cfg.vocab_size
         f = cfg.intermediate_size
         mlp = 2 * h * f + f + h
         attn = 3 * h * h + 3 * h + h * h + h  # qkv + out proj
         lns = 4 * h
-        return v * h + L * (attn + mlp + lns) + 2 * h + v * h
+        n_moe = len(cfg.moe_layer_indices())
+        total = v * h + (L - n_moe) * (attn + mlp + lns) + 2 * h + v * h
+        if n_moe:
+            moe_mlp = cfg.moe_num_experts * mlp + h * cfg.moe_num_experts  # experts + wg
+            if cfg.moe_use_residual:
+                moe_mlp += mlp + 2 * h + 2  # dense branch + coefficient
+            total += n_moe * (attn + moe_mlp + lns)
+        return total
+
+    def moe_layers(self):
+        """The MoE layers, in block order."""
+        return [blk.moe for blk in self.layers if hasattr(blk, "moe")]
 
 
 def _ce_chunk(xc, w, labels, mask, dtype, tp=None):
@@ -740,16 +842,18 @@ def _chunked_ce(hidden, w, labels, mask, chunk_tokens, dtype, tp=None):
     return -num / den.clamp(min=1.0)
 
 
-def params_from_jax(tree, tp_rank=0, tp_size=1) -> dict:
+def params_from_jax(tree, tp_rank=0, tp_size=1, ep_rank=0, ep_size=1) -> dict:
     """A state dict for :class:`GPTNeoX` from a flax parameter tree given as
     nested dicts of numpy arrays (``jax.device_get(params)``); needs no JAX.
 
     Names follow ``checkpoint/reference_universal.py`` ``gpt_neox_param_map``
     of the JAX package; each ``Dense`` kernel [in, out] is transposed into
-    ``nn.Linear.weight`` [out, in].  Raises if a leaf of ``tree`` is left
-    unmapped (MoE experts, for one, are not ported).  With ``tp_size`` > 1
-    each parameter :data:`TP_RULES` splits is rank ``tp_rank``'s slice of
-    it, as the engine shards the model over ``tp``."""
+    ``nn.Linear.weight`` [out, in] (a stacked expert kernel [E, in, out]
+    into [E, out, in]).  Raises if a leaf of ``tree`` is left unmapped.
+    With ``tp_size`` > 1 each parameter :data:`TP_RULES` splits is rank
+    ``tp_rank``'s slice of it, as the engine shards the model over ``tp``;
+    with ``ep_size`` > 1 each stacked expert parameter is rank
+    ``ep_rank``'s experts, as the engine keeps them."""
     used = set()
 
     def leaf(path, transpose=False):
@@ -758,7 +862,8 @@ def params_from_jax(tree, tp_rank=0, tp_size=1) -> dict:
             node = node[key]
         used.add(path)
         a = np.asarray(node, np.float32)
-        return torch.from_numpy(np.array(a.T if transpose else a, order="C"))
+        return torch.from_numpy(np.array(np.swapaxes(a, -1, -2) if transpose else a,
+                                         order="C"))
 
     layer_ids = sorted(int(k.split("_")[1]) for k in tree
                        if k.startswith("layers_"))
@@ -768,8 +873,22 @@ def params_from_jax(tree, tp_rank=0, tp_size=1) -> dict:
         for ln in ("input_layernorm", "post_attention_layernorm"):
             sd[f"{dst}.{ln}.weight"] = leaf(f"{src}/{ln}/scale")
             sd[f"{dst}.{ln}.bias"] = leaf(f"{src}/{ln}/bias")
-        for lin in ("attention/query_key_value", "attention/dense",
-                    "mlp/dense_h_to_4h", "mlp/dense_4h_to_h"):
+        moe = "moe" in tree[src]
+        if moe:
+            sd[f"{dst}.moe.gate.wg.weight"] = leaf(f"{src}/moe/gate/wg/kernel", True)
+            for lin in ("experts/dense_h_to_4h", "experts/dense_4h_to_h"):
+                for kind, transpose in (("weight", True), ("bias", False)):
+                    t = leaf(f"{src}/moe/{lin}/{'kernel' if transpose else 'bias'}",
+                             transpose)
+                    sd[f"{dst}.moe.{lin.replace('/', '.')}.{kind}"] = (
+                        t.chunk(ep_size, 0)[ep_rank].contiguous())
+        linears = ["attention/query_key_value", "attention/dense"]
+        mlp = "moe/mlp" if moe else "mlp"
+        if not moe or "mlp" in tree[src]["moe"]:
+            linears += [f"{mlp}/dense_h_to_4h", f"{mlp}/dense_4h_to_h"]
+        if moe and "coefficient" in tree[src]["moe"]:
+            linears.append("moe/coefficient")
+        for lin in linears:
             name = lin.replace("/", ".")
             sd[f"{dst}.{name}.weight"] = leaf(f"{src}/{lin}/kernel", True)
             sd[f"{dst}.{name}.bias"] = leaf(f"{src}/{lin}/bias")
@@ -803,7 +922,9 @@ def join_tensor_parallel(shards) -> dict:
 
 
 _LINEARS = ("attention.query_key_value", "attention.dense", "mlp.dense_h_to_4h",
-            "mlp.dense_4h_to_h")
+            "mlp.dense_4h_to_h", "moe.mlp.dense_h_to_4h", "moe.mlp.dense_4h_to_h",
+            "moe.coefficient", "moe.gate.wg")
+_EXPERTS = ("moe.experts.dense_h_to_4h", "moe.experts.dense_4h_to_h")
 
 
 def params_to_jax(state_dict) -> dict:
@@ -839,6 +960,10 @@ def params_to_jax(state_dict) -> dict:
             elif rest in _LINEARS and leaf == "weight":
                 put(f"{src}/{rest.replace('.', '/')}/kernel", value.t())
             elif rest in _LINEARS and leaf == "bias":
+                put(f"{src}/{rest.replace('.', '/')}/bias", value)
+            elif rest in _EXPERTS and leaf == "weight":
+                put(f"{src}/{rest.replace('.', '/')}/kernel", value.transpose(-1, -2))
+            elif rest in _EXPERTS and leaf == "bias":
                 put(f"{src}/{rest.replace('.', '/')}/bias", value)
             else:
                 raise ValueError(f"params_to_jax: unmapped parameter {name!r}")

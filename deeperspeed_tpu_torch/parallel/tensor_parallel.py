@@ -204,7 +204,8 @@ def shard_module(model, rules, group):
     ``nn.Embedding`` / ``nn.Linear`` whose weight ``rules`` split becomes
     its :class:`VocabParallelEmbedding` / :class:`ColumnParallelLinear`
     (dim 0) / :class:`RowParallelLinear` (dim 1), on the same parameter
-    objects, now this rank's slices.  A model with
+    objects, now this rank's slices; a module with
+    ``tensor_parallel(group, dim)`` (MoE's stacked experts) splits itself.  A model with
     ``check_tensor_parallel(tp)`` checks first that ``tp`` splits it whole
     (Llama's KV heads).  Returns :func:`partition_dims` of the model's
     parameters."""
@@ -214,6 +215,10 @@ def shard_module(model, rules, group):
     for name, mod in list(model.named_modules()):
         dim = dims.get(f"{name}.weight")
         if dim is None or isinstance(mod, (_Parallel, VocabParallelEmbedding)):
+            continue
+        if hasattr(mod, "tensor_parallel"):
+            # a layer that splits itself (MoE's stacked experts)
+            mod.tensor_parallel(group, dim)
             continue
         if isinstance(mod, nn.Embedding) and dim == 0:
             new = VocabParallelEmbedding(mod, group)

@@ -8,10 +8,11 @@
   to a ``jax.sharding.Mesh`` over its devices reshaped
   ``(pp, dp, zshard, ep, sp, tp)`` row-major; here one process drives one
   device and the ``torch.distributed`` world takes the same order, so rank
-  ``r`` is JAX device ``r``: ``r = (i_dp * zshard + i_zshard) * tp + i_tp``.
-  ``dp``, ``zshard`` (the MiCS / hpZ subgroup) and ``tp`` (tensor
-  parallelism) run; ``pp``, ``ep`` and ``sp`` above 1 raise
-  ``NotImplementedError`` naming the ROADMAP item that ports them.
+  ``r`` is JAX device ``r``: ``r = ((i_dp * zshard + i_zshard) * ep +
+  i_ep) * tp + i_tp``.  ``dp``, ``zshard`` (the MiCS / hpZ subgroup), ``ep``
+  (MoE expert parallelism) and ``tp`` (tensor parallelism) run; ``pp`` and
+  ``sp`` above 1 raise ``NotImplementedError`` naming the ROADMAP item that
+  ports them.
 """
 
 from collections import namedtuple
@@ -29,7 +30,6 @@ ALL_AXES = (PP_AXIS, DP_AXIS, ZSHARD_AXIS, EP_AXIS, SP_AXIS, TP_AXIS)
 # where the axes the port does not run yet will be ported (ROADMAP Queue A)
 _AXIS_ITEMS = {
     PP_AXIS: "Pipelines",
-    EP_AXIS: "MoE",
     SP_AXIS: "Sequence parallelism",
 }
 # the axes ZeRO shards over (the JAX package's ``sharding.ZERO_AXES``)

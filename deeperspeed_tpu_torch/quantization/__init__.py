@@ -1,5 +1,5 @@
-"""Block-scaled low-precision tensor type of the port (the paged KV cache
-today; the quantized collectives and the MoE all-to-all later)."""
+"""Block-scaled low-precision tensor type of the port: the paged KV cache,
+the quantized collectives and the MoE dispatch's transport."""
 
 from .block_scaled import (WIRE_DTYPES, BlockScaledTensor,  # noqa: F401
                            block_shape_error, canonical_dtype, group_shape,

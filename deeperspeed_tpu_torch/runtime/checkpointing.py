@@ -18,7 +18,9 @@ state (each transformation's ``export``), the loss-scale state's four
 fields, and ``step`` the optimizer steps taken (``step_count``: fp16 skips
 excluded, the lr schedule's step) as int32.  So a save at one world size or
 ZeRO stage loads at any other: every rank takes its own pieces of the whole
-arrays.  ``engine_state.json`` carries the JAX package's keys with
+arrays.  MoE's stacked experts are written whole too, gathered over ``ep``
+along their leading dim, so a save at one ``ep`` loads at another in
+either package.  ``engine_state.json`` carries the JAX package's keys with
 ``"rng_key": null`` (the JAX loader then keeps its own key); the port's
 generators, one per rank, go under ``torch_rng_state``, which the JAX loader
 ignores.

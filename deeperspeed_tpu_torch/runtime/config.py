@@ -53,12 +53,15 @@ SUPPORTED_KEYS = {
     "activation_checkpointing", "data_types", "progressive_layer_drop",
     "curriculum_learning", "data_efficiency", "comm", "mesh",
     "communication_data_type", "checkpoint", "comms_logger",
+    # MoE is configured on the model in both packages: the JAX config takes
+    # a top-level ``moe`` block under its extra="allow" policy and acts on
+    # nothing in it, and so does the port
+    "moe",
 }
 
 # where the keys that the slice refuses will be ported
 _ROADMAP = {
     "pipeline": "Pipelines",
-    "moe": "MoE",
     "hybrid_engine": "The rest of the surface",
 }
 
@@ -206,13 +209,19 @@ class CommQuantizedConfig(DeeperSpeedConfigModel):
     ``wire_dtype`` is ``int8`` or ``fp8`` (e5m2 on the gradient wire);
     ``impl`` names the JAX package's B5 backend (``auto`` / ``pallas`` /
     ``xla``, bit-equal there): the port takes B5 on the card and its plain
-    version on the CPU whatever it says."""
+    version on the CPU whatever it says.  ``moe_alltoall`` (with
+    ``moe_alltoall_dtype``, ``int8`` or ``fp8`` for e4m3) sends the MoE
+    dispatch through the block-scaled round trip in groups of
+    ``group_size`` (``initialize`` sets it on the model, as the JAX
+    package's ``_apply_moe_quantized_alltoall`` does)."""
 
     enabled: bool = False
     group_size: int = 128
     impl: str = "auto"
     wire_dtype: str = "int8"
     intra_axis: Optional[str] = None
+    moe_alltoall: bool = False
+    moe_alltoall_dtype: str = "int8"
 
 
 class CommScheduleConfig(DeeperSpeedConfigModel):
@@ -265,8 +274,8 @@ class CommsConfig(DeeperSpeedConfigModel):
 class MeshConfig(DeeperSpeedConfigModel):
     """``mesh``: ``model_parallel_size`` is the ``tp`` axis and
     ``data_parallel_size`` the ``dp`` axis (by default what the world
-    leaves); pipeline, sequence and expert parallelism stay 1 until their
-    ROADMAP items land."""
+    leaves), ``expert_parallel_size`` the ``ep`` axis (MoE); pipeline and
+    sequence parallelism stay 1 until their ROADMAP items land."""
 
     pipe_parallel_size: int = 1
     model_parallel_size: int = 1
@@ -276,8 +285,7 @@ class MeshConfig(DeeperSpeedConfigModel):
 
 
 _MESH_ITEMS = {"pipe_parallel_size": "Pipelines",
-               "sequence_parallel_size": "Sequence parallelism",
-               "expert_parallel_size": "MoE"}
+               "sequence_parallel_size": "Sequence parallelism"}
 
 
 def _known(block, model, where):
@@ -320,9 +328,14 @@ class DeeperSpeedConfig:
                 raise ValueError(f"mesh.model_parallel_size {tp} does not divide the "
                                  f"process count {world}")
             world_size = world // tp
+        ep = self.mesh_config.expert_parallel_size
+        if world_size % ep:
+            raise ValueError(f"mesh.expert_parallel_size {ep} does not divide the "
+                             f"data-parallel process count {world_size}")
         dp = self.mesh_config.data_parallel_size
-        if dp is not None and dp * self.zshard_size != world_size:
+        if dp is not None and dp * self.zshard_size * ep != world_size:
             raise ValueError(f"mesh.data_parallel_size {dp} x zshard {self.zshard_size} "
+                             f"x ep {ep} "
                              f"must equal the data-parallel process count {world_size}: "
                              f"one process drives one device")
         self.world_size = world_size
@@ -419,8 +432,9 @@ class DeeperSpeedConfig:
     def _comm(self, comm):
         """``comm``: ``quantized`` (qgZ) and ``overlap`` (with its
         ``schedule``).  Refused: the ``Offload`` planners, an
-        ``intra_axis`` on an axis not ported (``pp``, ``ep``, ``sp``), and
-        ``tp``, whose ranks hold different slices of the parameters."""
+        ``intra_axis`` on an axis not ported (``pp``, ``sp``), ``tp``, whose
+        ranks hold different slices of the parameters, and ``ep`` (qgZ needs
+        ``ep`` 1, as in the JAX engine)."""
         quantized = dict(comm.pop("quantized", {}))
         overlap = dict(comm.pop("overlap", {}))
         intra = quantized.get("intra_axis")
@@ -429,12 +443,9 @@ class DeeperSpeedConfig:
                              f"{list(topo.ALL_AXES)}")
         if intra in topo._AXIS_ITEMS:
             raise _not_ported(f"comm.quantized.intra_axis {intra!r}", topo._AXIS_ITEMS[intra])
-        if intra == topo.TP_AXIS:
-            raise ValueError("comm.quantized.intra_axis 'tp': the qgZ hops run over the "
-                             "data-parallel axes dp and zshard")
-        if quantized.pop("moe_alltoall", False):
-            raise _not_ported("comm.quantized.moe_alltoall", "MoE")
-        quantized.pop("moe_alltoall_dtype", None)
+        if intra in (topo.TP_AXIS, topo.EP_AXIS):
+            raise ValueError(f"comm.quantized.intra_axis {intra!r}: the qgZ hops run over "
+                             f"the data-parallel axes dp and zshard")
         if comm:
             raise _not_ported(f"comm keys {sorted(comm)}", REST)
         _known(quantized, CommQuantizedConfig, "comm.quantized")

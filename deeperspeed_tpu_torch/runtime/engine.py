@@ -22,8 +22,8 @@ the same step runs eagerly, in the same order and precision:
   loss scale off (``precision.py``).
 
 Several processes (``torch.distributed``, one device each, laid out by
-the mesh, ``parallel/topology.py``): the ZeRO group is the ``dp x zshard``
-ranks of this rank's tensor-parallel slice (:attr:`group`, :attr:`world`,
+the mesh, ``parallel/topology.py``): the ZeRO group is the ``dp x zshard
+x ep`` ranks of this rank's tensor-parallel slice (:attr:`group`, :attr:`world`,
 :attr:`rank`, the data-parallel index); every rank takes the contiguous
 slice of each global microbatch its data-parallel index names (``batch=``
 and ``data_iter=`` carry global microbatches; the engine's loader yields
@@ -111,6 +111,18 @@ any other, each rank copying its own pieces in place
 (:meth:`gather_whole`, :meth:`load_whole`).  ``checkpoint.load_universal``
 loads a universal export (``checkpoint/universal.py``) instead.
 
+MoE (a model with ``moe.Experts``, the mesh's ``ep`` axis): the engine
+keeps each ``ep`` rank's share of every layer's stacked experts and hands
+the MoE layers the ZeRO group, over which their routing is global, and the
+``ep`` group, over which their tokens move (``moe/sharded_moe.py``).  The
+experts' parameters get regions of their own, cut and reduced over the
+expert-data-parallel group (the ZeRO axes less ``ep``; ``zshard`` under
+MiCS), the others over the ZeRO group, at every stage; the norms and LAMB
+sum each expert piece over its group and then over ``ep``; checkpoints
+write the experts whole.  At ``ep`` > 1, 1-bit Adam and qgZ raise and the
+deferred reduction falls back to the per-microbatch schedule, as in the
+JAX engine.
+
 Progressive layer drop draws its coins from a generator seeded alike on
 every rank (from ``config.seed`` and the step), so every rank drops the
 same blocks; LAMB's trust ratio takes each parameter's whole norm, its
@@ -125,6 +137,7 @@ host-update (optimizer offload) checkpoint branch ('Offload'); eigenvalue,
 compression and the step telemetry ('The rest of the surface').
 """
 
+import collections
 import math
 import re
 
@@ -149,6 +162,11 @@ from .precision import (
 from .zero import stage3
 from .zero.quantized import fused_flat_reduce
 from .zero.sharding import build_partition_plan, unit_of
+
+# where a kind of region is cut (``part``), replicated under MiCS
+# (``replica``) and reduced whole (``reduce``): the dense parameters over
+# the ZeRO group, the MoE experts over the expert-data-parallel group
+_Layout = collections.namedtuple("_Layout", "part replica reduce")
 
 
 class DeeperSpeedEngine:
@@ -208,6 +226,7 @@ class DeeperSpeedEngine:
 
             self._tp_dims = shard_module(self.module, self.module.param_partition_rules(),
                                          self.tp_group)
+        self._init_experts()
         self._build_state()
 
         # ---- optimizer: lr is applied by the engine unless a client
@@ -295,6 +314,31 @@ class DeeperSpeedEngine:
                                if self._mics and mesh.dp > 1 else None)
         # stage 1-3 partitions: their number and this rank's
         self._parts, self._part_index = self._part_group.size(), self._part_group.rank()
+        # MoE: the experts are spread over ep and cut over the rest
+        self.ep_group = comm.get_expert_parallel_group()
+        self.expert_group = comm.get_expert_data_parallel_group()
+        self._layouts = {
+            False: _Layout(self._part_group, self._replica_group, self.group),
+            True: _Layout(self.zshard_group if self._mics else self.expert_group,
+                          self._replica_group, self.expert_group)}
+
+    def _init_experts(self):
+        """MoE: keep this ``ep`` rank's experts of every layer and hand the
+        layers their groups (the batch group their routing is global over,
+        the ``ep`` group their tokens move in).  :attr:`_expert_names` are
+        the expert parameters, whose leading dim ``ep`` splits."""
+        from ..moe.experts import Experts
+        from ..moe.sharded_moe import MOELayer
+
+        ep, i_ep = self.ep_group.size(), self.ep_group.rank()
+        self._expert_names = set()
+        for name, mod in self.module.named_modules():
+            if isinstance(mod, Experts):
+                if ep > 1:
+                    mod.shard(i_ep, ep)
+                self._expert_names.update(f"{name}.{p}" for p, _ in mod.named_parameters())
+            elif isinstance(mod, MOELayer):
+                mod.set_groups(self.group, self.ep_group)
 
     def _stage3_model(self, model):
         """Stage 3's one change to the model: it recomputes each unit."""
@@ -317,7 +361,7 @@ class DeeperSpeedEngine:
                                  "not compose with ZeRO partitioning)")
             if self.precision.is_fp16:
                 raise ValueError("onebitadam supports fp32/bf16 only")
-            if self.mesh.zshard > 1:
+            if self.mesh.ep > 1 or self.mesh.zshard > 1:
                 raise ValueError("onebitadam compresses over the dp axis; ep/zshard must "
                                  "be 1 (sp or tp compose)")
             if self.world == 1:
@@ -341,6 +385,9 @@ class DeeperSpeedEngine:
                                  "reduction needs replicated masters")
             if self.precision.is_fp16:
                 raise ValueError("comm.quantized supports fp32/bf16 only")
+            if self.mesh.ep > 1:
+                raise ValueError("comm.quantized: ep must be 1 (MoE routing assumes the "
+                                 "GSPMD reduction paths)")
             if self.world == 1:
                 logger.warning("comm.quantized: one process, nothing to quantize; "
                                "running plain reduction")
@@ -378,7 +425,13 @@ class DeeperSpeedEngine:
             logger.warning("comm.overlap.deferred_reduction disabled: "
                            "zero_quantized_weights (the quantized gather keeps the "
                            "per-microbatch reduction, as in the JAX engine)")
-        defer = mode == "manual" and deferrable and not self._qwz and self.world > 1
+        if mode == "manual" and deferrable and self.mesh.ep > 1:
+            logger.warning("comm.overlap.deferred_reduction disabled: ep > 1 (MoE routing "
+                           "needs the GSPMD paths) -- falling back to the per-microbatch "
+                           "reduction schedule (comm.overlap.schedule.mode=auto plans "
+                           "these regimes instead)")
+        defer = (mode == "manual" and deferrable and not self._qwz and self.world > 1
+                 and self.mesh.ep == 1)
         # stages 2-3 reduce each microbatch's gradients unless deferred;
         # under comm.overlap without the deferred schedule, so do stages 0-1
         self._per_micro = (not (self._qgz or self._onebit or defer)
@@ -412,10 +465,12 @@ class DeeperSpeedEngine:
         specs = {n: (tuple(p.shape), self.precision.compute_dtype(
             p, any(re.search(pat, n) for pat in patterns))) for n, p in named.items()}
         stage = self.config.zero_stage
+        ex = self._layouts[True].part
         self.plan = plan = build_partition_plan(
             specs, stage, self._parts, self._part_index,
             self.config.param_persistence_threshold,
-            {n: unit_of(n, self.module) for n in named} if stage == 3 else None)
+            {n: unit_of(n, self.module) for n in named} if stage == 3 else None,
+            self._expert_names, ex.size(), ex.rank())
         self._order = plan.order
         dev, f32, accum = self.device, torch.float32, self._accum_dtype
         local, whole = plan.local_numel, self._acc_whole
@@ -441,12 +496,13 @@ class DeeperSpeedEngine:
                 full = torch.zeros(region.padded, dtype=f32, device=dev)
                 for p, off in zip(params, region.offsets):
                     full[off:off + p.numel()].copy_(p.detach().reshape(-1))
-                if self.world > 1:
-                    comm.broadcast(full, 0, self.group)
-                i0 = plan.index * region.part
+                reduce_group = self._layouts[region.expert].reduce
+                if reduce_group.size() > 1:
+                    comm.broadcast(full, 0, reduce_group)
+                i0 = region.index * region.part
                 master = self._master_flat[base:base + region.part]
                 master.copy_(full[i0:i0 + region.part])
-                for n, shape, a, b, at in region.pieces(plan.index):
+                for n, shape, a, b, at in region.pieces(region.index):
                     keep = shape if b - a == named[n].numel() else \
                         (b - a,) + (1,) * (len(shape) - 1)
                     span = slice(base + at, base + at + b - a)
@@ -466,7 +522,7 @@ class DeeperSpeedEngine:
                         region, shard, gather, self._comm_dtype,
                         lambda g, acc=acc_region: acc.add_(g.to(acc.dtype)),
                         deferred=whole, quantized=self._qwz,
-                        reduce=self._reduce_partition)
+                        reduce=lambda x, r=region: self._reduce_partition(x, r))
                     units.setdefault(region.unit, []).append(gathered)
                     self._gathered_acc.append(acc_region)
                     for p in params:
@@ -505,42 +561,54 @@ class DeeperSpeedEngine:
             sec = region.padded // n
             lo = self.zshard_group.rank() * sec
             return lo, lo + sec, self.zshard_group
-        lo = self._part_index * region.part
-        return lo, lo + region.part, self._part_group
+        lo = region.index * region.part
+        return lo, lo + region.part, self._layouts[region.expert].part
 
-    def _reduce_partition(self, x):
-        """This rank's partition of the ZeRO group's sum of ``x`` (a whole
-        region's buffer in the communication type): a reduce-scatter over
-        ``_part_group``, then under MiCS an all-reduce over the replicas."""
-        y = comm.reduce_scatter(x, self._part_group, log_name="grad_reduce")
-        if self._replica_group is not None:
-            comm.all_reduce(y, group=self._replica_group, log_name="grad_reduce")
+    def _reduce_partition(self, x, region):
+        """This rank's partition of the sum of ``x`` (a whole region's
+        buffer in the communication type) over the ranks that reduce the
+        region: a reduce-scatter over its partition group, then under MiCS
+        an all-reduce over the replicas."""
+        lay = self._layouts[region.expert]
+        y = comm.reduce_scatter(x, lay.part, log_name="grad_reduce")
+        if lay.replica is not None:
+            comm.all_reduce(y, group=lay.replica, log_name="grad_reduce")
         return y
 
     def _plan_buckets(self):
         """The once-a-batch reduction's collectives, in issue order: at stage 0
-        ``("all_reduce", lo, hi)``, contiguous ranges of the flat buffer
-        along :func:`bucketize` of the leaves; at stages 1-3
-        ``("reduce_scatter", off, part, c0, c1, base)``, columns
-        ``[c0, c1)`` of every rank's partition of the region at ``off`` of
-        the whole buffer (``base`` in this rank's), cut where any rank's
-        piece of a parameter starts or ends and grouped by
-        :func:`bucketize`.  Without ``bucket_mb``: one collective over the
-        whole buffer (stage 0) or a region."""
+        ``("all_reduce", lo, hi, group)``, contiguous ranges of the flat
+        buffer along :func:`bucketize` of the leaves (the experts' apart,
+        over their group); at stages 1-3 ``("reduce_scatter", off, part,
+        c0, c1, base, region)``, columns ``[c0, c1)`` of every rank's
+        partition of the region at ``off`` of the whole buffer (``base`` in
+        this rank's), cut where any rank's piece of a parameter starts or
+        ends and grouped by :func:`bucketize`.  Without ``bucket_mb``: one
+        collective over the whole buffer (stage 0; one over the experts) or
+        a region."""
         self._buckets = []
         if not self._deferred:
             return
-        n = self._parts
         itemsize = torch.empty(0, dtype=self._comm_dtype).element_size()
         if self.plan.stage == 0:
-            sizes = [v.numel() for v in self._acc_views]
-            starts = np.concatenate([[0], np.cumsum(sizes)]).tolist()
-            for b in bucketize([s * itemsize for s in sizes], self._bucket_mb):
-                self._buckets.append(("all_reduce", starts[b[0]], starts[b[-1] + 1]))
+            runs, start = [], 0
+            for region in self.plan.regions:
+                if runs and runs[-1][0] == region.expert:
+                    runs[-1][2] += len(region.names)
+                else:
+                    runs.append([region.expert, start, len(region.names)])
+                start += len(region.names)
+            for expert, first, count in runs:
+                sizes = [v.numel() for v in self._acc_views[first:first + count]]
+                lo0 = sum(v.numel() for v in self._acc_views[:first])
+                starts = (lo0 + np.concatenate([[0], np.cumsum(sizes)])).tolist()
+                for b in bucketize([s * itemsize for s in sizes], self._bucket_mb):
+                    self._buckets.append(("all_reduce", starts[b[0]], starts[b[-1] + 1],
+                                          self._layouts[expert].reduce))
             return
         off = 0
         for region, base in zip(self.plan.regions, self.plan.bases()):
-            part = region.part
+            n, part = region.parts, region.part
             cuts = {0, part}
             for start in list(region.offsets) + [region.numel]:
                 for r in range(n):
@@ -551,7 +619,7 @@ class DeeperSpeedEngine:
             for b in bucketize([(hi - lo) * n * itemsize for lo, hi in units],
                                self._bucket_mb):
                 self._buckets.append(("reduce_scatter", off, part, units[b[0]][0],
-                                      units[b[-1]][1], base))
+                                      units[b[-1]][1], base, region))
             off += region.padded
 
     @torch.no_grad()
@@ -566,7 +634,8 @@ class DeeperSpeedEngine:
                 # region, gathered once from the primary partitions
                 full = comm.all_gather_into(
                     torch.empty(region.padded, dtype=region.dtype, device=self.device),
-                    master.to(region.dtype), self.group, log_name="hpz_refresh")
+                    master.to(region.dtype), self._layouts[region.expert].part,
+                    log_name="hpz_refresh")
                 lo, hi, _ = self._compute_shard(region)
                 gathered.shard.copy_(full[lo:hi])
             elif gathered is not None:
@@ -576,7 +645,8 @@ class DeeperSpeedEngine:
             elif region.parts == 1:
                 buf.copy_(master)
             else:
-                comm.all_gather_into(buf, master.to(region.dtype), self._part_group)
+                comm.all_gather_into(buf, master.to(region.dtype),
+                                     self._layouts[region.expert].part)
 
     def full_master_params(self):
         """Every fp32 master whole, by name, a copy (gathered from the
@@ -588,25 +658,30 @@ class DeeperSpeedEngine:
         """Whole tensors by name from ``local``, a dict laid out like
         :attr:`master_params` (this rank's pieces: the masters or a
         per-parameter optimizer tree): views of ``local`` where a region is
-        not partitioned, else gathered from the ranks' partitions, and each
-        tp-split parameter's slices joined along its split dim (a
-        collective every rank calls)."""
+        not partitioned, else gathered from the ranks' partitions, each
+        tp-split parameter's slices joined along its split dim and each
+        expert parameter's ``ep`` ranks' experts along dim 0 (a collective
+        every rank calls)."""
         out = {}
         for region, base in zip(self.plan.regions, self.plan.bases()):
             if region.parts == 1:
                 out.update((n, local[n]) for n in region.names)
                 continue
             part = torch.zeros(region.part, dtype=torch.float32, device=self.device)
-            for n, _, a, b, at in region.pieces(self.plan.index):
+            for n, _, a, b, at in region.pieces(region.index):
                 part[at:at + b - a].copy_(local[n].reshape(-1))
             full = comm.all_gather_into(
                 torch.empty(region.padded, dtype=torch.float32, device=self.device),
-                part, self._part_group)
+                part, self._layouts[region.expert].part)
             for n, shape, off in zip(region.names, region.shapes, region.offsets):
                 out[n] = full[off:off + math.prod(shape)].view(shape)
         for n, dim in self._tp_dims.items():
             out[n] = comm.all_gather(out[n].contiguous(), self.tp_group, axis=dim,
                                      log_name="tp_gather")
+        if self.ep_group.size() > 1:
+            for n in sorted(self._expert_names):
+                out[n] = comm.all_gather(out[n].contiguous(), self.ep_group, axis=0,
+                                         log_name="ep_gather")
         return out
 
     @torch.no_grad()
@@ -621,11 +696,17 @@ class DeeperSpeedEngine:
             raise KeyError(f"checkpoint parameters differ from the model's: missing "
                            f"{missing[:5]}, unexpected {extra[:5]}")
         tp, i_tp = self.tp_group.size(), self.tp_group.rank()
+        ep, i_ep = self.ep_group.size(), self.ep_group.rank()
         for region in self.plan.regions:
-            for n, shape, a, b, _ in region.pieces(self.plan.index):
+            for n, shape, a, b, _ in region.pieces(region.index):
                 if n not in whole:
                     continue
                 src = whole[n]
+                if n in self._expert_names and ep > 1:
+                    if src.dim() == 0 or src.shape[0] != shape[0] * ep:
+                        raise ValueError(f"checkpoint {n}: shape {tuple(src.shape)}, the "
+                                         f"model's {tuple(shape)} on each of {ep} ep ranks")
+                    src = src.chunk(ep, 0)[i_ep]
                 if n in self._tp_dims:
                     dim = self._tp_dims[n]
                     if src.dim() <= dim or src.shape[dim] != shape[dim] * tp:
@@ -801,8 +882,9 @@ class DeeperSpeedEngine:
             for p, off in zip(params, region.offsets):
                 if p.grad is not None:      # a block PLD or random-LTD skipped
                     buf[off:off + p.numel()].copy_(p.grad.reshape(-1))
-            part = (comm.all_reduce(buf, group=self.group, log_name="grad_reduce")
-                    if region.parts == 1 else self._reduce_partition(buf))
+            part = (comm.all_reduce(buf, group=self._layouts[region.expert].reduce,
+                                    log_name="grad_reduce")
+                    if region.parts == 1 else self._reduce_partition(buf, region))
             if self._acc_count == 0:
                 acc_part.copy_(part)
             else:
@@ -897,23 +979,24 @@ class DeeperSpeedEngine:
         bucket by bucket (:meth:`_plan_buckets`) into the fp32 gradient
         buffer.  A stage-0 bucket is reduced in place where the two types
         agree."""
-        acc, g, n, p = self._acc_flat, self._grad_flat, self.world, self._parts
+        acc, g, n = self._acc_flat, self._grad_flat, self.world
         cd = self._comm_dtype if n > 1 else acc.dtype
         d = divisor * n
         for bucket in self._buckets:
             if bucket[0] == "all_reduce":
-                _, lo, hi = bucket
+                _, lo, hi, group = bucket
                 x = acc[lo:hi].div_(d).to(cd)
-                if n > 1:
-                    comm.all_reduce(x, group=self.group, log_name="grad_reduce")
+                if group.size() > 1:
+                    comm.all_reduce(x, group=group, log_name="grad_reduce")
                 if not (acc is g and x.dtype == acc.dtype):
                     g[lo:hi].copy_(x.to(acc.dtype))
             else:
-                _, off, part, c0, c1, base = bucket
+                _, off, part, c0, c1, base, region = bucket
+                p = region.parts
                 x = acc[off:off + p * part].view(p, part)[:, c0:c1].div_(d)
                 y = x.to(cd).reshape(-1)
                 if n > 1:
-                    y = self._reduce_partition(y)
+                    y = self._reduce_partition(y, region)
                 g[base + c0:base + c1].copy_(y.to(acc.dtype))
 
     def _reduce_onebit(self, divisor):
@@ -1012,13 +1095,32 @@ class DeeperSpeedEngine:
     def _partitioned(self):
         return self.plan.stage >= 1 and self._parts > 1
 
-    def _sum_whole(self, sq, split):
+    def _sum_pieces(self, sq, expert):
+        """``sq`` [k, ...] (this rank's pieces' sums) summed over the ranks
+        that hold the other pieces: the rows of dense parameters over the
+        dense partition group, those of expert parameters (``expert``, a
+        bool [k]) over theirs and then over ``ep`` (each ``ep`` rank holds
+        other experts)."""
+        if not self._expert_names:
+            if self._partitioned():
+                comm.all_reduce(sq, group=self._part_group)
+            return sq
+        e = expert.reshape((-1,) + (1,) * (sq.dim() - 1)).to(sq.dtype)
+        dense, experts = sq * (1 - e), sq * e
+        for x, lay in ((dense, self._layouts[False]), (experts, self._layouts[True])):
+            if self.plan.stage >= 1 and lay.part.size() > 1:
+                comm.all_reduce(x, group=lay.part)
+        if self.ep_group.size() > 1:
+            comm.all_reduce(experts, group=self.ep_group)
+        return dense + experts
+
+    def _sum_whole(self, sq, split, expert=None):
         """Squares summed into whole parameters: ``sq`` [k, ...] holds this
-        rank's pieces' sums; the partitions' pieces are summed over
-        ``_part_group``, then the rows of tp-split parameters (``split``, a
-        bool [k]) over ``tp``, the whole ones taken once (from tp rank 0)."""
-        if self._partitioned():
-            comm.all_reduce(sq, group=self._part_group)
+        rank's pieces' sums; the partitions' pieces are summed
+        (:meth:`_sum_pieces`, ``expert`` marking the expert rows), then the
+        rows of tp-split parameters (``split``, a bool [k]) over ``tp``, the
+        whole ones taken once (from tp rank 0)."""
+        sq = self._sum_pieces(sq, expert)
         if self.tp_group.size() > 1:
             keep = split | (self.tp_group.rank() == 0)
             sq = sq * keep.reshape((-1,) + (1,) * (sq.dim() - 1)).to(sq.dtype)
@@ -1028,14 +1130,17 @@ class DeeperSpeedEngine:
     def _global_norm(self, g):
         """The L2 norm of the whole gradient: of the local buffer where it
         is whole, else the root of the ranks' summed squares (split and
-        whole tp parameters apart)."""
-        if self.tp_group.size() > 1:
-            split = [t for n, t in self.grads.items() if n in self._tp_dims]
-            whole = [t for n, t in self.grads.items() if n not in self._tp_dims]
-            sq = torch.stack([torch.stack(torch._foreach_norm(ts)).square().sum()
-                              if ts else g.new_zeros(()) for ts in (split, whole)])
-            sq = self._sum_whole(sq, torch.tensor([True, False], device=sq.device))
-            return torch.sqrt(sq.sum())
+        whole tp parameters apart, and MoE experts apart: each ``ep`` rank
+        holds other experts)."""
+        if self.tp_group.size() > 1 or self._expert_names:
+            kinds = [(s, e) for s in (True, False) for e in (False, True)]
+            rows = {k: [] for k in kinds}
+            for n, t in self.grads.items():
+                rows[(n in self._tp_dims, n in self._expert_names)].append(t)
+            sq = torch.stack([torch.stack(torch._foreach_norm(rows[k])).square().sum()
+                              if rows[k] else g.new_zeros(()) for k in kinds])
+            flags = torch.tensor(kinds, device=sq.device)
+            return torch.sqrt(self._sum_whole(sq, flags[:, 0], flags[:, 1]).sum())
         if not self._partitioned():
             return tree_global_norm([g])
         sq = torch.dot(g, g).reshape(1)
@@ -1051,13 +1156,20 @@ class DeeperSpeedEngine:
         idx = torch.tensor([row[n] for n in names], device=sq.device)
         full = sq.new_zeros((len(self._order), 2)).index_copy_(0, idx, sq)
         split = torch.tensor([n in self._tp_dims for n in self._order], device=sq.device)
-        return self._sum_whole(full, split).index_select(0, idx)
+        expert = torch.tensor([n in self._expert_names for n in self._order],
+                              device=sq.device)
+        return self._sum_whole(full, split, expert).index_select(0, idx)
 
     def _any_rank(self, flag):
         """A bool scalar, true if it is on any rank holding a partition or
         a tp slice."""
-        groups = [g for g, on in ((self._part_group, self._partitioned()),
-                                  (self.tp_group, self.tp_group.size() > 1)) if on]
+        experts = self._layouts[True].part
+        groups = [g for g, on in (
+            (self._part_group, self._partitioned()),
+            (experts, bool(self._expert_names) and self.plan.stage >= 1
+             and experts is not self._part_group and experts.size() > 1),
+            (self.ep_group, bool(self._expert_names) and self.ep_group.size() > 1),
+            (self.tp_group, self.tp_group.size() > 1)) if on]
         if not groups:
             return flag
         x = flag.to(torch.float32).reshape(1)

@@ -7,8 +7,10 @@ lr_scheduler)``.  Over several processes it joins the process group first
 unless the caller already has.  ``mesh=`` is a ``parallel.MeshTopology``
 over the processes; without it the mesh is built from the config as the
 JAX engine builds it (``engine.py:100-125``): ``tp`` from
-``mesh.model_parallel_size``, ``zshard`` from ``mics_shard_size`` /
-``zero_hpz_partition_size``, ``dp`` what the world leaves.  An ``mpu`` is
+``mesh.model_parallel_size``, ``ep`` from ``mesh.expert_parallel_size``,
+``zshard`` from ``mics_shard_size`` / ``zero_hpz_partition_size``, ``dp``
+what the world leaves.  ``comm.quantized.moe_alltoall`` sets the MoE
+transport of the model's config.  An ``mpu`` is
 accepted and superseded by the mesh, as in the JAX engine, unless it asks
 for pipeline stages; a pipeline model raises ``NotImplementedError`` (the
 hybrid engine's config block is refused by the config).
@@ -56,7 +58,8 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
             config = DeeperSpeedConfig(config)
         mc = config.mesh_config
         set_mesh(MeshTopology(tp=mc.model_parallel_size, dp=mc.data_parallel_size,
-                              zshard=config.zshard_size))
+                              zshard=config.zshard_size, ep=mc.expert_parallel_size))
+    _apply_moe_quantized_alltoall(model, config)
     engine = DeeperSpeedEngine(
         model=model, config=config, optimizer=optimizer,
         model_parameters=model_parameters, loss_fn=loss_fn,
@@ -64,3 +67,19 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         lr_scheduler=lr_scheduler, device=device)
     log_dist("initialize() complete", ranks=[0])
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
+
+
+def _apply_moe_quantized_alltoall(model, config):
+    """``comm.quantized.moe_alltoall`` turns the MoE dispatch of a model
+    with experts onto the block-scaled wire (the JAX package's
+    ``_apply_moe_quantized_alltoall``): its config's
+    ``moe_quantized_alltoall``, ``moe_quantized_group_size`` (the block's
+    ``group_size``) and ``moe_quantized_alltoall_dtype``.  Other models
+    pass untouched."""
+    cq = config.comm_quantized
+    mcfg = getattr(model, "config", None)
+    if not (cq.moe_alltoall and hasattr(mcfg, "moe_quantized_alltoall")
+            and getattr(mcfg, "has_moe", False)):
+        return
+    model.replace_config(moe_quantized_alltoall=True, moe_quantized_group_size=cq.group_size,
+                         moe_quantized_alltoall_dtype=cq.moe_alltoall_dtype)

@@ -30,9 +30,15 @@ or not), where a unit is the module whose forward gathers the parameters
 module that asks to be one: a ``TiledLinear`` tile).
 
 The partitions are cut over the engine's partition group: the ZeRO group
-(``dp x zshard`` of the rank's tensor-parallel slice), or under MiCS the
-``zshard`` group alone (``world`` and ``rank`` here are that group's size
-and this rank's place in it).
+(``dp x zshard x ep`` of the rank's tensor-parallel slice), or under MiCS
+the ``zshard`` group alone (``world`` and ``rank`` here are that group's
+size and this rank's place in it).  MoE expert parameters, whose leading
+dim the ``ep`` axis splits, get regions of their own (``expert``), after
+the others at stages 0-2 and after the others of their unit at stage 3:
+they are cut over the expert-data-parallel group (the ZeRO axes less
+``ep``; under MiCS still ``zshard``), as the JAX package's ZeRO plan leaves
+``ep`` out of an expert leaf's free axes.  Each region carries the
+partition this rank holds of it (``index``).
 """
 
 import dataclasses
@@ -53,6 +59,8 @@ class Region:
     parts: int              # 1 at stage 0 (nothing partitioned)
     unit: str = ""          # stage 3: the module that gathers it
     gathered: bool = False  # stage 3: compute parameters partitioned too
+    expert: bool = False    # MoE expert parameters (cut over the expert group)
+    index: int = 0          # the partition this rank holds
 
     @property
     def numel(self):
@@ -93,7 +101,7 @@ def _size(shape):
 class ZeroPartitionPlan:
     stage: int
     world: int
-    index: int              # the partition this rank holds (0 at stage 0)
+    index: int              # the partition this rank holds of a dense region
     regions: List[Region]
 
     @property
@@ -140,40 +148,50 @@ def _partitioned(shape, threshold):
     return len(shape) >= 2 and _size(shape) >= threshold
 
 
-def _region(params, names, dtype, parts, unit="", gathered=False):
+def _region(params, names, dtype, parts, index, unit="", gathered=False, expert=False):
     shapes = [tuple(params[n][0]) for n in names]
     offsets, off = [], 0
     for s in shapes:
         offsets.append(off)
         off += _size(s)
-    return Region(list(names), shapes, offsets, dtype, parts, unit, gathered)
+    return Region(list(names), shapes, offsets, dtype, parts, unit, gathered, expert,
+                  index if parts > 1 else 0)
 
 
 def build_partition_plan(params, stage, world, rank, persistence_threshold=100_000,
-                         units=None):
+                         units=None, experts=(), expert_world=1, expert_rank=0):
     """The regions of ``params`` (an ordered dict name -> (shape, compute
-    dtype)) at ``stage`` over ``world`` ranks.  ``units`` maps each name to
-    its gathering module (stage 3)."""
-    parts = world if stage >= 1 else 1
+    dtype)) at ``stage`` over ``world`` ranks (this one ``rank``); the
+    ``experts`` names in regions of their own over ``expert_world`` ranks
+    (this one ``expert_rank``).  ``units`` maps each name to its gathering
+    module (stage 3)."""
+    experts = set(experts)
+    cut = {False: (world if stage >= 1 else 1, rank),
+           True: (expert_world if stage >= 1 else 1, expert_rank)}
     cast = [n for n, (_, dt) in params.items() if dt != torch.float32]
     kept = [n for n, (_, dt) in params.items() if dt == torch.float32]
     regions = []
+
+    def add(names, expert, unit="", gathered=False):
+        if names:
+            regions.append(_region(params, names, params[names[0]][1], *cut[expert],
+                                   unit, gathered, expert))
+
     if stage < 3:
-        for names in (cast, kept):
-            if names:
-                regions.append(_region(params, names, params[names[0]][1], parts))
-        return ZeroPartitionPlan(stage, world, rank if parts > 1 else 0, regions)
+        for expert in (False, True):
+            for names in (cast, kept):
+                add([n for n in names if (n in experts) == expert], expert)
+        return ZeroPartitionPlan(stage, world, rank if stage >= 1 and world > 1 else 0,
+                                 regions)
     seen = []
     for n in params:
         if units[n] not in seen:
             seen.append(units[n])
     for unit in seen:
-        for names in (cast, kept):
-            mine = [n for n in names if units[n] == unit]
-            for gathered in (False, True):
-                group = [n for n in mine if gathered == _partitioned(
-                    params[n][0], persistence_threshold)]
-                if group:
-                    regions.append(_region(params, group, params[group[0]][1], parts,
-                                           unit, gathered))
+        for expert in (False, True):
+            for names in (cast, kept):
+                mine = [n for n in names if units[n] == unit and (n in experts) == expert]
+                for gathered in (False, True):
+                    add([n for n in mine if gathered == _partitioned(
+                        params[n][0], persistence_threshold)], expert, unit, gathered)
     return ZeroPartitionPlan(stage, world, rank, regions)

@@ -77,6 +77,9 @@ def test_port_imports_no_jax():
         "import deeperspeed_tpu_torch.parallel.tensor_parallel\n"
         "import deeperspeed_tpu_torch.runtime.zero.tiling\n"
         "import deeperspeed_tpu_torch.runtime.initialize\n"
+        "import deeperspeed_tpu_torch.moe, deeperspeed_tpu_torch.moe.sharded_moe\n"
+        "import deeperspeed_tpu_torch.moe.experts, deeperspeed_tpu_torch.moe.layer\n"
+        "import deeperspeed_tpu_torch.moe.mappings\n"
         "import deeperspeed_tpu_torch.models.llama, deeperspeed_tpu_torch.inference\n"
         "import deeperspeed_tpu_torch.inference.engine, deeperspeed_tpu_torch.inference.config\n"
         "import deeperspeed_tpu_torch.inference.params\n"

@@ -4,7 +4,8 @@ GPT-NeoX ``tiny()`` and Llama ``tiny()`` with the JAX engine's weights:
 greedy generation with and without left padding, eos and pad, the sampling
 filter, the full-sequence forward, weight-only quantization (q and scales
 bit for bit against the jitted JAX function, greedy tokens against the
-JAX wq engine), checkpoints across the packages, and the MoE refusals.
+JAX wq engine), checkpoints across the packages, and what became of the
+MoE refusals.
 
 Tolerances: forward logits within 1e-5 (fp32); greedy tokens equal."""
 
@@ -268,25 +269,49 @@ def test_init_inference_defaults_to_cuda(monkeypatch):
         tdst.init_inference(model=GPTNeoX(GPTNeoXConfig.tiny(), device="cpu"))
 
 
+def _moe_engine_generates():
+    """An MoE model served by the v1 engine under ``moe_experts``."""
+    model = GPTNeoX(GPTNeoXConfig.tiny(moe_num_experts=4, moe_drop_tokens=False), device="cpu")
+    eng = tdst.init_inference(model, {"dtype": "fp32", "moe": True, "moe_experts": 4},
+                              device="cpu")
+    assert eng.config.moe_experts == 4
+    assert eng.generate(np.ones((1, 4), np.int32), max_new_tokens=3).shape == (1, 7)
+
+
+def _ep_not_dividing_is_refused():
+    with pytest.raises(ValueError, match="expert_parallel_size 2 does not divide"):
+        tdst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(), device="cpu"), device="cpu",
+                        config={**TRAIN, "mesh": {"expert_parallel_size": 2}})
+
+
+def _moe_initialize(config):
+    model = GPTNeoX(GPTNeoXConfig.tiny(moe_num_experts=4), device="cpu")
+    eng, *_ = tdst.initialize(model=model, device="cpu", config={**TRAIN, **config})
+    eng.train_batch(batch=model.example_batch(8, 16))
+    return eng
+
+
+# the MoE refusals the port made before MoE was ported, each now running
+# the accepted path, or (an ep that does not divide the processes) the
+# refusal that stays
 REFUSED = [
-    ("inference moe", lambda: DeeperSpeedInferenceConfig(moe=True)),
-    ("inference moe_experts", lambda: DeeperSpeedInferenceConfig(moe_experts=4)),
-    ("model moe_num_experts", lambda: GPTNeoX(GPTNeoXConfig.tiny(moe_num_experts=4),
-                                              device="cpu")),
-    ("mesh expert_parallel_size", lambda: tdst.initialize(
-        model=GPTNeoX(GPTNeoXConfig.tiny(), device="cpu"), device="cpu",
-        config={**TRAIN, "mesh": {"expert_parallel_size": 2}})),
-    ("comm moe_alltoall", lambda: tdst.initialize(
-        model=GPTNeoX(GPTNeoXConfig.tiny(), device="cpu"), device="cpu",
-        config={**TRAIN, "comm": {"quantized": {"enabled": True, "moe_alltoall": True}}})),
-    ("config moe", lambda: tdst.initialize(
-        model=GPTNeoX(GPTNeoXConfig.tiny(), device="cpu"), device="cpu",
-        config={**TRAIN, "moe": {"enabled": True}})),
+    ("inference moe", lambda: DeeperSpeedInferenceConfig(moe=True).moe),
+    ("inference moe_experts", _moe_engine_generates),
+    ("model moe_num_experts", lambda: len(GPTNeoX(GPTNeoXConfig.tiny(moe_num_experts=4),
+                                                  device="cpu").moe_layers()) == 1),
+    ("mesh expert_parallel_size", _ep_not_dividing_is_refused),
+    ("comm moe_alltoall", lambda: _moe_initialize(
+        {"comm": {"quantized": {"moe_alltoall": True, "moe_alltoall_dtype": "fp8"}}}
+    ).module.config.moe_quantized_alltoall_dtype == "fp8"),
+    ("config moe", lambda: _moe_initialize({"moe": {"enabled": True}}) is not None),
 ]
 
 
 @pytest.mark.parametrize("what,make", REFUSED, ids=[w for w, _ in REFUSED])
 def test_moe_refusals_name_their_item(what, make):
-    """Every MoE refusal names ROADMAP Queue A's item 'MoE'."""
-    with pytest.raises(NotImplementedError, match="'MoE'"):
-        make()
+    """What became of each MoE refusal: the inference config's ``moe`` keys
+    are accepted and not acted on (the JAX package's rule), an MoE model
+    builds, serves and trains, ``comm.quantized.moe_alltoall`` reaches the
+    model's config, the config's ``moe`` block is accepted; an
+    ``expert_parallel_size`` the processes do not fill is refused."""
+    assert make() is not False

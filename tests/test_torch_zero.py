@@ -242,17 +242,18 @@ def test_fused_adam_steps_over_each_ranks_pieces(runs):
      NotImplementedError),
     ({"mesh": {"pipe_parallel_size": 2}}, NotImplementedError),
     ({"mesh": {"sequence_parallel_size": 2}}, NotImplementedError),
-    ({"mesh": {"expert_parallel_size": 2}}, NotImplementedError),
-    ({"comm": {"quantized": {"enabled": True, "intra_axis": "ep"}}}, NotImplementedError),
+    ({"mesh": {"expert_parallel_size": 2}}, ValueError),
+    ({"comm": {"quantized": {"enabled": True, "intra_axis": "ep"}}}, ValueError),
     ({"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}}},
      NotImplementedError),
     ({"comm": {"quantized": {"enabled": True, "bucket_mb": 8}}}, NotImplementedError),
 ])
 def test_refused_configurations(extra, error):
-    """qgZ refuses fp16 and stages above 0, as the JAX engine does; the
-    layouts not ported yet (offload, pipelines, sequence and expert
-    parallelism) name their ROADMAP item."""
-    match = "ROADMAP Queue A" if error is NotImplementedError else "comm"
+    """qgZ refuses fp16 and stages above 0, as the JAX engine does, and an
+    intra hop on ``ep`` (its hops run over dp and zshard); an ``ep`` that
+    does not divide the processes is refused; the layouts not ported yet
+    (offload, pipelines, sequence parallelism) name their ROADMAP item."""
+    match = "ROADMAP Queue A" if error is NotImplementedError else "comm|mesh"
     with pytest.raises(error, match=match):
         tdst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(), device="cpu"),
                         config={**BASE, **extra}, device="cpu")

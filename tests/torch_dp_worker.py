@@ -41,6 +41,12 @@ run in turn.  Job kinds:
   whole masters and optimizer state under the checkpoint's names
   (``m/<name>``, ``o/<name>``), on every rank its generator state, loss
   scale, counters and loader position;
+* ``moe``: the configurations ``spec["refusals"]`` lists (each a
+  ``config``, ``model`` fields and a ``mesh``) must fail to initialize:
+  their errors are recorded as ``refusal<i>``; then the runs of
+  ``spec["moe_runs"]`` as ``train`` runs them (a run's ``model`` holds the
+  MoE fields, its ``mesh`` the ``ep`` axis), so that one spec can hold
+  ``ckpt`` runs too;
 * ``llama``: a Llama ``tiny()`` engine from the weights ``w/<param>``
   trains at ``spec["train"]["config"]`` (its ``mesh`` block sets ``tp``) on
   the batches ``b<i>/<key>`` and records its losses; then the v1 engine
@@ -311,6 +317,18 @@ def _comm(spec, job, rank, out):
         out[case["name"]] = y.numpy()
 
 
+def _moe(spec, job, rank, out):
+    for i, case in enumerate(spec.get("refusals", [])):
+        try:
+            tdst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(**case["model"]), device="cpu"),
+                            config=case["config"], device="cpu", mesh=_mesh(case))
+            msg = ""
+        except (ValueError, NotImplementedError) as e:
+            msg = f"{type(e).__name__}: {e}"
+        out[f"refusal{i}"] = np.array(msg)
+    _train({**spec, "runs": spec["moe_runs"]}, job, rank, out)
+
+
 def _llama(spec, job, rank, out):
     from deeperspeed_tpu_torch.models import Llama, LlamaConfig
 
@@ -346,7 +364,7 @@ def main():
     out = {}
     kinds = spec["kind"] if isinstance(spec["kind"], list) else [spec["kind"]]
     for kind in kinds:
-        {"train": _train, "comm": _comm, "ckpt": _ckpt, "llama": _llama}[kind](
+        {"train": _train, "comm": _comm, "ckpt": _ckpt, "llama": _llama, "moe": _moe}[kind](
             spec, job, rank, out)
     np.savez(out_path, **out)
     comm.destroy()
