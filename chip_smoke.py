@@ -68,7 +68,7 @@ package, and goes through these phases, each printing its lines:
    10 timed ones; the loss must be finite and the counters of K1, K5, K6,
    K7 and K8 must rise;
 10. the rest of single-card training, checked: Pythia-160M at full width
-    with 2 layers in fp32, 3 steps on the card and on the CPU from the same
+    with 2 layers in fp32, 2 steps on the card and on the CPU from the same
     seeded weights and batches, losses within 1e-4 relative, for FusedAdam
     and FusedLion with weight decay 0.01, and for Adam with the chunked
     loss (``ce_chunk_tokens`` 96 over 2 x 128 tokens), block recompute
@@ -90,7 +90,7 @@ package, and goes through these phases, each printing its lines:
     ``gloo`` (NCCL refuses two ranks on one device; every collective is
     staged through host memory), spawned once (``--dp-worker``) after the
     build, for phases 13 and 14.  Pythia-160M at full width with 2 layers in
-    fp32, global batch 4 x 128 (2 rows a rank), 3 Adam steps with clip 1.0,
+    fp32, global batch 4 x 128 (2 rows a rank), 2 Adam steps with clip 1.0,
     at ZeRO stages 0-3, each held against one process on the card from the
     same weights and batches (losses and the first grad norm within 1e-4
     relative, as phase 8); stages 1-3 hold half the fp32 masters and Adam
@@ -102,7 +102,7 @@ package, and goes through these phases, each printing its lines:
 14. data-parallel training at full size: phase 9's step (Pythia-160M bf16,
     global batch 16 x 1024, 8 rows a rank, Adam lr 1e-4, clip 1.0) at world
     2 on the card, at ZeRO stage 2 and at stage 0 with ``comm.quantized``
-    int8; 1 warm-up step and 3 timed ones: losses finite and equal on both
+    int8; 1 warm-up step and 1 timed one: losses finite and equal on both
     ranks, B5 once a step for each of the 148 parameters under qgZ; wall
     ms/step over gloo via host, two ranks on one card; then (for phase 19)
     phase 13's stage-2 run saves a checkpoint at world 2;
@@ -155,7 +155,7 @@ package, and goes through these phases, each printing its lines:
     per-microbatch schedule (losses and each step's grad norm within 1e-4
     relative, the bucketed losses equal to the unbucketed ones; the
     gradient-reduction bytes staged a step against the per-microbatch
-    schedule's); OneBitAdam with ``freeze_step`` 1 over 3 steps (losses
+    schedule's); OneBitAdam with ``freeze_step`` 1 over 2 steps (losses
     finite and equal on both ranks; the loss after the exact-mean warm-up
     step within 1e-6 relative of phase 13's Adam at stage 0; the first
     sign-compressed reduction of a parameter of at least 2^20 elements
@@ -165,11 +165,11 @@ package, and goes through these phases, each printing its lines:
     (gather bytes staged against stage 3 without it, losses within 0.05);
     and one ``comm.log_summary(show_straggler=True)`` table.  (c) phase 14's
     step with gas 2 at world 2, stage 2, per microbatch and then deferred:
-    1 warm-up and 3 timed steps, ms/step and bytes staged a step.
+    1 warm-up and 1 timed step, ms/step and bytes staged a step.
 21. the layout: four ``--layout-worker`` processes share the card over
     gloo.  (a) phase 9's step (Pythia-160M at full width and depth, bf16,
     global batch 16 x 1024, Adam, clip 1.0, stage 2) at tp 2 x dp 2, 1
-    warm-up and 3 timed steps, held against phase 14's run of the same
+    warm-up and 1 timed step, held against phase 14's run of the same
     seed at tp 1 x dp 2: losses within 1e-2 relative (bf16: the row-
     parallel products sum two bf16 halves), grad norms within 1e-2; K1,
     K5-K8 must launch (K5-K7 on 6 heads a rank); (b) MiCS (dp 2 x zshard 2,
@@ -230,7 +230,38 @@ package, and goes through these phases, each printing its lines:
     and the ep-2 checkpoint loaded at ep 1 (digest equal); (d) the model in bf16
     with no-drop gating through ``InferenceEngineV2`` at phase 5's batch
     and pool: ms/round and TTFT (K1, K2, K3, K4 must launch), then the v1
-    engine's greedy tokens against the v2 engine's in fp32 at 2 layers.
+    engine's greedy tokens against the v2 engine's in fp32 at 2 layers;
+24. offload, at Pythia-1.4B (1,414,647,808 parameters, drawn on the card)
+    in bf16 at batch 8 x 1024, Adam, clip 1.0, ZeRO-0, after asserting the
+    host memory and disk it needs: (a) the host update (the native CPU
+    Adam of ``csrc/host/cpu_adam.cpp`` over pinned host masters and
+    moments) against the device update on the same weights, 3 steps: the
+    first loss equal, the masters after step 1 within rtol 2e-5, atol
+    1e-6, the losses within 1e-3; an engine built with ``wire_dtype:
+    "bf16"`` takes step 1 from the same weights, half the gradients' bytes
+    to the host, its masters within 1e-2 lr of the fp32 wire's; per step
+    the forward and backward, the gradients' D2H, the host Adam, the host
+    bf16 cast and the H2D, and each engine's peak memory; (b) the
+    pinned-host tier (FusedAdam: B6 on the card once a step), losses within
+    1e-3 of (a)'s device run, the state's H2D and D2H; (c) the NVMe tier
+    at 1.4B's width and 4 layers, 3 steps with ``pipeline_write: false``
+    and 2 with ``true``, losses equal to the run without it, swap-out and
+    swap-in GB/s and the share of the swap-in hidden under the gradients,
+    the swap directory gone after ``destroy()``; (d) ZeRO-Infinity on
+    the same 4 layers in 4 chunks, 2 steps, against the host update on the
+    same weights (within 1e-3), device parameter residency below the
+    model's, ``swap_stats``; (e) Pythia-160M's checkpoint through the
+    synchronous writer and the async one (the aio pool), files byte-equal
+    (equal manifests of their sha256), GB/s each;
+    (f) (in phase 13's workers) phase 14's stage-2 step on the pinned-host
+    tier at world 2, losses equal to phase 14's.  K1/K8 and K5-K7 must
+    launch on every offload path.  Each phase prints a ``[time]`` line.
+
+The worker processes of phases 13-14, 20, 21, 22 (e) and 23 (c) start
+right after the build, make their CUDA context and wait until their phase
+(``[workers]`` line); those of 22 (e) and 23 (c) run under phase 19, which
+waits on the disk, and their phases join them.  Each phase prints a
+``[time]`` line.
 
 The second-to-last line is the JSON summary of the kernels (a kernel's
 ``launches`` sums its counts on the main paths, serving in phase 5,
@@ -243,8 +274,10 @@ schedule's B5 launches (rank 0) and the deferred full-size steps (rank 0),
 in phase 21 the tp 2 x dp 2 full-size steps (rank 0), and in phase 22
 (a)'s serving, (c)'s three v1 runs, (b)'s windowed rounds, (d)'s two
 full-width trainings and (e)'s tp 2 run (rank 0), in phase 23 (b)'s top-1
-training, (c)'s stage-0 run (rank 0) and (d)'s bf16 serving, each read
-right after its own run and listed in ``launches_by_path``), the
+training, (c)'s stage-0 run (rank 0) and (d)'s bf16 serving, in phase 24
+(a)'s host-update steps, (b)'s pinned-tier steps, (c)'s NVMe-tier steps and
+(d)'s streamed steps, each read right after its own run and listed in
+``launches_by_path``), the
 last ``{"ok": true,
 "device": {...}}``.  Any
 failure, of a phase or of a worker, raises and exits non-zero; without a
@@ -253,8 +286,10 @@ CUDA device, or outside a checkout, it exits 2 and prints no result.
 
 import copy
 import dataclasses
+import gc
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -334,13 +369,14 @@ TRAIN_CONFIG = {"train_batch_size": TRAIN_BATCH,
 
 
 def trained_model(device=None, **config):
-    """Pythia-160M at full width and depth in bf16, random weights from ``SEED``."""
+    """Pythia-160M at full width and depth in bf16, random weights from
+    ``SEED``, drawn on the card unless ``device`` is given."""
     import torch
 
     from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
     return GPTNeoX(GPTNeoXConfig.pythia_160m(dtype=torch.bfloat16, max_seq_len=TRAIN_SEQ,
                                              **config),
-                   device=device, seed=SEED)
+                   device=device, seed=SEED, draw_on_device=device is None)
 
 
 def trained_batch(model):
@@ -352,6 +388,7 @@ def trained_batch(model):
 # tools/torch_train_profile.py --fused: phase 9's step with FusedAdam, the
 # loader over training_data=, the chunked loss and block recompute.
 FUSED_CE_CHUNK, FUSED_DATA_BATCHES = 4096, 12
+FUSED_CHECK_STEPS = 2               # phase 10's steps, card against CPU
 FUSED_TRAIN_CONFIG = {**TRAIN_CONFIG,
                       "optimizer": {"type": "FusedAdam", "params": {"lr": 1e-4}},
                       "activation_checkpointing": {"partition_activations": True}}
@@ -373,7 +410,7 @@ def fused_training_data(np, vocab):
 # Data-parallel training (phases 13 and 14): two processes on the one card,
 # gloo as the transport (NCCL refuses two ranks on one device).
 DP_WORLD = 2
-DP_CHECK_STEPS, DP_CHECK_ROWS, DP_CHECK_SEQ = 3, 4, 128
+DP_CHECK_STEPS, DP_CHECK_ROWS, DP_CHECK_SEQ = 2, 4, 128
 DP_CHECK_CONFIG = {"train_batch_size": DP_CHECK_ROWS, "gradient_clipping": 1.0,
                    "optimizer": {"type": "Adam", "params": {"lr": 1e-4}}}
 DP_CHECK_RUNS = {
@@ -383,10 +420,13 @@ DP_CHECK_RUNS = {
                                                             "wire_dtype": w}}}
        for w in ("int8", "fp8")}}
 DP_QGZ_TOL, DP_QGZ_NORM_TOL = 1e-3, 1e-2   # see phase_dp_checked
-DP_FULL_STEPS = 3
+DP_FULL_STEPS = 1
 DP_FULL_RUNS = {
     "stage2": {**TRAIN_CONFIG, "zero_optimization": {"stage": 2}},
     "qgz-int8": {**TRAIN_CONFIG, "comm": {"quantized": {"enabled": True}}}}
+# phase 24 (f): phase 14's stage-2 step with the pinned-host tier
+OFFLOAD_DP_RUNS = {"offload-stage2": {**TRAIN_CONFIG, "zero_optimization": {
+    "stage": 2, "offload_optimizer": {"device": "cpu"}}}}
 
 
 # The wire (phase 20): phase 13's model at gas 2 under the gradient
@@ -441,10 +481,12 @@ LAYOUT_PREFETCH_RUNS = {
 
 
 def dp_check_model(device=None):
-    """Phase 8's model: Pythia-160M at full width with 2 layers, fp32."""
+    """Phase 8's model: Pythia-160M at full width with 2 layers, fp32; drawn
+    on the card unless ``device`` is given (the card-against-CPU checks
+    name both devices and take the CPU's draw on each)."""
     from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
     return GPTNeoX(dataclasses.replace(GPTNeoXConfig.pythia_160m(), num_layers=2),
-                   device=device, seed=SEED)
+                   device=device, seed=SEED, draw_on_device=device is None)
 
 
 def dp_check_batches(np, vocab):
@@ -1781,7 +1823,7 @@ def phase_fused_checked(torch, np):
         rng = np.random.default_rng(SEED + 6)
         V = two_layers.vocab_size
         worst = 0.0
-        for step in range(3):
+        for step in range(FUSED_CHECK_STEPS):
             toks = rng.integers(0, V, (2, 129))
             batch = {"input_ids": toks[:, :-1], "labels": toks[:, 1:]}
             losses = []
@@ -1813,7 +1855,8 @@ def phase_fused_checked(torch, np):
             msg = (f"; on the card the chunked loss {chunked:.7f} vs monolithic "
                    f"{whole:.7f} ({abs(chunked - whole) / abs(whole):.2e} relative, tol 1e-5)")
         print(f"[fused-checked] Pythia-160M width, 2 layers, fp32, B 2 x S 128, {name}: "
-              f"3 steps, losses card vs CPU within {worst:.2e} relative (tol {tol}); "
+              f"{FUSED_CHECK_STEPS} steps, losses card vs CPU within {worst:.2e} relative "
+              f"(tol {tol}); "
               f"last loss {lg:.6f}{msg}", flush=True)
         del engines
         torch.cuda.empty_cache()
@@ -2008,6 +2051,20 @@ def dp_worker(rank, rendezvous, out_path):
         results[f"full-{name}"] = rec
         del eng, model
         torch.cuda.empty_cache()
+    for name, cfg in OFFLOAD_DP_RUNS.items():           # phase 24 (f)
+        model = trained_model()
+        eng = dst.initialize(model=model, config=cfg)[0]
+        batch = {k: v.cuda() for k, v in trained_batch(model).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [float(eng.train_batch(batch=batch)) for _ in range(OFFLOAD_DP_STEPS)]
+        torch.cuda.synchronize()
+        results[name] = {"losses": losses,
+                         "ms_per_step": (time.perf_counter() - t0) / OFFLOAD_DP_STEPS * 1e3,
+                         "h2d_gb": eng.offload_stats["h2d_bytes"] / 1e9,
+                         "d2h_gb": eng.offload_stats["d2h_bytes"] / 1e9}
+        del eng, model
+        torch.cuda.empty_cache()
     for name, cfg in WIRE_CHECK_RUNS.items():           # phase 20 (b)
         if name == WIRE_LOGGED:
             cfg = {**cfg, "comms_logger": {"enabled": True}}
@@ -2113,18 +2170,104 @@ def _watch_onebit(torch, rec):
     return lambda: setattr(compressed, "onebit_all_reduce", plain)
 
 
-def _spawn_dp_workers(workdir, flag="--dp-worker", world=DP_WORLD):
+def _spawn_dp_workers(workdir, flag="--dp-worker", world=DP_WORLD, go=None):
     """Start the ``world`` worker processes (``flag``: ``--dp-worker`` or
-    ``--wire-worker``); returns them with their log and result paths."""
+    ``--wire-worker``); returns them with their log and result paths.  With
+    ``go`` (a path) they start, make their CUDA context and then wait for
+    that file before they run."""
+    env = dict(os.environ, DST_SMOKE_GO=str(go)) if go is not None else None
     procs = []
     for rank in range(world):
         log = open(workdir / f"rank{rank}.log", "w")
         procs.append((subprocess.Popen(
             [sys.executable, str(ROOT / "chip_smoke.py"), flag, str(rank),
              str(workdir / "rendezvous"), str(workdir / f"rank{rank}.json")],
-            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT), log,
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT), log,
             workdir / f"rank{rank}.log", workdir / f"rank{rank}.json"))
     return procs
+
+
+# The worker groups, started right after the build and held at a go file
+# until their phase, so that their start (the interpreter, torch, a CUDA
+# context) overlaps the phases before them; ``_workers`` releases a held
+# group, or starts one (the tools that run one phase alone).
+# ``release_early`` lets a group run ahead under an earlier phase that waits
+# on the disk (phase 19); its phase then joins it.
+_HELD = {}
+_RELEASED = {}
+
+
+def _scratch_dir():
+    build = ROOT / ".build"
+    build.mkdir(exist_ok=True)
+    return Path(tempfile.mkdtemp(dir=build))
+
+
+def hold_workers():
+    for flag, world in (("--dp-worker", DP_WORLD), ("--wire-worker", WIRE_INTER * WIRE_INTRA),
+                        ("--layout-worker", LAYOUT_WORLD),
+                        ("--llama-worker", LLAMA_TP_WORLD), ("--moe-worker", MOE_EP_WORLD)):
+        workdir = _scratch_dir()
+        _HELD[flag] = (workdir, _spawn_dp_workers(workdir, flag, world, go=workdir / "go"))
+    # the phases start once every held worker has its context, so that no
+    # context is made while they time the card
+    t0, deadline = time.perf_counter(), time.monotonic() + 180
+    for workdir, procs in _HELD.values():
+        for rank, (p, *_) in enumerate(procs):
+            while not (workdir / f"ready{rank}").exists() and p.poll() is None \
+                    and time.monotonic() < deadline:
+                time.sleep(0.05)
+    print(f"[workers] {sum(len(p) for _, p in _HELD.values())} worker processes started "
+          f"and held in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def release_early(flag):
+    """Let the held group ``flag`` run now; :func:`_workers` returns it at
+    its phase."""
+    if flag in _HELD:
+        workdir, procs = _RELEASED[flag] = _HELD.pop(flag)
+        (workdir / "go").touch()
+
+
+def _workers(flag, world):
+    """``(workdir, processes)`` of the ``world`` workers of ``flag``, running."""
+    if flag in _RELEASED:
+        return _RELEASED.pop(flag)
+    if flag in _HELD:
+        workdir, procs = _HELD.pop(flag)
+        (workdir / "go").touch()
+        return workdir, procs
+    workdir = _scratch_dir()
+    return workdir, _spawn_dp_workers(workdir, flag, world)
+
+
+def stop_held_workers():
+    """Stop the groups a failed run never released or never joined."""
+    for _, procs in [*_HELD.values(), *_RELEASED.values()]:
+        for p, log, *_ in procs:
+            p.kill()
+            p.wait()
+            log.close()
+    _HELD.clear()
+    _RELEASED.clear()
+
+
+def _wait_to_run(go):
+    """A held worker: make the CUDA context and import the port, say so with
+    ``ready<rank>`` beside the go file, then wait for the go file (False if
+    the parent is gone)."""
+    import torch
+
+    import deeperspeed_tpu_torch  # noqa: F401
+
+    torch.zeros(1, device="cuda")
+    (Path(go).parent / f"ready{sys.argv[2]}").touch()
+    parent = os.getppid()
+    while not os.path.exists(go):
+        if os.getppid() != parent:
+            return False
+        time.sleep(0.05)
+    return True
 
 
 def _join_dp_workers(procs, timeout=900):
@@ -2176,10 +2319,8 @@ def phase_dp(torch, np):
     del ref
     torch.cuda.empty_cache()
 
-    build = ROOT / ".build"
-    build.mkdir(exist_ok=True)
     t0 = time.perf_counter()
-    r0, r1 = _join_dp_workers(_spawn_dp_workers(Path(tempfile.mkdtemp(dir=build))))
+    r0, r1 = _join_dp_workers(_workers("--dp-worker", DP_WORLD)[1])
     print(f"[dp] two workers on the card over gloo: {time.perf_counter() - t0:.1f} s",
           flush=True)
     phase_dp_checked(r0, r1, ref_losses, ref_norm, ref_alloc, total, partitioned, n_big)
@@ -2891,7 +3032,7 @@ def phase_wire(card, r0, r1):
                   f"{base['footprint'][0]['bytes'] / 1e6:.3f} MB)", flush=True)
     ob, adam = r0["wire-onebit"], r0["stage0"]["losses"]
     # freeze_step 1: step 0 is exact Adam on the exact mean, so the loss
-    # after it is Adam's; steps 1-2 are sign-compressed
+    # after it is Adam's; step 1 is sign-compressed
     warm = abs(ob["losses"][1] - adam[1]) / abs(adam[1])
     if ob["losses"][0] != adam[0] or warm > 1e-6:
         raise AssertionError(f"OneBitAdam losses {ob['losses'][:2]} vs Adam's {adam[:2]}")
@@ -2901,7 +3042,8 @@ def phase_wire(card, r0, r1):
                 or c["error_rel"] > 1e-5):
             raise AssertionError(f"OneBitAdam compressed reduction vs CPU copies: {checks}")
     c = checks[0]
-    print(f"[wire] {card}: OneBitAdam freeze_step 1, 3 steps at world {DP_WORLD}: losses "
+    print(f"[wire] {card}: OneBitAdam freeze_step 1, {DP_CHECK_STEPS} steps at world "
+          f"{DP_WORLD}: losses "
           f"{', '.join(f'{x:.6f}' for x in ob['losses'])} on both ranks (Adam "
           f"{', '.join(f'{x:.6f}' for x in adam)}; after the warm-up step relative "
           f"{warm:.2e}); first compressed reduction of a {c['numel']}-element parameter "
@@ -2955,12 +3097,9 @@ def phase_wire(card, r0, r1):
           f"bytes staged", flush=True)
 
     # ---- (a) the two-level qgZ schedule at world 4
-    build = ROOT / ".build"
-    build.mkdir(exist_ok=True)
     t0 = time.perf_counter()
     world = WIRE_INTER * WIRE_INTRA
-    ranks = _join_dp_workers(_spawn_dp_workers(Path(tempfile.mkdtemp(dir=build)),
-                                               "--wire-worker", world))
+    ranks = _join_dp_workers(_workers("--wire-worker", world)[1])
     print(f"[wire-2level] four workers on the card over gloo: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     n_elems = math.prod(WIRE_SHAPE)
@@ -3144,11 +3283,8 @@ def phase_layout(card, r0, r1):
           f"losses {', '.join(f'{x:.4f}' for x in ahead['losses'])} bit-equal on both ranks",
           flush=True)
 
-    build = ROOT / ".build"
-    build.mkdir(exist_ok=True)
     t0 = time.perf_counter()
-    ranks = _join_dp_workers(_spawn_dp_workers(Path(tempfile.mkdtemp(dir=build)),
-                                               "--layout-worker", LAYOUT_WORLD))
+    ranks = _join_dp_workers(_workers("--layout-worker", LAYOUT_WORLD)[1])
     print(f"[layout] four workers on the card over gloo: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -3807,11 +3943,7 @@ def phase_llama_tp(torch, np, card):
     from deeperspeed_tpu_torch.inference.v2 import InferenceEngineV2
     from deeperspeed_tpu_torch.models import Llama
 
-    build = ROOT / ".build"
-    build.mkdir(exist_ok=True)
-    procs = _spawn_dp_workers(Path(tempfile.mkdtemp(dir=build)), "--llama-worker",
-                              LLAMA_TP_WORLD)
-    ranks = _join_dp_workers(procs)
+    ranks = _join_dp_workers(_workers("--llama-worker", LLAMA_TP_WORLD)[1])
     model = Llama(llama_tp_config(), seed=SEED)
     eng = dst.init_inference(model, {"dtype": "fp32"})
     ids, mask = v1_prompts(np, model.config.vocab_size)
@@ -3892,20 +4024,22 @@ MOE_SERVED_ROUNDS = 32
 
 
 def moe_model(device=None, dtype=None, **kw):
-    """Pythia-160M-MoE-8 (``MOE_KW``, then ``kw``) from ``SEED``."""
+    """Pythia-160M-MoE-8 (``MOE_KW``, then ``kw``) from ``SEED``, drawn on the
+    card unless ``device`` is given."""
     import torch
 
     from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
     return GPTNeoX(GPTNeoXConfig.pythia_160m(dtype=dtype or torch.bfloat16,
                                              max_seq_len=TRAIN_SEQ, **{**MOE_KW, **kw}),
-                   device=device, seed=SEED)
+                   device=device, seed=SEED, draw_on_device=device is None)
 
 
 def moe_ep_model(device=None):
-    """(c)'s model: 2 full-width blocks, both MoE, fp32."""
+    """(c)'s model: 2 full-width blocks, both MoE, fp32, drawn on the card
+    unless ``device`` is given."""
     from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
     return GPTNeoX(dataclasses.replace(GPTNeoXConfig.pythia_160m(**MOE_EP_KW), num_layers=2),
-                   device=device, seed=SEED)
+                   device=device, seed=SEED, draw_on_device=device is None)
 
 
 def _moe_routing(model):
@@ -4030,7 +4164,7 @@ def phase_moe_trained(torch, np, launches, card):
 
 def moe_worker(rank, rendezvous, out_path):
     """One of the two processes of phase 23 (c) (``--moe-worker``): ep 2
-    over gloo on the card, each run of ``MOE_EP_RUNS`` for 3 steps of phase
+    over gloo on the card, each run of ``MOE_EP_RUNS`` for the 2 steps of phase
     13's batches; the stage-0 run saves a checkpoint beside the rendezvous
     file.  Writes losses, bytes staged, launches and the checkpoint's
     digest as JSON."""
@@ -4084,10 +4218,7 @@ def phase_moe_ep(torch, np, card):
     import deeperspeed_tpu_torch as dst
     from deeperspeed_tpu_torch.models import GPTNeoXConfig
 
-    build = ROOT / ".build"
-    build.mkdir(exist_ok=True)
-    workdir = Path(tempfile.mkdtemp(dir=build))
-    procs = _spawn_dp_workers(workdir, "--moe-worker", MOE_EP_WORLD)
+    workdir, procs = _workers("--moe-worker", MOE_EP_WORLD)
     r0, r1 = _join_dp_workers(procs)
     wants = {}
     for name, (cfg, mesh, tol) in MOE_EP_RUNS.items():
@@ -4214,6 +4345,468 @@ def phase_moe_served(torch, np, launches, card):
     return counts
 
 
+# Offload (phase 24): Pythia-1.4B (hidden 2048, 16 heads, 24 layers, vocab
+# 50304; 1,414,647,808 parameters) in bf16 at batch 8 x 1024, Adam, ZeRO-0;
+# its width at 4 layers (407,482,368) for the NVMe tier and ZeRO-Infinity
+# (4 chunks); Pythia-160M for the async checkpoint writer; phase 14's step at
+# world 2 (stage 2) on the pinned tier in phase 13's workers.
+OFFLOAD_BATCH, OFFLOAD_SEQ, OFFLOAD_STEPS = 8, 1024, 3
+OFFLOAD_PARAMS, OFFLOAD_SMALL_PARAMS = 1_414_647_808, 407_482_368
+OFFLOAD_SMALL_LAYERS, OFFLOAD_CHUNKS, OFFLOAD_INF_STEPS = 4, 4, 2
+OFFLOAD_PIPELINED_STEPS = 2           # (c)'s pipeline_write run: step 2 waits on 1's flush
+OFFLOAD_CONFIG = {**TRAIN_CONFIG, "train_batch_size": OFFLOAD_BATCH}
+OFFLOAD_FUSED = {"type": "FusedAdam", "params": {"lr": 1e-4}}
+OFFLOAD_TOL = 1e-3                    # relative, losses across update paths
+# (a): the bf16 wire's masters after step 1 against the fp32 wire's, in
+# units of lr.  Adam's first update is lr * g / (|g| + eps): a gradient's
+# bf16 rounding moves it only where |g| is near eps, by a few thousandths
+# of lr; a skipped update is lr off nearly everywhere.
+OFFLOAD_WIRE_TOL = 1e-2
+# what (a)-(d) hold at their peak: (a)'s host engine pins masters, moments,
+# the gradients' landing buffer and the bf16 staging (25.5 GB); (b)'s tier
+# builds its 17 GB of state in plain memory and then pins it; (c) and (d)
+# write 3.3 GB and 5.7 GB to the disk
+OFFLOAD_HOST_GB, OFFLOAD_DISK_GB = 48, 16
+OFFLOAD_DP_STEPS = 2                  # (f): phase 14's stage-2 step on the pinned tier
+
+
+def offload_model(layers=None, device=None):
+    """Pythia-1.4B in bf16 (``layers`` to cut its depth), drawn on the card
+    from ``SEED``."""
+    import torch
+
+    from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
+    cfg = GPTNeoXConfig.pythia_1_4b(dtype=torch.bfloat16, max_seq_len=OFFLOAD_SEQ)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return GPTNeoX(cfg, device=device, seed=SEED, draw_on_device=True)
+
+
+def _host_available_gb():
+    with open("/proc/meminfo") as f:
+        info = dict(line.split(":", 1) for line in f)
+    return int(info["MemAvailable"].split()[0]) / 2 ** 20
+
+
+def _reset_params(model, weights):
+    """Point ``model``'s parameters at fresh fp32 copies of ``weights``
+    (name -> tensor), so that another engine starts from them."""
+    for n, p in model.named_parameters():
+        p.data = weights[n].clone()
+
+
+def _release_host(torch):
+    """Free the device's cached blocks and the cached pinned host blocks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    if hasattr(torch._C, "_host_emptyCache"):
+        torch._C._host_emptyCache()
+
+
+def _offload_steps(torch, eng, batch, steps, stats=False):
+    """``steps`` steps: the losses, seconds a step (host clock, ending in a
+    sync) and, with ``stats``, each step's ``offload_stats``."""
+    losses, secs, recs = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(eng.train_batch(batch=batch)))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if stats:
+            recs.append(dict(eng.offload_stats))
+    return losses, secs, recs
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def phase_offload_host(torch, np, launches, card):
+    """Phase 24 (a): the host update at full size against the device
+    update on the same weights.  Returns (the host path's launches, the
+    initial weights, the model, the batch, the device run's losses)."""
+    import deeperspeed_tpu_torch as dst
+
+    t0 = time.perf_counter()
+    model = offload_model()
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != OFFLOAD_PARAMS:
+        raise AssertionError(f"offload (a): {n_params} parameters")
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    batch = {k: v.cuda() for k, v in model.example_batch(
+        batch_size=OFFLOAD_BATCH, seq_len=OFFLOAD_SEQ, seed=SEED).items()}
+    print(f"[offload-a] Pythia-1.4B ({n_params:,} parameters) drawn in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    dev = dst.initialize(model=model, config=OFFLOAD_CONFIG)[0]
+    masters0 = dev._master_flat.to("cpu", copy=True)
+    dev_losses, dev_secs, _ = _offload_steps(torch, dev, batch, 1)
+    masters1 = dev._master_flat.to("cpu", copy=True)
+    more, secs, _ = _offload_steps(torch, dev, batch, OFFLOAD_STEPS - 1)
+    dev_losses += more
+    dev_secs += secs
+    dev_peak = torch.cuda.max_memory_allocated() / 1e9
+    del dev
+    _release_host(torch)
+
+    _reset_params(model, start)
+    host_off = {"device": "cpu", "host_update": True}
+    host_cfg = {**OFFLOAD_CONFIG, "zero_optimization": {"stage": 0,
+                                                        "offload_optimizer": host_off}}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = dst.initialize(model=model, config=host_cfg)[0]
+    init_s = time.perf_counter() - t0
+    launches.clear()                                 # the host path starts here
+    losses, host_secs, recs = _offload_steps(torch, eng, batch, 1, stats=True)
+    host1 = eng._master_flat.clone()
+    more, secs, rec = _offload_steps(torch, eng, batch, OFFLOAD_STEPS - 1, stats=True)
+    counts = dict(launches)
+    losses += more
+    host_secs += secs
+    recs += rec
+    host_peak = torch.cuda.max_memory_allocated() / 1e9
+    del eng
+    gc.collect()             # the cached pinned blocks stay for the next engine
+    torch.cuda.empty_cache()
+    # the bf16 wire, from the configuration: one step from the same weights,
+    # its masters held against the fp32 wire's after their first step
+    _reset_params(model, start)
+    wire_cfg = {**OFFLOAD_CONFIG, "zero_optimization": {
+        "stage": 0, "offload_optimizer": {**host_off, "wire_dtype": "bf16"}}}
+    t0 = time.perf_counter()
+    eng = dst.initialize(model=model, config=wire_cfg)[0]
+    wire_init_s = time.perf_counter() - t0
+    _, wire_secs, wire = _offload_steps(torch, eng, batch, 1, stats=True)
+    lr = OFFLOAD_CONFIG["optimizer"]["params"]["lr"]
+    host1 = host1.cuda()
+    wire_err = float((eng._master_flat.cuda() - host1).abs().max())
+    moved = float((masters0.cuda() - host1).abs().max())
+    if wire[0]["d2h_bytes"] * 2 != recs[0]["d2h_bytes"]:
+        raise AssertionError(f"offload (a): the bf16 wire moved {wire[0]['d2h_bytes']} bytes "
+                             f"against the fp32 wire's {recs[0]['d2h_bytes']}")
+    if not wire_err <= OFFLOAD_WIRE_TOL * lr < moved:
+        raise AssertionError(f"offload (a): bf16-wire masters after step 1 differ from the "
+                             f"fp32 wire's by {wire_err:.3e} (limit {OFFLOAD_WIRE_TOL * lr:.1e}; "
+                             f"the step moved them by {moved:.3e})")
+    del eng, masters0
+    _release_host(torch)
+    if losses[0] != dev_losses[0]:
+        raise AssertionError(f"offload (a): first loss {losses[0]} != device {dev_losses[0]}")
+    masters1 = masters1.cuda()                          # the peaks are read
+    if not torch.allclose(host1, masters1, rtol=2e-5, atol=1e-6):
+        worst = ((host1 - masters1).abs() - 1e-6 - 2e-5 * masters1.abs()).max()
+        raise AssertionError(f"offload (a): masters after step 1 differ (worst excess "
+                             f"{float(worst):.3e})")
+    rels = [_rel(a, b) for a, b in zip(losses, dev_losses)]
+    if max(rels) > OFFLOAD_TOL:
+        raise AssertionError(f"offload (a): losses {losses} vs device {dev_losses}")
+    for name in ("layer_norm", "layer_norm_bwd", "flash_fwd", "flash_bwd_dq",
+                 "flash_bwd_dkv"):
+        if counts.get(name, 0) < 1:
+            raise AssertionError(f"offload (a) never launched {name}: {counts}")
+    masters_err = float((host1 - masters1).abs().max())
+    del host1, masters1
+    print(f"[offload-a] {card}: Pythia-1.4B bf16, B {OFFLOAD_BATCH} x S {OFFLOAD_SEQ}, Adam, "
+          f"clip 1.0, ZeRO-0: device update {', '.join(f'{s * 1e3:.1f}' for s in dev_secs)} "
+          f"ms/step, peak {dev_peak:.2f} GB; host update (engine built in {init_s:.1f} s) "
+          f"{', '.join(f'{s * 1e3:.1f}' for s in host_secs)} ms/step, peak {host_peak:.2f} "
+          f"GB ({dev_peak - host_peak:.2f} GB less); losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)} vs device "
+          f"{', '.join(f'{x:.6f}' for x in dev_losses)} (max relative {max(rels):.2e}, first "
+          f"equal); masters after step 1 within {masters_err:.3e}", flush=True)
+    print(f"[offload-a] wire_dtype bf16 (from the configuration; engine built in "
+          f"{wire_init_s:.1f} s): {wire_secs[0] * 1e3:.1f} ms for step 1; its masters after it "
+          f"within {wire_err:.3e} of the fp32 wire's (limit {OFFLOAD_WIRE_TOL * lr:.1e}; the "
+          f"step moved them by up to {moved:.3e})", flush=True)
+    n = recs[0]["adam_elements"]
+    for i, (r, sec) in enumerate(zip(recs + wire, host_secs + wire_secs)):
+        what = f"step {i + 1}" if i < len(recs) else "bf16 wire, step 1"
+        host_s = r["d2h_s"] + r["adam_s"] + r["cast_s"] + r["h2d_s"]
+        # the sweep reads and writes masters and moments (24 bytes) and
+        # reads the gradient as it came down (4 or 2)
+        per = 24 + r["d2h_bytes"] // n
+        print(f"[offload-a] {what}: forward, backward and clip {(sec - host_s) * 1e3:.1f} ms "
+              f"(the step less the update's parts); grads D2H {r['d2h_bytes'] / 1e9:.3f} GB in "
+              f"{r['d2h_s'] * 1e3:.1f} ms ({r['d2h_bytes'] / r['d2h_s'] / 1e9:.2f} GB/s); host "
+              f"Adam {r['adam_s']:.3f} s ({per * n / r['adam_s'] / 1e9:.2f} GB/s at {per} bytes "
+              f"an element); bf16 cast on the host {r['cast_s'] * 1e3:.1f} ms; H2D "
+              f"{r['h2d_bytes'] / 1e9:.3f} GB in {r['h2d_s'] * 1e3:.1f} ms "
+              f"({r['h2d_bytes'] / r['h2d_s'] / 1e9:.2f} GB/s)", flush=True)
+    print(f"[offload-a] launches in the host-update steps {counts}", flush=True)
+    return counts, start, model, batch, dev_losses
+
+
+def phase_offload_pinned(torch, launches, card, start, model, batch, dev_losses):
+    """Phase 24 (b): the pinned-host tier at full size (FusedAdam: B6 on
+    the card), against (a)'s device update."""
+    import deeperspeed_tpu_torch as dst
+
+    _reset_params(model, start)
+    cfg = {**OFFLOAD_CONFIG, "optimizer": OFFLOAD_FUSED,
+           "zero_optimization": {"stage": 0, "offload_optimizer": {"device": "cpu"}}}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = dst.initialize(model=model, config=cfg)[0]
+    init_s = time.perf_counter() - t0
+    launches.clear()                                 # the pinned-tier path starts here
+    losses, secs, recs = _offload_steps(torch, eng, batch, OFFLOAD_STEPS, stats=True)
+    counts = dict(launches)
+    rels = [_rel(a, b) for a, b in zip(losses, dev_losses)]
+    if max(rels) > OFFLOAD_TOL:
+        raise AssertionError(f"offload (b): losses {losses} vs device {dev_losses}")
+    if counts.get("fused_adam", 0) != OFFLOAD_STEPS:
+        raise AssertionError(f"offload (b): B6 launched {counts.get('fused_adam')} times")
+    print(f"[offload-b] {card}: pinned-host tier, Pythia-1.4B bf16, FusedAdam (engine built in "
+          f"{init_s:.1f} s): {', '.join(f'{s * 1e3:.1f}' for s in secs)} ms/step, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)} (relative to (a)'s device update "
+          f"{max(rels):.2e})", flush=True)
+    for i, r in enumerate(recs):
+        print(f"[offload-b] step {i + 1}: state H2D {r['h2d_bytes'] / 1e9:.3f} GB in "
+              f"{r['h2d_s'] * 1e3:.1f} ms ({r['h2d_bytes'] / r['h2d_s'] / 1e9:.2f} GB/s), "
+              f"update {r['update_s'] * 1e3:.1f} ms, D2H {r['d2h_bytes'] / 1e9:.3f} GB in "
+              f"{r['d2h_s'] * 1e3:.1f} ms ({r['d2h_bytes'] / r['d2h_s'] / 1e9:.2f} GB/s)",
+              flush=True)
+    del eng
+    _release_host(torch)
+    return counts
+
+
+def _small_weights(start):
+    """(a)'s weights cut to ``OFFLOAD_SMALL_LAYERS`` blocks."""
+    return {n: t for n, t in start.items()
+            if not n.startswith("layers.") or int(n.split(".")[1]) < OFFLOAD_SMALL_LAYERS}
+
+
+def phase_offload_nvme(torch, launches, card, small, model, batch, swap_root):
+    """Phase 24 (c): the NVMe tier at 1.4B's width and 4 layers, against the
+    same run without the tier: ``pipeline_write: false`` (the state on disk
+    between steps, read back while the card computes the grads), then the
+    default ``true`` (the flush in flight until the next swap-in waits for
+    it, the host copy kept)."""
+    import deeperspeed_tpu_torch as dst
+
+    base = {**OFFLOAD_CONFIG, "optimizer": OFFLOAD_FUSED}
+    _reset_params(model, small)
+    eng = dst.initialize(model=model, config=base)[0]
+    want, _, _ = _offload_steps(torch, eng, batch, OFFLOAD_STEPS)
+    del eng
+    _release_host(torch)
+    counts = None
+    for pipelined, steps in ((False, OFFLOAD_STEPS), (True, OFFLOAD_PIPELINED_STEPS)):
+        _reset_params(model, small)
+        cfg = {**base, "zero_optimization": {"stage": 0, "offload_optimizer": {
+            "device": "nvme", "nvme_path": str(swap_root), "pipeline_write": pipelined}}}
+        eng = dst.initialize(model=model, config=cfg)[0]
+        launches.clear()                             # the NVMe path starts here
+        losses, secs, recs = _offload_steps(torch, eng, batch, steps, stats=True)
+        counts = counts or dict(launches)
+        label = f"pipeline_write {str(pipelined).lower()}"
+        if losses != want[:steps]:
+            raise AssertionError(f"offload (c), {label}: losses {losses} != without the tier "
+                                 f"{want[:steps]}")
+        swapper = eng._opt_swapper
+        if swapper.stats["bytes_read"] != (0 if pipelined else
+                                           (steps - 1) * swapper.stats["bytes_written"]
+                                           // steps):
+            raise AssertionError(f"offload (c), {label}: swap-in read "
+                                 f"{swapper.stats['bytes_read']} bytes")
+        swap_dir = swapper.dir
+        t0 = time.perf_counter()
+        eng.destroy()                                # waits for an in-flight flush
+        destroy_s = time.perf_counter() - t0
+        if Path(swap_dir).exists():
+            raise AssertionError(f"offload (c), {label}: destroy() left the swap directory")
+        st, nbytes = swapper.stats, eng._opt_home.numel() * 4
+        print(f"[offload-c] {card}: NVMe tier, {label}, at 1.4B's width, "
+              f"{OFFLOAD_SMALL_LAYERS} layers ({OFFLOAD_SMALL_PARAMS:,} parameters), FusedAdam: "
+              f"{', '.join(f'{s * 1e3:.1f}' for s in secs)} ms/step, destroy() "
+              f"{destroy_s * 1e3:.1f} ms; losses equal to the run without the tier "
+              f"({', '.join(f'{x:.6f}' for x in losses)}); a swap moves {nbytes / 1e9:.3f} GB",
+              flush=True)
+        if pipelined:
+            print(f"[offload-c] {label}: {st['bytes_written'] / 1e9:.3f} GB written, "
+                  f"{st['write_wait_s']:.3f} s waited at the swap-ins; nothing read back (the "
+                  f"host copy kept)", flush=True)
+        else:
+            reads = steps - 1
+            print(f"[offload-c] {label}: swap-out (fsync'd, waited) "
+                  f"{st['bytes_written'] / 1e9:.3f} GB in {st['write_s']:.3f} s "
+                  f"({st['bytes_written'] / st['write_s'] / 1e9:.2f} GB/s); swap-in "
+                  f"{st['bytes_read'] / 1e9:.3f} GB over {reads} steps, reads in flight "
+                  f"{st['read_s']:.3f} s ({st['bytes_read'] / st['read_s'] / 1e9:.2f} GB/s or "
+                  f"more), {st['read_hidden_s']:.3f} s of them under the grads, "
+                  f"{st['read_wait_s']:.3f} s waited "
+                  f"({st['read_hidden_s'] / max(st['read_s'], 1e-9):.3f} hidden)", flush=True)
+        for i, r in enumerate(recs):
+            print(f"[offload-c] {label}, step {i + 1}: state H2D {r['h2d_s'] * 1e3:.1f} ms, "
+                  f"update {r['update_s'] * 1e3:.1f} ms, D2H {r['d2h_s'] * 1e3:.1f} ms, "
+                  f"swap-out {r['swap_out_s'] * 1e3:.1f} ms", flush=True)
+        del eng, swapper
+        _release_host(torch)
+    return counts
+
+
+def phase_offload_infinity(torch, launches, card, small, model, batch, swap_root):
+    """Phase 24 (d): ZeRO-Infinity at 1.4B's width, 4 layers in 4 chunks,
+    bf16, against the host-update engine on the same weights (no clipping:
+    the chunk stream clips nothing, as in the JAX package)."""
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.runtime.zero.infinity import ZeroInfinityEngine
+
+    _reset_params(model, small)
+    cfg = {**OFFLOAD_CONFIG, "gradient_clipping": 0.0, "zero_optimization": {
+        "stage": 0, "offload_optimizer": {"device": "cpu", "host_update": True}}}
+    eng = dst.initialize(model=model, config=cfg)[0]
+    want, _, _ = _offload_steps(torch, eng, batch, OFFLOAD_INF_STEPS)
+    del eng
+    _release_host(torch)
+    t0 = time.perf_counter()
+    inf = ZeroInfinityEngine(model, str(swap_root), num_chunks=OFFLOAD_CHUNKS, lr=1e-4,
+                             compute_dtype=model.config.dtype, params=small)
+    init_s = time.perf_counter() - t0
+    launches.clear()                                 # the chunk stream starts here
+    losses, secs = [], []
+    for _ in range(OFFLOAD_INF_STEPS):
+        t0 = time.perf_counter()
+        losses.append(inf.train_batch(batch))
+        secs.append(time.perf_counter() - t0)
+    counts = dict(launches)
+    s = inf.swap_stats
+    inf.close()
+    rels = [_rel(a, b) for a, b in zip(losses, want)]
+    if max(rels) > OFFLOAD_TOL:
+        raise AssertionError(f"offload (d): losses {losses} vs the host update {want}")
+    if not s["peak_device_param_bytes"] < s["total_param_bytes"]:
+        raise AssertionError(f"offload (d): device residency not bounded: {s}")
+    for name in ("layer_norm", "layer_norm_bwd", "flash_fwd", "flash_bwd_dq",
+                 "flash_bwd_dkv"):
+        if counts.get(name, 0) < 1:
+            raise AssertionError(f"offload (d) never launched {name}: {counts}")
+    print(f"[offload-d] {card}: ZeRO-Infinity at 1.4B's width, {OFFLOAD_SMALL_LAYERS} layers in "
+          f"{OFFLOAD_CHUNKS} chunks, bf16 (spilled in {init_s:.1f} s): "
+          f"{', '.join(f'{x:.3f}' for x in secs)} s/step; losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)} vs the host update "
+          f"{', '.join(f'{x:.6f}' for x in want)} (max relative {max(rels):.2e}); "
+          f"peak device parameter bytes {s['peak_device_param_bytes'] / 1e9:.3f} GB of "
+          f"{s['total_param_bytes'] / 1e9:.3f} GB; swap_stats {s}", flush=True)
+    print(f"[offload-d] launches in the streamed steps {counts}", flush=True)
+    _release_host(torch)
+    return counts
+
+
+def phase_offload_ckpt(torch, card, root):
+    """Phase 24 (e): Pythia-160M's checkpoint through the synchronous writer
+    and through the async writer (the aio pool): files byte-equal (equal
+    sha256 manifests, each the commit's read-back), GB/s each."""
+    import filecmp
+
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.op_builder import CALLS
+    from deeperspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine import (
+        AsyncCheckpointEngine, NativeCheckpointEngine)
+
+    model = trained_model()
+    eng = dst.initialize(model=model, config=TRAIN_CONFIG)[0]
+    readings = {}
+    for writer, make in (("native", NativeCheckpointEngine),
+                         ("async (aio)", AsyncCheckpointEngine)):
+        eng.checkpoint_engine = make()
+        CALLS.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.save_checkpoint(str(root / writer.split()[0]))
+        readings[writer] = (time.perf_counter() - t0,
+                            eng.checkpoint_engine.commit_info.get("verify_seconds", 0.0),
+                            CALLS.get("aio_pwrite", 0))
+    # the commit read every file back into its manifest's sha256: equal
+    # manifests (and engine states) are byte-equal files
+    tag = root / "native" / f"global_step{eng.global_steps}"
+    names = sorted(p.name for p in tag.iterdir())
+    small = [n for n in names if n.endswith(".json")]
+    match, mismatch, errors = filecmp.cmpfiles(tag, root / "async" / tag.name, small,
+                                               shallow=False)
+    if mismatch or errors or len(match) != len(small) or "manifest.json" not in match:
+        raise AssertionError(f"offload (e): files differ {mismatch} {errors}")
+    if readings["native"][2] != 0 or readings["async (aio)"][2] < 1:
+        raise AssertionError(f"offload (e): aio writes {readings}")
+    total = sum((tag / n).stat().st_size for n in names)
+    print(f"[offload-e] {card}: Pythia-160M bf16 + Adam checkpoint ({total / 1e9:.3f} GB, "
+          f"{len(names)} files byte-equal by their sha256 manifests): "
+          + "; ".join(f"{writer} {s:.3f} s ({total / s / 1e9:.3f} GB/s, verify {v:.3f} s of "
+                      f"it, {n} aio writes)" for writer, (s, v, n) in readings.items()),
+          flush=True)
+    del eng, model
+    torch.cuda.empty_cache()
+
+
+def phase_offload_dp(r0, r1):
+    """Phase 24 (f): phase 14's step at world 2, stage 2, on the pinned-host
+    tier (phase 13's workers), against phase 14's stage-2 run."""
+    a, b = r0["offload-stage2"], r1["offload-stage2"]
+    want = r0["full-stage2"]["losses"][:OFFLOAD_DP_STEPS]
+    if a["losses"] != b["losses"] or a["losses"] != want:
+        raise AssertionError(f"offload (f): losses {a['losses']} / {b['losses']} vs "
+                             f"without offload {want}")
+    print(f"[offload-f] Pythia-160M bf16 at world 2 (gloo via host), stage 2, pinned-host "
+          f"tier: losses {', '.join(f'{x:.6f}' for x in a['losses'])} on both ranks, equal to "
+          f"phase 14's stage-2 run; {a['ms_per_step']:.1f} ms/step; state H2D / D2H "
+          f"{a['h2d_gb']:.3f} / {a['d2h_gb']:.3f} GB a step on rank 0", flush=True)
+
+
+def phase_offload(torch, np, launches, card, dp_ranks):
+    """Phase 24: offload.  Asserts the host memory and disk it needs, then
+    (a)-(e) here and (f)'s checks.  Returns each main path's launches."""
+    swap_root = Path(tempfile.mkdtemp(dir=ROOT / ".build"))
+    try:
+        free_gb = _host_available_gb()
+        disk_gb = shutil.disk_usage(swap_root).free / 2 ** 30
+        print(f"[offload] host memory available {free_gb:.1f} GiB (needs "
+              f"{OFFLOAD_HOST_GB}), disk free under {swap_root.parent} {disk_gb:.1f} GiB "
+              f"(needs {OFFLOAD_DISK_GB}), {os.cpu_count()} host cores", flush=True)
+        if free_gb < OFFLOAD_HOST_GB or disk_gb < OFFLOAD_DISK_GB:
+            raise AssertionError(f"offload: {free_gb:.1f} GiB of host memory and "
+                                 f"{disk_gb:.1f} GiB of disk; the phase needs "
+                                 f"{OFFLOAD_HOST_GB} and {OFFLOAD_DISK_GB}")
+        paths = {}
+        t = time.perf_counter()
+        paths["offload_host"], start, model, batch, dev_losses = phase_offload_host(
+            torch, np, launches, card)
+        print(f"[time] phase 24 (a): {time.perf_counter() - t:.1f} s", flush=True)
+        t = time.perf_counter()
+        paths["offload_pinned"] = phase_offload_pinned(torch, launches, card, start, model,
+                                                       batch, dev_losses)
+        print(f"[time] phase 24 (b): {time.perf_counter() - t:.1f} s", flush=True)
+        del model
+        small = _small_weights(start)
+        del start
+        model = offload_model(OFFLOAD_SMALL_LAYERS)
+        n_small = sum(p.numel() for p in model.parameters())
+        if n_small != OFFLOAD_SMALL_PARAMS or sum(t.numel() for t in small.values()) != n_small:
+            raise AssertionError(f"offload (c), (d): {n_small} parameters")
+        t = time.perf_counter()
+        paths["offload_nvme"] = phase_offload_nvme(torch, launches, card, small, model, batch,
+                                                   swap_root / "nvme")
+        print(f"[time] phase 24 (c): {time.perf_counter() - t:.1f} s", flush=True)
+        t = time.perf_counter()
+        paths["offload_infinity"] = phase_offload_infinity(torch, launches, card, small, model,
+                                                           batch, swap_root / "infinity")
+        print(f"[time] phase 24 (d): {time.perf_counter() - t:.1f} s", flush=True)
+        del model, small
+        _release_host(torch)
+        t = time.perf_counter()
+        phase_offload_ckpt(torch, card, swap_root / "ckpt")
+        print(f"[time] phase 24 (e): {time.perf_counter() - t:.1f} s", flush=True)
+        if dp_ranks is not None:
+            phase_offload_dp(*dp_ranks)
+        return paths
+    finally:
+        shutil.rmtree(swap_root, ignore_errors=True)
+
+
 def main():
     try:
         import torch
@@ -4228,6 +4821,9 @@ def main():
         print("chip_smoke: run it from the root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    go = os.environ.get("DST_SMOKE_GO")
+    if go and sys.argv[1:2] and sys.argv[1].endswith("-worker") and not _wait_to_run(go):
+        return 3
     if sys.argv[1:2] == ["--dp-worker"]:
         return dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     if sys.argv[1:2] == ["--wire-worker"]:
@@ -4250,8 +4846,31 @@ def main():
     print(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
+    import threading
+
+    from deeperspeed_tpu_torch import op_builder
+
     t0 = time.perf_counter()
+    host = {}
+
+    def build_host():       # the host libraries (g++), beside the nvcc processes
+        try:
+            for builder in (op_builder.CPUAdamBuilder(), op_builder.AsyncIOBuilder()):
+                t = time.perf_counter()
+                builder.build()
+                host[builder.NAME] = time.perf_counter() - t
+        except Exception as e:
+            host["error"] = e
+
+    thread = threading.Thread(target=build_host)
+    thread.start()
     logs = cuda_utils.build()
+    thread.join()
+    if "error" in host:
+        raise host["error"]
+    for name, secs in host.items():
+        print(f"[build] host {name}: {secs:.1f} s (g++ {' '.join(op_builder.builder.CXX_FLAGS)})",
+              flush=True)
     for name, (secs, log) in logs.items():
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
         spill = sum(int(a) + int(b) for a, b in re.findall(
@@ -4262,42 +4881,65 @@ def main():
         print(log, file=sys.stderr)
     print(f"[build] all kernels in {time.perf_counter() - t0:.1f} s "
           f"(one nvcc per source, in parallel)", flush=True)
+    hold_workers()
+    try:
+        return _phases(torch, np, cuda_utils, card, t_start)
+    finally:
+        stop_held_workers()
 
-    rows = phase_legacy_kernels(torch, np, phase_quantizer_kernel(torch, phase_optimizer_kernels(
-        torch, phase_training_kernels(torch, phase_kernels(torch)))))
-    phase_llama_kernels(torch, rows)
-    phase_checked(torch, np)
+
+def _phases(torch, np, cuda_utils, card, t_start):
+    """Phases 3-24 and the summary lines, after the build."""
+
+    def timed(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"[time] {label}: {time.perf_counter() - t:.1f} s", flush=True)
+        return out
+
+    rows = timed("phase 3", lambda: phase_legacy_kernels(torch, np, phase_quantizer_kernel(
+        torch, phase_optimizer_kernels(torch, phase_training_kernels(
+            torch, phase_kernels(torch))))))
+    timed("phase 22 kernels", phase_llama_kernels, torch, rows)
+    timed("phase 4", phase_checked, torch, np)
+    L = cuda_utils.LAUNCHES
     # each main path's counts, read right after its own run
-    paths = {"serving": phase_served(torch, np, cuda_utils.LAUNCHES)}
-    phase_scheduled_checked(torch, np)
-    paths["scheduled"] = phase_scheduled(torch, np, cuda_utils.LAUNCHES)
-    phase_trained_checked(torch, np)
-    paths["training"] = phase_trained(torch, cuda_utils.LAUNCHES)
-    phase_fused_checked(torch, np)
-    paths["training_fused"], paths["training_fused_lion"] = phase_fused_trained(
-        torch, np, cuda_utils.LAUNCHES)
-    phase_dropout(torch, np, cuda_utils.LAUNCHES)
-    dp, dp_ckpt, dp_ranks = phase_dp(torch, np)
+    paths = {"serving": timed("phase 5", phase_served, torch, np, L)}
+    timed("phase 6", phase_scheduled_checked, torch, np)
+    paths["scheduled"] = timed("phase 7", phase_scheduled, torch, np, L)
+    timed("phase 8", phase_trained_checked, torch, np)
+    paths["training"] = timed("phase 9", phase_trained, torch, L)
+    timed("phase 10", phase_fused_checked, torch, np)
+    paths["training_fused"], paths["training_fused_lion"] = timed(
+        "phase 11", phase_fused_trained, torch, np, L)
+    timed("phase 12", phase_dropout, torch, np, L)
+    dp, dp_ckpt, dp_ranks = timed("phases 13-14", phase_dp, torch, np)
     paths["dp_stage2"], paths["dp_qgz"] = dp["stage2"], dp["qgz-int8"]
-    phase_legacy_checked(torch, np)
-    paths["legacy_layer"] = phase_legacy(torch, np, cuda_utils.LAUNCHES)
-    paths["sparse_attention"] = phase_sparse(torch, np, cuda_utils.LAUNCHES)
-    paths["softmax"] = phase_softmax(torch, cuda_utils.LAUNCHES)
-    paths["training_resumed"] = phase_checkpointed(torch, np, cuda_utils.LAUNCHES, card,
-                                                   dp_ckpt)
-    paths["wire_two_level"], paths["wire_deferred"] = phase_wire(card, *dp_ranks)
-    paths["layout_tp"] = phase_layout(card, *dp_ranks)
-    paths["llama_serving"], paths["llama_v1"] = phase_llama_served(
-        torch, np, cuda_utils.LAUNCHES, card)
-    paths["llama_window"] = phase_llama_window(torch, np, cuda_utils.LAUNCHES, card)
-    paths["llama_training"] = phase_llama_trained(torch, np, cuda_utils.LAUNCHES, card)
-    paths["llama_v1_tp"] = phase_llama_tp(torch, np, card)
+    timed("phase 15", phase_legacy_checked, torch, np)
+    paths["legacy_layer"] = timed("phase 16", phase_legacy, torch, np, L)
+    paths["sparse_attention"] = timed("phase 17", phase_sparse, torch, np, L)
+    paths["softmax"] = timed("phase 18", phase_softmax, torch, L)
+    # the small worker groups of phases 22 (e) and 23 (c) run while phase 19
+    # waits on the disk
+    release_early("--llama-worker")
+    release_early("--moe-worker")
+    paths["training_resumed"] = timed("phase 19", phase_checkpointed, torch, np, L, card,
+                                      dp_ckpt)
+    paths["wire_two_level"], paths["wire_deferred"] = timed("phase 20", phase_wire, card,
+                                                            *dp_ranks)
+    paths["layout_tp"] = timed("phase 21", phase_layout, card, *dp_ranks)
+    paths["llama_serving"], paths["llama_v1"] = timed(
+        "phase 22 (a), (c)", phase_llama_served, torch, np, L, card)
+    paths["llama_window"] = timed("phase 22 (b)", phase_llama_window, torch, np, L, card)
+    paths["llama_training"] = timed("phase 22 (d)", phase_llama_trained, torch, np, L, card)
+    paths["llama_v1_tp"] = timed("phase 22 (e)", phase_llama_tp, torch, np, card)
     t23 = time.perf_counter()
-    phase_moe_checked(torch, np)
-    paths["moe_training"] = phase_moe_trained(torch, np, cuda_utils.LAUNCHES, card)
-    paths["moe_ep"] = phase_moe_ep(torch, np, card)
-    paths["moe_serving"] = phase_moe_served(torch, np, cuda_utils.LAUNCHES, card)
+    timed("phase 23 (a)", phase_moe_checked, torch, np)
+    paths["moe_training"] = timed("phase 23 (b)", phase_moe_trained, torch, np, L, card)
+    paths["moe_ep"] = timed("phase 23 (c)", phase_moe_ep, torch, np, card)
+    paths["moe_serving"] = timed("phase 23 (d)", phase_moe_served, torch, np, L, card)
     print(f"[moe] phase 23 in {time.perf_counter() - t23:.1f} s", flush=True)
+    paths.update(timed("phase 24", phase_offload, torch, np, L, card, dp_ranks))
 
     sources = {
         "layer_norm": ("deeperspeed_tpu_torch/csrc/layer_norm.cu",

@@ -25,7 +25,12 @@ in ``csrc/``:
 * Mixture-of-Experts (``moe``; GPT-NeoX with ``moe_num_experts`` > 1):
   top-1 / top-2 gating routed over the whole data-parallel batch, the
   stacked experts spread over ``ep`` and split over ``tp``, the quantized
-  dispatch, checkpoints across ``ep`` degrees, served by both engines.
+  dispatch, checkpoints across ``ep`` degrees, served by both engines;
+* offload (``zero_optimization.offload_optimizer``): the update on the host
+  cores in a native CPU Adam (``csrc/host/``, built with ``g++``) over
+  pinned host masters and moments, the optimizer state's pinned-host and
+  NVMe tiers, and ZeRO-Infinity's chunk stream
+  (``runtime.zero.infinity.ZeroInfinityEngine``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

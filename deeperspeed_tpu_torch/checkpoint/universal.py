@@ -162,7 +162,13 @@ def install_universal_state(engine, params, exp_avg, exp_avg_sq, meta,
     from ..runtime import checkpointing as ck
 
     ck.load_reference_masters(engine, _unflatten(params))
-    if load_optimizer_states and exp_avg and exp_avg_sq:
+    if getattr(engine, "_host_adam", None) is not None:
+        # a host-update engine: the moments into its host optimizer, t from
+        # the export's optimizer step (the JAX engine's ``_host_restore``)
+        if load_optimizer_states and exp_avg and exp_avg_sq:
+            ck.load_host_moments(engine, exp_avg, exp_avg_sq, t=meta.get("optimizer_step"))
+    elif load_optimizer_states and exp_avg and exp_avg_sq:
+        engine._ensure_opt_resident()
         opt_sd = ck.reference_opt_state(engine)
         moments = _find_adam_moments(opt_sd)
         if moments is not None:

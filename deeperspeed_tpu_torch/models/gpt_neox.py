@@ -60,6 +60,7 @@ Under tensor parallelism the experts split as the JAX rules split them,
 ``P("ep", None, "tp")`` (column ``dense_h_to_4h``, row ``dense_4h_to_h``).
 """
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional
@@ -521,29 +522,39 @@ class GPTNeoX(nn.Module):
     Weights are drawn from ``seed`` with an explicit ``torch.Generator`` on
     the CPU, in fp32, and then moved to ``device`` (CUDA unless the caller
     passes ``device="cpu"``), so one seed gives the same model on every
-    device.  They stay fp32 until an engine casts them; the products run in
-    ``config.dtype`` either way."""
+    device.  ``draw_on_device`` draws them on the card instead, from a CUDA
+    generator (fast for a full-size model; another draw than the CPU's, as
+    for the Llama family).  They stay fp32 until an engine casts them; the
+    products run in ``config.dtype`` either way."""
 
-    def __init__(self, config: GPTNeoXConfig, device=None, seed=0):
+    def __init__(self, config: GPTNeoXConfig, device=None, seed=0, draw_on_device=False):
         super().__init__()
         device = resolve_device(device)
+        on_card = draw_on_device and device.type == "cuda"
         self.config = config
-        self.embed_in = nn.Embedding(config.vocab_size, config.hidden_size)
-        moe_layers = set(config.moe_layer_indices())
-        self.layers = nn.ModuleList(GPTNeoXBlock(config, use_moe=i in moe_layers)
-                                    for i in range(config.num_layers))
-        self.final_layer_norm = ModelLayerNorm(config.hidden_size,
-                                               config.layernorm_eps,
-                                               config.dtype)
-        self.embed_out = ModelLinear(config, config.hidden_size, config.vocab_size,
-                                     bias=False)
-        self._init_weights(torch.Generator().manual_seed(seed))
-        self.to(device)
+        with torch.device("meta") if on_card else contextlib.nullcontext():
+            self.embed_in = nn.Embedding(config.vocab_size, config.hidden_size)
+            moe_layers = set(config.moe_layer_indices())
+            self.layers = nn.ModuleList(GPTNeoXBlock(config, use_moe=i in moe_layers)
+                                        for i in range(config.num_layers))
+            self.final_layer_norm = ModelLayerNorm(config.hidden_size,
+                                                   config.layernorm_eps,
+                                                   config.dtype)
+            self.embed_out = ModelLinear(config, config.hidden_size, config.vocab_size,
+                                         bias=False)
+        if on_card:
+            self.to_empty(device=device)
+            self._init_weights(torch.Generator(device=device).manual_seed(seed))
+        else:
+            self._init_weights(torch.Generator().manual_seed(seed))
+            self.to(device)
 
     @torch.no_grad()
     def _init_weights(self, gen):
-        """Flax's defaults: Dense kernels lecun-normal (truncated at two
-        standard deviations), biases zero, the embedding N(0, 1/H)."""
+        """Flax's defaults, every parameter written (the card's draw starts
+        from uninitialised memory): Dense kernels lecun-normal (truncated at
+        two standard deviations), biases zero, LayerNorm scales one, the
+        embedding N(0, 1/H)."""
         for mod in self.modules():
             if isinstance(mod, nn.Linear):
                 std = (1.0 / math.sqrt(mod.in_features)) / .87962566103423978
@@ -551,6 +562,9 @@ class GPTNeoX(nn.Module):
                                       generator=gen)
                 if mod.bias is not None:
                     mod.bias.zero_()
+            elif isinstance(mod, ModelLayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
         nn.init.normal_(self.embed_in.weight, 0.0,
                         1.0 / math.sqrt(self.config.hidden_size), generator=gen)
         for mod in self.modules():

@@ -12,6 +12,8 @@ objects every step (the engine's views never move) gives :func:`prepare` a
 cache dict and gets the table it built the first time.
 """
 
+import weakref
+
 import torch
 
 # elements a kernel block takes at a time; csrc/fused_optimizers.cu CHUNK
@@ -35,9 +37,10 @@ def flat_span(tensors):
                             first.storage_offset())
 
 
-def _same_tensors(a, b):
-    return len(a) == len(b) and all(
-        len(x) == len(y) and all(s is t for s, t in zip(x, y)) for x, y in zip(a, b))
+def _same_tensors(refs, b):
+    """``refs`` (weak references) name the very tensors of ``b``."""
+    return len(refs) == len(b) and all(
+        len(x) == len(y) and all(r() is t for r, t in zip(x, y)) for x, y in zip(refs, b))
 
 
 def prepare(kernel, lists, cache=None):
@@ -46,12 +49,14 @@ def prepare(kernel, lists, cache=None):
     table, and the (original, contiguous copy) pairs to copy back after
     the launch.  With ``cache`` (a dict the caller keeps), a call with the
     same tensor objects as the cached one returns the cached table; a
-    table that needs copies written back is not cached."""
+    table that needs copies written back is not cached.  The cache holds
+    the tensors weakly, so it keeps none of them alive (the offloaded
+    optimizer state's device copies live for one update)."""
     if cache and _same_tensors(cache["lists"], lists):
         return cache["result"]
     result = _prepare(kernel, lists)
     if cache is not None and not result[3]:
-        cache["lists"] = [list(lst) for lst in lists]
+        cache["lists"] = [[weakref.ref(t) for t in lst] for lst in lists]
         cache["result"] = result
     return result
 

@@ -1,13 +1,15 @@
 """Checkpoint storage engines with a transactional commit protocol
 (counterpart of ``deeperspeed_tpu/runtime/checkpoint_engine/
-checkpoint_engine.py``, pure Python, kept as the port's own copy).
+checkpoint_engine.py``, kept as the port's own copy).
 
 ``NativeCheckpointEngine`` writes bytes with atomic file IO;
-``AsyncCheckpointEngine`` hands the writes to a background thread pool so
-the step loop is not blocked on disk, and ``commit(tag)`` is the barrier
-that makes a tag durable before the ``latest`` pointer moves.  (The JAX
-package's async engine can also route through its native AIO module; the
-port writes from the thread pool only.)
+``AsyncCheckpointEngine`` hands the bytes to the native aio pool
+(``ops/aio``), so the step loop is not blocked on disk, and
+``commit(tag)`` is the barrier that makes a tag durable before the
+``latest`` pointer moves: it waits for every write, and a failed one fails
+it.  (The JAX package's async engine takes the aio route whenever its
+native module builds, else a thread pool; the port's library builds or
+raises, so the aio pool is its only route.)
 
 Durability protocol: ``create(tag)`` opens a transaction; every ``save()``
 goes tmp + fsync + rename and records the payload's sha256;
@@ -18,15 +20,15 @@ verifying manifest is not committed: the load path
 (``runtime/checkpointing.py``) treats it as corrupt and walks back to the
 newest valid tag.
 
-All byte-level IO goes through the module-level ``_io_open`` /
+Every open, fsync and rename goes through the module-level ``_io_open`` /
 ``_io_fsync`` / ``_io_replace`` seam, so a fault-injection harness can
-inject torn writes, EIO, bit flips and mid-save kills without touching the
-code under test.  A payload is any bytes-like object (the codec's encoder
-returns a ``memoryview``); reads return a ``bytearray``, which the decoder
-views without copying.
+inject EIO and mid-save kills without touching the code under test (the
+synchronous engine also writes its bytes through the opened file, so torn
+writes too; the async engine's bytes go through the aio pool).  A payload
+is any bytes-like object (the codec's encoder returns a ``memoryview``);
+reads return a ``bytearray``, which the decoder views without copying.
 """
 
-import concurrent.futures
 import hashlib
 import json
 import os
@@ -225,64 +227,66 @@ class NativeCheckpointEngine(CheckpointEngine):
 
 
 class AsyncCheckpointEngine(CheckpointEngine):
-    """Background-thread writes; ``commit`` joins them.
+    """Writes on the native aio pool; ``commit`` waits for them.
 
-    The step loop hands off host bytes and keeps running; the verified
-    manifest commit gives the same durability point the synchronous engine
-    does.  A failed commit tears down the thread pool and rebuilds it so no
-    wedged writer or leftover future leaks into the next tag's transaction.
+    ``save`` opens the file's temporary name through the seam and hands its
+    bytes to the pool's threads (a pwrite on that descriptor), so the step
+    loop does not wait on the disk.  ``commit`` waits for the pool, then
+    fsyncs, closes and renames each file through the seam (the steps of
+    :func:`atomic_write_bytes`) and writes the verified manifest.  A failed
+    write, fsync or rename fails the commit and drops the transaction, with
+    every file of the tag closed, so nothing leaks into the next tag.
     """
 
     def __init__(self, config_params=None, max_workers=4):
-        super().__init__(config_params)
-        self._max_workers = max_workers
-        self._pending = []
-        self._pool = self._make_pool()
+        from ...ops.aio import AsyncIOHandle
 
-    def _make_pool(self):
-        return concurrent.futures.ThreadPoolExecutor(
-            max_workers=self._max_workers, thread_name_prefix="dst-ckpt")
+        super().__init__(config_params)
+        self._aio = AsyncIOHandle(num_threads=max_workers)
+        self._pending = []        # (open file, temporary path, path) of the tag
 
     def create(self, tag):
         super().create(tag)
         if self._pending:
-            # a previous tag's failed commit left work in flight; it must
-            # not be mistaken for this tag's writes
+            # a previous tag's save raised before its commit; its files must
+            # not be mistaken for this tag's
             logger.warning(f"[async ckpt] {len(self._pending)} stale writes "
-                           "pending at create(); resetting writer pool")
-            self._reset_pool()
+                           "pending at create(); dropping them")
+            self._aio.wait()
+            self._close(self._pending)
+            self._pending = []
         logger.info(f"[async ckpt] start checkpoint {tag}")
-
-    def _write(self, data, path):
-        atomic_write_bytes(data, path)
 
     def save(self, data, path):
         self._record(data, path)
-        self._pending.append(self._pool.submit(self._write, data, path))
+        tmp = path + ".tmp"
+        f = _io_open(tmp, "wb")
+        self._pending.append((f, tmp, path))
+        self._aio.async_pwrite_fd(data, f.fileno())
+
+    @staticmethod
+    def _close(pending):
+        for f, _, _ in pending:
+            f.close()
 
     def commit(self, tag):
         pending, self._pending = self._pending, []
-        ok = True
-        for fut in concurrent.futures.as_completed(pending):
-            exc = fut.exception()
-            if exc is not None:
-                logger.error(f"[async ckpt] write failed: {exc}")
-                ok = False
-        if not ok:
-            # the pool may hold queued/wedged writes from the failed tag;
-            # rebuild it so the next tag starts from a clean transaction
-            self._reset_pool()
+        rc = self._aio.wait()
+        try:
+            if rc != 0:
+                raise OSError(-rc, f"aio write failed: {os.strerror(-rc)}")
+            for f, tmp, path in pending:
+                _io_fsync(f.fileno())
+                f.close()
+                _io_replace(tmp, path)
+            for d in {os.path.dirname(path) or "." for _, _, path in pending}:
+                _fsync_dir(d)
+        except OSError as e:
+            logger.error(f"[async ckpt] write failed: {e}")
+            self._close(pending)
             self._txn = {}
             return False
         return self._commit_manifest(tag)
-
-    def _reset_pool(self):
-        try:
-            self._pool.shutdown(wait=False, cancel_futures=True)
-        except Exception:
-            pass
-        self._pool = self._make_pool()
-        self._pending = []
 
 
 def get_checkpoint_engine(checkpoint_config=None):

@@ -25,6 +25,17 @@ either package.  ``engine_state.json`` carries the JAX package's keys with
 generators, one per rank, go under ``torch_rng_state``, which the JAX loader
 ignores.
 
+An engine with ``offload_optimizer.host_update`` writes the same model file
+(its host masters) and the JAX host-update payload as its optimizer file,
+``{"cpu_adam": {"mu", "nu", "t"}, "step"}``, the moments flat fp32 arrays by
+the flax '/'-joined names (each a flax leaf's elements in its own layout), with
+``"host_update": true`` in ``engine_state.json`` (the JAX package's
+``checkpointing.py:466-483``); it loads either kind (:func:`_load_host`),
+starting the moments fresh from a device-mode file, and a device-mode engine
+loads a host-update checkpoint's weights with fresh moments and a warning.
+``ds_to_universal`` carries the moments across the two update modes.  Under
+the NVMe tier the optimizer state is swapped in before a save or a load.
+
 Durability protocol: the tag directory gets an ``.incomplete`` marker
 first, every artifact goes tmp + fsync + rename, ``commit(tag)`` writes a
 checksum manifest and verifies it by reading back, the marker is removed,
@@ -473,18 +484,61 @@ def _restore_dataloader(engine, meta):
     engine._prefetcher = None
 
 
-def save_checkpoint(engine, save_dir, tag=None, client_state=None, save_latest=True):
-    """Save the engine between steps (the accumulation buffer is not state)."""
+def _flat_reference(engine, named):
+    """``named`` (parameter name -> tensor) as the flax tree's leaves by
+    their '/'-joined names."""
+    from ..checkpoint.deeperspeed_checkpoint import flatten_state_dict
+
+    return flatten_state_dict(to_reference_tree(engine.module, named), sep="/")
+
+
+def host_moments(engine):
+    """The host optimizer's moments as the JAX host-update payload's
+    ``mu`` and ``nu``: flat fp32 arrays by flax name (the JAX package's
+    ``_host_master_tree`` names)."""
+    opt = engine._host_adam
+    out = {}
+    for key, i in (("mu", 0), ("nu", 1)):
+        shaped = {n: opt._moments[n][i].view(t.shape) for n, t in engine.master_params.items()}
+        out[key] = {name: v.contiguous().reshape(-1)
+                    for name, v in _flat_reference(engine, shaped).items()}
+    return out
+
+
+def load_host_moments(engine, mu, nu, t=None):
+    """Copy moments given by flax name (flat or in the leaves' shapes, as
+    a host-update payload or a universal export holds them) into the host
+    optimizer, in place; names the file lacks keep their moments, with a
+    warning (the JAX engine's ``_host_restore``).  ``t``: the step count."""
+    opt = engine._host_adam
+    lost = set()
+    for i, given in ((0, mu), (1, nu)):
+        current = {n: opt._moments[n][i].view(p.shape) for n, p in engine.master_params.items()}
+        leaves = _flat_reference(engine, current)
+        lost |= set(leaves) - set(given)
+        tree = {}
+        for name, leaf in leaves.items():
+            src = given.get(name)
+            value = leaf if src is None else torch.as_tensor(
+                np.asarray(src, np.float32)).reshape(leaf.shape)
+            node = tree
+            *parents, last = name.split("/")
+            for key in parents:
+                node = node.setdefault(key, {})
+            node[last] = value.numpy() if isinstance(value, torch.Tensor) else value
+        for n, v in from_reference_tree(engine.module, tree).items():
+            opt._moments[n][i].copy_(v.reshape(-1))
+    if lost:
+        logger.warning(f"host_update restore: moments missing for {len(lost)} parameters "
+                       f"(first: {sorted(lost)[:3]}); they start fresh")
+    if t is not None:
+        opt.t = int(t)
+
+
+def _meta(engine, tag, client_state):
     from ..parallel import get_mesh
 
-    tag = tag or f"global_step{engine.global_steps}"
-    model_tree = reference_masters(engine)
-    optim_tree = {
-        "loss_scale": _loss_scale_tree(engine.loss_scale_state),
-        "opt_state": reference_opt_state(engine),
-        "step": np.asarray(engine.step_count, np.int32),
-    }
-    meta = {
+    return {
         "tag": tag,
         "global_steps": engine.global_steps,
         "global_samples": engine.global_samples,
@@ -499,10 +553,31 @@ def save_checkpoint(engine, save_dir, tag=None, client_state=None, save_latest=T
         "dataloader": _dataloader_state(engine),
         RNG_KEY: _generator_states(engine),
     }
+
+
+def save_checkpoint(engine, save_dir, tag=None, client_state=None, save_latest=True):
+    """Save the engine between steps (the accumulation buffer is not state)."""
+    tag = tag or f"global_step{engine.global_steps}"
+    model_tree = reference_masters(engine)
+    if getattr(engine, "_host_adam", None) is not None:
+        moments = host_moments(engine)
+        optim_tree = {"cpu_adam": {**moments, "t": np.asarray(engine._host_adam.t, np.int32)},
+                      "step": np.asarray(engine.step_count, np.int32)}
+        meta = {**_meta(engine, tag, client_state), "host_update": True}
+        return write_checkpoint(engine, save_dir, tag,
+                                model_bytes=lambda: _encode(model_tree),
+                                optim_bytes=lambda: _encode(optim_tree),
+                                meta=meta, save_latest=save_latest)
+    engine._ensure_opt_resident()
+    optim_tree = {
+        "loss_scale": _loss_scale_tree(engine.loss_scale_state),
+        "opt_state": reference_opt_state(engine),
+        "step": np.asarray(engine.step_count, np.int32),
+    }
     return write_checkpoint(engine, save_dir, tag,
                             model_bytes=lambda: _encode(model_tree),
                             optim_bytes=lambda: _encode(optim_tree),
-                            meta=meta, save_latest=save_latest)
+                            meta=_meta(engine, tag, client_state), save_latest=save_latest)
 
 
 def read_latest_tag(load_dir):
@@ -591,6 +666,10 @@ def load_checkpoint(engine, load_dir, tag=None, load_optimizer_states=True,
     tree = _decode(_read_artifact(engine, storage, os.path.join(ckpt_dir, MODEL_FILE)))
     load_reference_masters(engine, tree, load_module_strict)
     del tree
+    if getattr(engine, "_host_adam", None) is not None:
+        return _load_host(engine, ckpt_dir, storage, meta,
+                          load_optimizer_states and not load_module_only)
+    engine._ensure_opt_resident()
     if load_optimizer_states and not load_module_only and meta.get("host_update"):
         # the host-update payload ({cpu_adam, step}) is not the optax tree
         logger.warning(
@@ -606,4 +685,27 @@ def load_checkpoint(engine, load_dir, tag=None, load_optimizer_states=True,
             engine.step_count = int(payload["step"])
     restore_counters(engine, meta)
     log_dist(f"loaded checkpoint {ckpt_dir}", ranks=[0])
+    return ckpt_dir, meta.get("client_state", {})
+
+
+def _load_host(engine, ckpt_dir, storage, meta, load_optimizer_states):
+    """The rest of a load into a host-update engine, whose masters are
+    already in (the JAX package's ``_load_checkpoint_host``): the moments
+    and ``t`` from a host-update payload; from a device-mode file they
+    start fresh, with a warning."""
+    optim_path = os.path.join(ckpt_dir, OPTIM_FILE)
+    if load_optimizer_states and os.path.isfile(optim_path):
+        payload = _decode(_read_artifact(engine, storage, optim_path))
+        cpu = payload.get("cpu_adam")
+        if cpu is None:
+            logger.warning("host_update load: checkpoint carries device-mode optimizer "
+                           "state; moments start fresh (use ds_to_universal to carry "
+                           "them across modes)")
+        else:
+            load_host_moments(engine, cpu["mu"], cpu["nu"], t=np.asarray(cpu["t"]))
+        engine.step_count = int(payload.get("step", meta.get("global_steps", 0)))
+    else:
+        engine.step_count = int(meta.get("global_steps", engine.step_count))
+    restore_counters(engine, meta)
+    log_dist(f"loaded checkpoint {ckpt_dir} (host-update mode)", ranks=[0])
     return ckpt_dir, meta.get("client_state", {})

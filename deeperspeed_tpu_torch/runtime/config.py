@@ -6,8 +6,10 @@ the data-parallel world), ``optimizer``, ``scheduler``, ``fp16`` /
 ``bf16``, ``gradient_clipping``, ``seed``, ``steps_per_print``,
 ``zero_optimization`` (stages 0-3, ``param_persistence_threshold``,
 ``zero_quantized_gradients``, ``zero_quantized_weights`` (qwZ, stage 3),
-and the bucket, overlap and checkpoint knobs the JAX package accepts and
-ignores), ``communication_data_type``, ``comm.quantized`` (qgZ),
+``offload_optimizer`` (the pinned-host and NVMe tiers and the host update),
+``offload_param`` and ``cpu_offload``, and the bucket, overlap and
+checkpoint knobs the JAX package accepts and ignores),
+``communication_data_type``, ``comm.quantized`` (qgZ),
 ``comm.overlap`` (the deferred and bucketed gradient reduction),
 ``comms_logger``, ``mesh.data_parallel_size`` and ``model_parallel_size``,
 MiCS and hpZ (``mics_shard_size``, ``zero_hpz_partition_size``: the
@@ -135,6 +137,45 @@ class FP16Config(DeeperSpeedConfigModel):
 
 class BF16Config(DeeperSpeedConfigModel):
     enabled: bool = False
+
+
+class OffloadOptimizerConfig(DeeperSpeedConfigModel):
+    """``zero_optimization.offload_optimizer`` (the JAX package's fields and
+    defaults).  ``device``: ``none``, ``cpu`` (each rank's fp32 masters and
+    optimizer state live in pinned host memory between steps; the update
+    runs on the card) or ``nvme`` (the optimizer state also goes to
+    ``nvme_path`` between steps through the aio pool of ``buffer_count``
+    threads; ``pipeline_write`` leaves the flush in flight until the next
+    step's swap-in).  ``host_update`` (with ``cpu``): the update runs on the
+    host cores (``ops/adam/cpu_adam.py``) over host fp32 masters and moments
+    and the card holds only the compute parameters; ``wire_dtype`` ``bf16``
+    halves the gradients' bytes to the host.  ``pin_memory``,
+    ``pipeline_read``, ``fast_init`` and ``ratio`` are accepted and not
+    acted on, as in the JAX package."""
+
+    device: Literal["none", "cpu", "nvme"] = "none"
+    nvme_path: Optional[str] = None
+    buffer_count: int = 4
+    pin_memory: bool = False
+    pipeline_read: bool = False
+    pipeline_write: bool = True
+    fast_init: bool = False
+    ratio: float = 1.0
+    host_update: bool = False
+    wire_dtype: Optional[Literal["fp32", "bf16"]] = None
+
+
+class OffloadParamConfig(DeeperSpeedConfigModel):
+    """``zero_optimization.offload_param``: accepted and not acted on, as in
+    the JAX package, whose parameter tier is ``ZeroInfinityEngine``
+    (``runtime/zero/infinity.py``), built directly."""
+
+    device: Literal["none", "cpu", "nvme"] = "none"
+    nvme_path: Optional[str] = None
+    buffer_count: int = 5
+    buffer_size: int = 100_000_000
+    max_in_cpu: int = 1_000_000_000
+    pin_memory: bool = False
 
 
 class ActivationCheckpointingConfig(DeeperSpeedConfigModel):
@@ -412,6 +453,7 @@ class DeeperSpeedConfig:
             setattr(self, key, bool(zero.pop(key, default)))
         for key in IGNORED_ZERO_KEYS:
             zero.pop(key, None)
+        self._offload(zero)
         # MiCS and hpZ: both become the mesh's zshard axis, so conflicting
         # sizes are refused (the JAX engine's ``engine.py:100-116``); hpZ
         # below stage 3 partitions as stage 1-2 do (no compute shards)
@@ -424,10 +466,34 @@ class DeeperSpeedConfig:
                 f"both map to the zshard mesh axis and must agree")
         self.zshard_size = max(mics, hpz)
         if zero:
-            keys = sorted(zero)
-            item = ("Offload" if any(k.startswith(("offload", "cpu_offload")) for k in keys)
-                    else REST)
-            raise _not_ported(f"zero_optimization keys {keys}", item)
+            raise _not_ported(f"zero_optimization keys {sorted(zero)}", REST)
+
+    def _offload(self, zero):
+        """``offload_optimizer``, ``offload_param`` and the legacy
+        ``cpu_offload`` flag (the JAX config's ``offload_optimizer: {device:
+        cpu}``)."""
+        if zero.pop("cpu_offload", None) and "offload_optimizer" not in zero:
+            logger.warning("zero_optimization.cpu_offload is deprecated, use offload_optimizer")
+            zero["offload_optimizer"] = {"device": "cpu"}
+        blocks = {}
+        for key, model in (("offload_optimizer", OffloadOptimizerConfig),
+                           ("offload_param", OffloadParamConfig)):
+            block = zero.pop(key, None)
+            if block is not None:
+                _known(dict(block), model, f"zero_optimization.{key}")
+                blocks[key] = model(**block)
+        self.offload_optimizer = blocks.get("offload_optimizer")
+        self.offload_param = blocks.get("offload_param")
+        off = self.offload_optimizer
+        if off is not None and off.host_update and off.device != "cpu":
+            raise ValueError(f"offload_optimizer.host_update requires device 'cpu' (got "
+                             f"{off.device!r}); the NVMe tier keeps the device-side update")
+        if off is not None and off.device == "nvme" and not off.nvme_path:
+            raise ValueError("offload_optimizer.device='nvme' requires nvme_path")
+
+    @property
+    def offload_optimizer_device(self):
+        return self.offload_optimizer.device if self.offload_optimizer else "none"
 
     def _comm(self, comm):
         """``comm``: ``quantized`` (qgZ) and ``overlap`` (with its

@@ -131,15 +131,33 @@ runs inside the head's call, so stage 3 gathers the head's weight around
 it.  ``comm.overlap.prefetch_depth`` runs the engine's loader that many
 steps ahead (``dataloader.DevicePrefetchingLoader``).
 
+Offload (``zero_optimization.offload_optimizer``, the JAX engine's
+``engine.py:184-217``): with ``device: "cpu"`` each rank's fp32 masters and
+optimizer state (its partitions at stages 1-3) live in pinned host memory,
+are copied to the card for the update (the same device update, B6 under
+FusedAdam) and back after it (``swap_tensor.py``); ``"nvme"`` also moves the
+optimizer state to files between steps through the aio pool, its reads
+running while the card computes the gradients.  ``host_update`` (stage 0,
+one process, Adam/AdamW/CPUAdam, not fp16) runs the update on the host
+cores instead (``ops/adam/cpu_adam.py``): the card holds the compute
+parameters and the gradients and no fp32 master or moment; the clipped fp32
+gradients come down in one copy into pinned memory (``wire_dtype: "bf16"``
+halves its bytes, and the native Adam reads them as bf16), the native Adam
+updates the host masters in place, and
+the masters are cast to the compute type on the host, so the copy up moves
+the compute bytes.  :attr:`offload_stats` holds the last step's transfers
+and their seconds.  :meth:`destroy` removes the NVMe tier's files.
+
 Not ported yet (raising ``NotImplementedError``, each naming its ROADMAP
-Queue A item): the ``auto`` schedule and memory planner and the
-host-update (optimizer offload) checkpoint branch ('Offload'); eigenvalue,
-compression and the step telemetry ('The rest of the surface').
+Queue A item): the ``auto`` schedule and memory planner ('Offload');
+eigenvalue, compression and the step telemetry ('The rest of the surface').
 """
 
 import collections
 import math
+import os
 import re
+import time
 
 import numpy as np
 import torch
@@ -153,6 +171,7 @@ from ..comm.overlap import apply_xla_latency_hiding, bucketize
 from .config import COMM_DTYPES, DeeperSpeedConfig
 from .lr_schedules import get_lr_schedule_fn
 from .optimizers import build_optimizer, identity
+from .swap_tensor import DeviceCopies, pin_into_one
 from .precision import (
     MixedPrecisionPolicy,
     has_inf_or_nan,
@@ -202,6 +221,7 @@ class DeeperSpeedEngine:
         self._stage3_model(model)
 
         self.precision = MixedPrecisionPolicy(config)
+        self._init_offload()
         self._init_qgz()
         self._init_schedule()
         # the type the data-parallel reduction runs in (the JAX engine's
@@ -249,6 +269,7 @@ class DeeperSpeedEngine:
             self.tx = identity()
         self.optimizer = self.tx
         self.opt_state = self.tx.init(self.master_params)
+        self._init_offload_state()
 
         # ---- lr schedule: a pure function of the optimizer step
         if lr_scheduler is not None and callable(lr_scheduler):
@@ -339,6 +360,114 @@ class DeeperSpeedEngine:
                 self._expert_names.update(f"{name}.{p}" for p, _ in mod.named_parameters())
             elif isinstance(mod, MOELayer):
                 mod.set_groups(self.group, self.ep_group)
+
+    def _init_offload(self):
+        """``offload_optimizer`` and ``offload_param`` (the JAX engine's
+        ``engine.py:178-217``): which tier holds the masters and the
+        optimizer state, the host optimizer of ``host_update`` and the NVMe
+        tier's swapper."""
+        cfg = self.config
+        off = cfg.offload_optimizer
+        if cfg.offload_param is not None and cfg.offload_param.device != "none":
+            log_dist("offload_param is accepted and not acted on, as in the JAX engine: "
+                     "the parameter tier is ZeroInfinityEngine (runtime/zero/infinity.py), "
+                     "built directly", ranks=[0])
+        self._host_adam = None
+        self._opt_swapper = None
+        self._opt_home = None
+        self.offload_stats = {}
+        if off is not None and off.host_update:
+            self._init_host_update()
+        tier = cfg.offload_optimizer_device
+        self._offload = tier in ("cpu", "nvme") and self._host_adam is None
+        self._host_state = self._offload or self._host_adam is not None
+        self._pin = self.device.type == "cuda"
+        if tier == "nvme":
+            from .swap_tensor import OptimizerStateSwapper
+
+            self._opt_swapper = OptimizerStateSwapper(
+                os.path.join(off.nvme_path, "zero_opt_swap"), num_threads=off.buffer_count,
+                pipeline_write=off.pipeline_write)
+
+    def _init_host_update(self):
+        """The host update's refusals, in the JAX engine's terms
+        (``_init_host_update``), and its native optimizer."""
+        from ..ops.adam.cpu_adam import DeeperSpeedCPUAdam
+        from .config import OptimizerParams
+        from .constants import ADAM_OPTIMIZER, ADAMW_OPTIMIZER, CPU_ADAM_OPTIMIZER
+
+        cfg = self.config
+        if cfg.zero_stage != 0:
+            raise NotImplementedError(
+                "offload_optimizer.host_update requires zero stage 0 (the host update "
+                "consumes full-replica grads; sharded state belongs on the device path)")
+        if self.precision.is_fp16:
+            raise NotImplementedError("host_update does not compose with fp16 dynamic "
+                                      "scaling; use bf16 (masters are fp32 on host either way)")
+        if comm.get_world_size() > 1:
+            raise NotImplementedError("host_update is single-process (grads fetch to one host)")
+        opt = cfg.optimizer
+        opt_type = opt.type.lower() if opt else ADAM_OPTIMIZER
+        if opt_type not in (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, CPU_ADAM_OPTIMIZER):
+            raise NotImplementedError(f"host_update supports Adam/AdamW/CPUAdam, got {opt.type}")
+        p = opt.params if opt else OptimizerParams()
+        self._host_adam = DeeperSpeedCPUAdam(lr=p.lr, betas=tuple(p.betas), eps=p.eps,
+                                             weight_decay=p.weight_decay,
+                                             adamw_mode=opt_type == ADAMW_OPTIMIZER)
+        self._wire_dtype = (torch.bfloat16 if cfg.offload_optimizer.wire_dtype == "bf16"
+                            else torch.float32)
+
+    def _init_offload_state(self):
+        """Host update: the moments, the gradients' landing buffer and the
+        cast's staging buffers, pinned and allocated once, and no optimizer
+        state in the engine.  The host tiers: the optimizer state moved into
+        one pinned buffer."""
+        f32, pin = torch.float32, self._pin
+        flat = self._master_flat
+        if self._host_adam is not None:
+            self.opt_state = None
+            m, v = (torch.zeros(flat.numel(), dtype=f32, pin_memory=pin) for _ in range(2))
+            # the gradients' landing buffer, in the wire's type: the native
+            # Adam reads a bf16 wire's as it is
+            self._host_grad = torch.empty(flat.numel(), dtype=self._wire_dtype,
+                                          pin_memory=pin)
+            self._host_grads = {}
+            for n, t in self.master_params.items():
+                span = slice(t.storage_offset() - flat.storage_offset(),
+                             t.storage_offset() - flat.storage_offset() + t.numel())
+                self._host_adam._moments[n] = (m[span], v[span])
+                self._host_grads[n] = self._host_grad[span]
+            self._host_stage = [None if region.dtype == f32 else
+                                torch.empty(region.padded, dtype=region.dtype, pin_memory=pin)
+                                for region, *_ in self._compute]
+        elif self._offload:
+            from ..utils.tree import tree_leaves
+
+            state = [t for t in tree_leaves(self.opt_state) if isinstance(t, torch.Tensor)]
+            if state:
+                self._opt_home = pin_into_one(state, pin)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _ensure_opt_resident(self):
+        """NVMe tier: the optimizer state back in host memory (the JAX
+        engine's ``_ensure_opt_resident``)."""
+        if self._opt_swapper is not None:
+            self._opt_swapper.swap_in()
+
+    def _spill_opt(self):
+        """NVMe tier: the optimizer state to disk until the next step."""
+        if self._opt_swapper is not None and self._opt_home is not None:
+            self._opt_swapper.swap_out([self._opt_home])
+
+    def destroy(self):
+        """Release what the engine owns: the NVMe tier's aio pool and swap
+        directory."""
+        if self._opt_swapper is not None:
+            self._opt_swapper.close()
+            self._opt_swapper = None
 
     def _stage3_model(self, model):
         """Stage 3's one change to the model: it recomputes each unit."""
@@ -474,7 +603,9 @@ class DeeperSpeedEngine:
         self._order = plan.order
         dev, f32, accum = self.device, torch.float32, self._accum_dtype
         local, whole = plan.local_numel, self._acc_whole
-        self._master_flat = torch.empty(local, dtype=f32, device=dev)
+        host = self._host_state         # the masters in (pinned) host memory
+        self._master_flat = torch.empty(local, dtype=f32, device="cpu" if host else dev,
+                                        pin_memory=host and self._pin)
         self._grad_flat = torch.zeros(local, dtype=f32, device=dev)
         acc_numel = sum(r.padded for r in plan.regions) if whole else local
         self._acc_flat = (self._grad_flat if accum == f32 and acc_numel == local else
@@ -538,7 +669,7 @@ class DeeperSpeedEngine:
                         if self._onebit:
                             self._error_views.append(
                                 self._onebit_error[acc + off:acc + off + p.numel()])
-                if stage == 0 and region.dtype == f32:
+                if stage == 0 and region.dtype == f32 and not host:
                     buf = None          # the parameters are the master views
                     for p, off in zip(params, region.offsets):
                         p.data = master[off:off + p.numel()].view(p.shape)
@@ -623,12 +754,22 @@ class DeeperSpeedEngine:
             off += region.padded
 
     @torch.no_grad()
-    def _refresh_compute(self):
+    def _refresh_compute(self, copies=None):
         """The compute copy from the masters (the JAX engine's
         ``cast_for_compute``): one cast copy per region on one rank, an
         all-gather of the cast partitions over several, and at stage 3 the
-        cast partition alone for the regions gathered at use."""
+        cast partition alone for the regions gathered at use.  Masters in
+        host memory are read through their device copies (``copies``, a
+        ``DeviceCopies``, made here when not given); under the host update
+        they are cast on the host and copied up (:meth:`_upload_compute`)."""
+        if self._host_adam is not None:
+            self._upload_compute()
+            return
+        if copies is None and self._host_state:
+            copies = DeviceCopies(self.device)
         for region, master, buf, gathered in self._compute:
+            if copies is not None:
+                master = copies(master)
             if gathered is not None and self._hpz:
                 # hpZ's secondary shard: this rank's zshard part of the
                 # region, gathered once from the primary partitions
@@ -1179,12 +1320,97 @@ class DeeperSpeedEngine:
 
     @torch.no_grad()
     def _apply(self, lr):
-        updates, self.opt_state = self.tx.update(dict(self.grads), self.opt_state,
-                                                 self.master_params)
-        masters = list(self.master_params.values())
-        ups = [updates[n] for n in self.master_params]
-        torch._foreach_add_(masters, ups, alpha=1.0 if self._updates_include_lr else -lr)
-        self._refresh_compute()
+        if self._host_adam is not None:
+            self._apply_host(lr)
+        elif self._offload:
+            self._apply_offloaded(lr)
+        else:
+            self.opt_state = self._update(self.master_params, self.opt_state, lr)
+            self._refresh_compute()
+
+    def _update(self, masters, state, lr):
+        """The optimizer's update of ``masters`` (name -> tensor) from the
+        gradients; returns the new optimizer state."""
+        updates, state = self.tx.update(dict(self.grads), state, masters)
+        ups = [updates[n] for n in masters]
+        torch._foreach_add_(list(masters.values()), ups,
+                            alpha=1.0 if self._updates_include_lr else -lr)
+        return state
+
+    def _apply_offloaded(self, lr):
+        """The host tiers' update (the JAX engine's ``_materialize_state`` /
+        ``_dehydrate_state``): the pinned masters and optimizer state to the
+        card, the device update, the compute copy refreshed, both back."""
+        clock = time.perf_counter
+        self._ensure_opt_resident()
+        self._sync()
+        t0 = clock()
+        copies = DeviceCopies(self.device)
+        masters = {n: copies(t) for n, t in self.master_params.items()}
+        state = copies.tree(self.opt_state)
+        self._sync()
+        t1 = clock()
+        state = self._update(masters, state, lr)
+        self._refresh_compute(copies)
+        self.opt_state = copies.host(state)
+        self._sync()
+        t2 = clock()
+        copies.write_back()
+        t3 = clock()
+        self._spill_opt()
+        self.offload_stats = {"h2d_bytes": copies.h2d_bytes, "h2d_s": t1 - t0,
+                              "update_s": t2 - t1, "d2h_bytes": copies.d2h_bytes,
+                              "d2h_s": t3 - t2, "swap_out_s": clock() - t3}
+
+    def _apply_host(self, lr):
+        """The host update (the JAX engine's ``engine.py:1929-1954``): the
+        clipped fp32 gradients down in one copy into pinned memory (cast to
+        bf16 on the card under ``wire_dtype: "bf16"``), the native Adam over
+        the host masters and moments, then the compute copy up."""
+        clock = time.perf_counter
+        t0 = clock()
+        self._sync()                        # the forward and backward passes
+        t1 = clock()
+        g = self._grad_flat
+        self._host_grad.copy_(g.to(self._wire_dtype), non_blocking=True)
+        self._sync()
+        t2 = clock()
+        self._host_adam.step(self.master_params, self._host_grads, lr=lr)
+        t3 = clock()
+        self._cast_on_host()
+        t4 = clock()
+        h2d = self._copy_up()
+        self._sync()
+        t5 = clock()
+        self.offload_stats = {
+            "device_s": t1 - t0, "d2h_s": t2 - t1,
+            "d2h_bytes": g.numel() * self._host_grad.element_size(),
+            "adam_s": t3 - t2, "adam_elements": g.numel(), "cast_s": t4 - t3,
+            "h2d_s": t5 - t4, "h2d_bytes": h2d}
+
+    def _cast_on_host(self):
+        """Host update: each cast region's masters into its pinned staging
+        buffer, in the compute type."""
+        self._sync()            # an earlier copy up may still read the staging
+        for (region, master, _, _), stage in zip(self._compute, self._host_stage):
+            if stage is not None:
+                stage.copy_(master)
+
+    def _copy_up(self):
+        """Host update: the compute copy from the staging buffers (fp32
+        regions from the masters); returns the bytes copied."""
+        nbytes = 0
+        for (region, master, buf, _), stage in zip(self._compute, self._host_stage):
+            src = master if stage is None else stage
+            buf.copy_(src, non_blocking=True)
+            nbytes += src.numel() * src.element_size()
+        return nbytes
+
+    def _upload_compute(self):
+        """Host update: the compute copy from the host masters, cast on the
+        host (the JAX engine's ``_upload_compute``)."""
+        self._cast_on_host()
+        self._copy_up()
 
     def _report(self, metrics):
         self._last_metrics = metrics
@@ -1220,6 +1446,9 @@ class DeeperSpeedEngine:
         else:
             micro = self._stack_microbatches(data, local)
         micro, ltd = self._apply_data_efficiency(micro)
+        if self._opt_swapper is not None:
+            # the NVMe tier's reads run while the card computes the gradients
+            self._opt_swapper.prefetch()
         scale = self._scale()
         self._acc_count = 0
         weights = self._mask_weights(micro)

@@ -84,6 +84,11 @@ def test_port_imports_no_jax():
         "import deeperspeed_tpu_torch.inference.engine, deeperspeed_tpu_torch.inference.config\n"
         "import deeperspeed_tpu_torch.inference.params\n"
         "import deeperspeed_tpu_torch.inference.quantization\n"
+        "import deeperspeed_tpu_torch.op_builder, deeperspeed_tpu_torch.ops.aio\n"
+        "import deeperspeed_tpu_torch.ops.adam.cpu_adam\n"
+        "import deeperspeed_tpu_torch.runtime.swap_tensor\n"
+        "import deeperspeed_tpu_torch.runtime.zero.infinity\n"
+        "import deeperspeed_tpu_torch.comm.memplan\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'msgpack',\n"
         "                                                   'deeperspeed_tpu')]\n"
         "print('LOADED', bad)")
@@ -101,7 +106,7 @@ BANNED = [
 
 
 def test_port_sources_are_clean():
-    files = [p for p in PACKAGE.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
+    files = [p for p in PACKAGE.rglob("*") if p.suffix in (".py", ".cu", ".cuh", ".cpp")]
     assert len(files) > 20
     for path in files:
         text = path.read_text()
@@ -113,7 +118,7 @@ def test_chip_smoke_and_tools_import_no_jax():
     """chip_smoke.py and the port's tools may name the library yardsticks
     they time, but import nothing of JAX or of the JAX package."""
     files = [ROOT / "chip_smoke.py", *sorted((ROOT / "tools").glob("torch_*.py"))]
-    assert len(files) >= 3
+    assert len(files) >= 3 and ROOT / "tools" / "torch_offload_phase.py" in files
     for path in files:
         text = path.read_text()
         for pattern, why in BANNED[:2]:
@@ -231,3 +236,46 @@ def test_chip_smoke_needs_the_card_and_the_checkout(tmp_path):
     alone.write_text((ROOT / "chip_smoke.py").read_text())
     out = _run([sys.executable, str(alone)], cwd=tmp_path)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_host_routines_call_their_native_libraries(monkeypatch, tmp_path):
+    """The CPU Adam wrapper calls the native library of
+    ``csrc/host/cpu_adam.cpp`` (and no plain version); the aio handle
+    submits to its own pool of ``csrc/host/aio.cpp``.  Neither builds at
+    import; each counts its calls."""
+    from deeperspeed_tpu_torch import op_builder
+    from deeperspeed_tpu_torch.ops.adam import cpu_adam
+    from deeperspeed_tpu_torch.ops.aio import aio_handle
+
+    for fn, routine in ((cpu_adam.cpu_adam_step_, "dst_cpu_adam_step"),
+                        (cpu_adam.cpu_adagrad_step_, "dst_cpu_adagrad_step"),
+                        (cpu_adam.cpu_lion_step_, "dst_cpu_lion_step")):
+        src = inspect.getsource(fn)
+        assert f"_library().{routine}(" in src and "CALLS[" in src
+        assert "_plain" not in src and "torch." not in src.split('"""')[-1]
+    for method, routine in (("async_pwrite", "dst_aio_pwrite"),
+                            ("async_pwrite_fd", "dst_aio_pwrite_fd"),
+                            ("async_pread", "dst_aio_pread")):
+        src = inspect.getsource(getattr(aio_handle.AsyncIOHandle, method))
+        assert f"self._lib.{routine}(self._h" in src and "open(" not in src
+    calls = []
+    real = cpu_adam._library
+
+    def spy():
+        lib = real()
+        calls.append(lib)
+        return lib
+
+    monkeypatch.setattr(cpu_adam, "_library", spy)
+    p, m, v = torch.ones(5), torch.zeros(5), torch.zeros(5)
+    op_builder.CALLS.clear()
+    cpu_adam.cpu_adam_step_(p, torch.ones(5), m, v, 0.1, 0.9, 0.999, 1e-8, 0.0, 0.1, 0.001,
+                            True)
+    assert len(calls) == 1 and op_builder.CALLS["cpu_adam"] == 1 and float(p[0]) < 1.0
+    h = aio_handle.AsyncIOHandle(num_threads=1)
+    assert h._lib is aio_handle._library()
+    h.async_pwrite(b"x", str(tmp_path / "x.bin"))
+    assert h.wait() == 0 and op_builder.CALLS["aio_pwrite"] == 1
+    h.close()
+    src = (PACKAGE / "op_builder" / "builder.py").read_text()
+    assert ".tmp" in src and "os.getpid()" in src and "os.replace" in src

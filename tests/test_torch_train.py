@@ -222,8 +222,8 @@ def test_optimizer_trajectory_matches_jax(name, params, model_kw):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("zero_optimization", {"stage": 2, "offload_param": {"device": "nvme"}}),
-    ("zero_optimization", {"stage": 0, "offload_optimizer": {"device": "cpu"}}),
+    ("comm", {"overlap": {"enabled": True, "schedule": {"hbm_budget_bytes": 1 << 30}}}),
+    ("eigenvalue", {"enabled": True}),
     ("comm", {"overlap": {"enabled": True, "schedule": {"mode": "auto"}}}),
     ("pipeline", {"stages": 2}),
     ("hybrid_engine", {"enabled": True}),

@@ -238,13 +238,15 @@ def test_fused_adam_steps_over_each_ranks_pieces(runs):
     ({"fp16": {"enabled": True}, "comm": {"quantized": {"enabled": True}}}, ValueError),
     ({"zero_optimization": {"stage": 2}, "comm": {"quantized": {"enabled": True}}},
      ValueError),
-    ({"zero_optimization": {"stage": 1, "offload_optimizer": {"device": "cpu"}}},
+    ({"zero_optimization": {"stage": 1, "offload_optimizer": {"device": "cpu"}},
+      "comm": {"overlap": {"enabled": True, "schedule": {"hbm_budget_bytes": 1 << 30}}}},
      NotImplementedError),
     ({"mesh": {"pipe_parallel_size": 2}}, NotImplementedError),
     ({"mesh": {"sequence_parallel_size": 2}}, NotImplementedError),
     ({"mesh": {"expert_parallel_size": 2}}, ValueError),
     ({"comm": {"quantized": {"enabled": True, "intra_axis": "ep"}}}, ValueError),
-    ({"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}}},
+    ({"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}},
+      "comm": {"overlap": {"enabled": True, "schedule": {"memory": "auto"}}}},
      NotImplementedError),
     ({"comm": {"quantized": {"enabled": True, "bucket_mb": 8}}}, NotImplementedError),
 ])
@@ -252,7 +254,8 @@ def test_refused_configurations(extra, error):
     """qgZ refuses fp16 and stages above 0, as the JAX engine does, and an
     intra hop on ``ep`` (its hops run over dp and zshard); an ``ep`` that
     does not divide the processes is refused; the layouts not ported yet
-    (offload, pipelines, sequence parallelism) name their ROADMAP item."""
+    (the offload planners, pipelines, sequence parallelism) name their
+    ROADMAP item."""
     match = "ROADMAP Queue A" if error is NotImplementedError else "comm|mesh"
     with pytest.raises(error, match=match):
         tdst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(), device="cpu"),
