@@ -256,12 +256,33 @@ package, and goes through these phases, each printing its lines:
     (f) (in phase 13's workers) phase 14's stage-2 step on the pinned-host
     tier at world 2, losses equal to phase 14's.  K1/K8 and K5-K7 must
     launch on every offload path.  Each phase prints a ``[time]`` line.
+25. the planners: (a) ``measure_h2d_bandwidth`` over 256 MiB of pinned
+    memory, within 2x of ``telemetry/wire.py``'s host-link figure for the
+    card, and a calibration (phase 24 (d)'s forward, backward and clip time,
+    the measured rate) saved and read back equal through
+    ``DST_TUNER_CACHE`` in a scratch directory; (b) phase 24 (d)'s stream
+    (1.4B's width, 4 layers in 4 chunks, its weights) under
+    ``memory_schedule: "auto"`` with that calibration at 300 MiB (which the
+    static schedule refuses at construction: its peak is 393.0 MiB; 1
+    step), 700 MiB (2 steps) and 1 GiB (1 step): the engine's plan equal to
+    ``plan_chunk_stream`` on its unit bytes, the losses equal to (d)'s
+    static ones bit for bit, the device ledger within the plan's peak, the
+    plan's ``describe()``, s/step against static and ``swap_stats``; (c)
+    (in phase 13's workers, before phase 20 (c)) phase 14's step at gas 2
+    and stage 2 under ``schedule.mode: "auto"``: the plan, the collectives
+    issued from gradient hooks, losses and each step's grad norm equal bit
+    for bit to phase 20 (c)'s manual deferred run, which takes the plan's
+    ``bucket_mb``, and ms a step against it; (d) stage 3 at phase 13's
+    model: ``memory: "static"`` with half its static peak as the budget
+    refused at construction, ``"auto"`` one step and its movement plan,
+    whose peak is the stage-3 ledger's.  K1/K8 and K5-K7 must launch on (b)
+    and (c).
 
 The worker processes of phases 13-14, 20, 21, 22 (e) and 23 (c) start
 right after the build, make their CUDA context and wait until their phase
-(``[workers]`` line); those of 22 (e) and 23 (c) run under phase 19, which
-waits on the disk, and their phases join them.  Each phase prints a
-``[time]`` line.
+(``[workers]`` line); those of 21, 22 (e) and 23 (c) run under phase 19,
+which waits on the disk, and their phases join them (their ms are read
+with phase 19 running beside them).  Each phase prints a ``[time]`` line.
 
 The second-to-last line is the JSON summary of the kernels (a kernel's
 ``launches`` sums its counts on the main paths, serving in phase 5,
@@ -276,7 +297,8 @@ in phase 21 the tp 2 x dp 2 full-size steps (rank 0), and in phase 22
 full-width trainings and (e)'s tp 2 run (rank 0), in phase 23 (b)'s top-1
 training, (c)'s stage-0 run (rank 0) and (d)'s bf16 serving, in phase 24
 (a)'s host-update steps, (b)'s pinned-tier steps, (c)'s NVMe-tier steps and
-(d)'s streamed steps, each read right after its own run and listed in
+(d)'s streamed steps, in phase 25 (b)'s 700 MiB planned stream and (c)'s
+hook-issued steps (rank 0), each read right after its own run and listed in
 ``launches_by_path``), the
 last ``{"ok": true,
 "device": {...}}``.  Any
@@ -2087,25 +2109,47 @@ def dp_worker(rank, rendezvous, out_path):
         results[f"wire-{name}"] = rec
         del eng
         torch.cuda.empty_cache()
-    for name, cfg in WIRE_FULL_RUNS.items():            # phase 20 (c)
+    plan = None
+    # phase 25 (c), the cost-model schedule, then phase 20 (c): its deferred
+    # run at the plan's bucket_mb
+    for name, cfg in {"auto": PLAN_AUTO_RUN, **WIRE_FULL_RUNS}.items():
+        if name == "deferred":
+            cfg = {**cfg, "comm": {"overlap": {"enabled": True,
+                                               "bucket_mb": plan["bucket_mb"]}}}
         model = trained_model()
         eng = dst.initialize(model=model, config=cfg)[0]
         batch = {k: v.cuda() for k, v in trained_batch(model).items()}
         first = float(eng.train_batch(batch=batch))      # warm-up
+        norms = [eng.get_global_grad_norm()]
         comm.STAGED.clear()
         comm.STAGED_SECONDS.clear()
         LAUNCHES.clear()                                  # main path starts here
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        losses = [float(eng.train_batch(batch=batch)) for _ in range(DP_FULL_STEPS)]
+        losses = []
+        for _ in range(DP_FULL_STEPS):
+            losses.append(float(eng.train_batch(batch=batch)))
+            norms.append(eng.get_global_grad_norm())
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        results[f"wire-full-{name}"] = {
-            "losses": [first] + losses, "ms_per_step": dt / DP_FULL_STEPS * 1e3,
-            "launches": dict(LAUNCHES), "footprint": eng.comm_footprint,
-            "staged_bytes_per_step": sum(comm.STAGED.values()) / DP_FULL_STEPS,
-            "grad_bytes_per_step": comm.STAGED["grad_reduce"] / DP_FULL_STEPS,
-            "grad_ms_per_step": comm.STAGED_SECONDS["grad_reduce"] / DP_FULL_STEPS * 1e3}
+        rec = {"losses": [first] + losses, "grad_norms": norms,
+               "ms_per_step": dt / DP_FULL_STEPS * 1e3,
+               "launches": dict(LAUNCHES), "footprint": eng.comm_footprint,
+               "staged_bytes_per_step": sum(comm.STAGED.values()) / DP_FULL_STEPS,
+               "grad_bytes_per_step": comm.STAGED["grad_reduce"] / DP_FULL_STEPS,
+               "grad_ms_per_step": comm.STAGED_SECONDS["grad_reduce"] / DP_FULL_STEPS * 1e3}
+        if name == "auto":
+            step = eng.scheduled_step
+            plan = {"describe": eng._sched_plan.describe(), "tag": eng._sched_plan.tag,
+                    "bucket_mb": eng._sched_plan.bucket_mb,
+                    "grad_schedule": eng._sched_plan.grad_schedule,
+                    "n_hoisted": step.n_hoisted, "n_collectives": step.n_collectives,
+                    "buckets": len(eng._buckets)}
+            rec["plan"] = plan
+            results["plan-auto"] = rec
+        else:
+            rec["bucket_mb"] = cfg.get("comm", {}).get("overlap", {}).get("bucket_mb", 0.0)
+            results[f"wire-full-{name}"] = rec
         del eng, model
         torch.cuda.empty_cache()
     for name, cfg in LAYOUT_PREFETCH_RUNS.items():      # phase 21 (d)
@@ -3080,8 +3124,10 @@ def phase_wire(card, r0, r1):
             if a["launches"].get(kernel, 0) < 1:
                 raise AssertionError(f"wire full {name}: {kernel} never launched")
         foot, = a["footprint"]
+        bucket = (f" (bucket_mb {a['bucket_mb']:g}, phase 25 (c)'s plan's)"
+                  if name == "deferred" else "")
         print(f"[wire-full] {card}: Pythia-160M bf16, global B {TRAIN_BATCH} x S "
-              f"{TRAIN_SEQ}, gas {WIRE_GAS}, world {DP_WORLD}, stage 2, {name}: "
+              f"{TRAIN_SEQ}, gas {WIRE_GAS}, world {DP_WORLD}, stage 2, {name}{bucket}: "
               f"{a['ms_per_step']:.2f} / {b['ms_per_step']:.2f} ms/step (rank 0 / 1) over "
               f"{DP_FULL_STEPS} steps; losses {', '.join(f'{x:.4f}' for x in a['losses'])} "
               f"on both ranks; staged through host {a['staged_bytes_per_step'] / 1e9:.3f} GB "
@@ -4370,6 +4416,23 @@ OFFLOAD_HOST_GB, OFFLOAD_DISK_GB = 48, 16
 OFFLOAD_DP_STEPS = 2                  # (f): phase 14's stage-2 step on the pinned tier
 
 
+# The planners (phase 25): (a) the host link measured and a calibration
+# saved in a scratch tuner cache; (b) phase 24 (d)'s stream under
+# memory_schedule "auto" at three budgets (300 MiB is below the static
+# peak, 393.0 MiB), 2 steps at 700 MiB (resident units refreshed by an
+# update, the rest through the window) and 1 at the others; (c) in phase
+# 13's workers, phase 14's step at gas 2 under schedule.mode "auto", before
+# phase 20 (c)'s runs, whose deferred run takes the plan's bucket_mb; (d)
+# stage 3 at phase 13's model under memory "static" with a budget below
+# its static peak (refused) and "auto" (one step).
+PLAN_H2D_BYTES = 256 << 20
+PLAN_BUDGETS_MIB = {300: 1, 700: OFFLOAD_INF_STEPS, 1024: 1}
+PLAN_AUTO_RUN = {**TRAIN_CONFIG, "gradient_accumulation_steps": WIRE_GAS,
+                 "zero_optimization": {"stage": 2},
+                 "comm": {"overlap": {"enabled": True, "schedule": {"mode": "auto"}}}}
+PLAN_STAGE3_CONFIG = {**DP_CHECK_CONFIG, "zero_optimization": {"stage": 3}}
+
+
 def offload_model(layers=None, device=None):
     """Pythia-1.4B in bf16 (``layers`` to cut its depth), drawn on the card
     from ``SEED``."""
@@ -4661,9 +4724,13 @@ def phase_offload_infinity(torch, launches, card, small, model, batch, swap_root
     cfg = {**OFFLOAD_CONFIG, "gradient_clipping": 0.0, "zero_optimization": {
         "stage": 0, "offload_optimizer": {"device": "cpu", "host_update": True}}}
     eng = dst.initialize(model=model, config=cfg)[0]
-    want, _, _ = _offload_steps(torch, eng, batch, OFFLOAD_INF_STEPS)
+    want, ref_secs, recs = _offload_steps(torch, eng, batch, OFFLOAD_INF_STEPS, stats=True)
     del eng
     _release_host(torch)
+    # phase 25's calibration: the last step's forward, backward and clip (the
+    # step less its update's parts)
+    r = recs[-1]
+    compute_s = ref_secs[-1] - (r["d2h_s"] + r["adam_s"] + r["cast_s"] + r["h2d_s"])
     t0 = time.perf_counter()
     inf = ZeroInfinityEngine(model, str(swap_root), num_chunks=OFFLOAD_CHUNKS, lr=1e-4,
                              compute_dtype=model.config.dtype, params=small)
@@ -4695,7 +4762,8 @@ def phase_offload_infinity(torch, launches, card, small, model, batch, swap_root
           f"{s['total_param_bytes'] / 1e9:.3f} GB; swap_stats {s}", flush=True)
     print(f"[offload-d] launches in the streamed steps {counts}", flush=True)
     _release_host(torch)
-    return counts
+    return counts, {"losses": losses, "secs": secs, "compute_s": compute_s,
+                    "step_s": ref_secs[-1], "stats": s}
 
 
 def phase_offload_ckpt(torch, card, root):
@@ -4759,7 +4827,8 @@ def phase_offload_dp(r0, r1):
 
 def phase_offload(torch, np, launches, card, dp_ranks):
     """Phase 24: offload.  Asserts the host memory and disk it needs, then
-    (a)-(e) here and (f)'s checks.  Returns each main path's launches."""
+    (a)-(e) here and (f)'s checks.  Returns each main path's launches, and
+    (d)'s model, weights, batch and readings for phase 25."""
     swap_root = Path(tempfile.mkdtemp(dir=ROOT / ".build"))
     try:
         free_gb = _host_available_gb()
@@ -4792,18 +4861,226 @@ def phase_offload(torch, np, launches, card, dp_ranks):
                                                    swap_root / "nvme")
         print(f"[time] phase 24 (c): {time.perf_counter() - t:.1f} s", flush=True)
         t = time.perf_counter()
-        paths["offload_infinity"] = phase_offload_infinity(torch, launches, card, small, model,
-                                                           batch, swap_root / "infinity")
+        paths["offload_infinity"], ref = phase_offload_infinity(
+            torch, launches, card, small, model, batch, swap_root / "infinity")
         print(f"[time] phase 24 (d): {time.perf_counter() - t:.1f} s", flush=True)
-        del model, small
         _release_host(torch)
         t = time.perf_counter()
         phase_offload_ckpt(torch, card, swap_root / "ckpt")
         print(f"[time] phase 24 (e): {time.perf_counter() - t:.1f} s", flush=True)
         if dp_ranks is not None:
             phase_offload_dp(*dp_ranks)
+        # phase 25 (b) streams (d)'s model from (d)'s weights
+        return paths, {**ref, "small": small, "model": model, "batch": batch}
+    finally:
+        shutil.rmtree(swap_root, ignore_errors=True)
+
+
+def _plan_a(torch, card, inf):
+    """Phase 25 (a): the host link measured against the device table, and a
+    calibration (phase 24 (d)'s compute time, the measured rate) saved and
+    read back through ``DST_TUNER_CACHE`` in a scratch directory (set for
+    the rest of the phase).  Returns the calibration."""
+    from deeperspeed_tpu_torch.comm import memplan
+    from deeperspeed_tpu_torch.telemetry import wire
+
+    kind = torch.cuda.get_device_name(0)
+    rate = memplan.measure_h2d_bandwidth(PLAN_H2D_BYTES, iters=5)
+    table = wire.host_link_bandwidth(kind)
+    if not table / 2 <= rate <= 2 * table:
+        raise AssertionError(f"planners (a): measured {rate / 1e9:.2f} GB/s host to card, "
+                             f"the table holds {table / 1e9:.2f} GB/s for {kind}")
+    cache = _scratch_dir() / "tuner"
+    os.environ[memplan.CALIBRATION_ENV] = str(cache)
+    fields = {"compute_s": inf["compute_s"], "h2d_gbps": rate / 1e9, "device_kind": kind,
+              "step_time_s": inf["step_s"]}
+    path = memplan.save_calibration(str(cache), **fields)
+    cal = memplan.load_calibration()
+    if cal is None or any(getattr(cal, k) != v for k, v in fields.items()):
+        raise AssertionError(f"planners (a): calibration read back {cal} != {fields}")
+    print(f"[plan-a] {card}: host to card {rate / 1e9:.2f} GB/s ({PLAN_H2D_BYTES >> 20} MiB "
+          f"pinned, 5 copies; telemetry/wire.py's figure {table / 1e9:.2f} GB/s, "
+          f"{rate / table:.3f}x); calibration {path} through {memplan.CALIBRATION_ENV}: "
+          f"compute_s {cal.compute_s * 1e3:.1f} ms (phase 24 (d)'s host-update step less "
+          f"its update), read back equal", flush=True)
+    return cal
+
+
+def _plan_b(torch, launches, card, inf, cal, swap_root):
+    """Phase 25 (b): phase 24 (d)'s stream under ``memory_schedule`` "auto"
+    at each budget of :data:`PLAN_BUDGETS_MIB`: the plan the engine made
+    equal to ``plan_chunk_stream`` on its unit bytes and the calibration;
+    its losses equal to (d)'s static ones bit for bit; the device ledger
+    within the plan's peak; K1, K8 and K5-K7 launched.  The first budget,
+    below the static peak, is refused by the static schedule.  Returns the
+    middle budget's launch counts."""
+    from deeperspeed_tpu_torch.comm import memplan
+    from deeperspeed_tpu_torch.runtime.zero.infinity import ZeroInfinityEngine
+
+    model, small, batch = inf["model"], inf["small"], inf["batch"]
+    kind = torch.cuda.get_device_name(0)
+    kw = dict(num_chunks=OFFLOAD_CHUNKS, lr=1e-4, compute_dtype=model.config.dtype,
+              params=small)
+    counts = None
+    for i, (mib, steps) in enumerate(PLAN_BUDGETS_MIB.items()):
+        budget = mib << 20
+        _reset_params(model, small)
+        if i == 0:
+            try:
+                ZeroInfinityEngine(model, str(swap_root / "static"), hbm_budget_bytes=budget,
+                                   **kw)
+            except memplan.HBMBudgetError as e:
+                print(f"[plan-b] {mib} MiB under static: HBMBudgetError at construction "
+                      f"({e})", flush=True)
+            else:
+                raise AssertionError(f"planners (b): static took a {mib} MiB budget")
+        t0 = time.perf_counter()
+        eng = ZeroInfinityEngine(model, str(swap_root / f"auto{mib}"), memory_schedule="auto",
+                                 hbm_budget_bytes=budget, **kw)
+        init_s = time.perf_counter() - t0
+        want = memplan.plan_chunk_stream(
+            eng._unit_bytes, hbm_budget_bytes=budget,
+            compute_s_per_chunk=cal.compute_s / len(eng._unit_bytes),
+            h2d_bytes_per_s=cal.h2d_bytes_per_s, device_kind=kind)
+        if dataclasses.asdict(eng.mem_plan) != dataclasses.asdict(want):
+            raise AssertionError(f"planners (b) {mib} MiB: {eng.mem_plan} != {want}")
+        launches.clear()
+        losses, secs = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(eng.train_batch(batch))
+            secs.append(time.perf_counter() - t0)
+        got = dict(launches)
+        s = eng.swap_stats
+        plan = eng.mem_plan
+        eng.close()
+        if losses != inf["losses"][:steps]:
+            raise AssertionError(f"planners (b) {mib} MiB: losses {losses} != static "
+                                 f"{inf['losses'][:steps]}")
+        if not s["peak_device_param_bytes"] <= plan.peak_bytes:
+            raise AssertionError(f"planners (b) {mib} MiB: ledger {s} over {plan.describe()}")
+        for name in ("layer_norm", "layer_norm_bwd", "flash_fwd", "flash_bwd_dq",
+                     "flash_bwd_dkv"):
+            if got.get(name, 0) < 1:
+                raise AssertionError(f"planners (b) {mib} MiB never launched {name}: {got}")
+        if i == 1:
+            counts = got
+        print(f"[plan-b] {card}: {mib} MiB, {plan.describe()}", flush=True)
+        print(f"[plan-b] {mib} MiB: {', '.join(f'{x:.3f}' for x in secs)} s/step against "
+              f"static {', '.join(f'{x:.3f}' for x in inf['secs'][:steps])} (phase 24 (d)); "
+              f"built in {init_s:.1f} s; losses {', '.join(f'{x:.6f}' for x in losses)} equal "
+              f"to static's; peak device parameter bytes {s['peak_device_param_bytes'] / 2**20:.1f}"
+              f" MiB (plan {plan.peak_bytes / 2**20:.1f} MiB; static "
+              f"{inf['stats']['peak_device_param_bytes'] / 2**20:.1f}); swap_stats {s}",
+              flush=True)
+        _release_host(torch)
+    return counts
+
+
+def _plan_c(r0, r1):
+    """Phase 25 (c): phase 14's step at gas 2 under the cost-model schedule
+    in phase 13's workers, against phase 20 (c)'s manual deferred run at the
+    plan's bucket_mb: losses and each step's grad norm equal bit for bit,
+    collectives issued from gradient hooks, ms a step against issuing after
+    the backward."""
+    a, b = r0["plan-auto"], r1["plan-auto"]
+    ref = r0["wire-full-deferred"]
+    plan = a["plan"]
+    if a["losses"] != b["losses"] or a["losses"] != ref["losses"] \
+            or a["grad_norms"] != ref["grad_norms"]:
+        raise AssertionError(f"planners (c): auto {a['losses']} {a['grad_norms']} vs manual "
+                             f"{ref['losses']} {ref['grad_norms']}")
+    if plan["grad_schedule"] != "deferred" or ref["bucket_mb"] != plan["bucket_mb"] \
+            or not plan["n_hoisted"] > 0:
+        raise AssertionError(f"planners (c): {plan}")
+    for kernel in ("layer_norm", "layer_norm_bwd", "flash_fwd", "flash_bwd_dq",
+                   "flash_bwd_dkv"):
+        if a["launches"].get(kernel, 0) < 1:
+            raise AssertionError(f"planners (c): {kernel} never launched")
+    foot, = a["footprint"]
+    print(f"[plan-c] Pythia-160M bf16, gas {WIRE_GAS}, world {DP_WORLD} (gloo via host), "
+          f"stage 2, schedule.mode auto: {plan['describe']}", flush=True)
+    print(f"[plan-c] {plan['buckets']} buckets, {plan['n_hoisted']} of the first step's "
+          f"{plan['n_collectives']} collective calls issued from gradient hooks; losses "
+          f"{', '.join(f'{x:.4f}' for x in a['losses'])} and grad norms "
+          f"{', '.join(f'{x:.6f}' for x in a['grad_norms'])} equal bit for bit to phase 20 "
+          f"(c)'s manual deferred run at bucket_mb {ref['bucket_mb']:g}; hook-issued "
+          f"{a['ms_per_step']:.2f} / {b['ms_per_step']:.2f} ms/step (rank 0 / 1) against "
+          f"after the backward {ref['ms_per_step']:.2f} ms/step (rank 0; "
+          f"{a['ms_per_step'] / ref['ms_per_step']:.3f}x); gradient reduction staged "
+          f"{a['grad_bytes_per_step'] / 1e9:.3f} GB a step, the caller blocked in it "
+          f"{a['grad_ms_per_step']:.2f} ms (issue and wait; after the backward "
+          f"{ref['grad_ms_per_step']:.2f} ms); footprint "
+          f"{foot['schedule']} {foot['count']} collectives", flush=True)
+    return a["launches"]
+
+
+def _plan_d(torch, np, card):
+    """Phase 25 (d): stage 3 at phase 13's model on one process: ``memory:
+    static`` with a budget below ``stage3_static_peak_bytes`` raises at
+    construction; ``auto`` takes one step and publishes the movement plan,
+    whose peak is the gathered bytes the ledger saw live."""
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.comm import memplan
+    from deeperspeed_tpu_torch.runtime.zero.sharding import stage3_static_peak_bytes
+
+    model = dp_check_model()
+    peak = stage3_static_peak_bytes((p.shape, p.dtype) for p in model.parameters())
+    budget = peak // 2
+
+    def config(memory, mode):
+        return {**PLAN_STAGE3_CONFIG, "comm": {"overlap": {"enabled": True, "schedule": {
+            "mode": mode, "memory": memory, "hbm_budget_bytes": budget}}}}
+
+    try:
+        dst.initialize(model=model, config=config("static", "manual"))
+    except memplan.HBMBudgetError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("planners (d): static stage 3 took half its static peak")
+    eng = dst.initialize(model=dp_check_model(), config=config("auto", "auto"))[0]
+    batch = dp_check_batches(np, eng.module.config.vocab_size)[0]
+    loss = float(eng.train_batch(batch=batch))
+    summ = memplan.movement_summary(eng.memory_plan)
+    ledger = eng._gather_ledger
+    if not math.isfinite(loss) or summ["peak_live_bytes"] != ledger.peak_bytes \
+            or not summ["n_sites"] > 0:
+        raise AssertionError(f"planners (d): loss {loss}, {summ}, ledger peak "
+                             f"{ledger.peak_bytes}")
+    print(f"[plan-d] {card}: stage 3, 2 full-width layers fp32, static peak "
+          f"{peak / 2**20:.1f} MiB: static at a {budget / 2**20:.1f} MiB budget refused "
+          f"({refused}); auto: loss {loss:.6f}, movement_summary {summ} (the ledger's peak "
+          f"{ledger.peak_bytes / 2**20:.1f} MiB)", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+
+
+def phase_planners(torch, np, launches, card, dp_ranks, inf):
+    """Phase 25: the planners, (a)-(d) (see :data:`PLAN_BUDGETS_MIB`).
+    Returns the launches of (b)'s 700 MiB run and (c)'s auto run (rank 0)."""
+    from deeperspeed_tpu_torch.comm import memplan
+
+    swap_root = Path(tempfile.mkdtemp(dir=ROOT / ".build"))
+    saved = os.environ.get(memplan.CALIBRATION_ENV)
+    paths = {}
+    try:
+        t = time.perf_counter()
+        cal = _plan_a(torch, card, inf)
+        print(f"[time] phase 25 (a): {time.perf_counter() - t:.1f} s", flush=True)
+        t = time.perf_counter()
+        paths["planned_infinity"] = _plan_b(torch, launches, card, inf, cal, swap_root)
+        print(f"[time] phase 25 (b): {time.perf_counter() - t:.1f} s", flush=True)
+        if dp_ranks is not None:
+            paths["auto_schedule"] = _plan_c(*dp_ranks)
+        t = time.perf_counter()
+        _plan_d(torch, np, card)
+        print(f"[time] phase 25 (d): {time.perf_counter() - t:.1f} s", flush=True)
         return paths
     finally:
+        if saved is None:
+            os.environ.pop(memplan.CALIBRATION_ENV, None)
+        else:
+            os.environ[memplan.CALIBRATION_ENV] = saved
         shutil.rmtree(swap_root, ignore_errors=True)
 
 
@@ -4889,7 +5166,7 @@ def main():
 
 
 def _phases(torch, np, cuda_utils, card, t_start):
-    """Phases 3-24 and the summary lines, after the build."""
+    """Phases 3-25 and the summary lines, after the build."""
 
     def timed(label, fn, *args):
         t = time.perf_counter()
@@ -4919,8 +5196,9 @@ def _phases(torch, np, cuda_utils, card, t_start):
     paths["legacy_layer"] = timed("phase 16", phase_legacy, torch, np, L)
     paths["sparse_attention"] = timed("phase 17", phase_sparse, torch, np, L)
     paths["softmax"] = timed("phase 18", phase_softmax, torch, L)
-    # the small worker groups of phases 22 (e) and 23 (c) run while phase 19
+    # the worker groups of phases 21, 22 (e) and 23 (c) run while phase 19
     # waits on the disk
+    release_early("--layout-worker")
     release_early("--llama-worker")
     release_early("--moe-worker")
     paths["training_resumed"] = timed("phase 19", phase_checkpointed, torch, np, L, card,
@@ -4939,7 +5217,10 @@ def _phases(torch, np, cuda_utils, card, t_start):
     paths["moe_ep"] = timed("phase 23 (c)", phase_moe_ep, torch, np, card)
     paths["moe_serving"] = timed("phase 23 (d)", phase_moe_served, torch, np, L, card)
     print(f"[moe] phase 23 in {time.perf_counter() - t23:.1f} s", flush=True)
-    paths.update(timed("phase 24", phase_offload, torch, np, L, card, dp_ranks))
+    offload, inf = timed("phase 24", phase_offload, torch, np, L, card, dp_ranks)
+    paths.update(offload)
+    paths.update(timed("phase 25", phase_planners, torch, np, L, card, dp_ranks, inf))
+    del inf
 
     sources = {
         "layer_norm": ("deeperspeed_tpu_torch/csrc/layer_norm.cu",

@@ -27,8 +27,9 @@ that share one GPU (NCCL refuses two ranks on one device).  What each
   the result is copied back.  gloo moves the bytes through host memory
   either way; doing the copies here gives one rule for every op.  The
   bytes staged, both ways, are counted in :data:`STAGED` by op, and the
-  host-clock seconds each staged op took, copies included (they block),
-  in :data:`STAGED_SECONDS`.
+  host-clock seconds its caller spent in each staged op, copies included
+  (they block; an async op's issue and its wait), in
+  :data:`STAGED_SECONDS`.
 
 1-byte floats (fp8) travel as ``uint8`` views: the backends move bytes, and
 not every one knows the fp8 types.  ``ReduceOp.AVG`` is a sum divided by
@@ -51,7 +52,11 @@ ending in ``torch.cuda.synchronize()`` for CUDA tensors, and logged by
 another is timed as part of the outer one.  ``async_op=True`` on
 :func:`all_reduce`, :func:`all_gather` and :func:`reduce_scatter` returns
 an ``overlap.AsyncOpHandle`` under ``comm.overlap.eager_async`` (and the
-value otherwise, as in the JAX package); an async op is not timed.
+value otherwise, as in the JAX package); ``async_op="always"`` returns one
+whatever that option says (the engine's reductions issued from gradient
+hooks).  An async op is not timed.  While ``comm/schedule.py``
+``record_sites`` installs a recorder, every outermost collective call is
+also handed to it (the collective sites of a planned step).
 """
 
 import datetime
@@ -82,6 +87,16 @@ comms_logger = CommsLogger()
 _eager_async = False
 # depth of timed collectives in progress (an inner one is not logged)
 _timed_depth = 0
+# comm/schedule.py's SiteRecorder while one is installed, and the depth of
+# recorded calls in progress (an inner one is not recorded)
+_site_recorder = None
+_recorded_depth = 0
+
+
+def _is_async(async_op):
+    """Whether a call with ``async_op`` returns a handle: ``"always"`` does,
+    ``True`` under ``comm.overlap.eager_async``."""
+    return async_op == "always" or bool(async_op and _eager_async)
 
 
 class ReduceOp:
@@ -339,13 +354,15 @@ def _run(name, group, fn, out, *inputs, async_op=False, then=None):
         work = fn(host_out, *[t.cpu() for t in inputs], async_op=async_op)
     else:
         work = fn(out, *inputs, async_op=async_op)
+    issued = time.perf_counter() - t0
 
     def finish():
+        t1 = time.perf_counter()
         if work is not None and async_op:
             work.wait()
         if staged:
             out.copy_(host_out)
-            STAGED_SECONDS[name] += time.perf_counter() - t0
+            STAGED_SECONDS[name] += issued + time.perf_counter() - t1
             STAGED[name] += sum(t.numel() * t.element_size() for t in inputs) \
                 + out.numel() * out.element_size()
         return then() if then is not None else out
@@ -372,19 +389,33 @@ def timed_op(fn=None, *, payload=0):
 
     sig = inspect.signature(fn)
 
+    def recorded(*args, **kwargs):
+        global _recorded_depth
+        if _site_recorder is None or _recorded_depth:
+            return fn(*args, **kwargs)
+        call = sig.bind(*args, **kwargs)
+        call.apply_defaults()
+        group = _resolve_group(call.arguments.get("group"))
+        if group.size() > 1:            # a group of one moves nothing
+            _site_recorder(fn.__name__, args[payload], group.axes)
+        _recorded_depth += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _recorded_depth -= 1
+
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
         global _timed_depth
-        if not comms_logger.enabled or _timed_depth or (
-                kwargs.get("async_op") and _eager_async):
-            return fn(*args, **kwargs)
+        if not comms_logger.enabled or _timed_depth or _is_async(kwargs.get("async_op")):
+            return recorded(*args, **kwargs)
         call = sig.bind(*args, **kwargs)
         call.apply_defaults()
         tensor = args[payload]
         _timed_depth += 1
         try:
             t0 = time.perf_counter()
-            result = fn(*args, **kwargs)
+            result = recorded(*args, **kwargs)
             if tensor.is_cuda:
                 torch.cuda.synchronize(tensor.device)
             latency = time.perf_counter() - t0
@@ -407,12 +438,13 @@ def _finish(out, op, n):
 def all_reduce(tensor, op=ReduceOp.SUM, group=None, async_op=False,
                log_name="all_reduce"):
     """The group's reduction of ``tensor``, written into it and returned
-    (a handle under ``async_op`` and ``comm.overlap.eager_async``)."""
+    (a handle under ``async_op="always"``, or ``async_op`` and
+    ``comm.overlap.eager_async``)."""
     if op not in _TORCH_OPS:
         raise ValueError(f"unsupported reduce op {op}")
     group = _resolve_group(group)
     n = group.size()
-    async_op = bool(async_op and _eager_async)
+    async_op = _is_async(async_op)
     if n == 1:
         return _done(tensor, async_op)
     buf = tensor if tensor.is_contiguous() else tensor.contiguous()
@@ -438,7 +470,7 @@ def all_gather(tensor, group=None, axis=0, tiled=True, async_op=False,
     (``tiled``), or stacked on a new leading axis (not tiled)."""
     group = _resolve_group(group)
     n = group.size()
-    async_op = bool(async_op and _eager_async)
+    async_op = _is_async(async_op)
     if n == 1:
         return _done(tensor if tiled else tensor[None], async_op)
     x = _wire((tensor.movedim(axis, 0) if tiled else tensor[None]).contiguous())
@@ -475,7 +507,7 @@ def reduce_scatter(tensor, group=None, axis=0, op=ReduceOp.SUM, async_op=False,
     ``axis`` (``tensor.shape[axis]`` divisible by the group size)."""
     group = _resolve_group(group)
     n = group.size()
-    async_op = bool(async_op and _eager_async)
+    async_op = _is_async(async_op)
     if n == 1:
         return _done(tensor, async_op)
     if op not in (ReduceOp.SUM, ReduceOp.AVG):

@@ -68,7 +68,6 @@ _ROADMAP = {
 }
 
 
-OFFLOAD = "Offload"
 REST = "The rest of the surface"
 
 # upstream's zero_optimization knobs for its eager bucketing and overlap;
@@ -266,12 +265,17 @@ class CommQuantizedConfig(DeeperSpeedConfigModel):
 
 
 class CommScheduleConfig(DeeperSpeedConfigModel):
-    """``comm.overlap.schedule`` (the JAX package's fields and defaults).
+    """``comm.overlap.schedule`` (the JAX package's fields and defaults),
+    read only under ``comm.overlap.enabled``, as in the JAX engine.
     ``mode``: ``manual`` places the deferred reduction where it is
-    eligible, ``off`` reduces every microbatch at every stage; ``auto`` (the
-    cost-model pass of ``comm/schedule.py``) is refused, as are memory
-    planning (``memory: auto``) and a budget (``hbm_budget_bytes``): they
-    wait for ROADMAP Queue A, 'Offload'."""
+    eligible, ``off`` reduces every microbatch at every stage, ``auto``
+    plans the schedule and bucket size with the cost model of
+    ``comm/schedule.py`` and issues each reduction from gradient hooks.
+    ``memory``: ``auto`` plans the stage-3 gather/release movement
+    (analysis) and checks only the largest parameter against
+    ``hbm_budget_bytes``; ``static`` with a budget raises
+    ``HBMBudgetError`` at construction where stage 3's full residency does
+    not fit (``comm/memplan.py``)."""
 
     mode: Literal["auto", "manual", "off"] = "manual"
     memory: Literal["auto", "static", "off"] = "static"
@@ -497,7 +501,7 @@ class DeeperSpeedConfig:
 
     def _comm(self, comm):
         """``comm``: ``quantized`` (qgZ) and ``overlap`` (with its
-        ``schedule``).  Refused: the ``Offload`` planners, an
+        ``schedule``).  Refused: an
         ``intra_axis`` on an axis not ported (``pp``, ``sp``), ``tp``, whose
         ranks hold different slices of the parameters, and ``ep`` (qgZ needs
         ``ep`` 1, as in the JAX engine)."""
@@ -526,15 +530,6 @@ class DeeperSpeedConfig:
         _known(dict(overlap.get("schedule", {})), CommScheduleConfig,
                "comm.overlap.schedule")
         self.comm_overlap = ov = CommOverlapConfig(**overlap)
-        if ov.schedule.mode == "auto":
-            raise _not_ported("comm.overlap.schedule.mode 'auto' (the cost-model "
-                              "schedule of comm/schedule.py)", OFFLOAD)
-        if ov.schedule.memory == "auto":
-            raise _not_ported("comm.overlap.schedule.memory 'auto' (the memory "
-                              "planner of comm/memplan.py)", OFFLOAD)
-        if ov.schedule.hbm_budget_bytes is not None:
-            raise _not_ported("comm.overlap.schedule.hbm_budget_bytes (the memory "
-                              "planner's budget)", OFFLOAD)
         if ov.bucket_mb < 0:
             raise ValueError(f"comm.overlap.bucket_mb {ov.bucket_mb}: expected >= 0")
 

@@ -148,12 +148,33 @@ the masters are cast to the compute type on the host, so the copy up moves
 the compute bytes.  :attr:`offload_stats` holds the last step's transfers
 and their seconds.  :meth:`destroy` removes the NVMe tier's files.
 
+``comm.overlap.schedule.mode: auto`` (the JAX engine's ``_init_schedule``
+and ``ScheduledStepFn``): ``comm/schedule.py`` ``plan_schedule`` scores the
+reduction's schedules and bucket sizes against ``telemetry/wire.py``'s
+figure for the card and the process group's backend (and the calibration's
+``compute_s``, ``DST_TUNER_CACHE``), and the engine runs the one it picks
+(:attr:`_sched_plan`, its ``tag`` in :attr:`comm_footprint`).  At stages
+0-2 over several processes the plain reduction is then issued from
+gradient hooks (:meth:`_install_hooks`): each collective of the manual
+path leaves, asynchronously, as soon as the backward has finished every
+gradient it reads, and the step waits for them before the norm -- the same
+bits as ``manual`` with the plan's bucket.  The first planned step records
+its collectives (:attr:`scheduled_step`: ``n_collectives``, ``n_hoisted``,
+``sites``).  ``schedule.memory`` at stage 3: ``static`` with
+``hbm_budget_bytes`` raises ``HBMBudgetError`` at construction where every
+compute parameter whole does not fit, ``auto`` checks the largest one and,
+under ``mode: auto``, publishes the first step's gather/release plan
+(:attr:`memory_plan`, ``comm/memplan.py``) -- analysis: the gathers do not
+move.
+
 Not ported yet (raising ``NotImplementedError``, each naming its ROADMAP
-Queue A item): the ``auto`` schedule and memory planner ('Offload');
-eigenvalue, compression and the step telemetry ('The rest of the surface').
+Queue A item): eigenvalue, compression and the step telemetry ('The rest of
+the surface').
 """
 
 import collections
+import contextlib
+import functools
 import math
 import os
 import re
@@ -167,7 +188,7 @@ from ..accelerator import resolve_device
 from ..parallel import topology as topo
 from ..utils.logging import log_dist, logger
 from ..utils.tree import tree_global_norm
-from ..comm.overlap import apply_xla_latency_hiding, bucketize
+from ..comm.overlap import AsyncOpHandle, apply_xla_latency_hiding, bucketize
 from .config import COMM_DTYPES, DeeperSpeedConfig
 from .lr_schedules import get_lr_schedule_fn
 from .optimizers import build_optimizer, identity
@@ -186,6 +207,76 @@ from .zero.sharding import build_partition_plan, unit_of
 # (``replica``) and reduced whole (``reduce``): the dense parameters over
 # the ZeRO group, the MoE experts over the expert-data-parallel group
 _Layout = collections.namedtuple("_Layout", "part replica reduce")
+
+
+def _result(h):
+    """A collective's result: its handle waited for, or the value itself."""
+    return h.wait() if isinstance(h, AsyncOpHandle) else h
+
+
+class _HookedReduction:
+    """A gradient reduction issued from the backward (``schedule.mode:
+    auto``): ``covers[k]`` lists the parameters (indices into ``params``)
+    whose gradients the k-th collective of the planned issue order reads;
+    ``issue(k)`` issues it and returns the call that finishes it.  Between
+    :meth:`begin` and :meth:`end`, the hook on each parameter runs
+    ``on_grad(i, p)`` once its gradient is final, then issues, in order,
+    every collective whose parameters are all final (one ready early waits
+    for those before it: every rank issues in one order).  :meth:`end`
+    takes the parameters whose hooks never ran (the loss did not reach
+    them) through ``on_missing(i)``, issues the rest and returns the
+    finishing calls in issue order.  A collective that fails raises in the
+    backward; nothing falls back.  ``recorder`` (a ``SiteRecorder``) marks
+    the calls made from a hook as such."""
+
+    def __init__(self, params, covers, issue):
+        self._covers, self._issue = covers, issue
+        self._units_of = [[] for _ in params]
+        for k, idx in enumerate(covers):
+            for i in idx:
+                self._units_of[i].append(k)
+        self._active = False
+        self.recorder = None
+        self.divisor = 1
+        for i, p in enumerate(params):
+            if p.requires_grad:
+                p.register_post_accumulate_grad_hook(functools.partial(self._hook, i))
+
+    def begin(self, on_grad, divisor):
+        self._on_grad, self.divisor = on_grad, divisor
+        self._remaining = [len(c) for c in self._covers]
+        self._seen = [False] * len(self._units_of)
+        self._next, self._finish = 0, []
+        self._active = True
+
+    def _hook(self, i, p):
+        if not self._active:
+            return
+        if self._on_grad is not None:
+            self._on_grad(i, p)
+        self._mark(i)
+        self._issue_ready("hook")
+
+    def _mark(self, i):
+        self._seen[i] = True
+        for k in self._units_of[i]:
+            self._remaining[k] -= 1
+
+    def _issue_ready(self, where):
+        with self.recorder.issuing(where) if self.recorder else contextlib.nullcontext():
+            while self._next < len(self._covers) and self._remaining[self._next] == 0:
+                self._finish.append(self._issue(self._next))
+                self._next += 1
+
+    def end(self, on_missing):
+        self._active = False
+        for i, seen in enumerate(self._seen):
+            if not seen:
+                on_missing(i)
+                self._mark(i)
+        self._issue_ready("step")
+        finish, self._finish = self._finish, []
+        return finish
 
 
 class DeeperSpeedEngine:
@@ -223,11 +314,12 @@ class DeeperSpeedEngine:
         self.precision = MixedPrecisionPolicy(config)
         self._init_offload()
         self._init_qgz()
-        self._init_schedule()
         # the type the data-parallel reduction runs in (the JAX engine's
         # ``reduce_dtype or accum_dtype``)
         self._comm_dtype = (COMM_DTYPES[config.communication_data_type]
                             or self._accum_dtype)
+        self._init_schedule(model)
+        self._init_memory(model)
         if loss_fn is None:
             if not hasattr(model, "loss_fn"):
                 raise ValueError("pass loss_fn= or use a model exposing .loss_fn()")
@@ -539,17 +631,42 @@ class DeeperSpeedEngine:
         self._accum_dtype = (torch.float32 if self._qgz or self._onebit
                              else self.precision.accum_dtype)
 
-    def _init_schedule(self):
+    def _init_schedule(self, model):
         """``comm.overlap`` and ``comms_logger`` (the JAX engine's
         ``engine.py:474-600``): which microbatches the reduction waits for,
-        its buckets, qwZ."""
+        its buckets, qwZ; under ``schedule.mode: auto`` the cost model's plan
+        (``comm/schedule.py`` ``plan_schedule``), run with its reductions
+        issued from gradient hooks (:meth:`_install_hooks`)."""
+        from ..comm import memplan, schedule
+
         cfg = self.config
         ov = cfg.comm_overlap
         comm.configure(cfg)
         self._qwz = cfg.zero_stage == 3 and cfg.zero_quantized_weights
         mode = ov.schedule.mode if ov.enabled else "off"
+        self._schedule_mode = mode
+        schedule.set_active_mode(mode)
+        # the memory planner's mode and budget, read only under
+        # comm.overlap as in the JAX engine, and the calibration both
+        # planners price with (DST_TUNER_CACHE)
+        self._memory_mode = ov.schedule.memory if ov.enabled else "off"
+        self._hbm_budget_bytes = ov.schedule.hbm_budget_bytes if ov.enabled else None
+        self._calibration = memplan.load_calibration()
+        memplan.set_active_memory_mode(self._memory_mode)
+        self.memory_plan = None
+        self._sched_plan = None
+        # what the deferred path does not serve here: qwZ's gathers and MoE
+        # at ep > 1 (the JAX engine also blocks tp > 1; the port's deferred
+        # reduction runs there)
+        blockers = []
+        if self._qwz:
+            blockers.append("zero_quantized_weights (the quantized gather keeps the "
+                            "per-microbatch reduction, as in the JAX engine)")
+        if self.mesh.ep > 1:
+            blockers.append("ep > 1 (MoE routing needs the GSPMD paths)")
         deferrable = (ov.enabled and ov.deferred_reduction
                       and not self._onebit and not self._qgz)
+        eligible = deferrable and not blockers and self.world > 1
         if mode == "manual" and deferrable and self._qwz:
             logger.warning("comm.overlap.deferred_reduction disabled: "
                            "zero_quantized_weights (the quantized gather keeps the "
@@ -559,8 +676,24 @@ class DeeperSpeedEngine:
                            "needs the GSPMD paths) -- falling back to the per-microbatch "
                            "reduction schedule (comm.overlap.schedule.mode=auto plans "
                            "these regimes instead)")
-        defer = (mode == "manual" and deferrable and not self._qwz and self.world > 1
-                 and self.mesh.ep == 1)
+        defer = mode == "manual" and eligible
+        if mode == "auto":
+            n_params = sum(p.numel() for p in model.parameters())
+            itemsize = torch.empty(0, dtype=self._comm_dtype).element_size()
+            cal = self._calibration
+            self._sched_plan = schedule.plan_schedule(
+                grad_bytes=n_params * itemsize,
+                gas=cfg.gradient_accumulation_steps,
+                n_ranks=self.world,
+                deferred_allowed=eligible,
+                blockers=tuple(blockers),
+                bucket_mb=ov.bucket_mb,
+                qgz=self._qgz or self._onebit,
+                device_kind=memplan.device_kind_of(self.device),
+                compute_s=cal.compute_s if cal is not None and cal.compute_s > 0 else None,
+                backend=self.group.backend() if self.world > 1 else "nccl")
+            defer = self._sched_plan.grad_schedule == "deferred" and eligible
+            log_dist("comm.schedule[auto]: " + self._sched_plan.describe(), ranks=[0])
         # stages 2-3 reduce each microbatch's gradients unless deferred;
         # under comm.overlap without the deferred schedule, so do stages 0-1
         self._per_micro = (not (self._qgz or self._onebit or defer)
@@ -572,10 +705,57 @@ class DeeperSpeedEngine:
         # they are made
         self._acc_whole = cfg.zero_stage == 0 or not self._per_micro
         self._bucket_mb = ov.bucket_mb if ov.enabled else 0.0
+        if self._sched_plan is not None and defer:
+            self._bucket_mb = self._sched_plan.bucket_mb
         if ov.enabled and ov.xla_latency_hiding:
             apply_xla_latency_hiding()
         # steps of batches the engine's loader runs ahead (JAX ``engine.py:478-496``)
         self._prefetch_depth = ov.prefetch_depth if ov.enabled else 0
+        # the eager counterpart of the JAX engine's ScheduledStepFn: under
+        # auto, and not under the host update (JAX ``_schedule_jit``)
+        self.scheduled_step = (schedule.ScheduledStep("train_step")
+                               if mode == "auto" and self._host_adam is None else None)
+        # the reductions issued from gradient hooks: stages 0-2 over
+        # several processes, the plain (not quantized) reduction; stage 3's
+        # gathers already reduce in their backward
+        self._hook_issue = (self.scheduled_step is not None and cfg.zero_stage <= 2
+                            and self.world > 1 and not (self._qgz or self._onebit))
+        self._hooks = None
+        self._pending = None        # the hook-issued buckets' finishing calls
+
+    def _init_memory(self, model):
+        """The stage-3 budget check (the JAX engine's ``engine.py:577-610``):
+        ``memory: static`` with ``hbm_budget_bytes`` raises
+        ``HBMBudgetError`` here when every compute parameter whole cannot fit;
+        ``auto`` checks only the largest one, and its gather/release plan is
+        taken from the first step (:attr:`memory_plan`)."""
+        from ..comm import memplan
+        from .zero.sharding import stage3_static_peak_bytes
+
+        self._gather_ledger = stage3.GatherLedger()
+        if self._memory_mode == "off" or self.config.zero_stage < 3:
+            return
+        dtype = self.precision.param_dtype
+        itemsize = torch.empty(0, dtype=dtype).element_size()
+        static_peak = stage3_static_peak_bytes((p.shape, dtype) for p in model.parameters())
+        budget = self._hbm_budget_bytes
+        if budget:
+            if self._memory_mode == "static":
+                memplan.assert_hbm_fit("zero-3 static param placement", static_peak, budget)
+            else:
+                biggest = max((p.numel() * itemsize for p in model.parameters()), default=0)
+                memplan.assert_hbm_fit("zero-3 planned streaming (largest single leaf)",
+                                       biggest, budget)
+                log_dist(f"comm.memplan[auto]: zero-3 static residency "
+                         f"{static_peak / 2**20:.1f} MiB vs budget {budget / 2**20:.1f} MiB "
+                         f"-- gather/release points planned from the first step", ranks=[0])
+
+    @property
+    def _grad_schedule_tag(self):
+        """Telemetry label of the gradient reduction's schedule in effect."""
+        if self._sched_plan is not None:
+            return self._sched_plan.tag
+        return "per_microbatch" if self._per_micro else "deferred"
 
     # ------------------------------------------------------------------ state
     def _build_state(self):
@@ -653,7 +833,9 @@ class DeeperSpeedEngine:
                         region, shard, gather, self._comm_dtype,
                         lambda g, acc=acc_region: acc.add_(g.to(acc.dtype)),
                         deferred=whole, quantized=self._qwz,
-                        reduce=lambda x, r=region: self._reduce_partition(x, r))
+                        reduce=lambda x, r=region: self._reduce_partition(x, r),
+                        ledger=self._gather_ledger,
+                        label=f"{region.unit}#{len(units.get(region.unit, []))}")
                     units.setdefault(region.unit, []).append(gathered)
                     self._gathered_acc.append(acc_region)
                     for p in params:
@@ -682,6 +864,8 @@ class DeeperSpeedEngine:
             stage3.install(self.module.get_submodule(unit) if unit else self.module,
                            unit + "." if unit else "", gathered)
         self._plan_buckets()
+        if self._hook_issue:
+            self._install_hooks()
 
     def _compute_shard(self, region):
         """``(lo, hi, group)``: the stretch of a gathered region this rank's
@@ -695,16 +879,24 @@ class DeeperSpeedEngine:
         lo = region.index * region.part
         return lo, lo + region.part, self._layouts[region.expert].part
 
-    def _reduce_partition(self, x, region):
+    def _reduce_partition(self, x, region, async_op=False):
         """This rank's partition of the sum of ``x`` (a whole region's
         buffer in the communication type) over the ranks that reduce the
         region: a reduce-scatter over its partition group, then under MiCS
-        an all-reduce over the replicas."""
+        an all-reduce over the replicas.  ``async_op="always"``: a handle
+        whose ``wait()`` gives it (the reduce-scatter is issued now, the
+        replicas' all-reduce at the wait)."""
         lay = self._layouts[region.expert]
-        y = comm.reduce_scatter(x, lay.part, log_name="grad_reduce")
-        if lay.replica is not None:
-            comm.all_reduce(y, group=lay.replica, log_name="grad_reduce")
-        return y
+
+        def replicas(y):
+            if lay.replica is not None:
+                comm.all_reduce(y, group=lay.replica, log_name="grad_reduce")
+            return y
+
+        if async_op:
+            h = comm.reduce_scatter(x, lay.part, log_name="grad_reduce", async_op=async_op)
+            return AsyncOpHandle(None, lambda: replicas(h.wait()))
+        return replicas(comm.reduce_scatter(x, lay.part, log_name="grad_reduce"))
 
     def _plan_buckets(self):
         """The once-a-batch reduction's collectives, in issue order: at stage 0
@@ -752,6 +944,67 @@ class DeeperSpeedEngine:
                 self._buckets.append(("reduce_scatter", off, part, units[b[0]][0],
                                       units[b[-1]][1], base, region))
             off += region.padded
+
+    def _bucket_spans(self, bucket):
+        """The ranges of the accumulation buffer a bucket of
+        :meth:`_plan_buckets` reads: one at stage 0, at stages 1-2 its
+        columns of every rank's partition."""
+        if bucket[0] == "all_reduce":
+            return [bucket[1:3]]
+        _, off, part, c0, c1, _, region = bucket
+        return [(off + r * part + c0, off + r * part + c1) for r in range(region.parts)]
+
+    def _install_hooks(self):
+        """The reduction issued from gradient hooks (``schedule.mode: auto``
+        at stages 0-2, the eager counterpart of the JAX hoist pass,
+        :class:`_HookedReduction`).  Its collectives are those of the
+        manual path -- under the deferred plan the buckets of
+        :meth:`_plan_buckets`, issued from the last microbatch's backward
+        after each hook adds its gradient into the accumulation buffer;
+        under the per-microbatch plan the regions of :meth:`_scatter_micro`,
+        from each microbatch's backward -- each issued once every
+        parameter piece it reads is final, so the bits are the manual
+        path's.  They issue in the order the backward finishes them, alike
+        on every rank: latest first by the earliest parameter (in the
+        module's order) each reads."""
+        index = {id(p): i for i, p in enumerate(self._params)}
+        if self._per_micro:
+            units = [[index[id(p)] for p in params] for _, params, _ in self._scatter]
+
+            def issue_unit(j):
+                return self._issue_region(self._scatter[j], "always")
+        else:
+            base = self._acc_flat.storage_offset()
+            spans = [(v.storage_offset() - base, v.numel()) for v in self._acc_views]
+            units = [[i for i, (a, n) in enumerate(spans)
+                      if any(lo < a + n and a < hi for lo, hi in self._bucket_spans(bucket))]
+                     for bucket in self._buckets]
+
+            def issue_unit(j):
+                return self._issue_bucket(self._buckets[j], self._hooks.divisor * self.world,
+                                          "always")
+        position = {id(p): i for i, p in enumerate(self.module.parameters())}
+        first = [min((position[id(self._params[i])] for i in idx), default=-1)
+                 for idx in units]
+        order = sorted(range(len(units)), key=lambda j: (-first[j], -j))
+        self._hooks = _HookedReduction(self._params, [units[j] for j in order],
+                                       lambda k: issue_unit(order[k]))
+
+    def _hook_add(self, i, p):
+        """The last microbatch's gradient of ``self._params[i]`` into its
+        accumulation view, as :meth:`_accumulate` adds it."""
+        v = self._acc_views[i]
+        g = p.grad if self._accum_dtype == torch.float32 else p.grad.to(self._accum_dtype)
+        if self._acc_count == 0:
+            v.copy_(g)
+        else:
+            v.add_(g)
+
+    def _hook_missing(self, i):
+        """A parameter the backward gave no gradient (the loss did not reach
+        it), as :meth:`_accumulate` treats it."""
+        if not self._per_micro and self._acc_count == 0:
+            self._acc_views[i].zero_()
 
     @torch.no_grad()
     def _refresh_compute(self, copies=None):
@@ -981,17 +1234,30 @@ class DeeperSpeedEngine:
         return micro, ltd
 
     # ------------------------------------------------------------- the step
-    def _accumulate(self, loss, scale):
+    def _accumulate(self, loss, scale, last=False, divisor=None):
         """Backward of one microbatch's ``loss`` (times ``scale`` under fp16)
         and its gradients, cast to the accumulation type, added into the
         accumulation buffer: whole at stages 0-1; at stages 2-3 this rank's
         partition of their sum over ranks (stage 3's gathered regions get
-        theirs from the gather's backward)."""
+        theirs from the gather's backward).  ``train_batch`` gives the
+        step's microbatch count (``divisor``) and whether this is its
+        ``last``: under the hooks of :meth:`_install_hooks` the reduction is
+        then issued from the backward."""
         if self._acc_count == 0:
             for acc in self._gathered_acc:
                 acc.zero_()
+        hooked = self._hooks is not None and divisor is not None and (self._per_micro or last)
+        if hooked:
+            self._hooks.begin(self._hook_add if not self._per_micro else None, divisor)
         (loss if scale is None else loss * scale).to(torch.float32).backward()
-        if self._scatter:
+        if hooked:
+            finish = self._hooks.end(self._hook_missing)
+            if self._per_micro:
+                for f in finish:
+                    f()
+            else:
+                self._pending = finish      # waited for before the norm
+        elif self._scatter:
             self._scatter_micro()
         else:
             accum = self._accum_dtype
@@ -1018,18 +1284,30 @@ class DeeperSpeedEngine:
         in the communication type, reduce-scattered into this rank's
         partition (all-reduced where the region is whole) and added to its
         accumulation."""
-        for region, params, acc_part in self._scatter:
-            buf = torch.zeros(region.padded, dtype=self._comm_dtype, device=self.device)
-            for p, off in zip(params, region.offsets):
-                if p.grad is not None:      # a block PLD or random-LTD skipped
-                    buf[off:off + p.numel()].copy_(p.grad.reshape(-1))
-            part = (comm.all_reduce(buf, group=self._layouts[region.expert].reduce,
-                                    log_name="grad_reduce")
-                    if region.parts == 1 else self._reduce_partition(buf, region))
-            if self._acc_count == 0:
+        for entry in self._scatter:
+            self._issue_region(entry)()
+
+    def _issue_region(self, entry, async_op=False):
+        """One region's collective of :meth:`_scatter_micro` (``entry``: the
+        region, its parameters, its accumulation); returns the call that
+        finishes it, adding the result to the accumulation."""
+        region, params, acc_part = entry
+        buf = torch.zeros(region.padded, dtype=self._comm_dtype, device=self.device)
+        for p, off in zip(params, region.offsets):
+            if p.grad is not None:      # a block PLD or random-LTD skipped
+                buf[off:off + p.numel()].copy_(p.grad.reshape(-1))
+        h = (comm.all_reduce(buf, group=self._layouts[region.expert].reduce,
+                             log_name="grad_reduce", async_op=async_op)
+             if region.parts == 1 else self._reduce_partition(buf, region, async_op))
+        first = self._acc_count == 0
+
+        def finish():
+            part = _result(h)
+            if first:
                 acc_part.copy_(part)
             else:
                 acc_part.add_(part.to(acc_part.dtype))
+        return finish
 
     def _mask_weights(self, micro):
         """Per microbatch, this rank's weight ``world * count_r / max(count,
@@ -1118,27 +1396,40 @@ class DeeperSpeedEngine:
         the local sums over the microbatches, divided by ``divisor x world``
         in the accumulation type and cast to the communication type, reduced
         bucket by bucket (:meth:`_plan_buckets`) into the fp32 gradient
-        buffer.  A stage-0 bucket is reduced in place where the two types
-        agree."""
+        buffer; the buckets the backward's hooks issued are waited for, in
+        their issue order."""
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            for finish in pending:
+                finish()
+            return
+        for bucket in self._buckets:
+            self._issue_bucket(bucket, divisor * self.world)()
+
+    def _issue_bucket(self, bucket, d, async_op=False):
+        """One bucket of :meth:`_reduce_deferred`, divided by ``d``: its
+        collective issued (a stage-0 bucket is reduced in place where the
+        accumulation and communication types agree); returns the call that
+        finishes it into the fp32 gradient buffer."""
         acc, g, n = self._acc_flat, self._grad_flat, self.world
         cd = self._comm_dtype if n > 1 else acc.dtype
-        d = divisor * n
-        for bucket in self._buckets:
-            if bucket[0] == "all_reduce":
-                _, lo, hi, group = bucket
-                x = acc[lo:hi].div_(d).to(cd)
-                if group.size() > 1:
-                    comm.all_reduce(x, group=group, log_name="grad_reduce")
+        if bucket[0] == "all_reduce":
+            _, lo, hi, group = bucket
+            x = acc[lo:hi].div_(d).to(cd)
+            h = (comm.all_reduce(x, group=group, log_name="grad_reduce", async_op=async_op)
+                 if group.size() > 1 else x)
+
+            def finish():
+                _result(h)
                 if not (acc is g and x.dtype == acc.dtype):
                     g[lo:hi].copy_(x.to(acc.dtype))
-            else:
-                _, off, part, c0, c1, base, region = bucket
-                p = region.parts
-                x = acc[off:off + p * part].view(p, part)[:, c0:c1].div_(d)
-                y = x.to(cd).reshape(-1)
-                if n > 1:
-                    y = self._reduce_partition(y, region)
-                g[base + c0:base + c1].copy_(y.to(acc.dtype))
+            return finish
+        _, off, part, c0, c1, base, region = bucket
+        p = region.parts
+        x = acc[off:off + p * part].view(p, part)[:, c0:c1].div_(d)
+        y = x.to(cd).reshape(-1)
+        h = self._reduce_partition(y, region, async_op) if n > 1 else y
+        return lambda: g[base + c0:base + c1].copy_(_result(h).to(acc.dtype))
 
     def _reduce_onebit(self, divisor):
         """1-bit Adam (JAX ``_grads_for_batch_onebit``): each parameter's
@@ -1197,7 +1488,7 @@ class DeeperSpeedEngine:
         comm.comms_logger.record(
             "grad_reduce_dp", nbytes * issues, n,
             variant=str(dtype).split(".")[-1], count=issues * per_issue,
-            schedule="per_microbatch" if self._per_micro else "deferred")
+            schedule=self._grad_schedule_tag)
 
     def _reduce_qgz(self, divisor):
         """qgZ (JAX ``_grads_for_batch_qgz``): each parameter's mean over
@@ -1424,7 +1715,48 @@ class DeeperSpeedEngine:
     def train_batch(self, data_iter=None, batch=None):
         """One full training step over gas microbatches; returns the mean
         loss as a device scalar (no host sync).  Without arguments the
-        microbatches come from the loader over ``training_data=``."""
+        microbatches come from the loader over ``training_data=``.  The
+        first step under ``schedule.mode: auto`` also records the
+        collectives it issues into :attr:`scheduled_step` and, under
+        ``memory: auto`` at stage 3, its gathers into :attr:`memory_plan`."""
+        step = self.scheduled_step
+        if step is None or step.published:
+            return self._train_batch(data_iter, batch)
+        from ..comm import schedule
+
+        recorder = schedule.SiteRecorder()
+        plan_memory = self._memory_mode == "auto" and self.config.zero_stage == 3
+        if plan_memory:
+            self._gather_ledger.events = []
+        if self._hooks is not None:
+            self._hooks.recorder = recorder
+        try:
+            with schedule.record_sites(recorder):
+                loss = self._train_batch(data_iter, batch)
+        finally:
+            if self._hooks is not None:
+                self._hooks.recorder = None
+            events, self._gather_ledger.events = self._gather_ledger.events, None
+        step.publish(recorder.sites)
+        if plan_memory:
+            self._publish_memory_plan(events)
+        return loss
+
+    def _publish_memory_plan(self, events):
+        """The stage-3 movement plan from the first step's gathers and
+        releases (the JAX engine's ``_publish_memory_plan``): analysis only,
+        the gathers stay where they are."""
+        from ..comm.memplan import movement_summary, plan_param_movement
+
+        self.memory_plan = self.scheduled_step.move_sites = tuple(plan_param_movement(events))
+        summ = movement_summary(self.memory_plan)
+        log_dist("comm.memplan[auto]: zero-3 movement plan -- "
+                 f"{summ['n_sites']} gather/release sites, "
+                 f"{summ['gathered_bytes'] / 2**20:.1f} MiB gathered, "
+                 f"peak live {summ['peak_live_bytes'] / 2**20:.1f} MiB, "
+                 f"mean span {summ['mean_live_span']:.1f} events", ranks=[0])
+
+    def _train_batch(self, data_iter, batch):
         if data_iter is None and batch is None:
             if self._data_iterator is None:
                 raise ValueError("no data: pass data_iter/batch or training_data")
@@ -1457,7 +1789,7 @@ class DeeperSpeedEngine:
             loss = self._micro_loss(mb, ltd)
             if weights is not None:
                 loss = loss * weights[i]
-            self._accumulate(loss, scale)
+            self._accumulate(loss, scale, last=i == len(micro) - 1, divisor=len(micro))
             losses.append(loss.detach().to(torch.float32))
         loss = torch.stack(losses).mean()
         if self.world > 1:

@@ -20,7 +20,8 @@ parameters are one flat buffer a kind (``bf16``, the compute copy;
   LayerNorm K1/K8 run here on the card), which gives the chunk's gradients
   and the cotangent of its input, which flows to the chunk before it.
 * **update**: a unit's gradients come down to the host in one copy; its
-  masters and moments are read, the native CPU Adam
+  masters and moments are read (the moments start at zero, on disk from
+  the unit's first update on), the native CPU Adam
   (``ops/adam/cpu_adam.py``) updates them in place, and they are written
   back with the refreshed compute copy: the device never holds optimizer
   state, and the host holds one unit's.
@@ -31,11 +32,24 @@ last micro's update applies their mean.  ``peak_device_param_bytes`` is
 the ledger of the parameter bytes resident on the device: a unit's bytes
 are dropped only after the kernels that read it have finished (the device
 is synchronized first), so the peak is a true bound.  ``swap_stats``
-reports the disk traffic.  ``memory_schedule`` ``static`` (with
-``hbm_budget_bytes``, checked by ``comm.memplan.assert_hbm_fit`` against
-two units) and ``off`` place the stream the same way; ``auto`` (the
-planner) waits for ROADMAP Queue A, 'Offload'.  The native libraries are
-required: without them the engine raises.
+reports the disk traffic.  The native libraries are required: without
+them the engine raises.
+
+``memory_schedule``: ``static`` and ``off`` stream every unit with one
+disk read ahead (``static`` with ``hbm_budget_bytes`` checks two units
+against it, ``comm.memplan.assert_hbm_fit``).  ``auto`` runs
+``comm.memplan.plan_chunk_stream`` over the units' bytes, against the
+budget, the calibration's per-unit compute time and the host link
+(``h2d_bytes_per_s``, else the calibration's, else ``telemetry/wire.py``'s
+figure for the card): the planned **resident** units are copied to the
+card once, kept across steps (refreshed in place after their update) and
+cost the ledger nothing at release; the others stream through an
+**issue-ahead window** of up to ``prefetch_depth`` copies to the card in
+flight, each issued from its pinned host buffer on a side CUDA stream and
+waited for (its event) on the compute stream before its unit runs; the
+ledger counts a copy from its issue, and the step fails if the ledger
+passes the plan's ``peak_bytes``.  The plan moves *when* bytes move:
+losses and masters are the static schedule's, bit for bit.
 """
 
 import os
@@ -82,6 +96,10 @@ class _ChunkStore:
         self._handle.async_pwrite(flat, path, fsync=True)
         self._meta[(kind, unit)] = (path, flat.numel(), flat.dtype)
         self.bytes_written += flat.numel() * flat.element_size()
+
+    def has(self, kind, unit):
+        """Whether (kind, unit) was written."""
+        return (kind, unit) in self._meta
 
     def prefetch(self, kind, unit):
         """Start reading (kind, unit) into a new (pinned) buffer; the writes
@@ -187,26 +205,26 @@ class ZeroInfinityEngine:
 
     def __init__(self, model, nvme_path, num_chunks=2, lr=1e-3, betas=(0.9, 0.999),
                  eps=1e-8, weight_decay=0.0, compute_dtype=torch.bfloat16, swap_threads=4,
-                 memory_schedule="static", hbm_budget_bytes=None, params=None, device=None):
+                 memory_schedule="static", hbm_budget_bytes=None, params=None, device=None,
+                 h2d_bytes_per_s=None, calibration=None):
         from ...ops.adam.cpu_adam import DeeperSpeedCPUAdam
 
         if memory_schedule not in ("auto", "static", "off"):
             raise ValueError(f"memory_schedule must be auto|static|off, got {memory_schedule!r}")
-        if memory_schedule == "auto":
-            raise NotImplementedError(
-                "ZeroInfinityEngine memory_schedule 'auto' (comm/memplan.py's chunk-stream "
-                "planner) is not ported yet (ROADMAP Queue A, 'Offload')")
         self.device = resolve_device(device)
         self.model = model
         self.compute_dtype = compute_dtype
         self.memory_schedule = memory_schedule
         self.hbm_budget_bytes = hbm_budget_bytes
         self._pin = self.device.type == "cuda"
-        self.store = _ChunkStore(nvme_path, num_threads=swap_threads, pin=self._pin)
         self._adam = DeeperSpeedCPUAdam(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay)
         self.step_count = 0
         self.peak_device_param_bytes = 0
         self._resident_bytes = 0
+        self.mem_plan = None
+        self._resident = {}        # planned-resident units: name -> (device buffer, bytes)
+        self._h2d_inflight = {}    # issue-ahead copies: name -> (host, device, bytes, event)
+        self._copy_stream = None   # the side stream of the issue-ahead copies
 
         emb, blocks, head, self._embed, self._head = _family(model)
         if not 1 <= num_chunks <= len(blocks):
@@ -218,46 +236,101 @@ class ZeroInfinityEngine:
             self.units[f"c{c}"] = _Unit(f"c{c}", blocks[bounds[c]:bounds[c + 1]])
         self.units["head"] = _Unit("head", head)
         self._blocks = {f"c{c}": blocks[bounds[c]:bounds[c + 1]] for c in range(num_chunks)}
+        # the plan (or the static budget check) before anything is written;
+        # the units in the JAX engine's order (the chunks, embed, head): the
+        # planner sums their transfer times in it
+        itemsize = torch.empty(0, dtype=compute_dtype).element_size()
+        order = [f"c{c}" for c in range(num_chunks)] + ["embed", "head"]
+        self._unit_bytes = {n: self.units[n].numel * itemsize for n in order}
+        self.total_param_bytes = sum(self._unit_bytes.values())
+        self._plan_memory(calibration, h2d_bytes_per_s)
 
-        # every unit's masters, moments and compute copy to disk, one unit
-        # at a time (the pool holds the buffers until its wait)
+        # every unit's masters and compute copy to disk, one unit at a time
+        # (the pool holds the buffers until its wait); the moments start at
+        # zero and reach the disk at the unit's first update
+        self.store = _ChunkStore(nvme_path, num_threads=swap_threads, pin=self._pin)
         names = {id(p): n for n, p in model.named_parameters()}
         given = params
-        itemsize = torch.empty(0, dtype=compute_dtype).element_size()
         for unit in self.units.values():
             master = torch.empty(unit.numel, dtype=torch.float32, pin_memory=self._pin)
             for p, view in zip(unit.params, unit.views(master)):
                 src = p.detach() if given is None else torch.as_tensor(given[names[id(p)]])
                 view.copy_(src.reshape(view.shape))
-            zeros = torch.zeros(unit.numel, dtype=torch.float32)
             self.store.write("master", unit.name, master)
-            self.store.write("mu", unit.name, zeros)
-            self.store.write("nu", unit.name, zeros)
             self.store.write("bf16", unit.name, master.to(compute_dtype))
             self.store.drain()
             for p in unit.params:
                 p.data = torch.empty(0, dtype=compute_dtype, device=self.device)
-        self._unit_bytes = {u.name: u.numel * itemsize for u in self.units.values()}
-        self.total_param_bytes = sum(self._unit_bytes.values())
-        if memory_schedule == "static" and hbm_budget_bytes:
-            from ...comm import memplan
-
-            memplan.assert_hbm_fit("zero-infinity static chunk stream",
-                                   2 * max(self._unit_bytes.values()), hbm_budget_bytes)
         log_dist(f"ZeroInfinityEngine: {num_chunks} chunks | compute "
                  f"{str(compute_dtype).split('.')[-1]} on {self.device}, fp32 masters + "
-                 f"moments on disk ({self.store.dir})", ranks=[0])
+                 f"moments on disk ({self.store.dir})"
+                 + (f" | {self.mem_plan.tag}" if self.mem_plan else ""), ranks=[0])
+
+    def _plan_memory(self, calibration, h2d_bytes_per_s):
+        """The stream's plan (the JAX engine's ``_plan_memory``): ``auto``
+        runs ``plan_chunk_stream`` over the unit bytes, with the per-unit
+        compute time of the calibration (``calibration=``, else
+        ``DST_TUNER_CACHE``'s) and its host-link rate unless
+        ``h2d_bytes_per_s`` is given; ``static`` with a budget checks the
+        unit in use plus one read ahead against it."""
+        from ...comm import memplan
+
+        if self.memory_schedule == "off":
+            return
+        if self.memory_schedule == "static":
+            if self.hbm_budget_bytes:
+                memplan.assert_hbm_fit("zero-infinity static chunk stream",
+                                       2 * max(self._unit_bytes.values()),
+                                       self.hbm_budget_bytes)
+            return
+        cal = calibration if calibration is not None else memplan.load_calibration()
+        compute_s_per_chunk = None
+        if cal is not None:
+            if cal.compute_s > 0:
+                compute_s_per_chunk = cal.compute_s / max(len(self._unit_bytes), 1)
+            if h2d_bytes_per_s is None:
+                h2d_bytes_per_s = cal.h2d_bytes_per_s
+        # working_bytes=0: the plan bounds parameter residency, the same
+        # thing the peak_device_param_bytes ledger tracks
+        self.mem_plan = memplan.plan_chunk_stream(
+            self._unit_bytes, hbm_budget_bytes=self.hbm_budget_bytes,
+            compute_s_per_chunk=compute_s_per_chunk, h2d_bytes_per_s=h2d_bytes_per_s,
+            device_kind=memplan.device_kind_of(self.device))
 
     # ------------------------------------------------------------- residency
-    def _fetch(self, name, grad=False):
-        """Unit ``name``'s compute copy on the device, its parameters bound
-        to it; with ``grad``, their gradients land in one flat buffer."""
-        unit = self.units[name]
+    def _ledger_add(self, nbytes):
+        self._resident_bytes += nbytes
+        self.peak_device_param_bytes = max(self.peak_device_param_bytes, self._resident_bytes)
+
+    def _device_copy(self, name):
+        """Unit ``name``'s compute copy on the device: ``(host, device,
+        bytes)``, the ledger counting it from here."""
         host = self.store.get("bf16", name)
         dev = host.to(self.device, non_blocking=True)
         nbytes = dev.numel() * dev.element_size()
-        self._resident_bytes += nbytes
-        self.peak_device_param_bytes = max(self.peak_device_param_bytes, self._resident_bytes)
+        self._ledger_add(nbytes)
+        return host, dev, nbytes
+
+    def _fetch(self, name, grad=False):
+        """Unit ``name``'s compute copy on the device -- the planned resident
+        copy, the issue-ahead copy in flight, or one streamed now -- its
+        parameters bound to it; with ``grad``, their gradients land in one
+        flat buffer."""
+        unit = self.units[name]
+        if self.mem_plan is not None and name in self.mem_plan.resident:
+            if name not in self._resident:
+                host, dev, nbytes = self._device_copy(name)
+                self._resident[name] = (dev, nbytes)
+            # bytes 0: the resident copy stays, its release frees nothing
+            host, dev, nbytes = None, self._resident[name][0], 0
+        elif name in self._h2d_inflight:
+            host, dev, nbytes, event = self._h2d_inflight.pop(name)
+            if event is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(event)
+                dev.record_stream(stream)
+        else:
+            host, dev, nbytes = self._device_copy(name)
         gflat = torch.zeros_like(dev) if grad else None
         for p, view, gview in zip(unit.params, unit.views(dev),
                                   unit.views(gflat) if grad else [None] * len(unit.params)):
@@ -268,13 +341,55 @@ class ZeroInfinityEngine:
 
     def _release(self, name, held):
         """Drop unit ``name`` from the device once the kernels that read it
-        have finished (the ledger is a true bound)."""
+        have finished (the ledger is a true bound; a resident unit's copy
+        stays, and its bytes with it)."""
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         for p in self.units[name].params:
             p.data = torch.empty(0, dtype=self.compute_dtype, device=self.device)
             p.grad = None
         self._resident_bytes -= held[2]
+
+    def _prefetch_next(self, upcoming):
+        """Overlap the next units' fetch with the current compute
+        (``upcoming``: the units the step uses next, in order).  Static and
+        off: one disk read in flight for ``upcoming[0]``, copied to the card
+        at its use.  Auto: the issue-ahead window -- up to the plan's
+        ``prefetch_depth`` copies to the card in flight, each read from disk
+        here and issued from its pinned buffer on the side stream, the
+        ledger counting it from now."""
+        if not upcoming:
+            return
+        if self.mem_plan is None:
+            self.store.prefetch("bf16", upcoming[0])
+            return
+        for name in upcoming:
+            if len(self._h2d_inflight) >= self.mem_plan.prefetch_depth:
+                break
+            if name in self.mem_plan.resident or name in self._h2d_inflight:
+                continue
+            host = self.store.get("bf16", name)
+            event = None
+            if self.device.type == "cuda":
+                if self._copy_stream is None:
+                    self._copy_stream = torch.cuda.Stream(self.device)
+                with torch.cuda.stream(self._copy_stream):
+                    dev = host.to(self.device, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record(self._copy_stream)
+            else:
+                dev = host.to(self.device)
+            nbytes = dev.numel() * dev.element_size()
+            self._ledger_add(nbytes)
+            self._h2d_inflight[name] = (host, dev, nbytes, event)
+
+    def _flush_inflight(self):
+        """Drop the issue-ahead copies nobody consumed (the windows cover
+        exactly the uses ahead, so normally none), so that a copy from
+        before an update can never feed a later step."""
+        for _, _, nbytes, _ in self._h2d_inflight.values():
+            self._resident_bytes -= nbytes
+        self._h2d_inflight.clear()
 
     # ------------------------------------------------------------ train step
     def train_batch(self, batch, gradient_accumulation_steps=1):
@@ -323,13 +438,13 @@ class ZeroInfinityEngine:
                 x = self._embed(ids, pos)
                 self._release("embed", held)
                 saved = []
-                self.store.prefetch("bf16", fwd_names[0])
+                self._prefetch_next(fwd_names + bwd_names)
                 for i, name in enumerate(chunks):
                     held, _ = self._fetch(name)
                     saved.append(x)
                     for blk in self._blocks[name]:
                         x = blk(x, pos)
-                    self.store.prefetch("bf16", fwd_names[i + 1])
+                    self._prefetch_next(fwd_names[i + 1:] + bwd_names)
                     self._release(name, held)
 
             # the head: the loss and the cotangent of its input
@@ -343,7 +458,7 @@ class ZeroInfinityEngine:
 
             # backward sweep: each chunk's forward again under autograd; the
             # next unit's read starts after the update's reads and writes
-            self.store.prefetch("bf16", bwd_names[0])
+            self._prefetch_next(bwd_names)
             for i, name in enumerate(chunks[::-1]):
                 held, gflat = self._fetch(name, grad=True)
                 x_in = saved.pop().detach().requires_grad_(True)
@@ -354,7 +469,7 @@ class ZeroInfinityEngine:
                 dy = x_in.grad
                 self._release(name, held)
                 consume(name, gflat)
-                self.store.prefetch("bf16", bwd_names[i + 1])
+                self._prefetch_next(bwd_names[i + 1:])
 
             # the embedding's backward
             held, gflat = self._fetch("embed", grad=True)
@@ -362,14 +477,21 @@ class ZeroInfinityEngine:
             self._release("embed", held)
             consume("embed", gflat)
             losses.append(float(loss.detach()))
+        if self.mem_plan is not None:
+            self._flush_inflight()
+            if self.peak_device_param_bytes > self.mem_plan.peak_bytes:
+                raise AssertionError(
+                    f"planned peak violated: the ledger saw {self.peak_device_param_bytes} "
+                    f"device parameter bytes, the plan bounds them at "
+                    f"{self.mem_plan.peak_bytes} ({self.mem_plan.describe()})")
         return sum(l * w for l, w in zip(losses, msums)) / total
 
     def _update_unit(self, name, grad):
         """The native Adam on one unit: its masters and moments in, updated
         in place, written back with the refreshed compute copy."""
         master = self.store.get("master", name)
-        mu = self.store.get("mu", name)
-        nu = self.store.get("nu", name)
+        mu, nu = (self.store.get(kind, name) if self.store.has(kind, name)
+                  else torch.zeros(master.numel(), dtype=torch.float32) for kind in ("mu", "nu"))
         # every unit takes the same step: pin t (step() adds one)
         self._adam.t = self.step_count - 1
         self._adam._moments = {name: (mu, nu)}
@@ -377,7 +499,16 @@ class ZeroInfinityEngine:
         self.store.write("master", name, master)
         self.store.write("mu", name, mu)
         self.store.write("nu", name, nu)
-        self.store.write("bf16", name, master.to(self.compute_dtype))
+        compute = master.to(self.compute_dtype)
+        self.store.write("bf16", name, compute)
+        if name in self._h2d_inflight:
+            # a copy of the bytes before the update is stale (the windows
+            # never span an update; dropped all the same)
+            self._resident_bytes -= self._h2d_inflight.pop(name)[2]
+        if name in self._resident:
+            # the resident copy refreshed in place: same bytes, ledger as is
+            # (the unit's kernels finished at its release)
+            self._resident[name][0].copy_(compute)
 
     def master(self, name):
         """Unit ``name``'s fp32 masters by parameter, read from disk."""
@@ -389,7 +520,7 @@ class ZeroInfinityEngine:
     def swap_stats(self):
         s = self.store
         wall = max(s.io_wait_s, 1e-9)
-        return {
+        stats = {
             "bytes_read": s.bytes_read,
             "bytes_written": s.bytes_written,
             "io_wait_s": round(s.io_wait_s, 4),
@@ -397,8 +528,12 @@ class ZeroInfinityEngine:
             "peak_device_param_bytes": self.peak_device_param_bytes,
             "total_param_bytes": self.total_param_bytes,
             "memory_schedule": self.memory_schedule,
-            "resident_set_bytes": 0,
+            "resident_set_bytes": sum(b for _, b in self._resident.values()),
         }
+        if self.mem_plan is not None:
+            stats["planned_peak_bound"] = self.mem_plan.peak_bytes
+            stats["planned_prefetch_depth"] = self.mem_plan.prefetch_depth
+        return stats
 
     def close(self):
         self.store.close()

@@ -195,3 +195,13 @@ def build_partition_plan(params, stage, world, rank, persistence_threshold=100_0
                     add([n for n in mine if gathered == _partitioned(
                         params[n][0], persistence_threshold)], expert, unit, gathered)
     return ZeroPartitionPlan(stage, world, rank, regions)
+
+
+def stage3_static_peak_bytes(params):
+    """Device parameter residency of the STATIC stage-3 placement (the JAX
+    package's ``sharding.py:323``): every compute parameter whole at once --
+    the figure ``comm.memplan.assert_hbm_fit`` guards against a synthetic
+    HBM budget.  ``params``: ``(shape, dtype)`` of each compute parameter
+    (whole, before any partition)."""
+    return sum(_size(shape) * torch.empty(0, dtype=dtype).element_size()
+               for shape, dtype in params)

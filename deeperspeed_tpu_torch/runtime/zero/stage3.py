@@ -31,6 +31,14 @@ update) while the gradient is reduce-scattered over the whole ZeRO group
 into the primary partition.  qwZ composes with both.
 
 Outside a call the unit's partitioned parameters hold no data.
+
+A :class:`GatherLedger` (one an engine) counts the gathered bytes live on
+the device: a region's buffer is live from its gather to the end of the
+unit's call in the forward, and in the backward from the recompute's
+gather to the gather's backward, after which autograd frees it.  While it
+records (``events``), it keeps the order of those gathers and releases,
+from which ``comm/memplan.py`` ``plan_param_movement`` makes the stage-3
+movement plan.
 """
 
 import contextlib
@@ -50,6 +58,7 @@ class _GatherRegion(torch.autograd.Function):
     @staticmethod
     def forward(ctx, shard, gathered):
         ctx.gathered = gathered
+        gathered.ledger.gather(gathered)
         if gathered.quantized:
             return quantized_all_gather_partition(shard, gathered.group)
         full = torch.empty(gathered.region.padded, dtype=shard.dtype, device=shard.device)
@@ -58,11 +67,34 @@ class _GatherRegion(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_full):
         g = ctx.gathered
+        g.ledger.release(g)             # the recompute's buffer: freed after this
         if g.deferred:
             g.sink(grad_full)
         else:
             g.sink(g.reduce(grad_full.to(g.comm_dtype).contiguous()))
         return None, None
+
+
+class GatherLedger:
+    """The gathered bytes live on the device (``live_bytes``) and their most
+    (``peak_bytes``); with ``events`` a list, each gather and release is
+    appended to it as ``(kind, label, nbytes)``."""
+
+    def __init__(self):
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self.events = None
+
+    def gather(self, region):
+        self.live_bytes += region.nbytes
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        if self.events is not None:
+            self.events.append(("gather", region.label, region.nbytes))
+
+    def release(self, region):
+        self.live_bytes -= region.nbytes
+        if self.events is not None:
+            self.events.append(("release", region.label, region.nbytes))
 
 
 class GatheredRegion:
@@ -72,14 +104,18 @@ class GatheredRegion:
     taking this rank's reduced partition, made by ``reduce`` from the
     whole region's local gradient -- a reduce-scatter over ``group`` by
     default -- or with ``deferred`` the whole local gradient).
-    ``quantized``: the gather moves int8 (qwZ)."""
+    ``quantized``: the gather moves int8 (qwZ).  ``ledger`` counts its
+    gathered buffer (``nbytes``) under ``label``."""
 
     def __init__(self, region, shard, group, comm_dtype, sink, deferred=False,
-                 quantized=False, reduce=None):
+                 quantized=False, reduce=None, ledger=None, label=""):
         self.region, self.shard, self.group = region, shard, group
         self.comm_dtype, self.sink = comm_dtype, sink
         self.deferred, self.quantized = deferred, quantized
         self.reduce = reduce or (lambda g: reduce_scatter(g, group, log_name="grad_reduce"))
+        self.ledger = ledger or GatherLedger()
+        self.label = label or region.unit
+        self.nbytes = region.padded * shard.element_size()
 
     def views(self, full, prefix):
         """The region's parameters as views of the gathered buffer, by
@@ -126,12 +162,21 @@ def install(module, prefix, regions):
     inner = module.forward
 
     def forward(*args, **kwargs):
+        runs = [0]
+
         def run(*shards):
+            runs[0] += 1
             tensors = {}
             for g, shard in zip(regions, shards):
                 tensors.update(g.views(_GatherRegion.apply(shard, g), prefix))
             with _swapped(module, tensors):
-                return inner(*args, **kwargs)
+                out = inner(*args, **kwargs)
+            if runs[0] == 1:
+                # the forward keeps no gathered buffer past the call (the
+                # recompute's lives until the gather's backward)
+                for g in regions:
+                    g.ledger.release(g)
+            return out
 
         return checkpoint_replaying(run, *[g.shard for g in regions],
                                     rng=_generator(args, kwargs))

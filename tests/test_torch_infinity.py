@@ -156,11 +156,17 @@ def test_llama_family_streams_too(tmp_path):
 
 def test_schedules_and_budget(pipe_weights, tmp_path):
     """``off`` streams as ``static`` does; ``static`` with a budget below
-    two units raises ``HBMBudgetError``; ``auto`` waits for its item."""
+    two units raises ``HBMBudgetError``; ``auto`` plans the stream
+    (``tests/test_torch_infinity_plan.py`` holds it against static and the
+    JAX engine); another schedule is refused."""
     eng = _engine(tmp_path / "off", pipe_weights, memory_schedule="off")
-    assert eng.swap_stats["memory_schedule"] == "off"
+    assert eng.swap_stats["memory_schedule"] == "off" and eng.mem_plan is None
     eng.close()
     with pytest.raises(HBMBudgetError, match="static placement"):
         _engine(tmp_path / "tight", pipe_weights, hbm_budget_bytes=1024)
-    with pytest.raises(NotImplementedError, match="'Offload'"):
-        _engine(tmp_path / "auto", pipe_weights, memory_schedule="auto")
+    eng = _engine(tmp_path / "auto", pipe_weights, memory_schedule="auto")
+    assert eng.mem_plan.hbm_budget_bytes == 0 and eng.mem_plan.resident == ()
+    assert eng.swap_stats["planned_prefetch_depth"] == eng.mem_plan.prefetch_depth == 1
+    eng.close()
+    with pytest.raises(ValueError, match="auto|static|off"):
+        _engine(tmp_path / "bad", pipe_weights, memory_schedule="planned")

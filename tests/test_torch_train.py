@@ -222,12 +222,12 @@ def test_optimizer_trajectory_matches_jax(name, params, model_kw):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("comm", {"overlap": {"enabled": True, "schedule": {"hbm_budget_bytes": 1 << 30}}}),
+    ("mesh", {"pipe_parallel_size": 2}),
     ("eigenvalue", {"enabled": True}),
-    ("comm", {"overlap": {"enabled": True, "schedule": {"mode": "auto"}}}),
+    ("comm", {"quantized": {"enabled": True, "intra_axis": "pp"}}),
     ("pipeline", {"stages": 2}),
     ("hybrid_engine", {"enabled": True}),
-    ("comm", {"overlap": {"enabled": True, "schedule": {"memory": "auto"}}}),
+    ("mesh", {"sequence_parallel_size": 2}),
     ("comm", {"quantized": {"enabled": True, "intra_axis": "sp"}}),
     ("compression_training", {"weight_quantization": {}}),
 ])
@@ -235,6 +235,24 @@ def test_unported_config_raises(key, value):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tdst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(), device="cpu"),
                         config={**BASE, key: value}, device="cpu")
+
+
+@pytest.mark.parametrize("schedule", [{"hbm_budget_bytes": 1 << 30}, {"mode": "auto"},
+                                      {"memory": "auto"}])
+def test_planner_keys_are_accepted(schedule):
+    """The cost-model schedule, the memory planner and its budget, once
+    refused, build an engine; like the JAX engine's, they count only under
+    ``comm.overlap.enabled``."""
+    for enabled in (True, False):
+        cfg = {**BASE, "comm": {"overlap": {"enabled": enabled, "schedule": schedule}}}
+        eng, *_ = tdst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(), device="cpu"),
+                                  config=cfg, device="cpu")
+        on = {**{"mode": "manual", "memory": "static", "hbm_budget_bytes": None},
+              **schedule} if enabled else {"mode": "off", "memory": "off",
+                                           "hbm_budget_bytes": None}
+        assert (eng._schedule_mode, eng._memory_mode, eng._hbm_budget_bytes) == \
+            (on["mode"], on["memory"], on["hbm_budget_bytes"])
+        assert (eng._sched_plan is not None) == (on["mode"] == "auto")
 
 
 class _PipeMpu:

@@ -238,9 +238,9 @@ def test_wire_config_fields():
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"comm": {"overlap": {"enabled": True, "schedule": {"mode": "auto"}}}}, "Offload"),
-    ({"comm": {"overlap": {"schedule": {"memory": "auto"}}}}, "Offload"),
-    ({"comm": {"overlap": {"schedule": {"hbm_budget_bytes": 1 << 30}}}}, "Offload"),
+    ({"comm": {"quantized": {"enabled": True, "intra_axis": "pp"}}}, "Pipelines"),
+    ({"comm": {"quantized": {"enabled": True, "intra_axis": "sp"}}}, "Sequence parallelism"),
+    ({"comm": {"overlap": {"enabled": True}, "compression": {}}}, "The rest of the surface"),
 ])
 def test_refused_wire_configs_name_their_item(extra, item):
     with pytest.raises(NotImplementedError, match=item):

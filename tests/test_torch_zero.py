@@ -239,23 +239,21 @@ def test_fused_adam_steps_over_each_ranks_pieces(runs):
     ({"zero_optimization": {"stage": 2}, "comm": {"quantized": {"enabled": True}}},
      ValueError),
     ({"zero_optimization": {"stage": 1, "offload_optimizer": {"device": "cpu"}},
-      "comm": {"overlap": {"enabled": True, "schedule": {"hbm_budget_bytes": 1 << 30}}}},
-     NotImplementedError),
+      "eigenvalue": {"enabled": True}}, NotImplementedError),
     ({"mesh": {"pipe_parallel_size": 2}}, NotImplementedError),
     ({"mesh": {"sequence_parallel_size": 2}}, NotImplementedError),
     ({"mesh": {"expert_parallel_size": 2}}, ValueError),
     ({"comm": {"quantized": {"enabled": True, "intra_axis": "ep"}}}, ValueError),
     ({"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}},
-      "comm": {"overlap": {"enabled": True, "schedule": {"memory": "auto"}}}},
-     NotImplementedError),
+      "hybrid_engine": {"enabled": True}}, NotImplementedError),
     ({"comm": {"quantized": {"enabled": True, "bucket_mb": 8}}}, NotImplementedError),
 ])
 def test_refused_configurations(extra, error):
     """qgZ refuses fp16 and stages above 0, as the JAX engine does, and an
     intra hop on ``ep`` (its hops run over dp and zshard); an ``ep`` that
-    does not divide the processes is refused; the layouts not ported yet
-    (the offload planners, pipelines, sequence parallelism) name their
-    ROADMAP item."""
+    does not divide the processes is refused; what is not ported yet
+    (eigenvalue, the hybrid engine, pipelines, sequence parallelism) names
+    its ROADMAP item, beside the offload tiers too."""
     match = "ROADMAP Queue A" if error is NotImplementedError else "comm|mesh"
     with pytest.raises(error, match=match):
         tdst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(), device="cpu"),

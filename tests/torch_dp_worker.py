@@ -28,7 +28,10 @@ run in turn.  Job kinds:
   fields (``model``), ``reuse_model`` (the previous run's model object,
   as the JAX tests pass one model to two engines) and ``capture_grads``
   (each parameter's mean gradient before and after the first step's
-  reduction, ``pre/<param>`` and ``post/<param>``);
+  reduction, ``pre/<param>`` and ``post/<param>``) and ``bypass_blocks``
+  (blocks whose forward passes its input through); under
+  ``schedule.mode: auto`` it also records the plan and the first planned
+  step's statistics (``schedule``, JSON);
 * ``comm``: each case runs one collective on this rank's input
   ``x/<case>/<rank>`` (with ``two_level`` ``[n_inter, n_intra]``, over the
   groups of ``comm.new_two_level_groups``; ``onebit`` cases chain
@@ -107,6 +110,9 @@ def _train(spec, job, rank, out):
         if not run.get("reuse_model"):
             model = GPTNeoX(GPTNeoXConfig.tiny(dtype=DTYPES[run["dtype"]],
                                                **run.get("model", {})), device=device)
+        for i in run.get("bypass_blocks", ()):
+            # the block passes its input through: its parameters get no gradient
+            model.layers[i].forward = lambda x, *args, **kwargs: x
         data = None
         if run.get("training_data"):
             data = {k[2:]: job[k] for k in job.files if k.startswith("d/")}
@@ -151,6 +157,17 @@ def _train(spec, job, rank, out):
         out[f"{name}/comms_rows"] = np.array(json.dumps(comm.log_summary(show_straggler=True)))
         out[f"{name}/group_sizes"] = np.array(json.dumps(
             {op: sorted(n) for op, n in comm.comms_logger.group_sizes.items()}))
+        if eng.scheduled_step is not None:
+            plan, sched = eng._sched_plan, eng.scheduled_step
+            out[f"{name}/schedule"] = np.array(json.dumps({
+                "grad_schedule": plan.grad_schedule, "bucket_mb": plan.bucket_mb,
+                "tag": plan.tag, "n_hoisted": sched.n_hoisted,
+                "n_collectives": sched.n_collectives,
+                "hook_sites": [s.primitive for s in sched.sites if s.path == ("hook",)
+                               for _ in range(s.repeats)],
+                "step_sites": [[s.primitive, s.n_elems] for s in sched.sites
+                               if s.path == ("step",) for _ in range(s.repeats)],
+                "per_micro": eng._per_micro}))
         final = eng.full_master_params()
         if rank == 0:
             for param, t in final.items():

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Phase 24 of ``chip_smoke.py`` (offload) alone, on the card.
+"""Phase 24 of ``chip_smoke.py`` (offload) alone, on the card, and with
+``planners`` phase 25 (the planners) after it.
 
-    python3 tools/torch_offload_phase.py [dp]
+    python3 tools/torch_offload_phase.py [dp] [planners]
 
 Builds the kernels and the host libraries, turns TF32 off (``chip_smoke.py``
 does so in phase 4), prints the host's memory, cores and CPU, then runs
@@ -9,9 +10,9 @@ phase 24's parts (a)-(e): the host update of Pythia-1.4B against the device
 update, the pinned-host tier, the NVMe tier and ZeRO-Infinity at 1.4B's
 width and 4 layers, and the async checkpoint writer.  With ``dp`` it first runs
 phases 13-14 (two ``--dp-worker`` processes, ~3-4 minutes), whose workers
-run (f), the pinned-host tier at world 2, and checks it.  Prints
-``chip_smoke.py``'s lines and each part's seconds; exits 1 if the phase
-failed, 2 without a CUDA device.
+run (f), the pinned-host tier at world 2, and (c) of phase 25, and checks
+them.  Prints ``chip_smoke.py``'s lines and each part's seconds; exits 1 if
+a phase failed, 2 without a CUDA device.
 """
 
 import subprocess
@@ -58,12 +59,19 @@ def main():
             dp_ranks = cs.phase_dp(torch, np)[2]
             print(f"[part] phases 13-14: {time.perf_counter() - t:.1f} s", flush=True)
         t = time.perf_counter()
-        paths = cs.phase_offload(torch, np, cuda_utils.LAUNCHES, card, dp_ranks)
+        phase = "phase 24"
+        paths, inf = cs.phase_offload(torch, np, cuda_utils.LAUNCHES, card, dp_ranks)
         print(f"[part] phase 24: {time.perf_counter() - t:.1f} s; launches by path {paths}",
               flush=True)
+        if "planners" in sys.argv[1:]:
+            t = time.perf_counter()
+            phase = "phase 25"
+            paths = cs.phase_planners(torch, np, cuda_utils.LAUNCHES, card, dp_ranks, inf)
+            print(f"[part] phase 25: {time.perf_counter() - t:.1f} s; launches by path "
+                  f"{paths}", flush=True)
     except Exception:
         traceback.print_exc()
-        print("failed: phase 24", flush=True)
+        print(f"failed: {phase}", flush=True)
         return 1
     print("failed: []", flush=True)
     return 0
