@@ -277,10 +277,27 @@ package, and goes through these phases, each printing its lines:
     refused at construction, ``"auto"`` one step and its movement plan,
     whose peak is the stage-3 ledger's.  K1/K8 and K5-K7 must launch on (b)
     and (c).
+26. pipelines: two ``--pipe-worker`` stage processes (pp 2, gloo via host)
+    and four ``--pipe-dp-worker`` processes (pp 2 x dp 2), released under
+    phase 19: (a) Pythia-160M at pp 2 under ``1f1b``, bf16, Adam, clip 1.0,
+    16 x 1024 in 4 microbatches, 3 steps: losses and grad norms against the
+    flat engine's on the same weights (within 1e-2 relative), each stage's
+    ms/step split into compute, P2P transfer (the bytes at a measured
+    message's rate), bubble (the rest of the P2P wait) and the rest, its
+    peak memory; (b) the same under ``gpipe``, losses equal to (a)'s, and
+    both at gas 8: each stage's peak memory of the forward and backward and
+    ``peak_live_inputs``, 1f1b's the lower (on the first stage, whose
+    inputs are token ids, no higher); (c) Llama-2-7B's width (H 4096) at 4 layers, pp 2, 1 step at
+    gas 2, against the flat ``Llama``; (d) the interpreted engine on a
+    PipelineModule of 4 Pythia-160M-width GPT-NeoX blocks with a tied
+    embedding and head at pp 2 x dp 2, ZeRO-2, FusedAdam, 3 steps against
+    the flat engine on the same layers, a checkpoint saved before step 3
+    and reloaded at pp 1, where step 3 gives the same loss.  K1/K8 and
+    K5-K7 must launch on every stage, B6 in (d).
 
-The worker processes of phases 13-14, 20, 21, 22 (e) and 23 (c) start
+The worker processes of phases 13-14, 20, 21, 22 (e), 23 (c) and 26 start
 right after the build, make their CUDA context and wait until their phase
-(``[workers]`` line); those of 21, 22 (e) and 23 (c) run under phase 19,
+(``[workers]`` line); those of 21, 22 (e), 23 (c) and 26 run under phase 19,
 which waits on the disk, and their phases join them (their ms are read
 with phase 19 running beside them).  Each phase prints a ``[time]`` line.
 
@@ -298,7 +315,9 @@ full-width trainings and (e)'s tp 2 run (rank 0), in phase 23 (b)'s top-1
 training, (c)'s stage-0 run (rank 0) and (d)'s bf16 serving, in phase 24
 (a)'s host-update steps, (b)'s pinned-tier steps, (c)'s NVMe-tier steps and
 (d)'s streamed steps, in phase 25 (b)'s 700 MiB planned stream and (c)'s
-hook-issued steps (rank 0), each read right after its own run and listed in
+hook-issued steps (rank 0), in phase 26 (a)'s steps summed over both stages
+(``pipe-trained``) and (d)'s over its four processes (``pipe-interpreted``),
+each read right after its own run and listed in
 ``launches_by_path``), the
 last ``{"ok": true,
 "device": {...}}``.  Any
@@ -2250,7 +2269,8 @@ def _scratch_dir():
 def hold_workers():
     for flag, world in (("--dp-worker", DP_WORLD), ("--wire-worker", WIRE_INTER * WIRE_INTRA),
                         ("--layout-worker", LAYOUT_WORLD),
-                        ("--llama-worker", LLAMA_TP_WORLD), ("--moe-worker", MOE_EP_WORLD)):
+                        ("--llama-worker", LLAMA_TP_WORLD), ("--moe-worker", MOE_EP_WORLD),
+                        ("--pipe-worker", PIPE_WORLD), ("--pipe-dp-worker", PIPE_DP_WORLD)):
         workdir = _scratch_dir()
         _HELD[flag] = (workdir, _spawn_dp_workers(workdir, flag, world, go=workdir / "go"))
     # the phases start once every held worker has its context, so that no
@@ -5084,6 +5104,372 @@ def phase_planners(torch, np, launches, card, dp_ranks, inf):
         shutil.rmtree(swap_root, ignore_errors=True)
 
 
+# Pipelines (phase 26): the stage processes share the card over gloo (NCCL
+# refuses two ranks on one device), each activation and its gradient staged
+# through host memory.  (a) Pythia-160M at pp 2 under 1f1b, (b) under gpipe,
+# and both at gas 8 for their memory, (c) Llama-2-7B's width at 4 layers
+# (the depth cut: the whole model does not fit one card with Adam's state),
+# all in the two ``--pipe-worker`` processes; (d) the interpreted engine at
+# pp 2 x dp 2 (four ``--pipe-dp-worker`` processes) on a PipelineModule of
+# GPT-NeoX layers at Pythia-160M's width with a tied embedding and head.
+# Both groups run under phase 19's disk waits; phase 26 holds them against
+# flat runs on the same weights in this process and reloads (d)'s
+# checkpoint at pp 1.
+PIPE_WORLD, PIPE_DP_WORLD = 2, 4
+PIPE_GAS, PIPE_STEPS, PIPE_MEM_GAS = 4, 3, 8
+PIPE_CONFIG = {**TRAIN_CONFIG, "gradient_accumulation_steps": PIPE_GAS,
+               "mesh": {"pipe_parallel_size": PIPE_WORLD}}
+PIPE_LLAMA_LAYERS, PIPE_LLAMA_ROWS, PIPE_LLAMA_GAS = 4, 4, 2
+PIPE_LLAMA_CONFIG = {**LLAMA_TRAIN, "train_batch_size": PIPE_LLAMA_ROWS,
+                     "gradient_accumulation_steps": PIPE_LLAMA_GAS}
+PIPE_INTERP_LAYERS, PIPE_INTERP_STEPS, PIPE_INTERP_SAVE = 4, 3, 2
+PIPE_INTERP_CONFIG = {**TRAIN_CONFIG, "gradient_accumulation_steps": PIPE_GAS,
+                      "optimizer": {"type": "FusedAdam", "params": {"lr": 1e-4}},
+                      "zero_optimization": {"stage": 2}}
+PIPE_TOL = LAYOUT_BF16_TOL            # bf16 losses and grad norms, relative
+
+
+def pipe_model():
+    """Pythia-160M (phase 9's model) cut into two stages: each stage draws
+    the whole model on the card from ``SEED`` and keeps its half."""
+    import torch
+
+    from deeperspeed_tpu_torch.models import GPTNeoXConfig
+    from deeperspeed_tpu_torch.models.gpt_neox_pipe import GPTNeoXPipe
+    return GPTNeoXPipe(GPTNeoXConfig.pythia_160m(dtype=torch.bfloat16, max_seq_len=TRAIN_SEQ),
+                       PIPE_WORLD, seed=SEED, draw_on_device=True)
+
+
+def pipe_llama_config():
+    import torch
+
+    from deeperspeed_tpu_torch.models import LlamaConfig
+    return LlamaConfig.llama2_7b(num_layers=PIPE_LLAMA_LAYERS, dtype=torch.bfloat16)
+
+
+def pipe_interp_module(num_stages):
+    """(d)'s PipelineModule: a tied embedding, 4 Pythia-160M-width blocks,
+    the final LayerNorm and the embedding as the head, cut by blocks."""
+    import torch
+
+    from deeperspeed_tpu_torch.models import GPTNeoXConfig
+    from deeperspeed_tpu_torch.models.gpt_neox import ModelLayerNorm
+    from deeperspeed_tpu_torch.models.gpt_neox_pipe import BlockLayer, EmbedLayer, tied_head
+    from deeperspeed_tpu_torch.models.pipe_base import loss_from_logits
+    from deeperspeed_tpu_torch.runtime.pipe.module import (LayerSpec, PipelineModule,
+                                                           TiedLayerSpec)
+
+    cfg = dataclasses.replace(GPTNeoXConfig.pythia_160m(dtype=torch.bfloat16,
+                                                        max_seq_len=TRAIN_SEQ),
+                              num_layers=PIPE_INTERP_LAYERS)
+    specs = ([TiedLayerSpec("embed", EmbedLayer, cfg)]
+             + [LayerSpec(BlockLayer, cfg) for _ in range(PIPE_INTERP_LAYERS)]
+             + [LayerSpec(ModelLayerNorm, cfg.hidden_size, cfg.layernorm_eps, cfg.dtype),
+                TiedLayerSpec("embed", EmbedLayer, cfg, forward_fn=tied_head)])
+    return PipelineModule(specs, num_stages=num_stages, loss_fn=loss_from_logits,
+                          partition_method="type:blocklayer", base_seed=SEED)
+
+
+def pipe_interp_batch(np):
+    toks = np.random.default_rng(SEED + 26).integers(0, 50304, (TRAIN_BATCH, TRAIN_SEQ + 1))
+    return {"input_ids": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def _pipe_run(torch, dst, model, config, batch, steps, save=None):
+    """Train ``steps`` steps of a pipeline engine on ``batch``, timing each
+    (host clock, ending in the loss's broadcast, which syncs) and splitting
+    it (``pipe_stats``, the card synchronized after each compute
+    instruction); ``save`` = (step, dir) saves before that step."""
+    from deeperspeed_tpu_torch.ops.cuda_utils import LAUNCHES
+
+    t = time.perf_counter()
+    eng = dst.initialize(model=model, config=config)[0]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    eng.pipe_timing = True
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()                                  # main path starts here
+    losses, norms, ms, stats, save_s = [], [], [], [], None
+    for step in range(steps):
+        if save is not None and step == save[0]:
+            t = time.perf_counter()
+            eng.save_checkpoint(save[1])
+            save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        losses.append(float(eng.train_batch(batch=batch)))
+        ms.append((time.perf_counter() - t) * 1e3)
+        norms.append(eng.get_global_grad_norm())
+        stats.append(dict(eng.pipe_stats))
+    rec = {"losses": losses, "norms": norms, "ms": ms, "stats": stats,
+           "launches": dict(LAUNCHES), "stage": eng.stage_id, "init_s": init_s,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_live": eng.peak_live_inputs(), "save_s": save_s,
+           "params": sum(t.numel() for t in eng.module.parameters())}
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _pipe_transfer_ms(torch, comm, rank, iters=10):
+    """One activation message's one-way time between the two stage
+    processes (gloo via host): a ping-pong of [4, 1024, 768] bf16 with both
+    sides waiting, so no time is the other stage's compute."""
+    world = comm.get_world_group()
+    x = torch.zeros((PIPE_GAS, TRAIN_SEQ, 768), dtype=torch.bfloat16, device="cuda")
+    peer = 1 - rank
+
+    def ping():
+        if rank == 0:
+            comm.send(x, peer, world)
+            comm.recv(x, peer, world)
+        else:
+            comm.recv(x, peer, world)
+            comm.send(x, peer, world)
+
+    ping()
+    comm.barrier(world)
+    t = time.perf_counter()
+    for _ in range(iters):
+        ping()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / (2 * iters), x.numel() * x.element_size()
+
+
+def pipe_worker(rank, rendezvous, out_path):
+    """One of the two stage processes of phase 26 (``--pipe-worker``): the
+    message time, (a) 1f1b and (b) gpipe on Pythia-160M at gas 4, both at
+    gas 8 for their memory, (c) Llama-2-7B's width at 4 layers; writes what
+    it saw as JSON."""
+    import torch
+
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch import comm
+    from deeperspeed_tpu_torch.models.llama_pipe import LlamaPipe
+
+    torch.set_num_threads(2)
+    dst.init_distributed("gloo", init_method=f"file://{rendezvous}", rank=rank,
+                         world_size=PIPE_WORLD, timeout=600)
+    out = {}
+    out["transfer_ms"], out["transfer_bytes"] = _pipe_transfer_ms(torch, comm, rank)
+    batch = trained_batch(pipe_model())
+    for sched in ("1f1b", "gpipe"):
+        out[sched] = _pipe_run(torch, dst, pipe_model(),
+                               {**PIPE_CONFIG, "pipeline": {"schedule": sched}}, batch,
+                               PIPE_STEPS)
+    for sched in ("1f1b", "gpipe"):
+        out[f"gas8-{sched}"] = _pipe_run(
+            torch, dst, pipe_model(), {**PIPE_CONFIG, "gradient_accumulation_steps":
+                                       PIPE_MEM_GAS, "pipeline": {"schedule": sched}},
+            batch, 1)
+    llama = LlamaPipe(pipe_llama_config(), PIPE_WORLD, seed=SEED)
+    out["llama"] = _pipe_run(
+        torch, dst, llama, {**PIPE_LLAMA_CONFIG, "mesh": {"pipe_parallel_size": PIPE_WORLD}},
+        llama.example_batch(batch_size=PIPE_LLAMA_ROWS, seq_len=TRAIN_SEQ, seed=SEED), 1)
+    Path(out_path).write_text(json.dumps(out))
+    comm.destroy()
+    return 0
+
+
+def pipe_dp_worker(rank, rendezvous, out_path):
+    """One of the four processes of phase 26 (d) (``--pipe-dp-worker``):
+    the interpreted engine at pp 2 x dp 2, ZeRO-2, FusedAdam; saves a
+    checkpoint beside the rendezvous before step 3."""
+    import numpy as np
+    import torch
+
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch import comm
+
+    torch.set_num_threads(2)
+    dst.init_distributed("gloo", init_method=f"file://{rendezvous}", rank=rank,
+                         world_size=PIPE_DP_WORLD, timeout=600)
+    rec = _pipe_run(torch, dst, pipe_interp_module(2),
+                    {**PIPE_INTERP_CONFIG, "mesh": {"pipe_parallel_size": 2}},
+                    pipe_interp_batch(np), PIPE_INTERP_STEPS,
+                    save=(PIPE_INTERP_SAVE, str(Path(rendezvous).parent / "ckpt")))
+    Path(out_path).write_text(json.dumps(rec))
+    comm.destroy()
+    return 0
+
+
+def _flat_run(torch, dst, model, config, batch, steps, loss_fn=None):
+    """A flat engine's losses and grad norms over ``steps`` steps."""
+    eng = dst.initialize(model=model, config=config, loss_fn=loss_fn)[0]
+    losses, norms = [], []
+    for _ in range(steps):
+        losses.append(float(eng.train_batch(batch=batch)))
+        norms.append(eng.get_global_grad_norm())
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, norms
+
+
+def _rel_max(a, b):
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def _pipe_split(rec, transfer_ms, transfer_bytes):
+    """Steps 2-3's mean ms: the step, the stage's compute (its forward and
+    backward instructions, the card synchronized after each), the time in
+    sends and receives, of which the transfers (the P2P bytes at the rate
+    of one message measured alone, one way: an upper bound, since a send's
+    host copy and a receive's run on different processes) and the bubble
+    (the rest: waiting on the other stage, a lower bound), and the rest of
+    the step (the reductions, the optimizer, the loss's broadcast)."""
+    n = len(rec["ms"]) - 1
+    step = sum(rec["ms"][1:]) / n
+    compute = sum(s["compute_s"] for s in rec["stats"][1:]) * 1e3 / n
+    p2p = sum(s["p2p_s"] for s in rec["stats"][1:]) * 1e3 / n
+    transfer = sum(s["p2p_bytes"] for s in rec["stats"][1:]) / n / transfer_bytes * transfer_ms
+    return {"step": step, "compute": compute, "p2p": p2p, "transfer": min(transfer, p2p),
+            "bubble": max(p2p - transfer, 0.0), "other": step - compute - p2p}
+
+
+def phase_pipeline(torch, np, card):
+    """Phase 26: the flat runs in this process, the two worker groups
+    joined and held against them, (d)'s checkpoint reloaded at pp 1.
+    Returns the launches of (a)'s 1f1b run and of (d), summed over their
+    processes."""
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.accelerator import resolve_device
+    from deeperspeed_tpu_torch.models import Llama
+    from deeperspeed_tpu_torch.runtime.pipe.interpreted import InterpretedStage
+
+    t = time.perf_counter()
+    model = trained_model()
+    flat_a = _flat_run(torch, dst, model, {**TRAIN_CONFIG, "gradient_accumulation_steps":
+                                           PIPE_GAS}, trained_batch(model), PIPE_STEPS)
+    llama = Llama(pipe_llama_config(), seed=SEED)
+    flat_c = _flat_run(torch, dst, llama, {**PIPE_LLAMA_CONFIG},
+                       llama.example_batch(batch_size=PIPE_LLAMA_ROWS, seq_len=TRAIN_SEQ,
+                                           seed=SEED), 1)
+    interp_batch = pipe_interp_batch(np)
+    flat = InterpretedStage(pipe_interp_module(1), 0, resolve_device())
+    flat_d = _flat_run(torch, dst, flat, {**PIPE_INTERP_CONFIG}, interp_batch,
+                       PIPE_INTERP_STEPS,
+                       loss_fn=lambda m, b, rng=None, **_: m.stage_loss(
+                           m.forward_stage(b["input_ids"], b), b))
+    flat_s = time.perf_counter() - t
+    a, b = sorted(_join_dp_workers(_workers("--pipe-worker", PIPE_WORLD)[1]),
+                  key=lambda r: r["1f1b"]["stage"])
+    workdir, procs = _workers("--pipe-dp-worker", PIPE_DP_WORLD)
+    dranks = _join_dp_workers(procs)
+
+    # (a), (b): losses and norms against the flat run, the split, memory
+    for sched in ("1f1b", "gpipe"):
+        for r in (a, b):
+            rec = r[sched]
+            if _rel_max(rec["losses"], flat_a[0]) > PIPE_TOL \
+                    or _rel_max(rec["norms"], flat_a[1]) > PIPE_TOL:
+                raise AssertionError(f"pipeline ({sched}) stage {rec['stage']}: losses "
+                                     f"{rec['losses']} norms {rec['norms']} vs flat {flat_a}")
+            for k in ("layer_norm", "layer_norm_bwd", "flash_fwd", "flash_bwd_dq",
+                      "flash_bwd_dkv"):
+                if rec["launches"].get(k, 0) < 1:
+                    raise AssertionError(f"pipeline ({sched}) stage {rec['stage']} never "
+                                         f"launched {k}: {rec['launches']}")
+    if a["1f1b"]["losses"] != b["1f1b"]["losses"] or a["gpipe"]["losses"] != a["1f1b"]["losses"]:
+        raise AssertionError(f"pipeline: 1f1b {a['1f1b']['losses']} / {b['1f1b']['losses']}, "
+                             f"gpipe {a['gpipe']['losses']}")
+    M, S = PIPE_GAS, PIPE_WORLD
+    print(f"[pipe-a] {card}: Pythia-160M bf16 at pp {S} (two stage processes, gloo via "
+          f"host), {TRAIN_BATCH} x {TRAIN_SEQ} in {M} microbatches, Adam, clip 1.0, 1f1b: "
+          f"losses {', '.join(f'{x:.4f}' for x in a['1f1b']['losses'])} and grad norms "
+          f"{', '.join(f'{x:.4f}' for x in a['1f1b']['norms'])} against the flat engine's "
+          f"{', '.join(f'{x:.4f}' for x in flat_a[0])} / "
+          f"{', '.join(f'{x:.4f}' for x in flat_a[1])} (limit {PIPE_TOL} relative); one "
+          f"{a['transfer_bytes'] / 2**20:.1f} MiB message {a['transfer_ms']:.2f} ms one way",
+          flush=True)
+    for sched in ("1f1b", "gpipe"):
+        for r in (a, b):
+            rec = r[sched]
+            sp = _pipe_split(rec, a["transfer_ms"], a["transfer_bytes"])
+            print(f"[pipe-{'a' if sched == '1f1b' else 'b'}] {sched} stage {rec['stage']} "
+                  f"({rec['params'] / 1e6:.1f}M parameters): {sp['step']:.1f} ms/step (steps "
+                  f"2-{PIPE_STEPS}; step 1 {rec['ms'][0]:.1f}): compute {sp['compute']:.1f}, "
+                  f"P2P {sp['p2p']:.1f} of which transfer {sp['transfer']:.1f} and bubble "
+                  f"{sp['bubble']:.1f}, optimizer and the rest {sp['other']:.1f}; "
+                  f"{rec['stats'][-1]['p2p_msgs']} messages "
+                  f"{rec['stats'][-1]['p2p_bytes'] / 2**20:.1f} MiB a step; peak "
+                  f"{rec['peak_gb']:.2f} GB; peak live inputs {rec['peak_live']}; launches "
+                  f"{rec['launches']}", flush=True)
+    print(f"[pipe-b] gpipe losses {', '.join(f'{x:.4f}' for x in a['gpipe']['losses'])} equal "
+          f"1f1b's; the schedule's bubble share (S-1)/(M+S-1) = {(S - 1) / (M + S - 1):.3f}",
+          flush=True)
+    # 1f1b's forward-and-backward peak is the lower: on the last stage by the
+    # received activations gpipe keeps, on the first (whose inputs are token
+    # ids) never above gpipe's
+    peaks = {}
+    for r in (a, b):
+        one, gp = r["gas8-1f1b"], r["gas8-gpipe"]
+        p1, pg = (x["stats"][-1]["stream_peak_bytes"] / 2**20 for x in (one, gp))
+        peaks[one["stage"]] = (p1, pg)
+        if not (one["peak_live"] < gp["peak_live"] and p1 <= pg):
+            raise AssertionError(f"pipeline (b) stage {one['stage']} at gas {PIPE_MEM_GAS}: "
+                                 f"1f1b {p1} MiB / {one['peak_live']} inputs, gpipe {pg} MiB "
+                                 f"/ {gp['peak_live']}")
+        print(f"[pipe-b] gas {PIPE_MEM_GAS}, stage {one['stage']}: peak memory of the "
+              f"forward and backward 1f1b {p1:.2f} MiB, gpipe {pg:.2f} MiB ({pg - p1:.2f} MiB "
+              f"more); of the whole step {one['peak_gb'] * 1e3:.1f} / "
+              f"{gp['peak_gb'] * 1e3:.1f} MB; peak live inputs {one['peak_live']} / "
+              f"{gp['peak_live']}; {one['ms'][0]:.1f} / {gp['ms'][0]:.1f} ms (one step)",
+              flush=True)
+    if not peaks[S - 1][0] < peaks[S - 1][1]:
+        raise AssertionError(f"pipeline (b): the last stage's 1f1b peak is not below gpipe's: "
+                             f"{peaks}")
+
+    # (c): Llama-2-7B's width at 4 layers
+    la, lb = a["llama"], b["llama"]
+    if _rel_max(la["losses"], flat_c[0]) > PIPE_TOL or _rel_max(la["norms"], flat_c[1]) > PIPE_TOL:
+        raise AssertionError(f"pipeline (c): {la['losses']} {la['norms']} vs flat {flat_c}")
+    print(f"[pipe-c] Llama-2-7B width (H 4096, N 32 / D 128), {PIPE_LLAMA_LAYERS} layers, pp "
+          f"{S}, {PIPE_LLAMA_ROWS} x {TRAIN_SEQ} in {PIPE_LLAMA_GAS} microbatches: loss "
+          f"{la['losses'][0]:.4f}, grad norm {la['norms'][0]:.4f} against the flat Llama's "
+          f"{flat_c[0][0]:.4f} / {flat_c[1][0]:.4f}; {la['ms'][0]:.1f} ms (one step, built in "
+          f"{la['init_s']:.1f} / {lb['init_s']:.1f} s); peak {la['peak_gb']:.2f} / "
+          f"{lb['peak_gb']:.2f} GB ({la['params'] / 1e6:.0f}M / {lb['params'] / 1e6:.0f}M "
+          f"parameters a stage)", flush=True)
+
+    # (d): the interpreted engine at pp 2 x dp 2, then its checkpoint at pp 1
+    d0 = min(dranks, key=lambda r: r["stage"])
+    for r in dranks:
+        if _rel_max(r["losses"], flat_d[0]) > PIPE_TOL:
+            raise AssertionError(f"pipeline (d) stage {r['stage']}: {r['losses']} vs flat "
+                                 f"{flat_d[0]}")
+        if r["launches"].get("fused_adam", 0) < 1:
+            raise AssertionError(f"pipeline (d): fused_adam never launched: {r['launches']}")
+    eng = dst.initialize(model=pipe_interp_module(1), config={
+        **PIPE_INTERP_CONFIG, "mesh": {"pipe_parallel_size": 1}})[0]
+    t = time.perf_counter()
+    eng.load_checkpoint(str(workdir / "ckpt"))
+    load_s = time.perf_counter() - t
+    resumed = float(eng.train_batch(batch=interp_batch))
+    want = d0["losses"][PIPE_INTERP_SAVE]
+    if abs(resumed - want) > PIPE_TOL * abs(want) or eng.global_steps != PIPE_INTERP_SAVE + 1:
+        raise AssertionError(f"pipeline (d): resumed at pp 1 {resumed} vs {want}")
+    del eng
+    torch.cuda.empty_cache()
+    print(f"[pipe-d] interpreted, pp 2 x dp 2 (four processes), ZeRO-2, FusedAdam, "
+          f"{PIPE_INTERP_LAYERS} Pythia-160M-width blocks with a tied embedding and head: "
+          f"losses {', '.join(f'{x:.4f}' for x in d0['losses'])} against the flat engine's "
+          f"{', '.join(f'{x:.4f}' for x in flat_d[0])}; "
+          f"{sum(d0['ms'][1:]) / (len(d0['ms']) - 1):.1f} ms/step; checkpoint saved in "
+          f"{d0['save_s']:.2f} s, loaded at pp 1 in {load_s:.2f} s, step "
+          f"{PIPE_INTERP_SAVE + 1} there {resumed:.4f} against {want:.4f}; flat runs "
+          f"{flat_s:.1f} s", flush=True)
+
+    def summed(recs):
+        out = {}
+        for rec in recs:
+            for k, v in rec["launches"].items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    return {"pipe-trained": summed([a["1f1b"], b["1f1b"]]), "pipe-interpreted": summed(dranks)}
+
+
 def main():
     try:
         import torch
@@ -5111,6 +5497,10 @@ def main():
         return llama_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     if sys.argv[1:2] == ["--moe-worker"]:
         return moe_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if sys.argv[1:2] == ["--pipe-worker"]:
+        return pipe_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if sys.argv[1:2] == ["--pipe-dp-worker"]:
+        return pipe_dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     import numpy as np
 
     from deeperspeed_tpu_torch.ops import cuda_utils
@@ -5166,7 +5556,7 @@ def main():
 
 
 def _phases(torch, np, cuda_utils, card, t_start):
-    """Phases 3-25 and the summary lines, after the build."""
+    """Phases 3-26 and the summary lines, after the build."""
 
     def timed(label, fn, *args):
         t = time.perf_counter()
@@ -5201,6 +5591,8 @@ def _phases(torch, np, cuda_utils, card, t_start):
     release_early("--layout-worker")
     release_early("--llama-worker")
     release_early("--moe-worker")
+    release_early("--pipe-worker")
+    release_early("--pipe-dp-worker")
     paths["training_resumed"] = timed("phase 19", phase_checkpointed, torch, np, L, card,
                                       dp_ckpt)
     paths["wire_two_level"], paths["wire_deferred"] = timed("phase 20", phase_wire, card,
@@ -5221,6 +5613,7 @@ def _phases(torch, np, cuda_utils, card, t_start):
     paths.update(offload)
     paths.update(timed("phase 25", phase_planners, torch, np, L, card, dp_ranks, inf))
     del inf
+    paths.update(timed("phase 26", phase_pipeline, torch, np, card))
 
     sources = {
         "layer_norm": ("deeperspeed_tpu_torch/csrc/layer_norm.cu",

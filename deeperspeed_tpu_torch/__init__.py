@@ -30,7 +30,12 @@ in ``csrc/``:
   cores in a native CPU Adam (``csrc/host/``, built with ``g++``) over
   pinned host masters and moments, the optimizer state's pinned-host and
   NVMe tiers, and ZeRO-Infinity's chunk stream
-  (``runtime.zero.infinity.ZeroInfinityEngine``).
+  (``runtime.zero.infinity.ZeroInfinityEngine``);
+* pipelines: ``initialize(model=GPTNeoXPipe(...) or LlamaPipe(...) or a
+  PipelineModule, config=...)`` with ``mesh.pipe_parallel_size``, one
+  process a stage, the 1F1B and GPipe schedules with point-to-point
+  transfers over the ``pp`` group, pp x dp at ZeRO 0-2
+  (``runtime.pipe``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

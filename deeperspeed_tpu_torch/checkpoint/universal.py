@@ -10,7 +10,8 @@ package writes and reads:
 Names are the flax paths of the checkpoint's trees, '/'-joined.  The
 checkpoint format is already topology-independent, so the export is for
 tooling that wants a file per parameter; :func:`load_universal_into_engine`
-loads one into a port engine at any world size and ZeRO stage.
+loads one into a port engine at any world size and ZeRO stage, a pipeline
+engine's at any ``pp`` (:func:`load_universal_into_interpreted`).
 """
 
 import json
@@ -152,6 +153,14 @@ def load_universal_into_engine(engine, universal_dir, load_optimizer_states=True
     params, exp_avg, exp_avg_sq, meta = load_universal_state(universal_dir)
     return install_universal_state(engine, params, exp_avg, exp_avg_sq, meta,
                                    load_optimizer_states=load_optimizer_states)
+
+
+def load_universal_into_interpreted(engine, universal_dir, load_optimizer_states=True):
+    """A universal export into an interpreted pipeline engine at any ``pp`` x
+    ``dp``: the '/'-named slices unflatten into its canonical ``{"layers",
+    "tied"}`` tree, of which each stage takes its layers (the JAX package's
+    ``load_universal_into_interpreted``)."""
+    return load_universal_into_engine(engine, universal_dir, load_optimizer_states)
 
 
 def install_universal_state(engine, params, exp_avg, exp_avg_sq, meta,

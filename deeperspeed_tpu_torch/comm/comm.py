@@ -9,9 +9,10 @@ the ZeRO group (``dp x zshard x ep``) of this rank's tensor-parallel slice,
 :func:`get_zero_param_parallel_group` the MiCS / hpZ subgroup
 (``zshard``), :func:`get_model_parallel_group` the tensor-parallel group
 (``tp``), :func:`get_expert_parallel_group` the MoE experts' group
-(``ep``) and :func:`get_expert_data_parallel_group` the ZeRO axes less
-``ep``; every process builds all of them together, in one order, the
-first time one is asked for under a mesh.  The
+(``ep``), :func:`get_expert_data_parallel_group` the ZeRO axes less
+``ep`` and :func:`get_pipe_parallel_group` the pipeline stages (``pp``);
+every process builds all of them together, in one order, the first time
+one is asked for under a mesh.  The
 functions return their result, as the JAX ones do; ``all_reduce`` and
 ``broadcast`` also write it into their argument, as torch's do.
 
@@ -30,6 +31,13 @@ that share one GPU (NCCL refuses two ranks on one device).  What each
   host-clock seconds its caller spent in each staged op, copies included
   (they block; an async op's issue and its wait), in
   :data:`STAGED_SECONDS`.
+
+Point to point (the pipeline's transfers, the JAX package's ``ppermute``
+over ``pp``): :func:`send` / :func:`recv` and their async forms
+:func:`isend` / :func:`irecv` move one tensor between two ranks of a
+group, staged through host memory on gloo as the collectives are;
+:func:`ppermute`, :func:`send_next` and :func:`recv_prev` are the JAX
+package's permutations built from them.
 
 1-byte floats (fp8) travel as ``uint8`` views: the backends move bytes, and
 not every one knows the fp8 types.  ``ReduceOp.AVG`` is a sum divided by
@@ -160,7 +168,8 @@ _MESH_GROUPS = {}
 _GROUP_AXES = {"dp": topo.ZERO_AXES, "zshard": (topo.ZSHARD_AXIS,),
                "dp_replica": (topo.DP_AXIS,), "tp": (topo.TP_AXIS,),
                "ep": (topo.EP_AXIS,),
-               "expert_dp": tuple(a for a in topo.ZERO_AXES if a != topo.EP_AXIS)}
+               "expert_dp": tuple(a for a in topo.ZERO_AXES if a != topo.EP_AXIS),
+               "pp": (topo.PP_AXIS,)}
 
 
 def _mesh_groups(mesh=None):
@@ -227,6 +236,12 @@ def get_expert_data_parallel_group():
     ranks that hold the same experts, over which their partitions are cut
     and their gradients reduced."""
     return _mesh_groups()["expert_dp"]
+
+
+def get_pipe_parallel_group():
+    """The pipeline group (``pp``): the stages of this rank's data-parallel
+    replica and tensor-parallel slice, ranked by stage."""
+    return _mesh_groups()["pp"]
 
 
 def get_axis_group(axis):
@@ -592,6 +607,144 @@ def broadcast(tensor, src=0, group=None, log_name="broadcast"):
     if buf.data_ptr() != tensor.data_ptr():
         tensor.copy_(buf.view(tensor.dtype))
     return tensor
+
+
+# ------------------------------------------------------------ point to point
+class _P2PHandle:
+    """An issued send or receive: :meth:`wait` finishes it (a receive
+    returns its tensor, copied up from host memory when staged; a send
+    None)."""
+
+    def __init__(self, work, finish, name, staged):
+        self._work, self._finish = work, finish
+        self._name, self._staged = name, staged
+        self._done, self._value = False, None
+
+    def wait(self):
+        if not self._done:
+            t1 = time.perf_counter()
+            if self._work is not None:
+                self._work.wait()
+            self._value = self._finish()
+            self._done = True
+            if self._staged:
+                STAGED_SECONDS[self._name] += time.perf_counter() - t1
+        return self._value
+
+
+def _p2p(kind, tensor, peer, group, log_name, async_op):
+    """One send (``kind`` "send") of ``tensor`` to, or receive into it from,
+    the group's ``peer``-th rank; staged through host memory on gloo for a
+    CUDA tensor (the host copy of a send is made before it is issued, so
+    its buffer may be reused at once; unstaged, the send keeps ``tensor``
+    until it completes)."""
+    group = _resolve_group(group or get_pipe_parallel_group())
+    if group.size() == 1:
+        raise ValueError(f"{kind} needs a group of two or more ranks")
+    buf = _wire(tensor if tensor.is_contiguous() else tensor.contiguous())
+    staged = buf.is_cuda and group.backend() == "gloo"
+    nbytes = buf.numel() * buf.element_size()
+    t0 = time.perf_counter()
+    dst_rank = group.global_rank(peer)
+    if kind == "send":
+        # the wire buffer lives until the send completes: the tensor itself,
+        # or (staged) its host copy, so the device tensor may go at once
+        wire = [buf.cpu() if staged else buf]
+        work = dist.isend(wire[0], dst_rank, group=group.pg)
+
+        def finish():
+            wire.clear()
+    else:
+        wire = torch.empty(buf.shape, dtype=buf.dtype) if staged else buf
+        work = dist.irecv(wire, dst_rank, group=group.pg)
+
+        def finish():
+            if staged:
+                buf.copy_(wire)
+            if buf.data_ptr() != tensor.data_ptr():
+                tensor.copy_(buf.view(tensor.dtype))
+            return tensor
+    handle = _P2PHandle(work, finish, log_name, staged)
+    if staged:
+        STAGED[log_name] += nbytes
+        STAGED_SECONDS[log_name] += time.perf_counter() - t0
+    if async_op:
+        return handle
+    out = handle.wait()
+    if comms_logger.enabled and not _timed_depth:
+        if tensor.is_cuda:
+            torch.cuda.synchronize(tensor.device)
+        comms_logger.append(kind, log_name, time.perf_counter() - t0, nbytes, 2)
+    return out
+
+
+def send(tensor, dst, group=None, log_name="pipe_ppermute"):
+    """Send ``tensor`` to the group's ``dst``-th rank (the pp group by
+    default); returns once the transfer is done."""
+    return _p2p("send", tensor, dst, group, log_name, False)
+
+
+def recv(tensor, src, group=None, log_name="pipe_ppermute"):
+    """Receive into ``tensor`` from the group's ``src``-th rank; returns it."""
+    return _p2p("recv", tensor, src, group, log_name, False)
+
+
+def isend(tensor, dst, group=None, log_name="pipe_ppermute"):
+    """:func:`send` issued: returns a handle whose ``wait()`` finishes it."""
+    return _p2p("send", tensor, dst, group, log_name, True)
+
+
+def irecv(tensor, src, group=None, log_name="pipe_ppermute"):
+    """:func:`recv` issued: ``wait()`` on the handle returns the tensor."""
+    return _p2p("recv", tensor, src, group, log_name, True)
+
+
+def ppermute(tensor, perm, group=None, log_name="pipe_ppermute"):
+    """``jax.lax.ppermute`` over the group (the pp group by default):
+    ``perm`` pairs ``(src, dst)`` of group ranks; each rank sends its
+    ``tensor`` to its ``dst`` and returns what its ``src`` sent (zeros
+    where no pair names it as a destination).  Every rank calls it with the
+    same ``perm``."""
+    group = _resolve_group(group or get_pipe_parallel_group())
+    me = group.rank()
+    out = torch.zeros_like(tensor)
+    if group.size() == 1:
+        return out.copy_(tensor) if (0, 0) in [tuple(p) for p in perm] else out
+    handles = []
+    for src, dst in perm:
+        if dst == me and src != me:
+            handles.append(irecv(out, src, group, log_name))
+    for src, dst in perm:
+        if src == me and dst != me:
+            handles.append(isend(tensor, dst, group, log_name))
+        elif src == me == dst:
+            out.copy_(tensor)
+    for h in handles:
+        h.wait()
+    return out
+
+
+def send_next(tensor, group=None):
+    """Shift values to the next rank along the pp ring (the last wraps to 0)."""
+    group = _resolve_group(group or get_pipe_parallel_group())
+    n = group.size()
+    return ppermute(tensor, [(i, (i + 1) % n) for i in range(n)], group)
+
+
+def recv_prev(tensor, group=None):
+    """:func:`send_next` from the receiver's side."""
+    return send_next(tensor, group)
+
+
+def all_gather_object(obj, group=None):
+    """Every rank's picklable ``obj``, in group rank order (the checkpoints'
+    gathers of stage trees of unequal shapes)."""
+    group = _resolve_group(group)
+    if group.size() == 1:
+        return [obj]
+    out = [None] * group.size()
+    dist.all_gather_object(out, obj, group=group.pg)
+    return out
 
 
 def barrier(group=None):

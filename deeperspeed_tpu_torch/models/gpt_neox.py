@@ -984,3 +984,77 @@ def params_to_jax(state_dict) -> dict:
         else:
             raise ValueError(f"params_to_jax: unmapped parameter {name!r}")
     return tree_sorted(tree)
+
+
+def _stacked_layers(stages, stage_id, num_stages=None):
+    """``{"layers_<j>": ...}``, stage ``stage_id``'s blocks (local index
+    ``j``) of a pipe tree's stacked ``stages`` (leaves ``[n_stages,
+    layers_per_stage, ...]``), the model cut into ``num_stages`` (by
+    default the tree's own)."""
+    saved_stages, saved_lps = next(iter(_leaves_of(stages))).shape[:2]
+    total = saved_stages * saved_lps
+    num_stages = num_stages or saved_stages
+    if total % num_stages:
+        raise ValueError(f"{total} layers not divisible by {num_stages} stages")
+    lps = total // num_stages
+
+    def pick(node, i):
+        if isinstance(node, dict):
+            return {k: pick(v, i) for k, v in node.items()}
+        return np.asarray(node)[i // saved_lps, i % saved_lps]
+
+    return {f"layers_{j}": pick(stages, stage_id * lps + j) for j in range(lps)}
+
+
+def _stack_stage_trees(per_stage):
+    """The pipe tree's ``stages``: per stage ``{"layers_<j>": block tree}``,
+    stacked into leaves ``[n_stages, layers_per_stage, ...]``."""
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return torch.stack([torch.as_tensor(np.asarray(n)) if not isinstance(n, torch.Tensor)
+                            else n for n in nodes])
+
+    lps = len(per_stage[0])
+    rows = [stack([tree[f"layers_{j}"] for j in range(lps)]) for tree in per_stage]
+    return tree_sorted(stack(rows))
+
+
+def pipe_params_from_jax(tree, stage_id, num_stages=None) -> dict:
+    """Stage ``stage_id``'s state dict for ``GPTNeoXPipe`` from the JAX
+    ``GPTNeoXPipe``'s ``{embed, stages, head}`` tree (nested dicts of numpy
+    arrays): its blocks as ``layers.<j>`` (local index), ``embed_in`` on the
+    first stage, ``final_layer_norm`` and ``embed_out`` on the last.  The
+    model is cut into ``num_stages`` (by default the tree's own), so a tree
+    saved at one ``pp`` loads at another."""
+    n_stages = num_stages or next(iter(_leaves_of(tree["stages"]))).shape[0]
+    flat = {**tree["embed"], **tree["head"],
+            **_stacked_layers(tree["stages"], stage_id, n_stages)}
+    sd = params_from_jax(flat)
+    if stage_id != 0:
+        del sd["embed_in.weight"]
+    if stage_id != n_stages - 1:
+        for n in ("final_layer_norm.weight", "final_layer_norm.bias", "embed_out.weight"):
+            del sd[n]
+    return sd
+
+
+def pipe_params_to_jax(stage_dicts) -> dict:
+    """The JAX ``GPTNeoXPipe``'s ``{embed, stages, head}`` tree from every
+    stage's state dict (or per-parameter tree), in stage order: the exact
+    inverse of :func:`pipe_params_from_jax`."""
+    trees = [params_to_jax(sd) for sd in stage_dicts]
+    first, last = trees[0], trees[-1]
+    return {"embed": {"embed_in": first["embed_in"]},
+            "head": {"final_layer_norm": last["final_layer_norm"],
+                     "embed_out": last["embed_out"]},
+            "stages": _stack_stage_trees(
+                [{k: v for k, v in t.items() if k.startswith("layers_")} for t in trees])}
+
+
+def _leaves_of(node):
+    if isinstance(node, dict):
+        for v in node.values():
+            yield from _leaves_of(v)
+    else:
+        yield np.asarray(node)

@@ -546,7 +546,7 @@ def _leaf_map(tree=None, names=None):
         layernorm = "ModelLayerNorm_0" in tree["final_norm"]
     else:
         layers = sorted({int(n.split(".")[1]) for n in names if n.startswith("layers.")})
-        layernorm = "final_norm.weight" in names
+        layernorm = any(n.endswith("norm.weight") for n in names)
     out = [("embed_tokens/embedding", "embed_tokens.weight", False),
            ("embed_positions/embedding", "embed_positions.weight", False),
            ("lm_head/kernel", "lm_head.weight", True)]
@@ -622,3 +622,37 @@ def params_to_jax(state_dict) -> dict:
             node = node.setdefault(key, {})
         node[last] = value.t() if transpose else value
     return tree_sorted(tree)
+
+
+_EMBED_NAMES = ("embed_tokens.", "embed_positions.")
+_HEAD_NAMES = ("final_norm.", "lm_head.")
+
+
+def pipe_params_from_jax(tree, stage_id, num_stages=None) -> dict:
+    """Stage ``stage_id``'s state dict for ``LlamaPipe`` from the JAX
+    ``LlamaPipe``'s ``{embed, stages, head}`` tree: its blocks as
+    ``layers.<j>`` (local index), the embeddings on the first stage, the
+    final norm and ``lm_head`` on the last; cut into ``num_stages`` (by
+    default the tree's own)."""
+    from .gpt_neox import _leaves_of, _stacked_layers
+
+    n_stages = num_stages or next(iter(_leaves_of(tree["stages"]))).shape[0]
+    sd = params_from_jax({**tree["embed"], **tree["head"],
+                          **_stacked_layers(tree["stages"], stage_id, n_stages)})
+    keep = lambda n: ((stage_id == 0 or not n.startswith(_EMBED_NAMES))
+                      and (stage_id == n_stages - 1 or not n.startswith(_HEAD_NAMES)))
+    return {n: t for n, t in sd.items() if keep(n)}
+
+
+def pipe_params_to_jax(stage_dicts) -> dict:
+    """The JAX ``LlamaPipe``'s ``{embed, stages, head}`` tree from every
+    stage's state dict, in stage order (the inverse of
+    :func:`pipe_params_from_jax`)."""
+    from .gpt_neox import _stack_stage_trees
+
+    trees = [params_to_jax(sd) for sd in stage_dicts]
+    first, last = trees[0], trees[-1]
+    return {"embed": {k: first[k] for k in ("embed_tokens", "embed_positions") if k in first},
+            "head": {k: last[k] for k in ("final_norm", "lm_head") if k in last},
+            "stages": _stack_stage_trees(
+                [{k: v for k, v in t.items() if k.startswith("layers_")} for t in trees])}

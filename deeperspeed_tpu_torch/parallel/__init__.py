@@ -1,5 +1,6 @@
 from .topology import (  # noqa: F401
     MeshTopology,
+    PipeModelDataParallelTopology,
     ProcessTopology,
     axis_size,
     get_mesh,

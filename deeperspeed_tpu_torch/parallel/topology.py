@@ -9,10 +9,13 @@
   ``(pp, dp, zshard, ep, sp, tp)`` row-major; here one process drives one
   device and the ``torch.distributed`` world takes the same order, so rank
   ``r`` is JAX device ``r``: ``r = ((i_dp * zshard + i_zshard) * ep +
-  i_ep) * tp + i_tp``.  ``dp``, ``zshard`` (the MiCS / hpZ subgroup), ``ep``
-  (MoE expert parallelism) and ``tp`` (tensor parallelism) run; ``pp`` and
-  ``sp`` above 1 raise ``NotImplementedError`` naming the ROADMAP item that
-  ports them.
+  i_ep) * tp + i_tp`` within a pipeline stage, the ``pp`` index outermost.
+  ``pp`` (pipeline stages, one process each per data-parallel replica),
+  ``dp``, ``zshard`` (the MiCS / hpZ subgroup), ``ep`` (MoE expert
+  parallelism) and ``tp`` (tensor parallelism) run; ``sp`` above 1 raises
+  ``NotImplementedError`` naming the ROADMAP item that ports it.
+* :class:`PipeModelDataParallelTopology` -- the reference's ``pipe x data x
+  model`` process topology (``runtime/pipe/topology.py``).
 """
 
 from collections import namedtuple
@@ -29,7 +32,6 @@ ALL_AXES = (PP_AXIS, DP_AXIS, ZSHARD_AXIS, EP_AXIS, SP_AXIS, TP_AXIS)
 
 # where the axes the port does not run yet will be ported (ROADMAP Queue A)
 _AXIS_ITEMS = {
-    PP_AXIS: "Pipelines",
     SP_AXIS: "Sequence parallelism",
 }
 # the axes ZeRO shards over (the JAX package's ``sharding.ZERO_AXES``)
@@ -110,6 +112,15 @@ class ProcessTopology:
 
     def __str__(self):
         return str(self.mapping)
+
+
+class PipeModelDataParallelTopology(ProcessTopology):
+    """The reference's hybrid topology: axes ``pipe``, ``data``, ``model``
+    (row-major, ``pipe`` outermost, as the mesh lays out ``pp``, ``dp``,
+    ``tp``)."""
+
+    def __init__(self, num_pp, num_mp, num_dp):
+        super().__init__(axes=["pipe", "data", "model"], dims=[num_pp, num_dp, num_mp])
 
 
 _GLOBAL_MESH = None

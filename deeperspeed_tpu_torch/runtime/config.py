@@ -11,7 +11,9 @@ the data-parallel world), ``optimizer``, ``scheduler``, ``fp16`` /
 checkpoint knobs the JAX package accepts and ignores),
 ``communication_data_type``, ``comm.quantized`` (qgZ),
 ``comm.overlap`` (the deferred and bucketed gradient reduction),
-``comms_logger``, ``mesh.data_parallel_size`` and ``model_parallel_size``,
+``comms_logger``, ``mesh.data_parallel_size``, ``model_parallel_size`` and
+``pipe_parallel_size`` (the ``pp`` axis), ``pipeline`` (the pipeline
+engines' executor and schedule),
 MiCS and hpZ (``mics_shard_size``, ``zero_hpz_partition_size``: the
 mesh's ``zshard`` axis),
 ``activation_checkpointing``, ``data_types.grad_accum_dtype``,
@@ -54,7 +56,7 @@ SUPPORTED_KEYS = {
     "bfloat16", GRADIENT_CLIPPING, SEED, STEPS_PER_PRINT, ZERO_OPTIMIZATION,
     "activation_checkpointing", "data_types", "progressive_layer_drop",
     "curriculum_learning", "data_efficiency", "comm", "mesh",
-    "communication_data_type", "checkpoint", "comms_logger",
+    "communication_data_type", "checkpoint", "comms_logger", "pipeline",
     # MoE is configured on the model in both packages: the JAX config takes
     # a top-level ``moe`` block under its extra="allow" policy and acts on
     # nothing in it, and so does the port
@@ -63,7 +65,6 @@ SUPPORTED_KEYS = {
 
 # where the keys that the slice refuses will be ported
 _ROADMAP = {
-    "pipeline": "Pipelines",
     "hybrid_engine": "The rest of the surface",
 }
 
@@ -316,11 +317,33 @@ class CommsConfig(DeeperSpeedConfigModel):
     prof_ops: List[str] = []
 
 
+class PipelineRuntimeConfig(DeeperSpeedConfigModel):
+    """``pipeline`` (the JAX package's ``PipelineRuntimeConfig``):
+    ``executor`` routes a pipeline model (``auto``: a stage model, or a
+    ``PipelineModule`` of GPT-NeoX / Llama blocks, to ``PipelineEngine``,
+    any other ``PipelineModule`` to ``InterpretedPipelineEngine``;
+    ``compiled`` / ``interpreted`` force one), ``schedule`` is ``1f1b`` or
+    ``gpipe``.  The JAX package's other fields are accepted and not acted
+    on, as there."""
+
+    stages: Union[int, str] = "auto"
+    partition: str = "best"
+    seed_layers: bool = False
+    activation_checkpoint_interval: int = 0
+    pipe_partitioned: bool = True
+    grad_partitioned: bool = True
+    use_reentrant: bool = False
+    micro_batches_per_step: Optional[int] = None
+    executor: str = "auto"
+    schedule: str = "1f1b"
+
+
 class MeshConfig(DeeperSpeedConfigModel):
-    """``mesh``: ``model_parallel_size`` is the ``tp`` axis and
-    ``data_parallel_size`` the ``dp`` axis (by default what the world
-    leaves), ``expert_parallel_size`` the ``ep`` axis (MoE); pipeline and
-    sequence parallelism stay 1 until their ROADMAP items land."""
+    """``mesh``: ``pipe_parallel_size`` is the ``pp`` axis,
+    ``model_parallel_size`` the ``tp`` axis and ``data_parallel_size`` the
+    ``dp`` axis (by default what the world leaves), ``expert_parallel_size``
+    the ``ep`` axis (MoE); sequence parallelism stays 1 until its ROADMAP
+    item lands."""
 
     pipe_parallel_size: int = 1
     model_parallel_size: int = 1
@@ -329,8 +352,7 @@ class MeshConfig(DeeperSpeedConfigModel):
     data_parallel_size: Optional[int] = None
 
 
-_MESH_ITEMS = {"pipe_parallel_size": "Pipelines",
-               "sequence_parallel_size": "Sequence parallelism"}
+_MESH_ITEMS = {"sequence_parallel_size": "Sequence parallelism"}
 
 
 def _known(block, model, where):
@@ -350,7 +372,7 @@ class DeeperSpeedConfig:
     """Top-level config from a dict or a path to a JSON file.  ``world_size``
     (the data-parallel degree, ``dp x zshard``) defaults to the
     ``torch.distributed`` world (1 without one) over
-    ``mesh.model_parallel_size``."""
+    ``mesh.model_parallel_size`` times ``mesh.pipe_parallel_size``."""
 
     def __init__(self, config: Union[str, dict], world_size=None):
         if isinstance(config, str):
@@ -369,10 +391,11 @@ class DeeperSpeedConfig:
         self._zero(dict(pd.get(ZERO_OPTIMIZATION, {})))
         if world_size is None:
             world, tp = _world_size(), self.mesh_config.model_parallel_size
-            if world % tp:
-                raise ValueError(f"mesh.model_parallel_size {tp} does not divide the "
-                                 f"process count {world}")
-            world_size = world // tp
+            pp = self.mesh_config.pipe_parallel_size
+            if world % (tp * pp):
+                raise ValueError(f"mesh.model_parallel_size {tp} x pipe_parallel_size {pp} "
+                                 f"does not divide the process count {world}")
+            world_size = world // (tp * pp)
         ep = self.mesh_config.expert_parallel_size
         if world_size % ep:
             raise ValueError(f"mesh.expert_parallel_size {ep} does not divide the "
@@ -428,6 +451,9 @@ class DeeperSpeedConfig:
             raise ValueError(f"checkpoint.tag_validation "
                              f"{self.checkpoint_config.tag_validation!r}: expected "
                              f"Ignore, Warn or Fail")
+        pipeline = dict(pd.get("pipeline", {}))
+        _known(pipeline, PipelineRuntimeConfig, "pipeline")
+        self.pipeline = PipelineRuntimeConfig(**pipeline)
         self.train_dtype = self._resolve_train_dtype()
 
     @staticmethod
@@ -437,6 +463,9 @@ class DeeperSpeedConfig:
         for key, item in _MESH_ITEMS.items():
             if getattr(mesh, key) != 1:
                 raise _not_ported(f"mesh.{key} {getattr(mesh, key)}", item)
+        if mesh.pipe_parallel_size > 1 and mesh.model_parallel_size > 1:
+            raise _not_ported("pp x tp (mesh.pipe_parallel_size with model_parallel_size; "
+                              "ROADMAP Queue A 5b)", "Pipelines")
         return mesh
 
     def _zero(self, zero):
@@ -502,9 +531,10 @@ class DeeperSpeedConfig:
     def _comm(self, comm):
         """``comm``: ``quantized`` (qgZ) and ``overlap`` (with its
         ``schedule``).  Refused: an
-        ``intra_axis`` on an axis not ported (``pp``, ``sp``), ``tp``, whose
-        ranks hold different slices of the parameters, and ``ep`` (qgZ needs
-        ``ep`` 1, as in the JAX engine)."""
+        ``intra_axis`` on an axis not ported (``sp``), ``tp``, whose
+        ranks hold different slices of the parameters, ``pp``, whose ranks
+        hold different parameters, and ``ep`` (qgZ needs ``ep`` 1, as in the
+        JAX engine)."""
         quantized = dict(comm.pop("quantized", {}))
         overlap = dict(comm.pop("overlap", {}))
         intra = quantized.get("intra_axis")
@@ -513,7 +543,7 @@ class DeeperSpeedConfig:
                              f"{list(topo.ALL_AXES)}")
         if intra in topo._AXIS_ITEMS:
             raise _not_ported(f"comm.quantized.intra_axis {intra!r}", topo._AXIS_ITEMS[intra])
-        if intra in (topo.TP_AXIS, topo.EP_AXIS):
+        if intra in (topo.TP_AXIS, topo.EP_AXIS, topo.PP_AXIS):
             raise ValueError(f"comm.quantized.intra_axis {intra!r}: the qgZ hops run over "
                              f"the data-parallel axes dp and zshard")
         if comm:

@@ -1048,16 +1048,19 @@ class DeeperSpeedEngine:
         return {n: t.clone() for n, t in self.gather_whole(self.master_params).items()}
 
     @torch.no_grad()
-    def gather_whole(self, local):
+    def gather_whole(self, local, names=None):
         """Whole tensors by name from ``local``, a dict laid out like
         :attr:`master_params` (this rank's pieces: the masters or a
         per-parameter optimizer tree): views of ``local`` where a region is
         not partitioned, else gathered from the ranks' partitions, each
         tp-split parameter's slices joined along its split dim and each
         expert parameter's ``ep`` ranks' experts along dim 0 (a collective
-        every rank calls)."""
+        every rank calls).  ``names``: only the regions holding these
+        parameters are gathered (every rank names the same)."""
         out = {}
         for region, base in zip(self.plan.regions, self.plan.bases()):
+            if names is not None and not set(region.names) & set(names):
+                continue
             if region.parts == 1:
                 out.update((n, local[n]) for n in region.names)
                 continue
@@ -1069,6 +1072,8 @@ class DeeperSpeedEngine:
                 part, self._layouts[region.expert].part)
             for n, shape, off in zip(region.names, region.shapes, region.offsets):
                 out[n] = full[off:off + math.prod(shape)].view(shape)
+        if names is not None:
+            return {n: out[n] for n in names}
         for n, dim in self._tp_dims.items():
             out[n] = comm.all_gather(out[n].contiguous(), self.tp_group, axis=dim,
                                      log_name="tp_gather")
@@ -1234,9 +1239,10 @@ class DeeperSpeedEngine:
         return micro, ltd
 
     # ------------------------------------------------------------- the step
-    def _accumulate(self, loss, scale, last=False, divisor=None):
-        """Backward of one microbatch's ``loss`` (times ``scale`` under fp16)
-        and its gradients, cast to the accumulation type, added into the
+    def _accumulate(self, loss, scale, last=False, divisor=None, grad=None):
+        """Backward of one microbatch's ``loss`` (times ``scale`` under fp16;
+        a pipeline stage's output seeded with its cotangent ``grad``
+        instead) and its gradients, cast to the accumulation type, added into the
         accumulation buffer: whole at stages 0-1; at stages 2-3 this rank's
         partition of their sum over ranks (stage 3's gathered regions get
         theirs from the gather's backward).  ``train_batch`` gives the
@@ -1249,7 +1255,10 @@ class DeeperSpeedEngine:
         hooked = self._hooks is not None and divisor is not None and (self._per_micro or last)
         if hooked:
             self._hooks.begin(self._hook_add if not self._per_micro else None, divisor)
-        (loss if scale is None else loss * scale).to(torch.float32).backward()
+        if grad is not None:
+            loss.backward(grad)
+        else:
+            (loss if scale is None else loss * scale).to(torch.float32).backward()
         if hooked:
             finish = self._hooks.end(self._hook_missing)
             if self._per_micro:

@@ -29,7 +29,7 @@ from deeperspeed_tpu.parallel import topology as jtopo
 from deeperspeed_tpu_torch import accelerator
 from deeperspeed_tpu_torch.comm import comm as tcomm
 from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig, params_from_jax
-from torch_dp_worker import spawn
+from torch_dp_worker import start as start_workers
 
 STEPS = 3
 ROWS, SEQ = 8, 16
@@ -79,7 +79,7 @@ def _jax_run(stage, batches, dp):
 @pytest.fixture(scope="module")
 def world2(tmp_path_factory):
     batches = _batches()
-    jax_runs = {stage: _jax_run(stage, batches, 2) for stage in range(4)}
+    jax_runs = {0: _jax_run(0, batches, 2)}
     start = jax_runs[0][3]
     arrays = {f"w/{k}": v.numpy() for k, v in start.items()}
     for i, b in enumerate(batches):
@@ -88,9 +88,11 @@ def world2(tmp_path_factory):
              "eval": True} for s in range(4)]
     runs.append({"name": "legacy", "config": _config(0), "dtype": "fp32", "steps": STEPS,
                  "legacy": True})
-    ranks = spawn({"kind": "train", "n_batches": STEPS, "runs": runs}, arrays,
-                  tmp_path_factory.mktemp("mask"))
-    return batches, jax_runs, ranks
+    # the workers run while the other stages' JAX engines train
+    wait = start_workers({"kind": "train", "n_batches": STEPS, "runs": runs}, arrays,
+                         tmp_path_factory.mktemp("mask"))
+    jax_runs.update({stage: _jax_run(stage, batches, 2) for stage in range(1, 4)})
+    return batches, jax_runs, wait()
 
 
 def _rel(got, want):

@@ -12,9 +12,17 @@
   static peak, which ``static`` refuses at construction
   (``HBMBudgetError``); ``peak_device_param_bytes`` stays within the plan's
   ``peak_bytes`` in every run.
+
+The JAX engine needs its native ``cpu_adam`` library.  Test processes that
+start together in a fresh checkout would each compile it into the same
+temporary file, and a process whose load fails keeps that failure cached;
+the module fixture ``jax_cpu_adam`` builds it under a file lock, retries
+once, and clears the JAX loader's cached result.
 """
 
 import dataclasses
+import fcntl
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +32,9 @@ import torch
 from deeperspeed_tpu.comm.memplan import Calibration as JaxCalibration
 from deeperspeed_tpu.models.gpt_neox import GPTNeoXConfig as JaxConfig
 from deeperspeed_tpu.models.gpt_neox_pipe import GPTNeoXPipe
+from deeperspeed_tpu.op_builder import CPUAdamBuilder
+from deeperspeed_tpu.op_builder.builder import OpBuilder
+from deeperspeed_tpu.ops.adam import cpu_adam as jax_cpu_adam_module
 from deeperspeed_tpu.runtime.zero.infinity import ZeroInfinityEngine as JaxZeroInfinity
 from deeperspeed_tpu_torch.comm.memplan import Calibration, HBMBudgetError
 from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
@@ -51,8 +62,56 @@ def _auto(path, budget, cal, layers=2):
                    calibration=Calibration(*cal) if cal else None)
 
 
+def ensure_jax_cpu_adam():
+    """Build the JAX package's ``cpu_adam`` library under a file lock (a
+    second attempt finds the finished library) and forget any failed load
+    the JAX loader cached; returns whether the library loads."""
+    builder = CPUAdamBuilder()
+    lock_path = builder._lib_path() + ".lock"
+    os.makedirs(os.path.dirname(lock_path), exist_ok=True)
+    with open(lock_path, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            try:
+                builder.build()
+            except RuntimeError:
+                builder.build()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    OpBuilder._cache.pop(builder.NAME, None)
+    jax_cpu_adam_module._lib = None
+    jax_cpu_adam_module._checked = False
+    return jax_cpu_adam_module.cpu_adam_available()
+
+
+@pytest.fixture(scope="module")
+def jax_cpu_adam():
+    assert ensure_jax_cpu_adam(), "the JAX cpu_adam library did not load"
+
+
+def test_the_fixture_recovers_from_a_failed_load(monkeypatch):
+    """A cached failed load and a first build that fails (the lost race)
+    still end with the library loaded."""
+    real_build = CPUAdamBuilder.build
+    calls = []
+
+    def flaky(self, verbose=False):
+        calls.append(1)
+        if len(calls) == 1:
+            raise RuntimeError("native build of cpu_adam failed: lost the race")
+        return real_build(self, verbose)
+
+    monkeypatch.setattr(CPUAdamBuilder, "build", flaky)
+    monkeypatch.setattr(jax_cpu_adam_module, "_lib", None)
+    monkeypatch.setattr(jax_cpu_adam_module, "_checked", True)
+    assert not jax_cpu_adam_module.cpu_adam_available()
+    assert ensure_jax_cpu_adam()
+    assert len(calls) >= 2
+    assert jax_cpu_adam_module._lib is not None
+
+
 @pytest.mark.parametrize("case", ["window", "all", "tight"])
-def test_plan_equals_the_jax_engines(case, tmp_path):
+def test_plan_equals_the_jax_engines(case, tmp_path, jax_cpu_adam):
     _, budget, cal = CASES.get(case, (2, STATIC_PEAK - 1, None))
     jeng = JaxZeroInfinity(GPTNeoXPipe(JaxConfig.tiny(), num_stages=2),
                            nvme_path=str(tmp_path / "jax"), compute_dtype=jnp.float32,

@@ -39,7 +39,7 @@ from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
 from deeperspeed_tpu_torch.runtime.dataloader import DevicePrefetchingLoader
 from deeperspeed_tpu_torch.runtime.zero import stage3
 from deeperspeed_tpu_torch.runtime.zero.tiling import TiledLinear
-from torch_dp_worker import spawn
+from torch_dp_worker import start as start_workers
 from torch_layout_common import (BASE, STEPS, arrays_for, batches, by_run, config,
                                  jax_run)
 
@@ -222,16 +222,19 @@ HELD = {"lamb-s2": "lamb-s1", "lamb-s3": "lamb-s1"}
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     batch_list = batches()
-    jax_out, start = {}, None
-    for name, (cfg, kw) in JAX.items():
-        *res, init = jax_run(cfg, {"dp": 2}, batch_list, kw)
-        start = init if start is None else start
-        jax_out[name] = res
+    jax_out, start, wait = {}, None, None
     spec = {"kind": "train", "n_batches": STEPS, "runs": [
         {"name": name, "config": cfg, "dtype": "fp32", "steps": STEPS, "model": kw}
         for name, (cfg, kw) in PORT.items()]}
-    ranks = spawn(spec, arrays_for(start, batch_list), tmp_path_factory.mktemp("misc"),
-                  world=2)
+    for name, (cfg, kw) in JAX.items():
+        *res, init = jax_run(cfg, {"dp": 2}, batch_list, kw)
+        if start is None:
+            # the workers run while the other JAX engines train
+            start = init
+            wait = start_workers(spec, arrays_for(start, batch_list),
+                                 tmp_path_factory.mktemp("misc"), world=2)
+        jax_out[name] = res
+    ranks = wait()
     one, *_ = tdst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(), device="cpu"),
                               config=_pld(0.5), model_parameters=start, device="cpu")
     world1 = [float(one.train_batch(batch=b)) for b in batch_list]

@@ -36,7 +36,7 @@ from deeperspeed_tpu.models.gpt_neox import GPTNeoXConfig as JaxConfig
 from deeperspeed_tpu.parallel import topology as jtopo
 from deeperspeed_tpu.telemetry import wire as jwire
 from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
-from torch_dp_worker import spawn
+from torch_dp_worker import start as start_workers
 from torch_layout_common import (BASE, STEPS, THRESHOLD, arrays_for, batches, by_run,
                                  config, jax_run)
 
@@ -61,17 +61,20 @@ HELD = {"mics-s1": "mics-s2", "mics-s3": "mics-s2"}
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     batch_list = batches()
-    jax_out, start = {}, None
-    for name, cfg in JAX.items():
-        *res, init = jax_run({k: v for k, v in cfg.items() if k != "comms_logger"}, MESH,
-                             batch_list)
-        start = init if start is None else start
-        jax_out[name] = res
+    jax_out, start, wait = {}, None, None
     spec = {"kind": "train", "n_batches": STEPS, "runs": [
         {"name": name, "config": cfg, "dtype": "fp32", "steps": STEPS, "mesh": {"zshard": 2},
          "capture_grads": name.startswith("qgz")} for name, cfg in PORT.items()]}
-    ranks = spawn(spec, arrays_for(start, batch_list), tmp_path_factory.mktemp("mics"),
-                  world=WORLD)
+    for name, cfg in JAX.items():
+        *res, init = jax_run({k: v for k, v in cfg.items() if k != "comms_logger"}, MESH,
+                             batch_list)
+        if start is None:
+            # the workers run while the other JAX engines train
+            start = init
+            wait = start_workers(spec, arrays_for(start, batch_list),
+                                 tmp_path_factory.mktemp("mics"), world=WORLD)
+        jax_out[name] = res
+    ranks = wait()
     return {"jax": jax_out, "port": by_run(ranks, PORT), "start": start}
 
 

@@ -36,7 +36,7 @@ from deeperspeed_tpu.models.gpt_neox import GPTNeoXConfig as JaxConfig
 from deeperspeed_tpu.parallel import topology as jtopo
 from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
 from deeperspeed_tpu_torch.runtime import checkpointing as ck
-from torch_dp_worker import spawn
+from torch_dp_worker import spawn, start as start_workers
 from torch_layout_common import BASE, arrays_for, batches, by_run, jax_run, masters_agree
 
 MOE = {"moe_num_experts": 4, "moe_expert_interval": 1, "moe_use_rts": False,
@@ -94,12 +94,23 @@ def _leaves(tree, prefix=""):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     blist = batches()
-    jax_out, start = {}, None
+    jax_out, start, wait_two = {}, None, None
+    root = tmp_path_factory.mktemp("moe_ep")
+    (root / "w2").mkdir()
+    (root / "w4").mkdir()
     for name, (cfg, kw) in {**JAX, "ep2dp2-s1": EP2DP2["ep2dp2-s1"], **TP2EP2}.items():
         *res, init = jax_run(cfg, JAX_MESH.get(name, {"ep": 2}), blist, model_kw=kw)
-        start = init if start is None else start
+        if start is None:
+            # the world-2 workers run while the other JAX engines train
+            start = init
+            wait_two = start_workers(
+                {"kind": ["moe", "ckpt"], "n_batches": 3, "refusals": REFUSALS,
+                 "moe_runs": [_run(n, c, k, {"ep": 2}) for n, (c, k) in EP2.items()],
+                 "runs": [{"name": "save", "config": _cfg(0), "dtype": "fp32", "model": MOE,
+                           "mesh": {"ep": 2}, "steps": [0, 1], "save": str(root / "port_ep2"),
+                           "save_after": 2}]},
+                arrays_for(start, blist), root / "w2", world=2)
         jax_out[name] = res
-    root = tmp_path_factory.mktemp("moe_ep")
     saved = jtopo._GLOBAL_MESH
     try:
         jeng = _jax_engine(2, _cfg(0))
@@ -110,14 +121,7 @@ def runs(tmp_path_factory):
     finally:
         jtopo.set_mesh(saved)
     arrays = arrays_for(start, blist)
-    (root / "w2").mkdir()
-    (root / "w4").mkdir()
-    two = spawn({"kind": ["moe", "ckpt"], "n_batches": 3, "refusals": REFUSALS,
-                 "moe_runs": [_run(n, c, k, {"ep": 2}) for n, (c, k) in EP2.items()],
-                 "runs": [{"name": "save", "config": _cfg(0), "dtype": "fp32", "model": MOE,
-                           "mesh": {"ep": 2}, "steps": [0, 1], "save": str(root / "port_ep2"),
-                           "save_after": 2}]},
-                arrays, root / "w2", world=2)
+    two = wait_two()
     four = spawn({"kind": ["moe", "ckpt"], "n_batches": 3,
                   "moe_runs": [_run(n, c, k, {"ep": 2}) for n, (c, k) in EP2DP2.items()]
                   + [_run(n, c, k, {"ep": 2, "tp": 2}) for n, (c, k) in TP2EP2.items()],

@@ -36,6 +36,9 @@ CASES = {
 @pytest.fixture(scope="module")
 def engines():
     saved = jtopo._GLOBAL_MESH
+    # the JAX engines are built on the default mesh over every device, not
+    # on a mesh an earlier test file in this process left behind
+    jtopo._GLOBAL_MESH = None
     out = {}
     try:
         for name, kw in CASES.items():

@@ -54,7 +54,7 @@ from deeperspeed_tpu.runtime.zero.sharding import stage3_static_peak_bytes as ja
 from deeperspeed_tpu_torch.comm import memplan, schedule
 from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig, params_from_jax
 from deeperspeed_tpu_torch.runtime.zero.sharding import stage3_static_peak_bytes
-from torch_dp_worker import spawn
+from torch_dp_worker import spawn, start as start_workers
 
 STEPS, ROWS, SEQ, WORLD = 3, 8, 16, 2
 THRESHOLD = 1000            # stage 3 partitions tiny()'s matrices
@@ -156,13 +156,26 @@ def _port(ranks, runs):
 def runs(tmp_path_factory):
     batches = _batches()
     saved = jtopo._GLOBAL_MESH
-    jax_losses, jax_norms, start = {}, {}, None
+    jax_losses, jax_norms, start, wait = {}, {}, None, None
+
+    def spec(runs, steps):
+        return {"kind": "train", "n_batches": STEPS, "runs": [
+            {"name": name, "config": cfg, "dtype": "fp32", "steps": steps,
+             "bypass_blocks": BYPASS.get(name, [])} for name, cfg in runs.items()]}
+
     try:
         for name, cfg in JAX_RUNS.items():
             mesh = jtopo.MeshTopology(dp=WORLD, devices=jax.devices()[:WORLD])
             jeng, *_ = jdst.initialize(model=JaxGPTNeoX(JaxConfig.tiny()), config=cfg,
                                        mesh=mesh)
-            start = start or params_from_jax(jax.device_get(jeng.state["master_params"]))
+            if start is None:
+                # the world-2 workers run while the JAX engines train
+                start = params_from_jax(jax.device_get(jeng.state["master_params"]))
+                arrays = {f"w/{k}": v.numpy() for k, v in start.items()}
+                for i, b in enumerate(batches):
+                    arrays.update({f"b{i}/{k}": v for k, v in b.items()})
+                wait = start_workers(spec(RUNS, STEPS), arrays,
+                                     tmp_path_factory.mktemp("schedule"))
             losses, norms = [], []
             for b in batches:
                 losses.append(float(jeng.train_batch(
@@ -171,16 +184,7 @@ def runs(tmp_path_factory):
             jax_losses[name], jax_norms[name] = np.array(losses), np.array(norms)
     finally:
         jtopo.set_mesh(saved)
-    arrays = {f"w/{k}": v.numpy() for k, v in start.items()}
-    for i, b in enumerate(batches):
-        arrays.update({f"b{i}/{k}": v for k, v in b.items()})
-
-    def spec(runs, steps):
-        return {"kind": "train", "n_batches": STEPS, "runs": [
-            {"name": name, "config": cfg, "dtype": "fp32", "steps": steps,
-             "bypass_blocks": BYPASS.get(name, [])} for name, cfg in runs.items()]}
-
-    port = _port(spawn(spec(RUNS, STEPS), arrays, tmp_path_factory.mktemp("schedule")), RUNS)
+    port = _port(wait(), RUNS)
     tp = _port(spawn(spec(TP_RUNS, 2), arrays, tmp_path_factory.mktemp("schedule_tp"),
                      world=4), TP_RUNS)
     return jax_losses, jax_norms, port, tp, start

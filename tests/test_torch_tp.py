@@ -21,7 +21,7 @@ change (``torch_layout_common.masters_agree``).
 import numpy as np
 import pytest
 
-from torch_dp_worker import spawn
+from torch_dp_worker import start as start_workers
 from torch_layout_common import (STEPS, arrays_for, batches, by_run, config, jax_run,
                                  masters_agree)
 
@@ -58,19 +58,28 @@ CASES = [(w, r) for w in PORT for r in PORT[w] if r != "tp1"]
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     batch_list = batches()
-    jax_out, start = {}, None
-    for key, (cfg, mesh, kw) in JAX.items():
-        *res, init = jax_run(cfg, mesh, batch_list, kw)
-        start = init if start is None else start
-        jax_out[key] = res
-    arrays = arrays_for(start, batch_list)
-    port = {}
-    for world, table in PORT.items():
+    jax_out, start, waits = {}, None, {}
+
+    def spawned(world):
+        table = PORT[world]
         spec = {"kind": "train", "n_batches": STEPS, "runs": [
             {"name": name, "config": cfg, "dtype": "fp32", "steps": STEPS, "mesh": mesh,
              "model": kw, "reuse_model": world == 2 and name == "s0"}
             for name, (cfg, mesh, kw) in table.items()]}
-        ranks = spawn(spec, arrays, tmp_path_factory.mktemp(f"tp{world}"), world=world)
+        return start_workers(spec, arrays_for(start, batch_list),
+                             tmp_path_factory.mktemp(f"tp{world}"), world=world)
+
+    first = next(iter(PORT))
+    for key, (cfg, mesh, kw) in JAX.items():
+        *res, init = jax_run(cfg, mesh, batch_list, kw)
+        if start is None:
+            # the first world's workers run while the other JAX engines train
+            start = init
+            waits[first] = spawned(first)
+        jax_out[key] = res
+    port = {}
+    for world, table in PORT.items():
+        ranks = (waits.pop(world) if world in waits else spawned(world))()
         port[world] = by_run(ranks, table)
     return {"jax": jax_out, "port": port, "start": start}
 

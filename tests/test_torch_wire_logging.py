@@ -238,7 +238,7 @@ def test_wire_config_fields():
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"comm": {"quantized": {"enabled": True, "intra_axis": "pp"}}}, "Pipelines"),
+    ({"mesh": {"pipe_parallel_size": 2, "model_parallel_size": 2}}, "Pipelines"),
     ({"comm": {"quantized": {"enabled": True, "intra_axis": "sp"}}}, "Sequence parallelism"),
     ({"comm": {"overlap": {"enabled": True}, "compression": {}}}, "The rest of the surface"),
 ])

@@ -45,7 +45,7 @@ from deeperspeed_tpu.parallel import topology as jtopo
 from deeperspeed_tpu.telemetry.wire import plain_wire_bytes
 from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig, params_from_jax
 from deeperspeed_tpu_torch.runtime.zero.sharding import build_partition_plan, unit_of
-from torch_dp_worker import spawn
+from torch_dp_worker import start as start_workers
 
 STEPS, ROWS, SEQ, WORLD = 3, 8, 16, 2
 THRESHOLD = 1000            # stage 3 partitions tiny()'s matrices
@@ -96,18 +96,31 @@ def _batches():
     return out
 
 
+def _start_port(start, batches, tmp):
+    arrays = {f"w/{k}": v.numpy() for k, v in start.items()}
+    for i, b in enumerate(batches):
+        arrays.update({f"b{i}/{k}": v for k, v in b.items()})
+    spec = {"kind": "train", "n_batches": STEPS, "runs": [
+        {"name": name, "config": cfg, "dtype": "fp32", "steps": STEPS}
+        for name, cfg in RUNS.items()]}
+    return start_workers(spec, arrays, tmp)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     batches = _batches()
     saved = jtopo._GLOBAL_MESH
-    jax_losses, jax_norms, start = {}, {}, None
+    jax_losses, jax_norms, start, wait = {}, {}, None, None
     try:
         for name, cfg in JAX_RUNS.items():
             mesh = jtopo.MeshTopology(dp=WORLD, devices=jax.devices()[:WORLD])
             jeng, *_ = jdst.initialize(model=JaxGPTNeoX(JaxConfig.tiny()),
                                        config=_jax_config(cfg), mesh=mesh)
             masters = params_from_jax(jax.device_get(jeng.state["master_params"]))
-            start = start or masters
+            if start is None:
+                # the workers run while the JAX engines train
+                start = masters
+                wait = _start_port(start, batches, tmp_path_factory.mktemp("overlap"))
             losses, norms = [], []
             for b in batches:
                 losses.append(float(jeng.train_batch(
@@ -117,13 +130,7 @@ def runs(tmp_path_factory):
             jax_norms[name] = np.array(norms)
     finally:
         jtopo.set_mesh(saved)
-    arrays = {f"w/{k}": v.numpy() for k, v in start.items()}
-    for i, b in enumerate(batches):
-        arrays.update({f"b{i}/{k}": v for k, v in b.items()})
-    spec = {"kind": "train", "n_batches": STEPS, "runs": [
-        {"name": name, "config": cfg, "dtype": "fp32", "steps": STEPS}
-        for name, cfg in RUNS.items()]}
-    ranks = spawn(spec, arrays, tmp_path_factory.mktemp("overlap"))
+    ranks = wait()
     port = {name: [{k[len(name) + 1:]: v for k, v in r.items() if k.startswith(name + "/")}
                    for r in ranks] for name in RUNS}
     return jax_losses, port, jax_norms

@@ -47,7 +47,7 @@ from deeperspeed_tpu.models.gpt_neox import GPTNeoX as JaxGPTNeoX
 from deeperspeed_tpu.models.gpt_neox import GPTNeoXConfig as JaxConfig
 from deeperspeed_tpu.parallel import topology as jtopo
 from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig, params_from_jax
-from torch_dp_worker import spawn
+from torch_dp_worker import start as start_workers
 
 STEPS = 3
 ROWS, SEQ = 8, 16
@@ -100,13 +100,25 @@ def _columns():
     return {"input_ids": toks[:, :-1], "labels": toks[:, 1:]}
 
 
+def _start_port(start, batches, cols, tmp):
+    arrays = {f"w/{k}": v.numpy() for k, v in start.items()}
+    for i, b in enumerate(batches):
+        arrays.update({f"b{i}/{k}": v for k, v in b.items()})
+    arrays.update({f"d/{k}": v for k, v in cols.items()})
+    spec = {"kind": "train", "n_batches": STEPS, "runs": [
+        {"name": name, "config": cfg, "dtype": dtype, "steps": STEPS,
+         "training_data": name == LOADER_RUN}
+        for name, (cfg, dtype) in {**RUNS, **PORT_ONLY}.items()]}
+    return start_workers(spec, arrays, tmp)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """{run: {"jax": (losses, grad norms, final masters) of the JAX run it
     is held against, "port": [rank 0 results, rank 1 results]}}."""
     batches, cols = _batches(), _columns()
     saved = jtopo._GLOBAL_MESH
-    out, start = {}, None
+    out, start, wait = {}, None, None
     try:
         for name in sorted(set(JAX_RUN.values())):
             cfg, dtype = RUNS[name]
@@ -117,7 +129,10 @@ def runs(tmp_path_factory):
                 mesh=mesh, training_data=data)
             masters = params_from_jax(jax.device_get(jeng.state["master_params"]))
             if start is None:
+                # the port's workers start from these weights and run while
+                # the JAX engines train
                 start = masters
+                wait = _start_port(start, batches, cols, tmp_path_factory.mktemp("zero"))
             assert all(torch.equal(masters[k], start[k]) for k in start)
             losses, norms = [], []
             for step in range(STEPS):
@@ -129,15 +144,7 @@ def runs(tmp_path_factory):
             out[name] = (np.array(losses), np.array(norms), final)
     finally:
         jtopo.set_mesh(saved)
-    arrays = {f"w/{k}": v.numpy() for k, v in start.items()}
-    for i, b in enumerate(batches):
-        arrays.update({f"b{i}/{k}": v for k, v in b.items()})
-    arrays.update({f"d/{k}": v for k, v in cols.items()})
-    spec = {"kind": "train", "n_batches": STEPS, "runs": [
-        {"name": name, "config": cfg, "dtype": dtype, "steps": STEPS,
-         "training_data": name == LOADER_RUN}
-        for name, (cfg, dtype) in {**RUNS, **PORT_ONLY}.items()]}
-    ranks = spawn(spec, arrays, tmp_path_factory.mktemp("zero"))
+    ranks = wait()
     result = {"start": start}
     for name in {**RUNS, **PORT_ONLY}:
         result[name] = {"jax": out.get(JAX_RUN.get(name)), "port": [
@@ -240,7 +247,7 @@ def test_fused_adam_steps_over_each_ranks_pieces(runs):
      ValueError),
     ({"zero_optimization": {"stage": 1, "offload_optimizer": {"device": "cpu"}},
       "eigenvalue": {"enabled": True}}, NotImplementedError),
-    ({"mesh": {"pipe_parallel_size": 2}}, NotImplementedError),
+    ({"mesh": {"pipe_parallel_size": 2, "model_parallel_size": 2}}, NotImplementedError),
     ({"mesh": {"sequence_parallel_size": 2}}, NotImplementedError),
     ({"mesh": {"expert_parallel_size": 2}}, ValueError),
     ({"comm": {"quantized": {"enabled": True, "intra_axis": "ep"}}}, ValueError),
@@ -252,7 +259,7 @@ def test_refused_configurations(extra, error):
     """qgZ refuses fp16 and stages above 0, as the JAX engine does, and an
     intra hop on ``ep`` (its hops run over dp and zshard); an ``ep`` that
     does not divide the processes is refused; what is not ported yet
-    (eigenvalue, the hybrid engine, pipelines, sequence parallelism) names
+    (eigenvalue, the hybrid engine, pp x tp, sequence parallelism) names
     its ROADMAP item, beside the offload tiers too."""
     match = "ROADMAP Queue A" if error is NotImplementedError else "comm|mesh"
     with pytest.raises(error, match=match):

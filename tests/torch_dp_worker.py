@@ -55,8 +55,25 @@ run in turn.  Job kinds:
   the batches ``b<i>/<key>`` and records its losses; then the v1 engine
   (``init_inference`` at ``spec["generate"]["config"]``) on the weights
   ``g/<param>`` generates greedily from the prompts ``p`` (mask ``pm``) and
-  records the tokens, and the logits of ``engine(p)``.
+  records the tokens, and the logits of ``engine(p)``;
+* ``pipe``: for each run of ``spec["pipe_runs"]``, a pipeline engine at
+  ``pp`` stages (the data-parallel degree what the world leaves): a stage
+  model (``neox``: GPT-NeoX ``tiny()``, ``mistral``: Llama ``tiny_mistral()``,
+  at ``dtype``) from the JAX pipe tree ``w/<run>/<path>``, or a
+  ``PipelineModule`` (``mlp``: the MLP stack with a tied block across the
+  stages, ``tokens``: a tied embedding and head around two blocks) whose
+  canonical tree ``w/<run>/<path>`` it loads after building; it first loads
+  the checkpoint ``load`` (or, ``universal``, a universal export) if the run
+  names one, then trains on the batches ``d/<run>/<i>/<key>``, saving into
+  ``save`` after ``save_after`` steps; it records the losses, grad norms,
+  ``peak_live_inputs``, loss scale and skipped steps, ``eval_batch`` with
+  ``bcast_loss`` true and false, the whole masters (rank 0: ``loaded``,
+  ``saved``, ``final``), and with ``poison`` a step after an inf is written
+  into stage ``poison``'s first master (whether every rank skipped it and
+  kept its masters); first, ``comm.send_next`` and a ``comm.ppermute`` of
+  pairs over the world (``ring``, ``pairs``).
 """
+
 
 import json
 import math
@@ -370,6 +387,107 @@ def _llama(spec, job, rank, out):
     out["generate/cache_heads"] = np.array(inf._new_cache(1, 8).layers[0][0].shape[2])
 
 
+def _pipe_model(run):
+    from deeperspeed_tpu_torch.models import LlamaConfig
+    from deeperspeed_tpu_torch.models import simple
+    from deeperspeed_tpu_torch.models.gpt_neox_pipe import GPTNeoXPipe
+    from deeperspeed_tpu_torch.models.llama_pipe import LlamaPipe
+    from deeperspeed_tpu_torch.runtime.pipe.module import (LayerSpec, PipelineModule,
+                                                           TiedLayerSpec)
+
+    kind, pp, dtype = run["model"], run["pp"], DTYPES[run.get("dtype", "fp32")]
+    if kind == "neox":
+        return GPTNeoXPipe(GPTNeoXConfig.tiny(dtype=dtype), pp, device="cpu")
+    if kind == "mistral":
+        return LlamaPipe(LlamaConfig.tiny_mistral(dtype=dtype), pp, device="cpu")
+    if kind == "mlp":
+        specs = [LayerSpec(simple.InProj), TiedLayerSpec("blk", simple.Block),
+                 TiedLayerSpec("blk", simple.Block), LayerSpec(simple.OutProj)]
+        loss = simple.mse_loss
+    else:
+        specs = [TiedLayerSpec("emb", simple.Embed, 32, 16), LayerSpec(simple.Block),
+                 LayerSpec(simple.Block),
+                 TiedLayerSpec("emb", simple.Embed, 32, 16, forward_fn=simple.embed_decode)]
+        loss = simple.ce_loss
+    return PipelineModule(specs, num_stages=pp, loss_fn=loss, partition_method="uniform")
+
+
+def _unflat(job, prefix):
+    tree = {}
+    for k in job.files:
+        if k.startswith(prefix):
+            node = tree
+            *parents, last = k[len(prefix):].split("/")
+            for key in parents:
+                node = node.setdefault(key, {})
+            node[last] = job[k]
+    return tree
+
+
+def _pipe(spec, job, rank, out):
+    from deeperspeed_tpu_torch.checkpoint import universal
+
+    world = comm.get_world_group()
+    out["ring"] = comm.send_next(torch.full((3,), float(rank)), world).numpy()
+    perm = [(i, (i + 1) % world.size()) for i in range(0, world.size(), 2)]
+    out["pairs"] = comm.ppermute(torch.full((2,), float(rank + 1)), perm, world).numpy()
+    for run in spec["pipe_runs"]:
+        name, pp = run["name"], run["pp"]
+        model = _pipe_model(run)
+        tree = _unflat(job, f"w/{name}/")
+        stage = rank // (comm.get_world_size() // pp)
+        config = {**run["config"], "mesh": {"pipe_parallel_size": pp}}
+        start = (model.params_from_jax(tree, stage) if hasattr(model, "params_from_jax")
+                 else None)
+        eng, *_ = tdst.initialize(model=model, config=config, model_parameters=start,
+                                  device="cpu")
+        if start is None and tree:
+            ck.load_reference_masters(eng, tree)
+        if run.get("load"):
+            eng.load_checkpoint(run["load"])
+            _record_masters(eng, rank, out, f"{name}/loaded")
+        if run.get("universal"):
+            universal.load_universal_into_interpreted(eng, run["universal"])
+            _record_masters(eng, rank, out, f"{name}/loaded")
+        losses, norms, peaks = [], [], []
+        for i in range(run["steps"]):
+            if run.get("save") and i == run["save_after"]:
+                eng.save_checkpoint(run["save"])
+                _record_masters(eng, rank, out, f"{name}/saved")
+            batch = {k.split("/")[-1]: job[k] for k in job.files
+                     if k.startswith(f"d/{name}/{i}/")}
+            losses.append(float(eng.train_batch(batch=batch)))
+            norms.append(eng.get_global_grad_norm())
+            peaks.append(eng.peak_live_inputs())
+        out[f"{name}/losses"] = np.array(losses)
+        out[f"{name}/norms"] = np.array(norms)
+        out[f"{name}/peaks"] = np.array(peaks)
+        out[f"{name}/stage"] = np.array(eng.stage_id)
+        batch = {k.split("/")[-1]: job[k] for k in job.files if k.startswith(f"d/{name}/0/")}
+        out[f"{name}/eval"] = np.array(float(eng.eval_batch(batch=batch)))
+        last = eng.eval_batch(batch=batch, bcast_loss=False)
+        out[f"{name}/eval_last"] = np.array(np.nan if last is None else float(last))
+        _record_masters(eng, rank, out, f"{name}/final")
+        if run.get("poison") is not None:
+            before = {n_: t.clone() for n_, t in eng.master_params.items()}
+            scale = eng.get_loss_scale()
+            if eng.stage_id == run["poison"]:
+                first = next(iter(eng.master_params.values()))
+                first.view(-1)[0] = float("inf")
+                eng._refresh_compute()
+            eng.train_batch(batch=batch)
+            kept = all(torch.equal(t, before[n_]) or eng.stage_id == run["poison"]
+                       for n_, t in eng.master_params.items())
+            out[f"{name}/poison"] = np.array([eng.skipped_steps, eng.get_loss_scale() / scale,
+                                              float(kept)])
+
+
+def _record_masters(eng, rank, out, key):
+    whole = _flat(ck.reference_masters(eng), f"{key}")
+    if rank == 0:
+        out.update(whole)
+
+
 def main():
     rank, world, rendezvous, job_path, out_path = sys.argv[1:6]
     rank, world = int(rank), int(world)
@@ -381,7 +499,8 @@ def main():
     out = {}
     kinds = spec["kind"] if isinstance(spec["kind"], list) else [spec["kind"]]
     for kind in kinds:
-        {"train": _train, "comm": _comm, "ckpt": _ckpt, "llama": _llama, "moe": _moe}[kind](
+        {"train": _train, "comm": _comm, "ckpt": _ckpt, "llama": _llama, "moe": _moe,
+         "pipe": _pipe}[kind](
             spec, job, rank, out)
     np.savez(out_path, **out)
     comm.destroy()
@@ -391,6 +510,12 @@ def spawn(spec, arrays, tmp_path, world=2, timeout=600):
     """Run ``world`` workers on ``spec`` and ``arrays`` (called by the
     tests); returns each rank's results as a dict.  Raises with a failed
     worker's error output, after stopping the others."""
+    return start(spec, arrays, tmp_path, world, timeout)()
+
+
+def start(spec, arrays, tmp_path, world=2, timeout=600):
+    """:func:`spawn` started: returns the call that waits for the workers
+    and returns their results (the test process works meanwhile)."""
     job = tmp_path / "job.npz"
     np.savez(job, spec=np.array(json.dumps(spec)), **arrays)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -404,21 +529,26 @@ def spawn(spec, arrays, tmp_path, world=2, timeout=600):
                  str(tmp_path / "rendezvous"), str(job), str(tmp_path / f"out{r}.npz")],
                 env=env, stdout=log, stderr=subprocess.STDOUT))
     deadline = time.monotonic() + timeout
-    try:
-        while any(p.poll() is None for p in procs):
-            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
-                break
-            time.sleep(0.05)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-    for r, p in enumerate(procs):
-        if p.returncode != 0:
-            raise RuntimeError(f"worker {r} exited {p.returncode}:\n"
-                               f"{logs[r].read_text()[-6000:]}")
-    return [dict(np.load(tmp_path / f"out{r}.npz")) for r in range(world)]
+
+    def finish():
+        try:
+            while any(p.poll() is None for p in procs):
+                if (any(p.poll() not in (None, 0) for p in procs)
+                        or time.monotonic() > deadline):
+                    break
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                raise RuntimeError(f"worker {r} exited {p.returncode}:\n"
+                                   f"{logs[r].read_text()[-6000:]}")
+        return [dict(np.load(tmp_path / f"out{r}.npz")) for r in range(world)]
+
+    return finish
 
 
 if __name__ == "__main__":
