@@ -507,6 +507,14 @@ class GPTNeoXBlock(nn.Module):
         return x
 
 
+def _drawable(t, gen):
+    """``t``, or for a parameter left on ``meta`` (another pipeline stage's)
+    a scratch tensor of its shape on ``gen``'s device, which the draw fills
+    and drops: ``gen`` moves on as in the whole model's draw, and no more
+    than one such tensor is ever held."""
+    return torch.empty(t.shape, dtype=t.dtype, device=gen.device) if t.is_meta else t
+
+
 def _remat_block(blk, x, positions, rng, moe_aux=None):
     """``blk(x, positions, rng=rng)`` whose activations are recomputed in
     the backward pass (the JAX package's ``nn.remat`` of the block), the
@@ -525,14 +533,16 @@ class GPTNeoX(nn.Module):
     device.  ``draw_on_device`` draws them on the card instead, from a CUDA
     generator (fast for a full-size model; another draw than the CPU's, as
     for the Llama family).  They stay fp32 until an engine casts them; the
-    products run in ``config.dtype`` either way."""
+    products run in ``config.dtype`` either way.  ``device="meta"`` builds
+    the module without weights (a pipeline stage draws its own part)."""
 
     def __init__(self, config: GPTNeoXConfig, device=None, seed=0, draw_on_device=False):
         super().__init__()
-        device = resolve_device(device)
+        meta = str(device) == "meta"
+        device = torch.device("meta") if meta else resolve_device(device)
         on_card = draw_on_device and device.type == "cuda"
         self.config = config
-        with torch.device("meta") if on_card else contextlib.nullcontext():
+        with torch.device("meta") if on_card or meta else contextlib.nullcontext():
             self.embed_in = nn.Embedding(config.vocab_size, config.hidden_size)
             moe_layers = set(config.moe_layer_indices())
             self.layers = nn.ModuleList(GPTNeoXBlock(config, use_moe=i in moe_layers)
@@ -542,6 +552,8 @@ class GPTNeoX(nn.Module):
                                                    config.dtype)
             self.embed_out = ModelLinear(config, config.hidden_size, config.vocab_size,
                                          bias=False)
+        if meta:
+            return
         if on_card:
             self.to_empty(device=device)
             self._init_weights(torch.Generator(device=device).manual_seed(seed))
@@ -554,18 +566,19 @@ class GPTNeoX(nn.Module):
         """Flax's defaults, every parameter written (the card's draw starts
         from uninitialised memory): Dense kernels lecun-normal (truncated at
         two standard deviations), biases zero, LayerNorm scales one, the
-        embedding N(0, 1/H)."""
+        embedding N(0, 1/H).  A parameter left on ``meta`` is drawn and
+        dropped (:func:`_drawable`)."""
         for mod in self.modules():
             if isinstance(mod, nn.Linear):
                 std = (1.0 / math.sqrt(mod.in_features)) / .87962566103423978
-                nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std,
-                                      generator=gen)
+                nn.init.trunc_normal_(_drawable(mod.weight, gen), 0.0, std, -2 * std,
+                                      2 * std, generator=gen)
                 if mod.bias is not None:
                     mod.bias.zero_()
             elif isinstance(mod, ModelLayerNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
-        nn.init.normal_(self.embed_in.weight, 0.0,
+        nn.init.normal_(_drawable(self.embed_in.weight, gen), 0.0,
                         1.0 / math.sqrt(self.config.hidden_size), generator=gen)
         for mod in self.modules():
             if isinstance(mod, Experts):

@@ -43,11 +43,14 @@ class GPTNeoXPipe(StagePipeBase):
             raise NotImplementedError(
                 "sequence parallelism inside the compiled pipeline's manual "
                 "region is not wired up yet; use pp=1 for sp>1 runs.")
-        super().__init__(config, num_stages, device, seed, draw_on_device)
+        super().__init__(config, num_stages, device, seed)
+        self.draw_on_device = draw_on_device
 
-    def _flat_model(self, device):
-        return GPTNeoX(self.config, device=device, seed=self.seed,
-                       draw_on_device=self.draw_on_device)
+    def _draw_device(self, device):
+        """The CPU, or the card under ``draw_on_device`` (as
+        :class:`GPTNeoX`)."""
+        return device if self.draw_on_device and device.type == "cuda" \
+            else torch.device("cpu")
 
     def _embed(self, stage, tokens):
         return stage.embed_in(tokens).to(stage.config.dtype)

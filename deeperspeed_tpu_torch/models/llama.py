@@ -58,8 +58,8 @@ from ..parallel.tensor_parallel import (ColumnParallelLinear, VocabParallelEmbed
 from ..utils.recompute import checkpoint_replaying
 from ..utils.tree import tree_sorted
 from .gpt_neox import (SPEC_DECODE_WINDOW, ModelLayerNorm, ModelLinear, _dense,
-                       cached_attention, gathered_kv, paged_writes, repeat_kv,
-                       write_pools)
+                       _drawable, cached_attention, gathered_kv, paged_writes,
+                       repeat_kv, write_pools)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -341,17 +341,18 @@ class Llama(nn.Module):
         """Flax's defaults, every parameter written (the CUDA path starts
         from uninitialised memory): Dense kernels lecun-normal truncated at
         two standard deviations, biases zero, norm scales one, embeddings
-        N(0, 1/H)."""
+        N(0, 1/H).  A parameter left on ``meta`` is drawn and dropped
+        (``_drawable``)."""
         for mod in self.modules():
             if isinstance(mod, nn.Linear):
                 std = (1.0 / math.sqrt(mod.in_features)) / .87962566103423978
-                nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std,
-                                      generator=gen)
+                nn.init.trunc_normal_(_drawable(mod.weight, gen), 0.0, std, -2 * std,
+                                      2 * std, generator=gen)
                 if mod.bias is not None:
                     mod.bias.zero_()
             elif isinstance(mod, nn.Embedding):
-                nn.init.normal_(mod.weight, 0.0, 1.0 / math.sqrt(self.config.hidden_size),
-                                generator=gen)
+                nn.init.normal_(_drawable(mod.weight, gen), 0.0,
+                                1.0 / math.sqrt(self.config.hidden_size), generator=gen)
             elif isinstance(mod, RMSNorm):
                 mod.scale.fill_(1.0)
             elif isinstance(mod, ModelLayerNorm):

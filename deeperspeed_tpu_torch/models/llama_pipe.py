@@ -22,7 +22,7 @@ class LlamaPipe(StagePipeBase):
     HEAD = ("final_norm", "lm_head")
     NO_CAST = [r"embed_tokens\.weight", r"embed_positions\.weight"]
 
-    def __init__(self, config, num_stages, device=None, seed=0, draw_on_device=False):
+    def __init__(self, config, num_stages, device=None, seed=0):
         if config.tie_embeddings:
             # the JAX package's refusal, in its words
             raise NotImplementedError(
@@ -30,7 +30,7 @@ class LlamaPipe(StagePipeBase):
                 "the tied table would have to live on both the first and last "
                 "stage. Use the interpreted executor (TiedLayerSpec) or an "
                 "untied config.")
-        super().__init__(config, num_stages, device, seed, draw_on_device)
+        super().__init__(config, num_stages, device, seed)
 
     def _embed(self, stage, tokens):
         cfg = stage.config

@@ -7,9 +7,11 @@ pipeline engine asks it for one stage (:meth:`StagePipeBase.build_stage`),
 the ``nn.Module`` the stage's process trains: the input embedding on the
 first stage, the final norm and the output head on the last.
 
-Its weights are the flat model's for the same seed (the whole model is
-drawn, then cut), so a pipeline run and a flat run from one seed start
-equal.  The JAX package's parameters are ``{embed, stages, head}`` with
+Its weights are the flat model's for the same seed: the stage replays the
+whole model's draw, keeping only its own parameters (the others are drawn
+into a scratch tensor and dropped), so a pipeline run and a flat run from
+one seed start equal while a stage's process never holds more than its
+stage and one other tensor.  The JAX package's parameters are ``{embed, stages, head}`` with
 stage leaves ``[n_stages, layers_per_stage, ...]``; the pipeline
 checkpoints hold that tree (:meth:`PipeStage.to_reference_tree` gathers it
 over the ``pp`` group), and ``pipe_params_from_jax`` /
@@ -120,16 +122,16 @@ class StagePipeBase:
     :meth:`_embed`, :meth:`_blocks`, :meth:`_head`, :meth:`params_from_jax`
     and :meth:`params_to_jax`.
 
-    ``device`` (CUDA unless ``"cpu"``), ``seed`` and ``draw_on_device`` are
-    the flat model's arguments: :meth:`build_stage` draws the flat model
-    and keeps its stage."""
+    ``device`` (CUDA unless ``"cpu"``) and ``seed`` are the flat model's
+    arguments: :meth:`build_stage` draws the flat model's weights of one
+    stage."""
 
     FLAT = None
     EMBED = ()
     HEAD = ()
     NO_CAST = []
 
-    def __init__(self, config, num_stages, device=None, seed=0, draw_on_device=False):
+    def __init__(self, config, num_stages, device=None, seed=0):
         if config.num_layers % num_stages:
             raise ValueError(f"{config.num_layers} layers not divisible by "
                              f"{num_stages} stages")
@@ -138,16 +140,20 @@ class StagePipeBase:
         self.layers_per_stage = config.num_layers // num_stages
         self.device = device
         self.seed = seed
-        self.draw_on_device = draw_on_device
 
-    def _flat_model(self, device):
-        return self.FLAT(self.config, device=device, seed=self.seed)
+    def _draw_device(self, device):
+        """Where the flat model draws its weights when it lives on
+        ``device`` (the Llama family: there)."""
+        return device
 
     def build_stage(self, stage_id, device=None):
         """Stage ``stage_id``'s module on ``device`` (the spec's device by
-        default)."""
+        default): the flat model built on ``meta``, this stage's modules
+        made real where the flat model draws, and the flat model's draw
+        replayed over them (``_init_weights``; the other stages' parameters
+        stay on ``meta``)."""
         device = resolve_device(device if device is not None else self.device)
-        flat = self._flat_model(device)
+        flat = self.FLAT(self.config, device="meta")
         L = self.layers_per_stage
         parts = {}
         if stage_id == 0:
@@ -155,7 +161,11 @@ class StagePipeBase:
         parts["layers"] = nn.ModuleList(flat.layers[stage_id * L:(stage_id + 1) * L])
         if stage_id == self.num_stages - 1:
             parts.update((n, getattr(flat, n)) for n in self.HEAD if hasattr(flat, n))
-        return PipeStage(self, stage_id, parts)
+        draw = self._draw_device(device)
+        for module in parts.values():
+            module.to_empty(device=draw)
+        flat._init_weights(torch.Generator(device=draw).manual_seed(self.seed))
+        return PipeStage(self, stage_id, parts).to(device)
 
     def example_batch(self, batch_size=2, seq_len=None, seed=0):
         """The flat model's ``example_batch`` (int64 tokens on the CPU)."""

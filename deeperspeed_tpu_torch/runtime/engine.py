@@ -1055,8 +1055,9 @@ class DeeperSpeedEngine:
         not partitioned, else gathered from the ranks' partitions, each
         tp-split parameter's slices joined along its split dim and each
         expert parameter's ``ep`` ranks' experts along dim 0 (a collective
-        every rank calls).  ``names``: only the regions holding these
-        parameters are gathered (every rank names the same)."""
+        every rank calls).  ``names``: only these parameters, whole as
+        above, from only the regions holding them (every rank names the
+        same)."""
         out = {}
         for region, base in zip(self.plan.regions, self.plan.bases()):
             if names is not None and not set(region.names) & set(names):
@@ -1073,12 +1074,13 @@ class DeeperSpeedEngine:
             for n, shape, off in zip(region.names, region.shapes, region.offsets):
                 out[n] = full[off:off + math.prod(shape)].view(shape)
         if names is not None:
-            return {n: out[n] for n in names}
+            out = {n: out[n] for n in names}
         for n, dim in self._tp_dims.items():
-            out[n] = comm.all_gather(out[n].contiguous(), self.tp_group, axis=dim,
-                                     log_name="tp_gather")
+            if n in out:
+                out[n] = comm.all_gather(out[n].contiguous(), self.tp_group, axis=dim,
+                                         log_name="tp_gather")
         if self.ep_group.size() > 1:
-            for n in sorted(self._expert_names):
+            for n in sorted(self._expert_names & out.keys()):
                 out[n] = comm.all_gather(out[n].contiguous(), self.ep_group, axis=0,
                                          log_name="ep_gather")
         return out

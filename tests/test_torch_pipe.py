@@ -6,7 +6,8 @@ process on the CPU.
   ``tiny()`` weights carried across (``pipe_params_from_jax``): ``embed``,
   every stage's ``stage_forward``, ``head`` and ``loss_from_logits`` within
   1e-5 in fp32; ``pipe_params_from_jax`` / ``pipe_params_to_jax`` round
-  trip bit for bit.
+  trip bit for bit.  A stage draws the flat model's weights of its part
+  and no more (its peak bytes while it builds, below the whole model's).
 * A one-stage pipeline engine gives the flat engine's bits (losses, grad
   norms, masters, the evaluation loss; its logits without ``compute_loss``
   within 1e-5), under both schedules.
@@ -19,12 +20,14 @@ process on the CPU.
 
 import dataclasses
 import types
+import weakref
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import deeperspeed_tpu_torch as tdst
 from deeperspeed_tpu.models.gpt_neox import GPTNeoXConfig as JaxNeoXConfig
@@ -120,16 +123,59 @@ def test_stage_functions_match_the_jax_stage_model(family):
             assert torch.equal(again[n], t), n
 
 
+class _LiveBytes(TorchDispatchMode):
+    """The bytes of the storages that the operators under it made and that
+    are still alive, and their peak (a storage is counted once, when an
+    operator first returns it, and let go when it dies)."""
+
+    def __init__(self):
+        super().__init__()
+        self.live = self.peak = 0
+        self._seen = set()
+
+    def _free(self, ptr, nbytes):
+        self.live -= nbytes
+        self._seen.discard(ptr)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in torch.utils._pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor) and not t.is_meta:
+                st = t.untyped_storage()
+                if st.data_ptr() not in self._seen and st.nbytes():
+                    self._seen.add(st.data_ptr())
+                    self.live += st.nbytes()
+                    weakref.finalize(st, self._free, st.data_ptr(), st.nbytes())
+                    self.peak = max(self.peak, self.live)
+        return out
+
+
 def test_stage_model_draws_the_flat_models_weights():
-    cfg = dataclasses.replace(GPTNeoXConfig.tiny(), num_layers=4)
-    spec = GPTNeoXPipe(cfg, 2, device="cpu", seed=5)
-    flat = GPTNeoX(cfg, device="cpu", seed=5).state_dict()
-    for s in range(2):
-        for n, t in spec.build_stage(s).state_dict().items():
-            if n.startswith("layers."):
-                j = int(n.split(".")[1]) + 2 * s
-                n = f"layers.{j}." + n.split(".", 2)[2]
-            assert torch.equal(flat[n], t), n
+    """Each stage draws the flat model's weights of its own part (GPT-NeoX
+    and Llama), and while it draws holds no more than its stage and the
+    draw of one tensor (the largest, with ``trunc_normal_``'s temporaries):
+    below the whole model."""
+    for family in ("neox", "llama"):
+        _, _, tcls, tcfg, kw, _ = FAMILIES[family]
+        cfg = dataclasses.replace(tcfg(**kw), num_layers=4)
+        spec = tcls(cfg, 2, device="cpu", seed=5)
+        flat = spec.FLAT(cfg, device="cpu", seed=5)
+        whole = sum(t.nbytes for t in flat.parameters())
+        largest = max(flat.parameters(), key=lambda t: t.numel())
+        with _LiveBytes() as one:
+            torch.nn.init.trunc_normal_(torch.empty(largest.shape), 0.0, 0.1, -0.2, 0.2,
+                                        generator=torch.Generator())
+        ref = flat.state_dict()
+        for s in range(2):
+            with _LiveBytes() as seen:
+                stage = spec.build_stage(s)
+            mine = sum(t.nbytes for t in stage.parameters())
+            assert mine < seen.peak <= mine + one.peak < whole, \
+                (family, s, seen.peak, mine, whole)
+            for n, t in stage.state_dict().items():
+                if n.startswith("layers."):
+                    n = f"layers.{int(n.split('.')[1]) + 2 * s}." + n.split(".", 2)[2]
+                assert torch.equal(ref[n], t), (family, n)
 
 
 @pytest.mark.parametrize("schedule", ["1f1b", "gpipe"])

@@ -97,6 +97,15 @@ def test_tensor_parallel_matches_jax(runs, world, name):
     masters_agree(jfinal, got[0], runs["start"])
 
 
+@pytest.mark.parametrize("world", [2, 4])
+def test_a_gather_by_name_joins_the_tp_slices(runs, world):
+    """``gather_whole(names=...)`` gives the named parameters whole, tp
+    slices joined, as the whole gather does, on every rank and stage."""
+    for name, ranks in runs["port"][world].items():
+        for r in ranks:
+            assert bool(r["named_gather_whole"]), (world, name)
+
+
 def test_same_model_at_tp1_and_tp2(runs):
     """One model object trains at tp 1 and then at tp 2 (world 2): the same
     losses within the JAX test's 2e-4."""

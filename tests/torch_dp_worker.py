@@ -186,6 +186,11 @@ def _train(spec, job, rank, out):
                                if s.path == ("step",) for _ in range(s.repeats)],
                 "per_micro": eng._per_micro}))
         final = eng.full_master_params()
+        # a gather by name gives the same whole tensors (tp slices joined)
+        named = sorted(eng._tp_dims)[:2] + [n for n in eng._order if n not in eng._tp_dims][:1]
+        got = eng.gather_whole(eng.master_params, names=named)
+        out[f"{name}/named_gather_whole"] = np.array(
+            all(torch.equal(got[n], final[n]) for n in named))
         if rank == 0:
             for param, t in final.items():
                 out[f"{name}/final/{param}"] = t.cpu().numpy()
