@@ -294,12 +294,30 @@ package, and goes through these phases, each printing its lines:
     the flat engine on the same layers, a checkpoint saved before step 3
     and reloaded at pp 1, where step 3 gives the same loss.  K1/K8 and
     K5-K7 must launch on every stage, B6 in (d).
+27. pipelines, part b: four ``--pipe-tp-worker`` processes (pp 2 x tp 2,
+    gloo via host for the P2P messages and the tp reductions), started in
+    phase 24 after its (b): (a) Pythia-160M under ``1f1b``, bf16, FusedAdam, clip
+    1.0, 16 x 1024 in 4 microbatches, 3 steps: losses and grad norms within
+    1e-2 relative of phase 26 (a)'s pp 2 run on the same weights, each
+    rank's parameter bytes about half of its pp 2 stage's, its ms/step
+    split, ``pipe_stats``, the bytes ``tp_reduce`` staged a step and its
+    peak (stage 0's inputs are token ids); (b) Llama-2-7B's width at 4
+    layers, pp 2 x tp 2, 1 step at gas 2 (waiting for phase 27): loss and
+    norm within 1e-2 of 26 (c), each rank's peak at most 0.7 of its pp 2
+    stage's; (c) Pythia-160M at pp 2 with ``offload_optimizer.host_update``
+    (run by phase 26's processes): losses within 2e-5 relative of 26 (a)'s
+    device update, the host Adam's seconds a stage; (d) ZeRO-Infinity over
+    ``GPTNeoXPipe(pythia_160m, num_stages=4)`` in this process, 2 steps:
+    losses and every unit's masters equal bit for bit to the flat stream at
+    ``num_chunks=4`` on the same weights.  K1/K8 and K5-K7 must launch on
+    every rank of (a)-(c) and in (d), B6 on every rank of (a) and not in (c).
 
 The worker processes of phases 13-14, 20, 21, 22 (e), 23 (c) and 26 start
 right after the build, make their CUDA context and wait until their phase
 (``[workers]`` line); those of 21, 22 (e), 23 (c) and 26 run under phase 19,
-which waits on the disk, and their phases join them (their ms are read
-with phase 19 running beside them).  Each phase prints a ``[time]`` line.
+which waits on the disk, and those of 27 under phase 24 (c)-(e) and phase
+25, which wait on the disk too; their phases join them (their ms are read
+with those phases running beside them).  Each phase prints a ``[time]`` line.
 
 The second-to-last line is the JSON summary of the kernels (a kernel's
 ``launches`` sums its counts on the main paths, serving in phase 5,
@@ -317,6 +335,9 @@ training, (c)'s stage-0 run (rank 0) and (d)'s bf16 serving, in phase 24
 (d)'s streamed steps, in phase 25 (b)'s 700 MiB planned stream and (c)'s
 hook-issued steps (rank 0), in phase 26 (a)'s steps summed over both stages
 (``pipe-trained``) and (d)'s over its four processes (``pipe-interpreted``),
+in phase 27 (a)'s and (b)'s steps summed over their four processes
+(``pipe-tp``, ``pipe-tp-llama``), (c)'s over both stages (``pipe-host``)
+and (d)'s streamed steps over the stage model (``infinity-pipe``),
 each read right after its own run and listed in
 ``launches_by_path``), the
 last ``{"ok": true,
@@ -2291,6 +2312,14 @@ def release_early(flag):
     if flag in _HELD:
         workdir, procs = _RELEASED[flag] = _HELD.pop(flag)
         (workdir / "go").touch()
+
+
+def start_early(flag, world):
+    """Start the group ``flag`` now, unheld (it makes its CUDA context while
+    the phase that starts it runs); :func:`_workers` returns it at its
+    phase."""
+    workdir = _scratch_dir()
+    _RELEASED[flag] = (workdir, _spawn_dp_workers(workdir, flag, world))
 
 
 def _workers(flag, world):
@@ -4876,6 +4905,10 @@ def phase_offload(torch, np, launches, card, dp_ranks):
         n_small = sum(p.numel() for p in model.parameters())
         if n_small != OFFLOAD_SMALL_PARAMS or sum(t.numel() for t in small.values()) != n_small:
             raise AssertionError(f"offload (c), (d): {n_small} parameters")
+        # phase 27's pp x tp group starts here, once (a) and (b) no longer
+        # hold the card's memory: its steps run beside (c)-(e) and phase 25,
+        # which wait on the disk
+        start_early("--pipe-tp-worker", PIPE_TP_WORLD)
         t = time.perf_counter()
         paths["offload_nvme"] = phase_offload_nvme(torch, launches, card, small, model, batch,
                                                    swap_root / "nvme")
@@ -5133,6 +5166,24 @@ PIPE_TOL = LAYOUT_BF16_TOL            # bf16 losses and grad norms, relative
 # and a dropped dp reduction by 0.34 (4.3e-3)
 PIPE_INTERP_TOL = 1e-3
 
+# Pipelines, part b (phase 27): four ``--pipe-tp-worker`` processes at pp 2 x
+# tp 2 share the card over gloo (the P2P messages and the tp reductions
+# staged through host memory): (a) Pythia-160M under 1f1b with FusedAdam, so
+# that B6 runs on each tp-split stage, then (b) Llama-2-7B's width at 4
+# layers, which waits for phase 27 as 26 (c) waits for 26; (c) the host
+# update at pp 2 runs in phase 26's two processes; (d) ZeRO-Infinity over
+# GPTNeoXPipe in this process, beside (b).
+PIPE_TP = 2
+PIPE_TP_WORLD = PIPE_WORLD * PIPE_TP
+PIPE_TP_MESH = {"pipe_parallel_size": PIPE_WORLD, "model_parallel_size": PIPE_TP}
+PIPE_TP_CONFIG = {**PIPE_CONFIG, "mesh": PIPE_TP_MESH,
+                  "optimizer": {"type": "FusedAdam", "params": {"lr": 1e-4}}}
+PIPE_HOST_CONFIG = {**PIPE_CONFIG, "zero_optimization": {
+    "stage": 0, "offload_optimizer": {"device": "cpu", "host_update": True}}}
+PIPE_TP_TOL = 1e-2        # (a) and (b) against phase 26's pp 2 runs, relative
+PIPE_HOST_TOL = 2e-5      # (c) against 26 (a), relative: the host update's limit
+PIPE_INF_STAGES, PIPE_INF_STEPS = 4, 2
+
 
 def pipe_model():
     """Pythia-160M (phase 9's model) cut into two stages: each stage draws
@@ -5184,7 +5235,10 @@ def _pipe_run(torch, dst, model, config, batch, steps, save=None):
     """Train ``steps`` steps of a pipeline engine on ``batch``, timing each
     (host clock, ending in the loss's broadcast, which syncs) and splitting
     it (``pipe_stats``, the card synchronized after each compute
-    instruction); ``save`` = (step, dir) saves before that step."""
+    instruction); ``save`` = (step, dir) saves before that step.  Records
+    the bytes each op staged through host memory over the steps, the
+    stage's parameter bytes and the host update's split."""
+    from deeperspeed_tpu_torch import comm
     from deeperspeed_tpu_torch.ops.cuda_utils import LAUNCHES
 
     t = time.perf_counter()
@@ -5193,6 +5247,7 @@ def _pipe_run(torch, dst, model, config, batch, steps, save=None):
     init_s = time.perf_counter() - t
     eng.pipe_timing = True
     torch.cuda.reset_peak_memory_stats()
+    comm.STAGED.clear()
     LAUNCHES.clear()                                  # main path starts here
     losses, norms, ms, stats, save_s = [], [], [], [], None
     for step in range(steps):
@@ -5209,7 +5264,9 @@ def _pipe_run(torch, dst, model, config, batch, steps, save=None):
            "launches": dict(LAUNCHES), "stage": eng.stage_id, "init_s": init_s,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "peak_live": eng.peak_live_inputs(), "save_s": save_s,
-           "params": sum(t.numel() for t in eng.module.parameters())}
+           "params": sum(t.numel() for t in eng.module.parameters()),
+           "param_bytes": sum(t.numel() * t.element_size() for t in eng.module.parameters()),
+           "staged": dict(comm.STAGED), "offload": dict(eng.offload_stats)}
     del eng, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -5261,9 +5318,9 @@ def _pipe_transfer_ms(torch, comm, rank, iters=10):
 def pipe_worker(rank, rendezvous, out_path):
     """One of the two stage processes of phase 26 (``--pipe-worker``): the
     message time, (a) 1f1b and (b) gpipe on Pythia-160M at gas 4, both at
-    gas 8 for their memory, (c) Llama-2-7B's width at 4 layers once phase 26
-    has begun; each stage's peak while it is built; writes what it saw as
-    JSON."""
+    gas 8 for their memory, phase 27 (c)'s host update, (c) Llama-2-7B's
+    width at 4 layers once phase 26 has begun; each stage's peak while it
+    is built; writes what it saw as JSON."""
     import torch
 
     import deeperspeed_tpu_torch as dst
@@ -5286,6 +5343,8 @@ def pipe_worker(rank, rendezvous, out_path):
             torch, dst, pipe_model(), {**PIPE_CONFIG, "gradient_accumulation_steps":
                                        PIPE_MEM_GAS, "pipeline": {"schedule": sched}},
             batch, 1)
+    # phase 27 (c): (a)'s 1f1b run with each stage's update on the host
+    out["host"] = _pipe_run(torch, dst, pipe_model(), PIPE_HOST_CONFIG, batch, PIPE_STEPS)
     # (c) holds ~14 GB a stage: it waits for phase 26 (``go-c``), so that
     # it never meets the device memory of the phases the group runs under
     go, parent = Path(rendezvous).parent / "go-c", os.getppid()
@@ -5321,6 +5380,37 @@ def pipe_dp_worker(rank, rendezvous, out_path):
                     pipe_interp_batch(np), PIPE_INTERP_STEPS,
                     save=(PIPE_INTERP_SAVE, str(Path(rendezvous).parent / "ckpt")))
     Path(out_path).write_text(json.dumps(rec))
+    comm.destroy()
+    return 0
+
+
+def pipe_tp_worker(rank, rendezvous, out_path):
+    """One of the four processes of phase 27 (``--pipe-tp-worker``), pp 2 x
+    tp 2: (a) Pythia-160M under 1f1b at gas 4, then (b) Llama-2-7B's width
+    at 4 layers once phase 27 has begun; writes what it saw as JSON."""
+    import torch
+
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch import comm
+    from deeperspeed_tpu_torch.models.llama_pipe import LlamaPipe
+
+    torch.set_num_threads(2)
+    dst.init_distributed("gloo", init_method=f"file://{rendezvous}", rank=rank,
+                         world_size=PIPE_TP_WORLD, timeout=600)
+    out = {"1f1b": _pipe_run(torch, dst, pipe_model(), PIPE_TP_CONFIG,
+                             trained_batch(pipe_model()), PIPE_STEPS)}
+    out["tp_rank"] = comm.get_model_parallel_group().rank()
+    # (b) holds ~7 GB a rank: it waits for phase 27 (``go-b``)
+    go, parent = Path(rendezvous).parent / "go-b", os.getppid()
+    while not go.exists():
+        if os.getppid() != parent:
+            return 3
+        time.sleep(0.05)
+    llama = LlamaPipe(pipe_llama_config(), PIPE_WORLD, seed=SEED)
+    out["llama"] = _pipe_run(
+        torch, dst, llama, {**PIPE_LLAMA_CONFIG, "mesh": PIPE_TP_MESH},
+        llama.example_batch(batch_size=PIPE_LLAMA_ROWS, seq_len=TRAIN_SEQ, seed=SEED), 1)
+    Path(out_path).write_text(json.dumps(out))
     comm.destroy()
     return 0
 
@@ -5521,7 +5611,199 @@ def phase_pipeline(torch, np, card):
                 out[k] = out.get(k, 0) + v
         return out
 
-    return {"pipe-trained": summed([a["1f1b"], b["1f1b"]]), "pipe-interpreted": summed(dranks)}
+    return ({"pipe-trained": summed([a["1f1b"], b["1f1b"]]),
+             "pipe-interpreted": summed(dranks)}, {"stages": (a, b), "flat_c": flat_c})
+
+
+def _summed_launches(recs):
+    out = {}
+    for rec in recs:
+        for k, v in rec["launches"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _pipe_infinity(torch, swap_root):
+    """Phase 27 (d): ZeRO-Infinity over ``GPTNeoXPipe(pythia_160m,
+    num_stages=4)`` (a chunk a stage, every stage in this process) and over
+    the flat model at ``num_chunks=4``, on the same weights, bf16: their
+    losses and every unit's masters."""
+    from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
+    from deeperspeed_tpu_torch.models.gpt_neox_pipe import GPTNeoXPipe
+    from deeperspeed_tpu_torch.ops.cuda_utils import LAUNCHES
+    from deeperspeed_tpu_torch.runtime.zero.infinity import ZeroInfinityEngine
+
+    cfg = GPTNeoXConfig.pythia_160m(dtype=torch.bfloat16, max_seq_len=TRAIN_SEQ)
+    flat = GPTNeoX(cfg, seed=SEED, draw_on_device=True)
+    batch = trained_batch(flat)
+    params = {n: t.detach().cpu() for n, t in flat.state_dict().items()}
+    runs = {}
+    for name, model, kw in (("pipe", GPTNeoXPipe(cfg, PIPE_INF_STAGES, seed=SEED,
+                                                 draw_on_device=True), {}),
+                            ("flat", flat, {"num_chunks": PIPE_INF_STAGES})):
+        t = time.perf_counter()
+        eng = ZeroInfinityEngine(model, str(swap_root / name), lr=1e-4,
+                                 compute_dtype=torch.bfloat16, params=params, **kw)
+        rec = {"init_s": time.perf_counter() - t, "losses": [], "secs": []}
+        LAUNCHES.clear()                               # the streamed steps start here
+        for _ in range(PIPE_INF_STEPS):
+            t = time.perf_counter()
+            rec["losses"].append(eng.train_batch(batch))
+            rec["secs"].append(time.perf_counter() - t)
+        rec["launches"] = dict(LAUNCHES)
+        rec["stats"] = eng.swap_stats
+        rec["chunks"] = eng.chunks
+        rec["masters"] = {u: eng.master(u) for u in eng.units}
+        eng.close()
+        del eng
+        runs[name] = rec
+    del flat, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_pipe_tp(torch, np, card, p26):
+    """Phase 27: pp x tp, the host update on each stage, and ZeRO-Infinity
+    over a stage model, held against phase 26's runs (``p26``) and the flat
+    stream.  Returns the launches of (a), (b) and (c), summed over their
+    processes, and of (d)'s streamed steps."""
+    workdir, procs = _workers("--pipe-tp-worker", PIPE_TP_WORLD)
+    (workdir / "go-b").touch()
+    swap_root = _scratch_dir()
+    try:
+        inf = _pipe_infinity(torch, swap_root)
+    finally:
+        shutil.rmtree(swap_root, ignore_errors=True)
+    ranks = sorted(_join_dp_workers(procs), key=lambda r: (r["1f1b"]["stage"], r["tp_rank"]))
+    a26, b26 = p26["stages"]
+    by_stage = {0: a26, 1: b26}
+    kernels = ("layer_norm", "layer_norm_bwd", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+    # (a): pp 2 x tp 2 against phase 26 (a)'s pp 2 run on the same weights
+    def fmt(xs, digits=6):
+        return ", ".join(f"{x:.{digits}f}" for x in xs)
+
+    err = [0.0, 0.0]
+    for r in ranks:
+        rec, ref = r["1f1b"], by_stage[r["1f1b"]["stage"]]["1f1b"]
+        e = (_rel_max(rec["losses"], ref["losses"]), _rel_max(rec["norms"], ref["norms"]))
+        err = [max(err[0], e[0]), max(err[1], e[1])]
+        if max(e) > PIPE_TP_TOL:
+            raise AssertionError(f"pp x tp (a) stage {rec['stage']} tp {r['tp_rank']}: "
+                                 f"{rec['losses']} / {rec['norms']} vs pp 2 "
+                                 f"{ref['losses']} / {ref['norms']}")
+        for k in kernels + ("fused_adam",):
+            if rec["launches"].get(k, 0) < 1:
+                raise AssertionError(f"pp x tp (a) stage {rec['stage']} tp {r['tp_rank']} "
+                                     f"never launched {k}: {rec['launches']}")
+        share = rec["param_bytes"] / ref["param_bytes"]
+        if not 0.45 < share < 0.55 or rec["staged"].get("tp_reduce", 0) <= 0:
+            raise AssertionError(f"pp x tp (a) stage {rec['stage']}: parameter bytes "
+                                 f"{share:.3f} of the pp 2 stage's, staged {rec['staged']}")
+    a0 = ranks[0]["1f1b"]
+    print(f"[pipe-tp-a] {card}: Pythia-160M bf16 at pp {PIPE_WORLD} x tp {PIPE_TP} (four "
+          f"processes, gloo via host), {TRAIN_BATCH} x {TRAIN_SEQ} in {PIPE_GAS} "
+          f"microbatches, FusedAdam, clip 1.0, 1f1b: losses {fmt(a0['losses'])} and grad "
+          f"norms {fmt(a0['norms'])} against pp 2's {fmt(a26['1f1b']['losses'])} / "
+          f"{fmt(a26['1f1b']['norms'])} (relative {err[0]:.2e} / {err[1]:.2e}, limit "
+          f"{PIPE_TP_TOL})", flush=True)
+    for r in ranks:
+        rec = r["1f1b"]
+        ref = by_stage[rec["stage"]]["1f1b"]
+        sp = _pipe_split(rec, a26["transfer_ms"], a26["transfer_bytes"])
+        ref_ms = _pipe_split(ref, a26["transfer_ms"], a26["transfer_bytes"])["step"]
+        tokens = " (its inputs are token ids)" if rec["stage"] == 0 else ""
+        print(f"[pipe-tp-a] stage {rec['stage']} tp {r['tp_rank']}{tokens}: "
+              f"{rec['param_bytes'] / 2**20:.1f} MiB of parameters "
+              f"({rec['param_bytes'] / ref['param_bytes']:.3f} of the pp 2 stage's "
+              f"{ref['param_bytes'] / 2**20:.1f}); {sp['step']:.1f} ms/step (steps "
+              f"2-{PIPE_STEPS}; pp 2: {ref_ms:.1f}): compute {sp['compute']:.1f}, P2P "
+              f"{sp['p2p']:.1f}, the rest {sp['other']:.1f}; pipe_stats {rec['stats'][-1]}; "
+              f"tp_reduce staged {rec['staged'].get('tp_reduce', 0) / PIPE_STEPS / 2**20:.1f} "
+              f"MiB a step (all ops {sum(rec['staged'].values()) / PIPE_STEPS / 2**20:.1f}); "
+              f"peak {rec['peak_gb']:.2f} GB (pp 2: {ref['peak_gb']:.2f}); launches "
+              f"{rec['launches']}", flush=True)
+
+    # (b): Llama-2-7B's width at pp 2 x tp 2 against 26 (c)'s pp 2 step
+    for r in ranks:
+        rec, ref = r["llama"], by_stage[r["llama"]["stage"]]["llama"]
+        ratio = rec["peak_gb"] / ref["peak_gb"]
+        if _rel_max(rec["losses"], ref["losses"]) > PIPE_TP_TOL \
+                or _rel_max(rec["norms"], ref["norms"]) > PIPE_TP_TOL or ratio > 0.7:
+            raise AssertionError(f"pp x tp (b) stage {rec['stage']} tp {r['tp_rank']}: "
+                                 f"{rec['losses']} / {rec['norms']}, peak {rec['peak_gb']} GB "
+                                 f"vs pp 2 {ref['losses']} / {ref['norms']}, {ref['peak_gb']} GB")
+        for k in kernels:
+            if rec["launches"].get(k, 0) < 1:
+                raise AssertionError(f"pp x tp (b) never launched {k}: {rec['launches']}")
+    lb = ranks[0]["llama"]
+    peaks = ", ".join(f"stage {r['llama']['stage']} tp {r['tp_rank']} "
+                      f"{r['llama']['peak_gb']:.2f} GB" for r in ranks)
+    mib = ", ".join(f"{r['llama']['param_bytes'] / 2**20:.0f}" for r in ranks)
+    print(f"[pipe-tp-b] Llama-2-7B width (H 4096, 16 query heads a rank), "
+          f"{PIPE_LLAMA_LAYERS} layers, pp {PIPE_WORLD} x tp {PIPE_TP}, {PIPE_LLAMA_ROWS} x "
+          f"{TRAIN_SEQ} in {PIPE_LLAMA_GAS} microbatches: loss {lb['losses'][0]:.4f}, grad "
+          f"norm {lb['norms'][0]:.4f} against pp 2's {a26['llama']['losses'][0]:.4f} / "
+          f"{a26['llama']['norms'][0]:.4f}; {lb['ms'][0]:.1f} ms (one step); peaks {peaks} "
+          f"against pp 2's {a26['llama']['peak_gb']:.2f} / {b26['llama']['peak_gb']:.2f} GB "
+          f"({mib} MiB of parameters a rank)", flush=True)
+
+    # (c): the host update at pp 2 against 26 (a)'s device update
+    host_err = max(_rel_max(r["host"]["losses"], a26["1f1b"]["losses"]) for r in (a26, b26))
+    for r in (a26, b26):
+        rec = r["host"]
+        if _rel_max(rec["losses"], a26["1f1b"]["losses"]) > PIPE_HOST_TOL:
+            raise AssertionError(f"pipeline host update (c) stage {rec['stage']}: "
+                                 f"{rec['losses']} vs the device update {a26['1f1b']['losses']}")
+        for k in kernels:
+            if rec["launches"].get(k, 0) < 1:
+                raise AssertionError(f"pipeline host update (c) never launched {k}: "
+                                     f"{rec['launches']}")
+        if rec["launches"].get("fused_adam", 0) or not rec["offload"]:
+            raise AssertionError(f"pipeline host update (c): {rec['launches']} "
+                                 f"{rec['offload']}")
+    splits = []
+    for r in (a26, b26):
+        off, ms = r["host"]["offload"], r["host"]["ms"]
+        dev = r["1f1b"]["ms"]
+        splits.append(f"stage {r['host']['stage']}: host Adam {off['adam_s']:.3f} s over "
+                      f"{off['adam_elements'] / 1e6:.1f}M elements, D2H "
+                      f"{off['d2h_s'] * 1e3:.1f} ms, H2D {off['h2d_s'] * 1e3:.1f} ms, "
+                      f"{sum(ms[1:]) / (len(ms) - 1):.1f} ms/step (device update "
+                      f"{sum(dev[1:]) / (len(dev) - 1):.1f})")
+    print(f"[pipe-tp-c] Pythia-160M bf16 at pp {PIPE_WORLD}, host update (native CPU Adam "
+          f"over each stage's host masters): losses {fmt(a26['host']['losses'])} against "
+          f"the device update's {fmt(a26['1f1b']['losses'])} (relative {host_err:.2e}, limit "
+          f"{PIPE_HOST_TOL}); " + "; ".join(splits), flush=True)
+
+    # (d): the chunk stream over the stage model, bit for bit the flat one's
+    pipe, flat = inf["pipe"], inf["flat"]
+    same = pipe["losses"] == flat["losses"] and pipe["chunks"] == PIPE_INF_STAGES and all(
+        len(pipe["masters"][u]) == len(flat["masters"][u])
+        and all(torch.equal(x, y) for x, y in zip(pipe["masters"][u], flat["masters"][u]))
+        for u in flat["masters"])
+    if not same or set(pipe["masters"]) != set(flat["masters"]):
+        raise AssertionError(f"ZeRO-Infinity over GPTNeoXPipe: {pipe['losses']} vs the flat "
+                             f"stream's {flat['losses']}")
+    for k in kernels:
+        if pipe["launches"].get(k, 0) < 1:
+            raise AssertionError(f"ZeRO-Infinity over GPTNeoXPipe never launched {k}: "
+                                 f"{pipe['launches']}")
+    s = pipe["stats"]
+    print(f"[pipe-tp-d] ZeRO-Infinity over GPTNeoXPipe(Pythia-160M, {PIPE_INF_STAGES} stages), "
+          f"bf16, a chunk a stage: losses {', '.join(f'{x:.6f}' for x in pipe['losses'])} "
+          f"equal the flat stream's at num_chunks={PIPE_INF_STAGES} bit for bit, and every "
+          f"unit's masters; {', '.join(f'{x:.3f}' for x in pipe['secs'])} s/step (flat "
+          f"{', '.join(f'{x:.3f}' for x in flat['secs'])}; spilled in {pipe['init_s']:.1f} / "
+          f"{flat['init_s']:.1f} s); peak device parameter bytes "
+          f"{s['peak_device_param_bytes'] / 1e6:.1f} MB of {s['total_param_bytes'] / 1e6:.1f} MB; "
+          f"{s['bytes_read'] / 1e9:.3f} GB read, {s['bytes_written'] / 1e9:.3f} GB written, "
+          f"{s['io_wait_s']:.2f} s waited", flush=True)
+    return {"pipe-tp": _summed_launches([r["1f1b"] for r in ranks]),
+            "pipe-tp-llama": _summed_launches([r["llama"] for r in ranks]),
+            "pipe-host": _summed_launches([a26["host"], b26["host"]]),
+            "infinity-pipe": pipe["launches"]}
 
 
 def main():
@@ -5555,6 +5837,8 @@ def main():
         return pipe_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     if sys.argv[1:2] == ["--pipe-dp-worker"]:
         return pipe_dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if sys.argv[1:2] == ["--pipe-tp-worker"]:
+        return pipe_tp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     import numpy as np
 
     from deeperspeed_tpu_torch.ops import cuda_utils
@@ -5610,7 +5894,7 @@ def main():
 
 
 def _phases(torch, np, cuda_utils, card, t_start):
-    """Phases 3-26 and the summary lines, after the build."""
+    """Phases 3-27 and the summary lines, after the build."""
 
     def timed(label, fn, *args):
         t = time.perf_counter()
@@ -5667,7 +5951,9 @@ def _phases(torch, np, cuda_utils, card, t_start):
     paths.update(offload)
     paths.update(timed("phase 25", phase_planners, torch, np, L, card, dp_ranks, inf))
     del inf
-    paths.update(timed("phase 26", phase_pipeline, torch, np, card))
+    pipe_paths, p26 = timed("phase 26", phase_pipeline, torch, np, card)
+    paths.update(pipe_paths)
+    paths.update(timed("phase 27", phase_pipe_tp, torch, np, card, p26))
 
     sources = {
         "layer_norm": ("deeperspeed_tpu_torch/csrc/layer_norm.cu",

@@ -1033,17 +1033,19 @@ def _stack_stage_trees(per_stage):
     return tree_sorted(stack(rows))
 
 
-def pipe_params_from_jax(tree, stage_id, num_stages=None) -> dict:
+def pipe_params_from_jax(tree, stage_id, num_stages=None, tp_rank=0, tp_size=1) -> dict:
     """Stage ``stage_id``'s state dict for ``GPTNeoXPipe`` from the JAX
     ``GPTNeoXPipe``'s ``{embed, stages, head}`` tree (nested dicts of numpy
     arrays): its blocks as ``layers.<j>`` (local index), ``embed_in`` on the
     first stage, ``final_layer_norm`` and ``embed_out`` on the last.  The
     model is cut into ``num_stages`` (by default the tree's own), so a tree
-    saved at one ``pp`` loads at another."""
+    saved at one ``pp`` loads at another; with ``tp_size`` > 1 each
+    parameter :data:`TP_RULES` splits is tp rank ``tp_rank``'s slice of it,
+    as the pipeline engine splits a stage (:func:`params_from_jax`)."""
     n_stages = num_stages or next(iter(_leaves_of(tree["stages"]))).shape[0]
     flat = {**tree["embed"], **tree["head"],
             **_stacked_layers(tree["stages"], stage_id, n_stages)}
-    sd = params_from_jax(flat)
+    sd = params_from_jax(flat, tp_rank=tp_rank, tp_size=tp_size)
     if stage_id != 0:
         del sd["embed_in.weight"]
     if stage_id != n_stages - 1:
@@ -1055,7 +1057,8 @@ def pipe_params_from_jax(tree, stage_id, num_stages=None) -> dict:
 def pipe_params_to_jax(stage_dicts) -> dict:
     """The JAX ``GPTNeoXPipe``'s ``{embed, stages, head}`` tree from every
     stage's state dict (or per-parameter tree), in stage order: the exact
-    inverse of :func:`pipe_params_from_jax`."""
+    inverse of :func:`pipe_params_from_jax`.  A stage's entry may be a list
+    of its tp ranks' dicts in rank order (:func:`join_tensor_parallel`)."""
     trees = [params_to_jax(sd) for sd in stage_dicts]
     first, last = trees[0], trees[-1]
     return {"embed": {"embed_in": first["embed_in"]},

@@ -21,7 +21,7 @@ import math
 import torch.nn.functional as F
 from torch import nn
 
-from .gpt_neox import (GPTNeoX, GPTNeoXBlock, _remat_block, pipe_params_from_jax,
+from .gpt_neox import (TP_RULES, GPTNeoX, GPTNeoXBlock, _remat_block, pipe_params_from_jax,
                        pipe_params_to_jax)
 from .pipe_base import StagePipeBase
 
@@ -31,6 +31,7 @@ class GPTNeoXPipe(StagePipeBase):
     EMBED = ("embed_in",)
     HEAD = ("final_layer_norm", "embed_out")
     NO_CAST = [r"embed_in\.weight"]
+    TP_RULES = TP_RULES
 
     def __init__(self, config, num_stages, device=None, seed=0, draw_on_device=False):
         if config.has_moe:

@@ -629,17 +629,19 @@ _EMBED_NAMES = ("embed_tokens.", "embed_positions.")
 _HEAD_NAMES = ("final_norm.", "lm_head.")
 
 
-def pipe_params_from_jax(tree, stage_id, num_stages=None) -> dict:
+def pipe_params_from_jax(tree, stage_id, num_stages=None, tp_rank=0, tp_size=1) -> dict:
     """Stage ``stage_id``'s state dict for ``LlamaPipe`` from the JAX
     ``LlamaPipe``'s ``{embed, stages, head}`` tree: its blocks as
     ``layers.<j>`` (local index), the embeddings on the first stage, the
     final norm and ``lm_head`` on the last; cut into ``num_stages`` (by
-    default the tree's own)."""
+    default the tree's own); with ``tp_size`` > 1, tp rank ``tp_rank``'s
+    slices (:func:`params_from_jax`)."""
     from .gpt_neox import _leaves_of, _stacked_layers
 
     n_stages = num_stages or next(iter(_leaves_of(tree["stages"]))).shape[0]
     sd = params_from_jax({**tree["embed"], **tree["head"],
-                          **_stacked_layers(tree["stages"], stage_id, n_stages)})
+                          **_stacked_layers(tree["stages"], stage_id, n_stages)},
+                         tp_rank=tp_rank, tp_size=tp_size)
     keep = lambda n: ((stage_id == 0 or not n.startswith(_EMBED_NAMES))
                       and (stage_id == n_stages - 1 or not n.startswith(_HEAD_NAMES)))
     return {n: t for n, t in sd.items() if keep(n)}
@@ -648,7 +650,8 @@ def pipe_params_from_jax(tree, stage_id, num_stages=None) -> dict:
 def pipe_params_to_jax(stage_dicts) -> dict:
     """The JAX ``LlamaPipe``'s ``{embed, stages, head}`` tree from every
     stage's state dict, in stage order (the inverse of
-    :func:`pipe_params_from_jax`)."""
+    :func:`pipe_params_from_jax`); a stage's entry may be a list of its tp
+    ranks' dicts in rank order."""
     from .gpt_neox import _stack_stage_trees
 
     trees = [params_to_jax(sd) for sd in stage_dicts]

@@ -11,7 +11,7 @@ are refused, as in the JAX package.
 
 import torch
 
-from .llama import Llama, pipe_params_from_jax, pipe_params_to_jax
+from .llama import TP_RULES, Llama, pipe_params_from_jax, pipe_params_to_jax
 from .pipe_base import StagePipeBase
 from ..utils.recompute import checkpoint_replaying
 
@@ -21,6 +21,7 @@ class LlamaPipe(StagePipeBase):
     EMBED = ("embed_tokens", "embed_positions")
     HEAD = ("final_norm", "lm_head")
     NO_CAST = [r"embed_tokens\.weight", r"embed_positions\.weight"]
+    TP_RULES = TP_RULES
 
     def __init__(self, config, num_stages, device=None, seed=0):
         if config.tie_embeddings:

@@ -17,24 +17,45 @@ checkpoints hold that tree (:meth:`PipeStage.to_reference_tree` gathers it
 over the ``pp`` group), and ``pipe_params_from_jax`` /
 ``pipe_params_to_jax`` of each family carry it to one stage's state dict
 and back.
+
+Under tensor parallelism (pp x tp) the engine splits a stage in place by
+:meth:`PipeStage.param_partition_rules`, the flat model's rules on the
+stage's own parameters: its blocks as the flat model's, the first stage's
+embedding vocabulary-parallel (the JAX pipeline keeps that table whole; the
+lookups are equal), the last stage's head column-parallel over the
+vocabulary, whose loss is the vocabulary-parallel cross entropy.
 """
+
+import re
 
 import torch
 from torch import nn
 
 from .. import comm
 from ..accelerator import resolve_device
+from ..parallel.tensor_parallel import (ColumnParallelLinear, gather_from_tensor_parallel,
+                                        vocab_parallel_log_likelihood)
 
 
-def loss_from_logits(logits, labels, loss_mask=None):
-    """Masked mean next-token cross entropy over fp32 logits: logsumexp
-    minus the gold logit (the JAX package's ``loss_from_logits``)."""
-    logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    token_ll = gold - lse
+def _masked_mean(token_ll, loss_mask):
     mask = torch.ones_like(token_ll) if loss_mask is None else loss_mask.to(token_ll.dtype)
     return -(token_ll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def loss_from_logits(logits, labels, loss_mask=None, split=None):
+    """Masked mean next-token cross entropy over fp32 logits: logsumexp
+    minus the gold logit (the JAX package's ``loss_from_logits``).  With
+    ``split = (group, start)`` the logits are a tp rank's slice of the
+    vocabulary, ``[start, start + V/tp)``, and the cross entropy is the
+    vocabulary-parallel one (the JAX version's one-hot masked sum over a
+    tp-sharded head: each slice adds its part, summed over ``tp``)."""
+    logits = logits.to(torch.float32)
+    if split is not None:
+        return _masked_mean(vocab_parallel_log_likelihood(logits, labels.long(), *split),
+                            loss_mask)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return _masked_mean(gold - lse, loss_mask)
 
 
 class PipeStage(nn.Module):
@@ -80,11 +101,40 @@ class PipeStage(nn.Module):
         positions = torch.arange(S, device=x.device).expand(B, S)
         return self.stage_forward(x, positions, rng)
 
+    def _head_split(self):
+        """(group, start) of the last stage's vocabulary-parallel head, or
+        None where it is whole."""
+        head = getattr(self, self.spec.HEAD[-1], None)
+        if isinstance(head, ColumnParallelLinear):
+            return head.group, head.out_start
+        return None
+
     def stage_loss(self, y, mb):
-        return self.loss_from_logits(self.head(y), mb["labels"], mb.get("loss_mask"))
+        return self.loss_from_logits(self.head(y), mb["labels"], mb.get("loss_mask"),
+                                     self._head_split())
 
     def stage_output(self, y):
-        return self.head(y)
+        """The last stage's logits, whole (joined over ``tp``)."""
+        logits, split = self.head(y), self._head_split()
+        return logits if split is None else gather_from_tensor_parallel(logits, split[0])
+
+    # ------------------------------------------------- tensor parallelism
+    def param_partition_rules(self):
+        """The flat model's tensor-parallel rules restricted to this
+        stage's parameters: the engine's ``shard_module`` splits a stage's
+        blocks, its embedding (vocabulary-parallel, stage 0) and its head
+        (column-parallel over the vocabulary, the last stage) as it splits
+        the flat model."""
+        names = [n for n, _ in self.named_parameters()]
+        return [rule for rule in self.spec.TP_RULES
+                if any(re.search(rule[0], n) for n in names)]
+
+    def check_tensor_parallel(self, tp):
+        """The flat model's check that ``tp`` splits the heads whole
+        (Llama's KV heads), on this stage's config."""
+        check = getattr(self.spec.FLAT, "check_tensor_parallel", None)
+        if check is not None:
+            check(self, tp)
 
     # ------------------------------------------------------------- engine
     def replace_config(self, **changes):
@@ -130,6 +180,7 @@ class StagePipeBase:
     EMBED = ()
     HEAD = ()
     NO_CAST = []
+    TP_RULES = []
 
     def __init__(self, config, num_stages, device=None, seed=0):
         if config.num_layers % num_stages:

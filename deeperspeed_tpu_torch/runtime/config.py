@@ -99,6 +99,24 @@ def _not_ported(what, item):
         f"{what} is not ported yet (ROADMAP Queue A, '{item}')")
 
 
+def pipe_auto_refusal():
+    """``comm.overlap.schedule.mode: auto`` over a pipeline: the cost-model
+    schedule of a pipeline waits for a reference whose own ``auto`` path
+    runs (the JAX engines' ``auto`` fails on the jax it is held against)."""
+    return NotImplementedError(
+        "comm.overlap.schedule.mode 'auto' over a pipeline is not ported yet "
+        "(ROADMAP Queue A, 'Pipelines'): it waits for a reference whose own 'auto' "
+        "path runs")
+
+
+def pipe_compressed_refusal():
+    """qgZ and 1-bit Adam over a pipeline: the reference does not run them."""
+    return NotImplementedError(
+        "the compressed gradient reductions (qgZ, 1-bit Adam) over a pipeline are not "
+        "supported: the reference does not run them (the JAX PipelineEngine fails on "
+        "both with a TypeError)")
+
+
 class OptimizerParams(DeeperSpeedConfigModel):
     lr: float = 1e-3
     betas: List[float] = [0.9, 0.999]
@@ -388,6 +406,7 @@ class DeeperSpeedConfig:
                                   _ROADMAP.get(key, "The rest of the surface"))
 
         self.mesh_config = self._mesh(pd.get("mesh", {}))
+        self._pipe_auto(self.mesh_config, pd.get("comm", {}))
         self._zero(dict(pd.get(ZERO_OPTIMIZATION, {})))
         if world_size is None:
             world, tp = _world_size(), self.mesh_config.model_parallel_size
@@ -463,10 +482,16 @@ class DeeperSpeedConfig:
         for key, item in _MESH_ITEMS.items():
             if getattr(mesh, key) != 1:
                 raise _not_ported(f"mesh.{key} {getattr(mesh, key)}", item)
-        if mesh.pipe_parallel_size > 1 and mesh.model_parallel_size > 1:
-            raise _not_ported("pp x tp (mesh.pipe_parallel_size with model_parallel_size; "
-                              "ROADMAP Queue A 5b)", "Pipelines")
         return mesh
+
+    @staticmethod
+    def _pipe_auto(mesh, comm):
+        """Refuse the cost-model schedule over a pipeline before the layout
+        is resolved (:func:`pipe_auto_refusal`)."""
+        overlap = dict(comm.get("overlap", {}))
+        mode = dict(overlap.get("schedule", {})).get("mode", "manual")
+        if mesh.pipe_parallel_size > 1 and overlap.get("enabled") and mode == "auto":
+            raise pipe_auto_refusal()
 
     def _zero(self, zero):
         """``zero_optimization``: the stage and what it reads."""

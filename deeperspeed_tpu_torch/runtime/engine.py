@@ -479,7 +479,7 @@ class DeeperSpeedEngine:
 
             self._opt_swapper = OptimizerStateSwapper(
                 os.path.join(off.nvme_path, "zero_opt_swap"), num_threads=off.buffer_count,
-                pipeline_write=off.pipeline_write)
+                pipeline_write=off.pipeline_write, owner=f"rank{comm.get_rank()}")
 
     def _init_host_update(self):
         """The host update's refusals, in the JAX engine's terms
@@ -496,7 +496,7 @@ class DeeperSpeedEngine:
         if self.precision.is_fp16:
             raise NotImplementedError("host_update does not compose with fp16 dynamic "
                                       "scaling; use bf16 (masters are fp32 on host either way)")
-        if comm.get_world_size() > 1:
+        if self._update_processes() > 1:
             raise NotImplementedError("host_update is single-process (grads fetch to one host)")
         opt = cfg.optimizer
         opt_type = opt.type.lower() if opt else ADAM_OPTIMIZER
@@ -508,6 +508,11 @@ class DeeperSpeedEngine:
                                              adamw_mode=opt_type == ADAMW_OPTIMIZER)
         self._wire_dtype = (torch.bfloat16 if cfg.offload_optimizer.wire_dtype == "bf16"
                             else torch.float32)
+
+    def _update_processes(self):
+        """The processes that update one copy of the model together: the
+        world (a pipeline engine: its stage's processes)."""
+        return comm.get_world_size()
 
     def _init_offload_state(self):
         """Host update: the moments, the gradients' landing buffer and the

@@ -33,18 +33,28 @@ The contract the JAX package's compiled pipelines keep, kept here:
 
 Each stage is a flat engine over its own parameters (``runtime/engine.py``):
 the fp32 masters, ZeRO 0-2 over the stage's data-parallel group, the
-optimizer, fp16 loss scaling.  The global gradient norm (the clip) sums the
-stages' squares over the ``pp`` group, and an fp16 overflow on any stage
-skips the step on every stage.  Refused, as in the JAX package: ZeRO
-stage 3, progressive layer drop, random-LTD, compression, and the
-micro-level ``forward`` / ``backward`` / ``step``; and, until ROADMAP
-Queue A 5b: ``pp x tp``, the offload tiers and the compressed gradient
-reductions over a pipeline.
+optimizer, fp16 loss scaling, and ``offload_optimizer``: the host update
+(ZeRO-0) or the pinned-host and NVMe tiers of the optimizer state, each
+stage process over its own stage.  Under ``tp`` (pp x tp, GPT-NeoX's 3-D
+layout) a stage's blocks, its vocabulary-parallel embedding and head split
+over the stage's tp group as the flat model splits
+(``PipeStage.param_partition_rules``); stage ``s``'s tp rank ``t`` sends to
+stage ``s + 1``'s tp rank ``t`` (the activation is whole after the
+row-parallel reduce, so each tp rank sends its copy).  The global gradient
+norm (the clip) sums the squares over the tp ranks (split parameters'
+slices; whole ones once), the partitions and the ``pp`` group, and an fp16
+overflow on any stage skips the step on every stage.  Refused, as in the
+JAX package: ZeRO stage 3, progressive layer drop, random-LTD,
+compression, and the micro-level ``forward`` / ``backward`` / ``step``;
+and what the reference does not run: qgZ and 1-bit Adam over a pipeline
+(the JAX ``PipelineEngine`` fails on both) and
+``comm.overlap.schedule.mode: auto`` over one (it waits for a reference
+whose own ``auto`` path runs).
 
 Checkpoints are the flat engine's files with the JAX ``PipelineEngine``'s
 parameter tree, ``{embed, stages, head}`` with stacked ``stages`` leaves
-(the stage module gathers it over ``pp``), so either package and any
-``pp`` loads them.
+(the stage module gathers it over ``pp``, the engine joins the tp slices),
+so either package and any ``pp`` and ``tp`` loads them.
 """
 
 import math
@@ -55,7 +65,7 @@ import torch
 from ... import comm
 from ...parallel import topology as topo
 from ...utils.logging import log_dist
-from ..config import DeeperSpeedConfig, _not_ported
+from ..config import DeeperSpeedConfig, pipe_auto_refusal, pipe_compressed_refusal
 from ..engine import DeeperSpeedEngine
 from . import schedule as sched
 from .module import PipelineModule
@@ -66,11 +76,17 @@ _MICRO_API = ("Only train_batch() and eval_batch() are accessible on a pipeline 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64,
            torch.int64, torch.int32, torch.uint8, torch.bool)
 _META = 10          # int64 entries of a shape message: ndim, dtype, dims
-_ITEM = "Pipelines"
 
 
 class PipelineError(RuntimeError):
     pass
+
+
+def _squares(tensors, like):
+    """The summed squares of ``tensors`` (0 for none), a scalar."""
+    if not tensors:
+        return like.new_zeros(())
+    return torch.stack(torch._foreach_norm(tensors)).square().sum()
 
 
 def _unused_loss(model, batch, rng=None, **_):
@@ -152,19 +168,16 @@ class PipelineEngine(DeeperSpeedEngine):
                 "(per-microbatch param gathers would serialize the "
                 "interleave); use stage <= 2 here, or the flat engine for "
                 "stage 3 (the reference likewise restricts PP to stage <= 2)")
-        if mesh.tp > 1:
-            raise _not_ported("pp x tp (ROADMAP Queue A 5b)", _ITEM)
-        if config.offload_optimizer is not None or config.offload_param is not None:
-            raise _not_ported("ZeRO-Infinity and the offload tiers over a pipeline "
-                              "(ROADMAP Queue A 5b)", _ITEM)
         opt = (config.optimizer.type.lower() if config.optimizer is not None else "")
         if (config.comm_quantized.enabled or config.zero_quantized_gradients
                 or opt == "onebitadam"):
-            raise _not_ported("the compressed gradient reductions (qgZ, 1-bit Adam) "
-                              "over a pipeline (ROADMAP Queue A 5b)", _ITEM)
+            raise pipe_compressed_refusal()
         if config.comm_overlap.enabled and config.comm_overlap.schedule.mode == "auto":
-            raise _not_ported("comm.overlap.schedule.mode 'auto' over a pipeline "
-                              "(ROADMAP Queue A 5b)", _ITEM)
+            raise pipe_auto_refusal()
+
+    def _update_processes(self):
+        """A stage's processes: the host update runs on each stage alone."""
+        return comm.get_world_size() // self.num_stages
 
     # ------------------------------------------------ the reference API
     def forward(self, *args, **kwargs):
@@ -431,26 +444,41 @@ class PipelineEngine(DeeperSpeedEngine):
         """The flat engine's record of the gradient reduction, plus the
         pipeline's analytic P2P bytes (the JAX ``_record_pipe_wire``): per
         batch ``2 (M + S - 1)`` messages of one activation of this rank's
-        rows (``B S H itemsize`` for a transformer)."""
+        rows (``B S H itemsize`` for a transformer).  Under ``tp`` each tp
+        rank sends its copy of the whole activation; the record counts it
+        once, on tp rank 0, as the norm counts a whole parameter once, so
+        that the records summed over the ranks are the JAX mesh's."""
         super()._record_grad_reduce_wire(divisor)
         S = self.num_stages
         act = getattr(self, "_act", None)
-        if S > 1 and act is not None and comm.comms_logger._capturing:
+        if (S > 1 and act is not None and comm.comms_logger._capturing
+                and self.tp_group.rank() == 0):
             nbytes, name = act
             ticks = divisor + S - 1
             comm.comms_logger.record("pipe_ppermute", 2.0 * ticks * nbytes, S,
                                      variant=name, count=2 * ticks)
 
     def _global_norm(self, g):
-        """The L2 norm of the whole model's gradient: this stage's squares
-        (summed over its ZeRO partitions) summed over the ``pp`` group, a
-        tied weight's replicas counted once."""
-        sq = torch.dot(g, g).reshape(1)
+        """The L2 norm of the whole model's gradient: this stage's squares,
+        summed over its ZeRO partitions and, under ``tp``, over the tp ranks
+        (the split parameters' slices summed, a whole parameter taken once),
+        then summed over the ``pp`` group; a tied weight's replicas counted
+        once."""
         extra = self._replica_sq()
-        if extra is not None:
-            sq = sq - extra
-        if self._partitioned():
-            comm.all_reduce(sq, group=self._part_group)
+        if self.tp_group.size() > 1:
+            sq = torch.stack([_squares([t for n, t in self.grads.items() if split
+                                        == (n in self._tp_dims)], g)
+                              for split in (True, False)])
+            if extra is not None:
+                sq[1] -= extra[0]
+            split = torch.tensor([True, False], device=sq.device)
+            sq = self._sum_whole(sq, split).sum().reshape(1)
+        else:
+            sq = torch.dot(g, g).reshape(1)
+            if extra is not None:
+                sq = sq - extra
+            if self._partitioned():
+                comm.all_reduce(sq, group=self._part_group)
         if self.num_stages > 1:
             comm.all_reduce(sq, group=self.pipe_group)
         return torch.sqrt(sq.clamp(min=0.0))[0]

@@ -16,7 +16,9 @@ after the update the owner's weights are broadcast back to the others.
 The global norm counts the tie once, on its owner.
 
 ZeRO 1-2 partition each stage's masters and optimizer state over its
-data-parallel group; stage 3 is refused.  ``eval_batch(...,
+data-parallel group; stage 3 is refused.  At ``tp`` > 1 the layers are not
+split: each tp rank runs its stage whole on the same rows, as the JAX
+engine does, so the losses are tp 1's.  ``eval_batch(...,
 compute_loss=True, bcast_loss=True)`` and the curriculum's seqlen
 truncation are :class:`PipelineEngine`'s.
 
@@ -109,6 +111,12 @@ class InterpretedStage(nn.Module):
 
     def stage_output(self, y):
         return y
+
+    def param_partition_rules(self):
+        """None: at ``tp`` > 1 a stage's layers run whole on every tp rank,
+        replicated, as the JAX engine keeps them (its
+        ``_init_params_and_ties`` shards them over the ZeRO axes only)."""
+        return []
 
     # ---------------------------------------------------------- checkpoints
     def _local_tree(self, flat):

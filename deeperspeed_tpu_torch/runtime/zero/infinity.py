@@ -4,11 +4,14 @@
 Every tensor of persistent state -- the compute-dtype parameters, the fp32
 masters and the Adam moments -- lives on disk between uses, written and
 read through the native aio pool (``ops/aio``); the device holds one unit
-of the model at a time.  The JAX engine chunks a stacked pipeline model;
-here the units are cut from the port's flat model (``GPTNeoX`` or
-``Llama``): ``embed`` (the input embedding, and OPT's positions), the
-block list in ``num_chunks`` contiguous groups ``c0 .. c{n-1}``, and
-``head`` (the final norm and the output projection).  Each unit's
+of the model at a time.  The units are cut from the port's flat model
+(``GPTNeoX`` or ``Llama``) or, as the JAX engine chunks it, from a stage
+model (``GPTNeoXPipe``, ``LlamaPipe``; its ``num_stages`` stages, all built
+in this process, and no pipeline): ``embed`` (the input embedding, and
+OPT's positions), the block list in ``num_chunks`` contiguous groups
+``c0 .. c{n-1}`` (a stage model's: stage ``s``'s blocks in ``c<s>``), and
+``head`` (the final norm and the output projection).  Tied embeddings are
+refused either way, as ``LlamaPipe`` refuses them.  Each unit's
 parameters are one flat buffer a kind (``bf16``, the compute copy;
 ``master``; ``mu``; ``nu``; ``grad``, the accumulation), one file each.
 
@@ -59,6 +62,7 @@ import time
 import weakref
 
 import torch
+from torch import nn
 
 from ...accelerator import resolve_device
 from ...utils.logging import log_dist
@@ -136,12 +140,39 @@ class _ChunkStore:
         self._cleanup()
 
 
+class _Stages(nn.Module):
+    """Every stage of a stage model (``GPTNeoXPipe``, ``LlamaPipe``), built
+    in one process: the chunk stream's model when it streams a stage model,
+    stage ``s``'s blocks its chunk ``c<s>`` (the JAX engine reuses the stage
+    axis as the streaming-chunk axis)."""
+
+    def __init__(self, spec):
+        super().__init__()
+        self.spec = spec
+        self.stages = nn.ModuleList(spec.build_stage(s) for s in range(spec.num_stages))
+
+    def flat_name(self, name):
+        """The flat model's name of the parameter ``name`` (``stages.<s>.
+        layers.<j>.*`` is block ``s * layers_per_stage + j``)."""
+        _, s, rest = name.split(".", 2)
+        if rest.startswith("layers."):
+            _, j, leaf = rest.split(".", 2)
+            return f"layers.{int(s) * self.spec.layers_per_stage + int(j)}.{leaf}"
+        return rest
+
+
 def _family(model):
     """The units' modules and the three pieces of the forward of a port
     model: (embed modules, blocks, head modules, embed(x), head(x))."""
     from ...models.gpt_neox import GPTNeoX
     from ...models.llama import Llama
 
+    if isinstance(model, _Stages):
+        first, last = model.stages[0], model.stages[-1]
+        return ([getattr(first, n) for n in model.spec.EMBED if hasattr(first, n)],
+                [blk for stage in model.stages for blk in stage.layers],
+                [getattr(last, n) for n in model.spec.HEAD],
+                lambda ids, pos: first.embed(ids), last.head)
     if isinstance(model, GPTNeoX):
         cfg = model.config
         return ([model.embed_in], list(model.layers),
@@ -198,12 +229,17 @@ class _Unit:
 
 
 class ZeroInfinityEngine:
-    """The chunk-streaming trainer over a port ``GPTNeoX`` or ``Llama``.
+    """The chunk-streaming trainer over a port ``GPTNeoX`` or ``Llama`` in
+    ``num_chunks`` chunks (2 by default), or over a stage model
+    (``GPTNeoXPipe``, ``LlamaPipe``) in ``num_stages`` chunks, each a
+    stage's blocks, with no pipeline processes: every stage is built here
+    (the JAX ``ZeroInfinityEngine`` streams the stacked stage model so).
 
-    ``params``: initial weights (name -> tensor, a state dict), else the
-    model's own.  ``device``: CUDA unless ``"cpu"``."""
+    ``params``: initial weights (name -> tensor, the flat model's state
+    dict, for a stage model too), else the model's own.  ``device``: CUDA
+    unless ``"cpu"``."""
 
-    def __init__(self, model, nvme_path, num_chunks=2, lr=1e-3, betas=(0.9, 0.999),
+    def __init__(self, model, nvme_path, num_chunks=None, lr=1e-3, betas=(0.9, 0.999),
                  eps=1e-8, weight_decay=0.0, compute_dtype=torch.bfloat16, swap_threads=4,
                  memory_schedule="static", hbm_budget_bytes=None, params=None, device=None,
                  h2d_bytes_per_s=None, calibration=None):
@@ -212,6 +248,12 @@ class ZeroInfinityEngine:
         if memory_schedule not in ("auto", "static", "off"):
             raise ValueError(f"memory_schedule must be auto|static|off, got {memory_schedule!r}")
         self.device = resolve_device(device)
+        if hasattr(model, "build_stage"):
+            if num_chunks not in (None, model.num_stages):
+                raise ValueError(f"a stage model streams in its {model.num_stages} stages, "
+                                 f"not {num_chunks} chunks")
+            num_chunks, model = model.num_stages, _Stages(model)
+        num_chunks = 2 if num_chunks is None else num_chunks
         self.model = model
         self.compute_dtype = compute_dtype
         self.memory_schedule = memory_schedule
@@ -249,7 +291,8 @@ class ZeroInfinityEngine:
         # (the pool holds the buffers until its wait); the moments start at
         # zero and reach the disk at the unit's first update
         self.store = _ChunkStore(nvme_path, num_threads=swap_threads, pin=self._pin)
-        names = {id(p): n for n, p in model.named_parameters()}
+        rename = model.flat_name if isinstance(model, _Stages) else (lambda n: n)
+        names = {id(p): rename(n) for n, p in model.named_parameters()}
         given = params
         for unit in self.units.values():
             master = torch.empty(unit.numel, dtype=torch.float32, pin_memory=self._pin)

@@ -32,6 +32,11 @@ from deeperspeed_tpu_torch.runtime import checkpointing as ck
 from deeperspeed_tpu_torch.runtime.checkpoint_engine import checkpoint_engine as ce
 from deeperspeed_tpu_torch.runtime.config import CheckpointConfig, DeeperSpeedConfig
 
+# one intra-op thread: the suite's workers share the host's cores, and
+# torch's default (a thread a core) makes their threads spin against
+# each other's
+torch.set_num_threads(1)
+
 CONFIG = {"train_batch_size": 16, "gradient_accumulation_steps": 2,
           "gradient_clipping": 1.0,
           "optimizer": {"type": "Adam", "params": {"lr": 1e-3}}}

@@ -27,6 +27,11 @@ from deeperspeed_tpu_torch.parallel import MeshTopology, ProcessTopology
 from deeperspeed_tpu_torch.runtime.zero import quantized
 from torch_dp_worker import spawn
 
+# one intra-op thread: the suite's workers share the host's cores, and
+# torch's default (a thread a core) makes their threads spin against
+# each other's
+torch.set_num_threads(1)
+
 # name: (op, wire, per-rank input shape, reduce op)
 CASES = {
     "ar-int8-sum": ("all_reduce_quantized", "int8", (301,), "sum"),

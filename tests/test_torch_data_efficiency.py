@@ -41,6 +41,11 @@ from deeperspeed_tpu_torch.runtime.data_pipeline.data_sampling import data_analy
 from deeperspeed_tpu_torch.runtime.data_pipeline.data_sampling import data_sampler as tsampler
 from deeperspeed_tpu_torch.runtime.data_pipeline.data_sampling import indexed_dataset as tindexed
 
+# one intra-op thread: the suite's workers share the host's cores, and
+# torch's default (a thread a core) makes their threads spin against
+# each other's
+torch.set_num_threads(1)
+
 LOSS_TOL = 1e-5
 SCHEDULES = {
     "fixed_linear": {"total_curriculum_step": 40, "difficulty_step": 8},

@@ -17,6 +17,11 @@ from deeperspeed_tpu.quantization import BlockScaledTensor as JaxBlockScaled
 from deeperspeed_tpu_torch.ops.quantizer import fused
 from deeperspeed_tpu_torch.quantization import BlockScaledTensor
 
+# one intra-op thread: the suite's workers share the host's cores, and
+# torch's default (a thread a core) makes their threads spin against
+# each other's
+torch.set_num_threads(1)
+
 WIRES = ["int8", "fp8_e4m3", "fp8_e5m2"]
 
 

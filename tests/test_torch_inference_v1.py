@@ -37,6 +37,11 @@ from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig, Llama, LlamaCon
 from deeperspeed_tpu_torch.models import gpt_neox as neox_module
 from deeperspeed_tpu_torch.models import llama as llama_module
 
+# one intra-op thread: the suite's workers share the host's cores, and
+# torch's default (a thread a core) makes their threads spin against
+# each other's
+torch.set_num_threads(1)
+
 TOL = 1e-5
 FAMILIES = {
     "neox": (lambda: JaxGPTNeoX(JaxNeoXConfig.tiny(max_seq_len=64)),

@@ -30,6 +30,11 @@ from deeperspeed_tpu_torch.models import params_from_jax
 from deeperspeed_tpu_torch.models.llama import params_from_jax as llama_params_from_jax
 from deeperspeed_tpu_torch.runtime.zero.infinity import ZeroInfinityEngine
 
+# one intra-op thread: the suite's workers share the host's cores, and
+# torch's default (a thread a core) makes their threads spin against
+# each other's
+torch.set_num_threads(1)
+
 BATCH = GPTNeoX(GPTNeoXConfig.tiny(), device="cpu").example_batch(batch_size=8, seq_len=16)
 
 
@@ -170,3 +175,50 @@ def test_schedules_and_budget(pipe_weights, tmp_path):
     eng.close()
     with pytest.raises(ValueError, match="auto|static|off"):
         _engine(tmp_path / "bad", pipe_weights, memory_schedule="planned")
+
+
+@pytest.mark.parametrize("family", ["neox", "llama"])
+def test_stage_models_stream_in_their_stages(family, tmp_path):
+    """ZeRO-Infinity over ``GPTNeoXPipe`` / ``LlamaPipe`` (2 stages, a chunk
+    each, no pipeline processes): 3 steps against the JAX
+    ``ZeroInfinityEngine`` over the same stage model from its own init
+    (``PRNGKey(3)``) within this file's bound, and bit for bit the port's
+    flat stream at ``num_chunks = num_stages`` on the same weights (losses
+    and every unit's masters)."""
+    from deeperspeed_tpu.models.llama_pipe import LlamaPipe as JaxLlamaPipe
+    from deeperspeed_tpu.runtime.zero.infinity import ZeroInfinityEngine as JaxInfinity
+    from deeperspeed_tpu_torch.models import gpt_neox, llama
+    from deeperspeed_tpu_torch.models.gpt_neox_pipe import GPTNeoXPipe as PortNeoXPipe
+    from deeperspeed_tpu_torch.models.llama_pipe import LlamaPipe as PortLlamaPipe
+
+    if family == "neox":
+        jpipe, mod = GPTNeoXPipe(JaxConfig.tiny(), num_stages=2), gpt_neox
+        spec, flat = (PortNeoXPipe(GPTNeoXConfig.tiny(), 2, device="cpu"),
+                      GPTNeoX(GPTNeoXConfig.tiny(), device="cpu"))
+    else:
+        jpipe, mod = JaxLlamaPipe(JaxLlamaConfig.tiny(), num_stages=2), llama
+        spec, flat = (PortLlamaPipe(LlamaConfig.tiny(), 2, device="cpu"),
+                      Llama(LlamaConfig.tiny(), device="cpu"))
+    tree = jax.tree_util.tree_map(
+        np.asarray, jpipe.init(jax.random.PRNGKey(3), jnp.zeros((1, 8), jnp.int32))["params"])
+    weights = mod.pipe_params_from_jax(tree, 0, num_stages=1)
+    jeng = JaxInfinity(jpipe, nvme_path=str(tmp_path / "jax"), lr=1e-3,
+                       compute_dtype=jnp.float32, seed=3)
+    want = [float(jeng.train_batch({k: jnp.asarray(v.numpy()) for k, v in BATCH.items()}))
+            for _ in range(3)]
+    jeng.close()
+    engines = [ZeroInfinityEngine(model, nvme_path=str(tmp_path / name), lr=1e-3,
+                                  compute_dtype=torch.float32, params=weights, device="cpu",
+                                  **kw)
+               for name, model, kw in (("pipe", spec, {}), ("flat", flat, {"num_chunks": 2}))]
+    got = [[eng.train_batch(BATCH) for _ in range(3)] for eng in engines]
+    assert engines[0].chunks == 2 and got[0] == got[1]
+    np.testing.assert_allclose(got[0], want, rtol=2e-4, atol=2e-4)
+    assert got[0][-1] < got[0][0]
+    for name in ("embed", "c0", "c1", "head"):
+        for x, y in zip(*(eng.master(name) for eng in engines)):
+            assert torch.equal(x, y), name
+    for eng in engines:
+        eng.close()
+    with pytest.raises(ValueError, match="streams in its 2 stages, not 4 chunks"):
+        ZeroInfinityEngine(spec, nvme_path=str(tmp_path / "bad"), num_chunks=4, device="cpu")

@@ -43,6 +43,11 @@ from torch_dp_worker import start as start_workers
 from torch_layout_common import (BASE, STEPS, arrays_for, batches, by_run, config,
                                  jax_run)
 
+# one intra-op thread: the suite's workers share the host's cores, and
+# torch's default (a thread a core) makes their threads spin against
+# each other's
+torch.set_num_threads(1)
+
 
 # ------------------------------------------------------------------ tiling
 @pytest.mark.parametrize("splits", [(1, 1), (2, 3), (4, 2)])

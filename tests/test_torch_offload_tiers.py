@@ -19,6 +19,11 @@ from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
 from deeperspeed_tpu_torch.utils.tree import tree_leaves
 from torch_dp_worker import spawn
 
+# one intra-op thread: the suite's workers share the host's cores, and
+# torch's default (a thread a core) makes their threads spin against
+# each other's
+torch.set_num_threads(1)
+
 STEPS = 3
 ROWS, SEQ = 8, 16
 BASE = {"train_batch_size": ROWS, "gradient_accumulation_steps": 2,

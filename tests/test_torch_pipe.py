@@ -14,8 +14,14 @@ process on the CPU.
 * The refusals, in the JAX package's words where it has them: MoE and
   sequence parallelism in a stage model, ZeRO stage 3, tied Llama
   embeddings, a schedule typo, a mesh ``pp`` other than the stages, the
-  micro-level API, and (ROADMAP Queue A 5b) qgZ over a pipeline; and
+  micro-level API; what the reference does not run over a pipeline (qgZ,
+  1-bit Adam) and what waits for a reference that runs it (the ``auto``
+  schedule); the host update's own refusals on a stage; and
   ``initialize``'s routing by ``pipeline.executor``.
+* pp x tp's layout: the mesh's tp, pp and data-parallel groups are the JAX
+  ``MeshTopology``'s at pp 2 x tp 2 and pp 2 x dp 2 x tp 2, and a stage's
+  tp split (``param_partition_rules``, ``pipe_params_from_jax`` with
+  ``tp_rank`` / ``tp_size``) is the flat model's, joined back bit for bit.
 """
 
 import dataclasses
@@ -40,9 +46,15 @@ from deeperspeed_tpu_torch.models.gpt_neox import GPTNeoXBlock
 from deeperspeed_tpu_torch.models.gpt_neox_pipe import GPTNeoXPipe
 from deeperspeed_tpu_torch.models.llama_pipe import LlamaPipe
 from deeperspeed_tpu_torch.models.simple import Block, InProj, OutProj, mse_loss
+from deeperspeed_tpu_torch.runtime.config import DeeperSpeedConfig
 from deeperspeed_tpu_torch.runtime.pipe.engine import PipelineEngine, PipelineError
 from deeperspeed_tpu_torch.runtime.pipe.interpreted import InterpretedPipelineEngine
 from deeperspeed_tpu_torch.runtime.pipe.module import LayerSpec, PipelineModule
+
+# one intra-op thread: the suite's workers share the host's cores, and
+# torch's default (a thread a core) makes their threads spin against
+# each other's
+torch.set_num_threads(1)
 
 ATOL = 1e-5
 STAGES = 2
@@ -229,7 +241,7 @@ def test_refusals():
             config={**CONFIG, "pipeline": {"schedule": "1F1B"}})
     _raises(PipelineError, "mesh pp=1 != model stages=2",
             model=GPTNeoXPipe(GPTNeoXConfig.tiny(), 2, device="cpu"), config=CONFIG)
-    _raises(NotImplementedError, "Queue A 5b", model=spec,
+    _raises(NotImplementedError, "the reference does not run them", model=spec,
             config={**CONFIG, "comm": {"quantized": {"enabled": True}}})
     _raises(ValueError, "the qgZ hops run over", model=spec,
             config={**CONFIG, "comm": {"quantized": {"enabled": True, "intra_axis": "pp"}}})
@@ -273,3 +285,104 @@ def test_executor_routing():
          LayerSpec(GPTNeoXBlock, GPTNeoXConfig.tiny(max_seq_len=32))], num_stages=1))
     _raises(PipelineError, "says num_layers=2", config=compiled, model=PipelineModule(
         [LayerSpec(GPTNeoXBlock, GPTNeoXConfig.tiny())] * 3, num_stages=1))
+
+
+@pytest.mark.parametrize("sizes", [{"pp": 2, "tp": 2}, {"pp": 2, "dp": 2, "tp": 2}])
+def test_mesh_groups_match_the_jax_mesh(sizes, monkeypatch):
+    """Rank ``r`` is JAX device ``r``: each tp group (a stage's), pp group
+    (the ranks of one (dp, tp) coordinate) and data-parallel group is the
+    JAX mesh's row of devices along that axis."""
+    from deeperspeed_tpu.parallel.topology import MeshTopology as JaxMesh
+    from deeperspeed_tpu_torch.comm.comm import _GROUP_AXES
+    from deeperspeed_tpu_torch.parallel import topology as ttopo
+
+    world = int(np.prod(list(sizes.values())))
+    monkeypatch.setattr(ttopo, "_world_size", lambda: world)
+    mine = ttopo.MeshTopology(**sizes)
+    grid = np.vectorize(lambda d: d.id)(JaxMesh(**sizes, devices=jax.devices()[:world])
+                                        .mesh.devices)
+    axes = list(ttopo.ALL_AXES)
+    for name in ("tp", "pp", "dp"):
+        along = [axes.index(a) for a in _GROUP_AXES[name]]
+        rows = np.moveaxis(grid, along, list(range(-len(along), 0)))
+        want = sorted(sorted(r.reshape(-1).tolist())
+                      for r in rows.reshape(-1, int(np.prod([grid.shape[i] for i in along]))))
+        assert sorted(mine.groups(_GROUP_AXES[name])) == want, name
+    # the pp group joins one (dp, tp) coordinate: the same tp rank on every stage
+    for group in mine.groups(_GROUP_AXES["pp"]):
+        coords = [mine.coords(r) for r in group]
+        assert [c["pp"] for c in coords] == list(range(sizes["pp"]))
+        assert len({(c["dp"], c["tp"]) for c in coords}) == 1
+
+
+@pytest.mark.parametrize("family", ["neox", "mistral"])
+def test_tp_split_stages_are_the_flat_models(family):
+    """A stage's tensor-parallel rules are the flat model's on its own
+    parameters; ``pipe_params_from_jax`` at ``tp_rank`` / ``tp_size`` gives
+    each rank's slices, which ``pipe_params_to_jax`` joins back bit for bit."""
+    jmodel, params, spec, stages, _, mod = _jax_pair(family)
+    from deeperspeed_tpu_torch.parallel.tensor_parallel import partition_dims
+
+    flat_rules = spec.FLAT(spec.config, device="meta").param_partition_rules()
+    for s, stage in enumerate(stages):
+        names = list(stage.state_dict())
+        rules = stage.param_partition_rules()
+        assert rules and all(r in flat_rules for r in rules)
+        dims = partition_dims(names, rules)
+        assert dims == partition_dims(names, flat_rules)
+        assert ("embed_in.weight" in dims or "embed_tokens.weight" in dims) == (s == 0)
+        ranks = [mod.pipe_params_from_jax(params, s, tp_rank=r, tp_size=2) for r in range(2)]
+        whole = mod.pipe_params_from_jax(params, s)
+        for n, t in whole.items():
+            if n in dims:
+                assert torch.equal(torch.cat([r[n] for r in ranks], dims[n]), t), n
+                assert ranks[0][n].shape[dims[n]] * 2 == t.shape[dims[n]]
+            else:
+                assert torch.equal(ranks[1][n], t), n
+    back = mod.pipe_params_to_jax(
+        [[mod.pipe_params_from_jax(params, s, tp_rank=r, tp_size=2) for r in range(2)]
+         for s in range(STAGES)])
+    flat_ref = dict(jax.tree_util.tree_flatten_with_path(params)[0])
+    flat_back = dict(jax.tree_util.tree_flatten_with_path(
+        jax.tree_util.tree_map(lambda t: np.asarray(t), back))[0])
+    assert flat_ref.keys() == flat_back.keys()
+    for k, v in flat_ref.items():
+        np.testing.assert_array_equal(flat_back[k], v)
+    if family == "mistral":
+        with pytest.raises(ValueError, match="num_kv_heads 2 is not divisible by tp=4"):
+            stages[0].check_tensor_parallel(4)
+        stages[0].check_tensor_parallel(2)
+
+
+@pytest.mark.parametrize("case", ["onebit", "auto", "auto-config", "host-zero1",
+                                  "host-fp16", "host-lamb"])
+def test_pipeline_refusals_that_stay(case):
+    """Over a pipeline: 1-bit Adam is refused because the reference does not
+    run it; the ``auto`` schedule waits for a reference whose own ``auto``
+    runs (in the engine, and in the config once ``pipe_parallel_size`` > 1);
+    the host update keeps the JAX engine's refusals (ZeRO-0, no fp16, the
+    Adam family) on each stage."""
+    spec = GPTNeoXPipe(GPTNeoXConfig.tiny(), 1, device="cpu")
+    host = {"device": "cpu", "host_update": True}
+    auto = {"comm": {"overlap": {"enabled": True, "schedule": {"mode": "auto"}}}}
+    if case == "onebit":
+        _raises(NotImplementedError, "the reference does not run them", model=spec,
+                config={**CONFIG, "optimizer": {"type": "OneBitAdam"}})
+    elif case == "auto":
+        _raises(NotImplementedError, "waits for a reference whose own 'auto'", model=spec,
+                config={**CONFIG, **auto})
+    elif case == "auto-config":
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue A, 'Pipelines'.*waits"):
+            DeeperSpeedConfig(
+                {**CONFIG, **auto, "mesh": {"pipe_parallel_size": 2}}, world_size=1)
+    elif case == "host-zero1":
+        _raises(NotImplementedError, "requires zero stage 0", model=spec, config={
+            **CONFIG, "zero_optimization": {"stage": 1, "offload_optimizer": host}})
+    elif case == "host-fp16":
+        _raises(NotImplementedError, "does not compose with fp16", model=spec, config={
+            **CONFIG, "fp16": {"enabled": True},
+            "zero_optimization": {"stage": 0, "offload_optimizer": host}})
+    else:
+        _raises(NotImplementedError, "supports Adam/AdamW/CPUAdam", model=spec, config={
+            **CONFIG, "optimizer": {"type": "Lamb", "params": {"lr": 1e-3}},
+            "zero_optimization": {"stage": 0, "offload_optimizer": host}})

@@ -35,6 +35,11 @@ from deeperspeed_tpu_torch.runtime.zero import stage3
 from deeperspeed_tpu_torch.runtime.zero.sharding import Region
 from deeperspeed_tpu_torch.telemetry import wire
 
+# one intra-op thread: the suite's workers share the host's cores, and
+# torch's default (a thread a core) makes their threads spin against
+# each other's
+torch.set_num_threads(1)
+
 BASE = {"train_batch_size": 8, "gradient_accumulation_steps": 2,
         "optimizer": {"type": "Adam", "params": {"lr": 1e-3}}}
 
@@ -238,7 +243,8 @@ def test_wire_config_fields():
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"mesh": {"pipe_parallel_size": 2, "model_parallel_size": 2}}, "Pipelines"),
+    ({"mesh": {"pipe_parallel_size": 2},
+      "comm": {"overlap": {"enabled": True, "schedule": {"mode": "auto"}}}}, "Pipelines"),
     ({"comm": {"quantized": {"enabled": True, "intra_axis": "sp"}}}, "Sequence parallelism"),
     ({"comm": {"overlap": {"enabled": True}, "compression": {}}}, "The rest of the surface"),
 ])

@@ -49,6 +49,11 @@ from deeperspeed_tpu.parallel import topology as jtopo
 from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig, params_from_jax
 from torch_dp_worker import start as start_workers
 
+# one intra-op thread: the suite's workers share the host's cores, and
+# torch's default (a thread a core) makes their threads spin against
+# each other's
+torch.set_num_threads(1)
+
 STEPS = 3
 ROWS, SEQ = 8, 16
 THRESHOLD = 1000            # stage 3 partitions tiny()'s matrices, keeps its vectors
@@ -247,7 +252,9 @@ def test_fused_adam_steps_over_each_ranks_pieces(runs):
      ValueError),
     ({"zero_optimization": {"stage": 1, "offload_optimizer": {"device": "cpu"}},
       "eigenvalue": {"enabled": True}}, NotImplementedError),
-    ({"mesh": {"pipe_parallel_size": 2, "model_parallel_size": 2}}, NotImplementedError),
+    ({"mesh": {"pipe_parallel_size": 2},
+      "comm": {"overlap": {"enabled": True, "schedule": {"mode": "auto"}}}},
+     NotImplementedError),
     ({"mesh": {"sequence_parallel_size": 2}}, NotImplementedError),
     ({"mesh": {"expert_parallel_size": 2}}, ValueError),
     ({"comm": {"quantized": {"enabled": True, "intra_axis": "ep"}}}, ValueError),
@@ -259,8 +266,9 @@ def test_refused_configurations(extra, error):
     """qgZ refuses fp16 and stages above 0, as the JAX engine does, and an
     intra hop on ``ep`` (its hops run over dp and zshard); an ``ep`` that
     does not divide the processes is refused; what is not ported yet
-    (eigenvalue, the hybrid engine, pp x tp, sequence parallelism) names
-    its ROADMAP item, beside the offload tiers too."""
+    (eigenvalue, the hybrid engine, the ``auto`` schedule over a pipeline,
+    sequence parallelism) names its ROADMAP item, beside the offload tiers
+    too."""
     match = "ROADMAP Queue A" if error is NotImplementedError else "comm|mesh"
     with pytest.raises(error, match=match):
         tdst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(), device="cpu"),

@@ -57,21 +57,23 @@ run in turn.  Job kinds:
   ``g/<param>`` generates greedily from the prompts ``p`` (mask ``pm``) and
   records the tokens, and the logits of ``engine(p)``;
 * ``pipe``: for each run of ``spec["pipe_runs"]``, a pipeline engine at
-  ``pp`` stages (the data-parallel degree what the world leaves): a stage
+  ``pp`` stages and ``tp`` (default 1) tensor-parallel ranks a stage (the
+  data-parallel degree what the world leaves): a stage
   model (``neox``: GPT-NeoX ``tiny()``, ``mistral``: Llama ``tiny_mistral()``,
   at ``dtype``) from the JAX pipe tree ``w/<run>/<path>``, or a
   ``PipelineModule`` (``mlp``: the MLP stack with a tied block across the
   stages, ``tokens``: a tied embedding and head around two blocks) whose
   canonical tree ``w/<run>/<path>`` it loads after building; it first loads
   the checkpoint ``load`` (or, ``universal``, a universal export) if the run
-  names one, then trains on the batches ``d/<run>/<i>/<key>``, saving into
+  names one (after the file ``wait``, if it names one, exists), then trains on the batches ``d/<run>/<i>/<key>``, saving into
   ``save`` after ``save_after`` steps; it records the losses, grad norms,
   ``peak_live_inputs``, loss scale and skipped steps, ``eval_batch`` with
   ``bcast_loss`` true and false, the whole masters (rank 0: ``loaded``,
   ``saved``, ``final``), and with ``poison`` a step after an inf is written
   into stage ``poison``'s first master (whether every rank skipped it and
-  kept its masters); first, ``comm.send_next`` and a ``comm.ppermute`` of
-  pairs over the world (``ring``, ``pairs``).
+  kept its masters), and which offload tiers ran (host update, pinned host,
+  NVMe; the NVMe swap folder's name); first, ``comm.send_next`` and a
+  ``comm.ppermute`` of pairs over the world (``ring``, ``pairs``).
 """
 
 
@@ -438,10 +440,18 @@ def _pipe(spec, job, rank, out):
     out["pairs"] = comm.ppermute(torch.full((2,), float(rank + 1)), perm, world).numpy()
     for run in spec["pipe_runs"]:
         name, pp = run["name"], run["pp"]
+        if run.get("wait"):
+            # a file the test process writes once what this run reads exists
+            deadline = time.monotonic() + 600
+            while not os.path.exists(run["wait"]):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{name}: {run['wait']} never came")
+                time.sleep(0.05)
         model = _pipe_model(run)
         tree = _unflat(job, f"w/{name}/")
         stage = rank // (comm.get_world_size() // pp)
-        config = {**run["config"], "mesh": {"pipe_parallel_size": pp}}
+        config = {**run["config"], "mesh": {"pipe_parallel_size": pp,
+                                            "model_parallel_size": run.get("tp", 1)}}
         start = (model.params_from_jax(tree, stage) if hasattr(model, "params_from_jax")
                  else None)
         eng, *_ = tdst.initialize(model=model, config=config, model_parameters=start,
@@ -468,6 +478,10 @@ def _pipe(spec, job, rank, out):
         out[f"{name}/norms"] = np.array(norms)
         out[f"{name}/peaks"] = np.array(peaks)
         out[f"{name}/stage"] = np.array(eng.stage_id)
+        out[f"{name}/tiers"] = np.array([eng._host_adam is not None, eng._offload,
+                                         eng._opt_swapper is not None])
+        if eng._opt_swapper is not None:
+            out[f"{name}/swap_dir"] = np.array(os.path.basename(eng._opt_swapper.dir))
         batch = {k.split("/")[-1]: job[k] for k in job.files if k.startswith(f"d/{name}/0/")}
         out[f"{name}/eval"] = np.array(float(eng.eval_batch(batch=batch)))
         last = eng.eval_batch(batch=batch, bcast_loss=False)
