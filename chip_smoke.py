@@ -5625,7 +5625,7 @@ def _summed_launches(recs):
 
 def _pipe_infinity(torch, swap_root):
     """Phase 27 (d): ZeRO-Infinity over ``GPTNeoXPipe(pythia_160m,
-    num_stages=4)`` (a chunk a stage, every stage in this process) and over
+    num_stages=4)`` (a chunk a stage, in this process) and over
     the flat model at ``num_chunks=4``, on the same weights, bf16: their
     losses and every unit's masters."""
     from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig

@@ -187,7 +187,6 @@ from .. import comm
 from ..accelerator import resolve_device
 from ..parallel import topology as topo
 from ..utils.logging import log_dist, logger
-from ..utils.tree import tree_global_norm
 from ..comm.overlap import AsyncOpHandle, apply_xla_latency_hiding, bucketize
 from .config import COMM_DTYPES, DeeperSpeedConfig
 from .lr_schedules import get_lr_schedule_fn
@@ -479,7 +478,7 @@ class DeeperSpeedEngine:
 
             self._opt_swapper = OptimizerStateSwapper(
                 os.path.join(off.nvme_path, "zero_opt_swap"), num_threads=off.buffer_count,
-                pipeline_write=off.pipeline_write, owner=f"rank{comm.get_rank()}")
+                pipeline_write=off.pipeline_write)
 
     def _init_host_update(self):
         """The host update's refusals, in the JAX engine's terms
@@ -1575,11 +1574,13 @@ class DeeperSpeedEngine:
             comm.all_reduce(sq, group=self.tp_group)
         return sq
 
-    def _global_norm(self, g):
-        """The L2 norm of the whole gradient: of the local buffer where it
-        is whole, else the root of the ranks' summed squares (split and
-        whole tp parameters apart, and MoE experts apart: each ``ep`` rank
-        holds other experts)."""
+    def _global_sq(self, g, extra=None):
+        """The whole gradient's summed squares, [1]: of the local buffer
+        where it is whole, else the ranks' squares summed (split and whole
+        tp parameters apart, and MoE experts apart: each ``ep`` rank holds
+        other experts).  ``extra`` [1], squares of this rank's that the sum
+        leaves out (a pipeline's tied replicas), comes off its whole rows
+        before the sums over the ranks."""
         if self.tp_group.size() > 1 or self._expert_names:
             kinds = [(s, e) for s in (True, False) for e in (False, True)]
             rows = {k: [] for k in kinds}
@@ -1587,12 +1588,20 @@ class DeeperSpeedEngine:
                 rows[(n in self._tp_dims, n in self._expert_names)].append(t)
             sq = torch.stack([torch.stack(torch._foreach_norm(rows[k])).square().sum()
                               if rows[k] else g.new_zeros(()) for k in kinds])
+            if extra is not None:
+                sq[kinds.index((False, False))] -= extra[0]
             flags = torch.tensor(kinds, device=sq.device)
-            return torch.sqrt(self._sum_whole(sq, flags[:, 0], flags[:, 1]).sum())
-        if not self._partitioned():
-            return tree_global_norm([g])
+            return self._sum_whole(sq, flags[:, 0], flags[:, 1]).sum().reshape(1)
         sq = torch.dot(g, g).reshape(1)
-        return torch.sqrt(comm.all_reduce(sq, group=self._part_group))[0]
+        if extra is not None:
+            sq = sq - extra
+        if self._partitioned():
+            comm.all_reduce(sq, group=self._part_group)
+        return sq
+
+    def _global_norm(self, g):
+        """The L2 norm of the whole gradient (:meth:`_global_sq`)."""
+        return torch.sqrt(self._global_sq(g))[0]
 
     def _whole_sq(self, names, sq):
         """LAMB's whole-parameter squares: ``sq`` [k, 2] holds, for the

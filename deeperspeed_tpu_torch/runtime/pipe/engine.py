@@ -82,13 +82,6 @@ class PipelineError(RuntimeError):
     pass
 
 
-def _squares(tensors, like):
-    """The summed squares of ``tensors`` (0 for none), a scalar."""
-    if not tensors:
-        return like.new_zeros(())
-    return torch.stack(torch._foreach_norm(tensors)).square().sum()
-
-
 def _unused_loss(model, batch, rng=None, **_):
     raise PipelineError("a pipeline stage computes its loss inside its schedule")
 
@@ -459,26 +452,10 @@ class PipelineEngine(DeeperSpeedEngine):
                                      variant=name, count=2 * ticks)
 
     def _global_norm(self, g):
-        """The L2 norm of the whole model's gradient: this stage's squares,
-        summed over its ZeRO partitions and, under ``tp``, over the tp ranks
-        (the split parameters' slices summed, a whole parameter taken once),
-        then summed over the ``pp`` group; a tied weight's replicas counted
-        once."""
-        extra = self._replica_sq()
-        if self.tp_group.size() > 1:
-            sq = torch.stack([_squares([t for n, t in self.grads.items() if split
-                                        == (n in self._tp_dims)], g)
-                              for split in (True, False)])
-            if extra is not None:
-                sq[1] -= extra[0]
-            split = torch.tensor([True, False], device=sq.device)
-            sq = self._sum_whole(sq, split).sum().reshape(1)
-        else:
-            sq = torch.dot(g, g).reshape(1)
-            if extra is not None:
-                sq = sq - extra
-            if self._partitioned():
-                comm.all_reduce(sq, group=self._part_group)
+        """The L2 norm of the whole model's gradient: this stage's squares
+        (:meth:`_global_sq`, over its partitions and tp ranks) summed over
+        the ``pp`` group, a tied weight's replicas counted once."""
+        sq = self._global_sq(g, self._replica_sq())
         if self.num_stages > 1:
             comm.all_reduce(sq, group=self.pipe_group)
         return torch.sqrt(sq.clamp(min=0.0))[0]

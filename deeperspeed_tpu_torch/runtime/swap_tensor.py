@@ -19,10 +19,8 @@ its wait), so that swap-in reads nothing; ``pipeline_write: false`` waits
 inside the swap-out and then frees the host memory, so that the state is
 durably on disk between steps and the next swap-in reads it back.
 
-Each swapper owns a subdirectory of its own under the swap directory, named
-after its ``owner`` (the engine's global rank: the processes of a pipeline's
-stages, or of a data-parallel group, sharing one ``nvme_path`` never share
-a file, nor do two engines of one process), removed
+Each swapper owns a subdirectory of its own under the swap directory (two
+engines sharing an ``nvme_path`` never clobber each other's files), removed
 by :meth:`OptimizerStateSwapper.close` (the engine's ``destroy()``) or, at
 the latest, by a finalizer.  The native library is required: without it
 the swapper raises, with no Python file IO in its place.
@@ -130,12 +128,11 @@ class OptimizerStateSwapper:
     ``num_threads`` contiguous pieces, a file each, so that every thread of
     the pool writes and reads."""
 
-    def __init__(self, swap_dir, num_threads=4, pipeline_write=True, owner=None):
+    def __init__(self, swap_dir, num_threads=4, pipeline_write=True):
         from ..ops.aio import AsyncIOHandle
 
         os.makedirs(swap_dir, exist_ok=True)
-        self.dir = tempfile.mkdtemp(prefix=f"engine_{owner}_" if owner else "engine_",
-                                    dir=swap_dir)
+        self.dir = tempfile.mkdtemp(prefix="engine_", dir=swap_dir)
         self.pipeline_write = pipeline_write
         # the files are scratch state: reclaim the directory when the swapper
         # is collected or the interpreter exits, if close() did not

@@ -5,13 +5,12 @@ Every tensor of persistent state -- the compute-dtype parameters, the fp32
 masters and the Adam moments -- lives on disk between uses, written and
 read through the native aio pool (``ops/aio``); the device holds one unit
 of the model at a time.  The units are cut from the port's flat model
-(``GPTNeoX`` or ``Llama``) or, as the JAX engine chunks it, from a stage
-model (``GPTNeoXPipe``, ``LlamaPipe``; its ``num_stages`` stages, all built
-in this process, and no pipeline): ``embed`` (the input embedding, and
-OPT's positions), the block list in ``num_chunks`` contiguous groups
-``c0 .. c{n-1}`` (a stage model's: stage ``s``'s blocks in ``c<s>``), and
-``head`` (the final norm and the output projection).  Tied embeddings are
-refused either way, as ``LlamaPipe`` refuses them.  Each unit's
+(``GPTNeoX`` or ``Llama``; a stage model, ``GPTNeoXPipe`` or ``LlamaPipe``,
+streams the flat model it cuts, in ``num_stages`` chunks, as the JAX engine
+chunks a stacked stage model): ``embed`` (the input embedding, and OPT's
+positions), the block list in ``num_chunks`` contiguous groups
+``c0 .. c{n-1}``, and ``head`` (the final norm and the output projection).
+Tied embeddings are refused, as ``LlamaPipe`` refuses them.  Each unit's
 parameters are one flat buffer a kind (``bf16``, the compute copy;
 ``master``; ``mu``; ``nu``; ``grad``, the accumulation), one file each.
 
@@ -62,7 +61,6 @@ import time
 import weakref
 
 import torch
-from torch import nn
 
 from ...accelerator import resolve_device
 from ...utils.logging import log_dist
@@ -140,39 +138,12 @@ class _ChunkStore:
         self._cleanup()
 
 
-class _Stages(nn.Module):
-    """Every stage of a stage model (``GPTNeoXPipe``, ``LlamaPipe``), built
-    in one process: the chunk stream's model when it streams a stage model,
-    stage ``s``'s blocks its chunk ``c<s>`` (the JAX engine reuses the stage
-    axis as the streaming-chunk axis)."""
-
-    def __init__(self, spec):
-        super().__init__()
-        self.spec = spec
-        self.stages = nn.ModuleList(spec.build_stage(s) for s in range(spec.num_stages))
-
-    def flat_name(self, name):
-        """The flat model's name of the parameter ``name`` (``stages.<s>.
-        layers.<j>.*`` is block ``s * layers_per_stage + j``)."""
-        _, s, rest = name.split(".", 2)
-        if rest.startswith("layers."):
-            _, j, leaf = rest.split(".", 2)
-            return f"layers.{int(s) * self.spec.layers_per_stage + int(j)}.{leaf}"
-        return rest
-
-
 def _family(model):
     """The units' modules and the three pieces of the forward of a port
     model: (embed modules, blocks, head modules, embed(x), head(x))."""
     from ...models.gpt_neox import GPTNeoX
     from ...models.llama import Llama
 
-    if isinstance(model, _Stages):
-        first, last = model.stages[0], model.stages[-1]
-        return ([getattr(first, n) for n in model.spec.EMBED if hasattr(first, n)],
-                [blk for stage in model.stages for blk in stage.layers],
-                [getattr(last, n) for n in model.spec.HEAD],
-                lambda ids, pos: first.embed(ids), last.head)
     if isinstance(model, GPTNeoX):
         cfg = model.config
         return ([model.embed_in], list(model.layers),
@@ -232,8 +203,8 @@ class ZeroInfinityEngine:
     """The chunk-streaming trainer over a port ``GPTNeoX`` or ``Llama`` in
     ``num_chunks`` chunks (2 by default), or over a stage model
     (``GPTNeoXPipe``, ``LlamaPipe``) in ``num_stages`` chunks, each a
-    stage's blocks, with no pipeline processes: every stage is built here
-    (the JAX ``ZeroInfinityEngine`` streams the stacked stage model so).
+    stage's blocks, with no pipeline processes (the JAX
+    ``ZeroInfinityEngine`` streams the stacked stage model so).
 
     ``params``: initial weights (name -> tensor, the flat model's state
     dict, for a stage model too), else the model's own.  ``device``: CUDA
@@ -252,7 +223,11 @@ class ZeroInfinityEngine:
             if num_chunks not in (None, model.num_stages):
                 raise ValueError(f"a stage model streams in its {model.num_stages} stages, "
                                  f"not {num_chunks} chunks")
-            num_chunks, model = model.num_stages, _Stages(model)
+            # its stages are the flat model's modules drawn from the same
+            # seed (``build_stage``): stream that model, a stage a chunk
+            kw = {"draw_on_device": True} if getattr(model, "draw_on_device", False) else {}
+            num_chunks, model = model.num_stages, model.FLAT(
+                model.config, device=model.device, seed=model.seed, **kw)
         num_chunks = 2 if num_chunks is None else num_chunks
         self.model = model
         self.compute_dtype = compute_dtype
@@ -291,8 +266,7 @@ class ZeroInfinityEngine:
         # (the pool holds the buffers until its wait); the moments start at
         # zero and reach the disk at the unit's first update
         self.store = _ChunkStore(nvme_path, num_threads=swap_threads, pin=self._pin)
-        rename = model.flat_name if isinstance(model, _Stages) else (lambda n: n)
-        names = {id(p): rename(n) for n, p in model.named_parameters()}
+        names = {id(p): n for n, p in model.named_parameters()}
         given = params
         for unit in self.units.values():
             master = torch.empty(unit.numel, dtype=torch.float32, pin_memory=self._pin)

@@ -15,11 +15,7 @@ from deeperspeed_tpu_torch.quantization import (BlockScaledTensor,
                                                 block_shape_error,
                                                 canonical_dtype, group_shape,
                                                 qmax, wire_dtype)
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 DTYPES = ["int8", "fp8_e4m3", "fp8_e5m2"]
 

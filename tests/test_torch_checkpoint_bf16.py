@@ -5,12 +5,7 @@ into the port and the port's into the JAX engine, for each optimizer
 import pytest
 
 from test_torch_checkpoint import OPTIMIZERS, cross_package
-import torch
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 
 @pytest.mark.parametrize("opt", list(OPTIMIZERS))

@@ -5,6 +5,7 @@ into the port and the port's into the JAX engine, for each optimizer
 import pytest
 
 from test_torch_checkpoint import OPTIMIZERS, cross_package
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 
 @pytest.mark.parametrize("opt", list(OPTIMIZERS))

@@ -31,11 +31,7 @@ from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
 from deeperspeed_tpu_torch.runtime import checkpointing as ck
 from deeperspeed_tpu_torch.runtime.checkpoint_engine import checkpoint_engine as ce
 from deeperspeed_tpu_torch.runtime.config import CheckpointConfig, DeeperSpeedConfig
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 CONFIG = {"train_batch_size": 16, "gradient_accumulation_steps": 2,
           "gradient_clipping": 1.0,

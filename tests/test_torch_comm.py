@@ -26,11 +26,7 @@ from deeperspeed_tpu_torch import comm
 from deeperspeed_tpu_torch.parallel import MeshTopology, ProcessTopology
 from deeperspeed_tpu_torch.runtime.zero import quantized
 from torch_dp_worker import spawn
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 # name: (op, wire, per-rank input shape, reduce op)
 CASES = {

@@ -47,11 +47,7 @@ from deeperspeed_tpu_torch.quantization import BlockScaledTensor
 from deeperspeed_tpu_torch.ops.sampling import topk
 from deeperspeed_tpu_torch.ops.sparse_attention import sparsity_config
 from deeperspeed_tpu_torch.ops.transformer import activations, normalize, softmax
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 # the package exports the function under the module's name
 sparse = importlib.import_module("deeperspeed_tpu_torch.ops.sparse_attention.sparse_attention")

@@ -40,11 +40,7 @@ from deeperspeed_tpu_torch.runtime.data_pipeline.data_routing import scheduler a
 from deeperspeed_tpu_torch.runtime.data_pipeline.data_sampling import data_analyzer as tanalyzer
 from deeperspeed_tpu_torch.runtime.data_pipeline.data_sampling import data_sampler as tsampler
 from deeperspeed_tpu_torch.runtime.data_pipeline.data_sampling import indexed_dataset as tindexed
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 LOSS_TOL = 1e-5
 SCHEDULES = {

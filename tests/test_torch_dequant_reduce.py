@@ -16,11 +16,7 @@ from deeperspeed_tpu.ops.quantizer import fused as jfused
 from deeperspeed_tpu.quantization import BlockScaledTensor as JaxBlockScaled
 from deeperspeed_tpu_torch.ops.quantizer import fused
 from deeperspeed_tpu_torch.quantization import BlockScaledTensor
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 WIRES = ["int8", "fp8_e4m3", "fp8_e5m2"]
 

@@ -17,11 +17,7 @@ from deeperspeed_tpu_torch.inference.v2 import (BlockedAllocator,
                                                 InferenceEngineV2,
                                                 RaggedInferenceEngineConfig)
 from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig, params_from_jax
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 ENGINE_CFG = {"dtype": "float32",
               "kv_cache": {"num_blocks": 64, "block_size": 8},

@@ -19,11 +19,7 @@ import torch
 
 from deeperspeed_tpu.ops.attention.pallas_flash import mha as jax_mha
 from deeperspeed_tpu_torch.ops.attention import flash
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 FWD_TOL, GRAD_TOL, BF16_TOL = 2e-5, 2e-4, 2e-2
 

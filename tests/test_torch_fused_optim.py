@@ -36,11 +36,7 @@ from deeperspeed_tpu_torch.ops import multi_tensor
 from deeperspeed_tpu_torch.ops.adam import fused_adam
 from deeperspeed_tpu_torch.ops.lion import fused_lion
 from deeperspeed_tpu_torch.runtime.optimizers import _bias_correction
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 # under and over one Pallas block row (1024 = 8 x 128), and a non-multiple of 128
 SIZES = [100, 1000, 1024, 4000, 5003]

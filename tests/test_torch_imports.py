@@ -19,11 +19,7 @@ from deeperspeed_tpu_torch.ops.attention import flash, paged
 from deeperspeed_tpu_torch.ops.lion import fused_lion
 from deeperspeed_tpu_torch.ops.quantizer import fused
 from deeperspeed_tpu_torch.ops.sampling import topk
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 # the package exports the function under the module's name
 sparse_attention = importlib.import_module(
     "deeperspeed_tpu_torch.ops.sparse_attention.sparse_attention")

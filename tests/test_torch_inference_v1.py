@@ -36,11 +36,7 @@ from deeperspeed_tpu_torch.inference.quantization import (QuantizedWeight,
 from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig, Llama, LlamaConfig
 from deeperspeed_tpu_torch.models import gpt_neox as neox_module
 from deeperspeed_tpu_torch.models import llama as llama_module
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 TOL = 1e-5
 FAMILIES = {

@@ -29,11 +29,7 @@ from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig, Llama, LlamaCon
 from deeperspeed_tpu_torch.models import params_from_jax
 from deeperspeed_tpu_torch.models.llama import params_from_jax as llama_params_from_jax
 from deeperspeed_tpu_torch.runtime.zero.infinity import ZeroInfinityEngine
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 BATCH = GPTNeoX(GPTNeoXConfig.tiny(), device="cpu").example_batch(batch_size=8, seq_len=16)
 

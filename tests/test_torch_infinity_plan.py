@@ -39,11 +39,7 @@ from deeperspeed_tpu.runtime.zero.infinity import ZeroInfinityEngine as JaxZeroI
 from deeperspeed_tpu_torch.comm.memplan import Calibration, HBMBudgetError
 from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
 from deeperspeed_tpu_torch.runtime.zero.infinity import ZeroInfinityEngine
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 BATCH = GPTNeoX(GPTNeoXConfig.tiny(), device="cpu").example_batch(batch_size=8, seq_len=16)
 UNITS = {"c0": 199936, "c1": 199936, "embed": 65536, "head": 66048}   # tiny()'s, fp32

@@ -41,11 +41,7 @@ from deeperspeed_tpu.ops.transformer import gelu_tanh as jax_gelu
 from deeperspeed_tpu.ops.transformer import transformer as jtr
 from deeperspeed_tpu_torch.ops.transformer import bias_gelu, fused_softmax, gelu_tanh
 from deeperspeed_tpu_torch.ops.transformer import transformer as ttr
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 DTYPES = {"fp32": (np.float32, jnp.float32, torch.float32),
           "fp16": (np.float16, jnp.float16, torch.float16),

@@ -25,11 +25,7 @@ from deeperspeed_tpu_torch.inference import InferenceEngine
 from deeperspeed_tpu_torch.inference.v2 import InferenceEngineV2
 from deeperspeed_tpu_torch.models import DecodeCache, Llama, LlamaConfig
 from deeperspeed_tpu_torch.models.llama import params_from_jax, params_to_jax
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 CASES = {"tiny": ("tiny", {}), "tiny_mistral": ("tiny_mistral", {}),
          "tiny_opt": ("tiny_opt", {}), "kv1": ("tiny", {"num_kv_heads": 1})}

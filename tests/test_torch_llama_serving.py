@@ -25,11 +25,7 @@ from deeperspeed_tpu_torch.inference.v2 import DSScheduler, InferenceEngineV2
 from deeperspeed_tpu_torch.models import Llama, LlamaConfig
 from deeperspeed_tpu_torch.models import llama as llama_module
 from deeperspeed_tpu_torch.models.llama import params_from_jax
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 TOL = 1e-4
 WINDOW_TOL = 2e-4

@@ -24,12 +24,7 @@ from deeperspeed_tpu_torch.inference import InferenceEngine
 from deeperspeed_tpu_torch.models import Llama, LlamaConfig
 from deeperspeed_tpu_torch.models.llama import params_from_jax
 from torch_dp_worker import spawn
-import torch
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 TOL = 2e-4
 LOGITS_TOL = 2e-5

@@ -8,12 +8,7 @@ import pytest
 
 from deeperspeed_tpu.runtime import lr_schedules as jax_sched
 from deeperspeed_tpu_torch.runtime import lr_schedules as sched
-import torch
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 CASES = [
     ("LRRangeTest", {"lr_range_test_min_lr": 1e-4, "lr_range_test_step_size": 7,

@@ -21,12 +21,7 @@ from deeperspeed_tpu.comm import memplan as jmemplan
 from deeperspeed_tpu.telemetry import wire as jwire
 from deeperspeed_tpu_torch.comm import memplan
 from deeperspeed_tpu_torch.telemetry import wire
-import torch
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 KIND = "NVIDIA A100-SXM4-40GB"       # in neither package's tables
 H100 = "NVIDIA H100 80GB HBM3"

@@ -39,12 +39,7 @@ from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
 from torch_dp_worker import start as start_workers
 from torch_layout_common import (BASE, STEPS, THRESHOLD, arrays_for, batches, by_run,
                                  config, jax_run)
-import torch
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 MESH = {"dp": 2, "zshard": 2}
 WORLD = 4

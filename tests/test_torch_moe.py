@@ -34,11 +34,7 @@ from deeperspeed_tpu_torch.models.gpt_neox import params_to_jax
 from deeperspeed_tpu_torch.moe import MoE, mappings, top1gating, top2gating
 from deeperspeed_tpu_torch.moe.sharded_moe import multiplicative_jitter
 from torch_layout_common import BASE, batches, jax_run, masters_agree
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 S, E, H = 64, 4, 32
 

@@ -38,12 +38,7 @@ from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
 from deeperspeed_tpu_torch.runtime import checkpointing as ck
 from torch_dp_worker import spawn, start as start_workers
 from torch_layout_common import BASE, arrays_for, batches, by_run, jax_run, masters_agree
-import torch
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 MOE = {"moe_num_experts": 4, "moe_expert_interval": 1, "moe_use_rts": False,
        "moe_capacity_factor": 0.75, "moe_aux_loss_coef": 0.5}

@@ -22,12 +22,7 @@ from deeperspeed_tpu.parallel import topology as jtopo
 from deeperspeed_tpu_torch.inference import InferenceEngine
 from deeperspeed_tpu_torch.inference.v2 import InferenceEngineV2
 from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig, params_from_jax
-import torch
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 TOL = 1e-5
 V2 = {"dtype": "float32", "kv_cache": {"num_blocks": 64, "block_size": 8},

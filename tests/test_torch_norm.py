@@ -11,11 +11,7 @@ import torch
 from deeperspeed_tpu.ops.transformer.normalize import layer_norm as jax_layer_norm
 from deeperspeed_tpu.ops.transformer.normalize import rms_norm as jax_rms_norm
 from deeperspeed_tpu_torch.ops.transformer import layer_norm, rms_norm
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 # fp32: the same arithmetic up to summation order; bf16: one rounding of
 # the output (2^-8 relative) on top

@@ -37,11 +37,7 @@ from deeperspeed_tpu.runtime import checkpointing as jck
 from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig, params_from_jax
 from deeperspeed_tpu_torch.runtime import checkpointing as ck
 from deeperspeed_tpu_torch.runtime.checkpoint_engine import checkpoint_engine as ce
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 HOST = {"stage": 0, "offload_optimizer": {"device": "cpu", "host_update": True}}
 

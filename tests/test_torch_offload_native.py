@@ -20,11 +20,7 @@ from deeperspeed_tpu_torch import op_builder
 from deeperspeed_tpu_torch.op_builder import builder as builder_module
 from deeperspeed_tpu_torch.ops.adam import cpu_adam as ca
 from deeperspeed_tpu_torch.ops.aio import AsyncIOHandle
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 N, STEPS = 4097, 4
 RTOL, ATOL = 2e-5, 2e-6

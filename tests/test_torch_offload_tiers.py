@@ -18,11 +18,7 @@ import deeperspeed_tpu_torch as tdst
 from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
 from deeperspeed_tpu_torch.utils.tree import tree_leaves
 from torch_dp_worker import spawn
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 STEPS = 3
 ROWS, SEQ = 8, 16

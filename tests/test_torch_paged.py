@@ -16,11 +16,7 @@ from deeperspeed_tpu_torch.ops.attention import (paged_decode_attention,
 from deeperspeed_tpu_torch.ops.attention.paged import (_decode_reference,
                                                        _spec_decode_reference)
 from deeperspeed_tpu_torch.ops.quantizer import dequantize_kv, quantize_kv
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 # fp32: online softmax vs one softmax, summation order only; bf16: inputs
 # and output rounded to bf16, accumulation in fp32 on both sides

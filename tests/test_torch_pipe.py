@@ -50,11 +50,7 @@ from deeperspeed_tpu_torch.runtime.config import DeeperSpeedConfig
 from deeperspeed_tpu_torch.runtime.pipe.engine import PipelineEngine, PipelineError
 from deeperspeed_tpu_torch.runtime.pipe.interpreted import InterpretedPipelineEngine
 from deeperspeed_tpu_torch.runtime.pipe.module import LayerSpec, PipelineModule
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 ATOL = 1e-5
 STAGES = 2

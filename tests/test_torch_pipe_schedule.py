@@ -23,12 +23,7 @@ from deeperspeed_tpu.runtime.pipe import module as jmod
 from deeperspeed_tpu.runtime.pipe import schedule as jsched
 from deeperspeed_tpu_torch.runtime.pipe import module as tmod
 from deeperspeed_tpu_torch.runtime.pipe import schedule as tsched
-import torch
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 GRID = [(m, s, i) for m in (1, 2, 3, 4, 8) for s in (1, 2, 3, 4) for i in range(s)]
 

@@ -16,11 +16,7 @@ from deeperspeed_tpu_torch.accelerator.cuda_accelerator import CudaAccelerator
 from deeperspeed_tpu_torch.ops.sampling import (sample_tokens, sorted_topk,
                                                 verify_draft)
 from deeperspeed_tpu_torch.ops.sampling import topk
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 ROOT = Path(__file__).resolve().parents[1]
 

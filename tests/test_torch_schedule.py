@@ -55,11 +55,7 @@ from deeperspeed_tpu_torch.comm import memplan, schedule
 from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig, params_from_jax
 from deeperspeed_tpu_torch.runtime.zero.sharding import stage3_static_peak_bytes
 from torch_dp_worker import spawn, start as start_workers
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 STEPS, ROWS, SEQ, WORLD = 3, 8, 16, 2
 THRESHOLD = 1000            # stage 3 partitions tiny()'s matrices

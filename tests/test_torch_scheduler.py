@@ -19,12 +19,7 @@ from deeperspeed_tpu_torch.inference.v2 import (DSScheduler,
 from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig, params_from_jax
 from deeperspeed_tpu_torch.telemetry import (TelemetryRegistry, get_registry,
                                              set_registry)
-import torch
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 
 def _config(num_blocks=64, kv_dtype="", speculative=None, **sm_kw):

@@ -20,11 +20,7 @@ import torch
 
 from deeperspeed_tpu.ops import sparse_attention as jsa
 from deeperspeed_tpu_torch.ops import sparse_attention as tsa
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 B, S, N, D = 2, 512, 2, 16
 BLOCK = 128

@@ -21,12 +21,7 @@ from deeperspeed_tpu_torch.telemetry import (FLIGHT_REASONS, TelemetryRegistry,
                                              quantile, registry_from_config,
                                              serving, set_registry, set_tracer,
                                              slo_percentiles)
-import torch
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 
 def _tracer(tmp_path, cls=Tracer, **kw):

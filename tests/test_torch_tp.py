@@ -24,12 +24,7 @@ import pytest
 from torch_dp_worker import start as start_workers
 from torch_layout_common import (STEPS, arrays_for, batches, by_run, config, jax_run,
                                  masters_agree)
-import torch
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 TOL = 2e-4
 CHUNK = {"ce_chunk_tokens": 24}

@@ -27,11 +27,7 @@ from deeperspeed_tpu.models.gpt_neox import GPTNeoX as JaxGPTNeoX
 from deeperspeed_tpu.models.gpt_neox import GPTNeoXConfig as JaxConfig
 from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig, params_from_jax
 from deeperspeed_tpu_torch.ops.attention.core import _reference_attention, keep_mask
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 LOSS_TOL = {"fp32": 1e-5, "bf16": 1e-3}
 # 16 rows: the JAX engine spreads each microbatch over the tests' 8 CPU devices

@@ -34,11 +34,7 @@ from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
 from deeperspeed_tpu_torch.runtime.zero import stage3
 from deeperspeed_tpu_torch.runtime.zero.sharding import Region
 from deeperspeed_tpu_torch.telemetry import wire
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 BASE = {"train_batch_size": 8, "gradient_accumulation_steps": 2,
         "optimizer": {"type": "Adam", "params": {"lr": 1e-3}}}

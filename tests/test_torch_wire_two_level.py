@@ -36,12 +36,7 @@ from deeperspeed_tpu.parallel import topology as jtopo
 from deeperspeed_tpu.runtime.zero import quantized as jquantized
 from deeperspeed_tpu.telemetry import wire as jwire
 from torch_dp_worker import spawn
-import torch
-
-# one intra-op thread: the suite's workers share the host's cores, and
-# torch's default (a thread a core) makes their threads spin against
-# each other's
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 N_INTER, N_INTRA = 2, 2
 WORLD = N_INTER * N_INTRA
