@@ -311,13 +311,30 @@ package, and goes through these phases, each printing its lines:
     losses and every unit's masters equal bit for bit to the flat stream at
     ``num_chunks=4`` on the same weights.  K1/K8 and K5-K7 must launch on
     every rank of (a)-(c) and in (d), B6 on every rank of (a) and not in (c).
+28. sequence parallelism: two ``--sp-worker`` processes (sp 2, gloo via
+    host for every exchange), held with the others and released when
+    phases 13-14 start (the main process only waits for their workers
+    there): (a) Pythia-160M at seq 2048, bf16, FusedAdam, clip 1.0, 4 rows
+    at gas 2, 2 steps, at sp 2 under ``ulysses`` and then ``ring``,
+    against the engine at sp 1 (dp 2) on the same weights and batch: losses
+    within ``SP_LOSS_TOL`` (1e-4 relative) and grad norms within
+    ``SP_NORM_TOL`` (5e-3), each run's ms a step, the bytes its
+    all-to-alls, ring transfers and gathers staged a step and its peak
+    memory a rank; under Ulysses K5-K7 must launch, at 6 heads a rank; (b)
+    Llama-2-7B's width (N 32, D 128) at 2 layers, mode None (the keys and
+    values gathered over sp, the local queries padded to their length), one
+    step at sp 2 against sp 1: loss and grad norm within the same limits,
+    ms, staged bytes, peak memory; K5-K7 must launch on both ranks.  K1/K8
+    must launch on both ranks of every run, B6 in (a).
 
-The worker processes of phases 13-14, 20, 21, 22 (e), 23 (c) and 26 start
-right after the build, make their CUDA context and wait until their phase
-(``[workers]`` line); those of 21, 22 (e), 23 (c) and 26 run under phase 19,
-which waits on the disk, and those of 27 under phase 24 (c)-(e) and phase
-25, which wait on the disk too; their phases join them (their ms are read
-with those phases running beside them).  Each phase prints a ``[time]`` line.
+The worker processes of phases 13-14, 20, 21, 22 (e), 23 (c), 26 and 28
+start right after the build, make their CUDA context and wait until their
+phase (``[workers]`` line); those of 28 run under phases 13-14, whose main
+process waits for its workers, those of 21, 22 (e), 23 (c) and 26 under
+phase 19, which waits on the disk, and those of 27 (started unheld) under
+phase 24 (c)-(e) and phase 25, which wait on the disk too; their phases join
+them (their ms are read with those phases running beside them).  Each phase
+prints a ``[time]`` line.
 
 The second-to-last line is the JSON summary of the kernels (a kernel's
 ``launches`` sums its counts on the main paths, serving in phase 5,
@@ -337,7 +354,9 @@ hook-issued steps (rank 0), in phase 26 (a)'s steps summed over both stages
 (``pipe-trained``) and (d)'s over its four processes (``pipe-interpreted``),
 in phase 27 (a)'s and (b)'s steps summed over their four processes
 (``pipe-tp``, ``pipe-tp-llama``), (c)'s over both stages (``pipe-host``)
-and (d)'s streamed steps over the stage model (``infinity-pipe``),
+and (d)'s streamed steps over the stage model (``infinity-pipe``), in phase
+28 (a)'s sp 2 steps under ``ulysses`` and ``ring`` and (b)'s, each summed
+over both ranks (``sp-ulysses``, ``sp-ring``, ``sp-llama``),
 each read right after its own run and listed in
 ``launches_by_path``), the
 last ``{"ok": true,
@@ -2276,7 +2295,8 @@ def _spawn_dp_workers(workdir, flag="--dp-worker", world=DP_WORLD, go=None):
 # context) overlaps the phases before them; ``_workers`` releases a held
 # group, or starts one (the tools that run one phase alone).
 # ``release_early`` lets a group run ahead under an earlier phase that waits
-# on the disk (phase 19); its phase then joins it.
+# on the disk (phase 19) or on its own workers (phases 13-14); its phase
+# then joins it.
 _HELD = {}
 _RELEASED = {}
 
@@ -2291,7 +2311,8 @@ def hold_workers():
     for flag, world in (("--dp-worker", DP_WORLD), ("--wire-worker", WIRE_INTER * WIRE_INTRA),
                         ("--layout-worker", LAYOUT_WORLD),
                         ("--llama-worker", LLAMA_TP_WORLD), ("--moe-worker", MOE_EP_WORLD),
-                        ("--pipe-worker", PIPE_WORLD), ("--pipe-dp-worker", PIPE_DP_WORLD)):
+                        ("--pipe-worker", PIPE_WORLD), ("--pipe-dp-worker", PIPE_DP_WORLD),
+                        ("--sp-worker", SP_WORLD)):
         workdir = _scratch_dir()
         _HELD[flag] = (workdir, _spawn_dp_workers(workdir, flag, world, go=workdir / "go"))
     # the phases start once every held worker has its context, so that no
@@ -5806,6 +5827,201 @@ def phase_pipe_tp(torch, np, card, p26):
             "infinity-pipe": pipe["launches"]}
 
 
+# Phase 28, sequence parallelism: two ``--sp-worker`` processes share the
+# card over gloo (every exchange staged through host memory) at sp 2, each
+# holding half of every sequence; the same weights and global batch through
+# the engine at sp 1 (dp 2: each rank whole sequences of half the rows).
+SP_WORLD = 2
+SP_SEQ, SP_ROWS, SP_GAS, SP_STEPS = 2048, 4, 2, 2
+SP_CONFIG = {**TRAIN_CONFIG, "train_batch_size": SP_ROWS,
+             "gradient_accumulation_steps": SP_GAS,
+             "optimizer": {"type": "FusedAdam", "params": {"lr": 1e-4}}}
+SP_LLAMA_LAYERS, SP_LLAMA_ROWS = 2, 2
+# one step: its loss and grad norm (SGD keeps the state small on a card
+# that phase 27's workers share)
+SP_LLAMA_CONFIG = {**LLAMA_TRAIN, "train_batch_size": SP_LLAMA_ROWS,
+                   "optimizer": {"type": "SGD", "params": {"lr": 1e-4}}}
+SP_MESHES = {"sp1": {"dp": SP_WORLD}, "sp2": {"sp": SP_WORLD}}
+# sp 2 against sp 1, relative, in bf16 (the sum orders of the exchanges
+# and, under ring, its fp32 blocks against the flash kernels, round apart):
+# sound runs read up to 1.36e-05 on losses and 1.21e-03 on grad norms;
+# planted faults read 8.79e-04 (local positions, Llama), 2.03e-03 (keys not
+# gathered) and 3.06e-03 / 9.34e-02 (a ring block skipped) (PERF.md, PR 24)
+SP_LOSS_TOL, SP_NORM_TOL = 1e-4, 5e-3
+SP_OPS = ("sp_all_to_all", "sp_ring", "sp_all_gather", "sp_reduce_scatter")
+
+
+def sp_model(mode=None):
+    """Pythia-160M at seq 2048 in bf16 under ``mode``, drawn on the card
+    from ``SEED`` (the same weights in every run and process)."""
+    import torch
+
+    from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
+    return GPTNeoX(GPTNeoXConfig.pythia_160m(dtype=torch.bfloat16, max_seq_len=SP_SEQ,
+                                             seq_parallel_mode=mode),
+                   seed=SEED, draw_on_device=True)
+
+
+def sp_llama_model():
+    """Llama-2-7B's width (N 32, D 128) at 2 layers, bf16, drawn on the card."""
+    import torch
+
+    from deeperspeed_tpu_torch.models import Llama, LlamaConfig
+    return Llama(LlamaConfig.llama2_7b(num_layers=SP_LLAMA_LAYERS, dtype=torch.bfloat16),
+                 seed=SEED)
+
+
+def _sp_run(torch, dst, model, config, mesh, batch, steps):
+    """``steps`` steps of the flat engine at ``mesh``: losses, grad norms,
+    host ms a step (ending in the loss's all-reduce), the bytes each op
+    staged a step, the peak memory and the launches, and the head counts
+    the flash forward saw."""
+    from deeperspeed_tpu_torch import comm
+    from deeperspeed_tpu_torch.ops.attention import core
+    from deeperspeed_tpu_torch.ops.cuda_utils import LAUNCHES
+    from deeperspeed_tpu_torch.parallel import MeshTopology
+
+    heads, flash = set(), core.flash_attention
+
+    def seen(q, *args, **kwargs):
+        heads.add(q.shape[2])
+        return flash(q, *args, **kwargs)
+
+    eng = dst.initialize(model=model, config=config, mesh=MeshTopology(**mesh))[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    comm.STAGED.clear()
+    LAUNCHES.clear()                                  # main path starts here
+    core.flash_attention = seen
+    losses, norms, ms = [], [], []
+    try:
+        for _ in range(steps):
+            t = time.perf_counter()
+            losses.append(float(eng.train_batch(batch=batch)))
+            ms.append((time.perf_counter() - t) * 1e3)
+            norms.append(eng.get_global_grad_norm())
+    finally:
+        core.flash_attention = flash
+    rec = {"losses": losses, "norms": norms, "ms": ms, "launches": dict(LAUNCHES),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "staged": {k: v / steps for k, v in comm.STAGED.items()},
+           "flash_heads": sorted(heads)}
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sp_worker(rank, rendezvous, out_path):
+    """One of the two processes of phase 28 (``--sp-worker``): (a)
+    Pythia-160M at seq 2048 at sp 1 (dp 2), then at sp 2 under ``ulysses``
+    and ``ring``; (b) Llama-2-7B's width at 2 layers at sp 2 (mode None)
+    and at sp 1; writes what it saw as JSON."""
+    import torch
+
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch import comm
+
+    torch.set_num_threads(2)
+    dst.init_distributed("gloo", init_method=f"file://{rendezvous}", rank=rank,
+                         world_size=SP_WORLD, timeout=600)
+    batch = sp_model().example_batch(batch_size=SP_ROWS, seq_len=SP_SEQ, seed=SEED)
+    out = {"rank": rank}
+    for name, mode, mesh in (("sp1", None, "sp1"), ("ulysses", "ulysses", "sp2"),
+                             ("ring", "ring", "sp2")):
+        out[name] = _sp_run(torch, dst, sp_model(mode), SP_CONFIG, SP_MESHES[mesh], batch,
+                            SP_STEPS)
+    lbatch = sp_llama_model().example_batch(batch_size=SP_LLAMA_ROWS, seq_len=SP_SEQ,
+                                            seed=SEED)
+    for name, mesh in (("llama-sp2", "sp2"), ("llama-sp1", "sp1")):
+        out[name] = _sp_run(torch, dst, sp_llama_model(), SP_LLAMA_CONFIG, SP_MESHES[mesh],
+                            lbatch, 1)
+    Path(out_path).write_text(json.dumps(out))
+    comm.destroy()
+    return 0
+
+
+def phase_sequence(torch, np, card):
+    """Phase 28: the two ``--sp-worker`` processes (released under phases
+    13-14, run beside them): (a) Pythia-160M at seq 2048, bf16, FusedAdam,
+    clip 1.0, 4 rows at gas 2, 2 steps, at sp 2 under ``ulysses`` and
+    ``ring`` against sp 1 on the same weights and batch (losses within
+    ``SP_LOSS_TOL``, grad norms within ``SP_NORM_TOL``; under Ulysses K5-K7
+    launch at 6 heads a rank); (b) Llama-2-7B's width at 2 layers (mode
+    None: the keys and values gathered, the queries padded to their length,
+    K5-K7 on both ranks) at sp 2 against sp 1, one step.  Prints each
+    run's ms a step, the bytes its exchanges staged a step and its peak
+    memory a rank.  Returns the paths' launches, summed over both ranks."""
+    ranks = sorted(_join_dp_workers(_workers("--sp-worker", SP_WORLD)[1]),
+                   key=lambda r: r["rank"])
+    flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    norms = ("layer_norm", "layer_norm_bwd")
+
+    def fmt(xs):
+        return ", ".join(f"{x:.6f}" for x in xs)
+
+    def held(name, ref):
+        r0 = ranks[0]
+        for r in ranks[1:]:
+            if r[name]["losses"] != r0[name]["losses"]:
+                raise AssertionError(f"sp {name}: ranks disagree {r[name]['losses']} vs "
+                                     f"{r0[name]['losses']}")
+        e = (_rel_max(r0[name]["losses"], r0[ref]["losses"]),
+             _rel_max(r0[name]["norms"], r0[ref]["norms"]))
+        if e[0] > SP_LOSS_TOL or e[1] > SP_NORM_TOL \
+                or not all(math.isfinite(x) for x in r0[name]["losses"]):
+            raise AssertionError(f"sp {name}: {r0[name]['losses']} / {r0[name]['norms']} vs "
+                                 f"{ref} {r0[ref]['losses']} / {r0[ref]['norms']} (relative "
+                                 f"{e[0]:.2e} / {e[1]:.2e}, limits {SP_LOSS_TOL} / "
+                                 f"{SP_NORM_TOL})")
+        return e
+
+    def line(name, rec, e):
+        ms = rec["ms"][1:] or rec["ms"]
+        staged = ", ".join(f"{op} {rec['staged'][op] / 1e6:.3f} MB"
+                           for op in SP_OPS if rec["staged"].get(op))
+        grads = rec["staged"].get("grad_reduce", 0) / 1e6
+        return (f"{name}: losses {fmt(rec['losses'])}, grad norms {fmt(rec['norms'])} "
+                f"(relative to sp 1 {e[0]:.2e} / {e[1]:.2e}, limits {SP_LOSS_TOL} / "
+                f"{SP_NORM_TOL}); "
+                f"{sum(ms) / len(ms):.1f} ms/step; staged a step {staged or 'none'}, "
+                f"grad_reduce {grads:.3f} MB; peak {rec['peak_gb']:.2f} GB a rank")
+
+    ref = ranks[0]["sp1"]
+    print(f"[sp-a] Pythia-160M bf16 at seq {SP_SEQ}, {SP_ROWS} rows, gas {SP_GAS}, "
+          f"{SP_WORLD} ranks sharing the card (gloo via host), {card}: sp 1 (dp 2) "
+          f"losses {fmt(ref['losses'])}, grad norms {fmt(ref['norms'])}, "
+          f"{sum(ref['ms'][1:]) / (len(ref['ms']) - 1):.1f} ms/step, peak "
+          f"{ref['peak_gb']:.2f} GB a rank", flush=True)
+    for name in ("ulysses", "ring"):
+        e = held(name, "sp1")
+        for r in ranks:
+            need = flash + norms if name == "ulysses" else norms
+            missing = [k for k in need + ("fused_adam",) if r[name]["launches"].get(k, 0) < 1]
+            if missing:
+                raise AssertionError(f"sp {name} rank {r['rank']} never launched {missing}: "
+                                     f"{r[name]['launches']}")
+        heads = ranks[0][name]["flash_heads"]
+        if name == "ulysses" and heads != [6]:
+            raise AssertionError(f"sp ulysses: the flash forward saw {heads} heads, not 6")
+        print(f"[sp-a] {line(name, ranks[0][name], e)}; flash at {heads or 'no'} heads a "
+              f"rank ({card})", flush=True)
+    e = held("llama-sp2", "llama-sp1")
+    for r in ranks:
+        missing = [k for k in flash + ("layer_norm",) if r["llama-sp2"]["launches"].get(k, 0) < 1]
+        if missing:
+            raise AssertionError(f"sp llama rank {r['rank']} never launched {missing}: "
+                                 f"{r['llama-sp2']['launches']}")
+    lref = ranks[0]["llama-sp1"]
+    print(f"[sp-b] Llama-2-7B width (N 32, D 128) at {SP_LLAMA_LAYERS} layers, bf16, seq "
+          f"{SP_SEQ}, {SP_LLAMA_ROWS} rows, one step, mode None: "
+          f"{line('sp 2', ranks[0]['llama-sp2'], e)}; sp 1 (dp 2) {lref['ms'][0]:.1f} ms, "
+          f"peak {lref['peak_gb']:.2f} GB a rank ({card})", flush=True)
+    return {"sp-ulysses": _summed_launches([r["ulysses"] for r in ranks]),
+            "sp-ring": _summed_launches([r["ring"] for r in ranks]),
+            "sp-llama": _summed_launches([r["llama-sp2"] for r in ranks])}
+
+
 def main():
     try:
         import torch
@@ -5839,6 +6055,8 @@ def main():
         return pipe_dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     if sys.argv[1:2] == ["--pipe-tp-worker"]:
         return pipe_tp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if sys.argv[1:2] == ["--sp-worker"]:
+        return sp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     import numpy as np
 
     from deeperspeed_tpu_torch.ops import cuda_utils
@@ -5894,7 +6112,7 @@ def main():
 
 
 def _phases(torch, np, cuda_utils, card, t_start):
-    """Phases 3-27 and the summary lines, after the build."""
+    """Phases 3-28 and the summary lines, after the build."""
 
     def timed(label, fn, *args):
         t = time.perf_counter()
@@ -5918,6 +6136,8 @@ def _phases(torch, np, cuda_utils, card, t_start):
     paths["training_fused"], paths["training_fused_lion"] = timed(
         "phase 11", phase_fused_trained, torch, np, L)
     timed("phase 12", phase_dropout, torch, np, L)
+    # phase 28's group runs while phases 13-14 wait for their workers
+    release_early("--sp-worker")
     dp, dp_ckpt, dp_ranks = timed("phases 13-14", phase_dp, torch, np)
     paths["dp_stage2"], paths["dp_qgz"] = dp["stage2"], dp["qgz-int8"]
     timed("phase 15", phase_legacy_checked, torch, np)
@@ -5954,6 +6174,7 @@ def _phases(torch, np, cuda_utils, card, t_start):
     pipe_paths, p26 = timed("phase 26", phase_pipeline, torch, np, card)
     paths.update(pipe_paths)
     paths.update(timed("phase 27", phase_pipe_tp, torch, np, card, p26))
+    paths.update(timed("phase 28", phase_sequence, torch, np, card))
 
     sources = {
         "layer_norm": ("deeperspeed_tpu_torch/csrc/layer_norm.cu",

@@ -5,12 +5,15 @@ The JAX package's collectives are XLA ops over named mesh axes; here a
 group is a ``torch.distributed`` process group over the ranks that differ
 only along those axes of the mesh (``parallel/topology.py``), and each
 collective is one eager call on it.  :func:`get_data_parallel_group` is
-the ZeRO group (``dp x zshard x ep``) of this rank's tensor-parallel slice,
+the ZeRO group (``dp x zshard x ep x sp``) of this rank's tensor-parallel slice,
 :func:`get_zero_param_parallel_group` the MiCS / hpZ subgroup
 (``zshard``), :func:`get_model_parallel_group` the tensor-parallel group
 (``tp``), :func:`get_expert_parallel_group` the MoE experts' group
 (``ep``), :func:`get_expert_data_parallel_group` the ZeRO axes less
-``ep`` and :func:`get_pipe_parallel_group` the pipeline stages (``pp``);
+``ep``, :func:`get_sequence_parallel_group` the ranks that hold one
+sequence's slices (``sp``), :func:`get_batch_parallel_group` the ZeRO axes
+less ``sp`` (the ranks that hold different rows) and
+:func:`get_pipe_parallel_group` the pipeline stages (``pp``);
 every process builds all of them together, in one order, the first time
 one is asked for under a mesh.  The
 functions return their result, as the JAX ones do; ``all_reduce`` and
@@ -169,7 +172,8 @@ _GROUP_AXES = {"dp": topo.ZERO_AXES, "zshard": (topo.ZSHARD_AXIS,),
                "dp_replica": (topo.DP_AXIS,), "tp": (topo.TP_AXIS,),
                "ep": (topo.EP_AXIS,),
                "expert_dp": tuple(a for a in topo.ZERO_AXES if a != topo.EP_AXIS),
-               "pp": (topo.PP_AXIS,)}
+               "pp": (topo.PP_AXIS,), "sp": (topo.SP_AXIS,),
+               "batch": tuple(a for a in topo.ZERO_AXES if a != topo.SP_AXIS)}
 
 
 def _mesh_groups(mesh=None):
@@ -186,7 +190,7 @@ def _mesh_groups(mesh=None):
     me = dist.get_rank() if dist.is_initialized() else 0
     mine = {}
     for name, axes in _GROUP_AXES.items():
-        if name == "expert_dp" and mesh.ep == 1:
+        if (name, mesh.ep) == ("expert_dp", 1) or (name, mesh.sp) == ("batch", 1):
             mine[name] = mine["dp"]        # the same ranks: no second group
             continue
         for ranks in mesh.groups(axes):
@@ -236,6 +240,20 @@ def get_expert_data_parallel_group():
     ranks that hold the same experts, over which their partitions are cut
     and their gradients reduced."""
     return _mesh_groups()["expert_dp"]
+
+
+def get_sequence_parallel_group():
+    """The sequence-parallel group (``sp``): the ranks that hold the slices
+    of the same sequences, ranked by slice (the JAX package's
+    ``comm.py:114``)."""
+    return _mesh_groups()["sp"]
+
+
+def get_batch_parallel_group():
+    """The ZeRO axes less ``sp``: the ranks that hold different rows of a
+    microbatch, ranked by their row slice (the group the JAX package's
+    manual data-parallel loops, qgZ and 1-bit Adam, run over)."""
+    return _mesh_groups()["batch"]
 
 
 def get_pipe_parallel_group():

@@ -84,6 +84,8 @@ from ..parallel.tensor_parallel import (ColumnParallelLinear, RowParallelLinear,
 from ..quantization import canonical_dtype
 from ..runtime.data_pipeline.data_routing.basic_layer import (
     random_ltd_gather, random_ltd_scatter, take_tokens)
+from ..sequence import (DistributedAttention, gathered_keys, padded_attention, ring_attention,
+                        sequence_group, sequence_positions)
 from ..utils.recompute import checkpoint_replaying
 from ..utils.tree import tree_sorted
 
@@ -110,6 +112,11 @@ class GPTNeoXConfig:
     remat: bool = False
     # chunked fused-linear cross entropy (0 = the monolithic loss)
     ce_chunk_tokens: int = 0
+    # sequence parallelism over the sp mesh axis (``sequence/``):
+    #   None      each rank's queries over the gathered keys and values
+    #   "ulysses" all-to-all head-scatter / sequence-gather
+    #   "ring"    blockwise ring attention (K/V passed around the sp ring)
+    seq_parallel_mode: Optional[str] = None
     # μP width multiplier relative to a base width (for the mu-optimizers)
     mup_base_width: Optional[int] = None
     # MoE (0/1 experts = dense). MoE replaces the MLP on every
@@ -141,6 +148,10 @@ class GPTNeoXConfig:
                 if self.has_moe and (i + 1) % self.moe_expert_interval == 0]
 
     def __post_init__(self):
+        if self.seq_parallel_mode not in (None, "none", "ulysses", "ring"):
+            raise ValueError(
+                f"unknown seq_parallel_mode {self.seq_parallel_mode!r}; "
+                f"expected None, 'ulysses' or 'ring'")
         if self.hidden_size % self.num_heads:
             raise ValueError(f"hidden_size {self.hidden_size} is not a "
                              f"multiple of num_heads {self.num_heads}")
@@ -366,6 +377,8 @@ class GPTNeoXAttention(nn.Module):
         H = config.hidden_size
         self.query_key_value = nn.Linear(H, 3 * H)
         self.dense = nn.Linear(H, H)
+        # the sp group, where the engine runs the model sequence-parallel
+        self.sp_group = None
 
     def forward(self, x, positions, kv=None, paged: Optional[PagedState] = None,
                 rng=None, cached=None, attention_mask=None):
@@ -390,14 +403,41 @@ class GPTNeoXAttention(nn.Module):
         elif cached is not None:
             out = cached_attention(q, k, v, cached, attention_mask)
         else:
-            # training (an rng) with attention_dropout > 0 takes the dense
-            # path with dropout on the probabilities, as in the JAX package
-            rate = cfg.attention_dropout if rng is not None else 0.0
-            mask = (None if attention_mask is None
-                    else attention_mask[:, None, None, :].to(torch.bool))
-            out = dot_product_attention(q, k, v, mask=mask, causal=True,
-                                        dropout_rate=rate, generator=rng)
+            out = self._causal_attention(q, k, v, rng, attention_mask)
         return _dense(self.dense, out.reshape(B, S, -1), cfg.dtype)
+
+    def _causal_attention(self, q, k, v, rng, attention_mask):
+        """Training and the plain forward: causal attention over this
+        rank's tokens, by ``seq_parallel_mode`` (the JAX package's
+        dispatch and refusals, at any ``sp``).  Training (an rng) with
+        attention_dropout > 0 drops probabilities on the dense path, as in
+        the JAX package."""
+        cfg = self.config
+        mode = cfg.seq_parallel_mode
+        rate = cfg.attention_dropout if rng is not None else 0.0
+        if mode == "ring" and rate > 0.0:
+            raise NotImplementedError(
+                "ring attention does not support attention_dropout; use "
+                "seq_parallel_mode='ulysses' or hidden_dropout instead")
+        if attention_mask is not None and mode in ("ulysses", "ring"):
+            raise NotImplementedError(
+                "attention_mask (padded batches) is not supported with "
+                f"seq_parallel_mode={mode!r}; pad-free packed "
+                "sequences are the supported long-context input format")
+        group = sequence_group(self)
+        if mode == "ulysses" and group is not None:
+            return DistributedAttention(dot_product_attention, group)(
+                q, k, v, causal=True, dropout_rate=rate, generator=rng)
+        if mode == "ring":
+            return ring_attention(q, k, v, group, causal=True)
+        mask = None if attention_mask is None else attention_mask.to(torch.bool)
+        if group is not None:
+            k, v, mask, _ = gathered_keys(k, v, group, mask)
+            if mask is None and rate == 0.0:
+                return padded_attention(dot_product_attention, q, k, v)
+        mask = None if mask is None else mask[:, None, None, :]
+        return dot_product_attention(q, k, v, mask=mask, causal=True,
+                                     dropout_rate=rate, generator=rng)
 
     def _paged_attention(self, q, k, v, positions, kv, paged):
         """Blocked KV-pool attention.  Writes happen before reads, so a token
@@ -542,6 +582,9 @@ class GPTNeoX(nn.Module):
         device = torch.device("meta") if meta else resolve_device(device)
         on_card = draw_on_device and device.type == "cuda"
         self.config = config
+        # the sp group, where the engine runs the model sequence-parallel:
+        # the forward then takes this rank's slice of every sequence
+        self.sp_group = None
         with torch.device("meta") if on_card or meta else contextlib.nullcontext():
             self.embed_in = nn.Embedding(config.vocab_size, config.hidden_size)
             moe_layers = set(config.moe_layer_indices())
@@ -634,10 +677,12 @@ class GPTNeoX(nn.Module):
         [B, L] over the cache buffer and the forward is the cached decode
         of ``input_ids`` at the cache's write index, which it advances.
         ``moe_aux``, a list, receives each MoE block's ``l_aux`` (the
-        training forward's)."""
+        training forward's).  Bound to an ``sp`` group of ``p`` ranks, the
+        forward takes slice ``r`` of every sequence, whose tokens sit at the
+        global positions ``[r S, (r + 1) S)`` (the default ``positions``)."""
         B, S = input_ids.shape
         if positions is None:
-            positions = torch.arange(S, device=input_ids.device).expand(B, S)
+            positions = sequence_positions(self, B, S, input_ids.device)
         # lookup in the table's type (fp32 in training), then the compute type
         x = self.embed_in(input_ids).to(self.config.dtype)
         paged, kv_cache = None, [None] * len(self.layers)

@@ -55,6 +55,7 @@ from ..ops.transformer import apply_rotary_pos_emb, rms_norm, rotary_tables
 from ..parallel.tensor_parallel import (ColumnParallelLinear, VocabParallelEmbedding,
                                         copy_to_tensor_parallel, partition_dims,
                                         vocab_parallel_log_likelihood)
+from ..sequence import gathered_keys, padded_attention, sequence_group, sequence_positions
 from ..utils.recompute import checkpoint_replaying
 from ..utils.tree import tree_sorted
 from .gpt_neox import (SPEC_DECODE_WINDOW, ModelLayerNorm, ModelLinear, _dense,
@@ -197,6 +198,8 @@ class LlamaAttention(nn.Module):
         self.k_proj = nn.Linear(H, KV * D, bias=False)
         self.v_proj = nn.Linear(H, KV * D, bias=False)
         self.o_proj = nn.Linear(N * D, H, bias=False)
+        # the sp group, where the engine runs the model sequence-parallel
+        self.sp_group = None
 
     def forward(self, x, positions, kv=None, paged=None, cached=None,
                 attention_mask=None):
@@ -215,16 +218,29 @@ class LlamaAttention(nn.Module):
         elif cached is not None:
             out = cached_attention(q, k, v, cached, attention_mask, cfg.sliding_window)
         else:
+            # at sp > 1 the local queries over the gathered keys (the
+            # family has no seq_parallel_mode: the JAX package's GSPMD
+            # default), the window measured from the global positions;
+            # unmasked, the queries padded to the keys' length (flash)
+            group = sequence_group(self)
+            am = None if attention_mask is None else attention_mask.to(torch.bool)
+            q_start = 0
+            if group is not None:
+                k, v, am, q_start = gathered_keys(k, v, group, am)
             rep = q.shape[2] // k.shape[2]
             k, v = repeat_kv(k, rep), repeat_kv(v, rep)
             mask = None
             if cfg.sliding_window is not None:
-                pos = torch.arange(S, device=x.device)
-                mask = (pos[None, :] > pos[:, None] - cfg.sliding_window)[None, None]
-            if attention_mask is not None:
-                am = attention_mask[:, None, None, :].to(torch.bool)
+                qpos = torch.arange(q_start, q_start + S, device=x.device)
+                kpos = torch.arange(k.shape[1], device=x.device)
+                mask = (kpos[None, :] > qpos[:, None] - cfg.sliding_window)[None, None]
+            if am is not None:
+                am = am[:, None, None, :]
                 mask = am if mask is None else mask & am
-            out = dot_product_attention(q, k, v, mask=mask, causal=True)
+            if mask is None:
+                out = padded_attention(dot_product_attention, q, k, v)
+            else:
+                out = dot_product_attention(q, k, v, mask=mask, causal=True)
         return _dense(self.o_proj, out.reshape(B, S, -1), dt)
 
     def _paged(self, q, k, v, positions, kv, paged):
@@ -318,6 +334,8 @@ class Llama(nn.Module):
         meta = str(device) == "meta"
         device = torch.device("meta") if meta else resolve_device(device)
         self.config = config
+        # the sp group, where the engine runs the model sequence-parallel
+        self.sp_group = None
         with torch.device("meta" if device.type == "cuda" else device):
             self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size)
             if config.learned_positions:
@@ -389,7 +407,8 @@ class Llama(nn.Module):
         cfg = self.config
         B, S = input_ids.shape
         if positions is None:
-            positions = torch.arange(S, device=input_ids.device).expand(B, S)
+            # bound to an sp group: this slice's global positions
+            positions = sequence_positions(self, B, S, input_ids.device)
         # the lookup in the table's type, then the compute type
         x = self.embed_tokens(input_ids).to(cfg.dtype)
         if cfg.learned_positions:

@@ -13,6 +13,7 @@ import torch
 
 from .llama import TP_RULES, Llama, pipe_params_from_jax, pipe_params_to_jax
 from .pipe_base import StagePipeBase
+from ..sequence import sequence_positions
 from ..utils.recompute import checkpoint_replaying
 
 
@@ -38,7 +39,7 @@ class LlamaPipe(StagePipeBase):
         x = stage.embed_tokens(tokens).to(cfg.dtype)
         if cfg.learned_positions:
             B, S = tokens.shape
-            positions = torch.arange(S, device=tokens.device).expand(B, S)
+            positions = sequence_positions(stage, B, S, tokens.device)
             x = x + stage.embed_positions(positions).to(cfg.dtype)
         return x
 

@@ -35,6 +35,7 @@ from .. import comm
 from ..accelerator import resolve_device
 from ..parallel.tensor_parallel import (ColumnParallelLinear, gather_from_tensor_parallel,
                                         vocab_parallel_log_likelihood)
+from ..sequence import sequence_positions
 
 
 def _masked_mean(token_ll, loss_mask):
@@ -72,6 +73,8 @@ class PipeStage(nn.Module):
         self.num_stages = spec.num_stages
         self.is_first = stage_id == 0
         self.is_last = stage_id == spec.num_stages - 1
+        # the sp group, where the engine runs the stage sequence-parallel
+        self.sp_group = None
         for name, module in parts.items():
             setattr(self, name, module)
 
@@ -98,8 +101,7 @@ class PipeStage(nn.Module):
         if self.is_first:
             x = self.embed(x)
         B, S = x.shape[:2]
-        positions = torch.arange(S, device=x.device).expand(B, S)
-        return self.stage_forward(x, positions, rng)
+        return self.stage_forward(x, sequence_positions(self, B, S, x.device), rng)
 
     def _head_split(self):
         """(group, start) of the last stage's vocabulary-parallel head, or

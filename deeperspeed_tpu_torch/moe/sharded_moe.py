@@ -12,7 +12,10 @@ package's own draws.  Sorts are stable, as ``jnp.argsort`` is.
 Routing is global over the data-parallel batch, as it is under GSPMD in the
 JAX package, where ``tokens`` is every data rank's rows.  Over several
 processes each rank holds its rows of the microbatch (the data index order
-of the engine's batch group) and the gate runs on them; then:
+of the engine's batch group; under sequence parallelism its slice of
+their sequences, and the sequence-order priority follows each token's
+index in the batch's global row-major order) and the gate runs on them;
+then:
 
 1. each token's routing record (its chosen experts and its priority) and
    the rank's column sums of the gate probabilities are all-gathered over
@@ -173,16 +176,35 @@ def _global_me(gates, group, total, gate_sums):
     return (local - (local - gate_sums.to(local.dtype)).detach()) / total
 
 
+def _with_order(records, order):
+    """``records`` with the tokens' global order as a last column."""
+    return records if order is None else torch.cat([records, order[:, None]], 1)
+
+
+def _sequence_order(records, order, n):
+    """The gathered tokens' priority by sequence order: their global index
+    (the last column) where ``order`` was given, else their gathered
+    position."""
+    if order is not None:
+        return records[:, -1].to(torch.float32)
+    return torch.arange(n, dtype=torch.float32, device=records.device)
+
+
 def top1gating(logits, capacity_factor=1.0, min_capacity=8, used_token=None,
                noisy_gate_policy=None, drop_tokens=True, use_rts=True, rng=None,
-               capacity=None, gumbel=None, priority=None, group=None) -> GateOutput:
+               capacity=None, gumbel=None, priority=None, group=None,
+               order=None) -> GateOutput:
     """Top-1 gating (reference ``sharded_moe.py:184``).
 
     logits: [S, E] fp32, this rank's tokens; ``group`` the batch group over
     whose tokens the routing is global (None: one process).
     ``used_token``: optional [S] 0/1 mask of non-padding tokens.  Draws:
     ``gumbel`` [S, E] (RSample) and ``priority`` [S] (Random Token
-    Selection) are given or drawn from ``rng``, RSample's first."""
+    Selection) are given or drawn from ``rng``, RSample's first.
+    ``order`` [S] (fp64): each token's index in the global row-major order
+    of the batch, where the batch group's data-index order is not it (the
+    tokens of a sequence's slices under ``sp``); the sequence-order
+    priority follows it."""
     S, E = logits.shape
     n = _batch_size(group)
     N = S * n
@@ -208,7 +230,7 @@ def top1gating(logits, capacity_factor=1.0, min_capacity=8, used_token=None,
     prio = (priority.to(torch.float64) if rts else
             torch.zeros(S, dtype=torch.float64, device=logits.device))
     records, gate_sums = _gather_records(
-        group, torch.stack([indices1.to(torch.float64), used, prio], 1),
+        group, _with_order(torch.stack([indices1.to(torch.float64), used, prio], 1), order),
         gates.detach().sum(0).to(torch.float64))
     all_idx = records[:, 0].to(torch.int64)
     mask1 = F.one_hot(all_idx, E).to(torch.float32) * records[:, 1:2].to(torch.float32)
@@ -220,7 +242,7 @@ def top1gating(logits, capacity_factor=1.0, min_capacity=8, used_token=None,
     l_aux = torch.sum(me * ce) * E
 
     all_prio = (records[:, 2].to(torch.float32) if rts else
-                torch.arange(N, dtype=torch.float32, device=logits.device))
+                _sequence_order(records, order, N))
     locations1, kept1 = _assign_capacity(mask1, all_prio, capacity)
     loc = (locations1 * kept1).sum(1)
     kept = kept1.any(1)
@@ -234,9 +256,10 @@ def top1gating(logits, capacity_factor=1.0, min_capacity=8, used_token=None,
 
 def top2gating(logits, capacity_factor=1.0, min_capacity=8, drop_tokens=True, rng=None,
                capacity=None, top2_2nd_expert_sampling=True, gumbel=None,
-               group=None) -> GateOutput:
+               group=None, order=None) -> GateOutput:
     """Top-2 gating (reference ``sharded_moe.py:282``): ``gumbel`` [S, E]
-    the second choice's noise, given or drawn from ``rng``."""
+    the second choice's noise, given or drawn from ``rng``; ``order`` as
+    in :func:`top1gating`."""
     S, E = logits.shape
     n = _batch_size(group)
     N = S * n
@@ -255,9 +278,9 @@ def top2gating(logits, capacity_factor=1.0, min_capacity=8, drop_tokens=True, rn
     indices2 = torch.argmax(logits_except1, dim=1)
 
     records, gate_sums = _gather_records(
-        group, torch.stack([indices1, indices2], 1).to(torch.float64),
+        group, _with_order(torch.stack([indices1, indices2], 1).to(torch.float64), order),
         gates.detach().sum(0).to(torch.float64))
-    all_idx = records.to(torch.int64)
+    all_idx = records[:, :2].to(torch.int64)
     mask1 = F.one_hot(all_idx[:, 0], E).to(torch.float32)
     mask2 = F.one_hot(all_idx[:, 1], E).to(torch.float32)
     # routed-pre-drop counts, matching top1gating / GateOutput semantics
@@ -269,7 +292,7 @@ def top2gating(logits, capacity_factor=1.0, min_capacity=8, drop_tokens=True, rn
 
     # capacity: first-choice tokens get priority over second-choice
     # (reference offsets locations2 by the PRE-clip mask1 expert counts)
-    prio = torch.arange(N, dtype=torch.float32, device=logits.device)
+    prio = _sequence_order(records, order, N)
     counts1 = mask1.sum(0, keepdim=True).to(torch.int64)
     locations1, kept1 = _assign_capacity(mask1, prio, capacity)
     locations2, _ = _assign_capacity(mask2, prio, capacity)
@@ -310,10 +333,11 @@ class TopKGate(nn.Module):
         self.noisy_gate_policy = noisy_gate_policy
         self.drop_tokens, self.use_rts = drop_tokens, use_rts
 
-    def forward(self, x, used_token=None, train=True, rng=None, group=None):
+    def forward(self, x, used_token=None, train=True, rng=None, group=None, order=None):
         """``x`` [S, H] this rank's tokens; ``rng`` the training generator
         (draws: Jitter's noise first, then the gating function's), None
-        draws nothing; ``group`` the batch group routing is global over."""
+        draws nothing; ``group`` the batch group routing is global over,
+        ``order`` the tokens' global order (:func:`top1gating`)."""
         x32 = x.to(torch.float32)
         if self.noisy_gate_policy == "Jitter" and train and rng is not None:
             x32 = multiplicative_jitter(x32, rng)
@@ -323,9 +347,10 @@ class TopKGate(nn.Module):
         if self.k == 1:
             return top1gating(logits, cf, self.min_capacity, used_token,
                               self.noisy_gate_policy if train else None,
-                              self.drop_tokens, self.use_rts, draw, group=group)
+                              self.drop_tokens, self.use_rts, draw, group=group,
+                              order=order)
         return top2gating(logits, cf, self.min_capacity, self.drop_tokens, draw,
-                          group=group)
+                          group=group, order=order)
 
 
 class _AllToAllV(torch.autograd.Function):
@@ -365,13 +390,19 @@ class Transport:
     c_pad: int
 
 
-def plan_transport(gate: GateOutput, tokens_per_rank, ep_size, ep_rank, num_local):
+def plan_transport(gate: GateOutput, tokens_per_rank, ep_size, ep_rank, num_local,
+                   peers=None):
     """The :class:`Transport` of ``gate`` for this rank, the ``ep_rank``-th
-    of an ``ep`` group of ``ep_size`` ranks whose tokens are consecutive
-    in the batch group (this rank's among them)."""
+    of an ``ep`` group of ``ep_size`` ranks: ``peers`` their indices in the
+    batch group, by default consecutive (this rank's among them; under
+    ``sp`` they are ``sp`` apart)."""
     S, k = tokens_per_rank, gate.all_expert.shape[1]
-    first = gate.offset - ep_rank * S
-    span = slice(first, first + ep_size * S)
+    if peers is None:
+        first = gate.offset - ep_rank * S
+        span = slice(first, first + ep_size * S)
+    else:
+        span = (torch.tensor(peers, device=gate.all_expert.device)[:, None] * S
+                + torch.arange(S, device=gate.all_expert.device)).reshape(-1)
     expert = gate.all_expert[span].reshape(-1)
     kept = gate.all_kept[span].reshape(-1)
     pair = kept.nonzero().squeeze(1)               # (token, choice) in token order
@@ -417,10 +448,35 @@ class MOELayer(nn.Module):
         self.quantized_alltoall_dtype = quantized_alltoall_dtype
         self.batch_group = None
         self.ep_group = None
+        self.sp_group = None
         self.last_gate = None
 
-    def set_groups(self, batch_group, ep_group):
-        self.batch_group, self.ep_group = batch_group, ep_group
+    def set_groups(self, batch_group, ep_group, sp_group=None):
+        """``sp_group``: where the batch group spans sequence slices (the
+        engine's ``sp`` axis), the group of this rank's slices."""
+        self.batch_group, self.ep_group, self.sp_group = batch_group, ep_group, sp_group
+
+    def _token_order(self, shape, device):
+        """Under ``sp`` > 1 the global row-major index of each of this
+        rank's tokens ``[R, S_local]`` (rows ``b R + i`` of its row slice
+        ``b``, columns ``t S_local + j`` of its sequence slice ``t``); None
+        where the batch group's data-index order is the global order."""
+        sp = self.sp_group
+        if sp is None or sp.size() == 1:
+            return None
+        p, t = sp.size(), sp.rank()
+        R, S = shape[0], shape[1]
+        rows = (self.batch_group.rank() // p) * R + torch.arange(R, device=device)
+        cols = t * S + torch.arange(S, device=device)
+        return (rows[:, None] * (S * p) + cols[None, :]).reshape(-1).to(torch.float64)
+
+    def _ep_peers(self):
+        """The ``ep`` group's members' indices in the batch group (None:
+        consecutive, as without ``sp``)."""
+        sp, ep = self.sp_group, self.ep_group
+        if sp is None or sp.size() == 1 or ep is None or ep.size() == 1:
+            return None
+        return [self.batch_group.ranks.index(r) for r in ep.ranks]
 
     def _dispatch_transport(self, rows, dtype, send=(), recv=()):
         """The dispatched rows as the experts receive them, moved over the
@@ -443,13 +499,14 @@ class MOELayer(nn.Module):
         shape, M = x.shape, x.shape[-1]
         tokens = x.reshape(-1, M)
         gate = self.gate(tokens, used_token=used_token, train=train, rng=rng,
-                         group=self.batch_group)
+                         group=self.batch_group, order=self._token_order(shape, x.device))
         # the last routing, for reports (exp_counts, the kept share, l_aux)
         self.last_gate = dataclasses.replace(gate, l_aux=gate.l_aux.detach(),
                                              weight=gate.weight.detach())
         ep = self.ep_group.size() if self.ep_group is not None else 1
         ep_rank = self.ep_group.rank() if ep > 1 else 0
-        plan = plan_transport(gate, tokens.shape[0], ep, ep_rank, self.experts.num_local)
+        plan = plan_transport(gate, tokens.shape[0], ep, ep_rank, self.experts.num_local,
+                              self._ep_peers())
         rows = self._dispatch_transport(tokens.index_select(0, plan.token), x.dtype,
                                         plan.send, plan.recv)
         buf = rows.new_zeros((self.experts.num_local * plan.c_pad, M))

@@ -8,12 +8,13 @@
   to a ``jax.sharding.Mesh`` over its devices reshaped
   ``(pp, dp, zshard, ep, sp, tp)`` row-major; here one process drives one
   device and the ``torch.distributed`` world takes the same order, so rank
-  ``r`` is JAX device ``r``: ``r = ((i_dp * zshard + i_zshard) * ep +
-  i_ep) * tp + i_tp`` within a pipeline stage, the ``pp`` index outermost.
+  ``r`` is JAX device ``r``, the ``pp`` index outermost.
   ``pp`` (pipeline stages, one process each per data-parallel replica),
   ``dp``, ``zshard`` (the MiCS / hpZ subgroup), ``ep`` (MoE expert
-  parallelism) and ``tp`` (tensor parallelism) run; ``sp`` above 1 raises
-  ``NotImplementedError`` naming the ROADMAP item that ports it.
+  parallelism), ``sp`` (sequence parallelism: each rank holds a slice of
+  every sequence, ``sequence/``) and ``tp`` (tensor parallelism), with
+  ``sp`` just outside ``tp``: ``r = (((i_dp * zshard + i_zshard) * ep +
+  i_ep) * sp + i_sp) * tp + i_tp`` within a stage.
 * :class:`PipeModelDataParallelTopology` -- the reference's ``pipe x data x
   model`` process topology (``runtime/pipe/topology.py``).
 """
@@ -30,10 +31,6 @@ SP_AXIS = "sp"
 TP_AXIS = "tp"
 ALL_AXES = (PP_AXIS, DP_AXIS, ZSHARD_AXIS, EP_AXIS, SP_AXIS, TP_AXIS)
 
-# where the axes the port does not run yet will be ported (ROADMAP Queue A)
-_AXIS_ITEMS = {
-    SP_AXIS: "Sequence parallelism",
-}
 # the axes ZeRO shards over (the JAX package's ``sharding.ZERO_AXES``)
 ZERO_AXES = (DP_AXIS, ZSHARD_AXIS, EP_AXIS, SP_AXIS)
 
@@ -139,11 +136,6 @@ class MeshTopology:
 
     def __init__(self, pp=1, dp=None, zshard=1, ep=1, sp=1, tp=1):
         sizes = dict(zip(ALL_AXES, (pp, dp, zshard, ep, sp, tp)))
-        for axis, item in _AXIS_ITEMS.items():
-            if sizes[axis] != 1:
-                raise NotImplementedError(
-                    f"mesh axis {axis}={sizes[axis]} is not ported yet "
-                    f"(ROADMAP Queue A, '{item}')")
         world = _world_size()
         rest = pp * zshard * ep * sp * tp
         if dp is None:

@@ -57,6 +57,9 @@ SUPPORTED_KEYS = {
     "activation_checkpointing", "data_types", "progressive_layer_drop",
     "curriculum_learning", "data_efficiency", "comm", "mesh",
     "communication_data_type", "checkpoint", "comms_logger", "pipeline",
+    # accepted as the JAX config accepts it; nothing there reads it (the
+    # sequence-parallel exchanges run in the activations' type)
+    "seq_parallel_communication_data_type",
     # MoE is configured on the model in both packages: the JAX config takes
     # a top-level ``moe`` block under its extra="allow" policy and acts on
     # nothing in it, and so does the port
@@ -115,6 +118,14 @@ def pipe_compressed_refusal():
         "the compressed gradient reductions (qgZ, 1-bit Adam) over a pipeline are not "
         "supported: the reference does not run them (the JAX PipelineEngine fails on "
         "both with a TypeError)")
+
+
+def sp_qgz_refusal(what, error):
+    """qgZ on the sequence-parallel axis (its first hop on ``sp``, or over
+    ring attention): the reference fails on both, with ``error``."""
+    return NotImplementedError(
+        f"{what} under qgZ is not supported: the reference does not run it (the JAX "
+        f"engine fails with {error!r})")
 
 
 class OptimizerParams(DeeperSpeedConfigModel):
@@ -360,17 +371,14 @@ class MeshConfig(DeeperSpeedConfigModel):
     """``mesh``: ``pipe_parallel_size`` is the ``pp`` axis,
     ``model_parallel_size`` the ``tp`` axis and ``data_parallel_size`` the
     ``dp`` axis (by default what the world leaves), ``expert_parallel_size``
-    the ``ep`` axis (MoE); sequence parallelism stays 1 until its ROADMAP
-    item lands."""
+    the ``ep`` axis (MoE) and ``sequence_parallel_size`` the ``sp`` axis
+    (sequence parallelism)."""
 
     pipe_parallel_size: int = 1
     model_parallel_size: int = 1
     sequence_parallel_size: int = 1
     expert_parallel_size: int = 1
     data_parallel_size: Optional[int] = None
-
-
-_MESH_ITEMS = {"sequence_parallel_size": "Sequence parallelism"}
 
 
 def _known(block, model, where):
@@ -415,14 +423,18 @@ class DeeperSpeedConfig:
                 raise ValueError(f"mesh.model_parallel_size {tp} x pipe_parallel_size {pp} "
                                  f"does not divide the process count {world}")
             world_size = world // (tp * pp)
-        ep = self.mesh_config.expert_parallel_size
+        ep, sp = self.mesh_config.expert_parallel_size, self.mesh_config.sequence_parallel_size
         if world_size % ep:
             raise ValueError(f"mesh.expert_parallel_size {ep} does not divide the "
                              f"data-parallel process count {world_size}")
+        if world_size % (ep * sp):
+            raise ValueError(f"mesh.sequence_parallel_size {sp} does not divide the "
+                             f"data-parallel process count {world_size} over "
+                             f"expert_parallel_size {ep}")
         dp = self.mesh_config.data_parallel_size
-        if dp is not None and dp * self.zshard_size * ep != world_size:
+        if dp is not None and dp * self.zshard_size * ep * sp != world_size:
             raise ValueError(f"mesh.data_parallel_size {dp} x zshard {self.zshard_size} "
-                             f"x ep {ep} "
+                             f"x ep {ep} x sp {sp} "
                              f"must equal the data-parallel process count {world_size}: "
                              f"one process drives one device")
         self.world_size = world_size
@@ -478,11 +490,7 @@ class DeeperSpeedConfig:
     @staticmethod
     def _mesh(block):
         _known(block, MeshConfig, "mesh")
-        mesh = MeshConfig(**block)
-        for key, item in _MESH_ITEMS.items():
-            if getattr(mesh, key) != 1:
-                raise _not_ported(f"mesh.{key} {getattr(mesh, key)}", item)
-        return mesh
+        return MeshConfig(**block)
 
     @staticmethod
     def _pipe_auto(mesh, comm):
@@ -556,7 +564,7 @@ class DeeperSpeedConfig:
     def _comm(self, comm):
         """``comm``: ``quantized`` (qgZ) and ``overlap`` (with its
         ``schedule``).  Refused: an
-        ``intra_axis`` on an axis not ported (``sp``), ``tp``, whose
+        ``intra_axis`` on ``sp``, which the reference fails on, ``tp``, whose
         ranks hold different slices of the parameters, ``pp``, whose ranks
         hold different parameters, and ``ep`` (qgZ needs ``ep`` 1, as in the
         JAX engine)."""
@@ -566,8 +574,9 @@ class DeeperSpeedConfig:
         if intra is not None and intra not in topo.ALL_AXES:
             raise ValueError(f"comm.quantized.intra_axis {intra!r}: expected one of "
                              f"{list(topo.ALL_AXES)}")
-        if intra in topo._AXIS_ITEMS:
-            raise _not_ported(f"comm.quantized.intra_axis {intra!r}", topo._AXIS_ITEMS[intra])
+        if intra == topo.SP_AXIS:
+            raise sp_qgz_refusal("comm.quantized.intra_axis 'sp'",
+                                 "AssertionError: dim 0 (1) not divisible by 2")
         if intra in (topo.TP_AXIS, topo.EP_AXIS, topo.PP_AXIS):
             raise ValueError(f"comm.quantized.intra_axis {intra!r}: the qgZ hops run over "
                              f"the data-parallel axes dp and zshard")

@@ -23,11 +23,15 @@ the same step runs eagerly, in the same order and precision:
 
 Several processes (``torch.distributed``, one device each, laid out by
 the mesh, ``parallel/topology.py``): the ZeRO group is the ``dp x zshard
-x ep`` ranks of this rank's tensor-parallel slice (:attr:`group`, :attr:`world`,
+x ep x sp`` ranks of this rank's tensor-parallel slice (:attr:`group`, :attr:`world`,
 :attr:`rank`, the data-parallel index); every rank takes the contiguous
-slice of each global microbatch its data-parallel index names (``batch=``
-and ``data_iter=`` carry global microbatches; the engine's loader yields
-each rank its slice), so the ``tp`` ranks of one slice see the same rows,
+slice of each global microbatch's rows its index in the batch group
+(:attr:`batch_group`, the ZeRO group less ``sp``) names (``batch=`` and
+``data_iter=`` carry global microbatches; the engine's loader yields each
+rank its rows), and at ``sp`` > 1 the slice of the sequence its ``sp``
+index names (:meth:`_seq_local`; the model is bound to the ``sp`` group,
+``sequence/``, and holds those tokens at their global positions), so the
+``tp`` ranks of one slice see the same tokens,
 and the gradient is the mean over the ZeRO group, reduced in
 ``communication_data_type`` (else the accumulation type).  ZeRO
 (``zero/sharding.py``): at stage 0 every rank keeps everything and
@@ -188,7 +192,8 @@ from ..accelerator import resolve_device
 from ..parallel import topology as topo
 from ..utils.logging import log_dist, logger
 from ..comm.overlap import AsyncOpHandle, apply_xla_latency_hiding, bucketize
-from .config import COMM_DTYPES, DeeperSpeedConfig
+from ..sequence import bind_sequence_parallel
+from .config import COMM_DTYPES, DeeperSpeedConfig, sp_qgz_refusal
 from .lr_schedules import get_lr_schedule_fn
 from .optimizers import build_optimizer, identity
 from .swap_tensor import DeviceCopies, pin_into_one
@@ -279,6 +284,11 @@ class _HookedReduction:
 
 
 class DeeperSpeedEngine:
+    # at sp > 1 each rank holds its slice of every sequence (the model bound
+    # to the sp group); an engine that runs whole sequences on every sp
+    # rank sets it False
+    _SEQ_SLICED = True
+
     def __init__(self, model, config, optimizer=None, model_parameters=None,
                  loss_fn=None, training_data=None, collate_fn=None,
                  lr_scheduler=None, device=None):
@@ -292,6 +302,11 @@ class DeeperSpeedEngine:
         # data-parallel index
         self.group = comm.get_data_parallel_group()
         self.world, self.rank = self.group.size(), self.group.rank()
+        # sequence parallelism: the ZeRO group is the batch group (the
+        # ranks of different rows) times the sp group (the slices of one
+        # sequence), sp innermost
+        self.sp_group = comm.get_sequence_parallel_group()
+        self.batch_group = comm.get_batch_parallel_group()
         if config.world_size != self.world:
             raise ValueError(f"config built for {config.world_size} data-parallel "
                              f"processes, the mesh has {self.world}")
@@ -312,7 +327,7 @@ class DeeperSpeedEngine:
 
         self.precision = MixedPrecisionPolicy(config)
         self._init_offload()
-        self._init_qgz()
+        self._init_qgz(model)
         # the type the data-parallel reduction runs in (the JAX engine's
         # ``reduce_dtype or accum_dtype``)
         self._comm_dtype = (COMM_DTYPES[config.communication_data_type]
@@ -337,6 +352,8 @@ class DeeperSpeedEngine:
 
             self._tp_dims = shard_module(self.module, self.module.param_partition_rules(),
                                          self.tp_group)
+        if self.sp_group.size() > 1 and self._SEQ_SLICED:
+            bind_sequence_parallel(self.module, self.sp_group)
         self._init_experts()
         self._build_state()
 
@@ -450,7 +467,7 @@ class DeeperSpeedEngine:
                     mod.shard(i_ep, ep)
                 self._expert_names.update(f"{name}.{p}" for p, _ in mod.named_parameters())
             elif isinstance(mod, MOELayer):
-                mod.set_groups(self.group, self.ep_group)
+                mod.set_groups(self.group, self.ep_group, self.sp_group)
 
     def _init_offload(self):
         """``offload_optimizer`` and ``offload_param`` (the JAX engine's
@@ -573,7 +590,7 @@ class DeeperSpeedEngine:
             # the recompute), so block recompute would run twice
             model.replace_config(remat=False)
 
-    def _init_qgz(self):
+    def _init_qgz(self, model=None):
         """qgZ and 1-bit Adam (the JAX engine's ``engine.py:287-362``): the
         compressed data-parallel reductions, at stage 0 only."""
         cfg = self.config
@@ -589,8 +606,13 @@ class DeeperSpeedEngine:
             if self.mesh.ep > 1 or self.mesh.zshard > 1:
                 raise ValueError("onebitadam compresses over the dp axis; ep/zshard must "
                                  "be 1 (sp or tp compose)")
-            if self.world == 1:
-                logger.warning("onebitadam: one process, nothing to compress; "
+            if self.mesh.sp > 1 and self.mesh.tp > 1:
+                # the JAX engine's refusal, in its words
+                raise NotImplementedError(
+                    "onebitadam supports sp OR tp alongside dp, not both "
+                    "(XLA SPMD device-group expansion limitation)")
+            if self.batch_group.size() == 1:
+                logger.warning("onebitadam: dp=1, nothing to compress; "
                                "running plain Adam")
                 self._onebit = False
         self._qgz = bool(cq.enabled)
@@ -613,8 +635,17 @@ class DeeperSpeedEngine:
             if self.mesh.ep > 1:
                 raise ValueError("comm.quantized: ep must be 1 (MoE routing assumes the "
                                  "GSPMD reduction paths)")
-            if self.world == 1:
-                logger.warning("comm.quantized: one process, nothing to quantize; "
+            if self.mesh.sp > 1 and self.mesh.tp > 1:
+                raise NotImplementedError(
+                    "comm.quantized supports sp OR tp alongside dp, not both "
+                    "(XLA SPMD device-group expansion limitation)")
+            if (self.mesh.sp > 1 and getattr(getattr(model, "config", None),
+                                             "seq_parallel_mode", None) == "ring"):
+                raise sp_qgz_refusal(
+                    "seq_parallel_mode 'ring'",
+                    "ValueError: The context mesh AbstractMesh(...) should match the mesh")
+            if self.batch_group.size() == 1:
+                logger.warning("comm.quantized: dp*zshard=1, nothing to quantize; "
                                "running plain reduction")
                 self._qgz = False
         de = cfg.data_efficiency
@@ -1129,16 +1160,40 @@ class DeeperSpeedEngine:
 
     def _local(self, mb):
         """This rank's contiguous slice of the rows of a global microbatch
-        (the rows the JAX batch sharding over dp x zshard gives it), by its
-        data-parallel index: the tp ranks of a slice take the same rows."""
-        if self.world == 1:
+        (the rows the JAX batch sharding over dp x zshard x ep gives it), by
+        its index in the batch group: the tp ranks of a slice, and the sp
+        ranks of a row, take the same rows (:meth:`_seq_local` then cuts the
+        sequence)."""
+        n = self.batch_group.size()
+        if n == 1:
             return mb
         rows = {len(v) for v in mb.values()}
-        if len(rows) != 1 or next(iter(rows)) % self.world:
+        if len(rows) != 1 or next(iter(rows)) % n:
             raise ValueError(f"microbatch rows {sorted(rows)} not divisible by "
-                             f"{self.world} processes")
-        per = next(iter(rows)) // self.world
-        return {k: v[self.rank * per:(self.rank + 1) * per] for k, v in mb.items()}
+                             f"{n} processes")
+        per, i = next(iter(rows)) // n, self.batch_group.rank()
+        return {k: v[i * per:(i + 1) * per] for k, v in mb.items()}
+
+    def _seq_local(self, micro):
+        """Sequence parallelism: this rank's slice of the sequence (dim 1)
+        of every [rows, S, ...] entry of each microbatch, by its ``sp``
+        index (the JAX batch sharding's ``P(batch, "sp")``); ``input_ids``,
+        ``labels`` and ``loss_mask`` are cut at the same columns (the labels
+        come shifted, so no token crosses a slice's edge)."""
+        p = self.sp_group.size()
+        if p == 1 or not self._SEQ_SLICED:
+            return micro
+        i = self.sp_group.rank()
+
+        def cut(k, v):
+            if not isinstance(v, torch.Tensor) or v.dim() < 2:
+                return v
+            if v.shape[1] % p:
+                raise ValueError(f"{k}: sequence length {v.shape[1]} not divisible by "
+                                 f"sequence_parallel_size {p}")
+            per = v.shape[1] // p
+            return v[:, i * per:(i + 1) * per]
+        return [{k: cut(k, v) for k, v in mb.items()} for mb in micro]
 
     def _stack_microbatches(self, data, local=False):
         """gas microbatch dicts from a full batch dict (split along rows), a
@@ -1190,8 +1245,9 @@ class DeeperSpeedEngine:
             )
         return DeeperSpeedDataLoader(dataset, batch_size=bs, collate_fn=collate_fn,
                                      drop_last=True, seed=self.config.seed,
-                                     sampler=data_sampler, num_shards=self.world,
-                                     shard_index=self.rank)
+                                     sampler=data_sampler,
+                                     num_shards=self.batch_group.size(),
+                                     shard_index=self.batch_group.rank())
 
     # ------------------------------------------------- data-efficiency stack
     def _init_data_efficiency(self):
@@ -1215,6 +1271,13 @@ class DeeperSpeedEngine:
         routing = dict(de.data_routing.get("random_ltd", {})) if de.enabled else {}
         if routing.get("enabled"):
             from .data_pipeline.data_routing.scheduler import RandomLTDScheduler
+
+            if self.sp_group.size() > 1 and self._SEQ_SLICED:
+                # the JAX engine draws each row's token subset over the
+                # whole sequence; a rank here holds a slice of it
+                raise NotImplementedError(
+                    "random-LTD at mesh.sequence_parallel_size > 1 is not ported yet "
+                    "(ROADMAP Queue A, 'Random-LTD over sequence slices')")
 
             sched = dict(routing.get("random_ltd_schedule", {}))
             steps = sched.get("schedule_config", {})
@@ -1325,18 +1388,20 @@ class DeeperSpeedEngine:
         return finish
 
     def _mask_weights(self, micro):
-        """Per microbatch, this rank's weight ``world * count_r / max(count,
+        """Per microbatch, this rank's weight ``n * count_r / max(count,
         1)``: ``count_r`` the sum of the rank's ``loss_mask``, ``count`` its
-        sum over ranks, all microbatches' counts in one all-reduce.  None on
-        one process, under qgZ and 1-bit Adam (the JAX engine's compressed
-        paths take per-rank means, too)
-        and without a mask, where nothing changes."""
-        if (self.world == 1 or self._qgz or self._onebit
-                or not all("loss_mask" in mb for mb in micro)):
+        sum over the ``n`` ranks of the group, all microbatches' counts in
+        one all-reduce.  The group is the ZeRO group; under qgZ and 1-bit
+        Adam it is the ``sp`` group (the JAX engine's compressed paths take
+        per-row-rank means, global over the sequence).  None where the
+        group is one process and without a mask, where nothing changes."""
+        group = self.sp_group if self._qgz or self._onebit else self.group
+        n = group.size()
+        if n == 1 or not all("loss_mask" in mb for mb in micro):
             return None
         counts = torch.stack([mb["loss_mask"].to(torch.float32).sum() for mb in micro])
-        total = comm.all_reduce(counts.clone(), group=self.group)
-        return self.world * counts / total.clamp(min=1.0)
+        total = comm.all_reduce(counts.clone(), group=group)
+        return n * counts / total.clamp(min=1.0)
 
     def _micro_loss(self, mb, ltd=None):
         for p in self._params:
@@ -1450,7 +1515,8 @@ class DeeperSpeedEngine:
         """1-bit Adam (JAX ``_grads_for_batch_onebit``): each parameter's
         mean over the microbatches; below ``freeze_step`` optimizer steps
         its exact mean over the ranks, from then on ``onebit_all_reduce``
-        with this rank's error feedback."""
+        with this rank's error feedback, over the batch group after the
+        exact mean over ``sp``."""
         from ..comm.compressed import onebit_all_reduce
 
         acc = self._acc_flat                 # fp32, the gradient buffer itself
@@ -1458,10 +1524,19 @@ class DeeperSpeedEngine:
         if self.step_count < self.config.optimizer.params.freeze_step:
             comm.all_reduce(acc, comm.ReduceOp.AVG, self.group, log_name="grad_reduce")
             return
+        self._sp_mean(acc)
         for v, e in zip(self._acc_views, self._error_views):
-            mean, err = onebit_all_reduce(v, self.group, e)
+            mean, err = onebit_all_reduce(v, self.batch_group, e)
             v.copy_(mean)
             e.copy_(err.reshape(-1))
+
+    def _sp_mean(self, acc):
+        """The compressed reductions at ``sp`` > 1: the exact mean over the
+        sequence's slices first, so that the compressed collective over the
+        batch group sees each row rank's gradient (the JAX loops are manual
+        over dp only, ``sp`` left to GSPMD's exact reduction)."""
+        if self.sp_group.size() > 1:
+            comm.all_reduce(acc, comm.ReduceOp.AVG, self.sp_group, log_name="grad_reduce")
 
     def _record_grad_reduce_wire(self, divisor):
         """The step's gradient reduction in the comms logger's step record
@@ -1514,20 +1589,23 @@ class DeeperSpeedEngine:
         all-reduce a :func:`bucketize` group.  The quantized all-reduce
         runs the two-hop schedule where :attr:`_qgz_intra` names a first
         hop (``comm.quantized.intra_axis``, or ``zshard``), else the flat
-        one over the ZeRO group."""
+        one over the batch group (the ZeRO group at ``sp`` 1; at ``sp`` > 1
+        each parameter's exact mean over ``sp`` comes first)."""
         cq = self.config.comm_quantized
         acc = self._acc_flat                 # fp32, the gradient buffer itself
         acc.div_(divisor)
-        small = [v for v in self._acc_views if v.numel() < cq.group_size * self.world]
-        large = [v for v in self._acc_views if v.numel() >= cq.group_size * self.world]
+        self._sp_mean(acc)
+        group = self.batch_group
+        small = [v for v in self._acc_views if v.numel() < cq.group_size * group.size()]
+        large = [v for v in self._acc_views if v.numel() >= cq.group_size * group.size()]
         if small:
             for v, r in zip(small, fused_flat_reduce(small, lambda t: comm.all_reduce(
-                    t, comm.ReduceOp.AVG, self.group, log_name="grad_reduce"))):
+                    t, comm.ReduceOp.AVG, group, log_name="grad_reduce"))):
                 v.copy_(r)
 
         def quantized(t):
             return comm.all_reduce_quantized(
-                t, op=comm.ReduceOp.AVG, group=self.group, intra_group=self._qgz_intra,
+                t, op=comm.ReduceOp.AVG, group=group, intra_group=self._qgz_intra,
                 group_size=cq.group_size, impl=cq.impl, wire_dtype=cq.wire_dtype)
 
         if not self.config.comm_overlap.enabled:
@@ -1803,6 +1881,7 @@ class DeeperSpeedEngine:
         else:
             micro = self._stack_microbatches(data, local)
         micro, ltd = self._apply_data_efficiency(micro)
+        micro = self._seq_local(micro)
         if self._opt_swapper is not None:
             # the NVMe tier's reads run while the card computes the gradients
             self._opt_swapper.prefetch()
@@ -1829,7 +1908,7 @@ class DeeperSpeedEngine:
         """Mean loss over gas microbatches, deterministic (no dropout), no
         gradients."""
         data = batch if batch is not None else data_iter
-        micro = self._stack_microbatches(data)
+        micro = self._seq_local(self._stack_microbatches(data))
         losses = torch.stack([self._loss_fn(self.module, mb, None).to(torch.float32)
                               for mb in micro])
         weights = self._mask_weights(micro)
@@ -1844,7 +1923,7 @@ class DeeperSpeedEngine:
         graph kept for :meth:`backward`; with a ``loss_mask`` over several
         processes, weighted as :meth:`_mask_weights` says (its mean over
         ranks is the global masked mean)."""
-        mb = self._to_device(self._local(batch))
+        mb = self._seq_local([self._to_device(self._local(batch))])[0]
         loss = self._micro_loss(mb)
         weights = self._mask_weights([mb])
         self._cached_loss = loss if weights is None else loss * weights[0]

@@ -8,7 +8,8 @@ unless the caller already has.  ``mesh=`` is a ``parallel.MeshTopology``
 over the processes; without it the mesh is built from the config as the
 JAX engine builds it (``engine.py:100-125``): ``tp`` from
 ``mesh.model_parallel_size``, ``ep`` from ``mesh.expert_parallel_size``,
-``zshard`` from ``mics_shard_size`` / ``zero_hpz_partition_size``, ``dp``
+``zshard`` from ``mics_shard_size`` / ``zero_hpz_partition_size``, ``sp``
+from ``mesh.sequence_parallel_size``, ``dp``
 what the world leaves, ``pp`` from ``mesh.pipe_parallel_size`` (outermost).
 ``comm.quantized.moe_alltoall`` sets the MoE transport of the model's
 config.  An ``mpu`` is accepted and superseded by the mesh, as in the JAX
@@ -69,7 +70,7 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         mc = config.mesh_config
         set_mesh(MeshTopology(pp=mc.pipe_parallel_size, tp=mc.model_parallel_size,
                               dp=mc.data_parallel_size, zshard=config.zshard_size,
-                              ep=mc.expert_parallel_size))
+                              ep=mc.expert_parallel_size, sp=mc.sequence_parallel_size))
     kwargs = dict(optimizer=optimizer, model_parameters=model_parameters,
                   training_data=training_data, lr_scheduler=lr_scheduler, loss_fn=loss_fn,
                   collate_fn=collate_fn, device=device)

@@ -239,7 +239,7 @@ class PipelineEngine(DeeperSpeedEngine):
             data_iter, local = self._data_iterator, True
         micro = self._stack_microbatches(batch if batch is not None else data_iter, local)
         micro, _ = self._apply_data_efficiency(micro)
-        return micro
+        return self._seq_local(micro)
 
     def _schedule(self, train):
         M, S, s = self.micro_batches, self.num_stages, self.stage_id
@@ -482,7 +482,8 @@ class PipelineEngine(DeeperSpeedEngine):
         stage, broadcast to every rank (``bcast_loss``; else None off the
         last stage); without it the last stage's outputs, concatenated
         along the rows (None elsewhere)."""
-        micro = self._stack_microbatches(batch if batch is not None else data_iter)
+        micro = self._seq_local(self._stack_microbatches(
+            batch if batch is not None else data_iter))
         out = self._run(self._schedule(train=False), micro, train=False,
                         compute_loss=compute_loss)
         if not compute_loss:

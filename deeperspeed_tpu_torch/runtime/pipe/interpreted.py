@@ -18,7 +18,9 @@ The global norm counts the tie once, on its owner.
 ZeRO 1-2 partition each stage's masters and optimizer state over its
 data-parallel group; stage 3 is refused.  At ``tp`` > 1 the layers are not
 split: each tp rank runs its stage whole on the same rows, as the JAX
-engine does, so the losses are tp 1's.  ``eval_batch(...,
+engine does, so the losses are tp 1's; at ``sp`` > 1 likewise each sp rank
+runs its rows' whole sequences (any layer graph: one without a sequence
+dim too), and the losses are sp 1's, as the JAX engine's are.  ``eval_batch(...,
 compute_loss=True, bcast_loss=True)`` and the curriculum's seqlen
 truncation are :class:`PipelineEngine`'s.
 
@@ -175,6 +177,11 @@ class InterpretedStage(nn.Module):
 class InterpretedPipelineEngine(PipelineEngine):
     """Trains a ``PipelineModule`` (any layer graph, ``TiedLayerSpec`` ties)
     over per-stage processes; its loss is the module's ``loss_fn``."""
+
+    # the layers are any graph: at sp > 1 every sp rank runs its rows'
+    # whole sequences, as at tp > 1 (the JAX engine computes sp 1's
+    # function under GSPMD)
+    _SEQ_SLICED = False
 
     def __init__(self, module, config, optimizer=None, lr_scheduler=None,
                  training_data=None, collate_fn=None, device=None):

@@ -146,10 +146,7 @@ def test_topology():
     assert ours.get_axis_comm_lists("data") == theirs.get_axis_comm_lists("data")
     mesh = MeshTopology()
     assert mesh.dp == mesh.data_parallel_size == 1
-    for axis, item in [("sp", "Sequence")]:
-        with pytest.raises(NotImplementedError, match=item):
-            MeshTopology(**{axis: 2})
-    for axis in ("pp", "tp", "zshard", "ep"):
+    for axis in ("pp", "tp", "zshard", "ep", "sp"):
         with pytest.raises(ValueError, match="world size"):
             MeshTopology(**{axis: 2})
     with pytest.raises(ValueError, match="world size"):

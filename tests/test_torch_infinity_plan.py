@@ -17,12 +17,11 @@ The JAX engine needs its native ``cpu_adam`` library.  Test processes that
 start together in a fresh checkout would each compile it into the same
 temporary file, and a process whose load fails keeps that failure cached;
 the module fixture ``jax_cpu_adam`` builds it under a file lock, retries
-once, and clears the JAX loader's cached result.
+once, and clears the JAX loader's cached result (``torch_native_adam.py``'s
+``ensure_jax_cpu_adam``, which every port test module runs at import).
 """
 
 import dataclasses
-import fcntl
-import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -33,12 +32,12 @@ from deeperspeed_tpu.comm.memplan import Calibration as JaxCalibration
 from deeperspeed_tpu.models.gpt_neox import GPTNeoXConfig as JaxConfig
 from deeperspeed_tpu.models.gpt_neox_pipe import GPTNeoXPipe
 from deeperspeed_tpu.op_builder import CPUAdamBuilder
-from deeperspeed_tpu.op_builder.builder import OpBuilder
 from deeperspeed_tpu.ops.adam import cpu_adam as jax_cpu_adam_module
 from deeperspeed_tpu.runtime.zero.infinity import ZeroInfinityEngine as JaxZeroInfinity
 from deeperspeed_tpu_torch.comm.memplan import Calibration, HBMBudgetError
 from deeperspeed_tpu_torch.models import GPTNeoX, GPTNeoXConfig
 from deeperspeed_tpu_torch.runtime.zero.infinity import ZeroInfinityEngine
+from torch_native_adam import ensure_jax_cpu_adam
 import torch_threads  # noqa: F401  (torch at one intra-op thread)
 
 BATCH = GPTNeoX(GPTNeoXConfig.tiny(), device="cpu").example_batch(batch_size=8, seq_len=16)
@@ -61,28 +60,6 @@ def _engine(path, layers=2, **kw):
 def _auto(path, budget, cal, layers=2):
     return _engine(path, layers, memory_schedule="auto", hbm_budget_bytes=budget,
                    calibration=Calibration(*cal) if cal else None)
-
-
-def ensure_jax_cpu_adam():
-    """Build the JAX package's ``cpu_adam`` library under a file lock (a
-    second attempt finds the finished library) and forget any failed load
-    the JAX loader cached; returns whether the library loads."""
-    builder = CPUAdamBuilder()
-    lock_path = builder._lib_path() + ".lock"
-    os.makedirs(os.path.dirname(lock_path), exist_ok=True)
-    with open(lock_path, "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        try:
-            try:
-                builder.build()
-            except RuntimeError:
-                builder.build()
-        finally:
-            fcntl.flock(lock, fcntl.LOCK_UN)
-    OpBuilder._cache.pop(builder.NAME, None)
-    jax_cpu_adam_module._lib = None
-    jax_cpu_adam_module._checked = False
-    return jax_cpu_adam_module.cpu_adam_available()
 
 
 @pytest.fixture(scope="module")

@@ -25,7 +25,6 @@ process on the CPU.
 """
 
 import dataclasses
-import types
 import weakref
 
 import jax
@@ -224,10 +223,9 @@ def _raises(exc, match, **kw):
 def test_refusals():
     with pytest.raises(NotImplementedError, match="MoE under the compiled pipeline"):
         GPTNeoXPipe(GPTNeoXConfig.tiny(moe_num_experts=4), 2, device="cpu")
-    sp = types.SimpleNamespace(**dataclasses.asdict(GPTNeoXConfig.tiny()), has_moe=False,
-                               seq_parallel_mode="ulysses")
-    with pytest.raises(NotImplementedError, match="sequence parallelism inside"):
-        GPTNeoXPipe(sp, 2, device="cpu")
+    for mode in ("ulysses", "ring"):
+        with pytest.raises(NotImplementedError, match="sequence parallelism inside"):
+            GPTNeoXPipe(GPTNeoXConfig.tiny(seq_parallel_mode=mode), 2, device="cpu")
     with pytest.raises(NotImplementedError, match="tie_embeddings under the compiled"):
         LlamaPipe(LlamaConfig.tiny_opt(), 2, device="cpu")
     spec = GPTNeoXPipe(GPTNeoXConfig.tiny(), 1, device="cpu")
@@ -241,7 +239,8 @@ def test_refusals():
             config={**CONFIG, "comm": {"quantized": {"enabled": True}}})
     _raises(ValueError, "the qgZ hops run over", model=spec,
             config={**CONFIG, "comm": {"quantized": {"enabled": True, "intra_axis": "pp"}}})
-    _raises(NotImplementedError, "Sequence parallelism", model=spec,
+    # pp x sp runs (mode None); an sp that does not divide the processes not
+    _raises(ValueError, "sequence_parallel_size 2 does not divide", model=spec,
             config={**CONFIG, "mesh": {"sequence_parallel_size": 2}})
 
 

@@ -223,15 +223,15 @@ def test_optimizer_trajectory_matches_jax(name, params, model_kw):
 
 
 @pytest.mark.parametrize("key,value", [
-    # pipelines run, pp x tp too; a pipeline over sp waits for its item
-    ("mesh", {"pipe_parallel_size": 2, "sequence_parallel_size": 2}),
+    # pipelines run, pp x tp and pp x sp too; the blocks of Queue A 8 wait
+    ("elasticity", {"enabled": True}),
     ("eigenvalue", {"enabled": True}),
     ("comm", {"quantized": {"enabled": True}, "compression": {}}),
     # the pipeline block is read; a key it does not declare is refused
     ("pipeline", {"stages": 2, "activation_partitioning": True}),
     ("hybrid_engine", {"enabled": True}),
-    ("mesh", {"sequence_parallel_size": 2}),
-    ("comm", {"quantized": {"enabled": True, "intra_axis": "sp"}}),
+    ("flops_profiler", {"enabled": True}),
+    ("comm", {"overlap": {"enabled": True}, "compression": {}}),
     ("compression_training", {"weight_quantization": {}}),
 ])
 def test_unported_config_raises(key, value):
@@ -273,29 +273,28 @@ def _stage_model():
 
 @pytest.mark.parametrize("case", ["moe", "mesh", "mpu", "pipeline_module"])
 def test_unported_model_features_raise(case):
-    """What models and pipelines do not run yet names its ROADMAP item: MoE
-    or a pipeline under sequence parallelism, the ``auto`` schedule over a
-    stage model (it waits for a reference whose own ``auto`` runs), and an
-    mpu beside an unported configuration."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case == "moe":
-            # MoE trains; an MoE model under sequence parallelism waits for
-            # its item like any other
-            tdst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(moe_num_experts=4), device="cpu"),
-                            config={**BASE, "mesh": {"sequence_parallel_size": 2}},
-                            device="cpu")
-        elif case == "pipeline_module":
-            tdst.initialize(model=_stage_model(), device="cpu", config={
-                **BASE, "comm": {"overlap": {"enabled": True, "schedule": {"mode": "auto"}}}})
-        elif case == "mesh":
-            tdst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(), device="cpu"),
-                            config={**BASE, "mesh": {"pipe_parallel_size": 2,
-                                                     "sequence_parallel_size": 2}},
-                            device="cpu")
-        else:
-            # an mpu is superseded by the mesh, pipeline stages or not
-            tdst.initialize(model=_stage_model(), device="cpu", mpu=_PipeMpu(),
-                            config={**BASE, "mesh": {"sequence_parallel_size": 2}})
+    """What models and pipelines refuse: the JAX package's refusals of MoE
+    and of ulysses / ring inside a stage model, in its words, and the
+    ``auto`` schedule over a stage model (it waits for a reference whose own
+    ``auto`` runs), also beside an mpu, naming its ROADMAP item.  (MoE and
+    pipelines under sequence parallelism's default mode train.)"""
+    from deeperspeed_tpu_torch.models.gpt_neox_pipe import GPTNeoXPipe
+
+    auto = {**BASE, "comm": {"overlap": {"enabled": True, "schedule": {"mode": "auto"}}}}
+    if case == "moe":
+        with pytest.raises(NotImplementedError, match="MoE under the compiled pipeline"):
+            GPTNeoXPipe(GPTNeoXConfig.tiny(moe_num_experts=4), 1, device="cpu")
+    elif case == "mesh":
+        with pytest.raises(NotImplementedError, match="sequence parallelism inside the "
+                                                      "compiled pipeline"):
+            GPTNeoXPipe(GPTNeoXConfig.tiny(seq_parallel_mode="ring"), 1, device="cpu")
+    elif case == "pipeline_module":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tdst.initialize(model=_stage_model(), device="cpu", config=auto)
+    else:
+        # an mpu is superseded by the mesh, pipeline stages or not
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tdst.initialize(model=_stage_model(), device="cpu", mpu=_PipeMpu(), config=auto)
 
 
 def test_chunked_loss_and_dataloader_raise(monkeypatch):

@@ -241,7 +241,9 @@ def test_wire_config_fields():
 @pytest.mark.parametrize("extra,item", [
     ({"mesh": {"pipe_parallel_size": 2},
       "comm": {"overlap": {"enabled": True, "schedule": {"mode": "auto"}}}}, "Pipelines"),
-    ({"comm": {"quantized": {"enabled": True, "intra_axis": "sp"}}}, "Sequence parallelism"),
+    # qgZ's first hop on sp: the reference fails on it, so it stays refused
+    ({"comm": {"quantized": {"enabled": True, "intra_axis": "sp"}}},
+     "the reference does not run it"),
     ({"comm": {"overlap": {"enabled": True}, "compression": {}}}, "The rest of the surface"),
 ])
 def test_refused_wire_configs_name_their_item(extra, item):

@@ -251,7 +251,7 @@ def test_fused_adam_steps_over_each_ranks_pieces(runs):
     ({"mesh": {"pipe_parallel_size": 2},
       "comm": {"overlap": {"enabled": True, "schedule": {"mode": "auto"}}}},
      NotImplementedError),
-    ({"mesh": {"sequence_parallel_size": 2}}, NotImplementedError),
+    ({"mesh": {"sequence_parallel_size": 2}}, ValueError),
     ({"mesh": {"expert_parallel_size": 2}}, ValueError),
     ({"comm": {"quantized": {"enabled": True, "intra_axis": "ep"}}}, ValueError),
     ({"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}},
@@ -260,11 +260,10 @@ def test_fused_adam_steps_over_each_ranks_pieces(runs):
 ])
 def test_refused_configurations(extra, error):
     """qgZ refuses fp16 and stages above 0, as the JAX engine does, and an
-    intra hop on ``ep`` (its hops run over dp and zshard); an ``ep`` that
-    does not divide the processes is refused; what is not ported yet
-    (eigenvalue, the hybrid engine, the ``auto`` schedule over a pipeline,
-    sequence parallelism) names its ROADMAP item, beside the offload tiers
-    too."""
+    intra hop on ``ep`` (its hops run over dp and zshard); an ``ep`` or an
+    ``sp`` that does not divide the processes is refused; what is not
+    ported yet (eigenvalue, the hybrid engine, the ``auto`` schedule over a
+    pipeline) names its ROADMAP item, beside the offload tiers too."""
     match = "ROADMAP Queue A" if error is NotImplementedError else "comm|mesh"
     with pytest.raises(error, match=match):
         tdst.initialize(model=GPTNeoX(GPTNeoXConfig.tiny(), device="cpu"),

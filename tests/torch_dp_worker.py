@@ -29,9 +29,11 @@ run in turn.  Job kinds:
   as the JAX tests pass one model to two engines) and ``capture_grads``
   (each parameter's mean gradient before and after the first step's
   reduction, ``pre/<param>`` and ``post/<param>``) and ``bypass_blocks``
-  (blocks whose forward passes its input through); under
-  ``schedule.mode: auto`` it also records the plan and the first planned
-  step's statistics (``schedule``, JSON);
+  (blocks whose forward passes its input through), ``family`` ("llama":
+  Llama ``tiny()``) and ``weights`` (the prefix of its initial weights in
+  place of ``w``); under ``schedule.mode: auto`` it also records the plan
+  and the first planned step's statistics (``schedule``, JSON), and every
+  run the seed of its training generator;
 * ``comm``: each case runs one collective on this rank's input
   ``x/<case>/<rank>`` (with ``two_level`` ``[n_inter, n_intra]``, over the
   groups of ``comm.new_two_level_groups``; ``onebit`` cases chain
@@ -39,7 +41,8 @@ run in turn.  Job kinds:
 * ``ckpt``: for each run, an engine as ``train`` makes it (``model`` holds
   extra ``GPTNeoXConfig`` fields, ``mesh`` the mesh) first loads the checkpoint directory
   ``load`` if it names one, then trains on the batches ``steps`` lists
-  (their indices), saving into ``save`` after ``save_after`` of them; at
+  (their indices), saving into ``save`` after ``save_after`` of them (a
+  ``load`` waits for the file ``wait`` where the run names one); at
   ``loaded``, ``saved`` and ``final`` it records the state: on rank 0 the
   whole masters and optimizer state under the checkpoint's names
   (``m/<name>``, ``o/<name>``), on every rank its generator state, loss
@@ -66,14 +69,23 @@ run in turn.  Job kinds:
   canonical tree ``w/<run>/<path>`` it loads after building; it first loads
   the checkpoint ``load`` (or, ``universal``, a universal export) if the run
   names one (after the file ``wait``, if it names one, exists), then trains on the batches ``d/<run>/<i>/<key>``, saving into
-  ``save`` after ``save_after`` steps; it records the losses, grad norms,
+  ``save`` after ``save_after`` steps (``sp``: the sequence-parallel
+  degree, default 1); it records the losses, grad norms,
   ``peak_live_inputs``, loss scale and skipped steps, ``eval_batch`` with
   ``bcast_loss`` true and false, the whole masters (rank 0: ``loaded``,
   ``saved``, ``final``), and with ``poison`` a step after an inf is written
   into stage ``poison``'s first master (whether every rank skipped it and
   kept its masters), and which offload tiers ran (host update, pinned host,
   NVMe; the NVMe swap folder's name); first, ``comm.send_next`` and a
-  ``comm.ppermute`` of pairs over the world (``ring``, ``pairs``).
+  ``comm.ppermute`` of pairs over the world (``ring``, ``pairs``);
+* ``seq``: the sequence-parallel functions over ``MeshTopology(sp=world)``
+  on each rank's slice of the global arrays ``x``, ``q``, ``k``, ``v``
+  (the upstream gradient ``w``): the all-to-all and its inverse,
+  ``DistributedAttention``, ``ulysses_attention``, ring attention (causal
+  and full) with its input gradients, the default mode's gathered keys;
+  then each model of ``spec["models"]`` (weights ``<name>/w/<param>``)
+  bound to the ``sp`` group: its loss on the rank's slice of ``ids`` /
+  ``labels`` and its parameter gradients.
 """
 
 
@@ -127,8 +139,7 @@ def _train(spec, job, rank, out):
     for run in spec["runs"]:
         name = run["name"]
         if not run.get("reuse_model"):
-            model = GPTNeoX(GPTNeoXConfig.tiny(dtype=DTYPES[run["dtype"]],
-                                               **run.get("model", {})), device=device)
+            model = _model(run, device)
         for i in run.get("bypass_blocks", ()):
             # the block passes its input through: its parameters get no gradient
             model.layers[i].forward = lambda x, *args, **kwargs: x
@@ -139,7 +150,8 @@ def _train(spec, job, rank, out):
         comm.comms_logger.comms_dict.clear()
         comm.comms_logger.group_sizes.clear()
         comm.STAGED.clear()
-        eng, *_ = tdst.initialize(model=model, config=run["config"], model_parameters=start,
+        eng, *_ = tdst.initialize(model=model, config=run["config"],
+                                  model_parameters=_weights(job, run, start),
                                   training_data=data, device=device, mesh=_mesh(run))
         if run.get("capture_grads"):
             _capture_grads(eng, name, out)
@@ -163,6 +175,7 @@ def _train(spec, job, rank, out):
         out[f"{name}/losses"] = np.array(losses)
         out[f"{name}/grad_norms"] = np.array(norms)
         out[f"{name}/b5_calls"] = np.array(b5)
+        out[f"{name}/seed"] = np.array(eng._rng.initial_seed())
         out[f"{name}/master_numel"] = sum(t.numel() for t in eng.master_params.values())
         out[f"{name}/opt_numel"] = sum(t.numel() for t in tree_leaves(eng.opt_state)
                                        if isinstance(t, torch.Tensor))
@@ -198,6 +211,40 @@ def _train(spec, job, rank, out):
                 out[f"{name}/final/{param}"] = t.cpu().numpy()
         if run.get("reload"):
             _reload(eng, run, name, model, start, device, out)
+
+
+def _weights(job, run, start):
+    """The run's initial weights: ``w/<param>``, or ``<weights>/<param>``
+    where the run names another prefix."""
+    prefix = run.get("weights")
+    if prefix is None:
+        return start
+    return {k[len(prefix) + 1:]: torch.from_numpy(job[k]) for k in job.files
+            if k.startswith(prefix + "/")}
+
+
+def _wait(run):
+    """Wait for the file ``run["wait"]`` (the test process writes it once
+    what the run reads exists)."""
+    if not run.get("wait"):
+        return
+    deadline = time.monotonic() + 600
+    while not os.path.exists(run["wait"]):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{run['name']}: {run['wait']} never came")
+        time.sleep(0.05)
+
+
+def _model(run, device="cpu"):
+    """The run's model: GPT-NeoX ``tiny()``, or with ``family`` "llama"
+    Llama ``tiny()``, at ``dtype`` with the ``model`` fields."""
+    if run.get("family") == "llama":
+        from deeperspeed_tpu_torch.models import Llama, LlamaConfig
+
+        return Llama(LlamaConfig.tiny(dtype=DTYPES[run["dtype"]], **run.get("model", {})),
+                     device=device)
+    return GPTNeoX(GPTNeoXConfig.tiny(dtype=DTYPES[run["dtype"]], **run.get("model", {})),
+                   device=device)
 
 
 def _mesh(run):
@@ -289,13 +336,14 @@ def _ckpt(spec, job, rank, out):
                for i in range(spec["n_batches"])]
     for run in spec["runs"]:
         name = run["name"]
-        model = GPTNeoX(GPTNeoXConfig.tiny(dtype=DTYPES[run["dtype"]], **run.get("model", {})),
-                        device="cpu")
+        model = _model(run)
         data = ({k[2:]: job[k] for k in job.files if k.startswith("d/")}
                 if run.get("training_data") else None)
-        eng, *_ = tdst.initialize(model=model, config=run["config"], model_parameters=start,
+        eng, *_ = tdst.initialize(model=model, config=run["config"],
+                                  model_parameters=_weights(job, run, start),
                                   training_data=data, device="cpu", mesh=_mesh(run))
         if run.get("load"):
+            _wait(run)
             eng.load_checkpoint(run["load"])
             _record(eng, rank, out, f"{name}/loaded")
         losses = []
@@ -440,18 +488,13 @@ def _pipe(spec, job, rank, out):
     out["pairs"] = comm.ppermute(torch.full((2,), float(rank + 1)), perm, world).numpy()
     for run in spec["pipe_runs"]:
         name, pp = run["name"], run["pp"]
-        if run.get("wait"):
-            # a file the test process writes once what this run reads exists
-            deadline = time.monotonic() + 600
-            while not os.path.exists(run["wait"]):
-                if time.monotonic() > deadline:
-                    raise TimeoutError(f"{name}: {run['wait']} never came")
-                time.sleep(0.05)
+        _wait(run)
         model = _pipe_model(run)
         tree = _unflat(job, f"w/{name}/")
         stage = rank // (comm.get_world_size() // pp)
         config = {**run["config"], "mesh": {"pipe_parallel_size": pp,
-                                            "model_parallel_size": run.get("tp", 1)}}
+                                            "model_parallel_size": run.get("tp", 1),
+                                            "sequence_parallel_size": run.get("sp", 1)}}
         start = (model.params_from_jax(tree, stage) if hasattr(model, "params_from_jax")
                  else None)
         eng, *_ = tdst.initialize(model=model, config=config, model_parameters=start,
@@ -501,6 +544,70 @@ def _pipe(spec, job, rank, out):
                                               float(kept)])
 
 
+def _seq(spec, job, rank, out):
+    """The sequence-parallel functions and models over the ``sp`` group of
+    ``MeshTopology(sp=world)``: each rank takes its slice (dim 1) of the
+    global arrays and records its outputs and input gradients."""
+    from deeperspeed_tpu_torch import sequence
+    from deeperspeed_tpu_torch.models import Llama, LlamaConfig
+    from deeperspeed_tpu_torch.ops.attention.core import _reference_attention
+
+    tdst.parallel.set_mesh(MeshTopology(sp=comm.get_world_size()))
+    group = comm.get_sequence_parallel_group()
+    p = group.size()
+
+    def local(a):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        per = t.shape[1] // p
+        return t[:, rank * per:(rank + 1) * per].contiguous()
+
+    x = local(job["x"])
+    y = sequence.single_all_to_all(x, 2, 1, group)
+    out["a2a/y"], out["a2a/z"] = y.numpy(), sequence.single_all_to_all(y, 1, 2, group).numpy()
+    q, k, v, w = (local(job[n]) for n in ("q", "k", "v", "w"))
+    dense = _reference_attention
+    out["dist/out"] = sequence.DistributedAttention(dense, group)(q, k, v, causal=True).numpy()
+    out["uly/out"] = sequence.ulysses_attention(dense, q, k, v, group=group,
+                                                causal=True).numpy()
+    for causal in (True, False):
+        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = sequence.ring_attention(*qkv, group=group, causal=causal)
+        (o * w).sum().backward()
+        for n, t in zip(("out", "dq", "dk", "dv"), [o] + [t.grad for t in qkv]):
+            out[f"ring/{causal}/{n}"] = t.detach().numpy()
+    kv = [t.clone().requires_grad_(True) for t in (k, v)]
+    kg, vg, _, start = sequence.gathered_keys(*kv, group)
+    o = dense(q, kg, vg, causal=True)
+    (o * w).sum().backward()
+    out["gathered/out"] = o.detach().numpy()
+    out["gathered/dk"], out["gathered/dv"] = kv[0].grad.numpy(), kv[1].grad.numpy()
+    out["gathered/start"] = np.array(start)
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    kg, vg, _, _ = sequence.gathered_keys(*qkv[1:], group)
+    o = sequence.padded_attention(dense, qkv[0], kg, vg)
+    (o * w).sum().backward()
+    for n, t in zip(("out", "dq", "dk", "dv"), [o] + [t.grad for t in qkv]):
+        out[f"padded/{n}"] = t.detach().numpy()
+    ids, labels = local(job["ids"]), local(job["labels"])
+    for case in spec["models"]:
+        name = case["name"]
+        weights = {k[len(name) + 3:]: torch.from_numpy(job[k]) for k in job.files
+                   if k.startswith(f"{name}/w/")}
+        if case["family"] == "llama":
+            cfg = getattr(LlamaConfig, case.get("preset", "tiny"))(**case.get("model", {}))
+            model = Llama(cfg, device="cpu")
+        else:
+            model = GPTNeoX(GPTNeoXConfig.tiny(**case.get("model", {})), device="cpu")
+        model.load_state_dict(weights)
+        sequence.bind_sequence_parallel(model, group)
+        loss = model.loss_fn()(model, {"input_ids": ids, "labels": labels})
+        loss.backward()
+        out[f"{name}/loss"] = loss.detach().numpy()
+        for n, prm in model.named_parameters():
+            if prm.grad is not None:
+                out[f"{name}/grad/{n}"] = prm.grad.numpy()
+
+
 def _record_masters(eng, rank, out, key):
     whole = _flat(ck.reference_masters(eng), f"{key}")
     if rank == 0:
@@ -519,7 +626,7 @@ def main():
     kinds = spec["kind"] if isinstance(spec["kind"], list) else [spec["kind"]]
     for kind in kinds:
         {"train": _train, "comm": _comm, "ckpt": _ckpt, "llama": _llama, "moe": _moe,
-         "pipe": _pipe}[kind](
+         "pipe": _pipe, "seq": _seq}[kind](
             spec, job, rank, out)
     np.savez(out_path, **out)
     comm.destroy()
